@@ -1,0 +1,285 @@
+"""Functional environment engine of the PyTorch port.
+
+The counterpart of :mod:`reinmav_tpu.envs.core`.  An environment is a
+set of plain functions on tensors over a flat float state vector
+
+    ``step(params, state, action) -> StepOut``
+    ``reset(params, generator, batch, device, dtype) -> (batch, D) states``
+    ``control(params, state) -> action``       (classical controller)
+
+``step`` and ``control`` work on the trailing axis, so one function
+serves a single env ``(D,)`` and a batch ``(B, D)``: the JAX package's
+``vmap`` becomes a batch dimension written out.  Randomness comes from
+an explicit ``torch.Generator`` in place of a PRNG key; the generator
+lives on the device the states live on.
+
+Rollouts are Python loops over the horizon.  The public layout is
+``(B, D)``; the ``_t`` forms take the kernel layout ``(D, B)``.
+:func:`throughput_rollout` runs the quadrotor3d closed loop in the
+hand-written CUDA kernel (:mod:`reinmav_tpu_torch.ops.rollout`) when
+the states lie on the card and the env is the registry's own.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Any, Callable, NamedTuple, Optional
+
+import torch
+
+log = logging.getLogger(__name__)
+
+
+class StepOut(NamedTuple):
+    """Result of one environment transition.
+
+    ``done`` is termination; ``truncated`` (set only by time-limit
+    wrappers) is horizon truncation, ``None`` for an env that never
+    truncates.  :func:`episode_boundary` combines the two.
+    """
+
+    state: torch.Tensor
+    obs: torch.Tensor
+    reward: torch.Tensor
+    done: torch.Tensor
+    truncated: Optional[torch.Tensor] = None
+
+
+def episode_boundary(out: StepOut) -> torch.Tensor:
+    """Episode-end mask: terminated OR truncated."""
+    return out.done if out.truncated is None else out.done | out.truncated
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvDef:
+    """Static definition of a functional environment.
+
+    ``params`` is a NamedTuple of physical constants; the callables are
+    plain functions (see the module docstring for their signatures).
+    The action and observation bounds mirror the reference's gym spaces;
+    ``action_low_phys``/``action_high_phys`` are the dynamically
+    reachable action box (PARITY.md Q11).
+    """
+
+    name: str
+    state_dim: int
+    action_dim: int
+    obs_dim: int
+    params: Any
+    step_fn: Callable[[Any, torch.Tensor, torch.Tensor], StepOut]
+    reset_fn: Callable[..., torch.Tensor]
+    control_fn: Optional[Callable[[Any, torch.Tensor], torch.Tensor]] = None
+    action_low: float = -10.0
+    action_high: float = 10.0
+    obs_low: float = -10.0
+    obs_high: float = 10.0
+    action_low_phys: Optional[tuple] = None
+    action_high_phys: Optional[tuple] = None
+
+    def _require_control(self):
+        if self.control_fn is None:
+            raise NotImplementedError(f"{self.name} has no classical controller")
+
+    # -- single env, (D,) ----------------------------------------------------
+    def step(self, state, action) -> StepOut:
+        return self.step_fn(self.params, state, action)
+
+    def reset(self, generator: torch.Generator, dtype=torch.float32) -> torch.Tensor:
+        return self.vreset(generator, 1, dtype=dtype)[0]
+
+    def control(self, state) -> torch.Tensor:
+        self._require_control()
+        return self.control_fn(self.params, state)
+
+    # -- batched, (B, D) -------------------------------------------------------
+    def vstep(self, states, actions) -> StepOut:
+        return self.step_fn(self.params, states, actions)
+
+    def vreset(self, generator: torch.Generator, batch: int, device=None,
+               dtype=torch.float32) -> torch.Tensor:
+        """``batch`` fresh states, ``(batch, D)``, on ``device`` (default:
+        the generator's device)."""
+        device = generator.device if device is None else torch.device(device)
+        return self.reset_fn(self.params, generator, batch, device, dtype)
+
+    def vcontrol(self, states) -> torch.Tensor:
+        self._require_control()
+        return self.control_fn(self.params, states)
+
+    def autoreset_step(self, states, actions, generator) -> StepOut:
+        """Batched step with fused auto-reset: done envs are re-drawn from
+        ``reset_fn``; their obs/reward/done describe the terminal
+        transition."""
+        out = self.vstep(states, actions)
+        fresh = self.vreset(generator, states.shape[0], device=states.device,
+                            dtype=out.state.dtype)
+        boundary = episode_boundary(out)
+        return out._replace(state=torch.where(boundary[:, None], fresh, out.state))
+
+    # -- batched, (D, B) -------------------------------------------------------
+    def vstep_t(self, states_t, actions_t) -> StepOut:
+        """Step in the kernel layout: states/obs/actions ``(D, B)``,
+        reward/done ``(B,)``."""
+        out = self.vstep(states_t.T, actions_t.T)
+        return out._replace(state=out.state.T, obs=out.obs.T)
+
+    def vreset_t(self, generator, batch: int, device=None, dtype=torch.float32):
+        return self.vreset(generator, batch, device=device, dtype=dtype).T
+
+    def vcontrol_t(self, states_t) -> torch.Tensor:
+        return self.vcontrol(states_t.T).T
+
+    def autoreset_step_t(self, states_t, actions_t, generator) -> StepOut:
+        out = self.autoreset_step(states_t.T, actions_t.T, generator)
+        return out._replace(state=out.state.T, obs=out.obs.T)
+
+
+def _stack(outs: list[StepOut]) -> StepOut:
+    """List of per-step outputs → one ``StepOut`` with a leading time axis."""
+    trunc = [o.truncated for o in outs]
+    return StepOut(
+        torch.stack([o.state for o in outs]),
+        torch.stack([o.obs for o in outs]),
+        torch.stack([o.reward for o in outs]),
+        torch.stack([o.done for o in outs]),
+        None if trunc[0] is None else torch.stack(trunc),
+    )
+
+
+def rollout(env: EnvDef, policy_fn: Callable[[torch.Tensor, torch.Generator], torch.Tensor],
+            init_states: torch.Tensor, generator: torch.Generator, horizon: int,
+            auto_reset: bool = True, collect_trajectory: bool = True):
+    """Closed-loop batched rollout as a Python loop.
+
+    ``policy_fn(states, generator) -> actions`` receives the FULL state
+    ``(B, state_dim)`` (classical controllers read state beyond the
+    observation).  Returns the final states and the stacked trajectory
+    ``StepOut`` with a leading time axis ``(T, B, ...)``.  With
+    ``collect_trajectory=False`` only rewards and dones are stacked;
+    ``state`` and ``obs`` are then None.
+    """
+    states = init_states
+    outs = []
+    for _ in range(horizon):
+        actions = policy_fn(states, generator)
+        if auto_reset:
+            out = env.autoreset_step(states, actions, generator)
+        else:
+            out = env.vstep(states, actions)
+        outs.append(out if collect_trajectory else out._replace(state=None, obs=None))
+        states = out.state
+    if collect_trajectory:
+        return states, _stack(outs)
+    return states, StepOut(None, None, torch.stack([o.reward for o in outs]),
+                           torch.stack([o.done for o in outs]))
+
+
+def controller_policy(env: EnvDef):
+    """The env's classical controller as a :func:`rollout` policy."""
+
+    def policy(states, generator):
+        del generator
+        return env.vcontrol(states)
+
+    return policy
+
+
+def control_rollout(env: EnvDef, init_states, generator, horizon: int, auto_reset: bool = True,
+                    collect_trajectory: bool = True):
+    """Rollout flown by the env's own classical controller (the reference
+    test pattern).  With ``collect_trajectory=False`` only rewards and
+    dones are stacked; the returned ``StepOut`` then has ``state`` and
+    ``obs`` set to None."""
+    env._require_control()
+    return rollout(env, controller_policy(env), init_states, generator, horizon,
+                   auto_reset=auto_reset, collect_trajectory=collect_trajectory)
+
+
+def _fused_kernel_registry():
+    """name -> (step_fn, control_fn, reset_fn, Params type) that the env's
+    fused kernel computes.  The kernels take the env's Params values as
+    arguments, so a param sweep runs in them; params of another type do
+    not."""
+    from . import quadrotor3d
+
+    return {
+        "quadrotor3d-v0": (quadrotor3d.step, quadrotor3d.control, quadrotor3d.reset,
+                           quadrotor3d.Params),
+    }
+
+
+def fused_kernel_mismatch(env: EnvDef):
+    """Why a fused kernel would NOT reproduce ``env``'s semantics (None =
+    eligible).  The kernels compute the registry's module FUNCTIONS, so
+    a wrapped env (same name, replaced fns) is refused by identity, and
+    so are params of another type."""
+    entry = _fused_kernel_registry().get(env.name)
+    if entry is None:
+        return f"no fused kernel for {env.name}"
+    *fns, params_type = entry
+    if (env.step_fn, env.control_fn, env.reset_fn) != tuple(fns):
+        return "env step/control/reset fns are wrapped or replaced"
+    if type(env.params) is not params_type:
+        return f"env params are a {type(env.params).__name__}, not the kernel's Params"
+    return None
+
+
+def _kernel_refusal(env: EnvDef, init_states: torch.Tensor):
+    """Why :func:`throughput_rollout` cannot run ``env`` in its fused
+    kernel (None = it can): the registry check, then the device."""
+    reason = fused_kernel_mismatch(env)
+    if reason is not None:
+        return reason
+    if init_states.device.type != "cuda":
+        return f"states on {init_states.device}, the kernel needs a CUDA tensor"
+    return None
+
+
+def throughput_rollout(env: EnvDef, init_states, generator, horizon: int,
+                       backend: str = "auto"):
+    """Maximum-rate closed-loop rollout with auto-reset: returns only
+    ``(final_states (B, D), per-env reward sums (B,))``.
+
+    ``backend``: ``"kernel"`` runs the fused CUDA kernel (float32,
+    quadrotor3d-v0 with the registry's functions, any params) and
+    raises where it cannot; ``"scan"`` runs the eager loop of
+    :func:`control_rollout`; ``"auto"`` takes the kernel where it can
+    and logs which path ran and why.  The kernel draws its reset states
+    from its own Philox stream, seeded from ``generator``: a different
+    stream from the eager loop's, deterministic per seed.
+    """
+    if backend not in ("auto", "kernel", "scan"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "auto":
+        reason = _kernel_refusal(env, init_states)
+        backend = "scan" if reason else "kernel"
+        log.info("throughput_rollout(%s, B=%d): %s", env.name, init_states.shape[0],
+                 f"eager loop ({reason})" if reason else "fused CUDA kernel")
+    if backend == "kernel":
+        reason = _kernel_refusal(env, init_states)
+        if reason is not None:
+            raise ValueError(f"kernel backend refused for {env.name}: {reason}")
+        from ..ops import rollout as rollout_ops
+
+        seed = int(torch.randint(0, 2**31 - 1, (), generator=generator,
+                                 device=generator.device))
+        final_t, reward_sum = rollout_ops.quad3d_rollout_autoreset(
+            init_states.T.to(torch.float32).contiguous(), seed, horizon,
+            params_vec=rollout_ops.quad3d_params_vec(env.params))
+        return final_t.T, reward_sum
+    final, traj = control_rollout(env, init_states, generator, horizon,
+                                  collect_trajectory=False)
+    return final, traj.reward.sum(dim=0)
+
+
+def uniform_reset(dim: int, low: float = -1.0, high: float = 1.0):
+    """Reference-style reset: every state component ~ U(low, high),
+    including the unnormalised quaternion."""
+
+    def reset_fn(params, generator, batch, device, dtype):
+        del params
+        u = torch.rand((batch, dim), generator=generator, device=device, dtype=dtype)
+        return u * (high - low) + low
+
+    return reset_fn

@@ -1,0 +1,58 @@
+"""Environment registry of the PyTorch port: ``make(env_id)`` returns an
+:class:`~reinmav_tpu_torch.envs.core.EnvDef`.
+
+Only ``quadrotor3d-v0`` is ported so far.  The other reference ids are
+known and raise ``NotImplementedError`` naming the ROADMAP.md item that
+ports them; an unknown id raises the same ``KeyError`` as
+:func:`reinmav_tpu.make`.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+from .core import EnvDef
+
+_REGISTRY: Dict[str, Callable[..., EnvDef]] = {}
+
+#: Reference env ids not ported yet -> the ROADMAP.md item that ports them.
+_NOT_PORTED = {
+    "quadrotor2d-v0": "ROADMAP.md queue 1 item 9 (remaining native envs)",
+    "quadrotor2d-slungload-v0": "ROADMAP.md queue 1 item 9 (remaining native envs)",
+    "quadrotor3d-slungload-v0": "ROADMAP.md queue 1 item 9 (remaining native envs)",
+    "reinmav-v0": "ROADMAP.md queue 1 item 9 (remaining native envs)",
+    "MujocoQuadForce-v1": "ROADMAP.md queue 1 item 8 (hover task)",
+    "MujocoQuadForce-v0": "ROADMAP.md queue 1 item 11 (contact envs)",
+    "MujocoQuadQuat-v0": "ROADMAP.md queue 1 item 11 (contact envs)",
+}
+
+
+def register(env_id: str, factory: Callable[..., EnvDef]) -> None:
+    if env_id in _REGISTRY:
+        raise ValueError(f"env id already registered: {env_id}")
+    _REGISTRY[env_id] = factory
+
+
+def make(env_id: str, **kwargs) -> EnvDef:
+    if env_id in _NOT_PORTED and env_id not in _REGISTRY:
+        raise NotImplementedError(
+            f"{env_id} is not ported to PyTorch yet: {_NOT_PORTED[env_id]}")
+    try:
+        factory = _REGISTRY[env_id]
+    except KeyError:
+        known = sorted(set(_REGISTRY) | set(_NOT_PORTED))
+        raise KeyError(f"unknown env id {env_id!r}; known: {known}") from None
+    return factory(**kwargs)
+
+
+def registered_ids():
+    return sorted(_REGISTRY)
+
+
+def _populate() -> None:
+    from . import quadrotor3d  # local import to avoid cycles
+
+    register("quadrotor3d-v0", quadrotor3d.make)
+
+
+_populate()
