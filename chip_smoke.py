@@ -22,16 +22,33 @@ Phases, in order; any failure raises and exits non-zero:
 6. K1 against its plain twin at the main path's shape (2,097,152 envs
    x 1000 steps, auto-reset on, one seed on both sides), and both timed
    there with CUDA events after a warm-up, in env-steps/s.
+7. Kernel K2 (the fused PPO rollout) against its plain twin at the
+   training path's 32,768 envs x 32 steps, with action noise and resets
+   on: the envs that disagree anywhere in their trajectory, the relative
+   error of logp, value, reward and the moment sums; both timed.
+8. Kernel K3 (the fused PPO loss gradient) against its plain twin on one
+   full minibatch (262,144 samples in tiles of 128) of the phase-7
+   trajectory, in clip mode; a rerun must be bitwise equal; both timed.
+9. The training path through the public API: reinmav_tpu_torch.rl.ppo
+   with PpoConfig(num_envs=32768, rollout_len=32, fused_update="off") on
+   make("quadrotor3d-v0"), 2 warm-up updates and 5 timed ones.  K2 must
+   launch once and K3 16 times per update, and the metrics must be
+   finite.  The same 7 updates from the same state through the eager
+   rollout and autograd must give each update's mean_reward within 10%.
 
 The second-to-last line is a JSON object describing each kernel of the
-path; the last is {"ok": true, "device": {...}}.  The script imports
-nothing of JAX.
+paths: its launches on its main path, its error against its twin, its
+time and its twin's, and its bound (the least time the card could take:
+the larger of its bytes over the memory rate and its FP32 operations
+over the FP32 rate).  The last line is {"ok": true, "device": {...}}.
+The script imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import math
 import statistics
 import subprocess
 import sys
@@ -43,6 +60,22 @@ B_CHECK, T_NO_RESET, T_RESET = 65_536, 200, 1000
 B_MAIN, T_MAIN = 2_097_152, 1000
 B_QUICK, T_QUICK = 4096, 400
 REF = (0.0, 0.0, 2.0)
+B_PPO, T_PPO = 32_768, 32  # bench.py:78-137's PPO leg
+GRAD_TOL = dict(rtol=2e-3, atol=2e-6)  # tests/test_pallas_ppo.py's own
+METRIC_TOL = dict(rtol=2e-4, atol=1e-6)
+WARMUP_UPDATES, TIMED_UPDATES = 2, 5
+
+# The card's published peaks (H100 SXM data sheet, at 700 W).
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+# FP32 operations per unit of work, counted from the kernels' sources:
+# K1, per env-step: the geometric controller and the dynamics, about 150
+# (hand count, PERF.md).  K2, per env-step: the actor-critic's products
+# without the fused layer's zero blocks, 2 * (10*128 + 2*64*64 + 64*4 +
+# 64*1) = 19,584 (tanh, the env step and Philox not counted).  K3, per
+# sample: that forward (9,792 FMA) and the backward's products, dW_out and
+# dh2 (2 * 320), dW2 and dh1 (2 * 8192), dW1 (1280): 28,096 FMA = 56,192.
+OPS_K1, OPS_K2, OPS_K3 = 150, 19_584, 56_192
 
 
 def say(msg: str) -> None:
@@ -74,6 +107,227 @@ def cuda_ms(fn, reps: int):
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least milliseconds the card could take for work that moves
+    ``nbytes`` and does ``flops`` FP32 operations, and which bounds it."""
+    by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| / max |b|, in float64."""
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _mismatched_envs(torch, a, b):
+    """Envs whose K2 trajectory, final state or return differ anywhere
+    between ``a`` and ``b`` (rtol 2e-4 / atol 2e-5), as a bool mask."""
+    bad = (a.done != b.done).any(dim=0)
+    for x, y in zip((*a[:5], a.final_states), (*b[:5], b.final_states)):
+        close = torch.isclose(x, y, **TOL)
+        bad |= ~close.reshape(-1, close.shape[-1]).all(dim=0)
+    return bad | ~torch.isclose(a.returns, b.returns, **TOL)
+
+
+def ppo_phases(torch, dev, gpu: str, env) -> list[dict]:
+    """Phases 7-9: K2 and K3 against their twins at the training path's
+    shapes, then the training path through the public API.  Returns the
+    two kernels' entries of the ``kernels`` line."""
+    from reinmav_tpu_torch.ops import ppo_loss as pl
+    from reinmav_tpu_torch.ops import ppo_rollout as pr
+    from reinmav_tpu_torch.ops import rollout as ro
+    from reinmav_tpu_torch.rl import networks, ppo
+
+    # 7. K2 against its twin, noise and resets on.  Warmed normalisers, a
+    # spread of running returns, log_std -0.5, and states drawn twice as
+    # wide as a reset, so that the envs beyond |p| = 3 reset at once.
+    cfg = ppo.PpoConfig(num_envs=B_PPO, rollout_len=T_PPO, fused_update="off")
+    layout = networks.Layout(env.obs_dim, env.action_dim, cfg.hidden)
+    state = ppo.init_train_state(env, cfg, seed=3, device=dev)
+    obs_norm = ppo.ObsNorm(torch.linspace(-0.1, 0.1, 10, device=dev),
+                           torch.linspace(0.5, 2.0, 10, device=dev),
+                           torch.tensor(100.0, device=dev))
+    ret_norm = ppo.RetNorm(torch.tensor(4.0, device=dev), torch.tensor(100.0, device=dev))
+    params = state.params.clone()
+    params[layout.slices[("log_std",)]] = -0.5
+    consts = ppo._rollout_consts(params, layout, obs_norm, ret_norm, cfg.gamma)
+    states_t = (state.env_states.T * 2.0).contiguous()
+    rets = torch.linspace(-1.0, 1.0, B_PPO, device=dev)
+    k2_args = (states_t, rets, 21, params, consts, T_PPO)
+    k2_run = lambda: pr.ppo_rollout(*k2_args)  # noqa: E731
+    k2_plain = lambda: pr.ppo_rollout_reference(*k2_args)  # noqa: E731
+    k2_run()  # warm-up
+    pr.ppo_rollout_reference(states_t, rets, 21, params, consts, 2)  # warm-up
+    torch.cuda.synchronize()
+    (plain0,), ref = cuda_ms(k2_plain, 1)
+    kern0, out = cuda_ms(k2_run, 10)
+    kern1, _ = cuda_ms(k2_run, 10)
+    (plain1,), _ = cuda_ms(k2_plain, 1)
+    bad = _mismatched_envs(torch, out, ref)
+    mismatched = int(bad.sum())
+    resets = int(ref.done.sum())
+    require(resets > 0, "K2 check: no env reset, so the reset stream was not exercised")
+    require(mismatched <= 0.001 * B_PPO, f"K2 vs twin: {mismatched} envs mismatched")
+    ok = ~bad
+    k2_err = max(float((x[..., ok] - y[..., ok]).abs().max())
+                 for x, y in zip((*out[:5], out.final_states), (*ref[:5], ref.final_states)))
+    errs = {name: rel_err(getattr(out, name)[..., ok], getattr(ref, name)[..., ok])
+            for name in ("log_prob", "value", "reward")}
+    stats_rel = float(((out.stats - ref.stats).abs() / ref.stats.abs().clamp_min(1.0)).max())
+    require(stats_rel <= 1e-3, f"K2 moment sums, rel err {stats_rel}")
+    again = k2_run()
+    require(all(torch.equal(x, y) for x, y in zip(out, again)), "K2 determinism per seed")
+    say(f"K2 vs twin, B={B_PPO} T={T_PPO}, noise and resets on ({resets} resets): {mismatched} "
+        f"of {B_PPO} envs mismatched (limit 0.1%); on the others max |err| {k2_err:.3e}, rel err "
+        f"logp {errs['log_prob']:.3e} value {errs['value']:.3e} reward {errs['reward']:.3e}; "
+        f"moment sums rel err {stats_rel:.3e} (limit 1e-3); bitwise equal on a rerun: ok")
+    k2_ms, k2_plain_ms = statistics.median(kern0 + kern1), (plain0 + plain1) / 2
+    k2_bound, k2_by = bound(nbytes(states_t, rets, params, consts, *out), OPS_K2 * B_PPO * T_PPO)
+    say(f"time K2 B={B_PPO} T={T_PPO}: {k2_ms:.4f} ms (median of 20 launches, each "
+        f"{min(kern0 + kern1):.4f} to {max(kern0 + kern1):.4f}), twin {k2_plain_ms:.2f} ms "
+        f"(runs {plain0:.2f}, {plain1:.2f}), bound {k2_bound:.4f} ms by {k2_by}, on {gpu}")
+
+    # 8. K3 against its twin on one full minibatch of that trajectory, with
+    # the params moved off the rollout's, so that ratios leave 1 and clip.
+    n = B_PPO * T_PPO
+    traj = ppo.Transition(out.obs, out.action, out.log_prob, out.value, out.reward, out.done)
+    with torch.no_grad():
+        last = ppo._normalize_t(out.final_states, obs_norm)
+        _, _, last_value = networks.apply_t(layout.unflatten(params), last)
+        adv, ret = ppo.compute_gae(cfg, traj, last_value)
+    flat_d = lambda x: x.permute(1, 0, 2).reshape(x.shape[1], n)  # noqa: E731
+    data = pl.stack_batch(flat_d(out.obs), flat_d(out.action), out.log_prob.reshape(n),
+                          out.value.reshape(n), adv.reshape(n), ret.reshape(n))
+    tile, n_tiles = ppo._tiling(cfg, n)
+    perm = ppo._shuffle_indices(torch.Generator().manual_seed(5), n_tiles, dev)
+    tidx = perm.reshape(cfg.num_minibatches, -1)[0].to(torch.int32).contiguous()
+    adv_mb = adv.reshape(n)[pl._gather_columns(tidx, tile)]
+    zero = torch.zeros((), device=dev)
+    adv_stats = torch.stack([adv_mb.mean(), 1.0 / (adv_mb.std(unbiased=False) + 1e-8), zero,
+                             zero]).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(8)
+    net = (params + 0.02 * torch.randn(params.shape, generator=gen, device=dev)).contiguous()
+    kcfg = dict(d=env.obs_dim, adim=env.action_dim, clip_eps=cfg.clip_eps,
+                value_clip_eps=cfg.value_clip_eps, value_coef=cfg.value_coef, tile=tile)
+    mb = tidx.numel() * tile
+    k3_run = lambda: pl.ppo_loss_grads_gather(data, adv_stats, tidx, net,  # noqa: E731
+                                              ent_coef=0.01, **kcfg)
+    k3_plain = lambda: pl._finish(pl.ppo_loss_grads_reference(  # noqa: E731
+        data, adv_stats, tidx, net, **kcfg), mb, 0.01, layout)
+    k3_run()
+    k3_plain()  # warm-ups
+    torch.cuda.synchronize()
+    p0, (g_p, m_p) = cuda_ms(k3_plain, 3)
+    kern, (g_k, m_k) = cuda_ms(k3_run, 20)
+    p1, _ = cuda_ms(k3_plain, 3)
+    g_again, m_again = k3_run()
+    require(torch.allclose(g_k, g_p, **GRAD_TOL), "K3 vs twin, gradients")
+    for name in pl.METRICS:
+        require(torch.allclose(m_k[name], m_p[name], **METRIC_TOL), f"K3 vs twin, {name}")
+    require(torch.equal(g_k, g_again) and all(torch.equal(m_k[k], m_again[k]) for k in m_k),
+            "K3 bitwise determinism")
+    k3_err = float((g_k - g_p).abs().max())
+    clip_frac = float(m_k["clip_frac"])
+    require(clip_frac > 0.0, "K3 check: no sample clipped, so the clip branch was not exercised")
+    say(f"K3 vs twin, one minibatch of {mb} samples (tile {tile}, {tidx.numel()} tiles), clip mode: "
+        f"grads max |err| {k3_err:.3e}, rel err {rel_err(g_k, g_p):.3e} (rtol 2e-3 atol 2e-6), "
+        f"metrics {', '.join(f'{k} {float(m_k[k]):.5g}' for k in pl.METRICS)} (rtol 2e-4 atol "
+        f"1e-6); bitwise equal on a rerun: ok")
+    k3_ms, k3_plain_ms = statistics.median(kern), statistics.median(p0 + p1)
+    k3_bound, k3_by = bound(nbytes(tidx, adv_stats, net, g_k) + mb * data.shape[0] * 4,
+                            OPS_K3 * mb)
+    say(f"time K3 minibatch {mb}: {k3_ms:.4f} ms (median of 20 launches, each {min(kern):.4f} "
+        f"to {max(kern):.4f}), twin {k3_plain_ms:.3f} ms (median of 6), bound {k3_bound:.4f} ms "
+        f"by {k3_by}, on {gpu}")
+    del out, ref, again, data, traj, adv, ret
+    torch.cuda.empty_cache()
+
+    # 9. The training path through the public API.
+    state = ppo.init_train_state(env, cfg, seed=0, device=dev)
+    ro.quad3d_rollout_autoreset.launches = 0
+    pr.ppo_rollout.launches = 0
+    pl.ppo_loss_grads_gather.launches = 0
+    walls, summaries = [], []
+    for _ in range(WARMUP_UPDATES + TIMED_UPDATES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, summary = ppo.train_step(env, cfg, state)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        summaries.append({k: float(v) for k, v in summary.items()})
+    k2_launches, k3_launches = pr.ppo_rollout.launches, pl.ppo_loss_grads_gather.launches
+    updates = WARMUP_UPDATES + TIMED_UPDATES
+    passes = cfg.num_epochs * cfg.num_minibatches
+    require(k2_launches == updates, f"K2 launches {k2_launches}, expected one per update")
+    require(k3_launches == updates * passes,
+            f"K3 launches {k3_launches}, expected {passes} per update")
+    require(ro.quad3d_rollout_autoreset.launches == 0, "the training path launched K1")
+    require(all(math.isfinite(v) for s in summaries for v in s.values()), "finite metrics")
+
+    # The same updates from the same state through the eager rollout and
+    # autograd, the JAX scan path's counterpart: the kernels' path must
+    # learn at the same reward scale (other noise draws), as
+    # tests/test_pallas_ppo_rollout.py holds the JAX kernel path (rtol 0.1).
+    eager = ppo.init_train_state(env, cfg, seed=0, device=dev)
+    eager_rewards = []
+    for _ in range(updates):
+        eager, summary = ppo.train_step(env, cfg, eager, fused_rollout=False, fused_loss=False)
+        eager_rewards.append(float(summary["mean_reward"]))
+    require(pr.ppo_rollout.launches == k2_launches and
+            pl.ppo_loss_grads_gather.launches == k3_launches, "the eager path launched K2 or K3")
+    rewards = [s["mean_reward"] for s in summaries]
+    for r, e in zip(rewards, eager_rewards):
+        require(abs(r - e) <= 0.1 * abs(e), f"mean_reward {rewards} vs eager {eager_rewards}")
+    say(f"mean_reward per update, kernels {[round(r, 4) for r in rewards]}, eager rollout + "
+        f"autograd from the same state {[round(e, 4) for e in eager_rewards]} (rtol 0.1): ok")
+    timed = walls[WARMUP_UPDATES:]
+    for i, s in enumerate(summaries):
+        say(f"ppo update {i} ({'warm-up' if i < WARMUP_UPDATES else 'timed'}): wall "
+            f"{walls[i]:.2f} ms, {B_PPO * T_PPO / walls[i] * 1e3:.4e} env-steps/s on {gpu}; " +
+            ", ".join(f"{k} {v:.5g}" for k, v in s.items()))
+    say(f"ppo training path B={B_PPO} T={T_PPO}, {passes} minibatch steps per update: "
+        f"K2 launches {k2_launches}, K3 launches {k3_launches} over {updates} updates; timed "
+        f"updates median {statistics.median(timed):.2f} ms "
+        f"({B_PPO * T_PPO / statistics.median(timed) * 1e3:.4e} env-steps/s end to end), on {gpu}: ok")
+
+    return [{
+        "name": "ppo_rollout",
+        "route": "cuda",
+        "source": "reinmav_tpu_torch/csrc/ppo_rollout.cu",
+        "replaces": "reinmav_tpu/ops/pallas_ppo_rollout.py:703",
+        "launches": k2_launches,
+        "max_abs_err": k2_err,
+        "mismatched_envs": mismatched,
+        "tolerance": "rtol 2e-4 atol 2e-5 per env over its whole trajectory, <= 0.1% of envs "
+                     "may differ; max_abs_err over the envs that agree",
+        "ms": k2_ms,
+        "plain_ms": k2_plain_ms,
+        "bound_ms": k2_bound,
+        "bound_by": k2_by,
+        "library_ms": None,
+        "at": f"states ({env.obs_dim}, {B_PPO}), horizon {T_PPO}",
+    }, {
+        "name": "ppo_loss_grads_gather",
+        "route": "cuda",
+        "source": "reinmav_tpu_torch/csrc/ppo_loss.cu",
+        "replaces": "reinmav_tpu/ops/pallas_ppo.py:424",
+        "launches": k3_launches,
+        "max_abs_err": k3_err,
+        "tolerance": "grads rtol 2e-3 atol 2e-6, metrics rtol 2e-4 atol 1e-6, bitwise repeatable",
+        "ms": k3_ms,
+        "plain_ms": k3_plain_ms,
+        "bound_ms": k3_bound,
+        "bound_by": k3_by,
+        "library_ms": None,
+        "at": f"minibatch of {mb} samples gathered in tiles of {tile} from {n}",
+    }]
 
 
 def main() -> int:
@@ -214,7 +468,8 @@ def main() -> int:
         f"(runs {plain0:.1f}, {plain1:.1f}), {B_MAIN * T_MAIN / plain_ms * 1e3:.4e} "
         f"env-steps/s on {gpu}")
 
-    say(json.dumps({"kernels": [{
+    k1_bound, k1_by = bound(nbytes(big_t, f_k, r_k), OPS_K1 * B_MAIN * T_MAIN)
+    kernels = [{
         "name": "quad3d_rollout_autoreset",
         "route": "cuda",
         "source": "reinmav_tpu_torch/csrc/quad3d_rollout.cu",
@@ -225,8 +480,16 @@ def main() -> int:
         "tolerance": "rtol 2e-4 atol 2e-5 per env, <= 0.1% of envs may differ",
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        "bound_ms": k1_bound,
+        "bound_by": k1_by,
+        "library_ms": None,
         "at": f"states {tuple(f_k.shape)}, horizon {T_MAIN}",
-    }]}))
+    }]
+    del big, big_final, big_t, f_k, f_p, r_k, r_p, reward_sum
+    torch.cuda.empty_cache()
+
+    kernels += ppo_phases(torch, dev, gpu, env)
+    say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -1,9 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface, at first use, and loaded
-with ``ctypes``.  The library's name carries a hash of the sources and
-flags, so an edited source builds anew and an unchanged one is reused.
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` process per source, all started together, and the objects are
+linked into one shared library with a plain C interface, at first use,
+and loaded with ``ctypes``.  The library's name carries a hash of the
+sources, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header builds anew and an unchanged tree is reused.
 The build directory ``_build/`` sits in the package and is not
 committed.  A missing ``nvcc`` or a failed build raises: there is no
 fallback.
@@ -25,7 +27,7 @@ from pathlib import Path
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 #: C entry point -> argtypes.  Every entry point returns ``cudaGetLastError()``.
@@ -36,6 +38,21 @@ _SIGNATURES = {
                               ctypes.c_uint, ctypes.c_int, _P, _P),
     # (counters (n, 4) u32, keys (n, 2) u32, out (n, 4) u32, n, stream)
     "philox4x32_10_launch": (_P, _P, _P, ctypes.c_longlong, _P),
+    # K2: (states_in, returns_in, net, consts, batch, horizon, seed,
+    #  normalize_obs, normalize_rewards, host params[11], obs, action,
+    #  log_prob, value, reward, done, final_states, returns_out, partials,
+    #  stats, stream)
+    "ppo_rollout_launch": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint,
+                           ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P),
+    # K3: (data, n, perm, m, tile, adv_stats, net, clip_eps, value_clip_eps,
+    #  value_coef, kl_mode, blocks, partials, out, stream)
+    "ppo_loss_launch": (_P, ctypes.c_longlong, _P, ctypes.c_longlong, ctypes.c_int, _P, _P,
+                        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                        ctypes.c_int, _P, _P, _P),
+    # (minibatch samples) -> CTAs of the K3 launch, -1 on a CUDA error
+    "ppo_loss_blocks": (ctypes.c_longlong,),
+    "ppo_loss_out_size": (),
 }
 
 
@@ -56,34 +73,42 @@ def _sources() -> list[Path]:
 
 
 def _library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in [*_sources(), *sorted(SRC_DIR.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libreinmav_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with the output of the first
+    that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+
+
 def build() -> Path:
     """Compile the sources unless the library for them exists; returns
-    its path.  Writes to a temporary name and renames, so that
-    concurrent processes never load a half-written file."""
+    its path.  Builds in a temporary directory and renames the library
+    into place, so that concurrent processes never load a half-written
+    file."""
     out = _library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in _sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                  for src, obj in zip(_sources(), objs)])
+        lib = os.path.join(tmp, out.name)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
     return out
 
 

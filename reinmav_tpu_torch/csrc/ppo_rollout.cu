@@ -1,0 +1,291 @@
+// K2: the fused PPO rollout of quadrotor3d-v0, written for NVIDIA Hopper
+// (sm_90a).
+//
+// Replaces reinmav_tpu/ops/pallas_ppo_rollout.py::ppo_rollout_pallas (:703),
+// kind quadrotor3d-v0: the grid step _kernel (:556-695) with
+// _quad3d_step_tiles (:157) and _quad3d_reset_rows (:201), repeated over the
+// whole horizon.  Per env and step: raw-obs moment sums, obs normalisation
+// with clip +-10, the 2x64 tanh actor-critic, a Gaussian action with logp
+// taken from the ROUNDED action (z = (a - mean) / std, :628-638), the env
+// step, the return-scaled reward with clip +-10, the running discounted
+// return, the U(-1,1)^10 reset of done envs, and the trajectory rows.  Its
+// plain PyTorch twin, with the same arithmetic and the same Philox draws, is
+// reinmav_tpu_torch/ops/ppo_rollout.py::ppo_rollout_reference.
+//
+// What bounds it on the card: arithmetic.  One env-step is about 19.6k FP32
+// operations of MLP (2 * (10*128 + 2*64*64 + 64*4 + 64*1); the zero blocks
+// of the fused layer are not computed) against 88 B of trajectory written,
+// far on the compute side of the H100's roofline.
+//
+// What the design does about it: one thread per env, the env state, the
+// running return and the 23 moment sums in registers for the whole horizon;
+// the weights (40 KB) in shared memory, read as broadcasts (every thread of
+// a warp reads the same weight at the same time), the second layer's as
+// float4 rows; the first hidden layer of one tower (64 floats) in registers,
+// the second consumed into the heads as it is computed, so it is never
+// stored.  Noise and resets come from Philox4x32-10 (quad3d_common.cuh) with
+// key (seed, 0) and counter (env, step, draw, stream): stream 1 is the
+// noise (two draws, Box-Muller cosine branch as _normal :90-95), stream 2
+// the resets (three draws).  Each CTA reduces its moment sums in a fixed
+// order, and a second launch adds the CTAs' partials in block order, so the
+// result is bitwise repeatable.  Any B works; the tail is masked.
+// normalize_obs and normalize_rewards are template switches.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "actor_critic.cuh"
+#include "quad3d_common.cuh"
+
+namespace {
+
+namespace ac = reinmav::ac;
+using reinmav::Quad3dParams;
+
+constexpr int kThreads = 128;
+constexpr int kD = ac::D, kA = ac::A, kH = ac::H;
+constexpr int kStats = 2 * kD + 3;  // obs sum (D), obs sq (D), ret sum, ret sq, raw reward sum
+constexpr int kConsts = 2 * kD + kA + 3;
+
+struct RolloutOut {
+  float* obs;       // (T, D, B)
+  float* action;    // (T, A, B)
+  float* log_prob;  // (T, B)
+  float* value;     // (T, B)
+  float* reward;    // (T, B)
+  bool* done;       // (T, B)
+  float* final_states;  // (D, B)
+  float* returns;       // (B,)
+  float* partials;      // (gridDim.x, kStats)
+};
+
+template <bool kNormObs, bool kNormRew>
+__global__ void __launch_bounds__(kThreads)
+ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret_in,
+                   const float* __restrict__ net, const float* __restrict__ consts,
+                   int64_t batch, int horizon, uint32_t seed, Quad3dParams p, RolloutOut o) {
+  __shared__ __align__(16) float w1t[2][kH][kD];  // (tower, out, in)
+  __shared__ __align__(16) float b1[2][kH];
+  __shared__ __align__(16) float w2t[2][kH][kH];  // (tower, out, in)
+  __shared__ __align__(16) float b2[2][kH];
+  __shared__ __align__(16) float wpi[kH][kA];
+  __shared__ float wvf[kH];
+  __shared__ float bo[kA + 1];
+  __shared__ float cst[kConsts];
+  __shared__ float red[kThreads / 32][kStats];
+
+  for (int idx = threadIdx.x; idx < kH * kD; idx += kThreads) {
+    const int j = idx / kD, d = idx % kD;
+    for (int tw = 0; tw < 2; ++tw) w1t[tw][j][d] = net[ac::tower_base(tw) + ac::kW1 + d * kH + j];
+  }
+  for (int idx = threadIdx.x; idx < kH * kH; idx += kThreads) {
+    const int j = idx / kH, k = idx % kH;
+    for (int tw = 0; tw < 2; ++tw) w2t[tw][j][k] = net[ac::tower_base(tw) + ac::kW2 + k * kH + j];
+  }
+  for (int j = threadIdx.x; j < kH; j += kThreads) {
+    for (int tw = 0; tw < 2; ++tw) {
+      b1[tw][j] = net[ac::tower_base(tw) + ac::kB1 + j];
+      b2[tw][j] = net[ac::tower_base(tw) + ac::kB2 + j];
+    }
+    for (int a = 0; a < kA; ++a) wpi[j][a] = net[ac::kPiOutW + j * kA + a];
+    wvf[j] = net[ac::kVfOutW + j];
+  }
+  if (threadIdx.x < kA) bo[threadIdx.x] = net[ac::kPiOutB + threadIdx.x];
+  if (threadIdx.x == kA) bo[kA] = net[ac::kVfOutB];
+  for (int c = threadIdx.x; c < kConsts; c += kThreads) cst[c] = consts[c];
+  __syncthreads();
+
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const bool valid = i < batch;
+  float acc[kStats];
+#pragma unroll
+  for (int c = 0; c < kStats; ++c) acc[c] = 0.0f;
+
+  if (valid) {
+    const float* obs_mean = cst;
+    const float* obs_invstd = cst + kD;
+    const float* stdv = cst + 2 * kD;
+    const float ls_sum = cst[2 * kD + kA];
+    const float inv_ret_std = cst[2 * kD + kA + 1];
+    const float gamma = cst[2 * kD + kA + 2];
+    const float half_dt = 0.5f * p.dt;
+    const float pos_lim2 = p.pos_limit * p.pos_limit;
+    const float vel_lim2 = p.vel_limit * p.vel_limit;
+    const uint32_t env = static_cast<uint32_t>(i);
+
+    float s[kD];
+#pragma unroll
+    for (int d = 0; d < kD; ++d) s[d] = s_in[d * batch + i];
+    float ret = ret_in[i];
+
+    for (int t = 0; t < horizon; ++t) {
+      const int64_t row = static_cast<int64_t>(t) * batch;
+      // Raw-obs moments and normalisation (collect_rollout :203-213).
+      float x[kD];
+#pragma unroll
+      for (int d = 0; d < kD; ++d) {
+        if (kNormObs) {
+          acc[d] += s[d];
+          acc[kD + d] += s[d] * s[d];
+          x[d] = fminf(fmaxf((s[d] - obs_mean[d]) * obs_invstd[d], -10.0f), 10.0f);
+        } else {
+          x[d] = s[d];
+        }
+        o.obs[(row * kD) + d * batch + i] = x[d];
+      }
+
+      // The actor-critic, one tower at a time (networks.apply_t).
+      float mean[kA];
+#pragma unroll
+      for (int a = 0; a < kA; ++a) mean[a] = bo[a];
+      float value = bo[kA];
+#pragma unroll 1
+      for (int tw = 0; tw < 2; ++tw) {
+        float h1[kH];
+#pragma unroll
+        for (int k = 0; k < kH; ++k) {
+          float z = b1[tw][k];
+#pragma unroll
+          for (int d = 0; d < kD; ++d) z += w1t[tw][k][d] * x[d];
+          h1[k] = tanhf(z);
+        }
+        for (int j = 0; j < kH; ++j) {
+          const float4* w = reinterpret_cast<const float4*>(w2t[tw][j]);
+          float z = b2[tw][j];
+#pragma unroll
+          for (int q = 0; q < kH / 4; ++q) {
+            const float4 v = w[q];
+            z += v.x * h1[4 * q] + v.y * h1[4 * q + 1] + v.z * h1[4 * q + 2] + v.w * h1[4 * q + 3];
+          }
+          const float h2 = tanhf(z);
+          if (tw == 0) {
+#pragma unroll
+            for (int a = 0; a < kA; ++a) mean[a] += h2 * wpi[j][a];
+          } else {
+            value += h2 * wvf[j];
+          }
+        }
+      }
+
+      // Gaussian action; logp from the rounded action.
+      const uint4 ub = reinmav::philox4x32_10(make_uint4(env, t, 0u, 1u), seed, 0u);
+      const uint4 vb = reinmav::philox4x32_10(make_uint4(env, t, 1u, 1u), seed, 0u);
+      const uint32_t uw[kA] = {ub.x, ub.y, ub.z, ub.w};
+      const uint32_t vw[kA] = {vb.x, vb.y, vb.z, vb.w};
+      float act[kA];
+      float z2 = 0.0f;
+#pragma unroll
+      for (int a = 0; a < kA; ++a) {
+        const float u = reinmav::uniform01(uw[a]);
+        const float v = reinmav::uniform01(vw[a]);
+        const float noise = sqrtf(-2.0f * logf(1.0f - u)) * cosf(6.28318530717958648f * v);
+        act[a] = mean[a] + stdv[a] * noise;
+        const float zz = (act[a] - mean[a]) * (1.0f / stdv[a]);
+        z2 += zz * zz;
+        o.action[(row * kA) + a * batch + i] = act[a];
+      }
+      o.log_prob[row + i] = -0.5f * z2 - ls_sum - 0.5f * kA * ac::kLog2Pi;
+      o.value[row + i] = value;
+
+      // Env step (_quad3d_step_tiles: thrust / mass keeps the scan's op order).
+      bool done;
+      const reinmav::BodyZ bz = reinmav::body_z(s);
+      const float raw = reinmav::quad3d_dynamics(s, bz, act[0] / p.mass, act[1], act[2], act[3],
+                                                 p.dt, p.gravity, half_dt, pos_lim2, vel_lim2,
+                                                 done);
+      const float done_f = done ? 1.0f : 0.0f;
+      float reward = raw;
+      if (kNormRew) {  // VecNormalize-style return scale (collect_rollout :225-234)
+        ret = ret * gamma + raw;
+        acc[2 * kD] += ret;
+        acc[2 * kD + 1] += ret * ret;
+        reward = fminf(fmaxf(raw * inv_ret_std, -10.0f), 10.0f);
+        ret = ret * (1.0f - done_f);
+      }
+      acc[2 * kD + 2] += raw;
+      o.reward[row + i] = reward;
+      o.done[row + i] = done;
+      if (done) reinmav::reset_uniform10(s, env, static_cast<uint32_t>(t), seed, 2u);
+    }
+
+#pragma unroll
+    for (int d = 0; d < kD; ++d) o.final_states[d * batch + i] = s[d];
+    o.returns[i] = ret;
+  }
+
+  // The CTA's moment sums in a fixed order: within each warp by shuffles,
+  // then the warps in index order.
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int c = 0; c < kStats; ++c) {
+    float v = acc[c];
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) v += __shfl_down_sync(0xFFFFFFFFu, v, off);
+    if (lane == 0) red[warp][c] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < kStats) {
+    float v = red[0][threadIdx.x];
+    for (int w = 1; w < kThreads / 32; ++w) v += red[w][threadIdx.x];
+    o.partials[static_cast<int64_t>(blockIdx.x) * kStats + threadIdx.x] = v;
+  }
+}
+
+// stats[c] = the CTAs' partials of component c, added in block order.
+__global__ void ppo_rollout_stats_kernel(const float* __restrict__ partials, int blocks,
+                                         float* __restrict__ stats) {
+  const int c = threadIdx.x;
+  if (c >= kStats) return;
+  float v = 0.0f;
+  for (int b = 0; b < blocks; ++b) v += partials[static_cast<int64_t>(b) * kStats + c];
+  stats[c] = v;
+}
+
+template <bool kNormObs, bool kNormRew>
+void launch(const float* s_in, const float* ret_in, const float* net, const float* consts,
+            int64_t batch, int horizon, uint32_t seed, const Quad3dParams& p, const RolloutOut& o,
+            unsigned int blocks, cudaStream_t stream) {
+  ppo_rollout_kernel<kNormObs, kNormRew><<<blocks, kThreads, 0, stream>>>(
+      s_in, ret_in, net, consts, batch, horizon, seed, p, o);
+}
+
+}  // namespace
+
+// C interface, bound with ctypes (reinmav_tpu_torch/_build.py).  Launches on
+// the given stream, does not synchronise, and returns cudaGetLastError().
+// `partials` is scratch of (ceil(batch / 128), 23) floats.
+extern "C" int ppo_rollout_launch(const void* states_in, const void* returns_in, const void* net,
+                                  const void* consts, long long batch, int horizon,
+                                  unsigned int seed, int normalize_obs, int normalize_rewards,
+                                  const void* params_host, void* obs, void* action,
+                                  void* log_prob, void* value, void* reward, void* done,
+                                  void* final_states, void* returns_out, void* partials,
+                                  void* stats, void* stream) {
+  const float* h = static_cast<const float*>(params_host);
+  const Quad3dParams p{h[0], h[1], h[2], h[3], h[4], h[5], h[6], h[7], h[8], h[9], h[10]};
+  const RolloutOut o{static_cast<float*>(obs),          static_cast<float*>(action),
+                     static_cast<float*>(log_prob),     static_cast<float*>(value),
+                     static_cast<float*>(reward),       static_cast<bool*>(done),
+                     static_cast<float*>(final_states), static_cast<float*>(returns_out),
+                     static_cast<float*>(partials)};
+  const auto blocks = static_cast<unsigned int>((batch + kThreads - 1) / kThreads);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* s_in = static_cast<const float*>(states_in);
+  const auto* r_in = static_cast<const float*>(returns_in);
+  const auto* w = static_cast<const float*>(net);
+  const auto* c = static_cast<const float*>(consts);
+  if (normalize_obs && normalize_rewards) {
+    launch<true, true>(s_in, r_in, w, c, batch, horizon, seed, p, o, blocks, st);
+  } else if (normalize_obs) {
+    launch<true, false>(s_in, r_in, w, c, batch, horizon, seed, p, o, blocks, st);
+  } else if (normalize_rewards) {
+    launch<false, true>(s_in, r_in, w, c, batch, horizon, seed, p, o, blocks, st);
+  } else {
+    launch<false, false>(s_in, r_in, w, c, batch, horizon, seed, p, o, blocks, st);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ppo_rollout_stats_kernel<<<1, 32, 0, st>>>(static_cast<const float*>(partials),
+                                             static_cast<int>(blocks), static_cast<float*>(stats));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -21,7 +21,7 @@
 // loads and stores coalesce across a warp and happen once at the start and
 // once at the end; the 11 params are kernel arguments (the TPU kernel's
 // SMEM-versus-baked duality is gone).  A done env redraws its state from
-// Philox4x32-10, written out below, with key (seed, 0) and counter
+// Philox4x32-10 (quad3d_common.cuh, shared with K2) with key (seed, 0) and counter
 // (env index, step, draw index, 0): three draws give the 10 values.  The
 // draw runs only on the rare done branch.  The ragged tail of the batch is
 // masked, so any B works.  Speeding it up (several envs per thread for
@@ -30,41 +30,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "quad3d_common.cuh"
+
 namespace {
 
+using reinmav::BodyZ;
+using reinmav::Quad3dParams;
+
 constexpr int kThreads = 256;
-
-// Field order of reinmav_tpu_torch/envs/quadrotor3d.py::Params (_Q3_FIELDS).
-struct Quad3dParams {
-  float mass, dt, gravity, ref_x, ref_y, ref_z, pos_limit, vel_limit, kp, kv, tau;
-};
-
-constexpr uint32_t kPhiloxM0 = 0xD2511F53u;
-constexpr uint32_t kPhiloxM1 = 0xCD9E8D57u;
-constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
-constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
-
-// Philox4x32-10 (Salmon et al., SC'11; the Random123 reference): ten rounds,
-// the key bumped by the Weyl constants after each.
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(kPhiloxM0, c.x);
-    const uint32_t lo0 = kPhiloxM0 * c.x;
-    const uint32_t hi1 = __umulhi(kPhiloxM1, c.z);
-    const uint32_t lo1 = kPhiloxM1 * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-    k0 += kPhiloxW0;
-    k1 += kPhiloxW1;
-  }
-  return c;
-}
-
-// U(-1, 1) by mantissa fill to [1, 2), then affine (pallas_rollout.py:206-211).
-__device__ __forceinline__ float uniform_pm1(uint32_t bits) {
-  const float f12 = __uint_as_float((bits >> 9) | 0x3F800000u);
-  return 2.0f * (f12 - 1.0f) - 1.0f;
-}
 
 // One controller + dynamics step on s = [px py pz qw qx qy qz vx vy vz].
 // Returns the step's reward and sets done.
@@ -128,38 +101,12 @@ __device__ __forceinline__ float closed_loop_step(float (&s)[10], const Quad3dPa
   const float wx = k * ex, wy = k * ey, wz = k * ez;
 
   // Body z of the NORMALISED quaternion, shared by thrust and dynamics.
-  const float qn2 = qw * qw + qx * qx + qy * qy + qz * qz;
-  const float inv_qn = rsqrtf(qn2);
-  const float inv_qn2 = inv_qn * inv_qn;
-  const float bzx = 2.0f * (qx * qz + qw * qy) * inv_qn2;
-  const float bzy = 2.0f * (qy * qz - qw * qx) * inv_qn2;
-  const float bzz = 1.0f - 2.0f * (qx * qx + qy * qy) * inv_qn2;
-  const float thrust = ax * bzx + ay * bzy + az * bzz;
+  const BodyZ bz = reinmav::body_z(s);
+  const float thrust = ax * bz.x + ay * bz.y + az * bz.z;
 
   // ---- dynamics (envs/quadrotor3d.py:step) --------------------------------
-  const float accx = thrust * inv_m * bzx;
-  const float accy = thrust * inv_m * bzy;
-  const float accz = thrust * inv_m * bzz + gz;
-
-  // Position-first Euler with the old velocity.
-  const float npx = px + vx * dt + 0.5f * accx * dt * dt;
-  const float npy = py + vy * dt + 0.5f * accy * dt * dt;
-  const float npz = pz + vz * dt + 0.5f * accz * dt * dt;
-  const float nvx = vx + accx * dt, nvy = vy + accy * dt, nvz = vz + accz * dt;
-
-  // q += 1/2 dt q_hat (x) (0, w), added to the raw stored quaternion.
-  const float hw = qw * inv_qn, hx = qx * inv_qn, hy = qy * inv_qn, hz = qz * inv_qn;
-  s[3] = qw + half_dt * (-hx * wx - hy * wy - hz * wz);
-  s[4] = qx + half_dt * (hw * wx + hy * wz - hz * wy);
-  s[5] = qy + half_dt * (hw * wy - hx * wz + hz * wx);
-  s[6] = qz + half_dt * (hw * wz + hx * wy - hy * wx);
-  s[0] = npx; s[1] = npy; s[2] = npz;
-  s[7] = nvx; s[8] = nvy; s[9] = nvz;
-
-  const float pn2 = npx * npx + npy * npy + npz * npz;
-  const float vn2 = nvx * nvx + nvy * nvy + nvz * nvz;
-  done = (pn2 > pos_lim2) || (vn2 > vel_lim2);
-  return done ? 1.0f : -sqrtf(pn2);
+  return reinmav::quad3d_dynamics(s, bz, thrust * inv_m, wx, wy, wz, dt, gz, half_dt, pos_lim2,
+                                  vel_lim2, done);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -185,15 +132,7 @@ quad3d_rollout_kernel(const float* __restrict__ s_in, float* __restrict__ s_out,
     bool done;
     reward_sum += closed_loop_step(s, p, two_over_tau, inv_m, half_dt, pos_lim2, vel_lim2, done);
     if (autoreset && done) {
-      const uint32_t step = static_cast<uint32_t>(t);
-      const uint4 b0 = philox4x32_10(make_uint4(env, step, 0u, 0u), seed, 0u);
-      const uint4 b1 = philox4x32_10(make_uint4(env, step, 1u, 0u), seed, 0u);
-      const uint4 b2 = philox4x32_10(make_uint4(env, step, 2u, 0u), seed, 0u);
-      s[0] = uniform_pm1(b0.x); s[1] = uniform_pm1(b0.y);
-      s[2] = uniform_pm1(b0.z); s[3] = uniform_pm1(b0.w);
-      s[4] = uniform_pm1(b1.x); s[5] = uniform_pm1(b1.y);
-      s[6] = uniform_pm1(b1.z); s[7] = uniform_pm1(b1.w);
-      s[8] = uniform_pm1(b2.x); s[9] = uniform_pm1(b2.y);
+      reinmav::reset_uniform10(s, env, static_cast<uint32_t>(t), seed, 0u);
     }
   }
 
@@ -210,7 +149,7 @@ __global__ void philox4x32_10_kernel(const uint32_t* __restrict__ ctr,
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const uint4 c = make_uint4(ctr[4 * i], ctr[4 * i + 1], ctr[4 * i + 2], ctr[4 * i + 3]);
-  const uint4 r = philox4x32_10(c, key[2 * i], key[2 * i + 1]);
+  const uint4 r = reinmav::philox4x32_10(c, key[2 * i], key[2 * i + 1]);
   out[4 * i] = r.x;
   out[4 * i + 1] = r.y;
   out[4 * i + 2] = r.z;

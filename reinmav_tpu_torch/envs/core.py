@@ -209,19 +209,30 @@ def _fused_kernel_registry():
     }
 
 
-def fused_kernel_mismatch(env: EnvDef):
+def fused_kernel_mismatch(env: EnvDef, require_control: bool = True,
+                          packed_params: bool = True):
     """Why a fused kernel would NOT reproduce ``env``'s semantics (None =
     eligible).  The kernels compute the registry's module FUNCTIONS, so
     a wrapped env (same name, replaced fns) is refused by identity, and
-    so are params of another type."""
+    so are params of another type.  ``require_control=False`` skips the
+    controller's identity (the policy-driven kernels, K2, replace the
+    controller with the policy).  ``packed_params=True`` (every kernel of
+    the port so far, K1 and K2): the caller passes the live Params to the
+    kernel as arguments, so any values are accepted; ``False`` refuses
+    non-default values rather than run them with the defaults."""
     entry = _fused_kernel_registry().get(env.name)
     if entry is None:
         return f"no fused kernel for {env.name}"
-    *fns, params_type = entry
-    if (env.step_fn, env.control_fn, env.reset_fn) != tuple(fns):
+    step_fn, control_fn, reset_fn, params_type = entry
+    fns_ok = env.step_fn is step_fn and env.reset_fn is reset_fn
+    if require_control:
+        fns_ok = fns_ok and env.control_fn is control_fn
+    if not fns_ok:
         return "env step/control/reset fns are wrapped or replaced"
     if type(env.params) is not params_type:
         return f"env params are a {type(env.params).__name__}, not the kernel's Params"
+    if not packed_params and env.params != params_type():
+        return "non-default params, and the caller does not pass them to the kernel"
     return None
 
 

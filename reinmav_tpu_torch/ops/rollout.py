@@ -98,24 +98,77 @@ def philox4x32_10(counter: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
     return out.to(torch.int64) & _MASK
 
 
-def reset_draws(env_idx: torch.Tensor, step: int, seed: int) -> torch.Tensor:
-    """The kernel's U(-1, 1)^10 reset of envs ``env_idx`` at ``step``:
-    three Philox blocks with counter (env, step, draw, 0) and key
-    (seed, 0); component ``k`` is word ``k % 4`` of draw ``k // 4``.
-    Returns ``(10, n)`` float32."""
+def philox_words(env_idx: torch.Tensor, step: int, seed: int, draws: int,
+                 stream: int) -> torch.Tensor:
+    """The kernels' Philox blocks for envs ``env_idx`` at ``step``: counter
+    (env, step, draw, stream) for draw in [0, draws), key (seed, 0).
+    Returns ``(4 * draws, n)`` int64 words, word ``k % 4`` of draw
+    ``k // 4`` in row ``k``."""
     dev = env_idx.device
     n = env_idx.shape[0]
     counter = torch.stack([
-        env_idx.to(torch.int64).expand(3, n),
-        torch.full((3, n), step, dtype=torch.int64, device=dev),
-        torch.arange(3, dtype=torch.int64, device=dev)[:, None].expand(3, n),
-        torch.zeros((3, n), dtype=torch.int64, device=dev),
+        env_idx.to(torch.int64).expand(draws, n),
+        torch.full((draws, n), step, dtype=torch.int64, device=dev),
+        torch.arange(draws, dtype=torch.int64, device=dev)[:, None].expand(draws, n),
+        torch.full((draws, n), stream, dtype=torch.int64, device=dev),
     ], dim=-1)
     key = torch.tensor([seed, 0], dtype=torch.int64, device=dev)
-    bits = philox4x32_10_reference(counter, key).permute(0, 2, 1).reshape(12, n)[:10]
+    return philox4x32_10_reference(counter, key).permute(0, 2, 1).reshape(4 * draws, n)
+
+
+def mantissa_fill(bits: torch.Tensor) -> torch.Tensor:
+    """Philox words -> float32 in [1, 2) by mantissa fill."""
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+
+
+def reset_draws(env_idx: torch.Tensor, step: int, seed: int, stream: int = 0) -> torch.Tensor:
+    """The kernels' U(-1, 1)^10 reset of envs ``env_idx`` at ``step``:
+    three Philox blocks with counter (env, step, draw, stream) and key
+    (seed, 0); component ``k`` is word ``k % 4`` of draw ``k // 4``.  K1
+    draws on stream 0, K2 on stream 2.  Returns ``(10, n)`` float32."""
+    f12 = mantissa_fill(philox_words(env_idx, step, seed, 3, stream)[:10])
     # Mantissa fill to [1, 2), then affine (pallas_rollout.py:206-211).
-    f12 = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     return 2.0 * (f12 - 1.0) - 1.0
+
+
+def body_z(s: torch.Tensor):
+    """``(inv_qn, bzx, bzy, bzz)``: the inverse quaternion norm and the body
+    z axis of the normalised quaternion of ``(10, B)`` states, as the
+    kernels' shared ``body_z`` (csrc/quad3d_common.cuh)."""
+    qw, qx, qy, qz = s[3], s[4], s[5], s[6]
+    qn2 = qw * qw + qx * qx + qy * qy + qz * qz
+    inv_qn = torch.rsqrt(qn2)
+    inv_qn2 = inv_qn * inv_qn
+    return (inv_qn, 2.0 * (qx * qz + qw * qy) * inv_qn2, 2.0 * (qy * qz - qw * qx) * inv_qn2,
+            1.0 - 2.0 * (qx * qx + qy * qy) * inv_qn2)
+
+
+def quad3d_dynamics(s: torch.Tensor, bz, tq, wx, wy, wz, dt: float, gz: float, half_dt: float,
+                    pos_lim2: float, vel_lim2: float):
+    """One quadrotor3d dynamics step on ``(10, B)`` states with body z
+    ``bz`` (:func:`body_z`), thrust / mass ``tq`` and body rates, in the
+    order of the kernels' shared ``quad3d_dynamics``
+    (csrc/quad3d_common.cuh).  Returns ``(new states, reward, done)``."""
+    px, py, pz, qw, qx, qy, qz, vx, vy, vz = s.unbind(0)
+    inv_qn, bzx, bzy, bzz = bz
+    accx = tq * bzx
+    accy = tq * bzy
+    accz = tq * bzz + gz
+    npx = px + vx * dt + 0.5 * accx * dt * dt
+    npy = py + vy * dt + 0.5 * accy * dt * dt
+    npz = pz + vz * dt + 0.5 * accz * dt * dt
+    nvx, nvy, nvz = vx + accx * dt, vy + accy * dt, vz + accz * dt
+    hw, hx, hy, hz = qw * inv_qn, qx * inv_qn, qy * inv_qn, qz * inv_qn
+    nqw = qw + half_dt * (-hx * wx - hy * wy - hz * wz)
+    nqx = qx + half_dt * (hw * wx + hy * wz - hz * wy)
+    nqy = qy + half_dt * (hw * wy - hx * wz + hz * wx)
+    nqz = qz + half_dt * (hw * wz + hx * wy - hy * wx)
+    pn2 = npx * npx + npy * npy + npz * npz
+    vn2 = nvx * nvx + nvy * nvy + nvz * nvz
+    done = (pn2 > pos_lim2) | (vn2 > vel_lim2)
+    reward = torch.where(done, torch.ones_like(pn2), -torch.sqrt(pn2))
+    new = torch.stack([npx, npy, npz, nqw, nqx, nqy, nqz, nvx, nvy, nvz])
+    return new, reward, done
 
 
 # --- K1 -------------------------------------------------------------------------
@@ -199,33 +252,14 @@ def quad3d_rollout_reference(states_t: torch.Tensor, seed: int, horizon: int,
         k = two_over_tau * torch.sign(ew)
         wx, wy, wz = k * ex, k * ey, k * ez
 
-        qn2 = qw * qw + qx * qx + qy * qy + qz * qz
-        inv_qn = torch.rsqrt(qn2)
-        inv_qn2 = inv_qn * inv_qn
-        bzx = 2.0 * (qx * qz + qw * qy) * inv_qn2
-        bzy = 2.0 * (qy * qz - qw * qx) * inv_qn2
-        bzz = 1.0 - 2.0 * (qx * qx + qy * qy) * inv_qn2
-        thrust = ax * bzx + ay * bzy + az * bzz
+        # Body z of the normalised quaternion, shared by thrust and dynamics.
+        bz = body_z(s)
+        thrust = ax * bz[1] + ay * bz[2] + az * bz[3]
 
         # ---- dynamics ----
-        accx = thrust * inv_m * bzx
-        accy = thrust * inv_m * bzy
-        accz = thrust * inv_m * bzz + gz
-        npx = px + vx * dt + 0.5 * accx * dt * dt
-        npy = py + vy * dt + 0.5 * accy * dt * dt
-        npz = pz + vz * dt + 0.5 * accz * dt * dt
-        nvx, nvy, nvz = vx + accx * dt, vy + accy * dt, vz + accz * dt
-        hw, hx, hy, hz = qw * inv_qn, qx * inv_qn, qy * inv_qn, qz * inv_qn
-        nqw = qw + half_dt * (-hx * wx - hy * wy - hz * wz)
-        nqx = qx + half_dt * (hw * wx + hy * wz - hz * wy)
-        nqy = qy + half_dt * (hw * wy - hx * wz + hz * wx)
-        nqz = qz + half_dt * (hw * wz + hx * wy - hy * wx)
-
-        pn2 = npx * npx + npy * npy + npz * npz
-        vn2 = nvx * nvx + nvy * nvy + nvz * nvz
-        done = (pn2 > pos_lim2) | (vn2 > vel_lim2)
-        reward_sum = reward_sum + torch.where(done, torch.ones_like(pn2), -torch.sqrt(pn2))
-        s = torch.stack([npx, npy, npz, nqw, nqx, nqy, nqz, nvx, nvy, nvz])
+        s, reward, done = quad3d_dynamics(s, bz, thrust * inv_m, wx, wy, wz, dt, gz, half_dt,
+                                          pos_lim2, vel_lim2)
+        reward_sum = reward_sum + reward
 
         if autoreset:
             idx = torch.nonzero(done).squeeze(1)

@@ -1,4 +1,4 @@
-"""Wall time and device idle share of the port's two main-path calls.
+"""Wall time and device idle share of the port's main-path calls.
 
 Run on a machine with one CUDA device, from the root of a checkout::
 
@@ -11,8 +11,16 @@ Measures, after a warm-up:
   ``torch.cuda.synchronize()``, over 5 calls;
 - ``control_rollout`` of 4096 envs x 400 steps, the eager loop, with and
   without the trajectory collected: wall time per call;
+- one PPO update (``reinmav_tpu_torch.rl.ppo.train_step``) of 32,768
+  envs x 32 steps with ``fused_update="off"`` (K2 for the rollout, K3
+  for each of the 16 minibatch gradients): wall time per update over 5
+  updates, after 2 warm-up updates;
 - each call once more under ``torch.profiler`` (the eager loop at 50
-  steps): the device kernels launched, and the device idle share.
+  steps): the device kernels launched, and the device idle share.  For
+  the PPO update also the shares of the wall time that K2, K3 and the
+  other device kernels (the eager glue: GAE, advantage moments, the
+  optimiser) are busy, and the host time inside the learner's
+  ``ppo.*`` profiler spans.
 
 Device busy time is the union of the device-side intervals of every
 kernel and copy the profiler recorded (overlaps counted once).  The idle
@@ -34,6 +42,10 @@ import reinmav_tpu_torch
 
 B_MAIN, T_MAIN = 2_097_152, 1000
 B_QUICK, T_QUICK, T_PROFILED = 4096, 400, 50
+B_PPO, T_PPO = 32_768, 32
+#: Device kernels by their name: K2 (with its moment reduction) and K3
+#: (with its partials' reduction).
+KERNEL_GROUPS = {"K2": "ppo_rollout", "K3": "ppo_loss"}
 
 
 def _wall_ms(fn, reps: int) -> list[float]:
@@ -49,10 +61,17 @@ def _wall_ms(fn, reps: int) -> list[float]:
     return out
 
 
+def _is_device_work(e) -> bool:
+    """A kernel or copy on the device.  The learner's ``ppo.*`` spans are
+    mirrored onto the device timeline as user annotations; they are not
+    work."""
+    return (e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False) and not e.name.startswith("ppo."))
+
+
 def _busy_ms(events) -> tuple[float, int]:
     """Union of the device-side intervals of ``events`` in ms, and their count."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events if _is_device_work(e))
     busy, end = 0.0, float("-inf")
     for lo, hi in spans:
         if hi > end:
@@ -61,18 +80,39 @@ def _busy_ms(events) -> tuple[float, int]:
     return busy / 1e3, len(spans)
 
 
-def _profile(name: str, fn, unprofiled_ms: float) -> None:
+def _profile(name: str, fn, unprofiled_ms: float, groups: dict | None = None) -> None:
+    """Profile one call of ``fn``; print its device busy time and idle
+    share, and, for ``groups`` (label -> substring of kernel names), each
+    group's busy share of the wall time and the host time in ``ppo.*``
+    spans."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         wall = _wall_ms(fn, 1)[0]
-    busy, n = _busy_ms(prof.events())
+    events = prof.events()
+    busy, n = _busy_ms(events)
     if n == 0:
         raise RuntimeError(f"{name}: the profiler recorded no device activity")
     print(f"{name}: profiled wall {wall:.3f} ms, device busy {busy:.3f} ms over {n} device "
           f"events, idle share {1 - busy / wall:.3f} (profiled wall), "
           f"{1 - busy / unprofiled_ms:.3f} (unprofiled wall {unprofiled_ms:.3f} ms)")
+    if groups:
+        grouped_ms, grouped_n = 0.0, 0
+        for label, key in groups.items():
+            ms, count = _busy_ms(e for e in events if key in e.name)
+            grouped_ms, grouped_n = grouped_ms + ms, grouped_n + count
+            print(f"  {label} ({key}*): {count} device events, {ms:.3f} ms busy, "
+                  f"{ms / wall:.3f} of the profiled wall")
+        other = busy - grouped_ms
+        print(f"  other device work (the eager glue): {n - grouped_n} device events, "
+              f"{other:.3f} ms busy, {other / wall:.3f} of the profiled wall")
+        spans = {}
+        for e in events:
+            if e.name.startswith("ppo.") and e.device_type == torch.autograd.DeviceType.CPU:
+                spans[e.name] = spans.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+        for span, ms in sorted(spans.items()):
+            print(f"  host span {span}: {ms:.3f} ms, {ms / wall:.3f} of the profiled wall")
     print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=8))
 
 
@@ -97,14 +137,25 @@ def main(argv=None) -> int:
         return lambda: reinmav_tpu_torch.control_rollout(env, small, gen, horizon,
                                                          collect_trajectory=collect)
 
+    from .rl import ppo
+
+    ppo_cfg = ppo.PpoConfig(num_envs=B_PPO, rollout_len=T_PPO, fused_update="off")
+    ppo_state = [ppo.init_train_state(env, ppo_cfg, seed=0, device="cuda")]
+
+    def ppo_update():
+        ppo_state[0], _ = ppo.train_step(env, ppo_cfg, ppo_state[0])
+
     throughput()
     control(5)()  # warm-up
+    for _ in range(2):
+        ppo_update()  # warm-up
     walls = {
         f"throughput_rollout {B_MAIN}x{T_MAIN}": _wall_ms(throughput, 5),
         f"control_rollout {B_QUICK}x{T_QUICK}": _wall_ms(control(T_QUICK), 3),
         f"control_rollout {B_QUICK}x{T_QUICK} no trajectory":
             _wall_ms(control(T_QUICK, collect=False), 2),
         f"control_rollout {B_QUICK}x{T_PROFILED}": _wall_ms(control(T_PROFILED), 3),
+        f"ppo train_step {B_PPO}x{T_PPO}": _wall_ms(ppo_update, 5),
     }
     for name, ms in walls.items():
         print(f"{name} wall ms: {[round(m, 3) for m in ms]}")
@@ -116,6 +167,8 @@ def main(argv=None) -> int:
              mean(f"throughput_rollout {B_MAIN}x{T_MAIN}"))
     _profile(f"control_rollout {B_QUICK}x{T_PROFILED}", control(T_PROFILED),
              mean(f"control_rollout {B_QUICK}x{T_PROFILED}"))
+    _profile(f"ppo train_step {B_PPO}x{T_PPO}", ppo_update, mean(f"ppo train_step {B_PPO}x{T_PPO}"),
+             KERNEL_GROUPS)
     return 0
 
 

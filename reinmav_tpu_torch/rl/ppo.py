@@ -1,0 +1,625 @@
+"""PPO learner of the PyTorch port.
+
+The counterpart of :mod:`reinmav_tpu.rl.ppo`: clipped surrogate (or the
+adaptive-KL penalty), GAE(lambda), minibatch epochs, value clipping, an
+entropy bonus, with the reference's defaults (ppo2's: lr 3e-4, gamma
+0.99, lambda 0.95, clip 0.2, 4 epochs, 4 minibatches), and the optimiser
+optax's ``chain(clip_by_global_norm(0.5), adam(lr, eps=1e-5))``.
+
+One update (:func:`train_step`) is the rollout followed by
+:func:`update_phase`.  The rollout runs in the K2 CUDA kernel
+(:mod:`reinmav_tpu_torch.ops.ppo_rollout`) when the states lie on the
+card and the env is the registry's quadrotor3d-v0, else as the eager
+loop :func:`collect_rollout`; each minibatch's loss gradient runs in the
+K3 CUDA kernel (:mod:`reinmav_tpu_torch.ops.ppo_loss`) on the card, else
+through ``torch.autograd`` of :func:`ppo_loss`.  ``train_step`` logs
+which paths ran and why.  The one-launch full update of the JAX package
+(K4, ``fused_update``) is not ported yet.
+
+State is functional as in the JAX package (each update returns a new
+:class:`TrainState`), with one exception: ``TrainState.generator``, a
+CPU ``torch.Generator`` in place of the PRNG key, advances in place.
+It draws only host integers (the rollout's seed, the shuffle), so an
+update never waits on the device for its random numbers.  Parameters,
+gradients and Adam moments are flat vectors in
+:class:`reinmav_tpu_torch.rl.networks.Layout` order.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import NamedTuple
+
+import torch
+from torch.profiler import record_function
+
+from ..envs.core import EnvDef, episode_boundary, fused_kernel_mismatch
+from ..ops import ppo_loss as loss_ops
+from ..ops import ppo_rollout as rollout_ops
+from ..ops.rollout import quad3d_params_vec
+from . import networks
+from .networks import Layout
+
+log = logging.getLogger(__name__)
+
+_K4_NOT_PORTED = ("fused_update: K4 (reinmav_tpu/ops/pallas_ppo_update.py::ppo_update_pallas, "
+                  "the one-launch full update) is not yet ported: ROADMAP.md queue 2")
+
+
+class PpoConfig(NamedTuple):
+    """The JAX package's ``PpoConfig``: the same fields and defaults (see
+    there for each).  ``compute_dtype="bfloat16"`` and ``fused_update="on"``
+    raise ``NotImplementedError`` here."""
+
+    num_envs: int = 1024
+    rollout_len: int = 128
+    learning_rate: float = 3e-4
+    gamma: float = 0.99
+    gae_lambda: float = 0.95
+    clip_eps: float = 0.2
+    value_clip_eps: float = 0.2
+    kl_target: float | None = None
+    entropy_coef: float = 0.0
+    log_std_floor: float | None = None
+    value_coef: float = 0.5
+    max_grad_norm: float = 0.5
+    num_epochs: int = 4
+    num_minibatches: int = 4
+    hidden: tuple = (64, 64)
+    normalize_obs: bool = True
+    normalize_rewards: bool = True
+    normalize_advantages: bool = True
+    compute_dtype: str = "float32"
+    shuffle_tile: int = 128
+    fused_loss: str = "auto"
+    fused_update: str = "auto"
+    fused_rollout: str = "auto"
+
+
+class ObsNorm(NamedTuple):
+    """Running observation normalisation (the VecNormalize role)."""
+
+    mean: torch.Tensor
+    var: torch.Tensor
+    count: torch.Tensor
+
+
+class RetNorm(NamedTuple):
+    """Running discounted-return scale for reward normalisation."""
+
+    var: torch.Tensor  # scalar
+    count: torch.Tensor  # scalar
+
+
+class AdamState(NamedTuple):
+    """optax ``ScaleByAdamState`` on the flat parameter vector."""
+
+    count: torch.Tensor  # int32 scalar
+    mu: torch.Tensor
+    nu: torch.Tensor
+
+
+class TrainState(NamedTuple):
+    params: torch.Tensor  # flat, networks.Layout order
+    opt_state: AdamState
+    env_states: torch.Tensor  # (B, D)
+    obs_norm: ObsNorm
+    ret_norm: RetNorm
+    env_returns: torch.Tensor  # (B,) running discounted returns
+    generator: torch.Generator  # CPU; host draws only (see the module docstring)
+    update_step: int
+    kl_beta: torch.Tensor  # adaptive-KL coefficient (used only with cfg.kl_target)
+
+
+class Transition(NamedTuple):
+    """One batched transition, feature axis first: ``obs``/``action``
+    ``(T, D|A, B)`` stacked, ``(D|A, n)`` flattened; scalars ``(T, B)`` /
+    ``(n,)``."""
+
+    obs: torch.Tensor
+    action: torch.Tensor
+    log_prob: torch.Tensor
+    value: torch.Tensor
+    reward: torch.Tensor
+    done: torch.Tensor
+
+
+class RawObsMoments(NamedTuple):
+    """Streaming raw moments gathered during a rollout."""
+
+    total: torch.Tensor
+    total_sq: torch.Tensor
+    count: torch.Tensor
+
+
+class Rollout(NamedTuple):
+    """What a rollout gives the update: ``final_states`` ``(B, D)``, the
+    carried ``env_returns``, the trajectory (``obs`` the normalised obs
+    the policy saw, ``reward`` the scaled reward), the RAW obs and return
+    moments, and the mean RAW reward."""
+
+    final_states: torch.Tensor
+    env_returns: torch.Tensor
+    traj: Transition
+    obs_moments: RawObsMoments
+    ret_moments: RawObsMoments
+    raw_reward_mean: torch.Tensor
+
+
+def _require_float32(cfg: PpoConfig) -> None:
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(networks._BF16_NOT_PORTED)
+
+
+def _normalize_t(obs_t, norm: ObsNorm):
+    """Transposed normalisation: ``obs_t`` is ``(D, *batch)``."""
+    shape = norm.mean.shape + (1,) * (obs_t.dim() - 1)
+    std = torch.sqrt(norm.var + 1e-8).reshape(shape)
+    return torch.clamp((obs_t - norm.mean.reshape(shape)) / std, -10.0, 10.0)
+
+
+def _update_obs_norm(norm: ObsNorm, moments: RawObsMoments) -> ObsNorm:
+    """Welford-style parallel update from the rollout's raw moments."""
+    b_count = moments.count
+    b_mean = moments.total / b_count
+    b_var = torch.clamp(moments.total_sq / b_count - torch.square(b_mean), min=0.0)
+    delta = b_mean - norm.mean
+    tot = norm.count + b_count
+    new_mean = norm.mean + delta * (b_count / tot)
+    m2 = torch.clamp(norm.var * norm.count + b_var * b_count
+                     + torch.square(delta) * norm.count * b_count / tot, min=0.0)
+    return ObsNorm(new_mean, m2 / tot, tot)
+
+
+def _update_ret_norm(norm: RetNorm, moments: RawObsMoments) -> RetNorm:
+    """Running variance of the discounted return (mean NOT subtracted)."""
+    b_count = moments.count
+    b_var = moments.total_sq / b_count
+    tot = norm.count + b_count
+    return RetNorm((norm.var * norm.count + b_var * b_count) / tot, tot)
+
+
+class ClipAdam(NamedTuple):
+    """optax ``chain(clip_by_global_norm(max_norm), adam(lr, eps))`` on flat
+    vectors, written as optax computes it: the gradient is scaled by
+    ``max_norm / norm`` only when its global norm is at least ``max_norm``
+    (``torch.nn.utils.clip_grad_norm_`` scales by ``max_norm / (norm +
+    1e-6)`` whenever it is called), then bias-corrected Adam with ``eps``
+    outside the square root."""
+
+    max_norm: float
+    lr: float
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-5
+
+    def init(self, params: torch.Tensor) -> AdamState:
+        return AdamState(torch.zeros((), dtype=torch.int32, device=params.device),
+                         torch.zeros_like(params), torch.zeros_like(params))
+
+    def update(self, grads: torch.Tensor, state: AdamState, params: torch.Tensor):
+        """One step: returns ``(new params, new state)``."""
+        g_norm = torch.linalg.vector_norm(grads)
+        g = torch.where(g_norm < self.max_norm, grads, grads / g_norm * self.max_norm)
+        mu = (1 - self.b1) * g + self.b1 * state.mu
+        nu = (1 - self.b2) * (g * g) + self.b2 * state.nu
+        count = state.count + 1
+        # 1 - b**count in float64, then the moments' type: in float32,
+        # 1 - f32(0.999) is off by 1.3e-5 relative at count 1.
+        c = count.to(torch.float64)
+        bc1 = 1 - torch.pow(torch.full_like(c, self.b1), c)
+        bc2 = 1 - torch.pow(torch.full_like(c, self.b2), c)
+        mu_hat = mu / bc1.to(mu.dtype)
+        nu_hat = nu / bc2.to(nu.dtype)
+        step = mu_hat / (torch.sqrt(nu_hat) + self.eps)
+        return params + (-self.lr) * step, AdamState(count, mu, nu)
+
+
+def make_optimizer(cfg: PpoConfig) -> ClipAdam:
+    return ClipAdam(cfg.max_grad_norm, cfg.learning_rate)
+
+
+def adam_state_from_jax(opt_state, device=None, dtype=torch.float32) -> AdamState:
+    """optax's ``(EmptyState, (ScaleByAdamState(count, mu, nu),
+    EmptyState))`` for ``chain(clip_by_global_norm, adam)``, leaves as
+    NumPy or JAX arrays -> the port's :class:`AdamState`."""
+    adam = opt_state[1][0]
+    return AdamState(torch.tensor(int(adam.count), dtype=torch.int32, device=device),
+                     networks.params_from_jax(adam.mu, device=device, dtype=dtype),
+                     networks.params_from_jax(adam.nu, device=device, dtype=dtype))
+
+
+def _device_generator(seed: int, device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def _draw_seed(generator: torch.Generator) -> int:
+    return int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
+
+
+def init_train_state(env: EnvDef, cfg: PpoConfig, seed: int = 0, device="cuda") -> TrainState:
+    """Fresh params (orthogonal init), optimiser, env states, normalisers;
+    on ``device`` (the card unless the caller asks for the CPU)."""
+    _require_float32(cfg)
+    generator = torch.Generator().manual_seed(seed)
+    layout = Layout(env.obs_dim, env.action_dim, cfg.hidden)
+    params = networks.init_params(layout, generator).to(device)
+    env_states = env.vreset(_device_generator(_draw_seed(generator), device), cfg.num_envs)
+    f32 = dict(dtype=torch.float32, device=device)
+    return TrainState(
+        params, make_optimizer(cfg).init(params), env_states,
+        ObsNorm(torch.zeros(env.obs_dim, **f32), torch.ones(env.obs_dim, **f32),
+                torch.tensor(1e-4, **f32)),
+        RetNorm(torch.tensor(1.0, **f32), torch.tensor(1e-4, **f32)),
+        torch.zeros(cfg.num_envs, **f32), generator, 0, torch.tensor(1.0, **f32))
+
+
+@torch.no_grad()
+def collect_rollout(env: EnvDef, cfg: PpoConfig, params, obs_norm: ObsNorm, ret_norm: RetNorm,
+                    env_states, env_returns, generator: torch.Generator) -> Rollout:
+    """``cfg.rollout_len`` policy + env steps as an eager loop in the
+    ``(D, B)`` layout (the JAX package's ``collect_rollout`` with
+    ``dense8=False``).  Noise and resets come from ``generator``, which
+    lives on the device of the states."""
+    tree = Layout(env.obs_dim, env.action_dim, cfg.hidden).unflatten(params)
+    batch = env_states.shape[0]
+    dtype, dev = env_states.dtype, env_states.device
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    omom = RawObsMoments(torch.zeros(env.obs_dim, dtype=dtype, device=dev),
+                         torch.zeros(env.obs_dim, dtype=dtype, device=dev), zero)
+    rmom = RawObsMoments(zero, zero, zero)
+    raw_rew_sum = zero
+    states_t, ret = env_states.T, env_returns
+    steps = []
+    for _ in range(cfg.rollout_len):
+        obs_t = states_t[:env.obs_dim]
+        if cfg.normalize_obs:
+            omom = RawObsMoments(omom.total + obs_t.sum(dim=1),
+                                 omom.total_sq + torch.square(obs_t).sum(dim=1),
+                                 omom.count + batch)
+        norm_obs = _normalize_t(obs_t, obs_norm) if cfg.normalize_obs else obs_t
+        action, log_prob, value = networks.sample_action_t(tree, norm_obs, generator)
+        out = env.autoreset_step_t(states_t, action, generator)
+        done = episode_boundary(out)
+        reward = out.reward
+        if cfg.normalize_rewards:
+            ret = ret * cfg.gamma + reward
+            rmom = RawObsMoments(rmom.total + ret.sum(), rmom.total_sq + torch.square(ret).sum(),
+                                 rmom.count + batch)
+            reward = torch.clamp(reward / torch.sqrt(ret_norm.var + 1e-8), -10.0, 10.0)
+            ret = ret * (1.0 - done.to(ret.dtype))
+        raw_rew_sum = raw_rew_sum + out.reward.sum()
+        steps.append(Transition(norm_obs, action, log_prob, value, reward, done))
+        states_t = out.state
+    traj = Transition(*(torch.stack(field) for field in zip(*steps)))
+    return Rollout(states_t.T, ret, traj, omom, rmom,
+                   raw_rew_sum / (cfg.rollout_len * batch))
+
+
+def _rollout_consts(params, layout: Layout, obs_norm: ObsNorm, ret_norm: RetNorm,
+                    gamma: float) -> torch.Tensor:
+    """K2's constants ``[obs_mean, obs_invstd, exp(log_std), sum(log_std),
+    1/sqrt(ret_var + 1e-8), gamma]`` as one float32 vector on the device."""
+    ls = params[layout.slices[("log_std",)]].to(torch.float32)
+    f32 = lambda t: t.to(torch.float32).reshape(-1)  # noqa: E731
+    return torch.cat([
+        f32(obs_norm.mean), f32(1.0 / torch.sqrt(obs_norm.var + 1e-8)), torch.exp(ls),
+        ls.sum().reshape(1), f32(1.0 / torch.sqrt(ret_norm.var + 1e-8)),
+        torch.full((1,), gamma, dtype=torch.float32, device=params.device)])
+
+
+@torch.no_grad()
+def collect_rollout_kernel(env: EnvDef, cfg: PpoConfig, params, obs_norm: ObsNorm,
+                           ret_norm: RetNorm, env_states, env_returns, seed: int) -> Rollout:
+    """The rollout through K2 (:func:`reinmav_tpu_torch.ops.ppo_rollout.ppo_rollout`):
+    the kernel on a CUDA tensor, its plain twin on a CPU one.  Same return
+    contract as :func:`collect_rollout`; the noise and resets come from the
+    kernel's Philox streams keyed by ``seed``."""
+    layout = Layout(env.obs_dim, env.action_dim, cfg.hidden)
+    out = rollout_ops.ppo_rollout(
+        env_states.T.to(torch.float32).contiguous(), env_returns.to(torch.float32).contiguous(),
+        seed, params.to(torch.float32).contiguous(),
+        _rollout_consts(params, layout, obs_norm, ret_norm, cfg.gamma), cfg.rollout_len,
+        params_vec=quad3d_params_vec(env.params), normalize_obs=cfg.normalize_obs,
+        normalize_rewards=cfg.normalize_rewards)
+    d = env.obs_dim
+    n = torch.tensor(float(cfg.rollout_len * env_states.shape[0]), device=env_states.device)
+    s = out.stats
+    traj = Transition(out.obs, out.action, out.log_prob, out.value, out.reward, out.done)
+    return Rollout(out.final_states.T, out.returns, traj,
+                   RawObsMoments(s[:d], s[d:2 * d], n), RawObsMoments(s[2 * d], s[2 * d + 1], n),
+                   s[2 * d + 2] / n)
+
+
+def compute_gae(cfg: PpoConfig, traj: Transition, last_value):
+    """GAE(lambda) with done-masked bootstrapping, a reverse loop over T."""
+    dtype = torch.promote_types(traj.value.dtype, traj.reward.dtype)
+    advantages = torch.empty(traj.value.shape, dtype=dtype, device=traj.value.device)
+    gae = torch.zeros_like(last_value, dtype=dtype)
+    next_value = last_value.to(dtype)
+    for t in range(traj.value.shape[0] - 1, -1, -1):
+        not_done = 1.0 - traj.done[t].to(dtype)
+        delta = traj.reward[t] + cfg.gamma * next_value * not_done - traj.value[t]
+        gae = delta + (cfg.gamma * cfg.gae_lambda) * not_done * gae
+        advantages[t] = gae
+        next_value = traj.value[t].to(dtype)
+    return advantages, advantages + traj.value
+
+
+def ppo_loss(params, cfg: PpoConfig, batch: Transition, advantages, returns,
+             compute_dtype=None, kl_beta=None):
+    """PPO loss on a transposed minibatch (``batch.obs`` ``(D, n)``),
+    ``params`` the pytree (:meth:`Layout.unflatten`).  Clipped surrogate,
+    or the adaptive-KL penalty when ``cfg.kl_target`` is set.  Returns
+    ``(total, metrics)``."""
+    mean, log_std, value = networks.apply_t(params, batch.obs, compute_dtype)
+    log_prob = networks.gaussian_log_prob_t(mean, log_std, batch.action)
+    ratio = torch.exp(log_prob - batch.log_prob)
+    if cfg.kl_target is not None:
+        kl = torch.mean(batch.log_prob - log_prob)
+        pg_loss = -torch.mean(ratio * advantages) + kl_beta * kl
+    else:
+        pg1 = ratio * advantages
+        pg2 = torch.clamp(ratio, 1.0 - cfg.clip_eps, 1.0 + cfg.clip_eps) * advantages
+        pg_loss = -torch.mean(torch.minimum(pg1, pg2))
+    v_clipped = batch.value + torch.clamp(value - batch.value, -cfg.value_clip_eps,
+                                          cfg.value_clip_eps)
+    v_loss = 0.5 * torch.mean(torch.maximum(torch.square(value - returns),
+                                            torch.square(v_clipped - returns)))
+    ent = networks.entropy(log_std)
+    total = pg_loss + cfg.value_coef * v_loss - cfg.entropy_coef * ent
+    metrics = {
+        "pg_loss": pg_loss,
+        "v_loss": v_loss,
+        "entropy": ent,
+        "approx_kl": torch.mean(batch.log_prob - log_prob),
+        "clip_frac": torch.mean(((ratio - 1.0).abs() > cfg.clip_eps).to(ratio.dtype)),
+    }
+    return total, metrics
+
+
+def shuffle_draws(generator: torch.Generator, n: int):
+    """The five integers ``(a1, b1, a2, b2, m)`` of the shuffle bijection
+    of ``[0, n)``, from the ranges the JAX package draws them from (``a1``
+    and ``a2`` odd in ``[1, n)``, the others in ``[0, n)``)."""
+
+    def draw(hi):
+        return int(torch.randint(0, hi, (1,), generator=generator))
+
+    return draw(n // 2) * 2 + 1, draw(n), draw(n // 2) * 2 + 1, draw(n), draw(n)
+
+
+def shuffle_from_draws(n: int, draws, device=None) -> torch.Tensor:
+    """The composed mul-odd / add / xor bijection mod ``n`` (a power of two)
+    given its five integers: ``((i*a1 + b1) & mask) ^ m``, then ``(j*a2 +
+    b2) & mask``.  Exact in int64, since ``i``, ``a`` < 2**31."""
+    a1, b1, a2, b2, m = (int(v) for v in draws)
+    mask = n - 1
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    j = ((i * a1 + b1) & mask) ^ m
+    return (j * a2 + b2) & mask
+
+
+def _shuffle_indices(generator: torch.Generator, n: int, device=None) -> torch.Tensor:
+    """A random permutation of ``[0, n)``: the bijection for a power of two
+    ``n > 1``, else ``torch.randperm``."""
+    if n > 1 and n & (n - 1) == 0:
+        return shuffle_from_draws(n, shuffle_draws(generator, n), device)
+    return torch.randperm(n, generator=generator).to(device)
+
+
+def _tiling(cfg: PpoConfig, n: int):
+    """The shuffle tile, halved until it divides the batch into the
+    minibatches and each minibatch draws from >= 64 tiles (the JAX
+    package's rule); returns ``(tile, n_tiles)``."""
+    tile = max(1, cfg.shuffle_tile)
+    while tile > 1 and (n % (cfg.num_minibatches * tile) != 0
+                        or n // tile < 64 * cfg.num_minibatches):
+        tile //= 2
+    return tile, n // tile
+
+
+def _rollout_refusal(cfg: PpoConfig, env: EnvDef):
+    """Why K2 cannot run this config and env (None = it can)."""
+    if tuple(cfg.hidden) != rollout_ops.HIDDEN:
+        return f"hidden {tuple(cfg.hidden)} != {rollout_ops.HIDDEN}"
+    return fused_kernel_mismatch(env, require_control=False, packed_params=True)
+
+
+def _loss_refusal(cfg: PpoConfig):
+    """Why K3 cannot run this config (None = it can)."""
+    if len(cfg.hidden) != 2 or cfg.hidden[0] != cfg.hidden[1]:
+        return f"hidden {tuple(cfg.hidden)} is not two equal layers"
+    return None
+
+
+def _choose(name: str, forced, mode: str, refusal, device: torch.device):
+    """(use the kernel path, how to log it) for one of K2/K3.  ``forced``:
+    the caller's True/False/None; ``mode``: the config's "auto"/"on"/"off".
+    "on" or True takes the kernel's wrapper (the plain twin on the CPU) and
+    raises where it cannot; "auto" takes it on a CUDA device only."""
+    if forced is None:
+        if mode not in ("auto", "on", "off"):
+            raise ValueError(f"{name}={mode!r}: expected 'auto', 'on' or 'off'")
+        forced = {"on": True, "off": False}.get(mode)
+    if forced is False:
+        return False, f"off ({name} disabled)"
+    if refusal is not None:
+        if forced:
+            raise ValueError(f"{name} refused: {refusal}")
+        return False, f"off ({refusal})"
+    if device.type == "cuda":
+        return True, "CUDA kernel"
+    if forced:
+        return True, f"plain twin (tensors on {device})"
+    return False, f"off (tensors on {device}, the kernel needs a CUDA device)"
+
+
+def update_phase(env: EnvDef, cfg: PpoConfig, state: TrainState, rollout: Rollout, perms,
+                 fused_loss: bool):
+    """The update after a rollout: GAE, then ``len(perms)`` epochs of
+    ``cfg.num_minibatches`` minibatches of clip + Adam, the normaliser
+    updates and the adaptive-KL coefficient.  ``perms``: one permutation
+    of the shuffle tiles per epoch.  ``fused_loss``: each minibatch's
+    gradient through K3 (:func:`reinmav_tpu_torch.ops.ppo_loss.ppo_loss_grads_gather`,
+    the kernel on the card, its twin on the CPU), else through
+    ``torch.autograd`` of :func:`ppo_loss`.  Returns ``(new state,
+    summary)``; the summary's values are 0-d tensors on the device."""
+    layout = Layout(env.obs_dim, env.action_dim, cfg.hidden)
+    traj = rollout.traj
+    T, d, batch = traj.obs.shape
+    adim = traj.action.shape[1]
+    n = T * batch
+
+    last_obs_t = rollout.final_states.T[:env.obs_dim]
+    last_norm = _normalize_t(last_obs_t, state.obs_norm) if cfg.normalize_obs else last_obs_t
+    with torch.no_grad(), record_function("ppo.gae"):
+        _, _, last_value = networks.apply_t(layout.unflatten(state.params), last_norm)
+        advantages, returns = compute_gae(cfg, traj, last_value)
+
+    # Flatten to the transposed sample axis, sample t * B + b.
+    def flat_d(x):  # (T, D, B) -> (D, n)
+        return x.permute(1, 0, 2).reshape(x.shape[1], n)
+
+    flat = Transition(flat_d(traj.obs), flat_d(traj.action), traj.log_prob.reshape(n),
+                      traj.value.reshape(n), traj.reward.reshape(n), traj.done.reshape(n))
+    flat_adv, flat_ret = advantages.reshape(n), returns.reshape(n)
+    tile, n_tiles = _tiling(cfg, n)
+    if fused_loss:
+        data_full = loss_ops.stack_batch(flat.obs, flat.action, flat.log_prob, flat.value,
+                                         flat_adv, flat_ret)
+    kl_mode = cfg.kl_target is not None
+    zero = torch.zeros((), dtype=torch.float32, device=state.params.device)
+    beta = state.kl_beta.to(torch.float32) if kl_mode else zero
+    ls_slice = layout.slices[("log_std",)]
+
+    def loss_grads(tidx, params):
+        """One minibatch's loss gradient and metrics (0-d tensors)."""
+        cols = loss_ops._gather_columns(tidx, tile)
+        if fused_loss:
+            if cfg.normalize_advantages:
+                adv_mb = flat_adv[cols]
+                adv_stats = torch.stack([adv_mb.mean(), 1.0 / (adv_mb.std(unbiased=False) + 1e-8),
+                                         beta, zero]).to(torch.float32)
+            else:
+                adv_stats = torch.stack([zero, zero + 1.0, beta, zero])
+            grads, metrics = loss_ops.ppo_loss_grads_gather(
+                data_full, adv_stats, tidx.to(torch.int32), params.to(torch.float32),
+                d=d, adim=adim, clip_eps=cfg.clip_eps, value_clip_eps=cfg.value_clip_eps,
+                value_coef=cfg.value_coef, ent_coef=cfg.entropy_coef, tile=tile,
+                kl_mode=kl_mode, hidden=cfg.hidden[0])
+            return grads, {**metrics, "entropy": networks.entropy(params[ls_slice])}
+        mb = Transition(flat.obs[:, cols], flat.action[:, cols], flat.log_prob[cols],
+                        flat.value[cols], flat.reward[cols], flat.done[cols])
+        adv = flat_adv[cols]
+        if cfg.normalize_advantages:
+            adv = (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-8)
+        p = params.detach().requires_grad_(True)
+        loss, metrics = ppo_loss(layout.unflatten(p), cfg, mb, adv, flat_ret[cols], None,
+                                 state.kl_beta)
+        (grads,) = torch.autograd.grad(loss, p)
+        return grads, {k: v.detach() for k, v in metrics.items()}
+
+    optimizer = make_optimizer(cfg)
+    params, opt_state = state.params, state.opt_state
+    epochs = []
+    for perm in perms:
+        if perm.shape != (n_tiles,):
+            raise ValueError(f"a permutation of the {n_tiles} tiles expected, got {tuple(perm.shape)}")
+        minibatches = []
+        for tidx in perm.reshape(cfg.num_minibatches, n_tiles // cfg.num_minibatches):
+            with record_function("ppo.loss_grads"):
+                grads, metrics = loss_grads(tidx, params)
+            with record_function("ppo.optimizer"):
+                params, opt_state = optimizer.update(grads, opt_state, params)
+                if cfg.log_std_floor is not None:
+                    params = torch.cat([params[:ls_slice.start],
+                                        torch.clamp(params[ls_slice], min=cfg.log_std_floor),
+                                        params[ls_slice.stop:]])
+            minibatches.append(metrics)
+        epochs.append(minibatches)
+    stacked = {k: torch.stack([torch.stack([m[k] for m in mbs]) for mbs in epochs])
+               for k in epochs[0][0]} if epochs else {}
+
+    obs_norm = (_update_obs_norm(state.obs_norm, rollout.obs_moments) if cfg.normalize_obs
+                else state.obs_norm)
+    ret_norm = (_update_ret_norm(state.ret_norm, rollout.ret_moments) if cfg.normalize_rewards
+                else state.ret_norm)
+    kl_beta = state.kl_beta
+    if kl_mode and stacked:
+        measured = stacked["approx_kl"][-1].mean()  # the last epoch's KL (baselines ppo1)
+        kl_beta = torch.where(measured > 1.5 * cfg.kl_target, kl_beta * 2.0,
+                              torch.where(measured < cfg.kl_target / 1.5, kl_beta * 0.5, kl_beta))
+        kl_beta = torch.clamp(kl_beta, 1e-4, 64.0)
+    new_state = state._replace(params=params, opt_state=opt_state,
+                               env_states=rollout.final_states, obs_norm=obs_norm,
+                               ret_norm=ret_norm, env_returns=rollout.env_returns,
+                               update_step=state.update_step + 1, kl_beta=kl_beta)
+    summary = {"mean_reward": rollout.raw_reward_mean,
+               "mean_episode_done_frac": traj.done.to(torch.float32).mean(),
+               **{k: v.mean() for k, v in stacked.items()}}
+    return new_state, summary
+
+
+def train_step(env: EnvDef, cfg: PpoConfig, state: TrainState, fused_rollout: bool | None = None,
+               fused_loss: bool | None = None, fused_update: bool | None = None):
+    """One PPO update: the rollout (K2 or the eager loop), then
+    :func:`update_phase` (each minibatch through K3 or autograd).
+
+    ``fused_rollout`` / ``fused_loss``: None follows ``cfg.fused_rollout``
+    / ``cfg.fused_loss`` ("auto" takes the CUDA kernel where the states
+    lie on the card and the config is supported, "on" the kernel's
+    wrapper, which runs its plain twin on the CPU, "off" the eager
+    path); True / False force.  ``fused_update`` "on" (or True) raises
+    ``NotImplementedError``: K4 is not ported, and "auto" runs the
+    per-minibatch loop.  Logs which paths ran and why."""
+    _require_float32(cfg)
+    if fused_update is None:
+        if cfg.fused_update not in ("auto", "on", "off"):
+            raise ValueError(f"fused_update={cfg.fused_update!r}: expected 'auto', 'on' or 'off'")
+        fused_update = cfg.fused_update == "on"
+    if fused_update:
+        raise NotImplementedError(_K4_NOT_PORTED)
+    device = state.env_states.device
+    use_k2, rollout_how = _choose("fused_rollout", fused_rollout, cfg.fused_rollout,
+                                  _rollout_refusal(cfg, env), device)
+    use_k3, loss_how = _choose("fused_loss", fused_loss, cfg.fused_loss,
+                               _loss_refusal(cfg), device)
+    passes = cfg.num_epochs * cfg.num_minibatches
+    log.info("train_step(%s, B=%d, T=%d): rollout: %s; loss: %s; update: %d minibatch steps "
+             "of clip + Adam (%s)", env.name, state.env_states.shape[0], cfg.rollout_len,
+             f"K2 {rollout_how}" if use_k2 else f"eager loop, K2 {rollout_how}",
+             f"K3 {loss_how}, {passes} launches" if use_k3 else f"autograd, K3 {loss_how}",
+             passes, f"fused_update={cfg.fused_update!r}: K4 not yet ported")
+
+    seed = _draw_seed(state.generator)
+    with record_function("ppo.rollout"):
+        if use_k2:
+            rollout = collect_rollout_kernel(env, cfg, state.params, state.obs_norm,
+                                             state.ret_norm, state.env_states, state.env_returns,
+                                             seed)
+        else:
+            rollout = collect_rollout(env, cfg, state.params, state.obs_norm, state.ret_norm,
+                                      state.env_states, state.env_returns,
+                                      _device_generator(seed, device))
+    with record_function("ppo.shuffle"):
+        _, n_tiles = _tiling(cfg, cfg.rollout_len * state.env_states.shape[0])
+        perms = [_shuffle_indices(state.generator, n_tiles, device)
+                 for _ in range(cfg.num_epochs)]
+    return update_phase(env, cfg, state, rollout, perms, use_k3)
+
+
+def train_many(env: EnvDef, cfg: PpoConfig, state: TrainState, num_updates: int,
+               fused_rollout: bool | None = None, fused_loss: bool | None = None):
+    """``num_updates`` :func:`train_step` calls in a plain loop.  Returns
+    the final state and the per-update metrics averaged over the updates
+    (0-d tensors on the device)."""
+    summaries = []
+    for _ in range(num_updates):
+        state, summary = train_step(env, cfg, state, fused_rollout=fused_rollout,
+                                    fused_loss=fused_loss)
+        summaries.append(summary)
+    if not summaries:
+        return state, {}
+    return state, {k: torch.stack([s[k] for s in summaries]).mean() for k in summaries[0]}
+

@@ -171,6 +171,22 @@ def test_fused_kernel_mismatch():
     assert core.fused_kernel_mismatch(other) == "no fused kernel for quadrotor2d-v0"
 
 
+def test_fused_kernel_mismatch_for_policy_kernels():
+    """The JAX signature's require_control / packed_params
+    (reinmav_tpu/envs/core.py:432-475): K2 drives the env with the policy,
+    so a replaced controller is no reason to refuse it; a kernel that bakes
+    the default Params refuses any other values."""
+    env = quadrotor3d.make()
+    new_ctrl = dataclasses.replace(env, control_fn=lambda p, s: quadrotor3d.control(p, s))
+    assert core.fused_kernel_mismatch(new_ctrl, require_control=False) is None
+    wrapped = dataclasses.replace(env, reset_fn=lambda *a: quadrotor3d.reset(*a))
+    assert "wrapped" in core.fused_kernel_mismatch(wrapped, require_control=False)
+    swept = quadrotor3d.make(quadrotor3d.Params(ref_z=1.0))
+    assert core.fused_kernel_mismatch(swept, packed_params=True) is None
+    assert "non-default params" in core.fused_kernel_mismatch(swept, packed_params=False)
+    assert core.fused_kernel_mismatch(env, packed_params=False) is None
+
+
 def test_registry_unknown_id_raises_same_keyerror_as_jax():
     with pytest.raises(KeyError) as t_err:
         reinmav_tpu_torch.make("nope-v0")
@@ -208,8 +224,30 @@ def test_throughput_rollout_dispatch_on_cpu(envs, rng, caplog):
 
 def test_import_leaves_jax_out():
     code = ("import sys, reinmav_tpu_torch, reinmav_tpu_torch.ops.rollout, "
+            "reinmav_tpu_torch.ops.ppo_rollout, reinmav_tpu_torch.ops.ppo_loss, "
+            "reinmav_tpu_torch.rl.ppo, reinmav_tpu_torch.profile_main_path, "
             "reinmav_tpu_torch._build; print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'reinmav_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, check=True, timeout=120)
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_library_name_hashes_sources_and_headers(tmp_path, monkeypatch):
+    """An edited source or shared header names a new library, so a stale
+    build is never reused; the K2 and K3 entry points are declared."""
+    from reinmav_tpu_torch import _build
+
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for f in _build.SRC_DIR.iterdir():
+        (src / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "SRC_DIR", src)
+    names = {_build._library_path().name}
+    header = src / "quad3d_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    names.add(_build._library_path().name)
+    (src / "ppo_loss.cu").write_text((src / "ppo_loss.cu").read_text() + "\n")
+    names.add(_build._library_path().name)
+    assert len(names) == 3
+    assert {"ppo_rollout_launch", "ppo_loss_launch", "ppo_loss_blocks"} <= set(_build._SIGNATURES)
