@@ -35,6 +35,23 @@ Phases, in order; any failure raises and exits non-zero:
    launch once and K3 16 times per update, and the metrics must be
    finite.  The same 7 updates from the same state through the eager
    rollout and autograd must give each update's mean_reward within 10%.
+10. Kernel K4 (the whole PPO update in one cooperative launch) on the
+   phase-7 trajectory, one update of 4 epochs x 4 minibatches of 262,144
+   samples: against its plain twin (params, Adam moments, metrics; the
+   entries outside rtol 2e-4 / atol 1e-6 are counted), against the loop of
+   16 K3 launches + ClipAdam (whose per-pass sums are K4's), pass 0's
+   gradient bitwise equal to one K3 launch, a rerun bitwise equal; K4 and
+   its twin timed.
+11. The default training path: PpoConfig(num_envs=32768, rollout_len=32)
+   through rl.ppo.train_step, 2 warm-up and 5 timed updates.  K2 and K4
+   must launch once per update and K3 never; each update's mean_reward
+   within 10% of the fused_update="off" path's from the same state.  A
+   resume at that size: 2 updates, a checkpoint, a restore into a state
+   of another seed and 2 more must be bitwise the 4 uninterrupted ones.
+   Then the CLI, python -m reinmav_tpu_torch.rl.run, in a subprocess: 10
+   updates at that size with an evaluation every 5 and a checkpoint under
+   chiprun_out/, then --load_path ... --play --play_steps=200; both must
+   exit 0.
 
 The second-to-last line is a JSON object describing each kernel of the
 paths: its launches on its main path, its error against its twin, its
@@ -53,6 +70,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 TOL = dict(rtol=2e-4, atol=2e-5)  # the JAX kernel tests' float32 tolerances
 RTOL_REWARD = 1e-4
@@ -75,7 +93,13 @@ PEAK_BYTES_PER_S = 3.35e12
 # 64*1) = 19,584 (tanh, the env step and Philox not counted).  K3, per
 # sample: that forward (9,792 FMA) and the backward's products, dW_out and
 # dh2 (2 * 320), dW2 and dh1 (2 * 8192), dW1 (1280): 28,096 FMA = 56,192.
+# K4: K3's count per sample of each pass (the optimiser's ~10k-entry
+# vectors are negligible).
 OPS_K1, OPS_K2, OPS_K3 = 150, 19_584, 56_192
+UPDATE_TOL = dict(rtol=2e-4, atol=1e-6)  # tests/test_pallas_ppo_update.py's own
+MOMENT_TOL = dict(rtol=2e-4, atol=5e-8)
+UPDATE_METRIC_TOL = dict(rtol=1e-4, atol=1e-6)
+CLI_UPDATES, PLAY_STEPS = 10, 200
 
 
 def say(msg: str) -> None:
@@ -136,10 +160,224 @@ def _mismatched_envs(torch, a, b):
     return bad | ~torch.isclose(a.returns, b.returns, **TOL)
 
 
+def count_outside(a, b, tol) -> int:
+    """Entries of ``a`` outside ``tol`` of ``b``."""
+    import torch
+
+    return int((~torch.isclose(a, b, **tol)).sum())
+
+
+def k4_phase(torch, dev, gpu: str, cfg, params, data, adv, tile: int, n_tiles: int) -> dict:
+    """Phase 10: K4 on the phase-7 trajectory, one 4 x 4 update from the
+    rollout's own params (so pass 0's ratios are 1, as in training).
+    Returns K4's timings and errors for the ``kernels`` line."""
+    from reinmav_tpu_torch.ops import ppo_loss as pl
+    from reinmav_tpu_torch.ops import ppo_update as pu
+    from reinmav_tpu_torch.rl import ppo
+
+    n = data.shape[1]
+    e_, m_ = cfg.num_epochs, cfg.num_minibatches
+    n_passes, tpm = e_ * m_, n_tiles // m_
+    gen = torch.Generator().manual_seed(9)
+    perm_all = torch.cat([ppo._shuffle_indices(gen, n_tiles, dev)
+                          for _ in range(e_)]).to(torch.int32).contiguous()
+    adv_stats = ppo.pass_adv_stats(adv.reshape(n), perm_all, tile, n_passes, True)
+    params = params.contiguous()
+    opt = ppo.make_optimizer(cfg).init(params)
+    kw = dict(d=10, adim=4, tile=tile, n_minibatches=m_, n_epochs=e_, clip_eps=cfg.clip_eps,
+              value_clip_eps=cfg.value_clip_eps, value_coef=cfg.value_coef,
+              ent_coef=cfg.entropy_coef, lr=cfg.learning_rate, max_grad_norm=cfg.max_grad_norm)
+    k4_run = lambda: pu.ppo_update(data, adv_stats, perm_all, params, opt, None,  # noqa: E731
+                                   keep_grad0=True, **kw)
+    k4_plain = lambda: pu.ppo_update_reference(data, adv_stats, perm_all, params,  # noqa: E731
+                                               opt, None, **kw)
+    k4_run()
+    k4_plain()  # warm-ups
+    torch.cuda.synchronize()
+    p0, (tw_params, tw_opt, tw_sums, tw_grad0) = cuda_ms(k4_plain, 10)
+    kern0, k = cuda_ms(k4_run, 10)
+    kern1, _ = cuda_ms(k4_run, 10)
+    p1, _ = cuda_ms(k4_plain, 10)
+    mb = tpm * tile
+    tw_metrics = pu._metric_means(tw_sums, n_passes, m_, mb, False)
+
+    # Against the twin.
+    errs = {name: (float((a - b).abs().max()), count_outside(a, b, UPDATE_TOL))
+            for name, a, b in (("params", k.params, tw_params), ("mu", k.opt_state.mu, tw_opt.mu),
+                               ("nu", k.opt_state.nu, tw_opt.nu))}
+    say(f"K4 vs twin, one update of {e_} x {m_} passes of {mb} samples (tile {tile}): "
+        + ", ".join(f"{name} max |err| {e:.3e}, {c} of {k.params.numel()} outside rtol 2e-4 "
+                    f"atol 1e-6" for name, (e, c) in errs.items()))
+    require(torch.allclose(k.params, tw_params, **UPDATE_TOL) and
+            torch.allclose(k.opt_state.mu, tw_opt.mu, **MOMENT_TOL) and
+            torch.allclose(k.opt_state.nu, tw_opt.nu, **MOMENT_TOL),
+            f"K4 vs twin: params or moments out of tolerance ({errs})")
+    require(int(k.opt_state.count) == int(tw_opt.count) == n_passes, "K4 Adam count")
+    for name, v in tw_metrics.items():
+        require(torch.allclose(k.metrics[name], v, **UPDATE_METRIC_TOL), f"K4 vs twin, {name}")
+    grad0_err = float((k.grad0 - tw_grad0).abs().max())
+    require(torch.allclose(k.grad0, tw_grad0, **GRAD_TOL), "K4 pass-0 gradient vs twin")
+
+    # Pass 0's gradient, bitwise one K3 launch on the same minibatch.
+    zero = torch.zeros((), device=dev)
+    k3_stats = lambda q: torch.stack([adv_stats[q, 0], adv_stats[q, 1], zero, zero])  # noqa: E731
+    loss_kw = dict(d=10, adim=4, clip_eps=cfg.clip_eps, value_clip_eps=cfg.value_clip_eps,
+                   value_coef=cfg.value_coef, ent_coef=cfg.entropy_coef, tile=tile)
+    g3, _ = pl.ppo_loss_grads_gather(data, k3_stats(0).contiguous(), perm_all[:tpm].contiguous(),
+                                     params, **loss_kw)
+    require(torch.equal(k.grad0, g3), "K4 pass-0 gradient bitwise equal to K3's")
+
+    # Against the loop of 16 K3 launches + ClipAdam: the same per-pass sums.
+    optimizer = ppo.make_optimizer(cfg)
+    lp, lopt = params, opt
+    for q in range(n_passes):
+        g, _ = pl.ppo_loss_grads_gather(data, k3_stats(q).contiguous(),
+                                        perm_all[q * tpm:(q + 1) * tpm].contiguous(), lp, **loss_kw)
+        lp, lopt = optimizer.update(g, lopt, lp)
+    loop_err = float((k.params - lp).abs().max())
+    require(torch.allclose(k.params, lp, **UPDATE_TOL),
+            f"K4 vs the K3 loop, params ({count_outside(k.params, lp, UPDATE_TOL)} outside)")
+    require(torch.allclose(k.opt_state.mu, lopt.mu, **MOMENT_TOL) and
+            torch.allclose(k.opt_state.nu, lopt.nu, **MOMENT_TOL), "K4 vs the K3 loop, moments")
+    again = k4_run()
+    require(torch.equal(k.params, again.params) and
+            all(torch.equal(a, b) for a, b in zip(k.opt_state, again.opt_state)) and
+            all(torch.equal(k.metrics[x], again.metrics[x]) for x in k.metrics),
+            "K4 bitwise determinism")
+    say(f"K4 pass-0 gradient: bitwise equal to one K3 launch, max |err| {grad0_err:.3e} against "
+        f"the twin's (rtol 2e-3 atol 2e-6); params and moments within tolerance of the twin; vs "
+        f"the K3 loop max |err| {loop_err:.3e} (rtol 2e-4 atol 1e-6, moments atol 5e-8); metrics "
+        f"{', '.join(f'{x} {float(v):.5g}' for x, v in k.metrics.items())} (rtol 1e-4 atol "
+        f"1e-6 of the twin); bitwise equal on a rerun: ok")
+    ms, plain_ms = statistics.median(kern0 + kern1), statistics.median(p0 + p1)
+    bound_ms, bound_by = bound(
+        nbytes(data, perm_all, adv_stats, params, opt.mu, opt.nu, k.params, k.opt_state.mu,
+               k.opt_state.nu, k.grad0) + 4 * pu.N_METRIC_SUMS, OPS_K3 * mb * n_passes)
+    say(f"time K4 {e_} x {m_} passes of {mb}: {ms:.4f} ms (median of 20 launches, each "
+        f"{min(kern0 + kern1):.4f} to {max(kern0 + kern1):.4f}), twin {plain_ms:.3f} ms (median of "
+        f"20), bound {bound_ms:.4f} ms by {bound_by}, on {gpu}")
+    return dict(max_abs_err=errs["params"][0], outside=errs["params"][1], ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                at=f"{n_passes} passes of {mb} samples gathered in tiles of {tile} from {n}")
+
+
+def training_phase(torch, dev, gpu: str, env, cfg, label: str, **train_kw):
+    """Drive 2 warm-up and 5 timed updates of ``train_step`` from seed 0,
+    with every kernel count set to 0 just before; returns the launch
+    counts, the walls and the summaries."""
+    from reinmav_tpu_torch.ops import ppo_loss as pl
+    from reinmav_tpu_torch.ops import ppo_rollout as pr
+    from reinmav_tpu_torch.ops import ppo_update as pu
+    from reinmav_tpu_torch.ops import rollout as ro
+    from reinmav_tpu_torch.rl import ppo
+
+    state = ppo.init_train_state(env, cfg, seed=0, device=dev)
+    counters = {"K1": ro.quad3d_rollout_autoreset, "K2": pr.ppo_rollout,
+                "K3": pl.ppo_loss_grads_gather, "K4": pu.ppo_update}
+    for fn in counters.values():
+        fn.launches = 0
+    walls, summaries = [], []
+    for _ in range(WARMUP_UPDATES + TIMED_UPDATES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, summary = ppo.train_step(env, cfg, state, **train_kw)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        summaries.append({k: float(v) for k, v in summary.items()})
+    launches = {name: fn.launches for name, fn in counters.items()}
+    require(all(math.isfinite(v) for s in summaries for v in s.values()), f"{label}: finite metrics")
+    for i, s in enumerate(summaries):
+        say(f"{label} update {i} ({'warm-up' if i < WARMUP_UPDATES else 'timed'}): wall "
+            f"{walls[i]:.2f} ms, {B_PPO * T_PPO / walls[i] * 1e3:.4e} env-steps/s on {gpu}; " +
+            ", ".join(f"{k} {v:.5g}" for k, v in s.items()))
+    return launches, walls, summaries
+
+
+def _leaves(tree):
+    """Every tensor and scalar of a state tree, a generator as its state."""
+    import torch
+
+    if isinstance(tree, torch.Generator):
+        return [tree.get_state()]
+    if isinstance(tree, tuple):
+        return [leaf for field in tree for leaf in _leaves(field)]
+    return [tree]
+
+
+def resume_phase(torch, dev, gpu: str, env, cfg) -> None:
+    """A resumed run is bitwise the uninterrupted one: 4 updates of
+    ``train_step`` straight, against 2, a checkpoint, a restore into a
+    state of another seed, and 2 more."""
+    from reinmav_tpu_torch.rl import ppo
+    from reinmav_tpu_torch.utils import checkpoint as ckpt
+
+    path = str(Path(__file__).resolve().parent / "chiprun_out" / "smoke_resume_ckpt")
+    ref = ppo.init_train_state(env, cfg, seed=4, device=dev)
+    for _ in range(4):
+        ref, _ = ppo.train_step(env, cfg, ref)
+    state = ppo.init_train_state(env, cfg, seed=4, device=dev)
+    for _ in range(2):
+        state, _ = ppo.train_step(env, cfg, state)
+    ckpt.save(path, state)
+    del state
+    restored = ckpt.restore(path, ppo.init_train_state(env, cfg, seed=5, device=dev))
+    require(restored.params.device == dev and restored.opt_state.count.device == dev,
+            "resume: the restored state is not on the card")
+    for _ in range(2):
+        restored, _ = ppo.train_step(env, cfg, restored)
+    a, b = _leaves(ref), _leaves(restored)
+    require(len(a) == len(b) and restored.update_step == ref.update_step == 4, "resume: structure")
+    for i, (x, y) in enumerate(zip(a, b)):
+        same = (x.dtype == y.dtype and x.device == y.device and torch.equal(x, y)
+                if isinstance(x, torch.Tensor) else x == y)
+        require(same, f"resume: leaf {i} differs from the uninterrupted run's")
+    say(f"resume, B={B_PPO} T={T_PPO}: 2 updates + checkpoint + restore into a seed-5 state + 2 "
+        f"updates bitwise equal to 4 uninterrupted ({len(a)} leaves: params, Adam count and "
+        f"moments, env states, normalisers, generator, kl_beta) on {gpu}: ok")
+
+
+def cli_phase(gpu: str) -> None:
+    """The training CLI in subprocesses: train with evaluation and a
+    checkpoint, then play."""
+    root = Path(__file__).resolve().parent
+    ck = root / "chiprun_out" / "smoke_cli_ckpt"
+    base = [sys.executable, "-m", "reinmav_tpu_torch.rl.run", "--env=quadrotor3d-v0",
+            f"--num_env={B_PPO}", f"--rollout_len={T_PPO}"]
+    runs = {"train": [*base, f"--num_timesteps={CLI_UPDATES * B_PPO * T_PPO}", "--log_interval=5",
+                      "--eval_interval=5", "--eval_envs=256", f"--eval_horizon={PLAY_STEPS}",
+                      f"--save_path={ck}"],
+            "play": [*base, f"--load_path={ck}", "--play", f"--play_steps={PLAY_STEPS}"]}
+    for name, cmd in runs.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=root)
+        lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
+        if proc.returncode != 0:
+            raise RuntimeError(f"the CLI ({name}) exited {proc.returncode}:\n{proc.stdout[-3000:]}"
+                               f"\n{proc.stderr[-3000:]}")
+        rows = [json.loads(line) for line in lines]
+        require(bool(rows), f"the CLI ({name}) printed no JSON line")
+        if name == "train":
+            train = [row for row in rows if "env_steps" in row]
+            evals = [row for row in rows if "eval_survival_frac" in row]
+            require(bool(train) and train[-1]["env_steps"] == CLI_UPDATES * B_PPO * T_PPO and
+                    all(math.isfinite(v) for v in train[-1].values()), "the CLI's last metrics")
+            require(len(evals) == CLI_UPDATES // 5 and
+                    all(0.0 <= row["eval_survival_frac"] <= 1.0 and
+                        math.isfinite(row["eval_running_return"]) for row in evals),
+                    f"the CLI's evaluation lines {evals}")
+            shown = [train[-1], evals[-1]]
+        else:
+            require(rows[-1]["play_steps"] == PLAY_STEPS, "the CLI's play line")
+            shown = rows[-1:]
+        say(f"cli {name}: exit 0 in {time.perf_counter() - t0:.1f} s on {gpu}; last lines "
+            f"{' '.join(json.dumps(row) for row in shown)}")
+
+
 def ppo_phases(torch, dev, gpu: str, env) -> list[dict]:
-    """Phases 7-9: K2 and K3 against their twins at the training path's
-    shapes, then the training path through the public API.  Returns the
-    two kernels' entries of the ``kernels`` line."""
+    """Phases 7-11: K2, K3 and K4 against their twins at the training
+    path's shapes, the K3-loop training path, the default (K4) training
+    path and the CLI.  Returns the three kernels' entries of the
+    ``kernels`` line."""
     from reinmav_tpu_torch.ops import ppo_loss as pl
     from reinmav_tpu_torch.ops import ppo_rollout as pr
     from reinmav_tpu_torch.ops import rollout as ro
@@ -246,30 +484,20 @@ def ppo_phases(torch, dev, gpu: str, env) -> list[dict]:
     say(f"time K3 minibatch {mb}: {k3_ms:.4f} ms (median of 20 launches, each {min(kern):.4f} "
         f"to {max(kern):.4f}), twin {k3_plain_ms:.3f} ms (median of 6), bound {k3_bound:.4f} ms "
         f"by {k3_by}, on {gpu}")
+    # 10. K4 on the same trajectory, from the rollout's own params.
+    k4 = k4_phase(torch, dev, gpu, cfg, params, data, adv, tile, n_tiles)
     del out, ref, again, data, traj, adv, ret
     torch.cuda.empty_cache()
 
-    # 9. The training path through the public API.
-    state = ppo.init_train_state(env, cfg, seed=0, device=dev)
-    ro.quad3d_rollout_autoreset.launches = 0
-    pr.ppo_rollout.launches = 0
-    pl.ppo_loss_grads_gather.launches = 0
-    walls, summaries = [], []
-    for _ in range(WARMUP_UPDATES + TIMED_UPDATES):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, summary = ppo.train_step(env, cfg, state)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        summaries.append({k: float(v) for k, v in summary.items()})
-    k2_launches, k3_launches = pr.ppo_rollout.launches, pl.ppo_loss_grads_gather.launches
+    # 9. The training path through the public API, with the update as a
+    # loop of 16 minibatch steps through K3 (fused_update="off").
+    launches, walls, summaries = training_phase(torch, dev, gpu, env, cfg, "ppo update (K3 loop)")
+    k3_launches = launches["K3"]
     updates = WARMUP_UPDATES + TIMED_UPDATES
     passes = cfg.num_epochs * cfg.num_minibatches
-    require(k2_launches == updates, f"K2 launches {k2_launches}, expected one per update")
-    require(k3_launches == updates * passes,
-            f"K3 launches {k3_launches}, expected {passes} per update")
-    require(ro.quad3d_rollout_autoreset.launches == 0, "the training path launched K1")
-    require(all(math.isfinite(v) for s in summaries for v in s.values()), "finite metrics")
+    require(launches == {"K1": 0, "K2": updates, "K3": updates * passes, "K4": 0},
+            f"launches {launches} on the K3 loop path, expected K2 {updates}, K3 "
+            f"{updates * passes}")
 
     # The same updates from the same state through the eager rollout and
     # autograd, the JAX scan path's counterpart: the kernels' path must
@@ -280,29 +508,46 @@ def ppo_phases(torch, dev, gpu: str, env) -> list[dict]:
     for _ in range(updates):
         eager, summary = ppo.train_step(env, cfg, eager, fused_rollout=False, fused_loss=False)
         eager_rewards.append(float(summary["mean_reward"]))
-    require(pr.ppo_rollout.launches == k2_launches and
+    require(pr.ppo_rollout.launches == launches["K2"] and
             pl.ppo_loss_grads_gather.launches == k3_launches, "the eager path launched K2 or K3")
-    rewards = [s["mean_reward"] for s in summaries]
-    for r, e in zip(rewards, eager_rewards):
-        require(abs(r - e) <= 0.1 * abs(e), f"mean_reward {rewards} vs eager {eager_rewards}")
-    say(f"mean_reward per update, kernels {[round(r, 4) for r in rewards]}, eager rollout + "
+    loop_rewards = [s["mean_reward"] for s in summaries]
+    for r, e in zip(loop_rewards, eager_rewards):
+        require(abs(r - e) <= 0.1 * abs(e), f"mean_reward {loop_rewards} vs eager {eager_rewards}")
+    say(f"mean_reward per update, kernels {[round(r, 4) for r in loop_rewards]}, eager rollout + "
         f"autograd from the same state {[round(e, 4) for e in eager_rewards]} (rtol 0.1): ok")
     timed = walls[WARMUP_UPDATES:]
-    for i, s in enumerate(summaries):
-        say(f"ppo update {i} ({'warm-up' if i < WARMUP_UPDATES else 'timed'}): wall "
-            f"{walls[i]:.2f} ms, {B_PPO * T_PPO / walls[i] * 1e3:.4e} env-steps/s on {gpu}; " +
-            ", ".join(f"{k} {v:.5g}" for k, v in s.items()))
-    say(f"ppo training path B={B_PPO} T={T_PPO}, {passes} minibatch steps per update: "
-        f"K2 launches {k2_launches}, K3 launches {k3_launches} over {updates} updates; timed "
-        f"updates median {statistics.median(timed):.2f} ms "
+    say(f"ppo training path, fused_update=\"off\", B={B_PPO} T={T_PPO}, {passes} minibatch steps "
+        f"per update: K2 launches {launches['K2']}, K3 launches {k3_launches} over {updates} "
+        f"updates; timed updates median {statistics.median(timed):.2f} ms "
         f"({B_PPO * T_PPO / statistics.median(timed) * 1e3:.4e} env-steps/s end to end), on {gpu}: ok")
+
+    # 11. The default training path: every update one K2 and one K4 launch.
+    main_cfg = ppo.PpoConfig(num_envs=B_PPO, rollout_len=T_PPO)
+    main_launches, main_walls, main_summaries = training_phase(torch, dev, gpu, env, main_cfg,
+                                                               "ppo update (K4)")
+    require(main_launches == {"K1": 0, "K2": updates, "K3": 0, "K4": updates},
+            f"launches {main_launches} on the default path, expected K2 and K4 {updates}, K3 0")
+    rewards = [s["mean_reward"] for s in main_summaries]
+    for r, e in zip(rewards, loop_rewards):
+        require(abs(r - e) <= 0.1 * abs(e), f"mean_reward {rewards} vs the K3 loop {loop_rewards}")
+    main_timed = main_walls[WARMUP_UPDATES:]
+    say(f"mean_reward per update, K4 {[round(r, 4) for r in rewards]}, fused_update=\"off\" from "
+        f"the same state {[round(e, 4) for e in loop_rewards]} (rtol 0.1): ok")
+    say(f"ppo training path, default config, B={B_PPO} T={T_PPO}: K2 launches "
+        f"{main_launches['K2']}, K4 launches {main_launches['K4']}, K3 launches "
+        f"{main_launches['K3']} over {updates} updates; timed updates median "
+        f"{statistics.median(main_timed):.2f} ms "
+        f"({B_PPO * T_PPO / statistics.median(main_timed) * 1e3:.4e} env-steps/s end to end), "
+        f"on {gpu}: ok")
+    resume_phase(torch, dev, gpu, env, main_cfg)
+    cli_phase(gpu)
 
     return [{
         "name": "ppo_rollout",
         "route": "cuda",
         "source": "reinmav_tpu_torch/csrc/ppo_rollout.cu",
         "replaces": "reinmav_tpu/ops/pallas_ppo_rollout.py:703",
-        "launches": k2_launches,
+        "launches": main_launches["K2"],
         "max_abs_err": k2_err,
         "mismatched_envs": mismatched,
         "tolerance": "rtol 2e-4 atol 2e-5 per env over its whole trajectory, <= 0.1% of envs "
@@ -326,7 +571,24 @@ def ppo_phases(torch, dev, gpu: str, env) -> list[dict]:
         "bound_ms": k3_bound,
         "bound_by": k3_by,
         "library_ms": None,
-        "at": f"minibatch of {mb} samples gathered in tiles of {tile} from {n}",
+        "at": f"minibatch of {mb} samples gathered in tiles of {tile} from {n}; launches on the "
+              f"fused_update=\"off\" path",
+    }, {
+        "name": "ppo_update",
+        "route": "cuda",
+        "source": "reinmav_tpu_torch/csrc/ppo_update.cu",
+        "replaces": "reinmav_tpu/ops/pallas_ppo_update.py:304",
+        "launches": main_launches["K4"],
+        "max_abs_err": k4["max_abs_err"],
+        "entries_outside_rtol_2e-4_atol_1e-6": k4["outside"],
+        "tolerance": "params rtol 2e-4 atol 1e-6, moments rtol 2e-4 atol 5e-8 of the twin and "
+                     "of the K3 loop; pass-0 gradient bitwise K3's; bitwise repeatable",
+        "ms": k4["ms"],
+        "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"],
+        "bound_by": k4["bound_by"],
+        "library_ms": None,
+        "at": k4["at"],
     }]
 
 

@@ -53,6 +53,18 @@ _SIGNATURES = {
     # (minibatch samples) -> CTAs of the K3 launch, -1 on a CUDA error
     "ppo_loss_blocks": (ctypes.c_longlong,),
     "ppo_loss_out_size": (),
+    # K4: (data, n, perm, tile, tiles per minibatch, passes, minibatches,
+    #  adv_stats, kl_beta, count_in, count_out, params, mu, nu, clip_eps,
+    #  value_clip_eps, value_coef, inv_n, ent_coef, lr, max_grad_norm, b1, b2,
+    #  eps, has_floor, log_std_floor, kl_mode, blocks, partials, gbuf, slots,
+    #  metrics, grad0, stream)
+    "ppo_update_launch": (_P, ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float,
+                          ctypes.c_float, ctypes.c_float, ctypes.c_double, ctypes.c_float,
+                          ctypes.c_float, ctypes.c_float, ctypes.c_double, ctypes.c_double,
+                          ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                          ctypes.c_int, _P, _P, _P, _P, _P, _P),
+    "ppo_update_metrics_size": (),
 }
 
 

@@ -19,55 +19,21 @@
 // 2 * 4096 for dW2, dW1 1280 and the heads), 56k FP32 operations, against
 // 72 B of input; the zero blocks of the fused layer are not computed.
 //
-// What the design does about it: a CTA of 256 threads takes 128 samples at
-// a time; thread (tower, s) runs sample s through one tower, so a warp's
-// threads read the same weight at once (broadcast).  Activations stay in
-// shared memory, in rows of 129 floats (padded, so that the per-sample
-// column accesses and the row reads of the weight-gradient phases hit
-// distinct banks).  The weight gradients are outer products summed over
-// samples: each thread owns a fixed set of gradient entries (32 of dW2, 5
-// of dW1, ...) in registers for the CTA's whole share of the minibatch.
-// The gather: minibatch sample q reads column perm[q / tile] * tile +
-// q % tile of the full (R, n) batch, so the minibatch is never stored.
-// The reduction across CTAs is deterministic: each CTA writes its partial
-// sums, and a second launch adds them in block order, one thread per entry.
-// Shared memory: 40 KB of weights and 143 KB of activations.
+// What the design does about it: the per-CTA body (ppo_loss_body.cuh,
+// shared with K4) runs 128 samples at a time through both towers with the
+// weights and activations in shared memory and each weight-gradient entry
+// owned by one thread.  The reduction across CTAs is deterministic: each
+// CTA writes its partial sums, and a second launch adds them in block
+// order, one thread per entry.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "actor_critic.cuh"
+#include "ppo_loss_body.cuh"
 
 namespace {
 
-namespace ac = reinmav::ac;
-
-constexpr int kD = ac::D, kA = ac::A, kH = ac::H;
-constexpr int kS = 128;       // samples per sub-block
-constexpr int kSP = kS + 1;   // padded row length
-constexpr int kThreads = 2 * kS;
-constexpr int kRed = 8;             // per-sample dls (A) and metric terms (4)
-constexpr int kOut = ac::kNetSize + 4;
-
-struct Smem {
-  float w1t[2][kH][kD];
-  float b1[2][kH];
-  float w2t[2][kH][kH];  // (tower, out, in)
-  float b2[2][kH];
-  float wpi[kH][kA];
-  float wvf[kH];
-  float bo[kA + 1];
-  float ls[kA];
-  float h1[2 * kH][kSP];  // h1, then dpre1
-  float h2[2 * kH][kSP];  // h2, then dpre2
-  float x[kD][kSP];
-  float dout[kA + 1][kSP];  // the heads' output, then its cotangent
-  float red[kRed][kSP];
-};
-
-struct LossCfg {
-  float clip_eps, value_clip_eps, value_coef;
-};
+using namespace reinmav::ppo_loss;
 
 template <bool kKl>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -76,272 +42,11 @@ ppo_loss_kernel(const float* __restrict__ data, int64_t n, const int* __restrict
                 const float* __restrict__ net, LossCfg cfg, float* __restrict__ partials) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  const int tid = threadIdx.x;
-  const int tw = tid / kS;  // tower of this thread in the per-sample phases
-  const int s = tid % kS;   // sample of this thread in the per-sample phases
-
-  for (int idx = tid; idx < kH * kD; idx += kThreads) {
-    const int j = idx / kD, d = idx % kD;
-    for (int t = 0; t < 2; ++t) sm.w1t[t][j][d] = net[ac::tower_base(t) + ac::kW1 + d * kH + j];
-  }
-  for (int idx = tid; idx < kH * kH; idx += kThreads) {
-    const int j = idx / kH, k = idx % kH;
-    for (int t = 0; t < 2; ++t) sm.w2t[t][j][k] = net[ac::tower_base(t) + ac::kW2 + k * kH + j];
-  }
-  for (int j = tid; j < kH; j += kThreads) {
-    for (int t = 0; t < 2; ++t) {
-      sm.b1[t][j] = net[ac::tower_base(t) + ac::kB1 + j];
-      sm.b2[t][j] = net[ac::tower_base(t) + ac::kB2 + j];
-    }
-    for (int a = 0; a < kA; ++a) sm.wpi[j][a] = net[ac::kPiOutW + j * kA + a];
-    sm.wvf[j] = net[ac::kVfOutW + j];
-  }
-  if (tid < kA) {
-    sm.bo[tid] = net[ac::kPiOutB + tid];
-    sm.ls[tid] = net[ac::kLogStd + tid];
-  }
-  if (tid == kA) sm.bo[kA] = net[ac::kVfOutB];
+  load_weights(sm, net);
   const float adv_shift = adv_stats[0], adv_inv = adv_stats[1], kl_beta = adv_stats[2];
   __syncthreads();
-
-  // Gradient entries owned by this thread, summed over all its sub-blocks.
-  const int k2 = s % kH, j2 = (s / kH) * 32;  // dW2[tw][k2][j2 .. j2 + 31]
-  float g_w2[32];
-#pragma unroll
-  for (int c = 0; c < 32; ++c) g_w2[c] = 0.0f;
-  float g_w1[kD / 2];  // dW1[tw * 5 .. tw * 5 + 4][unit s]
-#pragma unroll
-  for (int c = 0; c < kD / 2; ++c) g_w1[c] = 0.0f;
-  float g_b = 0.0f;       // tower 0 threads: db1[unit s]; tower 1: db2[unit s]
-  float g_wpi = 0.0f;     // dwpi[tid / 4][tid % 4]
-  float g_wvf = 0.0f;     // tid < 64: dwvf[tid]
-  float g_red = 0.0f;     // tid < 13: dbo (5), dls (4), metrics (4)
-
-  const int64_t n_sub = (mb + kS - 1) / kS;
-  for (int64_t blk = blockIdx.x; blk < n_sub; blk += gridDim.x) {
-    const int64_t q = blk * kS + s;
-    const bool valid = q < mb;
-    int64_t col = 0;
-    if (valid) col = static_cast<int64_t>(perm[q / tile]) * tile + q % tile;
-
-    // ---- P1: forward through this thread's tower ------------------------
-    float x[kD];
-#pragma unroll
-    for (int d = 0; d < kD; ++d) x[d] = valid ? data[d * n + col] : 0.0f;
-    if (tw == 0) {
-#pragma unroll
-      for (int d = 0; d < kD; ++d) sm.x[d][s] = x[d];
-    }
-    {
-      float h1[kH];
-#pragma unroll
-      for (int k = 0; k < kH; ++k) {
-        float z = sm.b1[tw][k];
-#pragma unroll
-        for (int d = 0; d < kD; ++d) z += sm.w1t[tw][k][d] * x[d];
-        h1[k] = tanhf(z);
-        sm.h1[tw * kH + k][s] = h1[k];
-      }
-      float mean[kA] = {0.0f, 0.0f, 0.0f, 0.0f};
-      float value = 0.0f;
-      for (int j = 0; j < kH; ++j) {
-        const float4* w = reinterpret_cast<const float4*>(sm.w2t[tw][j]);
-        float z = sm.b2[tw][j];
-#pragma unroll
-        for (int qq = 0; qq < kH / 4; ++qq) {
-          const float4 v = w[qq];
-          z += v.x * h1[4 * qq] + v.y * h1[4 * qq + 1] + v.z * h1[4 * qq + 2] +
-               v.w * h1[4 * qq + 3];
-        }
-        const float h2 = tanhf(z);
-        sm.h2[tw * kH + j][s] = h2;
-        if (tw == 0) {
-#pragma unroll
-          for (int a = 0; a < kA; ++a) mean[a] += h2 * sm.wpi[j][a];
-        } else {
-          value += h2 * sm.wvf[j];
-        }
-      }
-      if (tw == 0) {
-#pragma unroll
-        for (int a = 0; a < kA; ++a) sm.dout[a][s] = mean[a] + sm.bo[a];
-      } else {
-        sm.dout[kA][s] = value + sm.bo[kA];
-      }
-    }
-    __syncthreads();
-
-    // ---- P2: per-sample loss and its cotangent (tower-0 threads) --------
-    if (tw == 0) {
-      float dout[kA + 1] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      float rd[kRed] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      if (valid) {
-        const float value = sm.dout[kA][s];
-        float diff[kA], quad[kA], var[kA];
-        float qsum = 0.0f, ls_sum = 0.0f;
-#pragma unroll
-        for (int a = 0; a < kA; ++a) {
-          var[a] = expf(2.0f * sm.ls[a]);
-          diff[a] = data[(kD + a) * n + col] - sm.dout[a][s];
-          quad[a] = diff[a] * diff[a] / var[a];
-          qsum += quad[a];
-          ls_sum += sm.ls[a];
-        }
-        const float old_logp = data[(kD + kA) * n + col];
-        const float old_value = data[(kD + kA + 1) * n + col];
-        const float adv = (data[(kD + kA + 2) * n + col] - adv_shift) * adv_inv;
-        const float ret = data[(kD + kA + 3) * n + col];
-        const float logp = -0.5f * qsum - ls_sum - 0.5f * kA * ac::kLog2Pi;
-        const float ratio = expf(logp - old_logp);
-        const float kl = old_logp - logp;
-        float dlogp, pg;
-        if (kKl) {
-          dlogp = -ratio * adv - kl_beta;
-          pg = -(ratio * adv) + kl_beta * kl;
-        } else {
-          const float clipped = fminf(fmaxf(ratio, 1.0f - cfg.clip_eps), 1.0f + cfg.clip_eps);
-          const float pg1 = ratio * adv, pg2 = clipped * adv;
-          const float inside = fabsf(ratio - 1.0f) < cfg.clip_eps ? 1.0f : 0.0f;
-          const float sel1 = pg1 < pg2 ? 1.0f : 0.0f;
-          const float sel2 = pg2 < pg1 ? 1.0f : 0.0f;
-          const float tie = 1.0f - sel1 - sel2;
-          const float dmin = adv * (sel1 + sel2 * inside + 0.5f * tie * (1.0f + inside));
-          dlogp = -dmin * ratio;
-          pg = -fminf(pg1, pg2);
-        }
-        const float vdiff = value - old_value;
-        const float vcl =
-            old_value + fminf(fmaxf(vdiff, -cfg.value_clip_eps), cfg.value_clip_eps);
-        const float e1 = value - ret, e2 = vcl - ret;
-        const float sq1 = e1 * e1, sq2 = e2 * e2;
-        const float vin = fabsf(vdiff) < cfg.value_clip_eps ? 1.0f : 0.0f;
-        const float vs1 = sq1 > sq2 ? 1.0f : 0.0f;
-        const float vs2 = sq2 > sq1 ? 1.0f : 0.0f;
-        const float vtie = 1.0f - vs1 - vs2;
-#pragma unroll
-        for (int a = 0; a < kA; ++a) {
-          dout[a] = dlogp * (diff[a] / var[a]);
-          rd[a] = dlogp * (quad[a] - 1.0f);
-        }
-        dout[kA] = cfg.value_coef * (vs1 * e1 + vs2 * e2 * vin + 0.5f * vtie * (e1 + e2 * vin));
-        rd[kA] = pg;
-        rd[kA + 1] = 0.5f * fmaxf(sq1, sq2);
-        rd[kA + 2] = kl;
-        rd[kA + 3] = fabsf(ratio - 1.0f) > cfg.clip_eps ? 1.0f : 0.0f;
-      }
-#pragma unroll
-      for (int a = 0; a <= kA; ++a) sm.dout[a][s] = dout[a];
-#pragma unroll
-      for (int r = 0; r < kRed; ++r) sm.red[r][s] = rd[r];
-    }
-    __syncthreads();
-
-    // ---- P3: head gradients and the per-sample sums ----------------------
-    {
-      const int jp = tid / kA, ap = tid % kA;
-      for (int ss = 0; ss < kS; ++ss) g_wpi += sm.h2[jp][ss] * sm.dout[ap][ss];
-      if (tid < kH) {
-        for (int ss = 0; ss < kS; ++ss) g_wvf += sm.h2[kH + tid][ss] * sm.dout[kA][ss];
-      }
-      if (tid < kA + 1 + kRed) {
-        const float* row = tid <= kA ? sm.dout[tid] : sm.red[tid - kA - 1];
-        for (int ss = 0; ss < kS; ++ss) g_red += row[ss];
-      }
-    }
-    __syncthreads();
-
-    // ---- P4: dpre2 = (W_out dout) * (1 - h2^2), in place of h2 ------------
-    for (int j = 0; j < kH; ++j) {
-      float dh2;
-      if (tw == 0) {
-        dh2 = 0.0f;
-#pragma unroll
-        for (int a = 0; a < kA; ++a) dh2 += sm.wpi[j][a] * sm.dout[a][s];
-      } else {
-        dh2 = sm.wvf[j] * sm.dout[kA][s];
-      }
-      const float h2 = sm.h2[tw * kH + j][s];
-      sm.h2[tw * kH + j][s] = dh2 * (1.0f - h2 * h2);
-    }
-    __syncthreads();
-
-    // ---- P5: dW2 += h1 (x) dpre2, db2 -------------------------------------
-    {
-      const float* h1row = sm.h1[tw * kH + k2];
-      for (int ss = 0; ss < kS; ++ss) {
-        const float hk = h1row[ss];
-#pragma unroll
-        for (int c = 0; c < 32; ++c) g_w2[c] += hk * sm.h2[tw * kH + j2 + c][ss];
-      }
-      if (tw == 1) {
-        for (int ss = 0; ss < kS; ++ss) g_b += sm.h2[s][ss];
-      }
-    }
-    __syncthreads();
-
-    // ---- P6: dpre1 = (W2 dpre2) * (1 - h1^2), in place of h1 --------------
-    {
-      float dh1[kH];
-#pragma unroll
-      for (int k = 0; k < kH; ++k) dh1[k] = 0.0f;
-      for (int j = 0; j < kH; ++j) {
-        const float dp = sm.h2[tw * kH + j][s];
-        const float4* w = reinterpret_cast<const float4*>(sm.w2t[tw][j]);
-#pragma unroll
-        for (int qq = 0; qq < kH / 4; ++qq) {
-          const float4 v = w[qq];
-          dh1[4 * qq] += v.x * dp;
-          dh1[4 * qq + 1] += v.y * dp;
-          dh1[4 * qq + 2] += v.z * dp;
-          dh1[4 * qq + 3] += v.w * dp;
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kH; ++k) {
-        const float h1 = sm.h1[tw * kH + k][s];
-        sm.h1[tw * kH + k][s] = dh1[k] * (1.0f - h1 * h1);
-      }
-    }
-    __syncthreads();
-
-    // ---- P7: dW1 += x (x) dpre1, db1 ---------------------------------------
-    {
-      const float* prow = sm.h1[s];  // fused unit s: tower s / 64
-      for (int ss = 0; ss < kS; ++ss) {
-        const float dp = prow[ss];
-#pragma unroll
-        for (int c = 0; c < kD / 2; ++c) g_w1[c] += sm.x[tw * (kD / 2) + c][ss] * dp;
-        if (tw == 0) g_b += dp;
-      }
-    }
-    __syncthreads();
-  }
-
-  // ---- this CTA's partial sums, each entry written by exactly one thread --
-  float* out = partials + static_cast<int64_t>(blockIdx.x) * kOut;
-  {
-    const int base = ac::tower_base(tw) + ac::kW2 + k2 * kH + j2;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) out[base + c] = g_w2[c];
-  }
-  {
-    const int ut = s / kH, uu = s % kH;  // fused unit s = tower ut, unit uu
-#pragma unroll
-    for (int c = 0; c < kD / 2; ++c)
-      out[ac::tower_base(ut) + ac::kW1 + (tw * (kD / 2) + c) * kH + uu] = g_w1[c];
-    out[ac::tower_base(ut) + (tw == 0 ? ac::kB1 : ac::kB2) + uu] = g_b;
-  }
-  out[ac::kPiOutW + tid] = g_wpi;  // tid = j * A + a
-  if (tid < kH) out[ac::kVfOutW + tid] = g_wvf;
-  if (tid < kA) {
-    out[ac::kPiOutB + tid] = g_red;
-  } else if (tid == kA) {
-    out[ac::kVfOutB] = g_red;
-  } else if (tid < 2 * kA + 1) {
-    out[ac::kLogStd + tid - kA - 1] = g_red;
-  } else if (tid < kA + 1 + kRed) {
-    out[ac::kNetSize + tid - 2 * kA - 1] = g_red;
-  }
+  loss_body<kKl>(sm, data, n, perm, mb, tile, adv_shift, adv_inv, kl_beta, cfg,
+                 partials + static_cast<int64_t>(blockIdx.x) * kOut);
 }
 
 // out[e] = the CTAs' partials of entry e, added in block order.

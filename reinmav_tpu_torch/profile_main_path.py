@@ -12,13 +12,15 @@ Measures, after a warm-up:
 - ``control_rollout`` of 4096 envs x 400 steps, the eager loop, with and
   without the trajectory collected: wall time per call;
 - one PPO update (``reinmav_tpu_torch.rl.ppo.train_step``) of 32,768
-  envs x 32 steps with ``fused_update="off"`` (K2 for the rollout, K3
-  for each of the 16 minibatch gradients): wall time per update over 5
-  updates, after 2 warm-up updates;
+  envs x 32 steps with the default config (K2 for the rollout, ONE K4
+  launch for the 16 passes of the update) and, beside it, with
+  ``fused_update="off"`` (K3 for each of the 16 minibatch gradients and
+  the optimiser in eager PyTorch): wall time per update over 5 updates,
+  after 2 warm-up updates;
 - each call once more under ``torch.profiler`` (the eager loop at 50
   steps): the device kernels launched, and the device idle share.  For
-  the PPO update also the shares of the wall time that K2, K3 and the
-  other device kernels (the eager glue: GAE, advantage moments, the
+  the PPO updates also the shares of the wall time that K2, K3, K4 and
+  the other device kernels (the eager glue: GAE, advantage moments, the
   optimiser) are busy, and the host time inside the learner's
   ``ppo.*`` profiler spans.
 
@@ -43,9 +45,9 @@ import reinmav_tpu_torch
 B_MAIN, T_MAIN = 2_097_152, 1000
 B_QUICK, T_QUICK, T_PROFILED = 4096, 400, 50
 B_PPO, T_PPO = 32_768, 32
-#: Device kernels by their name: K2 (with its moment reduction) and K3
-#: (with its partials' reduction).
-KERNEL_GROUPS = {"K2": "ppo_rollout", "K3": "ppo_loss"}
+#: Device kernels by their name: K2 (with its moment reduction), K3 (with
+#: its partials' reduction) and K4.
+KERNEL_GROUPS = {"K2": "ppo_rollout", "K3": "ppo_loss", "K4": "ppo_update"}
 
 
 def _wall_ms(fn, reps: int) -> list[float]:
@@ -139,23 +141,32 @@ def main(argv=None) -> int:
 
     from .rl import ppo
 
-    ppo_cfg = ppo.PpoConfig(num_envs=B_PPO, rollout_len=T_PPO, fused_update="off")
-    ppo_state = [ppo.init_train_state(env, ppo_cfg, seed=0, device="cuda")]
+    def ppo_update(**overrides):
+        cfg = ppo.PpoConfig(num_envs=B_PPO, rollout_len=T_PPO, **overrides)
+        state = [ppo.init_train_state(env, cfg, seed=0, device="cuda")]
 
-    def ppo_update():
-        ppo_state[0], _ = ppo.train_step(env, ppo_cfg, ppo_state[0])
+        def update():
+            state[0], _ = ppo.train_step(env, cfg, state[0])
+
+        return update
+
+    k4_update, loop_update = ppo_update(), ppo_update(fused_update="off")
+    k4_name = f"ppo train_step {B_PPO}x{T_PPO} (K4)"
+    loop_name = f"ppo train_step {B_PPO}x{T_PPO} fused_update=off (K3 loop)"
 
     throughput()
     control(5)()  # warm-up
     for _ in range(2):
-        ppo_update()  # warm-up
+        k4_update()  # warm-up
+        loop_update()
     walls = {
         f"throughput_rollout {B_MAIN}x{T_MAIN}": _wall_ms(throughput, 5),
         f"control_rollout {B_QUICK}x{T_QUICK}": _wall_ms(control(T_QUICK), 3),
         f"control_rollout {B_QUICK}x{T_QUICK} no trajectory":
             _wall_ms(control(T_QUICK, collect=False), 2),
         f"control_rollout {B_QUICK}x{T_PROFILED}": _wall_ms(control(T_PROFILED), 3),
-        f"ppo train_step {B_PPO}x{T_PPO}": _wall_ms(ppo_update, 5),
+        k4_name: _wall_ms(k4_update, 5),
+        loop_name: _wall_ms(loop_update, 5),
     }
     for name, ms in walls.items():
         print(f"{name} wall ms: {[round(m, 3) for m in ms]}")
@@ -167,8 +178,8 @@ def main(argv=None) -> int:
              mean(f"throughput_rollout {B_MAIN}x{T_MAIN}"))
     _profile(f"control_rollout {B_QUICK}x{T_PROFILED}", control(T_PROFILED),
              mean(f"control_rollout {B_QUICK}x{T_PROFILED}"))
-    _profile(f"ppo train_step {B_PPO}x{T_PPO}", ppo_update, mean(f"ppo train_step {B_PPO}x{T_PPO}"),
-             KERNEL_GROUPS)
+    _profile(k4_name, k4_update, mean(k4_name), KERNEL_GROUPS)
+    _profile(loop_name, loop_update, mean(loop_name), KERNEL_GROUPS)
     return 0
 
 

@@ -10,11 +10,14 @@ One update (:func:`train_step`) is the rollout followed by
 :func:`update_phase`.  The rollout runs in the K2 CUDA kernel
 (:mod:`reinmav_tpu_torch.ops.ppo_rollout`) when the states lie on the
 card and the env is the registry's quadrotor3d-v0, else as the eager
-loop :func:`collect_rollout`; each minibatch's loss gradient runs in the
-K3 CUDA kernel (:mod:`reinmav_tpu_torch.ops.ppo_loss`) on the card, else
-through ``torch.autograd`` of :func:`ppo_loss`.  ``train_step`` logs
-which paths ran and why.  The one-launch full update of the JAX package
-(K4, ``fused_update``) is not ported yet.
+loop :func:`collect_rollout`.  The update runs on the card as ONE launch
+of the K4 CUDA kernel (:mod:`reinmav_tpu_torch.ops.ppo_update`: every
+epoch x minibatch pass of the loss gradient, clip + Adam and the floor),
+as the JAX package's ``fused_update`` does on its accelerator; with
+``fused_update="off"`` it is a loop over the minibatches whose loss
+gradient runs in the K3 CUDA kernel (:mod:`reinmav_tpu_torch.ops.ppo_loss`)
+on the card, else through ``torch.autograd`` of :func:`ppo_loss`.
+``train_step`` logs which paths ran and why.
 
 State is functional as in the JAX package (each update returns a new
 :class:`TrainState`), with one exception: ``TrainState.generator``, a
@@ -36,20 +39,18 @@ from torch.profiler import record_function
 from ..envs.core import EnvDef, episode_boundary, fused_kernel_mismatch
 from ..ops import ppo_loss as loss_ops
 from ..ops import ppo_rollout as rollout_ops
+from ..ops import ppo_update as update_ops
 from ..ops.rollout import quad3d_params_vec
 from . import networks
 from .networks import Layout
 
 log = logging.getLogger(__name__)
 
-_K4_NOT_PORTED = ("fused_update: K4 (reinmav_tpu/ops/pallas_ppo_update.py::ppo_update_pallas, "
-                  "the one-launch full update) is not yet ported: ROADMAP.md queue 2")
-
 
 class PpoConfig(NamedTuple):
     """The JAX package's ``PpoConfig``: the same fields and defaults (see
-    there for each).  ``compute_dtype="bfloat16"`` and ``fused_update="on"``
-    raise ``NotImplementedError`` here."""
+    there for each).  ``compute_dtype="bfloat16"`` raises
+    ``NotImplementedError`` here."""
 
     num_envs: int = 1024
     rollout_len: int = 128
@@ -198,21 +199,13 @@ class ClipAdam(NamedTuple):
                          torch.zeros_like(params), torch.zeros_like(params))
 
     def update(self, grads: torch.Tensor, state: AdamState, params: torch.Tensor):
-        """One step: returns ``(new params, new state)``."""
-        g_norm = torch.linalg.vector_norm(grads)
-        g = torch.where(g_norm < self.max_norm, grads, grads / g_norm * self.max_norm)
-        mu = (1 - self.b1) * g + self.b1 * state.mu
-        nu = (1 - self.b2) * (g * g) + self.b2 * state.nu
+        """One step (:func:`reinmav_tpu_torch.ops.ppo_update.clip_adam`, the
+        arithmetic K4 runs): returns ``(new params, new state)``."""
         count = state.count + 1
-        # 1 - b**count in float64, then the moments' type: in float32,
-        # 1 - f32(0.999) is off by 1.3e-5 relative at count 1.
-        c = count.to(torch.float64)
-        bc1 = 1 - torch.pow(torch.full_like(c, self.b1), c)
-        bc2 = 1 - torch.pow(torch.full_like(c, self.b2), c)
-        mu_hat = mu / bc1.to(mu.dtype)
-        nu_hat = nu / bc2.to(nu.dtype)
-        step = mu_hat / (torch.sqrt(nu_hat) + self.eps)
-        return params + (-self.lr) * step, AdamState(count, mu, nu)
+        params, mu, nu = update_ops.clip_adam(grads, count, state.mu, state.nu, params,
+                                              max_norm=self.max_norm, lr=self.lr, b1=self.b1,
+                                              b2=self.b2, eps=self.eps)
+        return params, AdamState(count, mu, nu)
 
 
 def make_optimizer(cfg: PpoConfig) -> ClipAdam:
@@ -433,8 +426,18 @@ def _loss_refusal(cfg: PpoConfig):
     return None
 
 
+def _update_refusal(cfg: PpoConfig, fused_loss):
+    """Why K4 cannot run this config (None = it can): K3's preconditions,
+    and the loss path not switched off (``fused_loss`` the caller's
+    True/False/None), as the JAX package requires ``fused_loss`` for its
+    ``fused_update``."""
+    if fused_loss is False or (fused_loss is None and cfg.fused_loss == "off"):
+        return "fused_loss is off"
+    return _loss_refusal(cfg)
+
+
 def _choose(name: str, forced, mode: str, refusal, device: torch.device):
-    """(use the kernel path, how to log it) for one of K2/K3.  ``forced``:
+    """(use the kernel path, how to log it) for one of K2/K3/K4.  ``forced``:
     the caller's True/False/None; ``mode``: the config's "auto"/"on"/"off".
     "on" or True takes the kernel's wrapper (the plain twin on the CPU) and
     raises where it cannot; "auto" takes it on a CUDA device only."""
@@ -455,14 +458,31 @@ def _choose(name: str, forced, mode: str, refusal, device: torch.device):
     return False, f"off (tensors on {device}, the kernel needs a CUDA device)"
 
 
+def pass_adv_stats(flat_adv, perm_all, tile: int, n_passes: int, normalize: bool):
+    """Each pass's advantage ``[shift, inv_scale]`` as K4 takes it, ``(n_passes,
+    2)`` float32: the mean and ``1 / (std + 1e-8)`` of the raw advantages
+    of the minibatch (pass ``p`` reads the ``p``-th slice of ``perm_all``),
+    from one batched gather on the device; ``[0, 1]`` when ``normalize``
+    is off."""
+    if not normalize:
+        return torch.tensor([[0.0, 1.0]], device=flat_adv.device).repeat(n_passes, 1)
+    adv_mb = flat_adv.reshape(-1, tile)[perm_all.reshape(n_passes, -1).long()]
+    return torch.stack([adv_mb.mean(dim=(1, 2)),
+                        1.0 / (adv_mb.std(dim=(1, 2), unbiased=False) + 1e-8)],
+                       dim=1).to(torch.float32).contiguous()
+
+
 def update_phase(env: EnvDef, cfg: PpoConfig, state: TrainState, rollout: Rollout, perms,
-                 fused_loss: bool):
+                 fused_loss: bool, fused_update: bool = False):
     """The update after a rollout: GAE, then ``len(perms)`` epochs of
     ``cfg.num_minibatches`` minibatches of clip + Adam, the normaliser
     updates and the adaptive-KL coefficient.  ``perms``: one permutation
-    of the shuffle tiles per epoch.  ``fused_loss``: each minibatch's
-    gradient through K3 (:func:`reinmav_tpu_torch.ops.ppo_loss.ppo_loss_grads_gather`,
-    the kernel on the card, its twin on the CPU), else through
+    of the shuffle tiles per epoch.  ``fused_update``: every pass in one
+    call of K4 (:func:`reinmav_tpu_torch.ops.ppo_update.ppo_update`, the
+    kernel on the card, its twin on the CPU).  Else a loop over the
+    minibatches, and ``fused_loss``: each minibatch's gradient through K3
+    (:func:`reinmav_tpu_torch.ops.ppo_loss.ppo_loss_grads_gather`, the
+    kernel on the card, its twin on the CPU), else through
     ``torch.autograd`` of :func:`ppo_loss`.  Returns ``(new state,
     summary)``; the summary's values are 0-d tensors on the device."""
     layout = Layout(env.obs_dim, env.action_dim, cfg.hidden)
@@ -485,7 +505,11 @@ def update_phase(env: EnvDef, cfg: PpoConfig, state: TrainState, rollout: Rollou
                       traj.value.reshape(n), traj.reward.reshape(n), traj.done.reshape(n))
     flat_adv, flat_ret = advantages.reshape(n), returns.reshape(n)
     tile, n_tiles = _tiling(cfg, n)
-    if fused_loss:
+    for perm in perms:
+        if perm.shape != (n_tiles,):
+            raise ValueError(f"a permutation of the {n_tiles} tiles expected, got "
+                             f"{tuple(perm.shape)}")
+    if fused_loss or fused_update:
         data_full = loss_ops.stack_batch(flat.obs, flat.action, flat.log_prob, flat.value,
                                          flat_adv, flat_ret)
     kl_mode = cfg.kl_target is not None
@@ -520,34 +544,57 @@ def update_phase(env: EnvDef, cfg: PpoConfig, state: TrainState, rollout: Rollou
         (grads,) = torch.autograd.grad(loss, p)
         return grads, {k: v.detach() for k, v in metrics.items()}
 
-    optimizer = make_optimizer(cfg)
-    params, opt_state = state.params, state.opt_state
-    epochs = []
-    for perm in perms:
-        if perm.shape != (n_tiles,):
-            raise ValueError(f"a permutation of the {n_tiles} tiles expected, got {tuple(perm.shape)}")
-        minibatches = []
-        for tidx in perm.reshape(cfg.num_minibatches, n_tiles // cfg.num_minibatches):
-            with record_function("ppo.loss_grads"):
-                grads, metrics = loss_grads(tidx, params)
-            with record_function("ppo.optimizer"):
-                params, opt_state = optimizer.update(grads, opt_state, params)
-                if cfg.log_std_floor is not None:
-                    params = torch.cat([params[:ls_slice.start],
-                                        torch.clamp(params[ls_slice], min=cfg.log_std_floor),
-                                        params[ls_slice.stop:]])
-            minibatches.append(metrics)
-        epochs.append(minibatches)
-    stacked = {k: torch.stack([torch.stack([m[k] for m in mbs]) for mbs in epochs])
-               for k in epochs[0][0]} if epochs else {}
+    def fused(perms):
+        """Every pass in one K4 call; the advantage moments of every
+        minibatch of every epoch from one batched gather."""
+        perm_all = torch.cat(list(perms)).to(torch.int32)
+        adv_stats = pass_adv_stats(flat_adv, perm_all, tile, len(perms) * cfg.num_minibatches,
+                                   cfg.normalize_advantages)
+        out = update_ops.ppo_update(
+            data_full, adv_stats, perm_all,
+            state.params.to(torch.float32).contiguous(), state.opt_state, beta if kl_mode else None,
+            d=d, adim=adim, tile=tile, n_minibatches=cfg.num_minibatches, n_epochs=len(perms),
+            clip_eps=cfg.clip_eps, value_clip_eps=cfg.value_clip_eps, value_coef=cfg.value_coef,
+            ent_coef=cfg.entropy_coef, lr=cfg.learning_rate, max_grad_norm=cfg.max_grad_norm,
+            log_std_floor=cfg.log_std_floor, kl_mode=kl_mode, hidden=cfg.hidden[0])
+        metrics = dict(out.metrics)
+        measured = metrics.pop("approx_kl_last", None)
+        return out.params, out.opt_state, metrics, measured
+
+    def loop(perms):
+        """A loop over the minibatches of each epoch: gradient, then clip +
+        Adam and the floor; metrics stacked (epochs, minibatches)."""
+        optimizer = make_optimizer(cfg)
+        params, opt_state = state.params, state.opt_state
+        epochs = []
+        for perm in perms:
+            minibatches = []
+            for tidx in perm.reshape(cfg.num_minibatches, n_tiles // cfg.num_minibatches):
+                with record_function("ppo.loss_grads"):
+                    grads, metrics = loss_grads(tidx, params)
+                with record_function("ppo.optimizer"):
+                    params, opt_state = optimizer.update(grads, opt_state, params)
+                    params = update_ops.floor_log_std(params, layout, cfg.log_std_floor)
+                minibatches.append(metrics)
+            epochs.append(minibatches)
+        stacked = {k: torch.stack([torch.stack([m[k] for m in mbs]) for mbs in epochs])
+                   for k in epochs[0][0]} if epochs else {}
+        # The last epoch's KL (baselines ppo1), for the adaptive-KL rule.
+        measured = stacked["approx_kl"][-1].mean() if stacked else None
+        return params, opt_state, {k: v.mean() for k, v in stacked.items()}, measured
+
+    if fused_update and perms:
+        with record_function("ppo.update_k4"):
+            params, opt_state, metrics, measured = fused(perms)
+    else:
+        params, opt_state, metrics, measured = loop(perms)
 
     obs_norm = (_update_obs_norm(state.obs_norm, rollout.obs_moments) if cfg.normalize_obs
                 else state.obs_norm)
     ret_norm = (_update_ret_norm(state.ret_norm, rollout.ret_moments) if cfg.normalize_rewards
                 else state.ret_norm)
     kl_beta = state.kl_beta
-    if kl_mode and stacked:
-        measured = stacked["approx_kl"][-1].mean()  # the last epoch's KL (baselines ppo1)
+    if kl_mode and measured is not None:
         kl_beta = torch.where(measured > 1.5 * cfg.kl_target, kl_beta * 2.0,
                               torch.where(measured < cfg.kl_target / 1.5, kl_beta * 0.5, kl_beta))
         kl_beta = torch.clamp(kl_beta, 1e-4, 64.0)
@@ -557,40 +604,41 @@ def update_phase(env: EnvDef, cfg: PpoConfig, state: TrainState, rollout: Rollou
                                update_step=state.update_step + 1, kl_beta=kl_beta)
     summary = {"mean_reward": rollout.raw_reward_mean,
                "mean_episode_done_frac": traj.done.to(torch.float32).mean(),
-               **{k: v.mean() for k, v in stacked.items()}}
+               **metrics}
     return new_state, summary
 
 
 def train_step(env: EnvDef, cfg: PpoConfig, state: TrainState, fused_rollout: bool | None = None,
                fused_loss: bool | None = None, fused_update: bool | None = None):
     """One PPO update: the rollout (K2 or the eager loop), then
-    :func:`update_phase` (each minibatch through K3 or autograd).
+    :func:`update_phase` (every pass in one K4 launch, or a loop over the
+    minibatches with each gradient through K3 or autograd).
 
-    ``fused_rollout`` / ``fused_loss``: None follows ``cfg.fused_rollout``
-    / ``cfg.fused_loss`` ("auto" takes the CUDA kernel where the states
-    lie on the card and the config is supported, "on" the kernel's
-    wrapper, which runs its plain twin on the CPU, "off" the eager
-    path); True / False force.  ``fused_update`` "on" (or True) raises
-    ``NotImplementedError``: K4 is not ported, and "auto" runs the
-    per-minibatch loop.  Logs which paths ran and why."""
+    ``fused_rollout`` / ``fused_loss`` / ``fused_update``: None follows
+    ``cfg.fused_rollout`` / ``cfg.fused_loss`` / ``cfg.fused_update``
+    ("auto" takes the CUDA kernel where the states lie on the card and the
+    config is supported, "on" the kernel's wrapper, which runs its plain
+    twin on the CPU, "off" the eager path or the loop); True / False
+    force.  K4 needs K3's preconditions and a loss path that is not
+    switched off.  Logs which paths ran and why."""
     _require_float32(cfg)
-    if fused_update is None:
-        if cfg.fused_update not in ("auto", "on", "off"):
-            raise ValueError(f"fused_update={cfg.fused_update!r}: expected 'auto', 'on' or 'off'")
-        fused_update = cfg.fused_update == "on"
-    if fused_update:
-        raise NotImplementedError(_K4_NOT_PORTED)
     device = state.env_states.device
     use_k2, rollout_how = _choose("fused_rollout", fused_rollout, cfg.fused_rollout,
                                   _rollout_refusal(cfg, env), device)
-    use_k3, loss_how = _choose("fused_loss", fused_loss, cfg.fused_loss,
-                               _loss_refusal(cfg), device)
+    use_k4, update_how = _choose("fused_update", fused_update, cfg.fused_update,
+                                 _update_refusal(cfg, fused_loss), device)
     passes = cfg.num_epochs * cfg.num_minibatches
-    log.info("train_step(%s, B=%d, T=%d): rollout: %s; loss: %s; update: %d minibatch steps "
-             "of clip + Adam (%s)", env.name, state.env_states.shape[0], cfg.rollout_len,
-             f"K2 {rollout_how}" if use_k2 else f"eager loop, K2 {rollout_how}",
-             f"K3 {loss_how}, {passes} launches" if use_k3 else f"autograd, K3 {loss_how}",
-             passes, f"fused_update={cfg.fused_update!r}: K4 not yet ported")
+    if use_k4:
+        use_k3 = False
+        update = f"K4 {update_how}, 1 launch for {passes} passes of loss gradient + clip + Adam"
+    else:
+        use_k3, loss_how = _choose("fused_loss", fused_loss, cfg.fused_loss,
+                                   _loss_refusal(cfg), device)
+        update = (f"K4 {update_how}; {passes} minibatch steps of clip + Adam, loss gradient "
+                  + (f"K3 {loss_how}, {passes} launches" if use_k3 else f"autograd, K3 {loss_how}"))
+    log.info("train_step(%s, B=%d, T=%d): rollout: %s; update: %s", env.name,
+             state.env_states.shape[0], cfg.rollout_len,
+             f"K2 {rollout_how}" if use_k2 else f"eager loop, K2 {rollout_how}", update)
 
     seed = _draw_seed(state.generator)
     with record_function("ppo.rollout"):
@@ -606,18 +654,19 @@ def train_step(env: EnvDef, cfg: PpoConfig, state: TrainState, fused_rollout: bo
         _, n_tiles = _tiling(cfg, cfg.rollout_len * state.env_states.shape[0])
         perms = [_shuffle_indices(state.generator, n_tiles, device)
                  for _ in range(cfg.num_epochs)]
-    return update_phase(env, cfg, state, rollout, perms, use_k3)
+    return update_phase(env, cfg, state, rollout, perms, use_k3, use_k4)
 
 
 def train_many(env: EnvDef, cfg: PpoConfig, state: TrainState, num_updates: int,
-               fused_rollout: bool | None = None, fused_loss: bool | None = None):
+               fused_rollout: bool | None = None, fused_loss: bool | None = None,
+               fused_update: bool | None = None):
     """``num_updates`` :func:`train_step` calls in a plain loop.  Returns
     the final state and the per-update metrics averaged over the updates
     (0-d tensors on the device)."""
     summaries = []
     for _ in range(num_updates):
         state, summary = train_step(env, cfg, state, fused_rollout=fused_rollout,
-                                    fused_loss=fused_loss)
+                                    fused_loss=fused_loss, fused_update=fused_update)
         summaries.append(summary)
     if not summaries:
         return state, {}

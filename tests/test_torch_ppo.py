@@ -156,8 +156,13 @@ def test_train_many_and_the_paths_not_ported():
     state = ppo.init_train_state(env, cfg, 0, device="cpu")
     state, summary = ppo.train_many(env, cfg, state, 2, fused_loss=True)
     assert state.update_step == 2 and np.isfinite(float(summary["v_loss"]))
-    with pytest.raises(NotImplementedError, match="K4"):
-        ppo.train_step(env, cfg._replace(fused_update="on"), state)
+    # K4 is ported: "on" runs its plain twin on the CPU, and refuses a loss
+    # path that is switched off, as the JAX package needs fused_loss for it.
+    k4_state, k4_summary = ppo.train_step(env, cfg._replace(fused_update="on"), state)
+    assert int(k4_state.opt_state.count) == int(state.opt_state.count) + 2
+    assert np.isfinite(float(k4_summary["v_loss"]))
+    with pytest.raises(ValueError, match="fused_loss is off"):
+        ppo.train_step(env, cfg._replace(fused_update="on", fused_loss="off"), state)
     with pytest.raises(NotImplementedError, match="bfloat16"):
         ppo.train_step(env, cfg._replace(compute_dtype="bfloat16"), state)
     with pytest.raises(NotImplementedError, match="bfloat16"):

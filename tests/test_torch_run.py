@@ -1,0 +1,169 @@
+"""The port's training surface on the CPU: the CLI (reinmav_tpu_torch.rl.run),
+checkpoints and their manager, the metrics logger, and evaluation against
+the JAX package's.
+
+The CLI runs with ``--device=cpu`` (the kernels' plain twins).  Resume is
+bitwise, as tests/test_resume.py holds the JAX package: 4 updates
+uninterrupted against 2, a checkpoint, a restore into a state of another
+seed, and 2 more.  Evaluation is held to ``reinmav_tpu.rl.evaluate`` from
+the JAX package's initial states, on a horizon where no env ends, in
+float64 (the suite's JAX x64) at rtol 1e-9.
+"""
+
+import json
+import math
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import reinmav_tpu
+import reinmav_tpu_torch
+from reinmav_tpu.rl import evaluate as jevaluate
+from reinmav_tpu_torch import run as run_alias
+from reinmav_tpu_torch.rl import evaluate, ppo, run
+from reinmav_tpu_torch.utils import CheckpointManager, MetricsLogger
+from reinmav_tpu_torch.utils import checkpoint as ckpt
+
+SMALL = ["--device=cpu", "--num_env=64", "--rollout_len=16"]
+
+
+def _lines(text):
+    return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+
+
+@pytest.mark.parametrize("alg", ["ppo", "a2c", "ppo_kl"])
+def test_cli_trains_logs_saves_and_plays(alg, tmp_path, capsys):
+    ck, logs = str(tmp_path / "ck"), str(tmp_path / "logs")
+    run.main([*SMALL, f"--alg={alg}", "--num_timesteps=2048", "--log_interval=1",
+              f"--save_path={ck}", "--eval_interval=2", "--eval_envs=8", "--eval_horizon=10",
+              f"--log_dir={logs}"])
+    lines = _lines(capsys.readouterr().out)
+    train = [row for row in lines if "env_steps" in row]
+    assert [row["env_steps"] for row in train] == [1024.0, 2048.0]
+    for row in train:
+        assert all(math.isfinite(v) for v in row.values()), row
+        assert row["steps_per_sec"] > 0
+    evals = [row for row in lines if "eval_survival_frac" in row]
+    assert len(evals) == 1 and 0.0 <= evals[0]["eval_survival_frac"] <= 1.0
+    with open(f"{logs}/metrics.jsonl") as f:
+        header = json.loads(f.readline())
+    assert header["config"]["alg"] == alg and header["config"]["device"] == "cpu"
+
+    run_alias.main([*SMALL, f"--alg={alg}", "--play", f"--load_path={ck}", "--play_steps=30"])
+    (played,) = _lines(capsys.readouterr().out)
+    assert played["play_steps"] == 30 and math.isfinite(played["total_reward"])
+
+
+def _state_leaves(state):
+    """Every tensor and scalar of a TrainState, the generator as its state."""
+    out = []
+    for field in state:
+        if isinstance(field, torch.Generator):
+            out.append(field.get_state())
+        elif isinstance(field, tuple):
+            out.extend(field)
+        else:
+            out.append(field)
+    return out
+
+
+def test_bitwise_resume(tmp_path):
+    env = reinmav_tpu_torch.make("quadrotor3d-v0")
+    cfg = ppo.PpoConfig(num_envs=32, rollout_len=8, num_epochs=1, num_minibatches=2,
+                        hidden=(16, 16), fused_update="on")
+    ref = ppo.init_train_state(env, cfg, 5, device="cpu")
+    for _ in range(4):
+        ref, _ = ppo.train_step(env, cfg, ref)
+
+    state = ppo.init_train_state(env, cfg, 5, device="cpu")
+    for _ in range(2):
+        state, _ = ppo.train_step(env, cfg, state)
+    ckpt.save(str(tmp_path / "mid"), state)
+    del state
+    restored = ckpt.restore(str(tmp_path / "mid"), ppo.init_train_state(env, cfg, 99, device="cpu"))
+    for _ in range(2):
+        restored, _ = ppo.train_step(env, cfg, restored)
+
+    assert restored.update_step == ref.update_step == 4
+    for a, b in zip(_state_leaves(ref), _state_leaves(restored)):
+        if isinstance(a, torch.Tensor):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        else:
+            assert a == b
+
+
+def test_restore_refuses_another_structure(tmp_path):
+    env = reinmav_tpu_torch.make("quadrotor3d-v0")
+    cfg = ppo.PpoConfig(num_envs=32, rollout_len=8, hidden=(16, 16))
+    path = str(tmp_path / "ck")
+    ckpt.save(path, ppo.init_train_state(env, cfg, 0, device="cpu"))
+    for other in (cfg._replace(hidden=(32, 32)), cfg._replace(num_envs=64)):
+        with pytest.raises(ckpt.CheckpointStructureError, match="num_envs"):
+            ckpt.restore(path, ppo.init_train_state(env, other, 0, device="cpu"))
+    with pytest.raises(FileNotFoundError):
+        ckpt.restore(str(tmp_path / "missing"), ppo.init_train_state(env, cfg, 0, device="cpu"))
+
+
+def test_checkpoint_manager_rotates_and_restores_the_latest(tmp_path):
+    env = reinmav_tpu_torch.make("quadrotor3d-v0")
+    cfg = ppo.PpoConfig(num_envs=16, rollout_len=4, hidden=(8, 8))
+    target = ppo.init_train_state(env, cfg, 0, device="cpu")
+    mgr = CheckpointManager(str(tmp_path / "run"), keep=2, save_interval=2)
+    assert mgr.restore_latest(target) == (target, None)
+    saved = [mgr.save(step, target._replace(update_step=step)) for step in range(7)]
+    assert saved == [True, False, True, False, True, False, True]
+    assert [s for s, _ in mgr._step_dirs()] == [4, 6] and mgr.latest_step() == 6
+    assert mgr.save(7, target._replace(update_step=7), force=True)
+    restored, step = mgr.restore_latest(target)
+    assert step == 7 and restored.update_step == 7
+    assert torch.equal(restored.params, target.params)
+
+
+@pytest.mark.parametrize("flag,item", [
+    ("--alg=sac", "item 10"), ("--alg=td3", "item 10"), ("--alg=ddpg", "item 10"),
+    ("--network=gru", "item 12"), ("--shard_map", "item 13"),
+    ("--compute_dtype=bfloat16", "item 5"), ("--gif=out.gif", "item 7"),
+    ("--html=out.html", "item 7"), ("--live", "item 7")])
+def test_cli_refuses_what_is_not_ported(flag, item):
+    with pytest.raises(SystemExit, match=f"not ported to PyTorch yet: .*ROADMAP.md queue 1 {item}"):
+        run.main([*SMALL, flag])
+
+
+def test_metrics_logger_writes_jsonl_and_csv(tmp_path, capsys):
+    logger = MetricsLogger(log_dir=str(tmp_path), csv=True, config={"lr": 3e-4})
+    logger.log(1, {"loss": torch.tensor(0.5), "count": torch.tensor(3, dtype=torch.int32),
+                   "name": "x"})
+    logger.close()
+    (row,) = _lines(capsys.readouterr().out)
+    assert (row["step"], row["loss"], row["count"], row["name"]) == (1, 0.5, 3.0, "x")
+    jsonl = (tmp_path / "metrics.jsonl").read_text().splitlines()
+    assert json.loads(jsonl[0]) == {"config": {"lr": 3e-4}} and json.loads(jsonl[1]) == row
+    csv = (tmp_path / "metrics.csv").read_text().splitlines()
+    assert csv[0] == "step,wall_s,loss,count,name" and csv[1].startswith("1,")
+
+
+def test_evaluate_policy_matches_jax_from_the_same_states():
+    jenv = reinmav_tpu.make("quadrotor3d-v0")
+    key = jax.random.PRNGKey(4)
+    num_envs, horizon = 64, 60
+    ref = jevaluate.evaluate_policy(jenv, jenv.vcontrol, key, num_envs=num_envs, horizon=horizon)
+    assert int(ref.num_episodes) == 0  # no env ends on this horizon
+    k_reset, _ = jax.random.split(key)  # evaluate_policy's own draw of the initial states
+    states = torch.from_numpy(np.array(jenv.vreset(jax.random.split(k_reset, num_envs))))
+    env = reinmav_tpu_torch.make("quadrotor3d-v0")
+    got = evaluate._rollout_stats(env, env.vcontrol, states, torch.Generator().manual_seed(0),
+                                  horizon)
+    assert int(got.num_episodes) == 0
+    assert math.isnan(float(got.mean_return)) and math.isnan(float(got.mean_length))
+    assert math.isnan(float(ref.mean_return)) and math.isnan(float(ref.mean_length))
+    for name in ("mean_reward", "mean_running_return", "survival_frac"):
+        np.testing.assert_allclose(float(getattr(got, name)), float(getattr(ref, name)),
+                                   rtol=1e-9, err_msg=name)
+
+    params = ppo.init_train_state(env, ppo.PpoConfig(num_envs=8, rollout_len=4), 0,
+                                  device="cpu").params
+    stats = evaluate.evaluate(env, params, None, torch.Generator().manual_seed(1), num_envs=16,
+                              horizon=20)
+    assert 0.0 <= float(stats.survival_frac) <= 1.0 and math.isfinite(float(stats.mean_reward))
