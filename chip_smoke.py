@@ -52,6 +52,26 @@ Phases, in order; any failure raises and exits non-zero:
    updates at that size with an evaluation every 5 and a checkpoint under
    chiprun_out/, then --load_path ... --play --play_steps=200; both must
    exit 0.
+12. Kernel K5 (the hover task's constant-action throughput rollout)
+   against its plain twin at 65,536 envs x 1000 steps, free-running
+   through the deterministic resets, for the zero action and for
+   (0.75, 0.73, 0.74, 0.76), from perturbed hover states: the envs that
+   disagree (0.1% limit), the reward total, a bitwise rerun.  Then the
+   hover main path: throughput_rollout(make("MujocoQuadForce-v1"),
+   2,097,152 envs x 1000 steps, backend="auto") must launch K5; K5 and its
+   twin timed at that shape.
+13. Kernel K6-hover (the fused PPO rollout of MujocoQuadForce-v1) against
+   its twin at 32,768 x 32 with noise and resets on, as phase 7; then K3
+   and K4 built for the 13-dim observation against their twins on that
+   trajectory, at phases 8 and 10's tolerances, with bitwise reruns; all
+   timed.
+14. Hover training: 2 warm-up and 5 timed updates of the default path
+   (K6-hover and K4 once per update, K3 never) and of fused_update="off"
+   (K6-hover once, K3 16 times per update), each update's mean_reward
+   within 10% of the eager rollout + autograd path's from the same state;
+   then the CLI on hover in subprocesses: 10 updates with an evaluation
+   every 5 and a checkpoint under chiprun_out/, then --play
+   --play_steps=200; both must exit 0.
 
 The second-to-last line is a JSON object describing each kernel of the
 paths: its launches on its main path, its error against its twin, its
@@ -96,6 +116,19 @@ PEAK_BYTES_PER_S = 3.35e12
 # K4: K3's count per sample of each pass (the optimiser's ~10k-entry
 # vectors are negligible).
 OPS_K1, OPS_K2, OPS_K3 = 150, 19_584, 56_192
+# K5, per env-step: two substeps of the hover step (hover_common.cuh) and
+# the reward, about 2 * 257 + 40 = 554 (hand count; the sin, cos, sqrt,
+# rsqrt and the eight divisions of a substep counted as one each).  K6-hover,
+# per env-step: the actor-critic at obs 13, 2 * (13*128 + 2*64*64 + 64*4 +
+# 64*1) = 20,352, plus that env step.  K3 at obs 13, per sample: forward
+# 10,176 FMA, backward 640 + 16,384 + 1,664 (dW1): 28,864 FMA = 57,728.
+OPS_K5 = 554
+OPS_ROLLOUT = {10: OPS_K2, 13: 20_352 + OPS_K5}
+OPS_LOSS = {10: OPS_K3, 13: 57_728}
+B_HOVER_CHECK = 65_536
+HOVER_ACTIONS = ((0.0, 0.0, 0.0, 0.0), (0.75, 0.73, 0.74, 0.76))
+HOVER = "MujocoQuadForce-v1"
+HOVER_RET_VAR = 4.0 * (98.0 / 1.4) ** 2
 UPDATE_TOL = dict(rtol=2e-4, atol=1e-6)  # tests/test_pallas_ppo_update.py's own
 MOMENT_TOL = dict(rtol=2e-4, atol=5e-8)
 UPDATE_METRIC_TOL = dict(rtol=1e-4, atol=1e-6)
@@ -184,7 +217,8 @@ def k4_phase(torch, dev, gpu: str, cfg, params, data, adv, tile: int, n_tiles: i
     adv_stats = ppo.pass_adv_stats(adv.reshape(n), perm_all, tile, n_passes, True)
     params = params.contiguous()
     opt = ppo.make_optimizer(cfg).init(params)
-    kw = dict(d=10, adim=4, tile=tile, n_minibatches=m_, n_epochs=e_, clip_eps=cfg.clip_eps,
+    d = data.shape[0] - 8  # obs rows of the stacked batch
+    kw = dict(d=d, adim=4, tile=tile, n_minibatches=m_, n_epochs=e_, clip_eps=cfg.clip_eps,
               value_clip_eps=cfg.value_clip_eps, value_coef=cfg.value_coef,
               ent_coef=cfg.entropy_coef, lr=cfg.learning_rate, max_grad_norm=cfg.max_grad_norm)
     k4_run = lambda: pu.ppo_update(data, adv_stats, perm_all, params, opt, None,  # noqa: E731
@@ -202,12 +236,14 @@ def k4_phase(torch, dev, gpu: str, cfg, params, data, adv, tile: int, n_tiles: i
     tw_metrics = pu._metric_means(tw_sums, n_passes, m_, mb, False)
 
     # Against the twin.
-    errs = {name: (float((a - b).abs().max()), count_outside(a, b, UPDATE_TOL))
-            for name, a, b in (("params", k.params, tw_params), ("mu", k.opt_state.mu, tw_opt.mu),
-                               ("nu", k.opt_state.nu, tw_opt.nu))}
-    say(f"K4 vs twin, one update of {e_} x {m_} passes of {mb} samples (tile {tile}): "
+    errs = {name: (float((a - b).abs().max()), count_outside(a, b, tol))
+            for name, a, b, tol in (("params", k.params, tw_params, UPDATE_TOL),
+                                    ("mu", k.opt_state.mu, tw_opt.mu, MOMENT_TOL),
+                                    ("nu", k.opt_state.nu, tw_opt.nu, MOMENT_TOL))}
+    say(f"K4 vs twin, obs {d}, one update of {e_} x {m_} passes of {mb} samples (tile {tile}): "
         + ", ".join(f"{name} max |err| {e:.3e}, {c} of {k.params.numel()} outside rtol 2e-4 "
-                    f"atol 1e-6" for name, (e, c) in errs.items()))
+                    f"atol {tol['atol']:g}" for (name, (e, c)), tol in
+                    zip(errs.items(), (UPDATE_TOL, MOMENT_TOL, MOMENT_TOL))))
     require(torch.allclose(k.params, tw_params, **UPDATE_TOL) and
             torch.allclose(k.opt_state.mu, tw_opt.mu, **MOMENT_TOL) and
             torch.allclose(k.opt_state.nu, tw_opt.nu, **MOMENT_TOL),
@@ -221,7 +257,7 @@ def k4_phase(torch, dev, gpu: str, cfg, params, data, adv, tile: int, n_tiles: i
     # Pass 0's gradient, bitwise one K3 launch on the same minibatch.
     zero = torch.zeros((), device=dev)
     k3_stats = lambda q: torch.stack([adv_stats[q, 0], adv_stats[q, 1], zero, zero])  # noqa: E731
-    loss_kw = dict(d=10, adim=4, clip_eps=cfg.clip_eps, value_clip_eps=cfg.value_clip_eps,
+    loss_kw = dict(d=d, adim=4, clip_eps=cfg.clip_eps, value_clip_eps=cfg.value_clip_eps,
                    value_coef=cfg.value_coef, ent_coef=cfg.entropy_coef, tile=tile)
     g3, _ = pl.ppo_loss_grads_gather(data, k3_stats(0).contiguous(), perm_all[:tpm].contiguous(),
                                      params, **loss_kw)
@@ -252,8 +288,8 @@ def k4_phase(torch, dev, gpu: str, cfg, params, data, adv, tile: int, n_tiles: i
     ms, plain_ms = statistics.median(kern0 + kern1), statistics.median(p0 + p1)
     bound_ms, bound_by = bound(
         nbytes(data, perm_all, adv_stats, params, opt.mu, opt.nu, k.params, k.opt_state.mu,
-               k.opt_state.nu, k.grad0) + 4 * pu.N_METRIC_SUMS, OPS_K3 * mb * n_passes)
-    say(f"time K4 {e_} x {m_} passes of {mb}: {ms:.4f} ms (median of 20 launches, each "
+               k.opt_state.nu, k.grad0) + 4 * pu.N_METRIC_SUMS, OPS_LOSS[d] * mb * n_passes)
+    say(f"time K4 obs {d}, {e_} x {m_} passes of {mb}: {ms:.4f} ms (median of 20 launches, each "
         f"{min(kern0 + kern1):.4f} to {max(kern0 + kern1):.4f}), twin {plain_ms:.3f} ms (median of "
         f"20), bound {bound_ms:.4f} ms by {bound_by}, on {gpu}")
     return dict(max_abs_err=errs["params"][0], outside=errs["params"][1], ms=ms,
@@ -261,26 +297,40 @@ def k4_phase(torch, dev, gpu: str, cfg, params, data, adv, tile: int, n_tiles: i
                 at=f"{n_passes} passes of {mb} samples gathered in tiles of {tile} from {n}")
 
 
-def training_phase(torch, dev, gpu: str, env, cfg, label: str, **train_kw):
-    """Drive 2 warm-up and 5 timed updates of ``train_step`` from seed 0,
-    with every kernel count set to 0 just before; returns the launch
-    counts, the walls and the summaries."""
+def kernel_counters() -> dict:
+    """Each kernel wrapper by its id; ``K2`` counts the fused PPO rollout's
+    launches of either kind (K2 or K6-hover)."""
+    from reinmav_tpu_torch.ops import hover_rollout as hr
     from reinmav_tpu_torch.ops import ppo_loss as pl
     from reinmav_tpu_torch.ops import ppo_rollout as pr
     from reinmav_tpu_torch.ops import ppo_update as pu
     from reinmav_tpu_torch.ops import rollout as ro
+
+    return {"K1": ro.quad3d_rollout_autoreset, "K2": pr.ppo_rollout,
+            "K3": pl.ppo_loss_grads_gather, "K4": pu.ppo_update, "K5": hr.hover_rollout}
+
+
+def ppo_state(env, cfg, dev, seed: int = 0):
     from reinmav_tpu_torch.rl import ppo
 
-    state = ppo.init_train_state(env, cfg, seed=0, device=dev)
-    counters = {"K1": ro.quad3d_rollout_autoreset, "K2": pr.ppo_rollout,
-                "K3": pl.ppo_loss_grads_gather, "K4": pu.ppo_update}
+    return ppo.init_train_state(env, cfg, seed=seed, device=dev)
+
+
+def training_phase(torch, dev, gpu: str, env, cfg, label: str, **train_kw):
+    """Drive 2 warm-up and 5 timed updates of ``train_step`` from seed 0,
+    with every kernel count set to 0 just before; returns the launch
+    counts, the walls and the summaries."""
+    state = ppo_state(env, cfg, dev)
+    counters = kernel_counters()
+    from reinmav_tpu_torch.rl.ppo import train_step
+
     for fn in counters.values():
         fn.launches = 0
     walls, summaries = [], []
     for _ in range(WARMUP_UPDATES + TIMED_UPDATES):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, summary = ppo.train_step(env, cfg, state, **train_kw)
+        state, summary = train_step(env, cfg, state, **train_kw)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
         summaries.append({k: float(v) for k, v in summary.items()})
@@ -336,12 +386,12 @@ def resume_phase(torch, dev, gpu: str, env, cfg) -> None:
         f"moments, env states, normalisers, generator, kl_beta) on {gpu}: ok")
 
 
-def cli_phase(gpu: str) -> None:
+def cli_phase(gpu: str, env_id: str = "quadrotor3d-v0") -> None:
     """The training CLI in subprocesses: train with evaluation and a
     checkpoint, then play."""
     root = Path(__file__).resolve().parent
-    ck = root / "chiprun_out" / "smoke_cli_ckpt"
-    base = [sys.executable, "-m", "reinmav_tpu_torch.rl.run", "--env=quadrotor3d-v0",
+    ck = root / "chiprun_out" / f"smoke_cli_ckpt_{env_id}"
+    base = [sys.executable, "-m", "reinmav_tpu_torch.rl.run", f"--env={env_id}",
             f"--num_env={B_PPO}", f"--rollout_len={T_PPO}"]
     runs = {"train": [*base, f"--num_timesteps={CLI_UPDATES * B_PPO * T_PPO}", "--log_interval=5",
                       "--eval_interval=5", "--eval_envs=256", f"--eval_horizon={PLAY_STEPS}",
@@ -369,40 +419,45 @@ def cli_phase(gpu: str) -> None:
         else:
             require(rows[-1]["play_steps"] == PLAY_STEPS, "the CLI's play line")
             shown = rows[-1:]
-        say(f"cli {name}: exit 0 in {time.perf_counter() - t0:.1f} s on {gpu}; last lines "
+        say(f"cli {name} {env_id}: exit 0 in {time.perf_counter() - t0:.1f} s on {gpu}; last lines "
             f"{' '.join(json.dumps(row) for row in shown)}")
 
 
-def ppo_phases(torch, dev, gpu: str, env) -> list[dict]:
-    """Phases 7-11: K2, K3 and K4 against their twins at the training
-    path's shapes, the K3-loop training path, the default (K4) training
-    path and the CLI.  Returns the three kernels' entries of the
-    ``kernels`` line."""
+def fused_kernel_checks(torch, dev, gpu: str, env, make_states, names,
+                        ret_var: float = 4.0) -> tuple[dict, dict, dict]:
+    """Phases 7, 8 and 10 (quadrotor3d-v0) or 13 (the hover task): the
+    fused PPO rollout kernel (K2 or K6-hover) against its twin at 32,768 x
+    32 with noise and resets on, K3 against its twin on one full minibatch
+    of that trajectory, K4 against its twin over one update on it.
+    ``make_states(state)`` gives the rollout's ``(D, B)`` start states,
+    ``names`` the labels of the three kernels, ``ret_var`` the return
+    normaliser's variance (a warmed one, of the env's reward scale).
+    Returns each kernel's numbers for the ``kernels`` line."""
     from reinmav_tpu_torch.ops import ppo_loss as pl
     from reinmav_tpu_torch.ops import ppo_rollout as pr
-    from reinmav_tpu_torch.ops import rollout as ro
     from reinmav_tpu_torch.rl import networks, ppo
 
-    # 7. K2 against its twin, noise and resets on.  Warmed normalisers, a
-    # spread of running returns, log_std -0.5, and states drawn twice as
-    # wide as a reset, so that the envs beyond |p| = 3 reset at once.
+    k2_name, k3_name, k4_name = names
+    d = env.obs_dim
+    # Warmed normalisers, a spread of running returns, log_std -0.5.
     cfg = ppo.PpoConfig(num_envs=B_PPO, rollout_len=T_PPO, fused_update="off")
     layout = networks.Layout(env.obs_dim, env.action_dim, cfg.hidden)
     state = ppo.init_train_state(env, cfg, seed=3, device=dev)
-    obs_norm = ppo.ObsNorm(torch.linspace(-0.1, 0.1, 10, device=dev),
-                           torch.linspace(0.5, 2.0, 10, device=dev),
+    obs_norm = ppo.ObsNorm(torch.linspace(-0.1, 0.1, d, device=dev),
+                           torch.linspace(0.5, 2.0, d, device=dev),
                            torch.tensor(100.0, device=dev))
-    ret_norm = ppo.RetNorm(torch.tensor(4.0, device=dev), torch.tensor(100.0, device=dev))
+    ret_norm = ppo.RetNorm(torch.tensor(ret_var, device=dev), torch.tensor(100.0, device=dev))
     params = state.params.clone()
     params[layout.slices[("log_std",)]] = -0.5
     consts = ppo._rollout_consts(params, layout, obs_norm, ret_norm, cfg.gamma)
-    states_t = (state.env_states.T * 2.0).contiguous()
+    states_t = make_states(state)
     rets = torch.linspace(-1.0, 1.0, B_PPO, device=dev)
     k2_args = (states_t, rets, 21, params, consts, T_PPO)
-    k2_run = lambda: pr.ppo_rollout(*k2_args)  # noqa: E731
-    k2_plain = lambda: pr.ppo_rollout_reference(*k2_args)  # noqa: E731
+    k2_kw = dict(params_vec=pr.env_params_vec(env), env_kind=env.name)
+    k2_run = lambda: pr.ppo_rollout(*k2_args, **k2_kw)  # noqa: E731
+    k2_plain = lambda: pr.ppo_rollout_reference(*k2_args, **k2_kw)  # noqa: E731
     k2_run()  # warm-up
-    pr.ppo_rollout_reference(states_t, rets, 21, params, consts, 2)  # warm-up
+    pr.ppo_rollout_reference(states_t, rets, 21, params, consts, 2, **k2_kw)  # warm-up
     torch.cuda.synchronize()
     (plain0,), ref = cuda_ms(k2_plain, 1)
     kern0, out = cuda_ms(k2_run, 10)
@@ -411,28 +466,33 @@ def ppo_phases(torch, dev, gpu: str, env) -> list[dict]:
     bad = _mismatched_envs(torch, out, ref)
     mismatched = int(bad.sum())
     resets = int(ref.done.sum())
-    require(resets > 0, "K2 check: no env reset, so the reset stream was not exercised")
-    require(mismatched <= 0.001 * B_PPO, f"K2 vs twin: {mismatched} envs mismatched")
+    require(resets > 0, f"{k2_name} check: no env reset, so the reset path was not exercised")
+    require(mismatched <= 0.001 * B_PPO, f"{k2_name} vs twin: {mismatched} envs mismatched")
     ok = ~bad
     k2_err = max(float((x[..., ok] - y[..., ok]).abs().max())
                  for x, y in zip((*out[:5], out.final_states), (*ref[:5], ref.final_states)))
     errs = {name: rel_err(getattr(out, name)[..., ok], getattr(ref, name)[..., ok])
             for name in ("log_prob", "value", "reward")}
     stats_rel = float(((out.stats - ref.stats).abs() / ref.stats.abs().clamp_min(1.0)).max())
-    require(stats_rel <= 1e-3, f"K2 moment sums, rel err {stats_rel}")
+    require(stats_rel <= 1e-3, f"{k2_name} moment sums, rel err {stats_rel}")
     again = k2_run()
-    require(all(torch.equal(x, y) for x, y in zip(out, again)), "K2 determinism per seed")
-    say(f"K2 vs twin, B={B_PPO} T={T_PPO}, noise and resets on ({resets} resets): {mismatched} "
-        f"of {B_PPO} envs mismatched (limit 0.1%); on the others max |err| {k2_err:.3e}, rel err "
-        f"logp {errs['log_prob']:.3e} value {errs['value']:.3e} reward {errs['reward']:.3e}; "
-        f"moment sums rel err {stats_rel:.3e} (limit 1e-3); bitwise equal on a rerun: ok")
+    require(all(torch.equal(x, y) for x, y in zip(out, again)), f"{k2_name} determinism per seed")
+    say(f"{k2_name} vs twin, B={B_PPO} T={T_PPO}, noise and resets on ({resets} resets): "
+        f"{mismatched} of {B_PPO} envs mismatched (limit 0.1%); on the others max |err| "
+        f"{k2_err:.3e}, rel err logp {errs['log_prob']:.3e} value {errs['value']:.3e} reward "
+        f"{errs['reward']:.3e}; moment sums rel err {stats_rel:.3e} (limit 1e-3); bitwise equal "
+        f"on a rerun: ok")
     k2_ms, k2_plain_ms = statistics.median(kern0 + kern1), (plain0 + plain1) / 2
-    k2_bound, k2_by = bound(nbytes(states_t, rets, params, consts, *out), OPS_K2 * B_PPO * T_PPO)
-    say(f"time K2 B={B_PPO} T={T_PPO}: {k2_ms:.4f} ms (median of 20 launches, each "
+    k2_bound, k2_by = bound(nbytes(states_t, rets, params, consts, *out),
+                            OPS_ROLLOUT[d] * B_PPO * T_PPO)
+    say(f"time {k2_name} B={B_PPO} T={T_PPO}: {k2_ms:.4f} ms (median of 20 launches, each "
         f"{min(kern0 + kern1):.4f} to {max(kern0 + kern1):.4f}), twin {k2_plain_ms:.2f} ms "
         f"(runs {plain0:.2f}, {plain1:.2f}), bound {k2_bound:.4f} ms by {k2_by}, on {gpu}")
+    rollout = dict(max_abs_err=k2_err, mismatched=mismatched, ms=k2_ms, plain_ms=k2_plain_ms,
+                   bound_ms=k2_bound, bound_by=k2_by,
+                   at=f"states ({env.obs_dim}, {B_PPO}), horizon {T_PPO}")
 
-    # 8. K3 against its twin on one full minibatch of that trajectory, with
+    # K3 against its twin on one full minibatch of that trajectory, with
     # the params moved off the rollout's, so that ratios leave 1 and clip.
     n = B_PPO * T_PPO
     traj = ppo.Transition(out.obs, out.action, out.log_prob, out.value, out.reward, out.done)
@@ -466,36 +526,57 @@ def ppo_phases(torch, dev, gpu: str, env) -> list[dict]:
     kern, (g_k, m_k) = cuda_ms(k3_run, 20)
     p1, _ = cuda_ms(k3_plain, 3)
     g_again, m_again = k3_run()
-    require(torch.allclose(g_k, g_p, **GRAD_TOL), "K3 vs twin, gradients")
+    require(torch.allclose(g_k, g_p, **GRAD_TOL), f"{k3_name} vs twin, gradients")
     for name in pl.METRICS:
-        require(torch.allclose(m_k[name], m_p[name], **METRIC_TOL), f"K3 vs twin, {name}")
+        require(torch.allclose(m_k[name], m_p[name], **METRIC_TOL), f"{k3_name} vs twin, {name}")
     require(torch.equal(g_k, g_again) and all(torch.equal(m_k[k], m_again[k]) for k in m_k),
-            "K3 bitwise determinism")
+            f"{k3_name} bitwise determinism")
     k3_err = float((g_k - g_p).abs().max())
     clip_frac = float(m_k["clip_frac"])
-    require(clip_frac > 0.0, "K3 check: no sample clipped, so the clip branch was not exercised")
-    say(f"K3 vs twin, one minibatch of {mb} samples (tile {tile}, {tidx.numel()} tiles), clip mode: "
-        f"grads max |err| {k3_err:.3e}, rel err {rel_err(g_k, g_p):.3e} (rtol 2e-3 atol 2e-6), "
-        f"metrics {', '.join(f'{k} {float(m_k[k]):.5g}' for k in pl.METRICS)} (rtol 2e-4 atol "
-        f"1e-6); bitwise equal on a rerun: ok")
+    require(clip_frac > 0.0,
+            f"{k3_name} check: no sample clipped, so the clip branch was not exercised")
+    say(f"{k3_name} vs twin, one minibatch of {mb} samples (tile {tile}, {tidx.numel()} tiles), "
+        f"clip mode: grads max |err| {k3_err:.3e}, rel err {rel_err(g_k, g_p):.3e} (rtol 2e-3 atol "
+        f"2e-6), metrics {', '.join(f'{k} {float(m_k[k]):.5g}' for k in pl.METRICS)} (rtol 2e-4 "
+        f"atol 1e-6); bitwise equal on a rerun: ok")
     k3_ms, k3_plain_ms = statistics.median(kern), statistics.median(p0 + p1)
     k3_bound, k3_by = bound(nbytes(tidx, adv_stats, net, g_k) + mb * data.shape[0] * 4,
-                            OPS_K3 * mb)
-    say(f"time K3 minibatch {mb}: {k3_ms:.4f} ms (median of 20 launches, each {min(kern):.4f} "
-        f"to {max(kern):.4f}), twin {k3_plain_ms:.3f} ms (median of 6), bound {k3_bound:.4f} ms "
-        f"by {k3_by}, on {gpu}")
-    # 10. K4 on the same trajectory, from the rollout's own params.
-    k4 = k4_phase(torch, dev, gpu, cfg, params, data, adv, tile, n_tiles)
+                            OPS_LOSS[d] * mb)
+    say(f"time {k3_name} minibatch {mb}: {k3_ms:.4f} ms (median of 20 launches, each "
+        f"{min(kern):.4f} to {max(kern):.4f}), twin {k3_plain_ms:.3f} ms (median of 6), bound "
+        f"{k3_bound:.4f} ms by {k3_by}, on {gpu}")
+    loss = dict(max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_bound,
+                bound_by=k3_by, at=f"minibatch of {mb} samples gathered in tiles of {tile} from "
+                                   f"{n}, obs {d}")
+    # K4 on the same trajectory, from the rollout's own params.
+    update = k4_phase(torch, dev, gpu, cfg, params, data, adv, tile, n_tiles)
     del out, ref, again, data, traj, adv, ret
     torch.cuda.empty_cache()
+    return rollout, loss, update
 
+
+def ppo_phases(torch, dev, gpu: str, env) -> list[dict]:
+    """Phases 7-11: K2, K3 and K4 against their twins at the training
+    path's shapes, the K3-loop training path, the default (K4) training
+    path and the CLI.  Returns the three kernels' entries of the
+    ``kernels`` line."""
+    from reinmav_tpu_torch.ops import ppo_loss as pl
+    from reinmav_tpu_torch.ops import ppo_rollout as pr
+    from reinmav_tpu_torch.rl import ppo
+
+    # 7, 8 and 10.  States drawn twice as wide as a reset, so that the envs
+    # beyond |p| = 3 reset at once.
+    cfg = ppo.PpoConfig(num_envs=B_PPO, rollout_len=T_PPO, fused_update="off")
+    k2, k3, k4 = fused_kernel_checks(torch, dev, gpu, env,
+                                     lambda state: (state.env_states.T * 2.0).contiguous(),
+                                     ("K2", "K3", "K4"))
     # 9. The training path through the public API, with the update as a
     # loop of 16 minibatch steps through K3 (fused_update="off").
     launches, walls, summaries = training_phase(torch, dev, gpu, env, cfg, "ppo update (K3 loop)")
     k3_launches = launches["K3"]
     updates = WARMUP_UPDATES + TIMED_UPDATES
     passes = cfg.num_epochs * cfg.num_minibatches
-    require(launches == {"K1": 0, "K2": updates, "K3": updates * passes, "K4": 0},
+    require(launches == {"K1": 0, "K2": updates, "K3": updates * passes, "K4": 0, "K5": 0},
             f"launches {launches} on the K3 loop path, expected K2 {updates}, K3 "
             f"{updates * passes}")
 
@@ -525,7 +606,7 @@ def ppo_phases(torch, dev, gpu: str, env) -> list[dict]:
     main_cfg = ppo.PpoConfig(num_envs=B_PPO, rollout_len=T_PPO)
     main_launches, main_walls, main_summaries = training_phase(torch, dev, gpu, env, main_cfg,
                                                                "ppo update (K4)")
-    require(main_launches == {"K1": 0, "K2": updates, "K3": 0, "K4": updates},
+    require(main_launches == {"K1": 0, "K2": updates, "K3": 0, "K4": updates, "K5": 0},
             f"launches {main_launches} on the default path, expected K2 and K4 {updates}, K3 0")
     rewards = [s["mean_reward"] for s in main_summaries]
     for r, e in zip(rewards, loop_rewards):
@@ -548,31 +629,30 @@ def ppo_phases(torch, dev, gpu: str, env) -> list[dict]:
         "source": "reinmav_tpu_torch/csrc/ppo_rollout.cu",
         "replaces": "reinmav_tpu/ops/pallas_ppo_rollout.py:703",
         "launches": main_launches["K2"],
-        "max_abs_err": k2_err,
-        "mismatched_envs": mismatched,
+        "max_abs_err": k2["max_abs_err"],
+        "mismatched_envs": k2["mismatched"],
         "tolerance": "rtol 2e-4 atol 2e-5 per env over its whole trajectory, <= 0.1% of envs "
                      "may differ; max_abs_err over the envs that agree",
-        "ms": k2_ms,
-        "plain_ms": k2_plain_ms,
-        "bound_ms": k2_bound,
-        "bound_by": k2_by,
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
         "library_ms": None,
-        "at": f"states ({env.obs_dim}, {B_PPO}), horizon {T_PPO}",
+        "at": k2["at"],
     }, {
         "name": "ppo_loss_grads_gather",
         "route": "cuda",
         "source": "reinmav_tpu_torch/csrc/ppo_loss.cu",
         "replaces": "reinmav_tpu/ops/pallas_ppo.py:424",
         "launches": k3_launches,
-        "max_abs_err": k3_err,
+        "max_abs_err": k3["max_abs_err"],
         "tolerance": "grads rtol 2e-3 atol 2e-6, metrics rtol 2e-4 atol 1e-6, bitwise repeatable",
-        "ms": k3_ms,
-        "plain_ms": k3_plain_ms,
-        "bound_ms": k3_bound,
-        "bound_by": k3_by,
+        "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"],
         "library_ms": None,
-        "at": f"minibatch of {mb} samples gathered in tiles of {tile} from {n}; launches on the "
-              f"fused_update=\"off\" path",
+        "at": f"{k3['at']}; launches on the fused_update=\"off\" path",
     }, {
         "name": "ppo_update",
         "route": "cuda",
@@ -590,6 +670,203 @@ def ppo_phases(torch, dev, gpu: str, env) -> list[dict]:
         "library_ms": None,
         "at": k4["at"],
     }]
+
+
+def hover_states(torch, gen, dev, batch: int, z_lo: float, z_hi: float):
+    """Perturbed hover states, ``(13, B)``: x, y in +-0.3, z in [z_lo,
+    z_hi], identity attitude, velocities and rates in +-0.5."""
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    s = torch.zeros((13, batch), device=dev)
+    s[0:2] = (u(2, batch) * 2.0 - 1.0) * 0.3
+    s[2] = z_lo + (z_hi - z_lo) * u(batch)
+    s[3] = 1.0
+    s[7:13] = (u(6, batch) * 2.0 - 1.0) * 0.5
+    return s
+
+
+def hover_phases(torch, dev, gpu: str) -> list[dict]:
+    """Phases 12-14: K5 against its twin and the hover throughput path; K6-
+    hover, K3 and K4 at obs 13 against their twins; hover training and its
+    CLI.  Returns the four kernels' entries of the ``kernels`` line."""
+    import reinmav_tpu_torch
+    from reinmav_tpu_torch.ops import hover_rollout as hr
+    from reinmav_tpu_torch.rl import ppo
+
+    env = reinmav_tpu_torch.make(HOVER)
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    # 12. K5 against its twin, free-running through the resets.
+    check = hover_states(torch, gen, dev, B_HOVER_CHECK, 0.7, 1.3)
+    for action in HOVER_ACTIONS:
+        f_k, r_k = hr.hover_rollout(check, T_RESET, action=action)
+        f_p, r_p = hr.hover_rollout_reference(check, T_RESET, action=action)
+        torch.cuda.synchronize()
+        mismatched = int((~torch.isclose(f_k, f_p, **TOL).all(dim=0)).sum())
+        rel = abs(float(r_k.double().sum() - r_p.double().sum())) / abs(float(r_p.double().sum()))
+        require(mismatched <= 0.001 * B_HOVER_CHECK, f"K5 {action}: {mismatched} envs mismatched")
+        require(rel <= 1e-3, f"K5 {action}: reward total rel err {rel}")
+        f_k2, r_k2 = hr.hover_rollout(check, T_RESET, action=action)
+        require(torch.equal(f_k, f_k2) and torch.equal(r_k, r_k2), "K5 bitwise determinism")
+        require(bool(torch.isfinite(f_k).all()) and float(f_k[2].min()) > 0.3, "K5 envelope")
+        say(f"K5 vs twin, action {action}, B={B_HOVER_CHECK} T={T_RESET}: {mismatched} of "
+            f"{B_HOVER_CHECK} envs mismatched (limit 0.1%), reward total rel err {rel:.3e} (rtol "
+            f"1e-3), mean reward sum {float(r_k.mean()):.3f}; bitwise equal on a rerun: ok")
+
+    # The hover main path, through the public entry points.
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    big = env.vreset(gen, B_MAIN)
+    big_final, reward_sum = reinmav_tpu_torch.throughput_rollout(env, big, gen, horizon=T_MAIN)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    require(launches == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 1},
+            f"hover throughput_rollout launches {launches}, expected K5 1")
+    require(big_final.shape == (B_MAIN, 13) and reward_sum.shape == (B_MAIN,), "output shapes")
+    require(bool(torch.isfinite(big_final).all()) and bool(torch.isfinite(reward_sum).all()),
+            "finite states and reward sums")
+    # Every env starts at the reset pose under the zero action: one trajectory.
+    require(bool((big_final == big_final[0]).all()) and bool((reward_sum == reward_sum[0]).all()),
+            "the deterministic hover rollout differs between envs")
+    say(f"throughput_rollout({HOVER}) B={B_MAIN} T={T_MAIN} backend=auto: K5 launches "
+        f"{launches['K5']}, final z {float(big_final[0, 2]):.4f}, reward sum "
+        f"{float(reward_sum[0]):.3f} in every env: ok")
+
+    # K5 and its twin at the main path's shape, in turns, from perturbed states.
+    big_t = hover_states(torch, gen, dev, B_MAIN, 0.7, 1.3)
+    del big, big_final, reward_sum
+    kernel_run = lambda: hr.hover_rollout(big_t, T_MAIN)  # noqa: E731
+    plain_run = lambda: hr.hover_rollout_reference(big_t, T_MAIN)  # noqa: E731
+    kernel_run()
+    hr.hover_rollout_reference(big_t, 5)  # warm-ups
+    torch.cuda.synchronize()
+    (plain0,), (f_p, r_p) = cuda_ms(plain_run, 1)
+    kern0, (f_k, r_k) = cuda_ms(kernel_run, 5)
+    kern1, _ = cuda_ms(kernel_run, 5)
+    (plain1,), _ = cuda_ms(plain_run, 1)
+    ok = torch.isclose(f_k, f_p, **TOL).all(dim=0)
+    k5_mismatched = int((~ok).sum())
+    k5_err = float((f_k[:, ok] - f_p[:, ok]).abs().max())
+    require(k5_mismatched <= 0.001 * B_MAIN, f"K5 main shape: {k5_mismatched} envs mismatched")
+    k5_ms, k5_plain_ms = statistics.median(kern0 + kern1), (plain0 + plain1) / 2
+    k5_bound, k5_by = bound(nbytes(big_t, f_k, r_k), OPS_K5 * B_MAIN * T_MAIN)
+    say(f"K5 vs twin, B={B_MAIN} T={T_MAIN}: {k5_mismatched} envs mismatched (limit 0.1%), on the "
+        f"others max |err| {k5_err:.3e}: ok")
+    say(f"time K5 B={B_MAIN} T={T_MAIN}: {k5_ms:.3f} ms per rollout (median of 10 launches, each "
+        f"{min(kern0 + kern1):.3f} to {max(kern0 + kern1):.3f}), "
+        f"{B_MAIN * T_MAIN / k5_ms * 1e3:.4e} env-steps/s; twin {k5_plain_ms:.1f} ms (runs "
+        f"{plain0:.1f}, {plain1:.1f}); bound {k5_bound:.3f} ms by {k5_by}, on {gpu}")
+    at_k5 = f"states {tuple(f_k.shape)}, horizon {T_MAIN}, zero action"
+    del big_t, f_k, f_p, r_k, r_p
+    torch.cuda.empty_cache()
+
+    # 13. K6-hover, K3 and K4 at obs 13, from states between z = 0.35 and 1.
+    # The hover reward is about 98 a step against quadrotor3d's -1.4, so
+    # the return normaliser's variance is scaled by (98 / 1.4)^2 from
+    # phase 7's 4.0: normalised rewards of quadrotor3d's size, not all
+    # clipped at 10 as an unwarmed normaliser would leave them.
+    k6, k3, k4 = fused_kernel_checks(
+        torch, dev, gpu, env, lambda state: hover_states(torch, gen, dev, B_PPO, 0.35, 1.0),
+        ("K6-hover", "K3 (obs 13)", "K4 (obs 13)"), ret_var=HOVER_RET_VAR)
+
+    # 14. Hover training: the default path (K6-hover + K4), the K3 loop, and
+    # the eager rollout + autograd from the same state.
+    updates = WARMUP_UPDATES + TIMED_UPDATES
+    main_cfg = ppo.PpoConfig(num_envs=B_PPO, rollout_len=T_PPO)
+    passes = main_cfg.num_epochs * main_cfg.num_minibatches
+    main_launches, main_walls, main_summaries = training_phase(
+        torch, dev, gpu, env, main_cfg, "hover ppo update (K6-hover + K4)")
+    require(main_launches == {"K1": 0, "K2": updates, "K3": 0, "K4": updates, "K5": 0},
+            f"launches {main_launches} on the hover default path, expected K6-hover and K4 "
+            f"{updates}, K3 0")
+    loop_cfg = main_cfg._replace(fused_update="off")
+    loop_launches, loop_walls, loop_summaries = training_phase(
+        torch, dev, gpu, env, loop_cfg, "hover ppo update (K3 loop)")
+    require(loop_launches == {"K1": 0, "K2": updates, "K3": updates * passes, "K4": 0, "K5": 0},
+            f"launches {loop_launches} on the hover K3 loop, expected K6-hover {updates}, K3 "
+            f"{updates * passes}")
+    eager = ppo_state(env, loop_cfg, dev)
+    eager_rewards = []
+    for _ in range(updates):
+        eager, summary = ppo.train_step(env, loop_cfg, eager, fused_rollout=False,
+                                        fused_loss=False)
+        eager_rewards.append(float(summary["mean_reward"]))
+    for label, summaries in (("K6-hover + K4", main_summaries), ("K3 loop", loop_summaries)):
+        rewards = [s["mean_reward"] for s in summaries]
+        for r, e in zip(rewards, eager_rewards):
+            require(abs(r - e) <= 0.1 * abs(e), f"hover mean_reward {rewards} vs eager "
+                                                   f"{eager_rewards}")
+        say(f"hover mean_reward per update, {label} {[round(r, 4) for r in rewards]}, eager "
+            f"rollout + autograd from the same state {[round(e, 4) for e in eager_rewards]} "
+            f"(rtol 0.1): ok")
+    for label, walls in (("default (K6-hover + K4)", main_walls), ("K3 loop", loop_walls)):
+        timed = walls[WARMUP_UPDATES:]
+        say(f"hover ppo training path, {label}, B={B_PPO} T={T_PPO}: timed updates median "
+            f"{statistics.median(timed):.2f} ms "
+            f"({B_PPO * T_PPO / statistics.median(timed) * 1e3:.4e} env-steps/s end to end), "
+            f"on {gpu}")
+    cli_phase(gpu, HOVER)
+
+    def entry(name, source, replaces, launches, numbers, tolerance, extra=None):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": numbers["max_abs_err"], **(extra or {}),
+                "tolerance": tolerance, "ms": numbers["ms"], "plain_ms": numbers["plain_ms"],
+                "bound_ms": numbers["bound_ms"], "bound_by": numbers["bound_by"],
+                "library_ms": None, "at": numbers["at"]}
+
+    return [
+        entry("hover_rollout", "reinmav_tpu_torch/csrc/hover_rollout.cu",
+              "reinmav_tpu/ops/pallas_tpuquad.py:622", launches["K5"],
+              dict(max_abs_err=k5_err, ms=k5_ms, plain_ms=k5_plain_ms, bound_ms=k5_bound,
+                   bound_by=k5_by, at=at_k5),
+              "rtol 2e-4 atol 2e-5 per env, <= 0.1% of envs may differ; max_abs_err over the "
+              "envs that agree", {"mismatched_envs": k5_mismatched}),
+        entry("ppo_rollout (MujocoQuadForce-v1, K6-hover)", "reinmav_tpu_torch/csrc/ppo_rollout.cu",
+              "reinmav_tpu/ops/pallas_ppo_rollout.py:703", main_launches["K2"], k6,
+              "rtol 2e-4 atol 2e-5 per env over its whole trajectory, <= 0.1% of envs may "
+              "differ; max_abs_err over the envs that agree", {"mismatched_envs": k6["mismatched"]}),
+        entry("ppo_loss_grads_gather (obs 13)", "reinmav_tpu_torch/csrc/ppo_loss.cu",
+              "reinmav_tpu/ops/pallas_ppo.py:424", loop_launches["K3"],
+              {**k3, "at": f"{k3['at']}; launches on the hover fused_update=\"off\" path"},
+              "grads rtol 2e-3 atol 2e-6, metrics rtol 2e-4 atol 1e-6, bitwise repeatable"),
+        entry("ppo_update (obs 13)", "reinmav_tpu_torch/csrc/ppo_update.cu",
+              "reinmav_tpu/ops/pallas_ppo_update.py:304", main_launches["K4"], k4,
+              "params rtol 2e-4 atol 1e-6, moments rtol 2e-4 atol 5e-8 of the twin and of the K3 "
+              "loop; pass-0 gradient bitwise K3's; bitwise repeatable",
+              {"entries_outside_rtol_2e-4_atol_1e-6": k4["outside"]}),
+    ]
+
+
+def ptxas_report(path) -> list[str]:
+    """One line per kernel of ptxas's report: registers, spill stores and
+    loads, shared memory."""
+    import re
+
+    rows, name, spill = [], None, ""
+    for line in Path(path).read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m and name:
+            rows.append((name, f"{m.group(1)} registers, {spill}{m.group(2)}"))
+            name, spill = None, ""
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(n for n, _ in rows),
+                               capture_output=True, text=True, timeout=60).stdout.splitlines()
+    except OSError:
+        names = [n for n, _ in rows]
+    if len(names) != len(rows):
+        names = [n for n, _ in rows]
+    short = [n.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+             for n in names]
+    return [f"ptxas: {n}: {info}" for n, (_, info) in zip(short, rows)]
+
 
 
 def main() -> int:
@@ -618,6 +895,8 @@ def main() -> int:
     _build.load_library()
     say(f"build: {time.perf_counter() - t0:.2f} s, nvcc {' '.join(_build.NVCC_FLAGS)} "
         f"-> {lib_path.name}")
+    for line in ptxas_report(_build.ptxas_log_path()):
+        say(line)
 
     # 3. Philox known answers, on the device through the kernel library.
     kat = [((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
@@ -751,6 +1030,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     kernels += ppo_phases(torch, dev, gpu, env)
+    kernels += hover_phases(torch, dev, gpu)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

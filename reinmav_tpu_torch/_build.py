@@ -3,7 +3,9 @@
 Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``), one
 ``nvcc`` process per source, all started together, and the objects are
 linked into one shared library with a plain C interface, at first use,
-and loaded with ``ctypes``.  The library's name carries a hash of the
+and loaded with ``ctypes``; ptxas's report of every kernel's registers,
+spills and shared memory is kept beside it (:func:`ptxas_log_path`).
+The library's name carries a hash of the
 sources, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 source or header builds anew and an unchanged tree is reused.
 The build directory ``_build/`` sits in the package and is not
@@ -27,10 +29,11 @@ from pathlib import Path
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
-#: C entry point -> argtypes.  Every entry point returns ``cudaGetLastError()``.
+#: C entry point -> argtypes.  Every launch entry point returns a CUDA error
+#: code, 0 on success.
 _SIGNATURES = {
     # (states_in, states_out, reward_out, batch, horizon, seed, autoreset,
     #  host params[11], stream)
@@ -38,28 +41,33 @@ _SIGNATURES = {
                               ctypes.c_uint, ctypes.c_int, _P, _P),
     # (counters (n, 4) u32, keys (n, 2) u32, out (n, 4) u32, n, stream)
     "philox4x32_10_launch": (_P, _P, _P, ctypes.c_longlong, _P),
-    # K2: (states_in, returns_in, net, consts, batch, horizon, seed,
-    #  normalize_obs, normalize_rewards, host params[11], obs, action,
-    #  log_prob, value, reward, done, final_states, returns_out, partials,
-    #  stats, stream)
-    "ppo_rollout_launch": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint,
-                           ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _P, _P, _P),
-    # K3: (data, n, perm, m, tile, adv_stats, net, clip_eps, value_clip_eps,
-    #  value_coef, kl_mode, blocks, partials, out, stream)
-    "ppo_loss_launch": (_P, ctypes.c_longlong, _P, ctypes.c_longlong, ctypes.c_int, _P, _P,
-                        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+    # K5: (states_in, states_out, reward_out, batch, horizon, frame_skip,
+    #  host params[17], host action[4], a_sq, 0.1 * a_sum, stream)
+    "hover_rollout_launch": (_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P,
+                             ctypes.c_float, ctypes.c_float, _P),
+    # K2 / K6-hover: (env kind, states_in, returns_in, net, consts, batch,
+    #  horizon, seed, normalize_obs, normalize_rewards, host params, number
+    #  of params, obs, action, log_prob, value, reward, done, final_states,
+    #  returns_out, partials, stats, stream)
+    "ppo_rollout_launch": (ctypes.c_int, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                           ctypes.c_uint, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P, _P, _P,
+                           _P, _P, _P, _P, _P, _P, _P, _P),
+    # K3: (obs dim, data, n, perm, m, tile, adv_stats, net, clip_eps,
+    #  value_clip_eps, value_coef, kl_mode, blocks, partials, out, stream)
+    "ppo_loss_launch": (ctypes.c_int, _P, ctypes.c_longlong, _P, ctypes.c_longlong, ctypes.c_int,
+                        _P, _P, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
                         ctypes.c_int, _P, _P, _P),
     # (minibatch samples) -> CTAs of the K3 launch, -1 on a CUDA error
     "ppo_loss_blocks": (ctypes.c_longlong,),
-    "ppo_loss_out_size": (),
-    # K4: (data, n, perm, tile, tiles per minibatch, passes, minibatches,
-    #  adv_stats, kl_beta, count_in, count_out, params, mu, nu, clip_eps,
-    #  value_clip_eps, value_coef, inv_n, ent_coef, lr, max_grad_norm, b1, b2,
-    #  eps, has_floor, log_std_floor, kl_mode, blocks, partials, gbuf, slots,
-    #  metrics, grad0, stream)
-    "ppo_update_launch": (_P, ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float,
+    # (obs dim) -> sums K3 writes, -1 for a dim it is not built for
+    "ppo_loss_out_size": (ctypes.c_int,),
+    # K4: (obs dim, data, n, perm, tile, tiles per minibatch, passes,
+    #  minibatches, adv_stats, kl_beta, count_in, count_out, params, mu, nu,
+    #  clip_eps, value_clip_eps, value_coef, inv_n, ent_coef, lr,
+    #  max_grad_norm, b1, b2, eps, has_floor, log_std_floor, kl_mode, blocks,
+    #  partials, gbuf, slots, metrics, grad0, stream)
+    "ppo_update_launch": (ctypes.c_int, _P, ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float,
                           ctypes.c_float, ctypes.c_float, ctypes.c_double, ctypes.c_float,
                           ctypes.c_float, ctypes.c_float, ctypes.c_double, ctypes.c_double,
                           ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
@@ -93,15 +101,22 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libreinmav_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _run_all(cmds: list[list[str]]) -> None:
+def _run_all(cmds: list[list[str]]) -> list[str]:
     """Run the commands in parallel; raise with the output of the first
-    that failed."""
+    that failed, else return their outputs."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for c in cmds]
     outs = [p.communicate()[0] for p in procs]
     for cmd, proc, out in zip(cmds, procs, outs):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    return outs
+
+
+def ptxas_log_path() -> Path:
+    """Where :func:`build` keeps ptxas's report (registers, spills, shared
+    memory of every kernel) of the current library."""
+    return _library_path().with_suffix(".ptxas.txt")
 
 
 def build() -> Path:
@@ -116,10 +131,12 @@ def build() -> Path:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, src.stem + ".o") for src in _sources()]
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
-                  for src, obj in zip(_sources(), objs)])
+        logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                         for src, obj in zip(_sources(), objs)])
         lib = os.path.join(tmp, out.name)
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        Path(tmp, "ptxas.txt").write_text("".join(logs))
+        os.replace(Path(tmp, "ptxas.txt"), ptxas_log_path())
         os.replace(lib, out)
     return out
 

@@ -1,5 +1,7 @@
 // The flat parameter vector of the 2x64 tanh actor-critic, as K2
-// (ppo_rollout.cu) and K3 (ppo_loss.cu) read it and K3 writes its gradient.
+// (ppo_rollout.cu) and K3/K4 (ppo_loss.cu, ppo_update.cu) read it and K3/K4
+// write its gradient, for an observation of D dims: Layout<10> for
+// quadrotor3d-v0, Layout<13> for the tpuquad family.
 //
 // The layout is reinmav_tpu_torch/rl/networks.py::Layout: the JAX params
 // pytree's leaves in jax.tree.leaves order, each raveled row-major, with
@@ -18,27 +20,30 @@
 namespace reinmav {
 namespace ac {
 
-constexpr int D = 10;  // obs dim (quadrotor3d-v0)
 constexpr int A = 4;   // action dim
 constexpr int H = 64;  // hidden width of each tower
 
-constexpr int kLogStd = 0;
-// Offsets inside a tower, from its base.
-constexpr int kB1 = 0;
-constexpr int kW1 = kB1 + H;
-constexpr int kB2 = kW1 + D * H;
-constexpr int kW2 = kB2 + H;
-constexpr int kTowerHidden = kW2 + H * H;
+template <int kD>
+struct Layout {
+  static constexpr int D = kD;  // obs dim
+  static constexpr int kLogStd = 0;
+  // Offsets inside a tower, from its base.
+  static constexpr int kB1 = 0;
+  static constexpr int kW1 = kB1 + H;
+  static constexpr int kB2 = kW1 + D * H;
+  static constexpr int kW2 = kB2 + H;
+  static constexpr int kTowerHidden = kW2 + H * H;
 
-constexpr int kPi = kLogStd + A;
-constexpr int kPiOutB = kPi + kTowerHidden;
-constexpr int kPiOutW = kPiOutB + A;
-constexpr int kVf = kPiOutW + H * A;
-constexpr int kVfOutB = kVf + kTowerHidden;
-constexpr int kVfOutW = kVfOutB + 1;
-constexpr int kNetSize = kVfOutW + H;
+  static constexpr int kPi = kLogStd + A;
+  static constexpr int kPiOutB = kPi + kTowerHidden;
+  static constexpr int kPiOutW = kPiOutB + A;
+  static constexpr int kVf = kPiOutW + H * A;
+  static constexpr int kVfOutB = kVf + kTowerHidden;
+  static constexpr int kVfOutW = kVfOutB + 1;
+  static constexpr int kNetSize = kVfOutW + H;
 
-__host__ __device__ constexpr int tower_base(int tower) { return tower == 0 ? kPi : kVf; }
+  __host__ __device__ static constexpr int tower_base(int tower) { return tower == 0 ? kPi : kVf; }
+};
 
 constexpr float kLog2Pi = 1.8378770664093453f;
 

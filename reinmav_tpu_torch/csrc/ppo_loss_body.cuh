@@ -17,9 +17,12 @@
 // phases hit distinct banks).  The weight gradients are outer products
 // summed over samples: each thread owns a fixed set of gradient entries
 // (32 of dW2, 5 of dW1, ...) in registers for the CTA's whole share of the
-// minibatch.  The gather: minibatch sample q reads column perm[q / tile] *
-// tile + q % tile of the full (R, n) batch, so the minibatch is never
-// stored.  Shared memory: 40 KB of weights and 143 KB of activations.
+// minibatch; the D rows of dW1 are split between the towers' threads, the
+// first ceil(D / 2) rows to tower 0's and the rest to tower 1's (5 + 5 at D
+// = 10, 7 + 6 at D = 13).  The gather: minibatch sample q reads column
+// perm[q / tile] * tile + q % tile of the full (R, n) batch, so the
+// minibatch is never stored.  Shared memory at D = 10: 40 KB of weights
+// and 143 KB of activations; D = 13 adds 3 KB.
 
 #pragma once
 
@@ -33,13 +36,19 @@ namespace ppo_loss {
 
 namespace ac = reinmav::ac;
 
-constexpr int kD = ac::D, kA = ac::A, kH = ac::H;
+constexpr int kA = ac::A, kH = ac::H;
 constexpr int kS = 128;       // samples per sub-block
 constexpr int kSP = kS + 1;   // padded row length
 constexpr int kThreads = 2 * kS;
 constexpr int kRed = 8;             // per-sample dls (A) and metric terms (4)
-constexpr int kOut = ac::kNetSize + 4;
 
+// The raw sums a CTA writes: the flat gradient, then the 4 metric sums.
+template <int kD>
+__host__ __device__ constexpr int out_size() {
+  return ac::Layout<kD>::kNetSize + 4;
+}
+
+template <int kD>
 struct Smem {
   float w1t[2][kH][kD];
   float b1[2][kH];
@@ -64,54 +73,61 @@ struct LossCfg {
 // through L2 (__ldcg), never the non-coherent read-only path: in K4 the
 // same vector is rewritten by other CTAs between passes.  The caller
 // synchronises the block before the body reads them.
-__device__ __forceinline__ void load_weights(Smem& sm, const float* net) {
+template <int kD>
+__device__ __forceinline__ void load_weights(Smem<kD>& sm, const float* net) {
+  using L = ac::Layout<kD>;
   const int tid = threadIdx.x;
   for (int idx = tid; idx < kH * kD; idx += kThreads) {
     const int j = idx / kD, d = idx % kD;
-    for (int t = 0; t < 2; ++t) sm.w1t[t][j][d] = __ldcg(net + ac::tower_base(t) + ac::kW1 + d * kH + j);
+    for (int t = 0; t < 2; ++t) sm.w1t[t][j][d] = __ldcg(net + L::tower_base(t) + L::kW1 + d * kH + j);
   }
   for (int idx = tid; idx < kH * kH; idx += kThreads) {
     const int j = idx / kH, k = idx % kH;
-    for (int t = 0; t < 2; ++t) sm.w2t[t][j][k] = __ldcg(net + ac::tower_base(t) + ac::kW2 + k * kH + j);
+    for (int t = 0; t < 2; ++t) sm.w2t[t][j][k] = __ldcg(net + L::tower_base(t) + L::kW2 + k * kH + j);
   }
   for (int j = tid; j < kH; j += kThreads) {
     for (int t = 0; t < 2; ++t) {
-      sm.b1[t][j] = __ldcg(net + ac::tower_base(t) + ac::kB1 + j);
-      sm.b2[t][j] = __ldcg(net + ac::tower_base(t) + ac::kB2 + j);
+      sm.b1[t][j] = __ldcg(net + L::tower_base(t) + L::kB1 + j);
+      sm.b2[t][j] = __ldcg(net + L::tower_base(t) + L::kB2 + j);
     }
-    for (int a = 0; a < kA; ++a) sm.wpi[j][a] = __ldcg(net + ac::kPiOutW + j * kA + a);
-    sm.wvf[j] = __ldcg(net + ac::kVfOutW + j);
+    for (int a = 0; a < kA; ++a) sm.wpi[j][a] = __ldcg(net + L::kPiOutW + j * kA + a);
+    sm.wvf[j] = __ldcg(net + L::kVfOutW + j);
   }
   if (tid < kA) {
-    sm.bo[tid] = __ldcg(net + ac::kPiOutB + tid);
-    sm.ls[tid] = __ldcg(net + ac::kLogStd + tid);
+    sm.bo[tid] = __ldcg(net + L::kPiOutB + tid);
+    sm.ls[tid] = __ldcg(net + L::kLogStd + tid);
   }
-  if (tid == kA) sm.bo[kA] = __ldcg(net + ac::kVfOutB);
+  if (tid == kA) sm.bo[kA] = __ldcg(net + L::kVfOutB);
 }
 
 // The loss gradient over the sub-blocks of 128 samples blockIdx.x,
 // blockIdx.x + gridDim.x, ... of the minibatch of `mb` samples defined by
 // `perm`, with the weights already in `sm`.  Writes the CTA's raw sums
-// (kOut floats, each by exactly one thread) to `out`.  Ends after a block
+// (out_size<kD>() floats, each by exactly one thread) to `out`.  Ends after a block
 // synchronisation of its last sub-block; the write of `out` is not
 // followed by one.
-template <bool kKl>
-__device__ __forceinline__ void loss_body(Smem& sm, const float* __restrict__ data, int64_t n,
+template <int kD, bool kKl>
+__device__ __forceinline__ void loss_body(Smem<kD>& sm, const float* __restrict__ data, int64_t n,
                                           const int* __restrict__ perm, int64_t mb, int tile,
                                           float adv_shift, float adv_inv, float kl_beta,
                                           const LossCfg& cfg, float* __restrict__ out) {
+  using L = ac::Layout<kD>;
+  // The dW1 rows of each tower's threads: [0, kD0) for tower 0, [kD0, kD)
+  // for tower 1.
+  constexpr int kD0 = (kD + 1) / 2, kD1 = kD - kD0;
   const int tid = threadIdx.x;
   const int tw = tid / kS;  // tower of this thread in the per-sample phases
   const int s = tid % kS;   // sample of this thread in the per-sample phases
+  const int w1_rows = tw == 0 ? kD0 : kD1;
 
   // Gradient entries owned by this thread, summed over all its sub-blocks.
   const int k2 = s % kH, j2 = (s / kH) * 32;  // dW2[tw][k2][j2 .. j2 + 31]
   float g_w2[32];
 #pragma unroll
   for (int c = 0; c < 32; ++c) g_w2[c] = 0.0f;
-  float g_w1[kD / 2];  // dW1[tw * 5 .. tw * 5 + 4][unit s]
+  float g_w1[kD0];  // dW1[tw * kD0 + c][unit s], c < w1_rows
 #pragma unroll
-  for (int c = 0; c < kD / 2; ++c) g_w1[c] = 0.0f;
+  for (int c = 0; c < kD0; ++c) g_w1[c] = 0.0f;
   float g_b = 0.0f;       // tower 0 threads: db1[unit s]; tower 1: db2[unit s]
   float g_wpi = 0.0f;     // dwpi[tid / 4][tid % 4]
   float g_wvf = 0.0f;     // tid < 64: dwvf[tid]
@@ -310,7 +326,9 @@ __device__ __forceinline__ void loss_body(Smem& sm, const float* __restrict__ da
       for (int ss = 0; ss < kS; ++ss) {
         const float dp = prow[ss];
 #pragma unroll
-        for (int c = 0; c < kD / 2; ++c) g_w1[c] += sm.x[tw * (kD / 2) + c][ss] * dp;
+        for (int c = 0; c < kD0; ++c) {
+          if (c < w1_rows) g_w1[c] += sm.x[tw * kD0 + c][ss] * dp;
+        }
         if (tw == 0) g_b += dp;
       }
     }
@@ -319,27 +337,28 @@ __device__ __forceinline__ void loss_body(Smem& sm, const float* __restrict__ da
 
   // ---- this CTA's partial sums, each entry written by exactly one thread --
   {
-    const int base = ac::tower_base(tw) + ac::kW2 + k2 * kH + j2;
+    const int base = L::tower_base(tw) + L::kW2 + k2 * kH + j2;
 #pragma unroll
     for (int c = 0; c < 32; ++c) out[base + c] = g_w2[c];
   }
   {
     const int ut = s / kH, uu = s % kH;  // fused unit s = tower ut, unit uu
 #pragma unroll
-    for (int c = 0; c < kD / 2; ++c)
-      out[ac::tower_base(ut) + ac::kW1 + (tw * (kD / 2) + c) * kH + uu] = g_w1[c];
-    out[ac::tower_base(ut) + (tw == 0 ? ac::kB1 : ac::kB2) + uu] = g_b;
+    for (int c = 0; c < kD0; ++c) {
+      if (c < w1_rows) out[L::tower_base(ut) + L::kW1 + (tw * kD0 + c) * kH + uu] = g_w1[c];
+    }
+    out[L::tower_base(ut) + (tw == 0 ? L::kB1 : L::kB2) + uu] = g_b;
   }
-  out[ac::kPiOutW + tid] = g_wpi;  // tid = j * A + a
-  if (tid < kH) out[ac::kVfOutW + tid] = g_wvf;
+  out[L::kPiOutW + tid] = g_wpi;  // tid = j * A + a
+  if (tid < kH) out[L::kVfOutW + tid] = g_wvf;
   if (tid < kA) {
-    out[ac::kPiOutB + tid] = g_red;
+    out[L::kPiOutB + tid] = g_red;
   } else if (tid == kA) {
-    out[ac::kVfOutB] = g_red;
+    out[L::kVfOutB] = g_red;
   } else if (tid < 2 * kA + 1) {
-    out[ac::kLogStd + tid - kA - 1] = g_red;
+    out[L::kLogStd + tid - kA - 1] = g_red;
   } else if (tid < kA + 1 + kRed) {
-    out[ac::kNetSize + tid - 2 * kA - 1] = g_red;
+    out[L::kNetSize + tid - 2 * kA - 1] = g_red;
   }
 }
 

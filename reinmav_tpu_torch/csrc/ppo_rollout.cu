@@ -1,51 +1,113 @@
-// K2: the fused PPO rollout of quadrotor3d-v0, written for NVIDIA Hopper
-// (sm_90a).
+// K2 and K6-hover: the fused PPO rollout of quadrotor3d-v0 and of the hover
+// task (MujocoQuadForce-v1), written for NVIDIA Hopper (sm_90a).
 //
-// Replaces reinmav_tpu/ops/pallas_ppo_rollout.py::ppo_rollout_pallas (:703),
-// kind quadrotor3d-v0: the grid step _kernel (:556-695) with
-// _quad3d_step_tiles (:157) and _quad3d_reset_rows (:201), repeated over the
-// whole horizon.  Per env and step: raw-obs moment sums, obs normalisation
-// with clip +-10, the 2x64 tanh actor-critic, a Gaussian action with logp
-// taken from the ROUNDED action (z = (a - mean) / std, :628-638), the env
-// step, the return-scaled reward with clip +-10, the running discounted
-// return, the U(-1,1)^10 reset of done envs, and the trajectory rows.  Its
-// plain PyTorch twin, with the same arithmetic and the same Philox draws, is
-// reinmav_tpu_torch/ops/ppo_rollout.py::ppo_rollout_reference.
+// Replaces reinmav_tpu/ops/pallas_ppo_rollout.py::ppo_rollout_pallas (:703,
+// pallas_call :771), kinds quadrotor3d-v0 and MujocoQuadForce-v1: the grid
+// step _kernel (:556-695) with _quad3d_step_tiles (:157) and
+// _quad3d_reset_rows (:201), or with _hover_step_tiles (:112-144, per-lane
+// actions) and _hover_reset_rows (:147-154), repeated over the whole
+// horizon.  Per env and step: raw-obs moment sums, obs normalisation with
+// clip +-10, the 2x64 tanh actor-critic, a Gaussian action with logp taken
+// from the ROUNDED action (z = (a - mean) / std, :628-638), the env step,
+// the return-scaled reward with clip +-10, the running discounted return,
+// the reset of done envs, and the trajectory rows.  The kernel is a template
+// on the env: Quad3dEnv (the U(-1,1)^10 reset from Philox stream 2) and
+// HoverEnv (two substeps of hover_common.cuh, the deterministic reset; no
+// reset draws).  Its plain PyTorch twin, with the same arithmetic and the
+// same Philox draws, is reinmav_tpu_torch/ops/ppo_rollout.py::
+// ppo_rollout_reference.
 //
-// What bounds it on the card: arithmetic.  One env-step is about 19.6k FP32
-// operations of MLP (2 * (10*128 + 2*64*64 + 64*4 + 64*1); the zero blocks
-// of the fused layer are not computed) against 88 B of trajectory written,
-// far on the compute side of the H100's roofline.
+// What bounds it on the card: arithmetic.  One env-step is about 19.6k
+// (quadrotor3d, D = 10) or 20.4k (hover, D = 13) FP32 operations of MLP
+// (2 * (D*128 + 2*64*64 + 64*4 + 64*1); the zero blocks of the fused layer
+// are not computed), plus the env step (about 30 for quadrotor3d, 2 x 257
+// for hover), against 4 * (D + 8) B of trajectory written, far on the
+// compute side of the H100's roofline.
 //
 // What the design does about it: one thread per env, the env state, the
-// running return and the 23 moment sums in registers for the whole horizon;
-// the weights (40 KB) in shared memory, read as broadcasts (every thread of
-// a warp reads the same weight at the same time), the second layer's as
-// float4 rows; the first hidden layer of one tower (64 floats) in registers,
-// the second consumed into the heads as it is computed, so it is never
-// stored.  Noise and resets come from Philox4x32-10 (quad3d_common.cuh) with
-// key (seed, 0) and counter (env, step, draw, stream): stream 1 is the
-// noise (two draws, Box-Muller cosine branch as _normal :90-95), stream 2
-// the resets (three draws).  Each CTA reduces its moment sums in a fixed
-// order, and a second launch adds the CTAs' partials in block order, so the
-// result is bitwise repeatable.  Any B works; the tail is masked.
-// normalize_obs and normalize_rewards are template switches.
+// running return and the 2D + 3 moment sums in registers for the whole
+// horizon; the weights (40-42 KB) in shared memory, read as broadcasts
+// (every thread of a warp reads the same weight at the same time), the
+// second layer's as float4 rows; the first hidden layer of one tower (64
+// floats) in registers, the second consumed into the heads as it is
+// computed, so it is never stored.  Noise and resets come from
+// Philox4x32-10 (quad3d_common.cuh) with key (seed, 0) and counter (env,
+// step, draw, stream): stream 1 is the noise (two draws, Box-Muller cosine
+// branch as _normal :90-95), stream 2 the quadrotor3d resets (three draws).
+// Each CTA reduces its moment sums in a fixed order, and a second launch
+// adds the CTAs' partials in block order, so the result is bitwise
+// repeatable.  Any B works; the tail is masked.  normalize_obs and
+// normalize_rewards are template switches.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "actor_critic.cuh"
+#include "hover_common.cuh"
 #include "quad3d_common.cuh"
 
 namespace {
 
 namespace ac = reinmav::ac;
+using reinmav::HoverParams;
 using reinmav::Quad3dParams;
 
 constexpr int kThreads = 128;
-constexpr int kD = ac::D, kA = ac::A, kH = ac::H;
-constexpr int kStats = 2 * kD + 3;  // obs sum (D), obs sq (D), ret sum, ret sq, raw reward sum
-constexpr int kConsts = 2 * kD + kA + 3;
+constexpr int kA = ac::A, kH = ac::H;
+
+// quadrotor3d-v0 (_quad3d_step_tiles): thrust / mass keeps the scan's op
+// order; done envs redraw U(-1, 1)^10 from Philox stream 2.
+struct Quad3dEnv {
+  static constexpr int kD = 10;
+  static constexpr int kKind = 0;
+  using Params = Quad3dParams;
+  struct Consts {
+    float half_dt, pos_lim2, vel_lim2;
+  };
+  static Params params(const float* h) {
+    return Params{h[0], h[1], h[2], h[3], h[4], h[5], h[6], h[7], h[8], h[9], h[10]};
+  }
+  static constexpr int kParams = 11;
+  __device__ static Consts consts(const Params& p) {
+    return {0.5f * p.dt, p.pos_limit * p.pos_limit, p.vel_limit * p.vel_limit};
+  }
+  __device__ static float step(float (&s)[kD], const float (&act)[kA], const Params& p,
+                               const Consts& c, bool& done) {
+    const reinmav::BodyZ bz = reinmav::body_z(s);
+    return reinmav::quad3d_dynamics(s, bz, act[0] / p.mass, act[1], act[2], act[3], p.dt,
+                                    p.gravity, c.half_dt, c.pos_lim2, c.vel_lim2, done);
+  }
+  __device__ static void reset(float (&s)[kD], uint32_t env, uint32_t t, uint32_t seed,
+                               const Params&) {
+    reinmav::reset_uniform10(s, env, t, seed, 2u);
+  }
+};
+
+// MujocoQuadForce-v1 (_hover_step_tiles with per-lane actions): two
+// substeps under the clipped action, the hovering reward with the RAW
+// action, the deterministic reset to (0, 0, init_z).
+struct HoverEnv {
+  static constexpr int kD = 13;
+  static constexpr int kKind = 1;
+  using Params = HoverParams;
+  using Consts = reinmav::HoverDrag;
+  static Params params(const float* h) { return reinmav::hover_params_from(h); }
+  static constexpr int kParams = reinmav::kHoverParams;
+  __device__ static Consts consts(const Params& p) { return reinmav::hover_drag(p); }
+  __device__ static float step(float (&s)[kD], const float (&act)[kA], const Params& p,
+                               const Consts& c, bool& done) {
+    const reinmav::HoverWrench w = reinmav::hover_wrench(act, p);
+    reinmav::hover_substep(s, p, c, w);
+    reinmav::hover_substep(s, p, c, w);
+    const float terms = reinmav::hover_state_terms(s, done);
+    const float a_sq = act[0] * act[0] + act[1] * act[1] + act[2] * act[2] + act[3] * act[3];
+    const float a_sum = act[0] + act[1] + act[2] + act[3];
+    return terms - a_sq + 0.1f * a_sum + 100.0f;
+  }
+  __device__ static void reset(float (&s)[kD], uint32_t, uint32_t, uint32_t, const Params& p) {
+    reinmav::hover_reset(s, p.init_z);
+  }
+};
 
 struct RolloutOut {
   float* obs;       // (T, D, B)
@@ -56,14 +118,20 @@ struct RolloutOut {
   bool* done;       // (T, B)
   float* final_states;  // (D, B)
   float* returns;       // (B,)
-  float* partials;      // (gridDim.x, kStats)
+  float* partials;      // (gridDim.x, 2D + 3)
+  float* stats_out;     // (2D + 3,)
 };
 
-template <bool kNormObs, bool kNormRew>
+template <class Env, bool kNormObs, bool kNormRew>
 __global__ void __launch_bounds__(kThreads)
 ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret_in,
                    const float* __restrict__ net, const float* __restrict__ consts,
-                   int64_t batch, int horizon, uint32_t seed, Quad3dParams p, RolloutOut o) {
+                   int64_t batch, int horizon, uint32_t seed, typename Env::Params p,
+                   RolloutOut o) {
+  constexpr int kD = Env::kD;
+  constexpr int kStats = 2 * kD + 3;  // obs sum (D), obs sq (D), ret sum, ret sq, raw reward sum
+  constexpr int kConsts = 2 * kD + kA + 3;
+  using L = ac::Layout<kD>;
   __shared__ __align__(16) float w1t[2][kH][kD];  // (tower, out, in)
   __shared__ __align__(16) float b1[2][kH];
   __shared__ __align__(16) float w2t[2][kH][kH];  // (tower, out, in)
@@ -76,22 +144,22 @@ ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret
 
   for (int idx = threadIdx.x; idx < kH * kD; idx += kThreads) {
     const int j = idx / kD, d = idx % kD;
-    for (int tw = 0; tw < 2; ++tw) w1t[tw][j][d] = net[ac::tower_base(tw) + ac::kW1 + d * kH + j];
+    for (int tw = 0; tw < 2; ++tw) w1t[tw][j][d] = net[L::tower_base(tw) + L::kW1 + d * kH + j];
   }
   for (int idx = threadIdx.x; idx < kH * kH; idx += kThreads) {
     const int j = idx / kH, k = idx % kH;
-    for (int tw = 0; tw < 2; ++tw) w2t[tw][j][k] = net[ac::tower_base(tw) + ac::kW2 + k * kH + j];
+    for (int tw = 0; tw < 2; ++tw) w2t[tw][j][k] = net[L::tower_base(tw) + L::kW2 + k * kH + j];
   }
   for (int j = threadIdx.x; j < kH; j += kThreads) {
     for (int tw = 0; tw < 2; ++tw) {
-      b1[tw][j] = net[ac::tower_base(tw) + ac::kB1 + j];
-      b2[tw][j] = net[ac::tower_base(tw) + ac::kB2 + j];
+      b1[tw][j] = net[L::tower_base(tw) + L::kB1 + j];
+      b2[tw][j] = net[L::tower_base(tw) + L::kB2 + j];
     }
-    for (int a = 0; a < kA; ++a) wpi[j][a] = net[ac::kPiOutW + j * kA + a];
-    wvf[j] = net[ac::kVfOutW + j];
+    for (int a = 0; a < kA; ++a) wpi[j][a] = net[L::kPiOutW + j * kA + a];
+    wvf[j] = net[L::kVfOutW + j];
   }
-  if (threadIdx.x < kA) bo[threadIdx.x] = net[ac::kPiOutB + threadIdx.x];
-  if (threadIdx.x == kA) bo[kA] = net[ac::kVfOutB];
+  if (threadIdx.x < kA) bo[threadIdx.x] = net[L::kPiOutB + threadIdx.x];
+  if (threadIdx.x == kA) bo[kA] = net[L::kVfOutB];
   for (int c = threadIdx.x; c < kConsts; c += kThreads) cst[c] = consts[c];
   __syncthreads();
 
@@ -108,9 +176,7 @@ ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret
     const float ls_sum = cst[2 * kD + kA];
     const float inv_ret_std = cst[2 * kD + kA + 1];
     const float gamma = cst[2 * kD + kA + 2];
-    const float half_dt = 0.5f * p.dt;
-    const float pos_lim2 = p.pos_limit * p.pos_limit;
-    const float vel_lim2 = p.vel_limit * p.vel_limit;
+    const typename Env::Consts env_consts = Env::consts(p);
     const uint32_t env = static_cast<uint32_t>(i);
 
     float s[kD];
@@ -187,12 +253,9 @@ ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret
       o.log_prob[row + i] = -0.5f * z2 - ls_sum - 0.5f * kA * ac::kLog2Pi;
       o.value[row + i] = value;
 
-      // Env step (_quad3d_step_tiles: thrust / mass keeps the scan's op order).
+      // Env step.
       bool done;
-      const reinmav::BodyZ bz = reinmav::body_z(s);
-      const float raw = reinmav::quad3d_dynamics(s, bz, act[0] / p.mass, act[1], act[2], act[3],
-                                                 p.dt, p.gravity, half_dt, pos_lim2, vel_lim2,
-                                                 done);
+      const float raw = Env::step(s, act, p, env_consts, done);
       const float done_f = done ? 1.0f : 0.0f;
       float reward = raw;
       if (kNormRew) {  // VecNormalize-style return scale (collect_rollout :225-234)
@@ -205,7 +268,7 @@ ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret
       acc[2 * kD + 2] += raw;
       o.reward[row + i] = reward;
       o.done[row + i] = done;
-      if (done) reinmav::reset_uniform10(s, env, static_cast<uint32_t>(t), seed, 2u);
+      if (done) Env::reset(s, env, static_cast<uint32_t>(t), seed, p);
     }
 
 #pragma unroll
@@ -233,59 +296,82 @@ ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret
 
 // stats[c] = the CTAs' partials of component c, added in block order.
 __global__ void ppo_rollout_stats_kernel(const float* __restrict__ partials, int blocks,
-                                         float* __restrict__ stats) {
+                                         int n_stats, float* __restrict__ stats) {
   const int c = threadIdx.x;
-  if (c >= kStats) return;
+  if (c >= n_stats) return;
   float v = 0.0f;
-  for (int b = 0; b < blocks; ++b) v += partials[static_cast<int64_t>(b) * kStats + c];
+  for (int b = 0; b < blocks; ++b) v += partials[static_cast<int64_t>(b) * n_stats + c];
   stats[c] = v;
 }
 
-template <bool kNormObs, bool kNormRew>
-void launch(const float* s_in, const float* ret_in, const float* net, const float* consts,
-            int64_t batch, int horizon, uint32_t seed, const Quad3dParams& p, const RolloutOut& o,
-            unsigned int blocks, cudaStream_t stream) {
-  ppo_rollout_kernel<kNormObs, kNormRew><<<blocks, kThreads, 0, stream>>>(
-      s_in, ret_in, net, consts, batch, horizon, seed, p, o);
+template <class Env>
+cudaError_t launch_env(const float* s_in, const float* ret_in, const float* net,
+                       const float* consts, int64_t batch, int horizon, uint32_t seed,
+                       bool norm_obs, bool norm_rew, const float* params_host, int n_params,
+                       const RolloutOut& o, unsigned int blocks, cudaStream_t st) {
+  if (n_params != Env::kParams) return cudaErrorInvalidValue;
+  const typename Env::Params p = Env::params(params_host);
+  if (norm_obs && norm_rew) {
+    ppo_rollout_kernel<Env, true, true><<<blocks, kThreads, 0, st>>>(s_in, ret_in, net, consts,
+                                                                     batch, horizon, seed, p, o);
+  } else if (norm_obs) {
+    ppo_rollout_kernel<Env, true, false><<<blocks, kThreads, 0, st>>>(s_in, ret_in, net, consts,
+                                                                      batch, horizon, seed, p, o);
+  } else if (norm_rew) {
+    ppo_rollout_kernel<Env, false, true><<<blocks, kThreads, 0, st>>>(s_in, ret_in, net, consts,
+                                                                      batch, horizon, seed, p, o);
+  } else {
+    ppo_rollout_kernel<Env, false, false><<<blocks, kThreads, 0, st>>>(s_in, ret_in, net, consts,
+                                                                       batch, horizon, seed, p, o);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  constexpr int kStats = 2 * Env::kD + 3;
+  ppo_rollout_stats_kernel<<<1, 32, 0, st>>>(o.partials, static_cast<int>(blocks), kStats,
+                                             o.stats_out);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // C interface, bound with ctypes (reinmav_tpu_torch/_build.py).  Launches on
-// the given stream, does not synchronise, and returns cudaGetLastError().
-// `partials` is scratch of (ceil(batch / 128), 23) floats.
-extern "C" int ppo_rollout_launch(const void* states_in, const void* returns_in, const void* net,
-                                  const void* consts, long long batch, int horizon,
-                                  unsigned int seed, int normalize_obs, int normalize_rewards,
-                                  const void* params_host, void* obs, void* action,
-                                  void* log_prob, void* value, void* reward, void* done,
-                                  void* final_states, void* returns_out, void* partials,
-                                  void* stats, void* stream) {
-  const float* h = static_cast<const float*>(params_host);
-  const Quad3dParams p{h[0], h[1], h[2], h[3], h[4], h[5], h[6], h[7], h[8], h[9], h[10]};
+// the given stream, does not synchronise, and returns a CUDA error code.
+// env_kind: 0 quadrotor3d-v0 (params_host: the 11 floats of
+// quad3d_params_vec, states (10, B)), 1 MujocoQuadForce-v1 (the 17 floats of
+// hover_params_vec, states (13, B)); any other kind, or another number of
+// params, is refused with cudaErrorInvalidValue and nothing runs.
+// `partials` is scratch of (ceil(batch / 128), 2D + 3) floats.
+extern "C" int ppo_rollout_launch(int env_kind, const void* states_in, const void* returns_in,
+                                  const void* net, const void* consts, long long batch,
+                                  int horizon, unsigned int seed, int normalize_obs,
+                                  int normalize_rewards, const void* params_host, int n_params,
+                                  void* obs, void* action, void* log_prob, void* value,
+                                  void* reward, void* done, void* final_states, void* returns_out,
+                                  void* partials, void* stats, void* stream) {
   const RolloutOut o{static_cast<float*>(obs),          static_cast<float*>(action),
                      static_cast<float*>(log_prob),     static_cast<float*>(value),
                      static_cast<float*>(reward),       static_cast<bool*>(done),
                      static_cast<float*>(final_states), static_cast<float*>(returns_out),
-                     static_cast<float*>(partials)};
+                     static_cast<float*>(partials),     static_cast<float*>(stats)};
   const auto blocks = static_cast<unsigned int>((batch + kThreads - 1) / kThreads);
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* s_in = static_cast<const float*>(states_in);
   const auto* r_in = static_cast<const float*>(returns_in);
   const auto* w = static_cast<const float*>(net);
   const auto* c = static_cast<const float*>(consts);
-  if (normalize_obs && normalize_rewards) {
-    launch<true, true>(s_in, r_in, w, c, batch, horizon, seed, p, o, blocks, st);
-  } else if (normalize_obs) {
-    launch<true, false>(s_in, r_in, w, c, batch, horizon, seed, p, o, blocks, st);
-  } else if (normalize_rewards) {
-    launch<false, true>(s_in, r_in, w, c, batch, horizon, seed, p, o, blocks, st);
-  } else {
-    launch<false, false>(s_in, r_in, w, c, batch, horizon, seed, p, o, blocks, st);
+  const auto* h = static_cast<const float*>(params_host);
+  cudaError_t err;
+  switch (env_kind) {
+    case Quad3dEnv::kKind:
+      err = launch_env<Quad3dEnv>(s_in, r_in, w, c, batch, horizon, seed, normalize_obs,
+                                  normalize_rewards, h, n_params, o, blocks, st);
+      break;
+    case HoverEnv::kKind:
+      err = launch_env<HoverEnv>(s_in, r_in, w, c, batch, horizon, seed, normalize_obs,
+                                 normalize_rewards, h, n_params, o, blocks, st);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ppo_rollout_stats_kernel<<<1, 32, 0, st>>>(static_cast<const float*>(partials),
-                                             static_cast<int>(blocks), static_cast<float*>(stats));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

@@ -1,6 +1,7 @@
 // K4: the whole PPO update phase (epochs x minibatches of the loss gradient,
 // clip-by-global-norm and Adam, and the optional log-std floor) in ONE
-// cooperative launch, written for NVIDIA Hopper (sm_90a).
+// cooperative launch, written for NVIDIA Hopper (sm_90a); built for an
+// observation of 10 dims (quadrotor3d-v0) and of 13 (the tpuquad family).
 //
 // Replaces reinmav_tpu/ops/pallas_ppo_update.py::ppo_update_pallas (:304,
 // pallas_call :382; body _update_kernel :150-294).  The TPU kernel walks a
@@ -19,8 +20,9 @@
 // operations, 3.52 ms at 67 TFLOP/s.
 //
 // What the design does about it: a persistent cooperative grid, K3's grid
-// (min(sub-blocks of 128, SMs) CTAs of 256 threads, 183 KB of shared memory,
-// one CTA per SM), that stays resident for the whole update, so the host
+// (min(sub-blocks of 128, SMs) CTAs of 256 threads, 183 KB of shared memory
+// at D = 10 and 186 KB at D = 13, one CTA per SM), that stays resident for
+// the whole update, so the host
 // issues one launch in place of 16 loss launches, 16 reductions and 16
 // optimiser steps.  Per pass p (minibatch p of the epoch-concatenated
 // permutation):
@@ -93,10 +95,12 @@ struct UpdateArgs {
   float log_std_floor;
 };
 
-template <bool kKl>
+template <int kD, bool kKl>
 __global__ void __launch_bounds__(kThreads, 1) ppo_update_kernel(UpdateArgs a) {
+  using L = ac::Layout<kD>;
+  constexpr int kOut = out_size<kD>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  Smem<kD>& sm = *reinterpret_cast<Smem<kD>*>(smem_raw);
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x;
   const int blocks = gridDim.x;
@@ -104,7 +108,7 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_update_kernel(UpdateArgs a) {
   const int chunk = (kOut + blocks - 1) / blocks;
   const int lo = min(static_cast<int>(blockIdx.x) * chunk, kOut);
   const int hi = min(lo + chunk, kOut);
-  const int hi_net = min(hi, ac::kNetSize);
+  const int hi_net = min(hi, L::kNetSize);
   const int64_t mb = static_cast<int64_t>(a.tpm) * a.tile;
   const int count0 = *a.count_in;
   const float kl_beta = kKl ? *a.kl_beta : 0.0f;
@@ -117,7 +121,7 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_update_kernel(UpdateArgs a) {
 
   for (int p = 0; p < a.n_passes; ++p) {
     // ---- 1. the loss gradient of pass p, with the weights Adam wrote ----
-    load_weights(sm, a.params);
+    load_weights<kD>(sm, a.params);
     __syncthreads();
     if (blockIdx.x == 0 && tid == 0) {
       float ent = 0.0f;
@@ -125,7 +129,7 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_update_kernel(UpdateArgs a) {
       for (int i = 0; i < kA; ++i) ent += sm.ls[i] + a.ent_const;
       ent_acc += ent;
     }
-    loss_body<kKl>(sm, a.data, a.n, a.perm + static_cast<int64_t>(p) * a.tpm, mb, a.tile,
+    loss_body<kD, kKl>(sm, a.data, a.n, a.perm + static_cast<int64_t>(p) * a.tpm, mb, a.tile,
                    a.adv_stats[2 * p], a.adv_stats[2 * p + 1], kl_beta, a.loss, out);
     grid.sync();
 
@@ -134,15 +138,15 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_update_kernel(UpdateArgs a) {
     for (int e = lo + tid; e < hi; e += kThreads) {
       float v = 0.0f;
       for (int c = 0; c < blocks; ++c) v += __ldcg(a.partials + static_cast<int64_t>(c) * kOut + e);
-      if (e < ac::kNetSize) {
+      if (e < L::kNetSize) {
         float g = __fmul_rn(v, a.inv_n);
-        if (e >= ac::kLogStd && e < ac::kLogStd + kA) g = __fsub_rn(g, a.ent_coef);
+        if (e >= L::kLogStd && e < L::kLogStd + kA) g = __fsub_rn(g, a.ent_coef);
         a.gbuf[e] = g;
         if (p == 0 && a.grad0 != nullptr) a.grad0[e] = g;
         sq += g * g;
       } else {
         metric_acc += v;
-        if (e == ac::kNetSize + 2 && p >= a.n_passes - a.n_minibatches) kl_last += v;
+        if (e == L::kNetSize + 2 && p >= a.n_passes - a.n_minibatches) kl_last += v;
       }
     }
     scratch[tid] = sq;
@@ -177,7 +181,7 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_update_kernel(UpdateArgs a) {
       const float step =
           __fdiv_rn(__fdiv_rn(m, bc1), __fadd_rn(__fsqrt_rn(__fdiv_rn(v, bc2)), a.eps));
       float w = __fadd_rn(__ldcg(a.params + e), __fmul_rn(a.neg_lr, step));
-      if (a.has_floor && e >= ac::kLogStd && e < ac::kLogStd + kA) w = fmaxf(w, a.log_std_floor);
+      if (a.has_floor && e >= L::kLogStd && e < L::kLogStd + kA) w = fmaxf(w, a.log_std_floor);
       a.params[e] = w;
     }
     grid.sync();
@@ -185,8 +189,8 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_update_kernel(UpdateArgs a) {
 
   // ---- the metric sums, each written by the thread that owns it ----------
   for (int e = lo + tid; e < hi; e += kThreads) {
-    if (e >= ac::kNetSize) a.metrics[e - ac::kNetSize] = metric_acc;
-    if (e == ac::kNetSize + 2) a.metrics[5] = kl_last;
+    if (e >= L::kNetSize) a.metrics[e - L::kNetSize] = metric_acc;
+    if (e == L::kNetSize + 2) a.metrics[5] = kl_last;
   }
   if (blockIdx.x == 0 && tid == 0) {
     a.metrics[4] = ent_acc;
@@ -196,10 +200,10 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_update_kernel(UpdateArgs a) {
   }
 }
 
-template <bool kKl>
+template <int kD, bool kKl>
 cudaError_t launch(const UpdateArgs& args, int blocks, cudaStream_t stream) {
-  const int smem = static_cast<int>(sizeof(Smem));
-  const void* kern = reinterpret_cast<const void*>(ppo_update_kernel<kKl>);
+  const int smem = static_cast<int>(sizeof(Smem<kD>));
+  const void* kern = reinterpret_cast<const void*>(ppo_update_kernel<kD, kKl>);
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
@@ -227,12 +231,13 @@ cudaError_t launch(const UpdateArgs& args, int blocks, cudaStream_t stream) {
 // C interface, bound with ctypes (reinmav_tpu_torch/_build.py).  Launches on
 // the given stream, does not synchronise, and returns a CUDA error code:
 // cudaErrorCooperativeLaunchTooLarge when the grid cannot be co-resident
-// (the caller raises; there is no fallback).  data (rows, n) f32; perm
+// (the caller raises; there is no fallback), cudaErrorInvalidValue for an
+// obs dim d other than 10 or 13 (nothing runs).  data (d + 8, n) f32; perm
 // (n_passes * tpm,) int32 tile ids; adv_stats (n_passes, 2) f32; kl_beta
 // f32 and count_in int32 device scalars; params, mu, nu (NET,) f32 updated
 // in place; count_out int32 scalar; partials (blocks, NET + 4), gbuf (NET,),
 // slots (blocks,) f32 scratch; metrics (8,) raw sums; grad0 (NET,) or null.
-extern "C" int ppo_update_launch(const void* data, long long n, const void* perm, int tile,
+extern "C" int ppo_update_launch(int d, const void* data, long long n, const void* perm, int tile,
                                  int tpm, int n_passes, int n_minibatches, const void* adv_stats,
                                  const void* kl_beta, const void* count_in, void* count_out,
                                  void* params, void* mu, void* nu, float clip_eps,
@@ -280,7 +285,17 @@ extern "C" int ppo_update_launch(const void* data, long long n, const void* perm
   a.has_floor = has_floor;
   a.log_std_floor = log_std_floor;
   const auto st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = kl_mode ? launch<true>(a, blocks, st) : launch<false>(a, blocks, st);
+  cudaError_t err;
+  switch (d) {
+    case 10:
+      err = kl_mode ? launch<10, true>(a, blocks, st) : launch<10, false>(a, blocks, st);
+      break;
+    case 13:
+      err = kl_mode ? launch<13, true>(a, blocks, st) : launch<13, false>(a, blocks, st);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }
 

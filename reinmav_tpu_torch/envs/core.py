@@ -15,9 +15,11 @@ lives on the device the states live on.
 
 Rollouts are Python loops over the horizon.  The public layout is
 ``(B, D)``; the ``_t`` forms take the kernel layout ``(D, B)``.
-:func:`throughput_rollout` runs the quadrotor3d closed loop in the
-hand-written CUDA kernel (:mod:`reinmav_tpu_torch.ops.rollout`) when
-the states lie on the card and the env is the registry's own.
+:func:`throughput_rollout` runs a hand-written CUDA kernel when the
+states lie on the card and the env is the registry's own: the
+quadrotor3d closed loop (K1, :mod:`reinmav_tpu_torch.ops.rollout`) or
+the hover task's zero-action rollout (K5,
+:mod:`reinmav_tpu_torch.ops.hover_rollout`).
 """
 
 from __future__ import annotations
@@ -76,6 +78,10 @@ class EnvDef:
     obs_high: float = 10.0
     action_low_phys: Optional[tuple] = None
     action_high_phys: Optional[tuple] = None
+    #: True when ``reset_fn`` ignores its generator: the tpuquad family
+    #: resets to the XML keyframe (``mujoco_quad.py:65-69``), so every
+    #: reset cohort starts from the same state.
+    deterministic_reset: bool = False
 
     def _require_control(self):
         if self.control_fn is None:
@@ -197,16 +203,27 @@ def control_rollout(env: EnvDef, init_states, generator, horizon: int, auto_rese
 
 
 def _fused_kernel_registry():
-    """name -> (step_fn, control_fn, reset_fn, Params type) that the env's
-    fused kernel computes.  The kernels take the env's Params values as
-    arguments, so a param sweep runs in them; params of another type do
-    not."""
-    from . import quadrotor3d
+    """name -> (step_fn, control_fn or None, reset_fn, default Params) that
+    the env's fused kernel computes: K1 for quadrotor3d-v0, K5 (and K6 of
+    the PPO rollout) for the hover task.  The kernels take the env's
+    Params values as arguments, so a param sweep runs in them; params of
+    another type do not.  ``control_fn`` None: the kernel has no
+    classical controller (K5 steps zero actions)."""
+    from . import quadrotor3d, tpuquad
 
     return {
         "quadrotor3d-v0": (quadrotor3d.step, quadrotor3d.control, quadrotor3d.reset,
-                           quadrotor3d.Params),
+                           quadrotor3d.Params()),
+        "MujocoQuadForce-v1": (tpuquad.hovering_step, None, tpuquad.hovering_reset,
+                               tpuquad.Params(init_z=1.0)),
     }
+
+
+#: Envs of the port whose fused kernel is not ported yet -> which one.
+_KERNELS_NOT_PORTED = {
+    "MujocoQuadForce-v0": "K11, the contact rollout (ROADMAP.md queue 1 item 11)",
+    "MujocoQuadQuat-v0": "K11, the contact rollout (ROADMAP.md queue 1 item 11)",
+}
 
 
 def fused_kernel_mismatch(env: EnvDef, require_control: bool = True,
@@ -214,24 +231,35 @@ def fused_kernel_mismatch(env: EnvDef, require_control: bool = True,
     """Why a fused kernel would NOT reproduce ``env``'s semantics (None =
     eligible).  The kernels compute the registry's module FUNCTIONS, so
     a wrapped env (same name, replaced fns) is refused by identity, and
-    so are params of another type.  ``require_control=False`` skips the
-    controller's identity (the policy-driven kernels, K2, replace the
-    controller with the policy).  ``packed_params=True`` (every kernel of
-    the port so far, K1 and K2): the caller passes the live Params to the
-    kernel as arguments, so any values are accepted; ``False`` refuses
-    non-default values rather than run them with the defaults."""
+    so are params of another type.  A deterministic reset (the tpuquad
+    family's ``det_reset_init_z`` tag) is accepted when its ``init_z`` is
+    the env's ``Params.init_z``, which the kernels read: a non-default
+    ``init_z`` makes a new reset closure, not the registry's object.
+    ``require_control=False`` skips the controller's identity (the
+    policy-driven kernels, K2, replace the controller with the policy).
+    ``packed_params=True`` (every kernel of the port so far): the caller
+    passes the live Params to the kernel as arguments, so any values are
+    accepted; ``False`` refuses non-default values rather than run them
+    with the defaults."""
     entry = _fused_kernel_registry().get(env.name)
     if entry is None:
+        if env.name in _KERNELS_NOT_PORTED:
+            return f"the fused kernel of {env.name}, {_KERNELS_NOT_PORTED[env.name]}, is not ported"
         return f"no fused kernel for {env.name}"
-    step_fn, control_fn, reset_fn, params_type = entry
-    fns_ok = env.step_fn is step_fn and env.reset_fn is reset_fn
-    if require_control:
+    step_fn, control_fn, reset_fn, default_params = entry
+    if getattr(reset_fn, "det_reset_init_z", None) is not None:
+        reset_ok = (getattr(env.reset_fn, "det_reset_init_z", None)
+                    == float(getattr(env.params, "init_z", float("nan"))))
+    else:
+        reset_ok = env.reset_fn is reset_fn
+    fns_ok = env.step_fn is step_fn and reset_ok
+    if require_control and control_fn is not None:
         fns_ok = fns_ok and env.control_fn is control_fn
     if not fns_ok:
         return "env step/control/reset fns are wrapped or replaced"
-    if type(env.params) is not params_type:
+    if type(env.params) is not type(default_params):
         return f"env params are a {type(env.params).__name__}, not the kernel's Params"
-    if not packed_params and env.params != params_type():
+    if not packed_params and env.params != default_params:
         return "non-default params, and the caller does not pass them to the kernel"
     return None
 
@@ -252,13 +280,16 @@ def throughput_rollout(env: EnvDef, init_states, generator, horizon: int,
     """Maximum-rate closed-loop rollout with auto-reset: returns only
     ``(final_states (B, D), per-env reward sums (B,))``.
 
-    ``backend``: ``"kernel"`` runs the fused CUDA kernel (float32,
-    quadrotor3d-v0 with the registry's functions, any params) and
-    raises where it cannot; ``"scan"`` runs the eager loop of
-    :func:`control_rollout`; ``"auto"`` takes the kernel where it can
-    and logs which path ran and why.  The kernel draws its reset states
-    from its own Philox stream, seeded from ``generator``: a different
-    stream from the eager loop's, deterministic per seed.
+    An env with a classical controller is flown by it; an env without one
+    (the tpuquad family) is stepped with zero actions.  ``backend``:
+    ``"kernel"`` runs the env's fused CUDA kernel (float32, the
+    registry's functions, any params: K1 for quadrotor3d-v0, K5 for
+    MujocoQuadForce-v1) and raises where it cannot; ``"scan"`` runs the
+    eager loop; ``"auto"`` takes the kernel where it can and logs which
+    path ran and why.  K1 draws its reset states from its own Philox
+    stream, seeded from ``generator``: a different stream from the eager
+    loop's, deterministic per seed.  K5's resets are deterministic, as
+    the env's.
     """
     if backend not in ("auto", "kernel", "scan"):
         raise ValueError(f"unknown backend {backend!r}")
@@ -271,16 +302,40 @@ def throughput_rollout(env: EnvDef, init_states, generator, horizon: int,
         reason = _kernel_refusal(env, init_states)
         if reason is not None:
             raise ValueError(f"kernel backend refused for {env.name}: {reason}")
+        states_t = init_states.T.to(torch.float32).contiguous()
+        if env.name == "MujocoQuadForce-v1":
+            from ..ops import hover_rollout as hover_ops
+
+            final_t, reward_sum = hover_ops.hover_rollout(
+                states_t, horizon, params_vec=hover_ops.hover_params_vec(env.params),
+                frame_skip=env.params.frame_skip)
+            return final_t.T, reward_sum
         from ..ops import rollout as rollout_ops
 
         seed = int(torch.randint(0, 2**31 - 1, (), generator=generator,
                                  device=generator.device))
         final_t, reward_sum = rollout_ops.quad3d_rollout_autoreset(
-            init_states.T.to(torch.float32).contiguous(), seed, horizon,
-            params_vec=rollout_ops.quad3d_params_vec(env.params))
+            states_t, seed, horizon, params_vec=rollout_ops.quad3d_params_vec(env.params))
         return final_t.T, reward_sum
+    if env.control_fn is None:
+        return _zero_action_rollout(env, init_states, generator, horizon)
     final, traj = control_rollout(env, init_states, generator, horizon,
                                   collect_trajectory=False)
+    return final, traj.reward.sum(dim=0)
+
+
+def _zero_action_rollout(env: EnvDef, init_states, generator, horizon: int):
+    """The eager loop of :func:`throughput_rollout` for an env without a
+    controller: zero actions, fused auto-reset.  (The JAX package steps
+    reinmav-v0, whose done is always True, without auto-reset here; that
+    env is not ported: ROADMAP.md queue 1 item 9.)"""
+
+    def zero_policy(states, generator):
+        del generator
+        return states.new_zeros((states.shape[0], env.action_dim))
+
+    final, traj = rollout(env, zero_policy, init_states, generator, horizon,
+                          collect_trajectory=False)
     return final, traj.reward.sum(dim=0)
 
 

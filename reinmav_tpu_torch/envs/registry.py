@@ -1,9 +1,10 @@
 """Environment registry of the PyTorch port: ``make(env_id)`` returns an
 :class:`~reinmav_tpu_torch.envs.core.EnvDef`.
 
-Only ``quadrotor3d-v0`` is ported so far.  The other reference ids are
-known and raise ``NotImplementedError`` naming the ROADMAP.md item that
-ports them; an unknown id raises the same ``KeyError`` as
+Ported so far: ``quadrotor3d-v0`` and the tpuquad family
+(``MujocoQuadForce-v0``, ``MujocoQuadForce-v1``, ``MujocoQuadQuat-v0``).
+The other reference ids are known and raise ``NotImplementedError``
+naming the ROADMAP.md item that ports them; an unknown id raises the same ``KeyError`` as
 :func:`reinmav_tpu.make`.
 """
 
@@ -21,9 +22,6 @@ _NOT_PORTED = {
     "quadrotor2d-slungload-v0": "ROADMAP.md queue 1 item 9 (remaining native envs)",
     "quadrotor3d-slungload-v0": "ROADMAP.md queue 1 item 9 (remaining native envs)",
     "reinmav-v0": "ROADMAP.md queue 1 item 9 (remaining native envs)",
-    "MujocoQuadForce-v1": "ROADMAP.md queue 1 item 8 (hover task)",
-    "MujocoQuadForce-v0": "ROADMAP.md queue 1 item 11 (contact envs)",
-    "MujocoQuadQuat-v0": "ROADMAP.md queue 1 item 11 (contact envs)",
 }
 
 
@@ -50,9 +48,12 @@ def registered_ids():
 
 
 def _populate() -> None:
-    from . import quadrotor3d  # local import to avoid cycles
+    from . import quadrotor3d, tpuquad  # local import to avoid cycles
 
     register("quadrotor3d-v0", quadrotor3d.make)
+    register("MujocoQuadForce-v0", tpuquad.make_force_ground)
+    register("MujocoQuadForce-v1", tpuquad.make_hovering)
+    register("MujocoQuadQuat-v0", tpuquad.make_quat)
 
 
 _populate()

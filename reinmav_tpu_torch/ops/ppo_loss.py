@@ -32,11 +32,32 @@ import torch
 
 from ..rl.networks import Layout
 
-#: The kernel's shapes: obs 10, action 4, the 2x64 actor-critic.
-D, A, HIDDEN = 10, 4, (64, 64)
-KERNEL_LAYOUT = Layout(D, A, HIDDEN)
+#: The (obs, action) dims the K3 and K4 kernels are built for
+#: (quadrotor3d-v0, the tpuquad family), and their 2x64 actor-critic.
+KERNEL_DIMS = ((10, 4), (13, 4))
+HIDDEN = (64, 64)
 METRICS = ("pg_loss", "v_loss", "approx_kl", "clip_frac")
 _LOG_2PI = math.log(2.0 * math.pi)
+
+
+def kernel_dims_refusal(d: int, adim: int, hidden) -> str | None:
+    """Why the K3/K4 kernels cannot take these widths (None = they can):
+    the library is built for the :data:`KERNEL_DIMS` (obs, action) pairs
+    and the 2x64 actor-critic."""
+    if (d, adim) not in KERNEL_DIMS:
+        return (f"obs/action dims ({d}, {adim}): the K3/K4 kernels are built for "
+                f"{', '.join(map(str, KERNEL_DIMS))}")
+    if tuple(hidden) != HIDDEN:
+        return f"hidden {tuple(hidden)}: the K3/K4 kernels are built for {HIDDEN}"
+    return None
+
+
+def require_kernel_dims(name: str, d: int, adim: int, hidden: int) -> None:
+    """Raise ``ValueError`` unless the kernel ``name`` is built for these
+    widths (``hidden`` the width of both layers)."""
+    reason = kernel_dims_refusal(d, adim, (hidden, hidden))
+    if reason is not None:
+        raise ValueError(f"the {name} kernel refuses {reason}")
 
 
 def stack_batch(obs, act, old_logp, old_value, adv, ret) -> torch.Tensor:
@@ -156,8 +177,8 @@ def ppo_loss_grads_gather(data, adv_stats, perm, net, *, d: int, adim: int, clip
     flat layout of ``net`` (entropy term included), ``metrics``
     ``{pg_loss, v_loss, approx_kl, clip_frac}`` as 0-d tensors (means).
     Launches on the current stream and does not synchronise.  A CPU
-    tensor runs the plain twin; a CUDA tensor runs the kernel (obs 10,
-    action 4, hidden 64) or raises.
+    tensor runs the plain twin; a CUDA tensor runs the kernel (the
+    :data:`KERNEL_DIMS` pairs, hidden 64) or raises.
     """
     layout = Layout(d, adim, (hidden, hidden))
     for name, t in (("data", data), ("adv_stats", adv_stats), ("net", net)):
@@ -185,9 +206,7 @@ def ppo_loss_grads_gather(data, adv_stats, perm, net, *, d: int, adim: int, clip
         return _finish(sums, m * tile, ent_coef, layout)
     if data.device.type != "cuda":
         raise ValueError(f"unsupported device {data.device}")
-    if (d, adim, hidden) != (D, A, HIDDEN[0]):
-        raise ValueError(f"the K3 kernel takes obs {D}, action {A}, hidden {HIDDEN[0]}; got "
-                         f"{d}, {adim}, {hidden}")
+    require_kernel_dims("K3", d, adim, hidden)
     if m == 0:
         raise ValueError("perm is empty")
     from .._build import check, load_library
@@ -197,14 +216,14 @@ def ppo_loss_grads_gather(data, adv_stats, perm, net, *, d: int, adim: int, clip
         blocks = lib.ppo_loss_blocks(m * tile)
         if blocks <= 0:
             raise RuntimeError(f"ppo_loss_blocks returned {blocks}")
-        out_size = lib.ppo_loss_out_size()
-        if out_size != KERNEL_LAYOUT.size + len(METRICS):
+        out_size = lib.ppo_loss_out_size(d)
+        if out_size != layout.size + len(METRICS):
             raise RuntimeError(f"the K3 library writes {out_size} sums, the flat layout has "
-                               f"{KERNEL_LAYOUT.size} + {len(METRICS)}")
+                               f"{layout.size} + {len(METRICS)}")
         partials = torch.empty((blocks, out_size), dtype=torch.float32, device=data.device)
         sums = torch.empty(out_size, dtype=torch.float32, device=data.device)
         rc = lib.ppo_loss_launch(
-            data.data_ptr(), n, perm.data_ptr(), m, tile, adv_stats.data_ptr(), net.data_ptr(),
+            d, data.data_ptr(), n, perm.data_ptr(), m, tile, adv_stats.data_ptr(), net.data_ptr(),
             clip_eps, value_clip_eps, value_coef, int(kl_mode), blocks, partials.data_ptr(),
             sums.data_ptr(), torch.cuda.current_stream().cuda_stream)
     check(rc, "ppo_loss_launch")

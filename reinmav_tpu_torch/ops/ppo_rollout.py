@@ -1,16 +1,21 @@
-"""Kernel K2: the fused PPO rollout of quadrotor3d-v0, and its plain twin.
+"""Kernels K2 and K6-hover: the fused PPO rollout of quadrotor3d-v0 and of
+the hover task, and its plain twin.
 
-The counterpart of :mod:`reinmav_tpu.ops.pallas_ppo_rollout` (kind
-``quadrotor3d-v0``).  :func:`ppo_rollout` runs the whole rollout phase
-of PPO in one CUDA kernel written by hand for Hopper
-(``csrc/ppo_rollout.cu``): obs normalisation, the 2x64 tanh actor-critic,
-the Gaussian action with logp from the rounded action, the env step,
-auto-reset, the return-scaled reward, the raw moment sums and the
-trajectory.  :func:`ppo_rollout_reference` is its plain PyTorch twin:
-the same arithmetic and the same Philox4x32-10 draws (noise on stream 1,
-resets on stream 2 of :func:`reinmav_tpu_torch.ops.rollout.philox_words`),
-so the two agree on the card with noise and resets on, and the CPU tests
-run the twin.
+The counterpart of :mod:`reinmav_tpu.ops.pallas_ppo_rollout` (kinds
+``quadrotor3d-v0`` and ``MujocoQuadForce-v1``).  :func:`ppo_rollout` runs
+the whole rollout phase of PPO in one CUDA kernel written by hand for
+Hopper (``csrc/ppo_rollout.cu``, a template on the env): obs
+normalisation, the 2x64 tanh actor-critic, the Gaussian action with logp
+from the rounded action, the env step, auto-reset, the return-scaled
+reward, the raw moment sums and the trajectory.
+:func:`ppo_rollout_reference` is its plain PyTorch twin: the same
+arithmetic and the same Philox4x32-10 draws (noise on stream 1,
+quadrotor3d's resets on stream 2 of
+:func:`reinmav_tpu_torch.ops.rollout.philox_words`; the hover task resets
+deterministically), so the two agree on the card with noise and resets
+on, and the CPU tests run the twin.  :data:`ENVS` is the per-env table
+(state and action dims, params pack) that the wrapper and the learner
+read, as the JAX package's ``_ENVS``.
 
 The wrapper takes the twin only for a tensor that lies on the CPU; on a
 CUDA tensor it launches the kernel or raises.
@@ -20,21 +25,37 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from ..rl.networks import Layout
+from . import hover_rollout as hover_ops
 from .rollout import (_Q3_FIELDS, body_z, mantissa_fill, philox_words, quad3d_dynamics,
                       quad3d_params_vec, reset_draws)
 
-#: The kernel's shapes: quadrotor3d-v0 (obs = state, 10; action 4) and the
-#: 2x64 actor-critic (csrc/actor_critic.cuh).
-D, A, HIDDEN = 10, 4, (64, 64)
-LAYOUT = Layout(D, A, HIDDEN)
-N_STATS = 2 * D + 3   # obs sum (D), obs sum of squares (D), return sum, return sq, raw reward
-N_CONSTS = 2 * D + A + 3  # obs mean (D), obs 1/std (D), std (A), sum log_std, 1/ret std, gamma
+
+class EnvKind(NamedTuple):
+    """One env kind of the kernel: its id in the C entry point, the state
+    (= obs) and action dims, and the pack of its live Params into the
+    kernel's float32 params vector."""
+
+    kind_id: int
+    state_dim: int
+    action_dim: int
+    pack: Callable
+
+
+#: env name -> :class:`EnvKind` (the JAX package's ``_ENVS``, for the kinds
+#: ported so far).
+ENVS = {
+    "quadrotor3d-v0": EnvKind(0, 10, 4, quad3d_params_vec),
+    "MujocoQuadForce-v1": EnvKind(1, 13, 4, hover_ops.hover_params_vec),
+}
+
+#: The kernel's 2x64 actor-critic (csrc/actor_critic.cuh) and action dim.
+A, HIDDEN = 4, (64, 64)
 _THREADS = 128  # CTA size of the kernel, for the partials scratch
 _NOISE_STREAM, _RESET_STREAM = 1, 2
 _TWO_PI = 2.0 * math.pi
@@ -59,8 +80,25 @@ class RolloutOut(NamedTuple):
     stats: torch.Tensor         # (2D + 3,)
 
 
-def _check_args(states_t, env_returns, seed, net, consts, horizon, params_vec) -> torch.Tensor:
-    """Validate what the kernel takes; returns the (11,) env params vector."""
+def env_params_vec(env) -> torch.Tensor:
+    """``env``'s LIVE Params -> the kernel's float32 params vector (the
+    pack of its :data:`ENVS` entry)."""
+    return ENVS[env.name].pack(env.params)
+
+
+def n_stats(env_kind: str) -> int:
+    """The number of moment sums of a kind: obs sum (D), obs sum of squares
+    (D), return sum, return sum of squares, raw reward sum."""
+    return 2 * ENVS[env_kind].state_dim + 3
+
+
+def _check_args(states_t, env_returns, seed, net, consts, horizon, params_vec,
+                env_kind) -> torch.Tensor:
+    """Validate what the kernel takes; returns the kind's params vector."""
+    if env_kind not in ENVS:
+        raise ValueError(f"env_kind {env_kind!r}: the kernel takes {sorted(ENVS)}")
+    kind = ENVS[env_kind]
+    d = kind.state_dim
     for name, t in (("states_t", states_t), ("env_returns", env_returns), ("net", net),
                     ("consts", consts)):
         if not isinstance(t, torch.Tensor) or t.dtype != torch.float32:
@@ -69,22 +107,25 @@ def _check_args(states_t, env_returns, seed, net, consts, horizon, params_vec) -
             raise ValueError(f"{name} must be contiguous")
         if t.device != states_t.device:
             raise ValueError(f"{name} is on {t.device}, states_t on {states_t.device}")
-    if states_t.dim() != 2 or states_t.shape[0] != D or states_t.shape[1] == 0:
-        raise ValueError(f"states_t must be ({D}, B) with B > 0, got {tuple(states_t.shape)}")
+    if states_t.dim() != 2 or states_t.shape[0] != d or states_t.shape[1] == 0:
+        raise ValueError(f"states_t must be ({d}, B) with B > 0, got {tuple(states_t.shape)}")
     if env_returns.shape != (states_t.shape[1],):
         raise ValueError(f"env_returns must be ({states_t.shape[1]},), got {tuple(env_returns.shape)}")
-    if net.shape != (LAYOUT.size,):
-        raise ValueError(f"net must be the ({LAYOUT.size},) flat 2x64 actor-critic, got "
+    layout = Layout(d, kind.action_dim, HIDDEN)
+    if net.shape != (layout.size,):
+        raise ValueError(f"net must be the ({layout.size},) flat 2x64 actor-critic, got "
                          f"{tuple(net.shape)}")
-    if consts.shape != (N_CONSTS,):
-        raise ValueError(f"consts must be ({N_CONSTS},), got {tuple(consts.shape)}")
+    n_consts = 2 * d + kind.action_dim + 3
+    if consts.shape != (n_consts,):
+        raise ValueError(f"consts must be ({n_consts},), got {tuple(consts.shape)}")
     if not 0 <= int(seed) < 2**32:
         raise ValueError(f"seed must fit in uint32, got {seed}")
     if not 0 <= int(horizon) < 2**31:
         raise ValueError(f"horizon must be in [0, 2**31), got {horizon}")
-    params = quad3d_params_vec() if params_vec is None else params_vec
-    if params.shape != (len(_Q3_FIELDS),):
-        raise ValueError(f"params_vec must be ({len(_Q3_FIELDS)},), got {tuple(params.shape)}")
+    params = kind.pack(None) if params_vec is None else params_vec
+    n_params = kind.pack(None).shape[0]
+    if params.shape != (n_params,):
+        raise ValueError(f"params_vec must be ({n_params},), got {tuple(params.shape)}")
     return params.detach().to("cpu", torch.float32)
 
 
@@ -101,7 +142,7 @@ def normal_draws(env_idx: torch.Tensor, step: int, seed: int) -> torch.Tensor:
 def _towers(net: torch.Tensor, x: torch.Tensor):
     """The actor-critic on ``x`` (D, B), tower by tower: ``(mean (A, B),
     value (B,))``."""
-    p = LAYOUT.unflatten(net)
+    p = Layout(x.shape[0], A, HIDDEN).unflatten(net)
     heads = []
     for tower in ("pi", "vf"):
         h = x
@@ -111,18 +152,59 @@ def _towers(net: torch.Tensor, x: torch.Tensor):
     return heads[0], heads[1][0]
 
 
+def _env_twin(env_kind: str, params: torch.Tensor):
+    """``(step, reset)`` of a kind in the kernel's arithmetic: ``step(s,
+    act) -> (states, raw reward, done)`` on ``(D, B)`` states and ``(A,
+    B)`` actions; ``reset(s, done, t, seed)`` resets the done envs of
+    ``s`` in place."""
+    if env_kind == "quadrotor3d-v0":
+        p = dict(zip(_Q3_FIELDS, params.numpy()))
+        half_dt = float(np.float32(0.5) * p["dt"])
+        pos_lim2 = float(p["pos_limit"] * p["pos_limit"])
+        vel_lim2 = float(p["vel_limit"] * p["vel_limit"])
+        dt, gz, mass = float(p["dt"]), float(p["gravity"]), float(p["mass"])
+
+        def step(s, act):
+            return quad3d_dynamics(s, body_z(s), act[0] / mass, act[1], act[2], act[3], dt, gz,
+                                   half_dt, pos_lim2, vel_lim2)
+
+        def reset(s, done, t, seed):
+            idx = torch.nonzero(done).squeeze(1)
+            if idx.numel():
+                s[:, idx] = reset_draws(idx, t, seed, _RESET_STREAM)
+
+        return step, reset
+
+    c = hover_ops.hover_consts(params)
+    fresh = torch.tensor([0.0, 0.0, c["init_z"], 1.0] + [0.0] * 9, dtype=torch.float32)
+
+    def hover_step(s, act):
+        wrench = hover_ops.hover_wrench(act.unbind(0), c)
+        rows = hover_ops.hover_substep(list(s.unbind(0)), c, wrench)
+        rows = hover_ops.hover_substep(rows, c, wrench)
+        terms, done = hover_ops.hover_reward_done(rows)
+        a0, a1, a2, a3 = act.unbind(0)
+        a_sq = a0 * a0 + a1 * a1 + a2 * a2 + a3 * a3
+        raw = terms - a_sq + 0.1 * (a0 + a1 + a2 + a3) + 100.0
+        return torch.stack(rows), raw, done
+
+    def hover_reset(s, done, t, seed):
+        del t, seed
+        s[:, done] = fresh.to(s.device)[:, None]
+
+    return hover_step, hover_reset
+
+
 def ppo_rollout_reference(states_t, env_returns, seed: int, net, consts, horizon: int,
                           params_vec: torch.Tensor | None = None, normalize_obs: bool = True,
-                          normalize_rewards: bool = True) -> RolloutOut:
-    """Plain PyTorch twin of K2, on any device: the same float32
+                          normalize_rewards: bool = True,
+                          env_kind: str = "quadrotor3d-v0") -> RolloutOut:
+    """Plain PyTorch twin of K2 / K6-hover, on any device: the same float32
     arithmetic and the same Philox draws.  Its products are float32
     matmuls; on a CUDA device the caller keeps TF32 off."""
-    params = _check_args(states_t, env_returns, seed, net, consts, horizon, params_vec)
-    p = dict(zip(_Q3_FIELDS, params.numpy()))
-    half_dt = float(np.float32(0.5) * p["dt"])
-    pos_lim2 = float(p["pos_limit"] * p["pos_limit"])
-    vel_lim2 = float(p["vel_limit"] * p["vel_limit"])
-    dt, gz, mass = float(p["dt"]), float(p["gravity"]), float(p["mass"])
+    params = _check_args(states_t, env_returns, seed, net, consts, horizon, params_vec, env_kind)
+    env_step, env_reset = _env_twin(env_kind, params)
+    D = ENVS[env_kind].state_dim
     seed, horizon = int(seed), int(horizon)
     batch = states_t.shape[1]
     dev = states_t.device
@@ -133,7 +215,7 @@ def ppo_rollout_reference(states_t, env_returns, seed: int, net, consts, horizon
     env_idx = torch.arange(batch, device=dev)
 
     s, ret = states_t.clone(), env_returns.clone()
-    stats = torch.zeros(N_STATS, dtype=torch.float32, device=dev)
+    stats = torch.zeros(n_stats(env_kind), dtype=torch.float32, device=dev)
     cols = {k: [] for k in ("obs", "action", "log_prob", "value", "reward", "done")}
     for t in range(horizon):
         if normalize_obs:
@@ -147,8 +229,7 @@ def ppo_rollout_reference(states_t, env_returns, seed: int, net, consts, horizon
         z = (act - mean) * (1.0 / std)
         logp = -0.5 * (z * z).sum(dim=0) - ls_sum - _LOGP_CONST
 
-        s, raw, done = quad3d_dynamics(s, body_z(s), act[0] / mass, act[1], act[2], act[3],
-                                       dt, gz, half_dt, pos_lim2, vel_lim2)
+        s, raw, done = env_step(s, act)
         reward = raw
         if normalize_rewards:
             ret = ret * gamma + raw
@@ -157,9 +238,7 @@ def ppo_rollout_reference(states_t, env_returns, seed: int, net, consts, horizon
             reward = torch.clamp(raw * inv_ret_std, -10.0, 10.0)
             ret = ret * (1.0 - done.to(ret.dtype))
         stats[2 * D + 2] += raw.sum()
-        idx = torch.nonzero(done).squeeze(1)
-        if idx.numel():
-            s[:, idx] = reset_draws(idx, t, seed, _RESET_STREAM)
+        env_reset(s, done, t, seed)
         for k, v in zip(cols, (x, act, logp, value, reward, done)):
             cols[k].append(v)
 
@@ -177,50 +256,54 @@ def ppo_rollout_reference(states_t, env_returns, seed: int, net, consts, horizon
 
 def ppo_rollout(states_t, env_returns, seed: int, net, consts, horizon: int,
                 params_vec: torch.Tensor | None = None, normalize_obs: bool = True,
-                normalize_rewards: bool = True) -> RolloutOut:
-    """K2: ``horizon`` policy + env steps of quadrotor3d-v0 in one CUDA launch.
+                normalize_rewards: bool = True, env_kind: str = "quadrotor3d-v0") -> RolloutOut:
+    """K2 (quadrotor3d-v0) or K6-hover (MujocoQuadForce-v1): ``horizon``
+    policy + env steps in one CUDA launch.
 
-    ``states_t`` ``(10, B)`` and ``env_returns`` ``(B,)`` float32, any
-    ``B > 0``; ``seed`` the uint32 Philox key of the noise and reset
-    streams; ``net`` the flat ``(10057,)`` 2x64 actor-critic
+    ``env_kind`` an :data:`ENVS` name; ``states_t`` ``(D, B)`` (D its
+    state dim, 10 or 13) and ``env_returns`` ``(B,)`` float32, any ``B >
+    0``; ``seed`` the uint32 Philox key of the noise and reset streams;
+    ``net`` the flat 2x64 actor-critic of obs dim D
     (:class:`reinmav_tpu_torch.rl.networks.Layout`); ``consts``
-    ``[obs_mean (10), obs_invstd (10), exp(log_std) (4), sum(log_std),
+    ``[obs_mean (D), obs_invstd (D), exp(log_std) (4), sum(log_std),
     1/sqrt(ret_var + 1e-8), gamma]`` on the same device; ``params_vec``
-    the env's live Params (:func:`quad3d_params_vec`; default Params when
-    None).  Returns :class:`RolloutOut`.  Launches on the current stream
-    and does not synchronise.  A CPU tensor runs the plain twin; a CUDA
-    tensor runs the kernel or raises.
+    the env's live Params packed by the kind's ``pack`` (default Params
+    when None).  Returns :class:`RolloutOut`.  Launches on the current
+    stream and does not synchronise.  A CPU tensor runs the plain twin; a
+    CUDA tensor runs the kernel or raises.
     """
-    params = _check_args(states_t, env_returns, seed, net, consts, horizon, params_vec)
+    params = _check_args(states_t, env_returns, seed, net, consts, horizon, params_vec, env_kind)
     if states_t.device.type == "cpu":
         return ppo_rollout_reference(states_t, env_returns, seed, net, consts, horizon, params,
-                                     normalize_obs, normalize_rewards)
+                                     normalize_obs, normalize_rewards, env_kind)
     if states_t.device.type != "cuda":
         raise ValueError(f"unsupported device {states_t.device}")
     from .._build import check, load_library
 
     lib = load_library()
-    batch = states_t.shape[1]
-    T = int(horizon)
+    kind = ENVS[env_kind]
+    D, batch, T = kind.state_dim, states_t.shape[1], int(horizon)
     f32 = dict(dtype=torch.float32, device=states_t.device)
     out = RolloutOut(
         torch.empty((T, D, batch), **f32), torch.empty((T, A, batch), **f32),
         torch.empty((T, batch), **f32), torch.empty((T, batch), **f32),
         torch.empty((T, batch), **f32),
         torch.empty((T, batch), dtype=torch.bool, device=states_t.device),
-        torch.empty_like(states_t), torch.empty_like(env_returns), torch.empty(N_STATS, **f32))
-    partials = torch.empty((-(-batch // _THREADS), N_STATS), **f32)
-    host_params = (ctypes.c_float * len(_Q3_FIELDS))(*params.tolist())
+        torch.empty_like(states_t), torch.empty_like(env_returns),
+        torch.empty(n_stats(env_kind), **f32))
+    partials = torch.empty((-(-batch // _THREADS), n_stats(env_kind)), **f32)
+    host_params = (ctypes.c_float * params.shape[0])(*params.tolist())
     with torch.cuda.device(states_t.device):
         rc = lib.ppo_rollout_launch(
-            states_t.data_ptr(), env_returns.data_ptr(), net.data_ptr(), consts.data_ptr(),
-            batch, T, int(seed), int(normalize_obs), int(normalize_rewards),
-            ctypes.addressof(host_params), *(t.data_ptr() for t in out[:8]),
+            kind.kind_id, states_t.data_ptr(), env_returns.data_ptr(), net.data_ptr(),
+            consts.data_ptr(), batch, T, int(seed), int(normalize_obs), int(normalize_rewards),
+            ctypes.addressof(host_params), params.shape[0], *(t.data_ptr() for t in out[:8]),
             partials.data_ptr(), out.stats.data_ptr(), torch.cuda.current_stream().cuda_stream)
     check(rc, "ppo_rollout_launch")
     ppo_rollout.launches += 1
     return out
 
 
-#: Kernel launches so far (a run can show that its path went through K2).
+#: Kernel launches so far (a run can show that its path went through K2 or
+#: K6-hover).
 ppo_rollout.launches = 0

@@ -148,8 +148,8 @@ def ppo_update(data, adv_stats, perm_all, params, opt_state, kl_beta, *, d: int,
     read in ``kl_mode`` only (None otherwise).  Nothing is read back to
     the host.  Returns :class:`UpdateOut`; the inputs are not modified.
     Launches on the current stream and does not synchronise.  A CPU tensor
-    runs the plain twin; a CUDA tensor runs the kernel (obs 10, action 4,
-    hidden 64) or raises.
+    runs the plain twin; a CUDA tensor runs the kernel (the
+    ``ppo_loss.KERNEL_DIMS`` pairs, hidden 64) or raises.
     """
     layout = Layout(d, adim, (hidden, hidden))
     count, mu, nu = opt_state
@@ -195,9 +195,7 @@ def ppo_update(data, adv_stats, perm_all, params, opt_state, kl_beta, *, d: int,
                                                             kl_mode), grad0 if keep_grad0 else None)
     if data.device.type != "cuda":
         raise ValueError(f"unsupported device {data.device}")
-    if (d, adim, hidden) != (loss_ops.D, loss_ops.A, loss_ops.HIDDEN[0]):
-        raise ValueError(f"the K4 kernel takes obs {loss_ops.D}, action {loss_ops.A}, hidden "
-                         f"{loss_ops.HIDDEN[0]}; got {d}, {adim}, {hidden}")
+    loss_ops.require_kernel_dims("K4", d, adim, hidden)
     from .._build import check, load_library
 
     lib = load_library()
@@ -216,7 +214,7 @@ def ppo_update(data, adv_stats, perm_all, params, opt_state, kl_beta, *, d: int,
         sums = torch.empty(N_METRIC_SUMS, **f32)
         grad0 = torch.empty(layout.size, **f32) if keep_grad0 else None
         rc = lib.ppo_update_launch(
-            data.data_ptr(), n, perm_all.data_ptr(), tile, tpm, n_passes, n_minibatches,
+            d, data.data_ptr(), n, perm_all.data_ptr(), tile, tpm, n_passes, n_minibatches,
             adv_stats.data_ptr(), kl_beta.data_ptr() if kl_mode else None, count.data_ptr(),
             new_count.data_ptr(), new_params.data_ptr(), new_mu.data_ptr(), new_nu.data_ptr(),
             clip_eps, value_clip_eps, value_coef, 1.0 / mb, ent_coef, lr, max_grad_norm,

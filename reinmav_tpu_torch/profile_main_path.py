@@ -17,6 +17,9 @@ Measures, after a warm-up:
   ``fused_update="off"`` (K3 for each of the 16 minibatch gradients and
   the optimiser in eager PyTorch): wall time per update over 5 updates,
   after 2 warm-up updates;
+- the hover task (``MujocoQuadForce-v1``): ``throughput_rollout`` of
+  2,097,152 envs x 1000 steps (the K5 kernel), and one default PPO update
+  of 32,768 x 32 (K6-hover for the rollout, one K4 launch at obs 13);
 - each call once more under ``torch.profiler`` (the eager loop at 50
   steps): the device kernels launched, and the device idle share.  For
   the PPO updates also the shares of the wall time that K2, K3, K4 and
@@ -45,9 +48,10 @@ import reinmav_tpu_torch
 B_MAIN, T_MAIN = 2_097_152, 1000
 B_QUICK, T_QUICK, T_PROFILED = 4096, 400, 50
 B_PPO, T_PPO = 32_768, 32
-#: Device kernels by their name: K2 (with its moment reduction), K3 (with
-#: its partials' reduction) and K4.
-KERNEL_GROUPS = {"K2": "ppo_rollout", "K3": "ppo_loss", "K4": "ppo_update"}
+#: Device kernels by their name: K2 or K6-hover (with its moment
+#: reduction), K3 (with its partials' reduction), K4 and K5.
+KERNEL_GROUPS = {"K2/K6-hover": "ppo_rollout", "K3": "ppo_loss", "K4": "ppo_update",
+                 "K5": "hover_rollout"}
 
 
 def _wall_ms(fn, reps: int) -> list[float]:
@@ -141,7 +145,7 @@ def main(argv=None) -> int:
 
     from .rl import ppo
 
-    def ppo_update(**overrides):
+    def ppo_update(env=env, **overrides):
         cfg = ppo.PpoConfig(num_envs=B_PPO, rollout_len=T_PPO, **overrides)
         state = [ppo.init_train_state(env, cfg, seed=0, device="cuda")]
 
@@ -150,15 +154,26 @@ def main(argv=None) -> int:
 
         return update
 
+    hover = reinmav_tpu_torch.make("MujocoQuadForce-v1")
+    hover_big = hover.vreset(gen, B_MAIN)
+
+    def hover_throughput():
+        return reinmav_tpu_torch.throughput_rollout(hover, hover_big, gen, T_MAIN)
+
     k4_update, loop_update = ppo_update(), ppo_update(fused_update="off")
+    hover_update = ppo_update(hover)
     k4_name = f"ppo train_step {B_PPO}x{T_PPO} (K4)"
     loop_name = f"ppo train_step {B_PPO}x{T_PPO} fused_update=off (K3 loop)"
+    hover_tp_name = f"hover throughput_rollout {B_MAIN}x{T_MAIN} (K5)"
+    hover_name = f"hover ppo train_step {B_PPO}x{T_PPO} (K6-hover + K4)"
 
     throughput()
+    hover_throughput()
     control(5)()  # warm-up
     for _ in range(2):
         k4_update()  # warm-up
         loop_update()
+        hover_update()
     walls = {
         f"throughput_rollout {B_MAIN}x{T_MAIN}": _wall_ms(throughput, 5),
         f"control_rollout {B_QUICK}x{T_QUICK}": _wall_ms(control(T_QUICK), 3),
@@ -167,6 +182,8 @@ def main(argv=None) -> int:
         f"control_rollout {B_QUICK}x{T_PROFILED}": _wall_ms(control(T_PROFILED), 3),
         k4_name: _wall_ms(k4_update, 5),
         loop_name: _wall_ms(loop_update, 5),
+        hover_tp_name: _wall_ms(hover_throughput, 5),
+        hover_name: _wall_ms(hover_update, 5),
     }
     for name, ms in walls.items():
         print(f"{name} wall ms: {[round(m, 3) for m in ms]}")
@@ -180,6 +197,8 @@ def main(argv=None) -> int:
              mean(f"control_rollout {B_QUICK}x{T_PROFILED}"))
     _profile(k4_name, k4_update, mean(k4_name), KERNEL_GROUPS)
     _profile(loop_name, loop_update, mean(loop_name), KERNEL_GROUPS)
+    _profile(hover_tp_name, hover_throughput, mean(hover_tp_name), KERNEL_GROUPS)
+    _profile(hover_name, hover_update, mean(hover_name), KERNEL_GROUPS)
     return 0
 
 

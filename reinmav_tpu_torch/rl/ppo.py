@@ -7,17 +7,19 @@ entropy bonus, with the reference's defaults (ppo2's: lr 3e-4, gamma
 optax's ``chain(clip_by_global_norm(0.5), adam(lr, eps=1e-5))``.
 
 One update (:func:`train_step`) is the rollout followed by
-:func:`update_phase`.  The rollout runs in the K2 CUDA kernel
-(:mod:`reinmav_tpu_torch.ops.ppo_rollout`) when the states lie on the
-card and the env is the registry's quadrotor3d-v0, else as the eager
-loop :func:`collect_rollout`.  The update runs on the card as ONE launch
+:func:`update_phase`.  The rollout runs in the fused CUDA kernel
+(:mod:`reinmav_tpu_torch.ops.ppo_rollout`: K2 for quadrotor3d-v0,
+K6-hover for MujocoQuadForce-v1) when the states lie on the card and the
+env is the registry's, else as the eager loop :func:`collect_rollout`.  The update runs on the card as ONE launch
 of the K4 CUDA kernel (:mod:`reinmav_tpu_torch.ops.ppo_update`: every
 epoch x minibatch pass of the loss gradient, clip + Adam and the floor),
 as the JAX package's ``fused_update`` does on its accelerator; with
 ``fused_update="off"`` it is a loop over the minibatches whose loss
 gradient runs in the K3 CUDA kernel (:mod:`reinmav_tpu_torch.ops.ppo_loss`)
-on the card, else through ``torch.autograd`` of :func:`ppo_loss`.
-``train_step`` logs which paths ran and why.
+on the card, else through ``torch.autograd`` of :func:`ppo_loss`.  K3
+and K4 are built for the observation dims of quadrotor3d-v0 (10) and of
+the tpuquad family (13); an env of other dims takes the loop through
+autograd on the card.  ``train_step`` logs which paths ran and why.
 
 State is functional as in the JAX package (each update returns a new
 :class:`TrainState`), with one exception: ``TrainState.generator``, a
@@ -40,7 +42,6 @@ from ..envs.core import EnvDef, episode_boundary, fused_kernel_mismatch
 from ..ops import ppo_loss as loss_ops
 from ..ops import ppo_rollout as rollout_ops
 from ..ops import ppo_update as update_ops
-from ..ops.rollout import quad3d_params_vec
 from . import networks
 from .networks import Layout
 
@@ -304,17 +305,20 @@ def _rollout_consts(params, layout: Layout, obs_norm: ObsNorm, ret_norm: RetNorm
 @torch.no_grad()
 def collect_rollout_kernel(env: EnvDef, cfg: PpoConfig, params, obs_norm: ObsNorm,
                            ret_norm: RetNorm, env_states, env_returns, seed: int) -> Rollout:
-    """The rollout through K2 (:func:`reinmav_tpu_torch.ops.ppo_rollout.ppo_rollout`):
-    the kernel on a CUDA tensor, its plain twin on a CPU one.  Same return
-    contract as :func:`collect_rollout`; the noise and resets come from the
-    kernel's Philox streams keyed by ``seed``."""
+    """The rollout through the fused kernel of ``env``'s kind, K2 or
+    K6-hover (:func:`reinmav_tpu_torch.ops.ppo_rollout.ppo_rollout`, with
+    the env's live Params packed by the kind's entry of its ``ENVS``
+    table): the kernel on a CUDA tensor, its plain twin on a CPU one.  Same
+    return contract as :func:`collect_rollout`; the noise and
+    quadrotor3d's resets come from the kernel's Philox streams keyed by
+    ``seed``."""
     layout = Layout(env.obs_dim, env.action_dim, cfg.hidden)
     out = rollout_ops.ppo_rollout(
         env_states.T.to(torch.float32).contiguous(), env_returns.to(torch.float32).contiguous(),
         seed, params.to(torch.float32).contiguous(),
         _rollout_consts(params, layout, obs_norm, ret_norm, cfg.gamma), cfg.rollout_len,
-        params_vec=quad3d_params_vec(env.params), normalize_obs=cfg.normalize_obs,
-        normalize_rewards=cfg.normalize_rewards)
+        params_vec=rollout_ops.env_params_vec(env), normalize_obs=cfg.normalize_obs,
+        normalize_rewards=cfg.normalize_rewards, env_kind=env.name)
     d = env.obs_dim
     n = torch.tensor(float(cfg.rollout_len * env_states.shape[0]), device=env_states.device)
     s = out.stats
@@ -412,28 +416,47 @@ def _tiling(cfg: PpoConfig, n: int):
     return tile, n // tile
 
 
+def _rollout_kernel_name(env: EnvDef) -> str:
+    return "K6-hover" if env.name == "MujocoQuadForce-v1" else "K2"
+
+
 def _rollout_refusal(cfg: PpoConfig, env: EnvDef):
-    """Why K2 cannot run this config and env (None = it can)."""
+    """Why the fused PPO rollout kernel (K2, K6-hover) cannot run this
+    config and env (None = it can)."""
+    kind = rollout_ops.ENVS.get(env.name)
+    if kind is None:
+        return f"no fused PPO rollout kernel for {env.name} (built for {sorted(rollout_ops.ENVS)})"
+    if (env.obs_dim, env.action_dim) != (kind.state_dim, kind.action_dim):
+        return (f"obs/action dims ({env.obs_dim}, {env.action_dim}), the kernel's are "
+                f"({kind.state_dim}, {kind.action_dim})")
     if tuple(cfg.hidden) != rollout_ops.HIDDEN:
         return f"hidden {tuple(cfg.hidden)} != {rollout_ops.HIDDEN}"
-    return fused_kernel_mismatch(env, require_control=False, packed_params=True)
+    reason = fused_kernel_mismatch(env, require_control=False, packed_params=True)
+    if reason is None and env.name == "MujocoQuadForce-v1" and env.params.frame_skip != 2:
+        return "frame_skip != 2 (the kernel runs two substeps)"
+    return reason
 
 
-def _loss_refusal(cfg: PpoConfig):
-    """Why K3 cannot run this config (None = it can)."""
+def _loss_refusal(cfg: PpoConfig, env: EnvDef, device: torch.device):
+    """Why K3 cannot run this config and env on ``device`` (None = it can):
+    its plain twin takes any two equal hidden layers; the kernel, on a
+    CUDA device, only the (obs, action) dims and widths it is built for
+    (:data:`reinmav_tpu_torch.ops.ppo_loss.KERNEL_DIMS`)."""
     if len(cfg.hidden) != 2 or cfg.hidden[0] != cfg.hidden[1]:
         return f"hidden {tuple(cfg.hidden)} is not two equal layers"
+    if device.type == "cuda":
+        return loss_ops.kernel_dims_refusal(env.obs_dim, env.action_dim, cfg.hidden)
     return None
 
 
-def _update_refusal(cfg: PpoConfig, fused_loss):
-    """Why K4 cannot run this config (None = it can): K3's preconditions,
-    and the loss path not switched off (``fused_loss`` the caller's
-    True/False/None), as the JAX package requires ``fused_loss`` for its
-    ``fused_update``."""
+def _update_refusal(cfg: PpoConfig, env: EnvDef, fused_loss, device: torch.device):
+    """Why K4 cannot run this config and env on ``device`` (None = it can):
+    K3's preconditions, and the loss path not switched off (``fused_loss``
+    the caller's True/False/None), as the JAX package requires
+    ``fused_loss`` for its ``fused_update``."""
     if fused_loss is False or (fused_loss is None and cfg.fused_loss == "off"):
         return "fused_loss is off"
-    return _loss_refusal(cfg)
+    return _loss_refusal(cfg, env, device)
 
 
 def _choose(name: str, forced, mode: str, refusal, device: torch.device):
@@ -610,7 +633,7 @@ def update_phase(env: EnvDef, cfg: PpoConfig, state: TrainState, rollout: Rollou
 
 def train_step(env: EnvDef, cfg: PpoConfig, state: TrainState, fused_rollout: bool | None = None,
                fused_loss: bool | None = None, fused_update: bool | None = None):
-    """One PPO update: the rollout (K2 or the eager loop), then
+    """One PPO update: the rollout (K2 / K6-hover or the eager loop), then
     :func:`update_phase` (every pass in one K4 launch, or a loop over the
     minibatches with each gradient through K3 or autograd).
 
@@ -626,19 +649,20 @@ def train_step(env: EnvDef, cfg: PpoConfig, state: TrainState, fused_rollout: bo
     use_k2, rollout_how = _choose("fused_rollout", fused_rollout, cfg.fused_rollout,
                                   _rollout_refusal(cfg, env), device)
     use_k4, update_how = _choose("fused_update", fused_update, cfg.fused_update,
-                                 _update_refusal(cfg, fused_loss), device)
+                                 _update_refusal(cfg, env, fused_loss, device), device)
     passes = cfg.num_epochs * cfg.num_minibatches
     if use_k4:
         use_k3 = False
         update = f"K4 {update_how}, 1 launch for {passes} passes of loss gradient + clip + Adam"
     else:
         use_k3, loss_how = _choose("fused_loss", fused_loss, cfg.fused_loss,
-                                   _loss_refusal(cfg), device)
+                                   _loss_refusal(cfg, env, device), device)
         update = (f"K4 {update_how}; {passes} minibatch steps of clip + Adam, loss gradient "
                   + (f"K3 {loss_how}, {passes} launches" if use_k3 else f"autograd, K3 {loss_how}"))
+    k2 = _rollout_kernel_name(env)
     log.info("train_step(%s, B=%d, T=%d): rollout: %s; update: %s", env.name,
              state.env_states.shape[0], cfg.rollout_len,
-             f"K2 {rollout_how}" if use_k2 else f"eager loop, K2 {rollout_how}", update)
+             f"{k2} {rollout_how}" if use_k2 else f"eager loop, {k2} {rollout_how}", update)
 
     seed = _draw_seed(state.generator)
     with record_function("ppo.rollout"):

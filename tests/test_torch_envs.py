@@ -193,11 +193,18 @@ def test_registry_unknown_id_raises_same_keyerror_as_jax():
     with pytest.raises(KeyError) as j_err:
         reinmav_tpu.make("nope-v0")
     assert str(t_err.value) == str(j_err.value)
-    assert reinmav_tpu_torch.registered_ids() == ["quadrotor3d-v0"]
+    assert reinmav_tpu_torch.registered_ids() == [
+        "MujocoQuadForce-v0", "MujocoQuadForce-v1", "MujocoQuadQuat-v0", "quadrotor3d-v0"]
 
 
 @pytest.mark.parametrize("env_id", sorted(set(reinmav_tpu.registered_ids()) - {"quadrotor3d-v0"}))
 def test_registry_unported_ids_raise_not_implemented(env_id):
+    """Every JAX id: an id not ported yet raises, naming its ROADMAP item;
+    an id ported since builds the env of that name."""
+    if env_id in reinmav_tpu_torch.registered_ids():
+        env = reinmav_tpu_torch.make(env_id)
+        assert env.name == env_id and env.obs_dim == reinmav_tpu.make(env_id).obs_dim
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
         reinmav_tpu_torch.make(env_id)
 
@@ -224,6 +231,7 @@ def test_throughput_rollout_dispatch_on_cpu(envs, rng, caplog):
 
 def test_import_leaves_jax_out():
     code = ("import sys, reinmav_tpu_torch, reinmav_tpu_torch.ops.rollout, "
+            "reinmav_tpu_torch.envs.tpuquad, reinmav_tpu_torch.ops.hover_rollout, "
             "reinmav_tpu_torch.ops.ppo_rollout, reinmav_tpu_torch.ops.ppo_loss, "
             "reinmav_tpu_torch.rl.ppo, reinmav_tpu_torch.profile_main_path, "
             "reinmav_tpu_torch._build; print(sorted(m for m in sys.modules "
@@ -235,7 +243,7 @@ def test_import_leaves_jax_out():
 
 def test_library_name_hashes_sources_and_headers(tmp_path, monkeypatch):
     """An edited source or shared header names a new library, so a stale
-    build is never reused; the K2 and K3 entry points are declared."""
+    build is never reused; the K2, K3 and K5 entry points are declared."""
     from reinmav_tpu_torch import _build
 
     src = tmp_path / "csrc"
@@ -250,4 +258,9 @@ def test_library_name_hashes_sources_and_headers(tmp_path, monkeypatch):
     (src / "ppo_loss.cu").write_text((src / "ppo_loss.cu").read_text() + "\n")
     names.add(_build._library_path().name)
     assert len(names) == 3
-    assert {"ppo_rollout_launch", "ppo_loss_launch", "ppo_loss_blocks"} <= set(_build._SIGNATURES)
+    header = src / "hover_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    names.add(_build._library_path().name)
+    assert len(names) == 4
+    assert {"ppo_rollout_launch", "ppo_loss_launch", "ppo_loss_blocks",
+            "hover_rollout_launch"} <= set(_build._SIGNATURES)

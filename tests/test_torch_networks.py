@@ -166,3 +166,23 @@ def test_adam_state_from_jax_matches_the_optax_layout():
     carried = ppo.adam_state_from_jax(_np_tree(opt_state))
     assert carried.count.dtype == torch.int32 and int(carried.count) == 0
     assert carried.mu.shape == carried.nu.shape == (networks.Layout(10, 4).size,)
+
+
+def test_params_and_adam_state_from_jax_at_obs_dim_13():
+    """The tpuquad family's 13-dim observation: the JAX params and optax
+    state carry over leaf by leaf, and the actor-critic agrees in float64."""
+    params = _jax_params(6, d=13)
+    flat = networks.params_from_jax(_np_tree(params), dtype=F64)
+    layout = networks.Layout(13, 4)
+    assert flat.shape == (layout.size,) and layout.size == networks.Layout(10, 4).size + 3 * 128
+    np.testing.assert_array_equal(
+        flat.numpy(), np.concatenate([np.ravel(x) for x in jax.tree.leaves(params)]))
+    obs = np.random.default_rng(6).normal(size=(13, 32))
+    mean, log_std, value = networks.apply_t(layout.unflatten(flat), torch.from_numpy(obs))
+    j_mean, j_ls, j_value = jnet.apply_t(params, jnp.asarray(obs))
+    np.testing.assert_allclose(mean.numpy(), np.asarray(j_mean), rtol=RTOL, atol=1e-14)
+    np.testing.assert_allclose(value.numpy(), np.asarray(j_value), rtol=RTOL, atol=1e-14)
+    opt_state = jppo.make_optimizer(jppo.PpoConfig()).init(
+        jax.tree.map(lambda x: x.astype(jnp.float32), params))
+    carried = ppo.adam_state_from_jax(_np_tree(opt_state))
+    assert carried.mu.shape == carried.nu.shape == (layout.size,)

@@ -15,6 +15,7 @@ Learning sanity: from the same params and env states, a port update's
 differ), as tests/test_pallas_ppo_rollout.py holds the JAX kernel path.
 """
 
+import dataclasses
 import logging
 
 import jax
@@ -40,8 +41,8 @@ def _t(x):
     return torch.from_numpy(np.array(x, np.float32))
 
 
-def _jax_state(cfg, seed=0):
-    env = reinmav_tpu.make("quadrotor3d-v0")
+def _jax_state(cfg, seed=0, env_id="quadrotor3d-v0"):
+    env = reinmav_tpu.make(env_id)
     state = jppo.init_train_state(env, cfg, jax.random.PRNGKey(seed))
     return env, state._replace(params=_f32(state.params), opt_state=_f32(state.opt_state),
                                env_states=_f32(state.env_states), obs_norm=_f32(state.obs_norm),
@@ -169,6 +170,49 @@ def test_train_many_and_the_paths_not_ported():
         ppo.init_train_state(env, cfg._replace(compute_dtype="bfloat16"), device="cpu")
     with pytest.raises(ValueError, match="fused_rollout"):
         ppo.train_step(env, cfg._replace(hidden=(32, 32)), state, fused_rollout=True)
+
+
+def test_kernel_refusals_take_the_env_and_device():
+    """K3/K4 are built for obs dims 10 and 13: on the card an env of other
+    dims is refused with the pairs named, and "auto" then takes the loop
+    (it does not raise); the plain twins on the CPU take any widths."""
+    hover = reinmav_tpu_torch.make("MujocoQuadForce-v1")
+    odd = dataclasses.replace(hover, obs_dim=7)
+    cfg = ppo.PpoConfig()
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    for env in (hover, reinmav_tpu_torch.make("quadrotor3d-v0")):
+        assert ppo._loss_refusal(cfg, env, cuda) is None
+        assert ppo._update_refusal(cfg, env, None, cuda) is None
+        assert ppo._rollout_refusal(cfg, env) is None
+    reason = ppo._update_refusal(cfg, odd, None, cuda)
+    assert "(7, 4)" in reason and "(10, 4), (13, 4)" in reason
+    assert ppo._loss_refusal(cfg, odd, cpu) is None
+    assert "(7, 4)" in ppo._rollout_refusal(cfg, odd)
+    use, how = ppo._choose("fused_update", None, "auto", reason, cuda)
+    assert not use and "(10, 4), (13, 4)" in how
+    use, how = ppo._choose("fused_loss", None, "auto", ppo._loss_refusal(cfg, odd, cuda), cuda)
+    assert not use
+    with pytest.raises(ValueError, match="fused_update refused"):
+        ppo._choose("fused_update", None, "on", reason, cuda)
+    assert "hidden" in ppo._loss_refusal(cfg._replace(hidden=(32, 32)), hover, cuda)
+    assert "no fused PPO rollout kernel" in ppo._rollout_refusal(
+        cfg, reinmav_tpu_torch.make("MujocoQuadForce-v0"))
+    from reinmav_tpu_torch.envs import tpuquad
+    assert "frame_skip" in ppo._rollout_refusal(
+        cfg, tpuquad.make_hovering(tpuquad.Params(init_z=1.0, frame_skip=3)))
+
+
+def test_train_step_on_hover_runs_k6_hover_and_k4_twins(caplog):
+    env = reinmav_tpu_torch.make("MujocoQuadForce-v1")
+    cfg = ppo.PpoConfig(num_envs=32, rollout_len=8, num_epochs=1, num_minibatches=2,
+                        fused_rollout="on", fused_update="on")
+    state = ppo.init_train_state(env, cfg, 0, device="cpu")
+    assert state.params.shape == (networks.Layout(13, 4).size,)
+    with caplog.at_level(logging.INFO, logger="reinmav_tpu_torch.rl.ppo"):
+        state, summary = ppo.train_step(env, cfg, state)
+    assert "rollout: K6-hover plain twin" in caplog.text and "K4 plain twin" in caplog.text
+    assert all(np.isfinite(float(v)) for v in summary.values())
+    assert 50.0 < float(summary["mean_reward"]) < 100.0
 
 
 def test_shuffle_indices_is_a_permutation():

@@ -6,7 +6,9 @@ port's own ``ppo_loss``, on the CPU in float32.
 
 Clip and KL modes, with and without the entropy term, with the gather
 through a non-identity tile permutation and a non-trivial advantage
-normalisation.  Tolerances are the JAX package's own
+normalisation; at the obs dim of quadrotor3d-v0 (10) and, in the cases
+marked ``hover``, of the tpuquad family (13), the two dims the kernel is
+built for.  Tolerances are the JAX package's own
 (tests/test_pallas_ppo.py): metrics rtol 2e-4 / atol 1e-6, gradients
 rtol 2e-3 / atol 2e-6.  The JAX kernel's fused gradients are compared
 on the tower blocks ``ppo._unfuse_grads`` keeps; the port computes only
@@ -31,19 +33,22 @@ ADV_SHIFT, ADV_INV, BETA = 0.1, 1.3, 0.7
 METRIC_TOL = dict(rtol=2e-4, atol=1e-6)
 GRAD_TOL = dict(rtol=2e-3, atol=2e-6)
 MODES = [("clip", 0.0), ("clip", 1e-2), ("kl", 0.0), ("kl", 1e-2)]
+#: MODES at D = 10 (their ids unchanged), and two of them at D = 13.
+CASES = ([pytest.param(m, e, D, id=f"{m}-{e}") for m, e in MODES]
+         + [pytest.param(m, e, 13, id=f"{m}-{e}-hover") for m, e in (("clip", 1e-2), ("kl", 0.0))])
 
 
 def _np_tree(tree):
     return jax.tree.map(lambda x: np.asarray(x, np.float32), tree)
 
 
-def _case(seed):
+def _case(seed, d=D):
     """Params (log_std off its init) and a float32 batch from a NumPy seed."""
-    params = jnet.init_params(jax.random.PRNGKey(seed), jnet.MlpConfig(D, A, (64, 64)))
+    params = jnet.init_params(jax.random.PRNGKey(seed), jnet.MlpConfig(d, A, (64, 64)))
     params["log_std"] = params["log_std"] + 0.1
     rng = np.random.default_rng(seed)
     f32 = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
-    obs, act = f32(D, N), f32(A, N)
+    obs, act = f32(d, N), f32(A, N)
     old_logp = f32(N) * np.float32(0.3) - np.float32(4.0)
     old_value = f32(N)
     adv = f32(N)
@@ -61,7 +66,7 @@ def _port(params, batch, mode, ent):
     stats = torch.tensor([ADV_SHIFT, ADV_INV, BETA if mode == "kl" else 0.0, 0.0])
     net = networks.params_from_jax(_np_tree(params))
     return pl.ppo_loss_grads_gather(data, stats, torch.tensor(PERM, dtype=torch.int32), net,
-                                    d=D, adim=A, tile=TILE, **_cfg(mode, ent))
+                                    d=batch[0].shape[0], adim=A, tile=TILE, **_cfg(mode, ent))
 
 
 def _flat(tree):
@@ -75,11 +80,11 @@ def _minibatch(batch):
     return obs, act, old_logp, old_value, adv, ret
 
 
-@pytest.mark.parametrize("mode,ent", MODES)
-def test_twin_matches_jax_kernel_in_interpret_mode(mode, ent):
+@pytest.mark.parametrize("mode,ent,d", CASES)
+def test_twin_matches_jax_kernel_in_interpret_mode(mode, ent, d):
     from jax.experimental.pallas import tpu as pltpu
 
-    params, batch = _case(0)
+    params, batch = _case(0, d)
     grads, metrics = _port(params, batch, mode, ent)
     layers, wo, bo = jnet.fused_weights(params)
     (w1, b1), (w2, b2) = layers
@@ -88,7 +93,7 @@ def test_twin_matches_jax_kernel_in_interpret_mode(mode, ent):
     with pltpu.force_tpu_interpret_mode():
         j_g, j_m = pallas_ppo.ppo_loss_grads_pallas_gather(
             data, stats, jnp.asarray(PERM, jnp.int32), w1, b1, w2, b2, wo, bo,
-            params["log_std"], d=D, adim=A, tile=TILE, compute_dtype="float32",
+            params["log_std"], d=d, adim=A, tile=TILE, compute_dtype="float32",
             **_cfg(mode, ent))
     for name in pl.METRICS:
         np.testing.assert_allclose(float(metrics[name]), float(j_m[name]), **METRIC_TOL,
@@ -112,16 +117,16 @@ def test_twin_matches_jax_autodiff(mode, ent):
     np.testing.assert_allclose(grads.numpy(), _flat(j_g), **GRAD_TOL)
 
 
-@pytest.mark.parametrize("mode,ent", MODES)
-def test_twin_matches_torch_autograd(mode, ent):
-    params, batch = _case(2)
+@pytest.mark.parametrize("mode,ent,d", CASES)
+def test_twin_matches_torch_autograd(mode, ent, d):
+    params, batch = _case(2, d)
     grads, metrics = _port(params, batch, mode, ent)
     obs, act, old_logp, old_value, adv, ret = (torch.from_numpy(x) for x in _minibatch(batch))
     cfg = ppo.PpoConfig(entropy_coef=ent, kl_target=0.01 if mode == "kl" else None)
     net = networks.params_from_jax(_np_tree(params)).requires_grad_(True)
     mb = ppo.Transition(obs, act, old_logp, old_value, torch.zeros_like(adv),
                         torch.zeros(adv.shape, dtype=torch.bool))
-    loss, ref_m = ppo.ppo_loss(networks.Layout(D, A).unflatten(net), cfg, mb, adv, ret, None,
+    loss, ref_m = ppo.ppo_loss(networks.Layout(d, A).unflatten(net), cfg, mb, adv, ret, None,
                                torch.tensor(BETA) if mode == "kl" else None)
     (ref_g,) = torch.autograd.grad(loss, net)
     for name in pl.METRICS:
@@ -170,3 +175,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         pl.ppo_loss_grads_gather(data, stats, perm, net[:-1], tile=TILE, **kw)
     pl.ppo_loss_grads_gather(data, stats, perm, net, tile=TILE, **kw)
     assert pl.ppo_loss_grads_gather.launches == before  # the CPU ran the twin
+    # The widths the kernel is built for, as the learner's refusal names them.
+    assert pl.kernel_dims_refusal(10, 4, (64, 64)) is None
+    assert pl.kernel_dims_refusal(13, 4, (64, 64)) is None
+    assert "(10, 4), (13, 4)" in pl.kernel_dims_refusal(7, 4, (64, 64))
+    assert "hidden" in pl.kernel_dims_refusal(13, 4, (32, 32))
+    with pytest.raises(ValueError, match="K3 kernel refuses obs/action dims"):
+        pl.require_kernel_dims("K3", 16, 4, 64)

@@ -8,7 +8,9 @@ fused_update=True)`` runs, on the JAX rollout's trajectory carried across,
 with the epoch permutations rebuilt from the same JAX key stream.  512
 envs x 64 steps, the 2x64 net, 2 epochs x 2 minibatches, in the three modes
 of tests/test_pallas_ppo_update.py: clip, adaptive KL, and the log-std
-floor with an entropy bonus.  Its tolerances: params rtol 2e-4 / atol 1e-6,
+floor with an entropy bonus; and clip on the hover task
+(MujocoQuadForce-v1, obs 13), the hover update phase against the JAX
+``train_step``.  Its tolerances: params rtol 2e-4 / atol 1e-6,
 Adam moments rtol 2e-4 / atol 5e-8, metrics rtol 1e-4 / atol 1e-6, the
 count exactly E * M and ``kl_beta`` exactly.  Two epochs, because the floor
 clamp and Adam amplify 1e-7 gaps over more passes
@@ -37,7 +39,10 @@ MOMENT_TOL = dict(rtol=2e-4, atol=5e-8)
 METRIC_TOL = dict(rtol=1e-4, atol=1e-6)
 #: mode -> (seed, config): tests/test_pallas_ppo_update.py's seed for each.
 MODES = {"clip": (0, {}), "kl": (5, {"kl_target": 0.01}),
-         "floor-entropy": (1, {"log_std_floor": -0.05, "entropy_coef": 0.01})}
+         "floor-entropy": (1, {"log_std_floor": -0.05, "entropy_coef": 0.01}),
+         "clip-hover": (0, {})}
+#: mode -> env id (quadrotor3d-v0 where not named).
+ENV_OF = {"clip-hover": "MujocoQuadForce-v1"}
 
 
 def _cfg(**kw):
@@ -59,17 +64,19 @@ def _flat(tree):
 @pytest.mark.parametrize("mode", MODES)
 def test_k4_twin_matches_jax_k4(mode):
     seed, kw = MODES[mode]
+    env_id = ENV_OF.get(mode, "quadrotor3d-v0")
     jcfg = _cfg(**kw)
-    env, jstate = _jax_state(jcfg, seed=seed)
-    step = jax.jit(lambda s: jppo.train_step(env, jcfg, s, dense8=False, fused_rollout=False,
-                                             fused_loss=True, fused_update=True))
+    env, jstate = _jax_state(jcfg, seed=seed, env_id=env_id)
+    # The update and the rollout it runs, in one program (one compile).
+    step = jax.jit(lambda s: (
+        jppo.train_step(env, jcfg, s, dense8=False, fused_rollout=False, fused_loss=True,
+                        fused_update=True),
+        jppo.collect_rollout(env, jcfg, s.params, s.obs_norm, s.ret_norm, s.env_states,
+                             s.env_returns, s.key, dense8=False)))
     with pltpu.force_tpu_interpret_mode():
-        s_ref, m_ref = step(jstate)
-    final, rets, key, traj, omom, rmom, raw_mean = jax.jit(
-        lambda s: jppo.collect_rollout(env, jcfg, s.params, s.obs_norm, s.ret_norm, s.env_states,
-                                       s.env_returns, s.key, dense8=False))(jstate)
+        (s_ref, m_ref), (final, rets, key, traj, omom, rmom, raw_mean) = step(jstate)
 
-    penv = reinmav_tpu_torch.make("quadrotor3d-v0")
+    penv = reinmav_tpu_torch.make(env_id)
     pcfg = ppo.PpoConfig(**jcfg._asdict())
     rollout = ppo.Rollout(_t(final), _t(rets), ppo.Transition(*(
         _t(x) if x.dtype != np.bool_ else torch.from_numpy(np.array(x)) for x in traj)),
@@ -89,6 +96,7 @@ def test_k4_twin_matches_jax_k4(mode):
     assert float(state.kl_beta) == float(s_ref.kl_beta)
     if "log_std_floor" in kw:
         assert float(state.params[:4].min()) >= -0.05
+    assert state.params.shape == (networks.Layout(penv.obs_dim, 4).size,)
     assert set(summary) == set(m_ref)
     for name in m_ref:
         _close(float(summary[name]), float(m_ref[name]), METRIC_TOL, name)
@@ -98,7 +106,7 @@ def test_k4_twin_matches_jax_k4(mode):
 def test_k4_twin_matches_the_k3_loop(mode):
     """One update phase from one eager rollout: every pass in K4's twin,
     and the per-minibatch loop through K3's twin and ClipAdam."""
-    env = reinmav_tpu_torch.make("quadrotor3d-v0")
+    env = reinmav_tpu_torch.make(ENV_OF.get(mode, "quadrotor3d-v0"))
     cfg = ppo.PpoConfig(num_envs=256, rollout_len=32, num_epochs=2, num_minibatches=2,
                         learning_rate=3e-3, **MODES[mode][1])
     state = ppo.init_train_state(env, cfg, seed=4, device="cpu")

@@ -56,6 +56,25 @@ def test_cli_trains_logs_saves_and_plays(alg, tmp_path, capsys):
     assert played["play_steps"] == 30 and math.isfinite(played["total_reward"])
 
 
+def test_cli_trains_and_plays_the_hover_task(tmp_path, capsys):
+    """The README's hover command, on the CPU: PPO on MujocoQuadForce-v1
+    through the kernels' plain twins, a checkpoint, an evaluation, play."""
+    ck = str(tmp_path / "hover")
+    run.main(["--env=MujocoQuadForce-v1", *SMALL, "--num_timesteps=2048", "--log_interval=1",
+              f"--save_path={ck}", "--eval_interval=2", "--eval_envs=8", "--eval_horizon=30"])
+    lines = _lines(capsys.readouterr().out)
+    train = [row for row in lines if "env_steps" in row]
+    assert [row["env_steps"] for row in train] == [1024.0, 2048.0]
+    assert all(math.isfinite(v) for row in train for v in row.values())
+    assert all(50.0 < row["mean_reward"] < 100.0 for row in train)
+    (ev,) = [row for row in lines if "eval_survival_frac" in row]
+    assert 0.0 <= ev["eval_survival_frac"] <= 1.0
+    run.main(["--env=MujocoQuadForce-v1", *SMALL, "--play", f"--load_path={ck}",
+              "--play_steps=40"])
+    (played,) = _lines(capsys.readouterr().out)
+    assert played["play_steps"] == 40 and math.isfinite(played["total_reward"])
+
+
 def _state_leaves(state):
     """Every tensor and scalar of a TrainState, the generator as its state."""
     out = []
