@@ -72,6 +72,30 @@ Phases, in order; any failure raises and exits non-zero:
    then the CLI on hover in subprocesses: 10 updates with an evaluation
    every 5 and a checkpoint under chiprun_out/, then --play
    --play_steps=200; both must exit 0.
+15. Kernel K7 (the fused off-policy collection step) against its plain
+   twin at 65,536 envs with a 2 x 256 actor, on both kinds (the hover task
+   and quadrotor3d-v0), in five legs: sac and td3 with noise, sac_det,
+   td3_det, and sac with the warmup gate; the envs whose replay block or
+   new state differ are counted (0.1% limit), a rerun must be bitwise
+   equal; K7 and its twin timed in the mode each kind trains with.
+16. SAC training at the reference bench's config (bench.py:175-177: the
+   hover task, 65,536 envs, batch 8192, a 2^21-column ring, 2 x 256, one
+   update per iteration, no warmup) through rl.sac.train_iters on the
+   card: a warm-up call, then 200 timed iterations, which must launch K7
+   200 times, give finite metrics and advance the ring; env-steps/s end to
+   end.  Then 5 iterations from the same state with K7 and with the eager
+   collection: each iteration's mean_reward within 10%.
+17. TD3 on quadrotor3d-v0 and DDPG on the hover task at that size: K7 in
+   td3 mode once per iteration, finite metrics, the actor moving.
+18. The CLI for the off-policy learners in subprocesses: SAC on the hover
+   task trains with evaluation and a checkpoint, resumes from it and
+   plays; TD3 on quadrotor3d-v0 trains and plays; each must exit 0.
+19. Learning: SAC on the hover task at the config of the reference's
+   learning artifact (benchmarks/artifacts/sac_hover_20M_r5: 8192 envs,
+   batch 2048, 16 updates per iteration, 2 x 64, warmup 10,000) for 8
+   calls of 64 iterations; from the window the artifact logs first
+   (2,097,152 env steps) to the last, mean_reward must rise and done_frac
+   fall.  The artifact's values are printed beside them as a reference.
 
 The second-to-last line is a JSON object describing each kernel of the
 paths: its launches on its main path, its error against its twin, its
@@ -133,6 +157,25 @@ UPDATE_TOL = dict(rtol=2e-4, atol=1e-6)  # tests/test_pallas_ppo_update.py's own
 MOMENT_TOL = dict(rtol=2e-4, atol=5e-8)
 UPDATE_METRIC_TOL = dict(rtol=1e-4, atol=1e-6)
 CLI_UPDATES, PLAY_STEPS = 10, 200
+# Off-policy (phases 15-19).  bench.py:175-177's SAC leg: hover, 65,536
+# envs, batch 8192, a 2^21-column ring, 2 x 256, one update per iteration,
+# no warmup.
+B_OFF, BATCH_SAC, RING_SAC, H_SAC = 65_536, 8192, 1 << 21, 256
+SAC_WARMUP_ITERS, SAC_ITERS, SAC_COMPARE_ITERS, TD3_ITERS = 5, 200, 5, 10
+# K7's mode legs: (mode, warmup gate, explore noise).
+K7_MODES = (("sac", 0.0, 0.0), ("td3", 0.0, 0.3), ("sac_det", 0.0, 0.0), ("td3_det", 0.0, 0.0),
+            ("sac", 1.0, 0.0))
+# FP32 operations of one env step besides the actor, by state dim: the
+# quadrotor3d dynamics (K1's count, the controller's share included, an
+# upper count) and the hover step (K5's).
+OPS_ENV_STEP = {10: OPS_K1, 13: OPS_K5}
+CLI_OFF_ENVS, CLI_OFF_BATCH, CLI_OFF_ITERS, CLI_OFF_RING = 8192, 2048, 8, 1 << 17
+# The learning artifact's config (benchmarks/artifacts/sac_hover_20M_r5/
+# metrics.jsonl, line 1: calls of 64 iterations, logged every 4 calls),
+# run for LEARN_CALLS calls.
+LEARN_ENVS, LEARN_BATCH, LEARN_GRAD_STEPS, LEARN_HIDDEN = 8192, 2048, 16, 64
+LEARN_WARMUP, LEARN_RING, LEARN_WINDOW = 10_000, 1 << 20, 64
+LEARN_CALLS, LEARN_FIRST_LOG = 8, 4
 
 
 def say(msg: str) -> None:
@@ -301,13 +344,15 @@ def kernel_counters() -> dict:
     """Each kernel wrapper by its id; ``K2`` counts the fused PPO rollout's
     launches of either kind (K2 or K6-hover)."""
     from reinmav_tpu_torch.ops import hover_rollout as hr
+    from reinmav_tpu_torch.ops import offpolicy as op
     from reinmav_tpu_torch.ops import ppo_loss as pl
     from reinmav_tpu_torch.ops import ppo_rollout as pr
     from reinmav_tpu_torch.ops import ppo_update as pu
     from reinmav_tpu_torch.ops import rollout as ro
 
     return {"K1": ro.quad3d_rollout_autoreset, "K2": pr.ppo_rollout,
-            "K3": pl.ppo_loss_grads_gather, "K4": pu.ppo_update, "K5": hr.hover_rollout}
+            "K3": pl.ppo_loss_grads_gather, "K4": pu.ppo_update, "K5": hr.hover_rollout,
+            "K7": op.collect_step}
 
 
 def ppo_state(env, cfg, dev, seed: int = 0):
@@ -576,8 +621,8 @@ def ppo_phases(torch, dev, gpu: str, env) -> list[dict]:
     k3_launches = launches["K3"]
     updates = WARMUP_UPDATES + TIMED_UPDATES
     passes = cfg.num_epochs * cfg.num_minibatches
-    require(launches == {"K1": 0, "K2": updates, "K3": updates * passes, "K4": 0, "K5": 0},
-            f"launches {launches} on the K3 loop path, expected K2 {updates}, K3 "
+    require(launches == {"K1": 0, "K2": updates, "K3": updates * passes, "K4": 0, "K5": 0,
+                         "K7": 0}, f"launches {launches} on the K3 loop path, expected K2 {updates}, K3 "
             f"{updates * passes}")
 
     # The same updates from the same state through the eager rollout and
@@ -606,8 +651,8 @@ def ppo_phases(torch, dev, gpu: str, env) -> list[dict]:
     main_cfg = ppo.PpoConfig(num_envs=B_PPO, rollout_len=T_PPO)
     main_launches, main_walls, main_summaries = training_phase(torch, dev, gpu, env, main_cfg,
                                                                "ppo update (K4)")
-    require(main_launches == {"K1": 0, "K2": updates, "K3": 0, "K4": updates, "K5": 0},
-            f"launches {main_launches} on the default path, expected K2 and K4 {updates}, K3 0")
+    require(main_launches == {"K1": 0, "K2": updates, "K3": 0, "K4": updates, "K5": 0,
+                              "K7": 0}, f"launches {main_launches} on the default path, expected K2 and K4 {updates}, K3 0")
     rewards = [s["mean_reward"] for s in main_summaries]
     for r, e in zip(rewards, loop_rewards):
         require(abs(r - e) <= 0.1 * abs(e), f"mean_reward {rewards} vs the K3 loop {loop_rewards}")
@@ -722,7 +767,7 @@ def hover_phases(torch, dev, gpu: str) -> list[dict]:
     big_final, reward_sum = reinmav_tpu_torch.throughput_rollout(env, big, gen, horizon=T_MAIN)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
-    require(launches == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 1},
+    require(launches == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 1, "K7": 0},
             f"hover throughput_rollout launches {launches}, expected K5 1")
     require(big_final.shape == (B_MAIN, 13) and reward_sum.shape == (B_MAIN,), "output shapes")
     require(bool(torch.isfinite(big_final).all()) and bool(torch.isfinite(reward_sum).all()),
@@ -778,14 +823,14 @@ def hover_phases(torch, dev, gpu: str) -> list[dict]:
     passes = main_cfg.num_epochs * main_cfg.num_minibatches
     main_launches, main_walls, main_summaries = training_phase(
         torch, dev, gpu, env, main_cfg, "hover ppo update (K6-hover + K4)")
-    require(main_launches == {"K1": 0, "K2": updates, "K3": 0, "K4": updates, "K5": 0},
-            f"launches {main_launches} on the hover default path, expected K6-hover and K4 "
+    require(main_launches == {"K1": 0, "K2": updates, "K3": 0, "K4": updates, "K5": 0,
+                              "K7": 0}, f"launches {main_launches} on the hover default path, expected K6-hover and K4 "
             f"{updates}, K3 0")
     loop_cfg = main_cfg._replace(fused_update="off")
     loop_launches, loop_walls, loop_summaries = training_phase(
         torch, dev, gpu, env, loop_cfg, "hover ppo update (K3 loop)")
-    require(loop_launches == {"K1": 0, "K2": updates, "K3": updates * passes, "K4": 0, "K5": 0},
-            f"launches {loop_launches} on the hover K3 loop, expected K6-hover {updates}, K3 "
+    require(loop_launches == {"K1": 0, "K2": updates, "K3": updates * passes, "K4": 0, "K5": 0,
+                              "K7": 0}, f"launches {loop_launches} on the hover K3 loop, expected K6-hover {updates}, K3 "
             f"{updates * passes}")
     eager = ppo_state(env, loop_cfg, dev)
     eager_rewards = []
@@ -837,6 +882,310 @@ def hover_phases(torch, dev, gpu: str) -> list[dict]:
               "loop; pass-0 gradient bitwise K3's; bitwise repeatable",
               {"entries_outside_rtol_2e-4_atol_1e-6": k4["outside"]}),
     ]
+
+
+def _fork(torch, state):
+    """An independent copy of an off-policy state: the ring is updated in
+    place and the generator advances, so two runs from one state need two."""
+    gen = torch.Generator()
+    gen.set_state(state.generator.get_state())
+    return state._replace(buffer=state.buffer.clone(), generator=gen)
+
+
+def k7_phase(torch, dev, gpu: str, env, states_t, timed_mode: str) -> dict:
+    """Phase 15 for one kind: K7 against its twin at B_OFF envs and H_SAC
+    wide, in every mode leg of K7_MODES, counting the envs whose block or
+    new state leaves TOL; a rerun bitwise equal; then K7 and its twin
+    timed in ``timed_mode`` (the mode the kind's training path runs), in
+    turns.  Returns K7's numbers for the ``kernels`` line."""
+    from reinmav_tpu_torch.ops import offpolicy as op
+    from reinmav_tpu_torch.ops import ppo_rollout as pr
+    from reinmav_tpu_torch.rl import sac
+
+    d, a = env.obs_dim, env.action_dim
+    batch = states_t.shape[1]
+    pvec = pr.env_params_vec(env)
+    errs, mismatches, timed = [], [], None
+    for mode, warm, noise in K7_MODES:
+        out = 2 * a if mode.startswith("sac") else a
+        layout = sac.MlpLayout((d, H_SAC, H_SAC, out))
+        flat = sac.init_mlp(layout, torch.Generator().manual_seed(31)).to(dev)
+        # Off the 0.01 head init, so that the actions spread over [-1, 1].
+        flat = flat + 0.05 * torch.randn(flat.shape, device=dev,
+                                         generator=torch.Generator(device=dev).manual_seed(32))
+        weights = op.actor_kernel_args(layout.layers(flat))
+        consts = sac.collect_consts(env, torch.tensor(warm > 0.5, device=dev), noise)
+        args = (env.name, mode, states_t, 15, consts, pvec, *weights)
+        new_k, blk_k = op.collect_step(*args)
+        new_p, blk_p = op.collect_step_reference(*args)
+        torch.cuda.synchronize()
+        bad = ~(torch.isclose(new_k, new_p, **TOL).all(dim=0)
+                & torch.isclose(blk_k, blk_p, **TOL).all(dim=0))
+        mismatched, ok = int(bad.sum()), ~bad
+        err = max(float((new_k[:, ok] - new_p[:, ok]).abs().max()),
+                  float((blk_k[:, ok] - blk_p[:, ok]).abs().max()))
+        ended = int(blk_p[2 * d + a + 1].sum())
+        new_again, blk_again = op.collect_step(*args)
+        require(torch.equal(new_k, new_again) and torch.equal(blk_k, blk_again),
+                f"K7 {env.name} {mode}: bitwise equal on a rerun")
+        require(mismatched <= 0.001 * batch, f"K7 {env.name} {mode} warm {warm}: {mismatched} envs "
+                                             f"mismatched")
+        require(bool(torch.isfinite(blk_k).all()) and float(blk_k[d:d + a].abs().max()) <= 1.0,
+                f"K7 {env.name} {mode}: a finite block, actions in [-1, 1]")
+        require(ended > 0, f"K7 {env.name} {mode}: no env ended, so the reset was not exercised")
+        say(f"K7 vs twin, {env.name}, mode {mode}, warm {warm:g}, noise {noise:g}, B={batch} "
+            f"H={H_SAC}: {mismatched} of {batch} envs mismatched (limit 0.1%), on the others max "
+            f"|err| {err:.3e}; {ended} envs ended and reset; bitwise equal on a rerun: ok")
+        errs.append(err)
+        mismatches.append(mismatched)
+        if (mode, warm) == (timed_mode, 0.0):
+            timed = args, (new_k, blk_k, *weights, consts), out
+
+    args, tensors, out = timed
+    kernel_run = lambda: op.collect_step(*args)  # noqa: E731
+    plain_run = lambda: op.collect_step_reference(*args)  # noqa: E731
+    kernel_run()
+    plain_run()  # warm-ups
+    torch.cuda.synchronize()
+    p0, _ = cuda_ms(plain_run, 3)
+    kern0, _ = cuda_ms(kernel_run, 10)
+    kern1, _ = cuda_ms(kernel_run, 10)
+    p1, _ = cuda_ms(plain_run, 3)
+    ms, plain_ms = statistics.median(kern0 + kern1), statistics.median(p0 + p1)
+    ops_per_env = 2 * (d * H_SAC + H_SAC * H_SAC + H_SAC * out) + OPS_ENV_STEP[d]
+    bound_ms, bound_by = bound(nbytes(states_t, *tensors), ops_per_env * batch)
+    say(f"time K7 {env.name} {timed_mode}, B={batch} H={H_SAC}: {ms:.4f} ms (median of 20 "
+        f"launches, each {min(kern0 + kern1):.4f} to {max(kern0 + kern1):.4f}), twin "
+        f"{plain_ms:.3f} ms (median of 6), bound {bound_ms:.4f} ms by {bound_by} "
+        f"({ops_per_env} operations per env), on {gpu}")
+    return dict(max_abs_err=max(errs), mismatched=max(mismatches), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                at=f"states ({d}, {batch}), actor {d}-{H_SAC}-{H_SAC}-{out}, mode {timed_mode}")
+
+
+def offpolicy_iterations(torch, env, cfg, module, state, iters: int):
+    """``iters`` iterations of ``module.train_iters`` with every kernel count
+    set to 0 just before; returns the state, the metrics, the wall in ms
+    (synchronise to synchronise) and the launch counts."""
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = module.train_iters(env, cfg, state, iters)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return state, metrics, wall, {name: fn.launches for name, fn in counters.items()}
+
+
+def offpolicy_cli_phase(gpu: str) -> None:
+    """Phase 18: the training CLI for the off-policy learners, in
+    subprocesses: SAC on the hover task trains with evaluation and a
+    checkpoint, resumes from it, and plays; TD3 on quadrotor3d-v0 trains
+    and plays."""
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    base = [sys.executable, "-m", "reinmav_tpu_torch.rl.run", f"--num_env={CLI_OFF_ENVS}",
+            f"--batch_size={CLI_OFF_BATCH}", f"--buffer_capacity={CLI_OFF_RING}",
+            "--warmup_steps=0", f"--updates_per_jit={CLI_OFF_ITERS}", "--log_interval=2"]
+    per_call = CLI_OFF_ENVS * CLI_OFF_ITERS
+    sac_cli = [*base, "--alg=sac", f"--env={HOVER}"]
+    td3_cli = [*base, "--alg=td3", "--env=quadrotor3d-v0"]
+    # The checkpoints carry the ring (tens of MB): a temporary directory in
+    # the checkout, removed at the end.
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        sac_ck, resumed, td3_ck = (Path(tmp) / name for name in ("sac", "sac_resumed", "td3"))
+        runs = [
+            ("sac train", [*sac_cli, f"--num_timesteps={4 * per_call}", "--eval_interval=2",
+                           "--eval_envs=256", f"--eval_horizon={PLAY_STEPS}",
+                           f"--save_path={sac_ck}"], 4 * per_call, 2),
+            ("sac resume", [*sac_cli, f"--num_timesteps={2 * per_call}", f"--load_path={sac_ck}",
+                            f"--save_path={resumed}"], 2 * per_call, 0),
+            ("sac play", [*sac_cli, f"--load_path={resumed}", "--play",
+                          f"--play_steps={PLAY_STEPS}"], None, 0),
+            ("td3 train", [*td3_cli, f"--num_timesteps={2 * per_call}", f"--save_path={td3_ck}"],
+             2 * per_call, 0),
+            ("td3 play", [*td3_cli, f"--load_path={td3_ck}", "--play",
+                          f"--play_steps={PLAY_STEPS}"], None, 0),
+        ]
+        for name, cmd, steps, n_evals in runs:
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=root)
+            if proc.returncode != 0:
+                raise RuntimeError(f"the CLI ({name}) exited {proc.returncode}:\n"
+                                   f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+            rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+            require(bool(rows), f"the CLI ({name}) printed no JSON line")
+            if steps is None:
+                require(rows[-1]["play_steps"] == PLAY_STEPS and
+                        math.isfinite(rows[-1]["total_reward"]), f"the CLI's play line ({name})")
+                shown = rows[-1:]
+            else:
+                train = [row for row in rows if "env_steps" in row]
+                evals = [row for row in rows if "eval_survival_frac" in row]
+                require(bool(train) and train[-1]["env_steps"] == steps and
+                        all(math.isfinite(v) for v in train[-1].values()),
+                        f"the CLI's metrics ({name})")
+                require(len(evals) == n_evals and
+                        all(0.0 <= row["eval_survival_frac"] <= 1.0 for row in evals),
+                        f"the CLI's evaluations {evals}")
+                shown = [train[-1], *evals[-1:]]
+            say(f"cli {name}: exit 0 in {time.perf_counter() - t0:.1f} s on {gpu}; last lines "
+                f"{' '.join(json.dumps(row) for row in shown)}")
+
+
+def learning_phase(torch, dev, gpu: str, env) -> None:
+    """Phase 19: SAC on the hover task at the config of the reference's
+    20M-step learning artifact, LEARN_CALLS calls of LEARN_WINDOW
+    iterations, each call's metrics logged as the artifact logs them (the
+    metrics of the call that ends at the logged step).  mean_reward must
+    rise and done_frac fall from the first window the artifact logs
+    (LEARN_FIRST_LOG calls, 2,097,152 env steps) to the last.  The
+    artifact's values at the same env-step count are printed beside them,
+    as a reference and not as a gate."""
+    from reinmav_tpu_torch.rl import sac
+
+    cfg = sac.SacConfig(num_envs=LEARN_ENVS, batch_size=LEARN_BATCH, buffer_capacity=LEARN_RING,
+                        hidden=(LEARN_HIDDEN, LEARN_HIDDEN), grad_steps=LEARN_GRAD_STEPS,
+                        warmup_steps=LEARN_WARMUP)
+    artifact = Path(__file__).resolve().parent / "benchmarks/artifacts/sac_hover_20M_r5/metrics.jsonl"
+    rows = [json.loads(line) for line in artifact.read_text().splitlines()[1:]]
+    reference = {int(row["env_steps"]): row for row in rows if "mean_reward" in row}
+    state = sac.init_state(env, cfg, seed=0, device=dev)
+    windows, t0 = [], time.perf_counter()
+    for call in range(1, LEARN_CALLS + 1):
+        state, met, wall, launches = offpolicy_iterations(torch, env, cfg, sac, state, LEARN_WINDOW)
+        require(launches["K7"] == LEARN_WINDOW, f"learning: K7 launches {launches}")
+        require(all(math.isfinite(v) for v in met.values()), f"learning: finite metrics {met}")
+        steps = call * LEARN_WINDOW * LEARN_ENVS
+        ref = reference.get(steps)
+        windows.append(met)
+        say(f"learning call {call}: env steps {steps}, mean_reward {met['mean_reward']:.4f}, "
+            f"done_frac {met['done_frac']:.5f}, q_loss {met['q_loss']:.4g}, alpha "
+            f"{met['alpha']:.4g}, entropy {met['entropy']:.4g}; {wall / LEARN_WINDOW:.2f} ms per "
+            f"iteration of {LEARN_GRAD_STEPS} updates on {gpu}"
+            + ("" if ref is None else
+               f"; the artifact (a TPU run, a reference only) at these steps: mean_reward "
+               f"{ref['mean_reward']:.4f}, done_frac {ref['done_frac']:.5f}"))
+    first, last = windows[LEARN_FIRST_LOG - 1], windows[-1]
+    require(last["mean_reward"] > first["mean_reward"] and last["done_frac"] < first["done_frac"],
+            f"learning: mean_reward {first['mean_reward']} -> {last['mean_reward']}, done_frac "
+            f"{first['done_frac']} -> {last['done_frac']}")
+    say(f"learning, SAC on {HOVER} at the artifact's config ({LEARN_ENVS} envs, batch "
+        f"{LEARN_BATCH}, {LEARN_GRAD_STEPS} updates per iteration, 2 x {LEARN_HIDDEN}, warmup "
+        f"{LEARN_WARMUP}), {LEARN_CALLS * LEARN_WINDOW * LEARN_ENVS} env steps in "
+        f"{time.perf_counter() - t0:.1f} s: from the window logged at "
+        f"{LEARN_FIRST_LOG * LEARN_WINDOW * LEARN_ENVS} steps to the last, mean_reward "
+        f"{first['mean_reward']:.4f} -> {last['mean_reward']:.4f}, done_frac "
+        f"{first['done_frac']:.5f} -> {last['done_frac']:.5f}: ok")
+
+
+def offpolicy_phases(torch, dev, gpu: str) -> list[dict]:
+    """Phases 15-19: K7 against its twin on both kinds; SAC at the bench
+    config (the main path), against the eager collection from the same
+    state; TD3 and DDPG; the CLI; learning.  Returns K7's entries of the
+    ``kernels`` line."""
+    import reinmav_tpu_torch
+    from reinmav_tpu_torch.rl import sac, td3
+
+    hover = reinmav_tpu_torch.make(HOVER)
+    quad = reinmav_tpu_torch.make("quadrotor3d-v0")
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    # 15. K7 against its twin; perturbed hover states, the first 1% of them
+    # falling just above the z = 0.3 floor (they end at once), and
+    # quadrotor3d states twice a reset's spread (the envs past |p| = 3 end
+    # at once).
+    hover_t = hover_states(torch, gen, dev, B_OFF, 0.35, 1.0)
+    hover_t[2, :B_OFF // 100], hover_t[9, :B_OFF // 100] = 0.302, -1.0
+    k7_hover = k7_phase(torch, dev, gpu, hover, hover_t, "sac")
+    k7_quad = k7_phase(torch, dev, gpu, quad,
+                       (quad.vreset(gen, B_OFF).T * 2.0).contiguous(), "td3")
+
+    # 16. SAC at the bench config, the main path: train_iters on the card
+    # with fused_collect="auto" must launch K7 once per iteration.
+    cfg = sac.SacConfig(num_envs=B_OFF, batch_size=BATCH_SAC, buffer_capacity=RING_SAC,
+                        hidden=(H_SAC, H_SAC), grad_steps=1, warmup_steps=0)
+    state = sac.init_state(hover, cfg, seed=0, device=dev)
+    state, _, warm_wall, _ = offpolicy_iterations(torch, hover, cfg, sac, state, SAC_WARMUP_ITERS)
+    state, met, wall, launches = offpolicy_iterations(torch, hover, cfg, sac, state, SAC_ITERS)
+    sac_launches = launches["K7"]
+    require(launches == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K7": SAC_ITERS},
+            f"launches {launches} on the SAC path, expected K7 {SAC_ITERS}")
+    require(all(math.isfinite(v) for v in met.values()), f"SAC metrics {met}")
+    cap, total = sac._capacity(cfg, hover), (SAC_WARMUP_ITERS + SAC_ITERS) * B_OFF
+    require(int(state.total_steps) == total and int(state.filled) == min(total, cap) and
+            int(state.ptr) == total % cap, f"the ring: ptr {int(state.ptr)}, filled "
+                                          f"{int(state.filled)} after {total} env steps")
+    say(f"sac training path, {HOVER}, B={B_OFF} batch {BATCH_SAC} ring {RING_SAC} 2 x {H_SAC}, 1 "
+        f"update per iteration, no warmup: K7 launches {sac_launches} in {SAC_ITERS} iterations; "
+        f"{wall:.1f} ms, {wall / SAC_ITERS:.3f} ms per iteration, "
+        f"{SAC_ITERS * B_OFF / wall * 1e3:.4e} env-steps/s end to end (warm-up call of "
+        f"{SAC_WARMUP_ITERS}: {warm_wall:.1f} ms), on {gpu}; ring ptr {int(state.ptr)} filled "
+        f"{int(state.filled)}; metrics "
+        + ", ".join(f"{k} {v:.5g}" for k, v in met.items()) + ": ok")
+    fused, eager = _fork(torch, state), _fork(torch, state)
+    off = cfg._replace(fused_collect="off")
+    rewards = []
+    for _ in range(SAC_COMPARE_ITERS):
+        fused, m_k = sac.train_iters(hover, cfg, fused, 1)
+        eager, m_e = sac.train_iters(hover, off, eager, 1)
+        rewards.append((m_k["mean_reward"], m_e["mean_reward"]))
+    for r, e in rewards:
+        require(abs(r - e) <= 0.1 * abs(e), f"SAC mean_reward K7 vs eager {rewards}")
+    say(f"sac mean_reward per iteration, K7 {[round(r, 4) for r, _ in rewards]}, the eager "
+        f"collection from the same state {[round(e, 4) for _, e in rewards]} (rtol 0.1): ok")
+    del state, fused, eager
+    torch.cuda.empty_cache()
+
+    # 17. TD3 on quadrotor3d-v0 and DDPG on the hover task, K7 in td3 mode.
+    td3_launches = None
+    for name, env, cfg in (
+            ("td3", quad, td3.Td3Config(num_envs=B_OFF, batch_size=BATCH_SAC,
+                                        buffer_capacity=RING_SAC, hidden=(H_SAC, H_SAC),
+                                        warmup_steps=0)),
+            ("ddpg", hover, td3.Td3Config(num_envs=B_OFF, batch_size=BATCH_SAC,
+                                          buffer_capacity=RING_SAC, hidden=(H_SAC, H_SAC),
+                                          warmup_steps=0, single_critic=True, policy_noise=0.0,
+                                          noise_clip=0.0, policy_delay=1))):
+        state = td3.init_state(env, cfg, seed=0, device=dev)
+        actor0 = state.actor.clone()
+        state, _, _, _ = offpolicy_iterations(torch, env, cfg, td3, state, 2)
+        state, met, wall, launches = offpolicy_iterations(torch, env, cfg, td3, state, TD3_ITERS)
+        require(launches["K7"] == TD3_ITERS and sum(launches.values()) == TD3_ITERS,
+                f"{name}: launches {launches}, expected K7 {TD3_ITERS}")
+        require(all(math.isfinite(v) for v in met.values()), f"{name} metrics {met}")
+        require(not torch.equal(state.actor, actor0) and int(state.updates) == 2 + TD3_ITERS,
+                f"{name}: the actor did not move")
+        if name == "td3":
+            td3_launches = launches["K7"]
+        say(f"{name} training path, {env.name}, B={B_OFF} batch {BATCH_SAC} 2 x {H_SAC}: K7 "
+            f"launches {launches['K7']} in {TD3_ITERS} iterations, {wall / TD3_ITERS:.3f} ms per "
+            f"iteration, {TD3_ITERS * B_OFF / wall * 1e3:.4e} env-steps/s, on {gpu}; metrics "
+            + ", ".join(f"{k} {v:.5g}" for k, v in met.items()) + ": ok")
+        del state
+        torch.cuda.empty_cache()
+
+    # 18. The CLI.  19. Learning.
+    offpolicy_cli_phase(gpu)
+    learning_phase(torch, dev, gpu, hover)
+
+    def entry(kind, numbers, launches, path):
+        return {"name": f"offpolicy_collect ({kind})", "route": "cuda",
+                "source": "reinmav_tpu_torch/csrc/offpolicy_collect.cu",
+                "replaces": "reinmav_tpu/ops/pallas_offpolicy.py:155", "launches": launches,
+                "max_abs_err": numbers["max_abs_err"], "mismatched_envs": numbers["mismatched"],
+                "tolerance": "rtol 2e-4 atol 2e-5 per env over its block and new state, <= 0.1% "
+                             "of envs may differ, in five mode legs (sac, td3, sac_det, td3_det, "
+                             "sac with the warmup gate); max_abs_err over the envs that agree; "
+                             "bitwise repeatable",
+                "ms": numbers["ms"], "plain_ms": numbers["plain_ms"],
+                "bound_ms": numbers["bound_ms"], "bound_by": numbers["bound_by"],
+                "library_ms": None, "at": f"{numbers['at']}; launches on {path}"}
+
+    return [entry(HOVER, k7_hover, sac_launches, "the SAC bench path (phase 16)"),
+            entry("quadrotor3d-v0", k7_quad, td3_launches, "the TD3 path (phase 17)")]
 
 
 def ptxas_report(path) -> list[str]:
@@ -1031,6 +1380,7 @@ def main() -> int:
 
     kernels += ppo_phases(torch, dev, gpu, env)
     kernels += hover_phases(torch, dev, gpu)
+    kernels += offpolicy_phases(torch, dev, gpu)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

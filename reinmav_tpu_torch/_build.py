@@ -73,6 +73,11 @@ _SIGNATURES = {
                           ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                           ctypes.c_int, _P, _P, _P, _P, _P, _P),
     "ppo_update_metrics_size": (),
+    # K7: (env kind, mode, host params, number of params, states_in, batch,
+    #  hidden, w1, b1, w2, b2, w3, b3, consts, seed, states_out, block, stream)
+    "offpolicy_collect_launch": (ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P,
+                                 ctypes.c_longlong, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
+                                 ctypes.c_uint, _P, _P, _P),
 }
 
 

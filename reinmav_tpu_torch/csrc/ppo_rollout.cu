@@ -11,7 +11,7 @@
 // from the ROUNDED action (z = (a - mean) / std, :628-638), the env step,
 // the return-scaled reward with clip +-10, the running discounted return,
 // the reset of done envs, and the trajectory rows.  The kernel is a template
-// on the env: Quad3dEnv (the U(-1,1)^10 reset from Philox stream 2) and
+// on the env structs of env_kinds.cuh: Quad3dEnv (the U(-1,1)^10 reset from Philox stream 2) and
 // HoverEnv (two substeps of hover_common.cuh, the deterministic reset; no
 // reset draws).  Its plain PyTorch twin, with the same arithmetic and the
 // same Philox draws, is reinmav_tpu_torch/ops/ppo_rollout.py::
@@ -43,71 +43,16 @@
 #include <stdint.h>
 
 #include "actor_critic.cuh"
-#include "hover_common.cuh"
-#include "quad3d_common.cuh"
+#include "env_kinds.cuh"
 
 namespace {
 
 namespace ac = reinmav::ac;
-using reinmav::HoverParams;
-using reinmav::Quad3dParams;
+using reinmav::HoverEnv;
+using reinmav::Quad3dEnv;
 
 constexpr int kThreads = 128;
 constexpr int kA = ac::A, kH = ac::H;
-
-// quadrotor3d-v0 (_quad3d_step_tiles): thrust / mass keeps the scan's op
-// order; done envs redraw U(-1, 1)^10 from Philox stream 2.
-struct Quad3dEnv {
-  static constexpr int kD = 10;
-  static constexpr int kKind = 0;
-  using Params = Quad3dParams;
-  struct Consts {
-    float half_dt, pos_lim2, vel_lim2;
-  };
-  static Params params(const float* h) {
-    return Params{h[0], h[1], h[2], h[3], h[4], h[5], h[6], h[7], h[8], h[9], h[10]};
-  }
-  static constexpr int kParams = 11;
-  __device__ static Consts consts(const Params& p) {
-    return {0.5f * p.dt, p.pos_limit * p.pos_limit, p.vel_limit * p.vel_limit};
-  }
-  __device__ static float step(float (&s)[kD], const float (&act)[kA], const Params& p,
-                               const Consts& c, bool& done) {
-    const reinmav::BodyZ bz = reinmav::body_z(s);
-    return reinmav::quad3d_dynamics(s, bz, act[0] / p.mass, act[1], act[2], act[3], p.dt,
-                                    p.gravity, c.half_dt, c.pos_lim2, c.vel_lim2, done);
-  }
-  __device__ static void reset(float (&s)[kD], uint32_t env, uint32_t t, uint32_t seed,
-                               const Params&) {
-    reinmav::reset_uniform10(s, env, t, seed, 2u);
-  }
-};
-
-// MujocoQuadForce-v1 (_hover_step_tiles with per-lane actions): two
-// substeps under the clipped action, the hovering reward with the RAW
-// action, the deterministic reset to (0, 0, init_z).
-struct HoverEnv {
-  static constexpr int kD = 13;
-  static constexpr int kKind = 1;
-  using Params = HoverParams;
-  using Consts = reinmav::HoverDrag;
-  static Params params(const float* h) { return reinmav::hover_params_from(h); }
-  static constexpr int kParams = reinmav::kHoverParams;
-  __device__ static Consts consts(const Params& p) { return reinmav::hover_drag(p); }
-  __device__ static float step(float (&s)[kD], const float (&act)[kA], const Params& p,
-                               const Consts& c, bool& done) {
-    const reinmav::HoverWrench w = reinmav::hover_wrench(act, p);
-    reinmav::hover_substep(s, p, c, w);
-    reinmav::hover_substep(s, p, c, w);
-    const float terms = reinmav::hover_state_terms(s, done);
-    const float a_sq = act[0] * act[0] + act[1] * act[1] + act[2] * act[2] + act[3] * act[3];
-    const float a_sum = act[0] + act[1] + act[2] + act[3];
-    return terms - a_sq + 0.1f * a_sum + 100.0f;
-  }
-  __device__ static void reset(float (&s)[kD], uint32_t, uint32_t, uint32_t, const Params& p) {
-    reinmav::hover_reset(s, p.init_z);
-  }
-};
 
 struct RolloutOut {
   float* obs;       // (T, D, B)
@@ -268,7 +213,7 @@ ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret
       acc[2 * kD + 2] += raw;
       o.reward[row + i] = reward;
       o.done[row + i] = done;
-      if (done) Env::reset(s, env, static_cast<uint32_t>(t), seed, p);
+      if (done) Env::reset(s, env, static_cast<uint32_t>(t), seed, 2u, p);
     }
 
 #pragma unroll

@@ -152,11 +152,11 @@ def _towers(net: torch.Tensor, x: torch.Tensor):
     return heads[0], heads[1][0]
 
 
-def _env_twin(env_kind: str, params: torch.Tensor):
+def _env_twin(env_kind: str, params: torch.Tensor, reset_stream: int = _RESET_STREAM):
     """``(step, reset)`` of a kind in the kernel's arithmetic: ``step(s,
     act) -> (states, raw reward, done)`` on ``(D, B)`` states and ``(A,
     B)`` actions; ``reset(s, done, t, seed)`` resets the done envs of
-    ``s`` in place."""
+    ``s`` in place (quadrotor3d from Philox stream ``reset_stream``)."""
     if env_kind == "quadrotor3d-v0":
         p = dict(zip(_Q3_FIELDS, params.numpy()))
         half_dt = float(np.float32(0.5) * p["dt"])
@@ -171,7 +171,7 @@ def _env_twin(env_kind: str, params: torch.Tensor):
         def reset(s, done, t, seed):
             idx = torch.nonzero(done).squeeze(1)
             if idx.numel():
-                s[:, idx] = reset_draws(idx, t, seed, _RESET_STREAM)
+                s[:, idx] = reset_draws(idx, t, seed, reset_stream)
 
         return step, reset
 

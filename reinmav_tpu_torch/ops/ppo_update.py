@@ -52,7 +52,7 @@ class UpdateOut(NamedTuple):
     grad0: torch.Tensor | None
 
 
-def clip_adam(grads, count, mu, nu, params, *, max_norm: float, lr: float, b1: float = ADAM_B1,
+def clip_adam(grads, count, mu, nu, params, *, max_norm: float | None, lr: float, b1: float = ADAM_B1,
               b2: float = ADAM_B2, eps: float = ADAM_EPS):
     """One step of optax's ``chain(clip_by_global_norm(max_norm), adam(lr,
     eps))`` on flat vectors, as K4 computes it: the gradient is scaled by
@@ -61,9 +61,12 @@ def clip_adam(grads, count, mu, nu, params, *, max_norm: float, lr: float, b1: f
     ``count`` is the step's Adam count (after the increment), a 0-d
     tensor; ``1 - b**count`` is taken in float64, then the moments' type:
     in float32, ``1 - f32(0.999)`` is off by 1.3e-5 relative at count 1.
-    Returns ``(params, mu, nu)``."""
-    g_norm = torch.linalg.vector_norm(grads)
-    g = torch.where(g_norm < max_norm, grads, grads / g_norm * max_norm)
+    ``max_norm`` None: plain Adam, no clipping.  Returns ``(params, mu,
+    nu)``."""
+    g = grads
+    if max_norm is not None:
+        g_norm = torch.linalg.vector_norm(grads)
+        g = torch.where(g_norm < max_norm, grads, grads / g_norm * max_norm)
     mu = (1 - b1) * g + b1 * mu
     nu = (1 - b2) * (g * g) + b2 * nu
     c = count.to(torch.float64)

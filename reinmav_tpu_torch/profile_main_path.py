@@ -20,12 +20,17 @@ Measures, after a warm-up:
 - the hover task (``MujocoQuadForce-v1``): ``throughput_rollout`` of
   2,097,152 envs x 1000 steps (the K5 kernel), and one default PPO update
   of 32,768 x 32 (K6-hover for the rollout, one K4 launch at obs 13);
+- SAC on the hover task at the reference bench's config (65,536 envs,
+  batch 8192, a 2^21-column ring, 2 x 256 nets, one update per
+  iteration, no warmup): ``reinmav_tpu_torch.rl.sac.train_iters`` of 10
+  iterations (one K7 launch each for the collection, the updates through
+  autograd), wall time per call over 3 calls after a warm-up call;
 - each call once more under ``torch.profiler`` (the eager loop at 50
   steps): the device kernels launched, and the device idle share.  For
-  the PPO updates also the shares of the wall time that K2, K3, K4 and
+  the learners also the shares of the wall time that K2, K3, K4, K7 and
   the other device kernels (the eager glue: GAE, advantage moments, the
-  optimiser) are busy, and the host time inside the learner's
-  ``ppo.*`` profiler spans.
+  optimiser, the off-policy updates) are busy, and the host time inside
+  the learners' ``ppo.*`` and ``sac.*`` profiler spans.
 
 Device busy time is the union of the device-side intervals of every
 kernel and copy the profiler recorded (overlaps counted once).  The idle
@@ -48,10 +53,13 @@ import reinmav_tpu_torch
 B_MAIN, T_MAIN = 2_097_152, 1000
 B_QUICK, T_QUICK, T_PROFILED = 4096, 400, 50
 B_PPO, T_PPO = 32_768, 32
+B_SAC, BATCH_SAC, RING_SAC, SAC_ITERS = 65_536, 8192, 1 << 21, 10
 #: Device kernels by their name: K2 or K6-hover (with its moment
-#: reduction), K3 (with its partials' reduction), K4 and K5.
+#: reduction), K3 (with its partials' reduction), K4, K5 and K7.
 KERNEL_GROUPS = {"K2/K6-hover": "ppo_rollout", "K3": "ppo_loss", "K4": "ppo_update",
-                 "K5": "hover_rollout"}
+                 "K5": "hover_rollout", "K7": "offpolicy_collect"}
+#: The learners' host spans (torch.profiler.record_function).
+SPANS = ("ppo.", "sac.")
 
 
 def _wall_ms(fn, reps: int) -> list[float]:
@@ -68,11 +76,11 @@ def _wall_ms(fn, reps: int) -> list[float]:
 
 
 def _is_device_work(e) -> bool:
-    """A kernel or copy on the device.  The learner's ``ppo.*`` spans are
-    mirrored onto the device timeline as user annotations; they are not
-    work."""
+    """A kernel or copy on the device.  The learners' ``ppo.*`` and
+    ``sac.*`` spans are mirrored onto the device timeline as user
+    annotations; they are not work."""
     return (e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False) and not e.name.startswith("ppo."))
+            and not getattr(e, "is_user_annotation", False) and not e.name.startswith(SPANS))
 
 
 def _busy_ms(events) -> tuple[float, int]:
@@ -89,8 +97,8 @@ def _busy_ms(events) -> tuple[float, int]:
 def _profile(name: str, fn, unprofiled_ms: float, groups: dict | None = None) -> None:
     """Profile one call of ``fn``; print its device busy time and idle
     share, and, for ``groups`` (label -> substring of kernel names), each
-    group's busy share of the wall time and the host time in ``ppo.*``
-    spans."""
+    group's busy share of the wall time and the host time in the
+    learners' spans."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -115,7 +123,7 @@ def _profile(name: str, fn, unprofiled_ms: float, groups: dict | None = None) ->
               f"{other:.3f} ms busy, {other / wall:.3f} of the profiled wall")
         spans = {}
         for e in events:
-            if e.name.startswith("ppo.") and e.device_type == torch.autograd.DeviceType.CPU:
+            if e.name.startswith(SPANS) and e.device_type == torch.autograd.DeviceType.CPU:
                 spans[e.name] = spans.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
         for span, ms in sorted(spans.items()):
             print(f"  host span {span}: {ms:.3f} ms, {ms / wall:.3f} of the profiled wall")
@@ -160,12 +168,23 @@ def main(argv=None) -> int:
     def hover_throughput():
         return reinmav_tpu_torch.throughput_rollout(hover, hover_big, gen, T_MAIN)
 
+    from .rl import sac
+
+    sac_cfg = sac.SacConfig(num_envs=B_SAC, batch_size=BATCH_SAC, buffer_capacity=RING_SAC,
+                            hidden=(256, 256), grad_steps=1, warmup_steps=0)
+    sac_state = [sac.init_state(hover, sac_cfg, seed=0, device="cuda")]
+
+    def sac_iters():
+        sac_state[0], _ = sac.train_iters(hover, sac_cfg, sac_state[0], SAC_ITERS)
+
     k4_update, loop_update = ppo_update(), ppo_update(fused_update="off")
     hover_update = ppo_update(hover)
     k4_name = f"ppo train_step {B_PPO}x{T_PPO} (K4)"
     loop_name = f"ppo train_step {B_PPO}x{T_PPO} fused_update=off (K3 loop)"
     hover_tp_name = f"hover throughput_rollout {B_MAIN}x{T_MAIN} (K5)"
     hover_name = f"hover ppo train_step {B_PPO}x{T_PPO} (K6-hover + K4)"
+    sac_name = (f"hover sac train_iters {SAC_ITERS} iterations, {B_SAC} envs, batch {BATCH_SAC} "
+                f"(K7 + autograd)")
 
     throughput()
     hover_throughput()
@@ -174,6 +193,7 @@ def main(argv=None) -> int:
         k4_update()  # warm-up
         loop_update()
         hover_update()
+    sac_iters()
     walls = {
         f"throughput_rollout {B_MAIN}x{T_MAIN}": _wall_ms(throughput, 5),
         f"control_rollout {B_QUICK}x{T_QUICK}": _wall_ms(control(T_QUICK), 3),
@@ -184,6 +204,7 @@ def main(argv=None) -> int:
         loop_name: _wall_ms(loop_update, 5),
         hover_tp_name: _wall_ms(hover_throughput, 5),
         hover_name: _wall_ms(hover_update, 5),
+        sac_name: _wall_ms(sac_iters, 3),
     }
     for name, ms in walls.items():
         print(f"{name} wall ms: {[round(m, 3) for m in ms]}")
@@ -199,6 +220,9 @@ def main(argv=None) -> int:
     _profile(loop_name, loop_update, mean(loop_name), KERNEL_GROUPS)
     _profile(hover_tp_name, hover_throughput, mean(hover_tp_name), KERNEL_GROUPS)
     _profile(hover_name, hover_update, mean(hover_name), KERNEL_GROUPS)
+    _profile(sac_name, sac_iters, mean(sac_name), KERNEL_GROUPS)
+    print(f"{sac_name}: {mean(sac_name) / SAC_ITERS:.3f} ms per iteration unprofiled, "
+          f"{B_SAC * SAC_ITERS / mean(sac_name) * 1e3:.4e} env-steps/s")
     return 0
 
 

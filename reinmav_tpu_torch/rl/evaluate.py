@@ -1,5 +1,6 @@
 """Policy evaluation: batched deterministic (greedy-mean) rollouts with
-episode accounting.
+episode accounting, of a PPO policy (:func:`evaluate`) or an off-policy
+actor (:func:`evaluate_actor`).
 
 The counterpart of :mod:`reinmav_tpu.rl.evaluate`: the same
 :class:`EvalStats` and the same rule that a run with no completed
@@ -46,6 +47,17 @@ def evaluate(env: EnvDef, params: torch.Tensor, obs_norm: ppo.ObsNorm | None,
         return mean_t.T
 
     return evaluate_policy(env, policy, generator, num_envs, horizon)
+
+
+def evaluate_actor(env: EnvDef, learner, actor: torch.Tensor, hidden: Sequence[int],
+                   generator: torch.Generator, num_envs: int = 256,
+                   horizon: int = 1000) -> EvalStats:
+    """Greedy rollout of an off-policy actor (see :func:`evaluate_policy`):
+    ``learner`` the module that trained it (:mod:`.sac` or :mod:`.td3`),
+    whose ``greedy_action`` maps observations to the noise-free action of
+    the flat ``actor`` of widths ``hidden``."""
+    return evaluate_policy(env, lambda obs: learner.greedy_action(env, actor, obs, hidden),
+                           generator, num_envs, horizon)
 
 
 def evaluate_policy(env: EnvDef, policy, generator: torch.Generator, num_envs: int = 256,

@@ -35,6 +35,7 @@ from __future__ import annotations
 import logging
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -148,7 +149,9 @@ class Rollout(NamedTuple):
     raw_reward_mean: torch.Tensor
 
 
-def _require_float32(cfg: PpoConfig) -> None:
+def _require_float32(cfg) -> None:
+    """Refuse a config (PPO's, SAC's or TD3's) whose ``compute_dtype`` is
+    not float32: bf16 is ROADMAP item 5."""
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(networks._BF16_NOT_PORTED)
 
@@ -187,9 +190,11 @@ class ClipAdam(NamedTuple):
     ``max_norm / norm`` only when its global norm is at least ``max_norm``
     (``torch.nn.utils.clip_grad_norm_`` scales by ``max_norm / (norm +
     1e-6)`` whenever it is called), then bias-corrected Adam with ``eps``
-    outside the square root."""
+    outside the square root.  ``max_norm`` None is optax's plain
+    ``adam(lr, eps)`` (the off-policy learners' optimiser without
+    ``max_grad_norm``)."""
 
-    max_norm: float
+    max_norm: float | None
     lr: float
     b1: float = 0.9
     b2: float = 0.999
@@ -213,14 +218,38 @@ def make_optimizer(cfg: PpoConfig) -> ClipAdam:
     return ClipAdam(cfg.max_grad_norm, cfg.learning_rate)
 
 
+def _adam_leaf(opt_state):
+    """The ``ScaleByAdamState`` inside an optax state tree (``adam``'s, or
+    ``chain(clip_by_global_norm, adam)``'s)."""
+    if all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for child in opt_state:
+            found = _adam_leaf(child)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_from_jax(opt_state, flatten, device=None, dtype=torch.float32) -> AdamState:
+    """An optax Adam state (leaves as NumPy or JAX arrays) -> the port's
+    :class:`AdamState`, ``flatten(tree)`` mapping ``mu``/``nu`` to flat
+    vectors."""
+    adam = _adam_leaf(opt_state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState in the optimiser state")
+    return AdamState(torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32, device=device),
+                     flatten(adam.mu).to(device=device, dtype=dtype),
+                     flatten(adam.nu).to(device=device, dtype=dtype))
+
+
 def adam_state_from_jax(opt_state, device=None, dtype=torch.float32) -> AdamState:
     """optax's ``(EmptyState, (ScaleByAdamState(count, mu, nu),
     EmptyState))`` for ``chain(clip_by_global_norm, adam)``, leaves as
-    NumPy or JAX arrays -> the port's :class:`AdamState`."""
-    adam = opt_state[1][0]
-    return AdamState(torch.tensor(int(adam.count), dtype=torch.int32, device=device),
-                     networks.params_from_jax(adam.mu, device=device, dtype=dtype),
-                     networks.params_from_jax(adam.nu, device=device, dtype=dtype))
+    NumPy or JAX arrays -> the port's :class:`AdamState` (the actor-critic's
+    moments flattened by :func:`networks.params_from_jax`)."""
+    return adam_from_jax(opt_state, lambda t: networks.params_from_jax(t, dtype=dtype),
+                         device, dtype)
 
 
 def _device_generator(seed: int, device) -> torch.Generator:
@@ -420,21 +449,30 @@ def _rollout_kernel_name(env: EnvDef) -> str:
     return "K6-hover" if env.name == "MujocoQuadForce-v1" else "K2"
 
 
-def _rollout_refusal(cfg: PpoConfig, env: EnvDef):
-    """Why the fused PPO rollout kernel (K2, K6-hover) cannot run this
-    config and env (None = it can)."""
+def kind_refusal(env: EnvDef, what: str = "fused PPO rollout kernel"):
+    """Why the policy-driven kernels on the env kinds of
+    ``ops/ppo_rollout.py::ENVS`` (K2, K6-hover, K7) cannot run ``env``
+    (None = they can): a kind of the table with its dims, the registry's
+    functions and Params type (the live values are kernel arguments), and
+    hover's two substeps.  ``what`` names the kernel in the reason."""
     kind = rollout_ops.ENVS.get(env.name)
     if kind is None:
-        return f"no fused PPO rollout kernel for {env.name} (built for {sorted(rollout_ops.ENVS)})"
+        return f"no {what} for {env.name} (built for {sorted(rollout_ops.ENVS)})"
     if (env.obs_dim, env.action_dim) != (kind.state_dim, kind.action_dim):
         return (f"obs/action dims ({env.obs_dim}, {env.action_dim}), the kernel's are "
                 f"({kind.state_dim}, {kind.action_dim})")
-    if tuple(cfg.hidden) != rollout_ops.HIDDEN:
-        return f"hidden {tuple(cfg.hidden)} != {rollout_ops.HIDDEN}"
     reason = fused_kernel_mismatch(env, require_control=False, packed_params=True)
     if reason is None and env.name == "MujocoQuadForce-v1" and env.params.frame_skip != 2:
         return "frame_skip != 2 (the kernel runs two substeps)"
     return reason
+
+
+def _rollout_refusal(cfg: PpoConfig, env: EnvDef):
+    """Why the fused PPO rollout kernel (K2, K6-hover) cannot run this
+    config and env (None = it can)."""
+    if env.name in rollout_ops.ENVS and tuple(cfg.hidden) != rollout_ops.HIDDEN:
+        return f"hidden {tuple(cfg.hidden)} != {rollout_ops.HIDDEN}"
+    return kind_refusal(env)
 
 
 def _loss_refusal(cfg: PpoConfig, env: EnvDef, device: torch.device):

@@ -1,4 +1,4 @@
-"""Train/play CLI of the PyTorch port: the PPO family of
+"""Train/play CLI of the PyTorch port: the learners of
 :mod:`reinmav_tpu.rl.run`, on one CUDA device.
 
 Usage (the JAX package's flags; ``--device`` is the port's own)::
@@ -7,17 +7,23 @@ Usage (the JAX package's flags; ``--device`` is the port's own)::
         --num_timesteps=1e7 --num_env=32768 --rollout_len=32 --save_path=./models/quad3d
     python -m reinmav_tpu_torch.rl.run --play --load_path=./models/quad3d \\
         --num_env=32768 --rollout_len=32
+    python -m reinmav_tpu_torch.rl.run --alg=sac --env=MujocoQuadForce-v1 \\
+        --num_env=8192 --batch_size=2048 --grad_steps=16 --updates_per_jit=64
 
 ``--alg`` ``ppo``, ``a2c`` (one epoch, one batch, no ratio clipping) and
-``ppo_kl`` (the adaptive-KL penalty).  On the card every update is one
-K2 launch for the rollout and one K4 launch for the update
+``ppo_kl`` (the adaptive-KL penalty): on the card every update is one K2
+launch for the rollout and one K4 launch for the update
 (:func:`reinmav_tpu_torch.rl.ppo.train_step` logs which paths ran).
-``--device=cpu`` runs the same loop on the CPU, through the kernels'
+``--alg`` ``sac``, ``td3`` and ``ddpg`` (TD3 with one critic, no target
+smoothing and no delay): every iteration is one batched env step, one K7
+launch on the card (:func:`reinmav_tpu_torch.rl.sac.train_iters` logs the
+path), and ``--grad_steps`` updates from the replay ring;
+``--updates_per_jit`` iterations make one call between metric reads.
+``--device=cpu`` runs the same loops on the CPU, through the kernels'
 plain twins.  What is not ported yet exits with a message naming its
-ROADMAP.md item: ``--alg`` ``sac``/``td3``/``ddpg``, ``--network=gru``,
-``--shard_map``, ``--compute_dtype=bfloat16``, and the renderers
-``--gif``/``--html``/``--live``.  ``--no_mesh`` is accepted and changes
-nothing (one device).
+ROADMAP.md item: ``--network=gru``, ``--shard_map``,
+``--compute_dtype=bfloat16``, and the renderers ``--gif``/``--html``/
+``--live``.  ``--no_mesh`` is accepted and changes nothing (one device).
 """
 
 from __future__ import annotations
@@ -31,11 +37,11 @@ import torch
 from .. import make
 from ..utils import checkpoint as ckpt
 from ..utils.metrics import MetricsLogger, to_host
-from . import evaluate, networks, ppo
+from . import evaluate, networks, ppo, sac, td3
 
+OFF_POLICY = ("sac", "td3", "ddpg")
 #: Flag values that are not ported yet -> the ROADMAP.md item that ports them.
 _NOT_PORTED = {
-    "alg": ({"sac", "td3", "ddpg"}, "the off-policy learners (ROADMAP.md queue 1 item 10)"),
     "network": ({"gru"}, "the GRU learner (ROADMAP.md queue 1 item 12)"),
     "compute_dtype": ({"bfloat16"}, "bf16 matmul inputs (ROADMAP.md queue 1 item 5)"),
 }
@@ -49,14 +55,35 @@ _NOT_PORTED_FLAGS = {
 
 def build_parser() -> argparse.ArgumentParser:
     # The JAX package's flag names and defaults (reinmav_tpu/rl/run.py).
-    p = argparse.ArgumentParser(description="PyTorch + CUDA PPO training for reinmav envs")
+    p = argparse.ArgumentParser(description="PyTorch + CUDA RL training for reinmav envs")
     p.add_argument("--env", default="quadrotor3d-v0")
-    p.add_argument("--alg", default="ppo", choices=["ppo", "a2c", "ppo_kl", "sac", "td3", "ddpg"],
+    p.add_argument("--alg", default="ppo", choices=["ppo", "a2c", "ppo_kl", *OFF_POLICY],
                    help="a2c = one epoch, one batch, no ratio clipping; ppo_kl = the "
-                        "adaptive-KL penalty (beta adapted to --kl_target).  sac, td3 and ddpg "
-                        "are not ported yet")
+                        "adaptive-KL penalty (beta adapted to --kl_target); sac = soft "
+                        "actor-critic with the replay ring on the device; td3 = twin-delayed "
+                        "DDPG on the same ring; ddpg = td3 with one critic, policy_noise=0 and "
+                        "policy_delay=1")
     p.add_argument("--network", default="mlp", choices=["mlp", "gru"],
                    help="gru is not ported yet")
+    # Off-policy flags (the on-policy algs ignore them).
+    p.add_argument("--buffer_capacity", type=int, default=1 << 20)
+    p.add_argument("--batch_size", type=int, default=2048)
+    p.add_argument("--grad_steps", type=int, default=1,
+                   help="off-policy gradient updates per collected env step")
+    p.add_argument("--warmup_steps", type=int, default=10_000)
+    p.add_argument("--tau", type=float, default=0.005)
+    p.add_argument("--reward_scale", type=float, default=1.0)
+    p.add_argument("--target_entropy", type=float, default=None,
+                   help="SAC entropy target (default -action_dim)")
+    p.add_argument("--sample_tile", default="auto", type=lambda v: v if v == "auto" else int(v),
+                   help="replay gather granularity: 'auto' = exact uniform tile 1; an int "
+                        "gathers contiguous column blocks (correlated; for experiments)")
+    p.add_argument("--explore_noise", type=float, default=0.1,
+                   help="TD3/DDPG collection-time action-noise std")
+    p.add_argument("--policy_noise", type=float, default=0.2,
+                   help="TD3 target-smoothing noise std")
+    p.add_argument("--policy_delay", type=int, default=2,
+                   help="TD3 critic updates per actor/target update")
     p.add_argument("--kl_target", type=float, default=0.01,
                    help="per-update KL target for --alg=ppo_kl")
     p.add_argument("--num_timesteps", type=float, default=1e6)
@@ -79,7 +106,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save_interval", type=int, default=50)
     p.add_argument("--log_interval", type=int, default=10)
     p.add_argument("--updates_per_jit", type=int, default=1,
-                   help="updates per train_many call between metric reads")
+                   help="updates (PPO) or iterations (sac/td3/ddpg) per call between metric "
+                        "reads")
     p.add_argument("--log_dir", default=None)
     p.add_argument("--eval_interval", type=int, default=0,
                    help="greedy-policy evaluation every N logged updates (0=off)")
@@ -165,11 +193,7 @@ def train(args) -> ppo.TrainState:
                                       state.obs_norm if cfg.normalize_obs else None,
                                       _eval_generator(args, update), num_envs=args.eval_envs,
                                       horizon=args.eval_horizon, hidden=cfg.hidden)
-            logger.log(update, {"eval_mean_return": stats.mean_return,
-                                "eval_mean_length": stats.mean_length,
-                                "eval_episodes": stats.num_episodes,
-                                "eval_running_return": stats.mean_running_return,
-                                "eval_survival_frac": stats.survival_frac})
+            _log_eval(logger, update, stats)
         if args.save_path and (update // k) % args.save_interval == 0:
             ckpt.save(args.save_path, state)
     if args.save_path:
@@ -178,21 +202,77 @@ def train(args) -> ppo.TrainState:
     return state
 
 
-@torch.no_grad()
-def play(args, state: ppo.TrainState | None = None):
-    """Deterministic greedy rollout of one env with the trained policy,
-    resetting on each episode's end; prints one JSON line and returns the
-    ``(play_steps, obs_dim)`` observations."""
+def offpolicy_config(args):
+    """``--alg=sac|td3|ddpg`` -> (learner module, config), as the JAX
+    package's ``_offpolicy_alg_cfg``: DDPG is TD3 with ``single_critic``,
+    ``policy_noise=0``, ``noise_clip=0`` and ``policy_delay=1``.  Training
+    and play build the same config, since the checkpoint carries the
+    ring."""
+    common = dict(num_envs=args.num_env, buffer_capacity=args.buffer_capacity,
+                  batch_size=args.batch_size, learning_rate=args.lr, gamma=args.gamma,
+                  tau=args.tau, grad_steps=args.grad_steps, warmup_steps=args.warmup_steps,
+                  reward_scale=args.reward_scale, sample_tile=args.sample_tile,
+                  hidden=tuple([args.num_hidden] * args.num_layers),
+                  compute_dtype=args.compute_dtype)
+    if args.alg == "sac":
+        return sac, sac.SacConfig(target_entropy=args.target_entropy, **common)
+    if args.alg == "ddpg":
+        return td3, td3.Td3Config(explore_noise=args.explore_noise, policy_noise=0.0,
+                                  noise_clip=0.0, policy_delay=1, single_critic=True, **common)
+    return td3, td3.Td3Config(explore_noise=args.explore_noise, policy_noise=args.policy_noise,
+                              policy_delay=args.policy_delay, **common)
+
+
+def train_offpolicy(args):
+    """The off-policy loop (``--alg=sac|td3|ddpg``): calls of
+    ``train_iters`` of ``--updates_per_jit`` iterations each, one batched
+    env step and ``--grad_steps`` updates an iteration."""
     env = make(args.env)
-    cfg = make_config(args)
-    if state is None:
-        # The restore target mirrors the training shapes (num_env and
-        # rollout_len size the checkpoint's env states).
-        state = ppo.init_train_state(env, cfg, args.seed, device=args.device)
-        if args.load_path:
-            state = ckpt.restore(args.load_path, state)
-    tree = networks.Layout(env.obs_dim, env.action_dim, cfg.hidden).unflatten(state.params)
-    device = state.params.device
+    alg, cfg = offpolicy_config(args)
+    k = max(1, args.updates_per_jit)
+    state = alg.init_state(env, cfg, args.seed, device=args.device)
+    if args.load_path:
+        state = ckpt.restore(args.load_path, state)
+    steps_per_call = cfg.num_envs * k
+    num_calls = max(1, int(args.num_timesteps) // steps_per_call)
+    logger = MetricsLogger(log_dir=args.log_dir, config=vars(args))
+    last_t, last_call = time.perf_counter(), 0
+    for call in range(1, num_calls + 1):
+        # train_iters reads its metrics to the host, so the call has ended
+        # on the device when it returns.
+        state, metrics = alg.train_iters(env, cfg, state, k)
+        if call % args.log_interval == 0 or call == num_calls:
+            now = time.perf_counter()
+            sps = steps_per_call * (call - last_call) / max(now - last_t, 1e-9)
+            last_t, last_call = now, call
+            logger.log(call, {"env_steps": steps_per_call * call, "steps_per_sec": round(sps),
+                              **metrics})
+        if args.eval_interval and call % args.eval_interval == 0:
+            stats = evaluate.evaluate_actor(env, alg, state.actor, cfg.hidden,
+                                            _eval_generator(args, call), num_envs=args.eval_envs,
+                                            horizon=args.eval_horizon)
+            _log_eval(logger, call, stats)
+        if args.save_path and call % args.save_interval == 0:
+            ckpt.save(args.save_path, state)
+    if args.save_path:
+        ckpt.save(args.save_path, state)
+    logger.close()
+    return state
+
+
+def _log_eval(logger: MetricsLogger, step: int, stats: evaluate.EvalStats) -> None:
+    logger.log(step, {"eval_mean_return": stats.mean_return,
+                      "eval_mean_length": stats.mean_length,
+                      "eval_episodes": stats.num_episodes,
+                      "eval_running_return": stats.mean_running_return,
+                      "eval_survival_frac": stats.survival_frac})
+
+
+@torch.no_grad()
+def _greedy_rollout(env, args, device, policy):
+    """The ``--play`` loop: one env stepped with ``policy(state (D,)) ->
+    action (A,)``, reset on each episode's end; prints one JSON line and
+    returns the ``(play_steps, obs_dim)`` observations."""
 
     def reset(seed):
         return env.reset(torch.Generator(device=device).manual_seed(seed))
@@ -200,9 +280,7 @@ def play(args, state: ppo.TrainState | None = None):
     s = reset(args.seed + 1)
     total_reward, episodes, obs = 0.0, 0, []
     for t in range(args.play_steps):
-        norm = ppo._normalize_t(s[:env.obs_dim, None], state.obs_norm)
-        mean, _, _ = networks.apply_t(tree, norm)
-        out = env.step(s, mean[:, 0])
+        out = env.step(s, policy(s))
         total_reward += float(out.reward)
         obs.append(out.obs)
         truncated = out.truncated is not None and bool(out.truncated)
@@ -216,14 +294,54 @@ def play(args, state: ppo.TrainState | None = None):
     return torch.stack(obs).cpu() if obs else torch.empty((0, env.obs_dim))
 
 
+def play(args, state: ppo.TrainState | None = None):
+    """Deterministic greedy rollout of one env with the trained PPO policy
+    (its mean action), resetting on each episode's end."""
+    env = make(args.env)
+    cfg = make_config(args)
+    if state is None:
+        # The restore target mirrors the training shapes (num_env and
+        # rollout_len size the checkpoint's env states).
+        state = ppo.init_train_state(env, cfg, args.seed, device=args.device)
+        if args.load_path:
+            state = ckpt.restore(args.load_path, state)
+    tree = networks.Layout(env.obs_dim, env.action_dim, cfg.hidden).unflatten(state.params)
+
+    def policy(s):
+        norm = ppo._normalize_t(s[:env.obs_dim, None], state.obs_norm)
+        mean, _, _ = networks.apply_t(tree, norm)
+        return mean[:, 0]
+
+    return _greedy_rollout(env, args, state.params.device, policy)
+
+
+def play_offpolicy(args, state=None):
+    """``--play`` for ``--alg=sac|td3|ddpg``: the noise-free actor's
+    rollout of one env, resetting on each episode's end.  The restore
+    target mirrors the training shapes (the checkpoint carries the ring),
+    so pass the training run's ``--num_env``, ``--buffer_capacity`` and
+    net flags."""
+    env = make(args.env)
+    alg, cfg = offpolicy_config(args)
+    if state is None:
+        state = alg.init_state(env, cfg, args.seed, device=args.device)
+        if args.load_path:
+            state = ckpt.restore(args.load_path, state)
+    return _greedy_rollout(env, args, state.actor.device,
+                           lambda s: alg.greedy_action(env, state.actor, s[:env.obs_dim],
+                                                       cfg.hidden))
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     refuse_not_ported(args)
+    train_fn, play_fn = ((train_offpolicy, play_offpolicy) if args.alg in OFF_POLICY
+                         else (train, play))
     state = None
     if not args.play or args.load_path is None:
-        state = train(args)
+        state = train_fn(args)
     if args.play:
-        play(args, state)
+        play_fn(args, state)
 
 
 if __name__ == "__main__":

@@ -1,11 +1,14 @@
 """Checkpoint / resume of a whole training state with ``torch.save``.
 
 The counterpart of :mod:`reinmav_tpu.utils.checkpoint` (orbax there).
-The whole :class:`reinmav_tpu_torch.rl.ppo.TrainState` is saved: params,
-Adam state, env states, normalisers, ``kl_beta``, ``update_step`` and the
-CPU generator's state, so training resumes bitwise-identically.  Any tree
-of NamedTuples, tensors, ``torch.Generator``\\ s and Python scalars works
-the same way.
+The whole training state is saved: for PPO's
+:class:`reinmav_tpu_torch.rl.ppo.TrainState` the params, Adam state, env
+states, normalisers, ``kl_beta``, ``update_step`` and the CPU generator's
+state; for the off-policy ``SacState``/``Td3State`` the nets, targets,
+Adam states, the replay ring with ``ptr`` and ``filled``, the env states,
+the counters and the generator.  Training resumes bitwise-identically.
+Any tree of NamedTuples, tensors, ``torch.Generator``\\ s and Python
+scalars works the same way.
 
 A checkpoint is a directory holding one file, written to a temporary
 name and renamed into place.  :func:`restore` loads it with

@@ -141,7 +141,6 @@ def test_checkpoint_manager_rotates_and_restores_the_latest(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    ("--alg=sac", "item 10"), ("--alg=td3", "item 10"), ("--alg=ddpg", "item 10"),
     ("--network=gru", "item 12"), ("--shard_map", "item 13"),
     ("--compute_dtype=bfloat16", "item 5"), ("--gif=out.gif", "item 7"),
     ("--html=out.html", "item 7"), ("--live", "item 7")])
