@@ -96,6 +96,28 @@ Phases, in order; any failure raises and exits non-zero:
    calls of 64 iterations; from the window the artifact logs first
    (2,097,152 env steps) to the last, mean_reward must rise and done_frac
    fall.  The artifact's values are printed beside them as a reference.
+20. Kernels K8 (quadrotor2d-v0) and K9 (the two slung-load envs), one
+   closed-loop template: for each env, throughput_rollout of 2,097,152
+   envs x 1000 steps through the public API must launch it once; the
+   kernel against its twin at that shape with resets on, free-running (the
+   envs apart: at most 0.1% for quadrotor2d-v0; a count for the slung-load
+   envs, whose taut envs sit on the tether sphere, where a last-bit
+   difference picks the other branch), both timed; then 50 steps one at a
+   time from the twin's state at full width, 0 envs outside rtol 2e-4 /
+   atol 2e-5 off the knife edges (within 1e-4 of the sphere, or a done
+   flag that differs), whose env-steps are counted; a bitwise rerun.
+21. For each of those envs: the fused PPO rollout (K6-rest) against its
+   twin at 32,768 x 32 with noise and resets on (quadrotor2d-v0 as phase
+   7; the slung-load kinds one step at a time from the twin's state off
+   the sphere, the free-running count reported), K3 and K4 built for its
+   (obs, action) dims, (5, 2), (9, 2) or (16, 4), against their twins as
+   phases 8 and 10; then 2 warm-up and 5 timed updates of the default path
+   (K6 and K4 once per update, K3 never) and of fused_update="off" (K6
+   once, K3 16 times), each update's mean_reward within 10% of the other.
+22. K7 on each of those kinds against its twin in the five mode legs of
+   phase 15 at 65,536 envs, 2 x 256; then SAC and TD3 through train_iters
+   at that size, K7 once per iteration.
+23. The CLI on quadrotor2d-v0, as phase 11's.
 
 The second-to-last line is a JSON object describing each kernel of the
 paths: its launches on its main path, its error against its twin, its
@@ -170,6 +192,26 @@ K7_MODES = (("sac", 0.0, 0.0), ("td3", 0.0, 0.3), ("sac_det", 0.0, 0.0), ("td3_d
 # upper count) and the hover step (K5's).
 OPS_ENV_STEP = {10: OPS_K1, 13: OPS_K5}
 CLI_OFF_ENVS, CLI_OFF_BATCH, CLI_OFF_ITERS, CLI_OFF_RING = 8192, 2048, 8, 1 << 17
+# quadrotor2d-v0 and the slung-load envs (phases 20-23).  FP32 operations
+# per env-step, hand counts from csrc/quad2d_common.cuh and
+# csrc/slung_common.cuh (atan2, sin, cos and sqrt counted as one each; the
+# slung steps' taut branch): the planar PD controller 18, the geometric
+# controller 100 (K1's count less its dynamics), the quad2d step 40, the
+# slung2d step 120, the slung3d step 200.  K3 per sample at (D, A): the
+# forward 128 D + 8192 + 64 A + 64 FMA, the backward 128 D + 16,384 + 128 A
+# + 128, so 2 (256 D + 192 A + 24,768) operations (56,192 at (10, 4)).
+NATIVE = {"quadrotor2d-v0": (5, 2), "quadrotor2d-slungload-v0": (9, 2),
+          "quadrotor3d-slungload-v0": (16, 4)}
+TETHER = {"quadrotor2d-slungload-v0": 2, "quadrotor3d-slungload-v0": 3}  # position dims
+KNIFE = 1e-4  # tests/test_pallas_slungload.py's skip of the lanes near the sphere
+OPS_CONTROL = {5: 18, 9: 18, 16: 100}
+OPS_STEP = {5: 40, 9: 120, 16: 200}
+OPS_ROLLOUT.update({d: 2 * (d * 128 + 2 * 64 * 64 + 64 * a + 64) + OPS_STEP[d]
+                    for d, a in NATIVE.values()})
+OPS_LOSS.update({d: 2 * (256 * d + 192 * a + 24_768) for d, a in NATIVE.values()})
+OPS_ENV_STEP.update(OPS_STEP)
+T_RESYNC = 50  # steps of the closed loops' resynchronised check
+NATIVE_ITERS = 5  # SAC and TD3 iterations on each new kind
 # The learning artifact's config (benchmarks/artifacts/sac_hover_20M_r5/
 # metrics.jsonl, line 1: calls of 64 iterations, logged every 4 calls),
 # run for LEARN_CALLS calls.
@@ -243,7 +285,8 @@ def count_outside(a, b, tol) -> int:
     return int((~torch.isclose(a, b, **tol)).sum())
 
 
-def k4_phase(torch, dev, gpu: str, cfg, params, data, adv, tile: int, n_tiles: int) -> dict:
+def k4_phase(torch, dev, gpu: str, cfg, params, data, adv, tile: int, n_tiles: int,
+             adim: int) -> dict:
     """Phase 10: K4 on the phase-7 trajectory, one 4 x 4 update from the
     rollout's own params (so pass 0's ratios are 1, as in training).
     Returns K4's timings and errors for the ``kernels`` line."""
@@ -260,8 +303,8 @@ def k4_phase(torch, dev, gpu: str, cfg, params, data, adv, tile: int, n_tiles: i
     adv_stats = ppo.pass_adv_stats(adv.reshape(n), perm_all, tile, n_passes, True)
     params = params.contiguous()
     opt = ppo.make_optimizer(cfg).init(params)
-    d = data.shape[0] - 8  # obs rows of the stacked batch
-    kw = dict(d=d, adim=4, tile=tile, n_minibatches=m_, n_epochs=e_, clip_eps=cfg.clip_eps,
+    d = data.shape[0] - adim - 4  # obs rows of the stacked batch
+    kw = dict(d=d, adim=adim, tile=tile, n_minibatches=m_, n_epochs=e_, clip_eps=cfg.clip_eps,
               value_clip_eps=cfg.value_clip_eps, value_coef=cfg.value_coef,
               ent_coef=cfg.entropy_coef, lr=cfg.learning_rate, max_grad_norm=cfg.max_grad_norm)
     k4_run = lambda: pu.ppo_update(data, adv_stats, perm_all, params, opt, None,  # noqa: E731
@@ -300,7 +343,7 @@ def k4_phase(torch, dev, gpu: str, cfg, params, data, adv, tile: int, n_tiles: i
     # Pass 0's gradient, bitwise one K3 launch on the same minibatch.
     zero = torch.zeros((), device=dev)
     k3_stats = lambda q: torch.stack([adv_stats[q, 0], adv_stats[q, 1], zero, zero])  # noqa: E731
-    loss_kw = dict(d=d, adim=4, clip_eps=cfg.clip_eps, value_clip_eps=cfg.value_clip_eps,
+    loss_kw = dict(d=d, adim=adim, clip_eps=cfg.clip_eps, value_clip_eps=cfg.value_clip_eps,
                    value_coef=cfg.value_coef, ent_coef=cfg.entropy_coef, tile=tile)
     g3, _ = pl.ppo_loss_grads_gather(data, k3_stats(0).contiguous(), perm_all[:tpm].contiguous(),
                                      params, **loss_kw)
@@ -342,7 +385,9 @@ def k4_phase(torch, dev, gpu: str, cfg, params, data, adv, tile: int, n_tiles: i
 
 def kernel_counters() -> dict:
     """Each kernel wrapper by its id; ``K2`` counts the fused PPO rollout's
-    launches of either kind (K2 or K6-hover)."""
+    launches of every kind (K2, K6-hover, K6-rest), ``K8/K9`` the
+    closed-loop template's of every kind."""
+    from reinmav_tpu_torch.ops import closed_loop_rollout as cl
     from reinmav_tpu_torch.ops import hover_rollout as hr
     from reinmav_tpu_torch.ops import offpolicy as op
     from reinmav_tpu_torch.ops import ppo_loss as pl
@@ -352,7 +397,7 @@ def kernel_counters() -> dict:
 
     return {"K1": ro.quad3d_rollout_autoreset, "K2": pr.ppo_rollout,
             "K3": pl.ppo_loss_grads_gather, "K4": pu.ppo_update, "K5": hr.hover_rollout,
-            "K7": op.collect_step}
+            "K7": op.collect_step, "K8/K9": cl.closed_loop_rollout}
 
 
 def ppo_state(env, cfg, dev, seed: int = 0):
@@ -468,6 +513,37 @@ def cli_phase(gpu: str, env_id: str = "quadrotor3d-v0") -> None:
             f"{' '.join(json.dumps(row) for row in shown)}")
 
 
+def off_sphere(torch, env, s_t):
+    """Envs of ``(D, B)`` states farther than KNIFE from the tether sphere
+    (every env of an env without a tether)."""
+    k = TETHER.get(env.name)
+    if k is None:
+        return torch.ones(s_t.shape[1], dtype=torch.bool, device=s_t.device)
+    d = s_t.shape[0]
+    norm = (s_t[d - 2 * k:d - k] - s_t[0:k]).norm(dim=0)
+    return (norm - env.params.tether_length).abs() > KNIFE
+
+
+def k6_resynchronised(torch, env, states_t, rets, params, consts, k2_kw):
+    """The fused PPO rollout against its twin one step at a time for T_PPO
+    steps, both from the twin's state, on the envs off the tether sphere.
+    Returns ``(envs outside TOL, env-steps skipped, the moment sums' rel
+    err of the first step)``."""
+    from reinmav_tpu_torch.ops import ppo_rollout as pr
+
+    x, r, outside, knife, stats_rel = states_t, rets, 0, 0, None
+    for t in range(T_PPO):
+        k = pr.ppo_rollout(x, r, 21 + t, params, consts, 1, **k2_kw)
+        p = pr.ppo_rollout_reference(x, r, 21 + t, params, consts, 1, **k2_kw)
+        safe = off_sphere(torch, env, x)
+        outside += int((_mismatched_envs(torch, k, p) & safe).sum())
+        knife += int((~safe).sum())
+        if stats_rel is None:
+            stats_rel = float(((k.stats - p.stats).abs() / p.stats.abs().clamp_min(1.0)).max())
+        x, r = p.final_states, p.returns
+    return outside, knife, stats_rel
+
+
 def fused_kernel_checks(torch, dev, gpu: str, env, make_states, names,
                         ret_var: float = 4.0) -> tuple[dict, dict, dict]:
     """Phases 7, 8 and 10 (quadrotor3d-v0) or 13 (the hover task): the
@@ -512,21 +588,31 @@ def fused_kernel_checks(torch, dev, gpu: str, env, make_states, names,
     mismatched = int(bad.sum())
     resets = int(ref.done.sum())
     require(resets > 0, f"{k2_name} check: no env reset, so the reset path was not exercised")
-    require(mismatched <= 0.001 * B_PPO, f"{k2_name} vs twin: {mismatched} envs mismatched")
     ok = ~bad
     k2_err = max(float((x[..., ok] - y[..., ok]).abs().max())
                  for x, y in zip((*out[:5], out.final_states), (*ref[:5], ref.final_states)))
     errs = {name: rel_err(getattr(out, name)[..., ok], getattr(ref, name)[..., ok])
             for name in ("log_prob", "value", "reward")}
     stats_rel = float(((out.stats - ref.stats).abs() / ref.stats.abs().clamp_min(1.0)).max())
+    if env.name in TETHER:
+        # Free-running, the envs that meet the tether sphere part: a count
+        # to report.  The gate is one step at a time from the twin's state.
+        outside, knife, stats_rel = k6_resynchronised(torch, env, states_t, rets, params, consts,
+                                                      k2_kw)
+        require(outside == 0, f"{k2_name} vs twin, resynchronised: {outside} envs outside")
+        gate = (f"free-running {mismatched} of {B_PPO} envs apart (the tether knife edge, "
+                f"reported); resynchronised over {T_PPO} steps: {outside} envs outside rtol 2e-4 "
+                f"atol 2e-5, {knife} env-steps within {KNIFE:g} of the sphere skipped")
+    else:
+        require(mismatched <= 0.001 * B_PPO, f"{k2_name} vs twin: {mismatched} envs mismatched")
+        gate = f"{mismatched} of {B_PPO} envs mismatched (limit 0.1%)"
     require(stats_rel <= 1e-3, f"{k2_name} moment sums, rel err {stats_rel}")
     again = k2_run()
     require(all(torch.equal(x, y) for x, y in zip(out, again)), f"{k2_name} determinism per seed")
     say(f"{k2_name} vs twin, B={B_PPO} T={T_PPO}, noise and resets on ({resets} resets): "
-        f"{mismatched} of {B_PPO} envs mismatched (limit 0.1%); on the others max |err| "
-        f"{k2_err:.3e}, rel err logp {errs['log_prob']:.3e} value {errs['value']:.3e} reward "
-        f"{errs['reward']:.3e}; moment sums rel err {stats_rel:.3e} (limit 1e-3); bitwise equal "
-        f"on a rerun: ok")
+        f"{gate}; on the envs that agree max |err| {k2_err:.3e}, rel err logp "
+        f"{errs['log_prob']:.3e} value {errs['value']:.3e} reward {errs['reward']:.3e}; moment "
+        f"sums rel err {stats_rel:.3e} (limit 1e-3); bitwise equal on a rerun: ok")
     k2_ms, k2_plain_ms = statistics.median(kern0 + kern1), (plain0 + plain1) / 2
     k2_bound, k2_by = bound(nbytes(states_t, rets, params, consts, *out),
                             OPS_ROLLOUT[d] * B_PPO * T_PPO)
@@ -592,9 +678,9 @@ def fused_kernel_checks(torch, dev, gpu: str, env, make_states, names,
         f"{k3_bound:.4f} ms by {k3_by}, on {gpu}")
     loss = dict(max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_bound,
                 bound_by=k3_by, at=f"minibatch of {mb} samples gathered in tiles of {tile} from "
-                                   f"{n}, obs {d}")
+                                   f"{n}, obs {d}, action {env.action_dim}")
     # K4 on the same trajectory, from the rollout's own params.
-    update = k4_phase(torch, dev, gpu, cfg, params, data, adv, tile, n_tiles)
+    update = k4_phase(torch, dev, gpu, cfg, params, data, adv, tile, n_tiles, env.action_dim)
     del out, ref, again, data, traj, adv, ret
     torch.cuda.empty_cache()
     return rollout, loss, update
@@ -622,7 +708,7 @@ def ppo_phases(torch, dev, gpu: str, env) -> list[dict]:
     updates = WARMUP_UPDATES + TIMED_UPDATES
     passes = cfg.num_epochs * cfg.num_minibatches
     require(launches == {"K1": 0, "K2": updates, "K3": updates * passes, "K4": 0, "K5": 0,
-                         "K7": 0}, f"launches {launches} on the K3 loop path, expected K2 {updates}, K3 "
+                         "K7": 0, "K8/K9": 0}, f"launches {launches} on the K3 loop path, expected K2 {updates}, K3 "
             f"{updates * passes}")
 
     # The same updates from the same state through the eager rollout and
@@ -652,7 +738,7 @@ def ppo_phases(torch, dev, gpu: str, env) -> list[dict]:
     main_launches, main_walls, main_summaries = training_phase(torch, dev, gpu, env, main_cfg,
                                                                "ppo update (K4)")
     require(main_launches == {"K1": 0, "K2": updates, "K3": 0, "K4": updates, "K5": 0,
-                              "K7": 0}, f"launches {main_launches} on the default path, expected K2 and K4 {updates}, K3 0")
+                              "K7": 0, "K8/K9": 0}, f"launches {main_launches} on the default path, expected K2 and K4 {updates}, K3 0")
     rewards = [s["mean_reward"] for s in main_summaries]
     for r, e in zip(rewards, loop_rewards):
         require(abs(r - e) <= 0.1 * abs(e), f"mean_reward {rewards} vs the K3 loop {loop_rewards}")
@@ -767,7 +853,7 @@ def hover_phases(torch, dev, gpu: str) -> list[dict]:
     big_final, reward_sum = reinmav_tpu_torch.throughput_rollout(env, big, gen, horizon=T_MAIN)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
-    require(launches == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 1, "K7": 0},
+    require(launches == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 1, "K7": 0, "K8/K9": 0},
             f"hover throughput_rollout launches {launches}, expected K5 1")
     require(big_final.shape == (B_MAIN, 13) and reward_sum.shape == (B_MAIN,), "output shapes")
     require(bool(torch.isfinite(big_final).all()) and bool(torch.isfinite(reward_sum).all()),
@@ -824,13 +910,13 @@ def hover_phases(torch, dev, gpu: str) -> list[dict]:
     main_launches, main_walls, main_summaries = training_phase(
         torch, dev, gpu, env, main_cfg, "hover ppo update (K6-hover + K4)")
     require(main_launches == {"K1": 0, "K2": updates, "K3": 0, "K4": updates, "K5": 0,
-                              "K7": 0}, f"launches {main_launches} on the hover default path, expected K6-hover and K4 "
+                              "K7": 0, "K8/K9": 0}, f"launches {main_launches} on the hover default path, expected K6-hover and K4 "
             f"{updates}, K3 0")
     loop_cfg = main_cfg._replace(fused_update="off")
     loop_launches, loop_walls, loop_summaries = training_phase(
         torch, dev, gpu, env, loop_cfg, "hover ppo update (K3 loop)")
     require(loop_launches == {"K1": 0, "K2": updates, "K3": updates * passes, "K4": 0, "K5": 0,
-                              "K7": 0}, f"launches {loop_launches} on the hover K3 loop, expected K6-hover {updates}, K3 "
+                              "K7": 0, "K8/K9": 0}, f"launches {loop_launches} on the hover K3 loop, expected K6-hover {updates}, K3 "
             f"{updates * passes}")
     eager = ppo_state(env, loop_cfg, dev)
     eager_rewards = []
@@ -1111,7 +1197,8 @@ def offpolicy_phases(torch, dev, gpu: str) -> list[dict]:
     state, _, warm_wall, _ = offpolicy_iterations(torch, hover, cfg, sac, state, SAC_WARMUP_ITERS)
     state, met, wall, launches = offpolicy_iterations(torch, hover, cfg, sac, state, SAC_ITERS)
     sac_launches = launches["K7"]
-    require(launches == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K7": SAC_ITERS},
+    require(launches == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K7": SAC_ITERS,
+                         "K8/K9": 0},
             f"launches {launches} on the SAC path, expected K7 {SAC_ITERS}")
     require(all(math.isfinite(v) for v in met.values()), f"SAC metrics {met}")
     cap, total = sac._capacity(cfg, hover), (SAC_WARMUP_ITERS + SAC_ITERS) * B_OFF
@@ -1186,6 +1273,230 @@ def offpolicy_phases(torch, dev, gpu: str) -> list[dict]:
 
     return [entry(HOVER, k7_hover, sac_launches, "the SAC bench path (phase 16)"),
             entry("quadrotor3d-v0", k7_quad, td3_launches, "the TD3 path (phase 17)")]
+
+
+def native_states(torch, env, gen, batch: int, scale: float = 1.0):
+    """``(D, B)`` states of quadrotor2d-v0 or a slung-load env: U(-1, 1)
+    times ``scale``, the loads at random offsets of about 1.1 L from the
+    quad (both tether branches), and the first 1% far out with the load
+    beside the quad (these end at once)."""
+    d = env.state_dim
+    s = (torch.rand((d, batch), generator=gen, device=gen.device) * 2.0 - 1.0) * scale
+    k = TETHER.get(env.name)
+    far = batch // 100
+    s[0:2, :far] *= 6.0
+    if k is not None:
+        lo, hi = d - 2 * k, d - k
+        s[lo:hi] = s[0:k] + torch.randn((k, batch), generator=gen, device=gen.device) * (
+            1.1 * env.params.tether_length / k ** 0.5)
+        s[lo:hi, :far] = s[0:k, :far]
+    return s.contiguous()
+
+
+def closed_loop_phase(torch, dev, gpu: str, name: str) -> dict:
+    """Phase 20 for one env: throughput_rollout through the public entry
+    points at B_MAIN x T_MAIN (the main path: one K8/K9 launch); the kernel
+    against its twin at that shape with resets on, free-running (the envs
+    apart: a gate of 0.1% for quadrotor2d-v0, a count for the slung-load
+    envs, whose envs part on the tether sphere), both timed in turns; then
+    T_RESYNC steps one at a time from the twin's state at full width, 0 envs
+    outside TOL off the knife edges (the tether sphere, and for
+    quadrotor2d-v0 the envs whose done flag differs), which are counted,
+    from states of which 1% end at once; a bitwise rerun.  Returns the kernel's entry of the ``kernels`` line."""
+    import reinmav_tpu_torch
+    from reinmav_tpu_torch.ops import closed_loop_rollout as cl
+
+    env = reinmav_tpu_torch.make(name)
+    d = env.state_dim
+    gen = torch.Generator(device=dev).manual_seed(20)
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    big = env.vreset(gen, B_MAIN)
+    final, reward_sum = reinmav_tpu_torch.throughput_rollout(env, big, gen, horizon=T_MAIN)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    require(launches == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K7": 0, "K8/K9": 1},
+            f"throughput_rollout({name}) launches {launches}, expected K8/K9 1")
+    require(final.shape == (B_MAIN, d) and bool(torch.isfinite(final).all()) and
+            bool(torch.isfinite(reward_sum).all()), f"{name}: finite states and reward sums")
+    say(f"throughput_rollout({name}) B={B_MAIN} T={T_MAIN} backend=auto: K8/K9 launches "
+        f"{launches['K8/K9']}, mean reward sum {float(reward_sum.mean()):.3f}: ok")
+
+    big_t = big.T.contiguous()
+    del big, final, reward_sum
+    kernel_run = lambda: cl.closed_loop_rollout(name, big_t, 7, T_MAIN)  # noqa: E731
+    plain_run = lambda: cl.closed_loop_rollout_reference(name, big_t, 7, T_MAIN)  # noqa: E731
+    kernel_run()
+    cl.closed_loop_rollout_reference(name, big_t, 7, 5)  # warm-ups
+    torch.cuda.synchronize()
+    (plain0,), (f_p, r_p) = cuda_ms(plain_run, 1)
+    kern0, (f_k, r_k) = cuda_ms(kernel_run, 5)
+    kern1, _ = cuda_ms(kernel_run, 5)
+    (plain1,), _ = cuda_ms(plain_run, 1)
+    apart = ~torch.isclose(f_k, f_p, **TOL).all(dim=0)
+    free_apart = int(apart.sum())
+    if name not in TETHER:
+        require(free_apart <= 0.001 * B_MAIN, f"{name}: {free_apart} envs mismatched")
+    again = kernel_run()
+    require(torch.equal(f_k, again[0]) and torch.equal(r_k, again[1]), f"{name}: bitwise rerun")
+    require(bool(torch.isfinite(f_k).all()), f"{name}: finite states")
+    free_err = float((f_k[:, ~apart] - f_p[:, ~apart]).abs().max()) if free_apart < B_MAIN \
+        else float("nan")
+    reward_rel = abs(float(r_k.double().sum() - r_p.double().sum())) / abs(float(r_p.double().sum()))
+    del again, f_p, r_p
+
+    # One step at a time from the twin's state, at full width, from states
+    # of which 1% end at once.
+    x, outside, knife, err, done = native_states(torch, env, gen, B_MAIN), 0, 0, 0.0, 0
+    for t in range(T_RESYNC):
+        f1, r1 = cl.closed_loop_rollout(name, x, 100 + t, 1)
+        g1, q1 = cl.closed_loop_rollout_reference(name, x, 100 + t, 1)
+        safe = off_sphere(torch, env, x) & ((r1 == 1.0) == (q1 == 1.0))
+        bad = ~(torch.isclose(f1, g1, **TOL).all(dim=0) & torch.isclose(r1, q1, **TOL)) & safe
+        outside += int(bad.sum())
+        knife += int((~safe).sum())
+        done += int((q1 == 1.0).sum())
+        err = max(err, float((f1[:, safe] - g1[:, safe]).abs().max()))
+        x = g1
+    require(outside == 0, f"{name} resynchronised: {outside} envs outside")
+    require(done > 0, f"{name} resynchronised: no env ended, so the reset was not exercised")
+    gate = (f"{T_RESYNC} steps resynchronised at B={B_MAIN}: {outside} envs outside rtol 2e-4 "
+            f"atol 2e-5, {knife} env-steps on a knife edge skipped "
+            f"({'within 1e-4 of the tether sphere' if name in TETHER else 'the done flag differs'}"
+            f"), {done} env-steps ended and reset, max |err| {err:.3e}")
+    say(f"K8/K9 {name} vs twin: {gate}; free-running B={B_MAIN} T={T_MAIN}: {free_apart} envs "
+        f"apart ({'reported: the tether knife edge' if name in TETHER else 'limit 0.1%'}), max "
+        f"|err| on the others {free_err:.3e}, reward total rel err {reward_rel:.3e}; bitwise "
+        f"equal on a rerun: ok")
+    ms, plain_ms = statistics.median(kern0 + kern1), (plain0 + plain1) / 2
+    ops = OPS_CONTROL[d] + OPS_STEP[d]
+    bound_ms, bound_by = bound(nbytes(big_t, f_k, r_k), ops * B_MAIN * T_MAIN)
+    say(f"time K8/K9 {name} B={B_MAIN} T={T_MAIN}: {ms:.3f} ms (median of 10 launches, each "
+        f"{min(kern0 + kern1):.3f} to {max(kern0 + kern1):.3f}), "
+        f"{B_MAIN * T_MAIN / ms * 1e3:.4e} env-steps/s; twin {plain_ms:.1f} ms (runs "
+        f"{plain0:.1f}, {plain1:.1f}); bound {bound_ms:.3f} ms by {bound_by} ({ops} operations "
+        f"per env-step), on {gpu}")
+    del big_t, f_k, r_k, x
+    torch.cuda.empty_cache()
+    kid, line = ("K8", 567) if name == "quadrotor2d-v0" else (
+        "K9", 332 if name == "quadrotor2d-slungload-v0" else 310)
+    return {"name": f"closed_loop_rollout ({name}, {kid})", "route": "cuda",
+            "source": "reinmav_tpu_torch/csrc/closed_loop_rollout.cu",
+            "replaces": ("reinmav_tpu/ops/pallas_rollout.py:567" if kid == "K8" else
+                         f"reinmav_tpu/ops/pallas_slungload.py:{line}"),
+            "launches": launches["K8/K9"], "max_abs_err": err, "mismatched_envs": outside,
+            "free_running_envs_apart": free_apart,
+            "tolerance": f"rtol 2e-4 atol 2e-5 per env over {T_RESYNC} steps resynchronised at "
+                         f"full width, 0 envs outside off the knife edges; max_abs_err there",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "at": f"states ({d}, {B_MAIN}), horizon {T_MAIN}, auto-reset"}
+
+
+def native_phases(torch, dev, gpu: str) -> list[dict]:
+    """Phases 20-23: K8 and K9 (phase 20), then for each of quadrotor2d-v0
+    and the slung-load envs the fused PPO rollout (K6-rest), K3 and K4 at
+    its dims against their twins and a few updates of its default path
+    (K6 + K4) and of fused_update="off" (K6 + the K3 loop) (phase 21); K7 on
+    its kind in five mode legs and SAC and TD3 iterations on the card
+    (phase 22); then the CLI on quadrotor2d-v0 (phase 23).  Returns the
+    kernels' entries of the ``kernels`` line."""
+    import reinmav_tpu_torch
+    from reinmav_tpu_torch.rl import ppo, sac, td3
+
+    entries = [closed_loop_phase(torch, dev, gpu, name) for name in NATIVE]
+    updates = WARMUP_UPDATES + TIMED_UPDATES
+    for name, (d, a) in NATIVE.items():
+        env = reinmav_tpu_torch.make(name)
+        gen = torch.Generator(device=dev).manual_seed(21)
+        k6, k3, k4 = fused_kernel_checks(
+            torch, dev, gpu, env, lambda state: native_states(torch, env, gen, B_PPO, 1.5),
+            (f"K6 {name}", f"K3 ({d}, {a})", f"K4 ({d}, {a})"))
+        main_cfg = ppo.PpoConfig(num_envs=B_PPO, rollout_len=T_PPO)
+        passes = main_cfg.num_epochs * main_cfg.num_minibatches
+        main_launches, main_walls, main_summaries = training_phase(
+            torch, dev, gpu, env, main_cfg, f"{name} ppo update (K6 + K4)")
+        require(main_launches == {"K1": 0, "K2": updates, "K3": 0, "K4": updates, "K5": 0,
+                                  "K7": 0, "K8/K9": 0},
+                f"launches {main_launches} on the {name} default path")
+        loop_launches, loop_walls, loop_summaries = training_phase(
+            torch, dev, gpu, env, main_cfg._replace(fused_update="off"),
+            f"{name} ppo update (K3 loop)")
+        require(loop_launches == {"K1": 0, "K2": updates, "K3": updates * passes, "K4": 0,
+                                  "K5": 0, "K7": 0, "K8/K9": 0},
+                f"launches {loop_launches} on the {name} K3 loop")
+        rewards = [s["mean_reward"] for s in main_summaries]
+        loop_rewards = [s["mean_reward"] for s in loop_summaries]
+        for r, e in zip(rewards, loop_rewards):
+            require(abs(r - e) <= 0.1 * abs(e), f"{name} mean_reward {rewards} vs {loop_rewards}")
+        say(f"{name} ppo mean_reward per update, K6 + K4 {[round(r, 4) for r in rewards]}, K6 + "
+            f"the K3 loop from the same state {[round(e, 4) for e in loop_rewards]} (rtol 0.1); "
+            f"timed updates median {statistics.median(main_walls[WARMUP_UPDATES:]):.2f} ms and "
+            f"{statistics.median(loop_walls[WARMUP_UPDATES:]):.2f} ms, on {gpu}: ok")
+
+        # 22. K7 on the kind, then SAC and TD3 through train_iters.
+        k7 = k7_phase(torch, dev, gpu, env, native_states(torch, env, gen, B_OFF), "sac")
+        k7_launches = {}
+        for alg, module, cfg in (
+                ("sac", sac, sac.SacConfig(num_envs=B_OFF, batch_size=BATCH_SAC,
+                                           buffer_capacity=1 << 20, hidden=(H_SAC, H_SAC),
+                                           warmup_steps=0)),
+                ("td3", td3, td3.Td3Config(num_envs=B_OFF, batch_size=BATCH_SAC,
+                                           buffer_capacity=1 << 20, hidden=(H_SAC, H_SAC),
+                                           warmup_steps=0))):
+            state = module.init_state(env, cfg, seed=0, device=dev)
+            state, _, _, _ = offpolicy_iterations(torch, env, cfg, module, state, 1)
+            state, met, wall, launches = offpolicy_iterations(torch, env, cfg, module, state,
+                                                              NATIVE_ITERS)
+            require(launches["K7"] == NATIVE_ITERS and sum(launches.values()) == NATIVE_ITERS,
+                    f"{alg} on {name}: launches {launches}")
+            require(all(math.isfinite(v) for v in met.values()), f"{alg} on {name}: {met}")
+            k7_launches[alg] = launches["K7"]
+            say(f"{alg} training path, {name}, B={B_OFF} batch {BATCH_SAC} 2 x {H_SAC}: K7 "
+                f"launches {launches['K7']} in {NATIVE_ITERS} iterations, "
+                f"{wall / NATIVE_ITERS:.3f} ms per iteration, on {gpu}; metrics "
+                + ", ".join(f"{k} {v:.5g}" for k, v in met.items()) + ": ok")
+            del state
+            torch.cuda.empty_cache()
+
+        def entry(label, source, replaces, launches, numbers, tolerance, extra=None):
+            return {"name": label, "route": "cuda", "source": source, "replaces": replaces,
+                    "launches": launches, "max_abs_err": numbers["max_abs_err"],
+                    **(extra or {}), "tolerance": tolerance, "ms": numbers["ms"],
+                    "plain_ms": numbers["plain_ms"], "bound_ms": numbers["bound_ms"],
+                    "bound_by": numbers["bound_by"], "library_ms": None, "at": numbers["at"]}
+
+        entries += [
+            entry(f"ppo_rollout ({name}, K6-rest)", "reinmav_tpu_torch/csrc/ppo_rollout.cu",
+                  "reinmav_tpu/ops/pallas_ppo_rollout.py:703", main_launches["K2"], k6,
+                  ("rtol 2e-4 atol 2e-5 per env, one step at a time from the twin's state over "
+                   f"{T_PPO} steps off the tether sphere, 0 envs outside; max_abs_err over the "
+                   "free-running envs that agree" if name in TETHER else
+                   "rtol 2e-4 atol 2e-5 per env over its whole trajectory, <= 0.1% of envs may "
+                   "differ; max_abs_err over the envs that agree"),
+                  {"free_running_envs_apart": k6["mismatched"]}),
+            entry(f"ppo_loss_grads_gather ({d}, {a})", "reinmav_tpu_torch/csrc/ppo_loss.cu",
+                  "reinmav_tpu/ops/pallas_ppo.py:424", loop_launches["K3"],
+                  {**k3, "at": f"{k3['at']}; launches on the {name} fused_update=\"off\" path"},
+                  "grads rtol 2e-3 atol 2e-6, metrics rtol 2e-4 atol 1e-6, bitwise repeatable"),
+            entry(f"ppo_update ({d}, {a})", "reinmav_tpu_torch/csrc/ppo_update.cu",
+                  "reinmav_tpu/ops/pallas_ppo_update.py:304", main_launches["K4"], k4,
+                  "params rtol 2e-4 atol 1e-6, moments rtol 2e-4 atol 5e-8 of the twin and of "
+                  "the K3 loop; pass-0 gradient bitwise K3's; bitwise repeatable",
+                  {"entries_outside_rtol_2e-4_atol_1e-6": k4["outside"]}),
+            entry(f"offpolicy_collect ({name})", "reinmav_tpu_torch/csrc/offpolicy_collect.cu",
+                  "reinmav_tpu/ops/pallas_offpolicy.py:155", k7_launches["sac"], k7,
+                  "rtol 2e-4 atol 2e-5 per env over its block and new state, <= 0.1% of envs "
+                  "may differ, in five mode legs; max_abs_err over the envs that agree; "
+                  "bitwise repeatable",
+                  {"mismatched_envs": k7["mismatched"], "td3_launches": k7_launches["td3"]}),
+        ]
+        del env
+        torch.cuda.empty_cache()
+
+    # 23. The CLI on quadrotor2d-v0.
+    cli_phase(gpu, "quadrotor2d-v0")
+    return entries
 
 
 def ptxas_report(path) -> list[str]:
@@ -1381,6 +1692,7 @@ def main() -> int:
     kernels += ppo_phases(torch, dev, gpu, env)
     kernels += hover_phases(torch, dev, gpu)
     kernels += offpolicy_phases(torch, dev, gpu)
+    kernels += native_phases(torch, dev, gpu)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

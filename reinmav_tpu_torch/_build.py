@@ -45,28 +45,33 @@ _SIGNATURES = {
     #  host params[17], host action[4], a_sq, 0.1 * a_sum, stream)
     "hover_rollout_launch": (_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P,
                              ctypes.c_float, ctypes.c_float, _P),
-    # K2 / K6-hover: (env kind, states_in, returns_in, net, consts, batch,
+    # K8 / K9: (env kind, states_in, states_out, reward_out, batch, horizon,
+    #  seed, autoreset, host params, number of params, stream)
+    "closed_loop_rollout_launch": (ctypes.c_int, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                                   ctypes.c_uint, ctypes.c_int, _P, ctypes.c_int, _P),
+    # K2 / K6: (env kind, states_in, returns_in, net, consts, batch,
     #  horizon, seed, normalize_obs, normalize_rewards, host params, number
     #  of params, obs, action, log_prob, value, reward, done, final_states,
     #  returns_out, partials, stats, stream)
     "ppo_rollout_launch": (ctypes.c_int, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                            ctypes.c_uint, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P, _P, _P,
                            _P, _P, _P, _P, _P, _P, _P, _P),
-    # K3: (obs dim, data, n, perm, m, tile, adv_stats, net, clip_eps,
-    #  value_clip_eps, value_coef, kl_mode, blocks, partials, out, stream)
-    "ppo_loss_launch": (ctypes.c_int, _P, ctypes.c_longlong, _P, ctypes.c_longlong, ctypes.c_int,
+    # K3: (obs dim, action dim, data, n, perm, m, tile, adv_stats, net,
+    #  clip_eps, value_clip_eps, value_coef, kl_mode, blocks, partials, out,
+    #  stream)
+    "ppo_loss_launch": (ctypes.c_int, ctypes.c_int, _P, ctypes.c_longlong, _P, ctypes.c_longlong, ctypes.c_int,
                         _P, _P, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
                         ctypes.c_int, _P, _P, _P),
     # (minibatch samples) -> CTAs of the K3 launch, -1 on a CUDA error
     "ppo_loss_blocks": (ctypes.c_longlong,),
-    # (obs dim) -> sums K3 writes, -1 for a dim it is not built for
-    "ppo_loss_out_size": (ctypes.c_int,),
-    # K4: (obs dim, data, n, perm, tile, tiles per minibatch, passes,
+    # (obs dim, action dim) -> sums K3 writes, -1 for dims it is not built for
+    "ppo_loss_out_size": (ctypes.c_int, ctypes.c_int),
+    # K4: (obs dim, action dim, data, n, perm, tile, tiles per minibatch, passes,
     #  minibatches, adv_stats, kl_beta, count_in, count_out, params, mu, nu,
     #  clip_eps, value_clip_eps, value_coef, inv_n, ent_coef, lr,
     #  max_grad_norm, b1, b2, eps, has_floor, log_std_floor, kl_mode, blocks,
     #  partials, gbuf, slots, metrics, grad0, stream)
-    "ppo_update_launch": (ctypes.c_int, _P, ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int,
+    "ppo_update_launch": (ctypes.c_int, ctypes.c_int, _P, ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int,
                           ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float,
                           ctypes.c_float, ctypes.c_float, ctypes.c_double, ctypes.c_float,
                           ctypes.c_float, ctypes.c_float, ctypes.c_double, ctypes.c_double,

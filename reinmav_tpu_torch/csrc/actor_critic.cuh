@@ -1,7 +1,9 @@
 // The flat parameter vector of the 2x64 tanh actor-critic, as K2
 // (ppo_rollout.cu) and K3/K4 (ppo_loss.cu, ppo_update.cu) read it and K3/K4
-// write its gradient, for an observation of D dims: Layout<10> for
-// quadrotor3d-v0, Layout<13> for the tpuquad family.
+// write its gradient, for an observation of D dims and an action of A:
+// Layout<10, 4> for quadrotor3d-v0, Layout<13, 4> for the tpuquad family,
+// Layout<5, 2>, Layout<9, 2> and Layout<16, 4> for quadrotor2d-v0 and the
+// two slung-load envs.
 //
 // The layout is reinmav_tpu_torch/rl/networks.py::Layout: the JAX params
 // pytree's leaves in jax.tree.leaves order, each raveled row-major, with
@@ -20,12 +22,12 @@
 namespace reinmav {
 namespace ac {
 
-constexpr int A = 4;   // action dim
 constexpr int H = 64;  // hidden width of each tower
 
-template <int kD>
+template <int kD, int kA>
 struct Layout {
   static constexpr int D = kD;  // obs dim
+  static constexpr int A = kA;  // action dim
   static constexpr int kLogStd = 0;
   // Offsets inside a tower, from its base.
   static constexpr int kB1 = 0;

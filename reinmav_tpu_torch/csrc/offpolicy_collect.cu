@@ -2,8 +2,10 @@
 // NVIDIA Hopper (sm_90a).
 //
 // Replaces reinmav_tpu/ops/pallas_offpolicy.py::collect_step_pallas (:155,
-// pallas_call :206), the grid step _kernel (:71-148), for the kinds
-// quadrotor3d-v0 and MujocoQuadForce-v1.  Per env column: the actor MLP
+// pallas_call :206), the grid step _kernel (:71-148), for every kind of
+// env_kinds.cuh: quadrotor3d-v0, MujocoQuadForce-v1, quadrotor2d-v0 and the
+// two slung-load envs (the JAX K7's kinds whose state is the observation,
+// pallas_offpolicy.py:237-241).  Per env column: the actor MLP
 // (ReLU hiddens, linear head: sac._mlp_t), the action (SAC: log_std clipped
 // to [-20, 2], tanh(mean + exp(log_std) * eps); TD3: clip(tanh(out) + noise *
 // eps, -1, 1); the _det modes take eps = 0 / noise = 0), the warmup gate that
@@ -19,8 +21,9 @@
 // (sac._collect_consts).  Draws: Philox4x32-10 with key (seed, 0) and
 // counter (env, 0, draw, stream): stream 3 the action noise (two draws,
 // Box-Muller cosine branch as K2), stream 4 the warmup uniforms (one draw),
-// stream 5 quadrotor3d's U(-1, 1)^10 resets (three draws); the hover reset
-// draws nothing.  K2 uses streams 1 and 2.
+// stream 5 the U(-1, 1)^D resets (ceil(D / 4) draws); the hover reset draws
+// nothing.  Action a takes word a of each draw, so an A = 2 kind uses the
+// first two words of the same draws.  K2 uses streams 1 and 2.
 //
 // What bounds it on the card: arithmetic.  Per env the MLP is 2 (D H + H H +
 // H OUT) FP32 operations (OUT = 2A for SAC, A for TD3): about 142k at D = 13,
@@ -43,7 +46,7 @@
 //      block and the reset.
 // No atomics: every sum has a fixed order, so a rerun is bitwise equal.
 // Widths H: any multiple of 32 up to 256 (a runtime argument); shared
-// memory is 198 KB at H = 256 (one CTA per SM).  Tensor cores (TF32,
+// memory is 198 KB at H = 256 and D = 13, 203 KB at D = 16 (one CTA per SM).  Tensor cores (TF32,
 // wgmma) and TMA would change the numerics and are not used.
 
 #include <cuda_runtime.h>
@@ -53,14 +56,10 @@
 
 namespace {
 
-using reinmav::HoverEnv;
-using reinmav::Quad3dEnv;
-
 constexpr int kThreads = 256;
 constexpr int kTile = 128;    // envs per CTA
 constexpr int kChunk = 32;    // W2 columns per pass
 constexpr int kMaxHidden = 256;
-constexpr int kA = reinmav::kEnvActionDim;
 constexpr uint32_t kEpsStream = 3u, kWarmStream = 4u, kResetStream = 5u;
 
 enum Mode { kSac = 0, kSacDet = 1, kTd3 = 2, kTd3Det = 3 };
@@ -91,7 +90,7 @@ offpolicy_collect_kernel(const float* __restrict__ s_in, int64_t batch, int hidd
                          const float* __restrict__ consts, uint32_t seed,
                          typename Env::Params p, float* __restrict__ s_out,
                          float* __restrict__ block) {
-  constexpr int kD = Env::kD;
+  constexpr int kD = Env::kD, kA = Env::kA;
   constexpr bool kIsSac = kMode == kSac || kMode == kSacDet;
   constexpr int kOut = kIsSac ? 2 * kA : kA;
   extern __shared__ __align__(16) float smem[];
@@ -273,7 +272,7 @@ template <class Env, int kMode>
 cudaError_t launch_mode(const float* s_in, int64_t batch, int hidden, const Actor& w,
                         const float* consts, uint32_t seed, const float* params_host,
                         float* s_out, float* block, cudaStream_t st) {
-  constexpr int kOut = (kMode == kSac || kMode == kSacDet) ? 2 * kA : kA;
+  constexpr int kOut = (kMode == kSac || kMode == kSacDet) ? 2 * Env::kA : Env::kA;
   const size_t bytes = smem_bytes(Env::kD, hidden, kOut);
   auto kernel = offpolicy_collect_kernel<Env, kMode>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -312,14 +311,15 @@ cudaError_t launch_env(int mode, const float* s_in, int64_t batch, int hidden, c
 
 // C interface, bound with ctypes (reinmav_tpu_torch/_build.py).  Launches on
 // the given stream, does not synchronise, and returns a CUDA error code.
-// env_kind: 0 quadrotor3d-v0 (params_host: the 11 floats of
-// quad3d_params_vec, states (10, B)), 1 MujocoQuadForce-v1 (the 17 floats of
-// hover_params_vec, states (13, B)).  mode: 0 sac, 1 sac_det, 2 td3, 3
-// td3_det (the head w3 is (H, 8) for sac, (H, 4) for td3).  hidden: the
+// env_kind: a kind id of env_kinds.cuh (0 quadrotor3d-v0, 1
+// MujocoQuadForce-v1, 2 quadrotor2d-v0, 3 quadrotor2d-slungload-v0, 4
+// quadrotor3d-slungload-v0), params_host the floats of its params vector,
+// states (D, B).  mode: 0 sac, 1 sac_det, 2 td3, 3 td3_det (the head w3 is
+// (H, 2A) for sac, (H, A) for td3).  hidden: the
 // width H of both hidden layers, a multiple of 32 from 32 to 256.  Any other
 // kind, mode, width or number of params is refused with
 // cudaErrorInvalidValue and nothing runs.  Outputs: states_out (D, B) and
-// block (2D + 6, B), float32.
+// block (2D + A + 2, B), float32.
 extern "C" int offpolicy_collect_launch(int env_kind, int mode, const void* params_host,
                                         int n_params, const void* states_in, long long batch,
                                         int hidden, const void* w1, const void* b1,
@@ -338,18 +338,9 @@ extern "C" int offpolicy_collect_launch(int env_kind, int mode, const void* para
   auto* s_out = static_cast<float*>(states_out);
   auto* blk = static_cast<float*>(block);
   const auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (env_kind) {
-    case Quad3dEnv::kKind:
-      err = launch_env<Quad3dEnv>(mode, s_in, batch, hidden, w, c, seed, h, n_params, s_out, blk,
-                                  st);
-      break;
-    case HoverEnv::kKind:
-      err = launch_env<HoverEnv>(mode, s_in, batch, hidden, w, c, seed, h, n_params, s_out, blk,
-                                 st);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
+  const cudaError_t err = reinmav::with_env_kind(env_kind, [&](auto env) {
+    return launch_env<decltype(env)>(mode, s_in, batch, hidden, w, c, seed, h, n_params, s_out,
+                                     blk, st);
+  });
   return static_cast<int>(err);
 }

@@ -1,7 +1,9 @@
 // K3: the PPO loss forward and hand-derived backward over one minibatch of
 // the 2x64 tanh actor-critic, with the minibatch gathered in the kernel,
-// written for NVIDIA Hopper (sm_90a); built for an observation of 10 dims
-// (quadrotor3d-v0) and of 13 (the tpuquad family).
+// written for NVIDIA Hopper (sm_90a); built for the (obs, action) dims of
+// ppo_loss_body.cuh::with_kernel_dims: (10, 4) quadrotor3d-v0, (13, 4) the
+// tpuquad family, (5, 2) quadrotor2d-v0, (9, 2) and (16, 4) the slung-load
+// envs.
 //
 // Replaces reinmav_tpu/ops/pallas_ppo.py::ppo_loss_grads_pallas_gather
 // (:424) and ppo_loss_grads_pallas (:377): _tile_loss_grads (:71-173) over
@@ -18,8 +20,9 @@
 // What bounds it on the card: arithmetic.  A sample costs about 28k FMA at
 // D = 10 (forward 9.8k, the two towers' backward products 2 * 4096 for dh1
 // and 2 * 4096 for dW2, dW1 1280 and the heads), 56k FP32 operations, and
-// 57.7k at D = 13, against 4 * (D + 8) B of input; the zero blocks of the
-// fused layer are not computed.
+// 57.7k at D = 13 (2 * (28,096 + 128 (D - 10) + 320 (A - 4)) in general),
+// against 4 * (D + A + 4) B of input; the zero blocks of the fused layer are
+// not computed.
 //
 // What the design does about it: the per-CTA body (ppo_loss_body.cuh,
 // shared with K4) runs 128 samples at a time through both towers with the
@@ -37,18 +40,18 @@ namespace {
 
 using namespace reinmav::ppo_loss;
 
-template <int kD, bool kKl>
+template <int kD, int kA, bool kKl>
 __global__ void __launch_bounds__(kThreads, 1)
 ppo_loss_kernel(const float* __restrict__ data, int64_t n, const int* __restrict__ perm,
                 int64_t mb, int tile, const float* __restrict__ adv_stats,
                 const float* __restrict__ net, LossCfg cfg, float* __restrict__ partials) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<kD>& sm = *reinterpret_cast<Smem<kD>*>(smem_raw);
-  load_weights<kD>(sm, net);
+  Smem<kD, kA>& sm = *reinterpret_cast<Smem<kD, kA>*>(smem_raw);
+  load_weights<kD, kA>(sm, net);
   const float adv_shift = adv_stats[0], adv_inv = adv_stats[1], kl_beta = adv_stats[2];
   __syncthreads();
-  loss_body<kD, kKl>(sm, data, n, perm, mb, tile, adv_shift, adv_inv, kl_beta, cfg,
-                     partials + static_cast<int64_t>(blockIdx.x) * out_size<kD>());
+  loss_body<kD, kA, kKl>(sm, data, n, perm, mb, tile, adv_shift, adv_inv, kl_beta, cfg,
+                         partials + static_cast<int64_t>(blockIdx.x) * out_size<kD, kA>());
 }
 
 // out[e] = the CTAs' partials of entry e, added in block order.
@@ -61,30 +64,31 @@ __global__ void ppo_loss_reduce_kernel(const float* __restrict__ partials, int b
   out[e] = v;
 }
 
-template <int kD, bool kKl>
+template <int kD, int kA, bool kKl>
 cudaError_t launch(const float* data, int64_t n, const int* perm, int64_t mb, int tile,
                    const float* adv_stats, const float* net, const LossCfg& cfg, float* partials,
                    int blocks, cudaStream_t stream) {
-  const int smem = static_cast<int>(sizeof(Smem<kD>));
-  cudaError_t err = cudaFuncSetAttribute(ppo_loss_kernel<kD, kKl>,
+  const int smem = static_cast<int>(sizeof(Smem<kD, kA>));
+  cudaError_t err = cudaFuncSetAttribute(ppo_loss_kernel<kD, kA, kKl>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  ppo_loss_kernel<kD, kKl><<<blocks, kThreads, smem, stream>>>(data, n, perm, mb, tile,
-                                                               adv_stats, net, cfg, partials);
+  ppo_loss_kernel<kD, kA, kKl><<<blocks, kThreads, smem, stream>>>(data, n, perm, mb, tile,
+                                                                   adv_stats, net, cfg, partials);
   return cudaGetLastError();
 }
 
-template <int kD>
-cudaError_t launch_d(const float* data, int64_t n, const int* perm, int64_t mb, int tile,
-                     const float* adv_stats, const float* net, const LossCfg& cfg, bool kl_mode,
-                     float* partials, float* out, int blocks, cudaStream_t stream) {
+template <int kD, int kA>
+cudaError_t launch_dims(const float* data, int64_t n, const int* perm, int64_t mb, int tile,
+                        const float* adv_stats, const float* net, const LossCfg& cfg,
+                        bool kl_mode, float* partials, float* out, int blocks,
+                        cudaStream_t stream) {
   cudaError_t err = kl_mode
-                        ? launch<kD, true>(data, n, perm, mb, tile, adv_stats, net, cfg, partials,
-                                           blocks, stream)
-                        : launch<kD, false>(data, n, perm, mb, tile, adv_stats, net, cfg, partials,
-                                            blocks, stream);
+                        ? launch<kD, kA, true>(data, n, perm, mb, tile, adv_stats, net, cfg,
+                                               partials, blocks, stream)
+                        : launch<kD, kA, false>(data, n, perm, mb, tile, adv_stats, net, cfg,
+                                                partials, blocks, stream);
   if (err != cudaSuccess) return err;
-  constexpr int n_out = out_size<kD>();
+  constexpr int n_out = out_size<kD, kA>();
   ppo_loss_reduce_kernel<<<(n_out + 255) / 256, 256, 0, stream>>>(partials, blocks, n_out, out);
   return cudaGetLastError();
 }
@@ -104,11 +108,12 @@ extern "C" int ppo_loss_blocks(long long mb) {
 
 // C interface, bound with ctypes (reinmav_tpu_torch/_build.py).  Launches on
 // the given stream, does not synchronise, and returns a CUDA error code.
-// d the obs dim, 10 or 13 (any other is refused with cudaErrorInvalidValue
-// and nothing runs); data (d + 8, n) f32; perm (m,) int32 tile indices;
+// (d, adim) the obs and action dims, a pair of with_kernel_dims (any other
+// is refused with cudaErrorInvalidValue and nothing runs); data (d + adim +
+// 4, n) f32; perm (m,) int32 tile indices;
 // adv_stats (4,) f32 = [adv shift, adv inverse scale, kl beta, 0] on the
 // device; net the flat parameters; out (NET + 4,) raw sums.
-extern "C" int ppo_loss_launch(int d, const void* data, long long n, const void* perm,
+extern "C" int ppo_loss_launch(int d, int adim, const void* data, long long n, const void* perm,
                                long long m, int tile, const void* adv_stats, const void* net,
                                float clip_eps, float value_clip_eps, float value_coef,
                                int kl_mode, int blocks, void* partials, void* out, void* stream) {
@@ -121,22 +126,19 @@ extern "C" int ppo_loss_launch(int d, const void* data, long long n, const void*
   const auto* w = static_cast<const float*>(net);
   auto* part = static_cast<float*>(partials);
   auto* o = static_cast<float*>(out);
-  cudaError_t err;
-  switch (d) {
-    case 10:
-      err = launch_d<10>(x, n, p, mb, tile, a, w, cfg, kl_mode, part, o, blocks, st);
-      break;
-    case 13:
-      err = launch_d<13>(x, n, p, mb, tile, a, w, cfg, kl_mode, part, o, blocks, st);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
+  const cudaError_t err =
+      with_kernel_dims(d, adim, cudaErrorInvalidValue, [&](auto dc, auto ac_) {
+        return launch_dims<decltype(dc)::value, decltype(ac_)::value>(
+            x, n, p, mb, tile, a, w, cfg, kl_mode, part, o, blocks, st);
+      });
   return static_cast<int>(err);
 }
 
-// The length of the kernel's output for obs dim d: the flat parameters'
-// gradient sums, then the 4 metric sums; -1 for a dim it is not built for.
-extern "C" int ppo_loss_out_size(int d) {
-  return d == 10 ? out_size<10>() : d == 13 ? out_size<13>() : -1;
+// The length of the kernel's output for obs and action dims (d, adim): the
+// flat parameters' gradient sums, then the 4 metric sums; -1 for dims it is
+// not built for.
+extern "C" int ppo_loss_out_size(int d, int adim) {
+  return with_kernel_dims(d, adim, -1, [](auto dc, auto ac_) {
+    return out_size<decltype(dc)::value, decltype(ac_)::value>();
+  });
 }

@@ -1,6 +1,8 @@
 // The per-CTA device body of the PPO loss forward and hand-derived backward
 // over the 2x64 tanh actor-critic, shared by K3 (ppo_loss.cu, one minibatch
-// per launch) and K4 (ppo_update.cu, the whole update in one launch).
+// per launch) and K4 (ppo_update.cu, the whole update in one launch); a
+// template on the obs dim D and the action dim A, built for the (D, A)
+// pairs of with_kernel_dims.
 //
 // The body is reinmav_tpu/ops/pallas_ppo.py::_tile_loss_grads (:71-173):
 // the clipped or adaptive-KL surrogate, value clipping, JAX's tie
@@ -19,15 +21,19 @@
 // (32 of dW2, 5 of dW1, ...) in registers for the CTA's whole share of the
 // minibatch; the D rows of dW1 are split between the towers' threads, the
 // first ceil(D / 2) rows to tower 0's and the rest to tower 1's (5 + 5 at D
-// = 10, 7 + 6 at D = 13).  The gather: minibatch sample q reads column
-// perm[q / tile] * tile + q % tile of the full (R, n) batch, so the
-// minibatch is never stored.  Shared memory at D = 10: 40 KB of weights
-// and 143 KB of activations; D = 13 adds 3 KB.
+// = 10, 7 + 6 at D = 13, 8 + 8 at D = 16).  The gather: minibatch sample q
+// reads column perm[q / tile] * tile + q % tile of the full (R, n) batch, so
+// the minibatch is never stored.  Shared memory at D = 10, A = 4: 40 KB of
+// weights and 143 KB of activations; each obs dim adds about 1 KB (186 KB
+// at D = 16).  The head-gradient phase gives thread tid the entry
+// dW_pi[tid / A][tid % A]: all 256 threads at A = 4, the first 128 at A = 2.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "actor_critic.cuh"
 
@@ -36,20 +42,36 @@ namespace ppo_loss {
 
 namespace ac = reinmav::ac;
 
-constexpr int kA = ac::A, kH = ac::H;
+constexpr int kH = ac::H;
 constexpr int kS = 128;       // samples per sub-block
 constexpr int kSP = kS + 1;   // padded row length
 constexpr int kThreads = 2 * kS;
-constexpr int kRed = 8;             // per-sample dls (A) and metric terms (4)
 
 // The raw sums a CTA writes: the flat gradient, then the 4 metric sums.
-template <int kD>
+template <int kD, int kA>
 __host__ __device__ constexpr int out_size() {
-  return ac::Layout<kD>::kNetSize + 4;
+  return ac::Layout<kD, kA>::kNetSize + 4;
 }
 
-template <int kD>
+// f(integral_constant<D>, integral_constant<A>) for the (obs, action) dims
+// the kernels are built for: (10, 4) quadrotor3d-v0, (13, 4) the tpuquad
+// family, (5, 2) quadrotor2d-v0, (9, 2) quadrotor2d-slungload-v0, (16, 4)
+// quadrotor3d-slungload-v0 (ops/ppo_loss.py::KERNEL_DIMS); `refused` for
+// any other pair.
+template <class R, class F>
+R with_kernel_dims(int d, int a, R refused, F&& f) {
+  using std::integral_constant;
+  if (d == 10 && a == 4) return f(integral_constant<int, 10>{}, integral_constant<int, 4>{});
+  if (d == 13 && a == 4) return f(integral_constant<int, 13>{}, integral_constant<int, 4>{});
+  if (d == 5 && a == 2) return f(integral_constant<int, 5>{}, integral_constant<int, 2>{});
+  if (d == 9 && a == 2) return f(integral_constant<int, 9>{}, integral_constant<int, 2>{});
+  if (d == 16 && a == 4) return f(integral_constant<int, 16>{}, integral_constant<int, 4>{});
+  return refused;
+}
+
+template <int kD, int kA>
 struct Smem {
+  static constexpr int kRed = kA + 4;  // per-sample dls (A) and metric terms (4)
   float w1t[2][kH][kD];
   float b1[2][kH];
   float w2t[2][kH][kH];  // (tower, out, in)
@@ -73,9 +95,9 @@ struct LossCfg {
 // through L2 (__ldcg), never the non-coherent read-only path: in K4 the
 // same vector is rewritten by other CTAs between passes.  The caller
 // synchronises the block before the body reads them.
-template <int kD>
-__device__ __forceinline__ void load_weights(Smem<kD>& sm, const float* net) {
-  using L = ac::Layout<kD>;
+template <int kD, int kA>
+__device__ __forceinline__ void load_weights(Smem<kD, kA>& sm, const float* net) {
+  using L = ac::Layout<kD, kA>;
   const int tid = threadIdx.x;
   for (int idx = tid; idx < kH * kD; idx += kThreads) {
     const int j = idx / kD, d = idx % kD;
@@ -103,15 +125,16 @@ __device__ __forceinline__ void load_weights(Smem<kD>& sm, const float* net) {
 // The loss gradient over the sub-blocks of 128 samples blockIdx.x,
 // blockIdx.x + gridDim.x, ... of the minibatch of `mb` samples defined by
 // `perm`, with the weights already in `sm`.  Writes the CTA's raw sums
-// (out_size<kD>() floats, each by exactly one thread) to `out`.  Ends after a block
+// (out_size<kD, kA>() floats, each by exactly one thread) to `out`.  Ends after a block
 // synchronisation of its last sub-block; the write of `out` is not
 // followed by one.
-template <int kD, bool kKl>
-__device__ __forceinline__ void loss_body(Smem<kD>& sm, const float* __restrict__ data, int64_t n,
+template <int kD, int kA, bool kKl>
+__device__ __forceinline__ void loss_body(Smem<kD, kA>& sm, const float* __restrict__ data, int64_t n,
                                           const int* __restrict__ perm, int64_t mb, int tile,
                                           float adv_shift, float adv_inv, float kl_beta,
                                           const LossCfg& cfg, float* __restrict__ out) {
-  using L = ac::Layout<kD>;
+  using L = ac::Layout<kD, kA>;
+  constexpr int kRed = Smem<kD, kA>::kRed;
   // The dW1 rows of each tower's threads: [0, kD0) for tower 0, [kD0, kD)
   // for tower 1.
   constexpr int kD0 = (kD + 1) / 2, kD1 = kD - kD0;
@@ -129,9 +152,9 @@ __device__ __forceinline__ void loss_body(Smem<kD>& sm, const float* __restrict_
 #pragma unroll
   for (int c = 0; c < kD0; ++c) g_w1[c] = 0.0f;
   float g_b = 0.0f;       // tower 0 threads: db1[unit s]; tower 1: db2[unit s]
-  float g_wpi = 0.0f;     // dwpi[tid / 4][tid % 4]
+  float g_wpi = 0.0f;     // tid < H A: dwpi[tid / A][tid % A]
   float g_wvf = 0.0f;     // tid < 64: dwvf[tid]
-  float g_red = 0.0f;     // tid < 13: dbo (5), dls (4), metrics (4)
+  float g_red = 0.0f;     // tid < 2 A + 5: dbo (A + 1), dls (A), metrics (4)
 
   const int64_t n_sub = (mb + kS - 1) / kS;
   for (int64_t blk = blockIdx.x; blk < n_sub; blk += gridDim.x) {
@@ -158,7 +181,7 @@ __device__ __forceinline__ void loss_body(Smem<kD>& sm, const float* __restrict_
         h1[k] = tanhf(z);
         sm.h1[tw * kH + k][s] = h1[k];
       }
-      float mean[kA] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float mean[kA] = {};
       float value = 0.0f;
       for (int j = 0; j < kH; ++j) {
         const float4* w = reinterpret_cast<const float4*>(sm.w2t[tw][j]);
@@ -189,8 +212,8 @@ __device__ __forceinline__ void loss_body(Smem<kD>& sm, const float* __restrict_
 
     // ---- P2: per-sample loss and its cotangent (tower-0 threads) --------
     if (tw == 0) {
-      float dout[kA + 1] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      float rd[kRed] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      float dout[kA + 1] = {};
+      float rd[kRed] = {};
       if (valid) {
         const float value = sm.dout[kA][s];
         float diff[kA], quad[kA], var[kA];
@@ -255,7 +278,9 @@ __device__ __forceinline__ void loss_body(Smem<kD>& sm, const float* __restrict_
     // ---- P3: head gradients and the per-sample sums ----------------------
     {
       const int jp = tid / kA, ap = tid % kA;
-      for (int ss = 0; ss < kS; ++ss) g_wpi += sm.h2[jp][ss] * sm.dout[ap][ss];
+      if (tid < kH * kA) {
+        for (int ss = 0; ss < kS; ++ss) g_wpi += sm.h2[jp][ss] * sm.dout[ap][ss];
+      }
       if (tid < kH) {
         for (int ss = 0; ss < kS; ++ss) g_wvf += sm.h2[kH + tid][ss] * sm.dout[kA][ss];
       }
@@ -349,7 +374,7 @@ __device__ __forceinline__ void loss_body(Smem<kD>& sm, const float* __restrict_
     }
     out[L::tower_base(ut) + (tw == 0 ? L::kB1 : L::kB2) + uu] = g_b;
   }
-  out[L::kPiOutW + tid] = g_wpi;  // tid = j * A + a
+  if (tid < kH * kA) out[L::kPiOutW + tid] = g_wpi;  // tid = j * A + a
   if (tid < kH) out[L::kVfOutW + tid] = g_wvf;
   if (tid < kA) {
     out[L::kPiOutB + tid] = g_red;

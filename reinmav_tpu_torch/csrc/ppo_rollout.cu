@@ -1,28 +1,33 @@
-// K2 and K6-hover: the fused PPO rollout of quadrotor3d-v0 and of the hover
-// task (MujocoQuadForce-v1), written for NVIDIA Hopper (sm_90a).
+// K2 and K6: the fused PPO rollout of quadrotor3d-v0 (K2), of the hover task
+// (MujocoQuadForce-v1, K6-hover) and of quadrotor2d-v0 and the two slung-load
+// envs (K6-rest), written for NVIDIA Hopper (sm_90a).
 //
 // Replaces reinmav_tpu/ops/pallas_ppo_rollout.py::ppo_rollout_pallas (:703,
-// pallas_call :771), kinds quadrotor3d-v0 and MujocoQuadForce-v1: the grid
-// step _kernel (:556-695) with _quad3d_step_tiles (:157) and
-// _quad3d_reset_rows (:201), or with _hover_step_tiles (:112-144, per-lane
-// actions) and _hover_reset_rows (:147-154), repeated over the whole
-// horizon.  Per env and step: raw-obs moment sums, obs normalisation with
+// pallas_call :771), every kind of its _ENVS table (:516): the grid step
+// _kernel (:556-695) with the kind's step and reset rows (_quad3d_step_tiles
+// :157, _hover_step_tiles :112-144, _quad2d_step_tiles :205,
+// _slung2d_step_tiles :239, _slung3d_step_tiles :336), repeated over the
+// whole horizon.  Per env and step: raw-obs moment sums, obs normalisation with
 // clip +-10, the 2x64 tanh actor-critic, a Gaussian action with logp taken
 // from the ROUNDED action (z = (a - mean) / std, :628-638), the env step,
 // the return-scaled reward with clip +-10, the running discounted return,
 // the reset of done envs, and the trajectory rows.  The kernel is a template
-// on the env structs of env_kinds.cuh: Quad3dEnv (the U(-1,1)^10 reset from Philox stream 2) and
-// HoverEnv (two substeps of hover_common.cuh, the deterministic reset; no
-// reset draws).  Its plain PyTorch twin, with the same arithmetic and the
+// on the env structs of env_kinds.cuh, which fix the state dim D and the
+// action dim A: Quad3dEnv (D 10, A 4), HoverEnv (13, 4; two substeps of
+// hover_common.cuh, the deterministic reset, no reset draws), Quad2dEnv (5,
+// 2), Slung2dEnv (9, 2) and Slung3dEnv (16, 4) (slung_common.cuh); the
+// U(-1, 1)^D resets draw from Philox stream 2.  Its plain PyTorch twin, with the same arithmetic and the
 // same Philox draws, is reinmav_tpu_torch/ops/ppo_rollout.py::
 // ppo_rollout_reference.
 //
-// What bounds it on the card: arithmetic.  One env-step is about 19.6k
-// (quadrotor3d, D = 10) or 20.4k (hover, D = 13) FP32 operations of MLP
-// (2 * (D*128 + 2*64*64 + 64*4 + 64*1); the zero blocks of the fused layer
-// are not computed), plus the env step (about 30 for quadrotor3d, 2 x 257
-// for hover), against 4 * (D + 8) B of trajectory written, far on the
-// compute side of the H100's roofline.
+// What bounds it on the card: arithmetic.  One env-step is 2 * (D*128 +
+// 2*64*64 + 64*A + 64*1) FP32 operations of MLP (19.6k for quadrotor3d, D =
+// 10; 20.4k for hover, D = 13; 17.8k to 20.8k for the others; the zero
+// blocks of the fused layer are not computed), plus the env step (about 30
+// for quadrotor3d, 2 x 257 for hover), against 4 * (D + A + 4) B of
+// trajectory written, far on the compute side of the H100's roofline.  At
+// D = 16 the 2D + 3 moment sums, the state and the first hidden layer
+// compete for the 255 registers a thread can have.
 //
 // What the design does about it: one thread per env, the env state, the
 // running return and the 2D + 3 moment sums in registers for the whole
@@ -33,7 +38,9 @@
 // computed, so it is never stored.  Noise and resets come from
 // Philox4x32-10 (quad3d_common.cuh) with key (seed, 0) and counter (env,
 // step, draw, stream): stream 1 is the noise (two draws, Box-Muller cosine
-// branch as _normal :90-95), stream 2 the quadrotor3d resets (three draws).
+// branch as _normal :90-95; action a takes word a of each draw, so an A = 2
+// kind uses the first two words of the same two draws), stream 2 the
+// U(-1, 1)^D resets (ceil(D / 4) draws).
 // Each CTA reduces its moment sums in a fixed order, and a second launch
 // adds the CTAs' partials in block order, so the result is bitwise
 // repeatable.  Any B works; the tail is masked.  normalize_obs and
@@ -48,11 +55,8 @@
 namespace {
 
 namespace ac = reinmav::ac;
-using reinmav::HoverEnv;
-using reinmav::Quad3dEnv;
-
 constexpr int kThreads = 128;
-constexpr int kA = ac::A, kH = ac::H;
+constexpr int kH = ac::H;
 
 struct RolloutOut {
   float* obs;       // (T, D, B)
@@ -73,10 +77,10 @@ ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret
                    const float* __restrict__ net, const float* __restrict__ consts,
                    int64_t batch, int horizon, uint32_t seed, typename Env::Params p,
                    RolloutOut o) {
-  constexpr int kD = Env::kD;
+  constexpr int kD = Env::kD, kA = Env::kA;
   constexpr int kStats = 2 * kD + 3;  // obs sum (D), obs sq (D), ret sum, ret sq, raw reward sum
   constexpr int kConsts = 2 * kD + kA + 3;
-  using L = ac::Layout<kD>;
+  using L = ac::Layout<kD, kA>;
   __shared__ __align__(16) float w1t[2][kH][kD];  // (tower, out, in)
   __shared__ __align__(16) float b1[2][kH];
   __shared__ __align__(16) float w2t[2][kH][kH];  // (tower, out, in)
@@ -181,8 +185,8 @@ ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret
       // Gaussian action; logp from the rounded action.
       const uint4 ub = reinmav::philox4x32_10(make_uint4(env, t, 0u, 1u), seed, 0u);
       const uint4 vb = reinmav::philox4x32_10(make_uint4(env, t, 1u, 1u), seed, 0u);
-      const uint32_t uw[kA] = {ub.x, ub.y, ub.z, ub.w};
-      const uint32_t vw[kA] = {vb.x, vb.y, vb.z, vb.w};
+      const uint32_t uw[4] = {ub.x, ub.y, ub.z, ub.w};
+      const uint32_t vw[4] = {vb.x, vb.y, vb.z, vb.w};
       float act[kA];
       float z2 = 0.0f;
 #pragma unroll
@@ -242,11 +246,11 @@ ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret
 // stats[c] = the CTAs' partials of component c, added in block order.
 __global__ void ppo_rollout_stats_kernel(const float* __restrict__ partials, int blocks,
                                          int n_stats, float* __restrict__ stats) {
-  const int c = threadIdx.x;
-  if (c >= n_stats) return;
-  float v = 0.0f;
-  for (int b = 0; b < blocks; ++b) v += partials[static_cast<int64_t>(b) * n_stats + c];
-  stats[c] = v;
+  for (int c = threadIdx.x; c < n_stats; c += blockDim.x) {
+    float v = 0.0f;
+    for (int b = 0; b < blocks; ++b) v += partials[static_cast<int64_t>(b) * n_stats + c];
+    stats[c] = v;
+  }
 }
 
 template <class Env>
@@ -281,10 +285,11 @@ cudaError_t launch_env(const float* s_in, const float* ret_in, const float* net,
 
 // C interface, bound with ctypes (reinmav_tpu_torch/_build.py).  Launches on
 // the given stream, does not synchronise, and returns a CUDA error code.
-// env_kind: 0 quadrotor3d-v0 (params_host: the 11 floats of
-// quad3d_params_vec, states (10, B)), 1 MujocoQuadForce-v1 (the 17 floats of
-// hover_params_vec, states (13, B)); any other kind, or another number of
-// params, is refused with cudaErrorInvalidValue and nothing runs.
+// env_kind: a kind id of env_kinds.cuh (0 quadrotor3d-v0, 1
+// MujocoQuadForce-v1, 2 quadrotor2d-v0, 3 quadrotor2d-slungload-v0, 4
+// quadrotor3d-slungload-v0), params_host the floats of its params vector
+// (ops/ppo_rollout.py::ENVS), states (D, B); any other kind, or another
+// number of params, is refused with cudaErrorInvalidValue and nothing runs.
 // `partials` is scratch of (ceil(batch / 128), 2D + 3) floats.
 extern "C" int ppo_rollout_launch(int env_kind, const void* states_in, const void* returns_in,
                                   const void* net, const void* consts, long long batch,
@@ -305,18 +310,9 @@ extern "C" int ppo_rollout_launch(int env_kind, const void* states_in, const voi
   const auto* w = static_cast<const float*>(net);
   const auto* c = static_cast<const float*>(consts);
   const auto* h = static_cast<const float*>(params_host);
-  cudaError_t err;
-  switch (env_kind) {
-    case Quad3dEnv::kKind:
-      err = launch_env<Quad3dEnv>(s_in, r_in, w, c, batch, horizon, seed, normalize_obs,
-                                  normalize_rewards, h, n_params, o, blocks, st);
-      break;
-    case HoverEnv::kKind:
-      err = launch_env<HoverEnv>(s_in, r_in, w, c, batch, horizon, seed, normalize_obs,
-                                 normalize_rewards, h, n_params, o, blocks, st);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
+  const cudaError_t err = reinmav::with_env_kind(env_kind, [&](auto env) {
+    return launch_env<decltype(env)>(s_in, r_in, w, c, batch, horizon, seed, normalize_obs,
+                                     normalize_rewards, h, n_params, o, blocks, st);
+  });
   return static_cast<int>(err);
 }

@@ -1,7 +1,7 @@
 // K4: the whole PPO update phase (epochs x minibatches of the loss gradient,
 // clip-by-global-norm and Adam, and the optional log-std floor) in ONE
-// cooperative launch, written for NVIDIA Hopper (sm_90a); built for an
-// observation of 10 dims (quadrotor3d-v0) and of 13 (the tpuquad family).
+// cooperative launch, written for NVIDIA Hopper (sm_90a); built for the
+// (obs, action) dims of ppo_loss_body.cuh::with_kernel_dims, as K3.
 //
 // Replaces reinmav_tpu/ops/pallas_ppo_update.py::ppo_update_pallas (:304,
 // pallas_call :382; body _update_kernel :150-294).  The TPU kernel walks a
@@ -21,7 +21,7 @@
 //
 // What the design does about it: a persistent cooperative grid, K3's grid
 // (min(sub-blocks of 128, SMs) CTAs of 256 threads, 183 KB of shared memory
-// at D = 10 and 186 KB at D = 13, one CTA per SM), that stays resident for
+// at D = 10, about 1 KB more per obs dim, one CTA per SM), that stays resident for
 // the whole update, so the host
 // issues one launch in place of 16 loss launches, 16 reductions and 16
 // optimiser steps.  Per pass p (minibatch p of the epoch-concatenated
@@ -95,12 +95,12 @@ struct UpdateArgs {
   float log_std_floor;
 };
 
-template <int kD, bool kKl>
+template <int kD, int kA, bool kKl>
 __global__ void __launch_bounds__(kThreads, 1) ppo_update_kernel(UpdateArgs a) {
-  using L = ac::Layout<kD>;
-  constexpr int kOut = out_size<kD>();
+  using L = ac::Layout<kD, kA>;
+  constexpr int kOut = out_size<kD, kA>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<kD>& sm = *reinterpret_cast<Smem<kD>*>(smem_raw);
+  Smem<kD, kA>& sm = *reinterpret_cast<Smem<kD, kA>*>(smem_raw);
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x;
   const int blocks = gridDim.x;
@@ -121,7 +121,7 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_update_kernel(UpdateArgs a) {
 
   for (int p = 0; p < a.n_passes; ++p) {
     // ---- 1. the loss gradient of pass p, with the weights Adam wrote ----
-    load_weights<kD>(sm, a.params);
+    load_weights<kD, kA>(sm, a.params);
     __syncthreads();
     if (blockIdx.x == 0 && tid == 0) {
       float ent = 0.0f;
@@ -129,7 +129,7 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_update_kernel(UpdateArgs a) {
       for (int i = 0; i < kA; ++i) ent += sm.ls[i] + a.ent_const;
       ent_acc += ent;
     }
-    loss_body<kD, kKl>(sm, a.data, a.n, a.perm + static_cast<int64_t>(p) * a.tpm, mb, a.tile,
+    loss_body<kD, kA, kKl>(sm, a.data, a.n, a.perm + static_cast<int64_t>(p) * a.tpm, mb, a.tile,
                    a.adv_stats[2 * p], a.adv_stats[2 * p + 1], kl_beta, a.loss, out);
     grid.sync();
 
@@ -200,10 +200,10 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_update_kernel(UpdateArgs a) {
   }
 }
 
-template <int kD, bool kKl>
+template <int kD, int kA, bool kKl>
 cudaError_t launch(const UpdateArgs& args, int blocks, cudaStream_t stream) {
-  const int smem = static_cast<int>(sizeof(Smem<kD>));
-  const void* kern = reinterpret_cast<const void*>(ppo_update_kernel<kD, kKl>);
+  const int smem = static_cast<int>(sizeof(Smem<kD, kA>));
+  const void* kern = reinterpret_cast<const void*>(ppo_update_kernel<kD, kA, kKl>);
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
@@ -231,13 +231,14 @@ cudaError_t launch(const UpdateArgs& args, int blocks, cudaStream_t stream) {
 // C interface, bound with ctypes (reinmav_tpu_torch/_build.py).  Launches on
 // the given stream, does not synchronise, and returns a CUDA error code:
 // cudaErrorCooperativeLaunchTooLarge when the grid cannot be co-resident
-// (the caller raises; there is no fallback), cudaErrorInvalidValue for an
-// obs dim d other than 10 or 13 (nothing runs).  data (d + 8, n) f32; perm
+// (the caller raises; there is no fallback), cudaErrorInvalidValue for
+// (obs, action) dims (d, adim) that with_kernel_dims does not list (nothing
+// runs).  data (d + adim + 4, n) f32; perm
 // (n_passes * tpm,) int32 tile ids; adv_stats (n_passes, 2) f32; kl_beta
 // f32 and count_in int32 device scalars; params, mu, nu (NET,) f32 updated
 // in place; count_out int32 scalar; partials (blocks, NET + 4), gbuf (NET,),
 // slots (blocks,) f32 scratch; metrics (8,) raw sums; grad0 (NET,) or null.
-extern "C" int ppo_update_launch(int d, const void* data, long long n, const void* perm, int tile,
+extern "C" int ppo_update_launch(int d, int adim, const void* data, long long n, const void* perm, int tile,
                                  int tpm, int n_passes, int n_minibatches, const void* adv_stats,
                                  const void* kl_beta, const void* count_in, void* count_out,
                                  void* params, void* mu, void* nu, float clip_eps,
@@ -285,17 +286,11 @@ extern "C" int ppo_update_launch(int d, const void* data, long long n, const voi
   a.has_floor = has_floor;
   a.log_std_floor = log_std_floor;
   const auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (d) {
-    case 10:
-      err = kl_mode ? launch<10, true>(a, blocks, st) : launch<10, false>(a, blocks, st);
-      break;
-    case 13:
-      err = kl_mode ? launch<13, true>(a, blocks, st) : launch<13, false>(a, blocks, st);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
+  const cudaError_t err =
+      with_kernel_dims(d, adim, cudaErrorInvalidValue, [&](auto dc, auto ac_) {
+        constexpr int kD = decltype(dc)::value, kA = decltype(ac_)::value;
+        return kl_mode ? launch<kD, kA, true>(a, blocks, st) : launch<kD, kA, false>(a, blocks, st);
+      });
   return static_cast<int>(err);
 }
 

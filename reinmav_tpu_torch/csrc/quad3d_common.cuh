@@ -1,7 +1,9 @@
 // Device code shared by the quadrotor3d kernels: K1 (quad3d_rollout.cu, the
-// closed loop under the geometric controller) and K2 (ppo_rollout.cu, the
-// closed loop under the PPO policy).  Philox4x32-10, the U(-1, 1) and U[0, 1)
-// draws from its words, and the quadrotor3d dynamics step of
+// closed loop under the geometric controller), K2 (ppo_rollout.cu, the
+// closed loop under the PPO policy) and, through env_kinds.cuh, K7 and the
+// quadrotor3d-slungload closed loop (K9).  Philox4x32-10, the U(-1, 1) and
+// U[0, 1) draws from its words and the U(-1, 1)^D reset, the geometric
+// controller, and the quadrotor3d dynamics step of
 // reinmav_tpu/envs/quadrotor3d.py:step.  The plain PyTorch twins write the
 // same arithmetic in reinmav_tpu_torch/ops/rollout.py and ops/ppo_rollout.py.
 
@@ -49,34 +51,110 @@ __device__ __forceinline__ float uniform_pm1(uint32_t bits) {
   return 2.0f * (f12 - 1.0f) - 1.0f;
 }
 
-// The U(-1,1)^10 reset of env `env` at step `step`: three Philox blocks with
-// counter (env, step, draw, stream) and key (seed, 0); component k is word
-// k % 4 of draw k / 4.
-__device__ __forceinline__ void reset_uniform10(float (&s)[10], uint32_t env, uint32_t step,
-                                                uint32_t seed, uint32_t stream) {
-  const uint4 b0 = philox4x32_10(make_uint4(env, step, 0u, stream), seed, 0u);
-  const uint4 b1 = philox4x32_10(make_uint4(env, step, 1u, stream), seed, 0u);
-  const uint4 b2 = philox4x32_10(make_uint4(env, step, 2u, stream), seed, 0u);
-  s[0] = uniform_pm1(b0.x); s[1] = uniform_pm1(b0.y);
-  s[2] = uniform_pm1(b0.z); s[3] = uniform_pm1(b0.w);
-  s[4] = uniform_pm1(b1.x); s[5] = uniform_pm1(b1.y);
-  s[6] = uniform_pm1(b1.z); s[7] = uniform_pm1(b1.w);
-  s[8] = uniform_pm1(b2.x); s[9] = uniform_pm1(b2.y);
+// The U(-1, 1)^D reset of env `env` at step `step`: ceil(D / 4) Philox blocks
+// with counter (env, step, draw, stream) and key (seed, 0); component k is
+// word k % 4 of draw k / 4 (the twin: ops/rollout.py::reset_draws).
+template <int D>
+__device__ __forceinline__ void reset_uniform(float (&s)[D], uint32_t env, uint32_t step,
+                                              uint32_t seed, uint32_t stream) {
+#pragma unroll
+  for (int k = 0; k < (D + 3) / 4; ++k) {
+    const uint4 b = philox4x32_10(make_uint4(env, step, static_cast<uint32_t>(k), stream), seed,
+                                  0u);
+    const uint32_t w[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (4 * k + j < D) s[4 * k + j] = uniform_pm1(w[j]);
+    }
+  }
 }
 
-// Body z axis of the NORMALISED quaternion of s = [p(3) q(4) v(3)], and the
-// inverse quaternion norm that the quaternion update reuses.
+// Body z axis of the NORMALISED quaternion of s = [p(3) q(4) v(3) ...], and
+// the inverse quaternion norm that the quaternion update reuses.
 struct BodyZ {
   float inv_qn, x, y, z;
 };
 
-__device__ __forceinline__ BodyZ body_z(const float (&s)[10]) {
+template <int N>
+__device__ __forceinline__ BodyZ body_z(const float (&s)[N]) {
   const float qw = s[3], qx = s[4], qy = s[5], qz = s[6];
   const float qn2 = qw * qw + qx * qx + qy * qy + qz * qz;
   const float inv_qn = rsqrtf(qn2);
   const float inv_qn2 = inv_qn * inv_qn;
   return {inv_qn, 2.0f * (qx * qz + qw * qy) * inv_qn2, 2.0f * (qy * qz - qw * qx) * inv_qn2,
           1.0f - 2.0f * (qx * qx + qy * qy) * inv_qn2};
+}
+
+// The geometric controller (reinmav_tpu/ops/pallas_rollout.py::
+// tilt_controller_tiles :241) on s = [p(3) q(4) v(3) ...]: the PD desired
+// acceleration, its Gram-Schmidt frame, pyquaternion's _from_matrix branch
+// select, and the rate command from the error against the RAW quaternion.
+// The thrust is mass-blind, projected on the body z of the normalised
+// quaternion, which is returned for the dynamics to reuse.
+struct GeometricCmd {
+  float thrust, wx, wy, wz;
+  BodyZ bz;
+};
+
+template <int N>
+__device__ __forceinline__ GeometricCmd geometric_control(const float (&s)[N], float kp, float kv,
+                                                          float ref_x, float ref_y, float ref_z,
+                                                          float gz, float two_over_tau) {
+  const float px = s[0], py = s[1], pz = s[2];
+  const float qw = s[3], qx = s[4], qy = s[5], qz = s[6];
+  const float vx = s[7], vy = s[8], vz = s[9];
+
+  const float ax = kp * (px - ref_x) + kv * vx;
+  const float ay = kp * (py - ref_y) + kv * vy;
+  const float az = kp * (pz - ref_z) + kv * vz - gz;
+
+  const float an = rsqrtf(ax * ax + ay * ay + az * az);
+  const float zbx = ax * an, zby = ay * an, zbz = az * an;
+  // xb = yc x zb with yc = (0, 1, 0): (zbz, 0, -zbx), normalised.
+  const float xn = rsqrtf(zbz * zbz + zbx * zbx);
+  const float xbx = zbz * xn, xbz = -zbx * xn;
+  // yb = zb x xb
+  const float ybx = zby * xbz;
+  const float yby = zbz * xbx - zbx * xbz;
+  const float ybz = -zby * xbx;
+
+  // pyquaternion _from_matrix on the transposed [xb yb zb]: rows xb, yb, zb
+  // (m01 = xb_y = 0).
+  const float m00 = xbx, m02 = xbz;
+  const float m10 = ybx, m11 = yby, m12 = ybz;
+  const float m20 = zbx, m21 = zby, m22 = zbz;
+  float t, dw, dx, dy, dz;
+  if (m22 < 0.0f) {
+    if (m00 > m11) {  // branch A
+      t = 1.0f + m00 - m11 - m22;
+      dw = m12 - m21; dx = t; dy = m10; dz = m20 + m02;
+    } else {  // branch B
+      t = 1.0f - m00 + m11 - m22;
+      dw = m20 - m02; dx = m10; dy = t; dz = m12 + m21;
+    }
+  } else {
+    if (m00 < -m11) {  // branch C
+      t = 1.0f - m00 - m11 + m22;
+      dw = -m10; dx = m20 + m02; dy = m12 + m21; dz = t;
+    } else {  // branch D
+      t = 1.0f + m00 + m11 + m22;
+      dw = t; dx = m12 - m21; dy = m20 - m02; dz = -m10;
+    }
+  }
+  const float scale = 0.5f * rsqrtf(t);
+  dw *= scale; dx *= scale; dy *= scale; dz *= scale;
+
+  // qe = conj(q_raw) (x) q_des; rate command from the RAW quaternion.
+  const float ew = qw * dw + qx * dx + qy * dy + qz * dz;
+  const float ex = qw * dx - qx * dw - qy * dz + qz * dy;
+  const float ey = qw * dy + qx * dz - qy * dw - qz * dx;
+  const float ez = qw * dz - qx * dy + qy * dx - qz * dw;
+  const float sgn = ew > 0.0f ? 1.0f : (ew < 0.0f ? -1.0f : 0.0f);  // sign(0) = 0 (Q10)
+  const float k = two_over_tau * sgn;
+
+  // Body z of the NORMALISED quaternion, shared by thrust and dynamics.
+  const BodyZ bz = body_z(s);
+  return {ax * bz.x + ay * bz.y + az * bz.z, k * ex, k * ey, k * ez, bz};
 }
 
 // One dynamics step of quadrotor3d with thrust / mass `tq` along body z and

@@ -34,7 +34,6 @@
 
 namespace {
 
-using reinmav::BodyZ;
 using reinmav::Quad3dParams;
 
 constexpr int kThreads = 256;
@@ -45,68 +44,12 @@ __device__ __forceinline__ float closed_loop_step(float (&s)[10], const Quad3dPa
                                                   float two_over_tau, float inv_m,
                                                   float half_dt, float pos_lim2,
                                                   float vel_lim2, bool& done) {
-  const float px = s[0], py = s[1], pz = s[2];
-  const float qw = s[3], qx = s[4], qy = s[5], qz = s[6];
-  const float vx = s[7], vy = s[8], vz = s[9];
-  const float dt = p.dt, gz = p.gravity;
-
   // ---- geometric controller (tilt_controller_tiles) ----------------------
-  const float ax = p.kp * (px - p.ref_x) + p.kv * vx;
-  const float ay = p.kp * (py - p.ref_y) + p.kv * vy;
-  const float az = p.kp * (pz - p.ref_z) + p.kv * vz - gz;
-
-  const float an = rsqrtf(ax * ax + ay * ay + az * az);
-  const float zbx = ax * an, zby = ay * an, zbz = az * an;
-  // xb = yc x zb with yc = (0, 1, 0): (zbz, 0, -zbx), normalised.
-  const float xn = rsqrtf(zbz * zbz + zbx * zbx);
-  const float xbx = zbz * xn, xbz = -zbx * xn;
-  // yb = zb x xb
-  const float ybx = zby * xbz;
-  const float yby = zbz * xbx - zbx * xbz;
-  const float ybz = -zby * xbx;
-
-  // pyquaternion _from_matrix on the transposed [xb yb zb]: rows xb, yb, zb
-  // (m01 = xb_y = 0).
-  const float m00 = xbx, m02 = xbz;
-  const float m10 = ybx, m11 = yby, m12 = ybz;
-  const float m20 = zbx, m21 = zby, m22 = zbz;
-  float t, dw, dx, dy, dz;
-  if (m22 < 0.0f) {
-    if (m00 > m11) {  // branch A
-      t = 1.0f + m00 - m11 - m22;
-      dw = m12 - m21; dx = t; dy = m10; dz = m20 + m02;
-    } else {  // branch B
-      t = 1.0f - m00 + m11 - m22;
-      dw = m20 - m02; dx = m10; dy = t; dz = m12 + m21;
-    }
-  } else {
-    if (m00 < -m11) {  // branch C
-      t = 1.0f - m00 - m11 + m22;
-      dw = -m10; dx = m20 + m02; dy = m12 + m21; dz = t;
-    } else {  // branch D
-      t = 1.0f + m00 + m11 + m22;
-      dw = t; dx = m12 - m21; dy = m20 - m02; dz = -m10;
-    }
-  }
-  const float scale = 0.5f * rsqrtf(t);
-  dw *= scale; dx *= scale; dy *= scale; dz *= scale;
-
-  // qe = conj(q_raw) (x) q_des; rate command from the RAW quaternion.
-  const float ew = qw * dw + qx * dx + qy * dy + qz * dz;
-  const float ex = qw * dx - qx * dw - qy * dz + qz * dy;
-  const float ey = qw * dy + qx * dz - qy * dw - qz * dx;
-  const float ez = qw * dz - qx * dy + qy * dx - qz * dw;
-  const float sgn = ew > 0.0f ? 1.0f : (ew < 0.0f ? -1.0f : 0.0f);  // sign(0) = 0 (Q10)
-  const float k = two_over_tau * sgn;
-  const float wx = k * ex, wy = k * ey, wz = k * ez;
-
-  // Body z of the NORMALISED quaternion, shared by thrust and dynamics.
-  const BodyZ bz = reinmav::body_z(s);
-  const float thrust = ax * bz.x + ay * bz.y + az * bz.z;
-
+  const reinmav::GeometricCmd cmd = reinmav::geometric_control(
+      s, p.kp, p.kv, p.ref_x, p.ref_y, p.ref_z, p.gravity, two_over_tau);
   // ---- dynamics (envs/quadrotor3d.py:step) --------------------------------
-  return reinmav::quad3d_dynamics(s, bz, thrust * inv_m, wx, wy, wz, dt, gz, half_dt, pos_lim2,
-                                  vel_lim2, done);
+  return reinmav::quad3d_dynamics(s, cmd.bz, cmd.thrust * inv_m, cmd.wx, cmd.wy, cmd.wz, p.dt,
+                                  p.gravity, half_dt, pos_lim2, vel_lim2, done);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -132,7 +75,7 @@ quad3d_rollout_kernel(const float* __restrict__ s_in, float* __restrict__ s_out,
     bool done;
     reward_sum += closed_loop_step(s, p, two_over_tau, inv_m, half_dt, pos_lim2, vel_lim2, done);
     if (autoreset && done) {
-      reinmav::reset_uniform10(s, env, static_cast<uint32_t>(t), seed, 0u);
+      reinmav::reset_uniform(s, env, static_cast<uint32_t>(t), seed, 0u);
     }
   }
 

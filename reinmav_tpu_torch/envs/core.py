@@ -17,17 +17,20 @@ Rollouts are Python loops over the horizon.  The public layout is
 ``(B, D)``; the ``_t`` forms take the kernel layout ``(D, B)``.
 :func:`throughput_rollout` runs a hand-written CUDA kernel when the
 states lie on the card and the env is the registry's own: the
-quadrotor3d closed loop (K1, :mod:`reinmav_tpu_torch.ops.rollout`) or
-the hover task's zero-action rollout (K5,
-:mod:`reinmav_tpu_torch.ops.hover_rollout`).
+quadrotor3d closed loop (K1, :mod:`reinmav_tpu_torch.ops.rollout`), the
+closed loops of quadrotor2d-v0 (K8) and the slung-load envs (K9,
+:mod:`reinmav_tpu_torch.ops.closed_loop_rollout`), or the hover task's
+zero-action rollout (K5, :mod:`reinmav_tpu_torch.ops.hover_rollout`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+from collections.abc import Mapping
 from typing import Any, Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 log = logging.getLogger(__name__)
@@ -204,16 +207,23 @@ def control_rollout(env: EnvDef, init_states, generator, horizon: int, auto_rese
 
 def _fused_kernel_registry():
     """name -> (step_fn, control_fn or None, reset_fn, default Params) that
-    the env's fused kernel computes: K1 for quadrotor3d-v0, K5 (and K6 of
-    the PPO rollout) for the hover task.  The kernels take the env's
-    Params values as arguments, so a param sweep runs in them; params of
-    another type do not.  ``control_fn`` None: the kernel has no
-    classical controller (K5 steps zero actions)."""
-    from . import quadrotor3d, tpuquad
+    the env's fused kernel computes: K1 for quadrotor3d-v0, K8 for
+    quadrotor2d-v0, K9 for the slung-load envs, K5 for the hover task (and
+    K2/K6/K7, the policy-driven kernels, for every one of them).  The
+    kernels take the env's Params values as arguments, so a param sweep
+    runs in them; params of another type do not.  ``control_fn`` None: the
+    kernel has no classical controller (K5 steps zero actions)."""
+    from . import quadrotor2d, quadrotor2d_slungload, quadrotor3d, quadrotor3d_slungload, tpuquad
 
     return {
         "quadrotor3d-v0": (quadrotor3d.step, quadrotor3d.control, quadrotor3d.reset,
                            quadrotor3d.Params()),
+        "quadrotor2d-v0": (quadrotor2d.step, quadrotor2d.control, quadrotor2d.reset,
+                           quadrotor2d.Params()),
+        "quadrotor2d-slungload-v0": (quadrotor2d_slungload.step, quadrotor2d_slungload.control,
+                                     quadrotor2d_slungload.reset, quadrotor2d_slungload.Params()),
+        "quadrotor3d-slungload-v0": (quadrotor3d_slungload.step, quadrotor3d_slungload.control,
+                                     quadrotor3d_slungload.reset, quadrotor3d_slungload.Params()),
         "MujocoQuadForce-v1": (tpuquad.hovering_step, None, tpuquad.hovering_reset,
                                tpuquad.Params(init_z=1.0)),
     }
@@ -283,13 +293,13 @@ def throughput_rollout(env: EnvDef, init_states, generator, horizon: int,
     An env with a classical controller is flown by it; an env without one
     (the tpuquad family) is stepped with zero actions.  ``backend``:
     ``"kernel"`` runs the env's fused CUDA kernel (float32, the
-    registry's functions, any params: K1 for quadrotor3d-v0, K5 for
-    MujocoQuadForce-v1) and raises where it cannot; ``"scan"`` runs the
-    eager loop; ``"auto"`` takes the kernel where it can and logs which
-    path ran and why.  K1 draws its reset states from its own Philox
-    stream, seeded from ``generator``: a different stream from the eager
-    loop's, deterministic per seed.  K5's resets are deterministic, as
-    the env's.
+    registry's functions, any params: K1 for quadrotor3d-v0, K8 for
+    quadrotor2d-v0, K9 for the slung-load envs, K5 for MujocoQuadForce-v1)
+    and raises where it cannot; ``"scan"`` runs the eager loop; ``"auto"``
+    takes the kernel where it can and logs which path ran and why.  K1, K8
+    and K9 draw their reset states from their own Philox stream, seeded
+    from ``generator``: a different stream from the eager loop's,
+    deterministic per seed.  K5's resets are deterministic, as the env's.
     """
     if backend not in ("auto", "kernel", "scan"):
         raise ValueError(f"unknown backend {backend!r}")
@@ -310,10 +320,16 @@ def throughput_rollout(env: EnvDef, init_states, generator, horizon: int,
                 states_t, horizon, params_vec=hover_ops.hover_params_vec(env.params),
                 frame_skip=env.params.frame_skip)
             return final_t.T, reward_sum
+        from ..ops import closed_loop_rollout as cl_ops
         from ..ops import rollout as rollout_ops
 
         seed = int(torch.randint(0, 2**31 - 1, (), generator=generator,
                                  device=generator.device))
+        if env.name in cl_ops.KINDS:
+            final_t, reward_sum = cl_ops.closed_loop_rollout(
+                env.name, states_t, seed, horizon,
+                params_vec=cl_ops.KINDS[env.name].pack(env.params))
+            return final_t.T, reward_sum
         final_t, reward_sum = rollout_ops.quad3d_rollout_autoreset(
             states_t, seed, horizon, params_vec=rollout_ops.quad3d_params_vec(env.params))
         return final_t.T, reward_sum
@@ -337,6 +353,18 @@ def _zero_action_rollout(env: EnvDef, init_states, generator, horizon: int):
     final, traj = rollout(env, zero_policy, init_states, generator, horizon,
                           collect_trajectory=False)
     return final, traj.reward.sum(dim=0)
+
+
+def params_from_jax(params_type, p):
+    """The JAX package's flat-float ``Params`` of an env (or a mapping of
+    its fields, values as floats or NumPy scalars) as the port's
+    ``params_type``.  Raises ``ValueError`` if the fields or their order
+    differ."""
+    fields = tuple(p.keys()) if isinstance(p, Mapping) else getattr(type(p), "_fields", None)
+    if fields != params_type._fields:
+        raise ValueError(f"params fields {fields} != {params_type._fields}")
+    values = p.values() if isinstance(p, Mapping) else p
+    return params_type(*(float(np.asarray(v)) for v in values))
 
 
 def uniform_reset(dim: int, low: float = -1.0, high: float = 1.0):

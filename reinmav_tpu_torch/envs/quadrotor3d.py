@@ -19,13 +19,12 @@ Behavioural parity points (see the JAX module for the reference lines):
 
 from __future__ import annotations
 
-from collections.abc import Mapping
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ..ops import quadmath as qm
+from . import core
 from .core import EnvDef, StepOut, uniform_reset
 
 
@@ -45,14 +44,8 @@ class Params(NamedTuple):
 
 def params_from_jax(p) -> Params:
     """The JAX package's ``quadrotor3d.Params`` (or a mapping of its
-    fields, values as floats or NumPy scalars) as the port's
-    :class:`Params`.  Raises ``ValueError`` if the fields or their order
-    differ."""
-    fields = tuple(p.keys()) if isinstance(p, Mapping) else getattr(type(p), "_fields", None)
-    if fields != Params._fields:
-        raise ValueError(f"params fields {fields} != {Params._fields}")
-    values = p.values() if isinstance(p, Mapping) else p
-    return Params(*(float(np.asarray(v)) for v in values))
+    fields) as the port's :class:`Params` (:func:`core.params_from_jax`)."""
+    return core.params_from_jax(Params, p)
 
 
 def step(p: Params, s: torch.Tensor, a: torch.Tensor) -> StepOut:

@@ -1,10 +1,11 @@
 """Environment registry of the PyTorch port: ``make(env_id)`` returns an
 :class:`~reinmav_tpu_torch.envs.core.EnvDef`.
 
-Ported so far: ``quadrotor3d-v0`` and the tpuquad family
-(``MujocoQuadForce-v0``, ``MujocoQuadForce-v1``, ``MujocoQuadQuat-v0``).
-The other reference ids are known and raise ``NotImplementedError``
-naming the ROADMAP.md item that ports them; an unknown id raises the same ``KeyError`` as
+Ported so far: ``quadrotor3d-v0``, ``quadrotor2d-v0``, the two slung-load
+envs and the tpuquad family (``MujocoQuadForce-v0``,
+``MujocoQuadForce-v1``, ``MujocoQuadQuat-v0``).  ``reinmav-v0`` is known
+and raises ``NotImplementedError`` naming the ROADMAP.md item that ports
+it; an unknown id raises the same ``KeyError`` as
 :func:`reinmav_tpu.make`.
 """
 
@@ -18,10 +19,7 @@ _REGISTRY: Dict[str, Callable[..., EnvDef]] = {}
 
 #: Reference env ids not ported yet -> the ROADMAP.md item that ports them.
 _NOT_PORTED = {
-    "quadrotor2d-v0": "ROADMAP.md queue 1 item 9 (remaining native envs)",
-    "quadrotor2d-slungload-v0": "ROADMAP.md queue 1 item 9 (remaining native envs)",
-    "quadrotor3d-slungload-v0": "ROADMAP.md queue 1 item 9 (remaining native envs)",
-    "reinmav-v0": "ROADMAP.md queue 1 item 9 (remaining native envs)",
+    "reinmav-v0": "ROADMAP.md queue 1 item 9 (remaining native envs, slice 9c)",
 }
 
 
@@ -48,9 +46,18 @@ def registered_ids():
 
 
 def _populate() -> None:
-    from . import quadrotor3d, tpuquad  # local import to avoid cycles
+    from . import (  # local import to avoid cycles
+        quadrotor2d,
+        quadrotor2d_slungload,
+        quadrotor3d,
+        quadrotor3d_slungload,
+        tpuquad,
+    )
 
+    register("quadrotor2d-v0", quadrotor2d.make)
+    register("quadrotor2d-slungload-v0", quadrotor2d_slungload.make)
     register("quadrotor3d-v0", quadrotor3d.make)
+    register("quadrotor3d-slungload-v0", quadrotor3d_slungload.make)
     register("MujocoQuadForce-v0", tpuquad.make_force_ground)
     register("MujocoQuadForce-v1", tpuquad.make_hovering)
     register("MujocoQuadQuat-v0", tpuquad.make_quat)

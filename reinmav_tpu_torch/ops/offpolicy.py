@@ -1,8 +1,9 @@
 """Kernel K7: the fused off-policy collection step of SAC, TD3 and DDPG,
 and its plain twin.
 
-The counterpart of :mod:`reinmav_tpu.ops.pallas_offpolicy` (kinds
-``quadrotor3d-v0`` and ``MujocoQuadForce-v1``).  :func:`collect_step` runs
+The counterpart of :mod:`reinmav_tpu.ops.pallas_offpolicy` (every kind of
+:data:`reinmav_tpu_torch.ops.ppo_rollout.ENVS`: quadrotor3d-v0, the hover
+task, quadrotor2d-v0 and the two slung-load envs).  :func:`collect_step` runs
 one collection iteration in one CUDA kernel written by hand for Hopper
 (``csrc/offpolicy_collect.cu``, a template on the env structs of
 ``csrc/env_kinds.cuh`` that K2/K6-hover share): the actor MLP (ReLU
@@ -14,7 +15,7 @@ action, raw reward, the TERMINAL next_obs, done), and the auto-reset of
 the done envs after the block is written.
 :func:`collect_step_reference` is its plain PyTorch twin: the same
 float32 arithmetic and the same Philox4x32-10 draws (action noise on
-stream 3, warmup uniforms on stream 4, quadrotor3d's resets on stream 5
+stream 3, warmup uniforms on stream 4, the U(-1, 1)^D resets on stream 5
 of :func:`reinmav_tpu_torch.ops.rollout.philox_words`; K2 uses streams 1
 and 2), so the two agree on the card, and the CPU tests run the twin.
 
@@ -25,11 +26,10 @@ CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
-from .ppo_rollout import ENVS, _env_twin
+from .ppo_rollout import ENVS, _env_twin, normal_draws
 from .rollout import mantissa_fill, philox_words
 
 #: Sampling modes, by their id in the C entry point.  The ``_det`` modes
@@ -38,7 +38,6 @@ MODES = {"sac": 0, "sac_det": 1, "td3": 2, "td3_det": 3}
 #: Hidden widths the kernel is built for: multiples of 32 up to 256.
 HIDDEN_STEP, MAX_HIDDEN = 32, 256
 _EPS_STREAM, _WARM_STREAM, _RESET_STREAM = 3, 4, 5
-_TWO_PI = 2.0 * math.pi
 
 
 def supported(env) -> bool:
@@ -105,12 +104,8 @@ def _check_args(env_kind, mode, states_t, seed, consts, params_vec, weights) -> 
 
 
 def _normal(env_idx: torch.Tensor, seed: int, a: int) -> torch.Tensor:
-    """K7's N(0, 1) draws, ``(a, n)``: Box-Muller (cosine branch) over two
-    Philox blocks on stream 3, U[0, 1) by mantissa fill."""
-    words = philox_words(env_idx, 0, seed, 2, _EPS_STREAM)
-    u = mantissa_fill(words[:a]) - 1.0
-    v = mantissa_fill(words[4:4 + a]) - 1.0
-    return torch.sqrt(-2.0 * torch.log(1.0 - u)) * torch.cos(_TWO_PI * v)
+    """K7's N(0, 1) draws, ``(a, n)``: K2's Box-Muller on stream 3."""
+    return normal_draws(env_idx, 0, seed, a, _EPS_STREAM)
 
 
 def _uniform_pm1(env_idx: torch.Tensor, seed: int, a: int) -> torch.Tensor:
@@ -163,8 +158,7 @@ def collect_step(env_kind: str, mode: str, states_t, seed: int, consts, params_v
     """K7: one off-policy collection iteration in one CUDA launch.
 
     ``env_kind`` an :data:`ENVS` name; ``mode`` one of :data:`MODES`;
-    ``states_t`` ``(D, B)`` float32 (D its state dim, 10 or 13), any ``B >
-    0``; ``seed`` the uint32 Philox key of the noise, warmup and reset
+    ``states_t`` ``(D, B)`` float32 (D its state dim), any ``B > 0``; ``seed`` the uint32 Philox key of the noise, warmup and reset
     draws; ``consts`` ``[warm_gate, explore_noise, lo (A), hi (A)]``
     float32 on the same device (warm_gate > 0.5 takes the uniform draws);
     ``params_vec`` the env's live Params packed by the kind's ``pack``

@@ -33,8 +33,10 @@ import torch
 from ..rl.networks import Layout
 
 #: The (obs, action) dims the K3 and K4 kernels are built for
-#: (quadrotor3d-v0, the tpuquad family), and their 2x64 actor-critic.
-KERNEL_DIMS = ((10, 4), (13, 4))
+#: (quadrotor3d-v0, the tpuquad family, quadrotor2d-v0, the 2D and 3D
+#: slung-load envs: ``csrc/ppo_loss_body.cuh::with_kernel_dims``), and their
+#: 2x64 actor-critic.
+KERNEL_DIMS = ((10, 4), (13, 4), (5, 2), (9, 2), (16, 4))
 HIDDEN = (64, 64)
 METRICS = ("pg_loss", "v_loss", "approx_kl", "clip_frac")
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -216,14 +218,14 @@ def ppo_loss_grads_gather(data, adv_stats, perm, net, *, d: int, adim: int, clip
         blocks = lib.ppo_loss_blocks(m * tile)
         if blocks <= 0:
             raise RuntimeError(f"ppo_loss_blocks returned {blocks}")
-        out_size = lib.ppo_loss_out_size(d)
+        out_size = lib.ppo_loss_out_size(d, adim)
         if out_size != layout.size + len(METRICS):
             raise RuntimeError(f"the K3 library writes {out_size} sums, the flat layout has "
                                f"{layout.size} + {len(METRICS)}")
         partials = torch.empty((blocks, out_size), dtype=torch.float32, device=data.device)
         sums = torch.empty(out_size, dtype=torch.float32, device=data.device)
         rc = lib.ppo_loss_launch(
-            d, data.data_ptr(), n, perm.data_ptr(), m, tile, adv_stats.data_ptr(), net.data_ptr(),
+            d, adim, data.data_ptr(), n, perm.data_ptr(), m, tile, adv_stats.data_ptr(), net.data_ptr(),
             clip_eps, value_clip_eps, value_coef, int(kl_mode), blocks, partials.data_ptr(),
             sums.data_ptr(), torch.cuda.current_stream().cuda_stream)
     check(rc, "ppo_loss_launch")

@@ -1,16 +1,17 @@
-"""Kernels K2 and K6-hover: the fused PPO rollout of quadrotor3d-v0 and of
-the hover task, and its plain twin.
+"""Kernels K2 and K6: the fused PPO rollout of quadrotor3d-v0 (K2), of the
+hover task (K6-hover) and of quadrotor2d-v0 and the slung-load envs
+(K6-rest), and its plain twin.
 
-The counterpart of :mod:`reinmav_tpu.ops.pallas_ppo_rollout` (kinds
-``quadrotor3d-v0`` and ``MujocoQuadForce-v1``).  :func:`ppo_rollout` runs
+The counterpart of :mod:`reinmav_tpu.ops.pallas_ppo_rollout` (every kind of
+its ``_ENVS``).  :func:`ppo_rollout` runs
 the whole rollout phase of PPO in one CUDA kernel written by hand for
 Hopper (``csrc/ppo_rollout.cu``, a template on the env): obs
 normalisation, the 2x64 tanh actor-critic, the Gaussian action with logp
 from the rounded action, the env step, auto-reset, the return-scaled
 reward, the raw moment sums and the trajectory.
 :func:`ppo_rollout_reference` is its plain PyTorch twin: the same
-arithmetic and the same Philox4x32-10 draws (noise on stream 1,
-quadrotor3d's resets on stream 2 of
+arithmetic and the same Philox4x32-10 draws (noise on stream 1, the
+U(-1, 1)^D resets on stream 2 of
 :func:`reinmav_tpu_torch.ops.rollout.philox_words`; the hover task resets
 deterministically), so the two agree on the card with noise and resets
 on, and the CPU tests run the twin.  :data:`ENVS` is the per-env table
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from ..rl.networks import Layout
+from . import closed_loop_rollout as cl_ops
 from . import hover_rollout as hover_ops
 from .rollout import (_Q3_FIELDS, body_z, mantissa_fill, philox_words, quad3d_dynamics,
                       quad3d_params_vec, reset_draws)
@@ -47,19 +49,25 @@ class EnvKind(NamedTuple):
     pack: Callable
 
 
-#: env name -> :class:`EnvKind` (the JAX package's ``_ENVS``, for the kinds
-#: ported so far).
+#: env name -> :class:`EnvKind` (the JAX package's ``_ENVS``); the ids are
+#: those of ``csrc/env_kinds.cuh``.
 ENVS = {
     "quadrotor3d-v0": EnvKind(0, 10, 4, quad3d_params_vec),
     "MujocoQuadForce-v1": EnvKind(1, 13, 4, hover_ops.hover_params_vec),
+    **{name: EnvKind(k.kind_id, k.state_dim, k.action_dim, k.pack)
+       for name, k in cl_ops.KINDS.items()},
 }
 
-#: The kernel's 2x64 actor-critic (csrc/actor_critic.cuh) and action dim.
-A, HIDDEN = 4, (64, 64)
+#: The kernel's 2x64 actor-critic (csrc/actor_critic.cuh).
+HIDDEN = (64, 64)
 _THREADS = 128  # CTA size of the kernel, for the partials scratch
 _NOISE_STREAM, _RESET_STREAM = 1, 2
 _TWO_PI = 2.0 * math.pi
-_LOGP_CONST = float(np.float32(0.5 * A) * np.float32(math.log(2.0 * math.pi)))
+
+
+def logp_const(adim: int) -> float:
+    """``0.5 A log(2 pi)`` as the kernel forms it in float32."""
+    return float(np.float32(0.5 * adim) * np.float32(math.log(2.0 * math.pi)))
 
 
 class RolloutOut(NamedTuple):
@@ -129,20 +137,22 @@ def _check_args(states_t, env_returns, seed, net, consts, horizon, params_vec,
     return params.detach().to("cpu", torch.float32)
 
 
-def normal_draws(env_idx: torch.Tensor, step: int, seed: int) -> torch.Tensor:
-    """K2's N(0, 1) action noise of envs ``env_idx`` at ``step``: Box-Muller
-    (cosine branch) over two Philox blocks on stream 1, U[0, 1) by
-    mantissa fill.  Returns ``(A, n)`` float32."""
-    words = philox_words(env_idx, step, seed, 2, _NOISE_STREAM)
-    u = mantissa_fill(words[:A]) - 1.0
-    v = mantissa_fill(words[A:]) - 1.0
+def normal_draws(env_idx: torch.Tensor, step: int, seed: int, adim: int = 4,
+                 stream: int = _NOISE_STREAM) -> torch.Tensor:
+    """The kernels' N(0, 1) action noise of envs ``env_idx`` at ``step``:
+    Box-Muller (cosine branch) over two Philox blocks on ``stream`` (K2's
+    1, K7's 3), U[0, 1) by mantissa fill; action ``a`` takes word ``a`` of
+    each block.  Returns ``(adim, n)`` float32."""
+    words = philox_words(env_idx, step, seed, 2, stream)
+    u = mantissa_fill(words[:adim]) - 1.0
+    v = mantissa_fill(words[4:4 + adim]) - 1.0
     return torch.sqrt(-2.0 * torch.log(1.0 - u)) * torch.cos(_TWO_PI * v)
 
 
-def _towers(net: torch.Tensor, x: torch.Tensor):
+def _towers(net: torch.Tensor, x: torch.Tensor, adim: int):
     """The actor-critic on ``x`` (D, B), tower by tower: ``(mean (A, B),
     value (B,))``."""
-    p = Layout(x.shape[0], A, HIDDEN).unflatten(net)
+    p = Layout(x.shape[0], adim, HIDDEN).unflatten(net)
     heads = []
     for tower in ("pi", "vf"):
         h = x
@@ -156,25 +166,33 @@ def _env_twin(env_kind: str, params: torch.Tensor, reset_stream: int = _RESET_ST
     """``(step, reset)`` of a kind in the kernel's arithmetic: ``step(s,
     act) -> (states, raw reward, done)`` on ``(D, B)`` states and ``(A,
     B)`` actions; ``reset(s, done, t, seed)`` resets the done envs of
-    ``s`` in place (quadrotor3d from Philox stream ``reset_stream``)."""
-    if env_kind == "quadrotor3d-v0":
-        p = dict(zip(_Q3_FIELDS, params.numpy()))
-        half_dt = float(np.float32(0.5) * p["dt"])
-        pos_lim2 = float(p["pos_limit"] * p["pos_limit"])
-        vel_lim2 = float(p["vel_limit"] * p["vel_limit"])
-        dt, gz, mass = float(p["dt"]), float(p["gravity"]), float(p["mass"])
+    ``s`` in place (U(-1, 1)^D from Philox stream ``reset_stream``)."""
+    if env_kind == "MujocoQuadForce-v1":
+        return _hover_twin(params)
 
-        def step(s, act):
-            return quad3d_dynamics(s, body_z(s), act[0] / mass, act[1], act[2], act[3], dt, gz,
-                                   half_dt, pos_lim2, vel_lim2)
+    def uniform_reset(s, done, t, seed):
+        idx = torch.nonzero(done).squeeze(1)
+        if idx.numel():
+            s[:, idx] = reset_draws(idx, t, seed, reset_stream, s.shape[0])
 
-        def reset(s, done, t, seed):
-            idx = torch.nonzero(done).squeeze(1)
-            if idx.numel():
-                s[:, idx] = reset_draws(idx, t, seed, reset_stream)
+    if env_kind in cl_ops.KINDS:
+        return cl_ops.env_twin(env_kind, params)[1], uniform_reset
+    p = dict(zip(_Q3_FIELDS, params.numpy()))
+    half_dt = float(np.float32(0.5) * p["dt"])
+    pos_lim2 = float(p["pos_limit"] * p["pos_limit"])
+    vel_lim2 = float(p["vel_limit"] * p["vel_limit"])
+    dt, gz, mass = float(p["dt"]), float(p["gravity"]), float(p["mass"])
 
-        return step, reset
+    def quad3d_step(s, act):
+        return quad3d_dynamics(s, body_z(s), act[0] / mass, act[1], act[2], act[3], dt, gz,
+                               half_dt, pos_lim2, vel_lim2)
 
+    return quad3d_step, uniform_reset
+
+
+def _hover_twin(params: torch.Tensor):
+    """The hover task's ``(step, reset)`` for :func:`_env_twin`: two
+    substeps of hover_rollout's arithmetic, the deterministic reset."""
     c = hover_ops.hover_consts(params)
     fresh = torch.tensor([0.0, 0.0, c["init_z"], 1.0] + [0.0] * 9, dtype=torch.float32)
 
@@ -199,12 +217,12 @@ def ppo_rollout_reference(states_t, env_returns, seed: int, net, consts, horizon
                           params_vec: torch.Tensor | None = None, normalize_obs: bool = True,
                           normalize_rewards: bool = True,
                           env_kind: str = "quadrotor3d-v0") -> RolloutOut:
-    """Plain PyTorch twin of K2 / K6-hover, on any device: the same float32
+    """Plain PyTorch twin of K2 / K6, on any device: the same float32
     arithmetic and the same Philox draws.  Its products are float32
     matmuls; on a CUDA device the caller keeps TF32 off."""
     params = _check_args(states_t, env_returns, seed, net, consts, horizon, params_vec, env_kind)
     env_step, env_reset = _env_twin(env_kind, params)
-    D = ENVS[env_kind].state_dim
+    D, A = ENVS[env_kind].state_dim, ENVS[env_kind].action_dim
     seed, horizon = int(seed), int(horizon)
     batch = states_t.shape[1]
     dev = states_t.device
@@ -224,10 +242,10 @@ def ppo_rollout_reference(states_t, env_returns, seed: int, net, consts, horizon
             x = torch.clamp((s - obs_mean) * obs_invstd, -10.0, 10.0)
         else:
             x = s
-        mean, value = _towers(net, x)
-        act = mean + std * normal_draws(env_idx, t, seed)
+        mean, value = _towers(net, x, A)
+        act = mean + std * normal_draws(env_idx, t, seed, A)
         z = (act - mean) * (1.0 / std)
-        logp = -0.5 * (z * z).sum(dim=0) - ls_sum - _LOGP_CONST
+        logp = -0.5 * (z * z).sum(dim=0) - ls_sum - logp_const(A)
 
         s, raw, done = env_step(s, act)
         reward = raw
@@ -257,15 +275,15 @@ def ppo_rollout_reference(states_t, env_returns, seed: int, net, consts, horizon
 def ppo_rollout(states_t, env_returns, seed: int, net, consts, horizon: int,
                 params_vec: torch.Tensor | None = None, normalize_obs: bool = True,
                 normalize_rewards: bool = True, env_kind: str = "quadrotor3d-v0") -> RolloutOut:
-    """K2 (quadrotor3d-v0) or K6-hover (MujocoQuadForce-v1): ``horizon``
-    policy + env steps in one CUDA launch.
+    """K2 (quadrotor3d-v0) or K6 (the other kinds of :data:`ENVS`):
+    ``horizon`` policy + env steps in one CUDA launch.
 
     ``env_kind`` an :data:`ENVS` name; ``states_t`` ``(D, B)`` (D its
-    state dim, 10 or 13) and ``env_returns`` ``(B,)`` float32, any ``B >
-    0``; ``seed`` the uint32 Philox key of the noise and reset streams;
-    ``net`` the flat 2x64 actor-critic of obs dim D
+    state dim) and ``env_returns`` ``(B,)`` float32, any ``B > 0``;
+    ``seed`` the uint32 Philox key of the noise and reset streams; ``net``
+    the flat 2x64 actor-critic of the kind's obs dim D and action dim A
     (:class:`reinmav_tpu_torch.rl.networks.Layout`); ``consts``
-    ``[obs_mean (D), obs_invstd (D), exp(log_std) (4), sum(log_std),
+    ``[obs_mean (D), obs_invstd (D), exp(log_std) (A), sum(log_std),
     1/sqrt(ret_var + 1e-8), gamma]`` on the same device; ``params_vec``
     the env's live Params packed by the kind's ``pack`` (default Params
     when None).  Returns :class:`RolloutOut`.  Launches on the current
@@ -282,7 +300,7 @@ def ppo_rollout(states_t, env_returns, seed: int, net, consts, horizon: int,
 
     lib = load_library()
     kind = ENVS[env_kind]
-    D, batch, T = kind.state_dim, states_t.shape[1], int(horizon)
+    D, A, batch, T = kind.state_dim, kind.action_dim, states_t.shape[1], int(horizon)
     f32 = dict(dtype=torch.float32, device=states_t.device)
     out = RolloutOut(
         torch.empty((T, D, batch), **f32), torch.empty((T, A, batch), **f32),
@@ -305,5 +323,5 @@ def ppo_rollout(states_t, env_returns, seed: int, net, consts, horizon: int,
 
 
 #: Kernel launches so far (a run can show that its path went through K2 or
-#: K6-hover).
+#: K6).
 ppo_rollout.launches = 0

@@ -217,7 +217,7 @@ def ppo_update(data, adv_stats, perm_all, params, opt_state, kl_beta, *, d: int,
         sums = torch.empty(N_METRIC_SUMS, **f32)
         grad0 = torch.empty(layout.size, **f32) if keep_grad0 else None
         rc = lib.ppo_update_launch(
-            d, data.data_ptr(), n, perm_all.data_ptr(), tile, tpm, n_passes, n_minibatches,
+            d, adim, data.data_ptr(), n, perm_all.data_ptr(), tile, tpm, n_passes, n_minibatches,
             adv_stats.data_ptr(), kl_beta.data_ptr() if kl_mode else None, count.data_ptr(),
             new_count.data_ptr(), new_params.data_ptr(), new_mu.data_ptr(), new_nu.data_ptr(),
             clip_eps, value_clip_eps, value_coef, 1.0 / mb, ent_coef, lr, max_grad_norm,

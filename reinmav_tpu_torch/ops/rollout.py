@@ -121,12 +121,14 @@ def mantissa_fill(bits: torch.Tensor) -> torch.Tensor:
     return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
 
 
-def reset_draws(env_idx: torch.Tensor, step: int, seed: int, stream: int = 0) -> torch.Tensor:
-    """The kernels' U(-1, 1)^10 reset of envs ``env_idx`` at ``step``:
-    three Philox blocks with counter (env, step, draw, stream) and key
-    (seed, 0); component ``k`` is word ``k % 4`` of draw ``k // 4``.  K1
-    draws on stream 0, K2 on stream 2.  Returns ``(10, n)`` float32."""
-    f12 = mantissa_fill(philox_words(env_idx, step, seed, 3, stream)[:10])
+def reset_draws(env_idx: torch.Tensor, step: int, seed: int, stream: int = 0,
+                dim: int = 10) -> torch.Tensor:
+    """The kernels' U(-1, 1)^dim reset of envs ``env_idx`` at ``step``:
+    ceil(dim / 4) Philox blocks with counter (env, step, draw, stream) and
+    key (seed, 0); component ``k`` is word ``k % 4`` of draw ``k // 4``.
+    K1, K8 and K9 draw on stream 0, K2/K6 on stream 2, K7 on stream 5.
+    Returns ``(dim, n)`` float32."""
+    f12 = mantissa_fill(philox_words(env_idx, step, seed, -(-dim // 4), stream)[:dim])
     # Mantissa fill to [1, 2), then affine (pallas_rollout.py:206-211).
     return 2.0 * (f12 - 1.0) - 1.0
 
@@ -141,6 +143,55 @@ def body_z(s: torch.Tensor):
     inv_qn2 = inv_qn * inv_qn
     return (inv_qn, 2.0 * (qx * qz + qw * qy) * inv_qn2, 2.0 * (qy * qz - qw * qx) * inv_qn2,
             1.0 - 2.0 * (qx * qx + qy * qy) * inv_qn2)
+
+
+def geometric_control(s: torch.Tensor, kp: float, kv: float, ref_x: float, ref_y: float,
+                      ref_z: float, gz: float, two_over_tau: float):
+    """The geometric controller on ``(10 or more, B)`` states ``[p q v
+    ...]``, in the order of the kernels' shared ``geometric_control``
+    (csrc/quad3d_common.cuh).  Returns ``(thrust, wx, wy, wz, bz)``: the
+    mass-blind thrust, the body rates, and :func:`body_z` for the
+    dynamics."""
+    px, py, pz, qw, qx, qy, qz, vx, vy, vz = s[:10].unbind(0)
+    ax = kp * (px - ref_x) + kv * vx
+    ay = kp * (py - ref_y) + kv * vy
+    az = kp * (pz - ref_z) + kv * vz - gz
+    an = torch.rsqrt(ax * ax + ay * ay + az * az)
+    zbx, zby, zbz = ax * an, ay * an, az * an
+    xn = torch.rsqrt(zbz * zbz + zbx * zbx)
+    xbx, xbz = zbz * xn, -zbx * xn
+    ybx = zby * xbz
+    yby = zbz * xbx - zbx * xbz
+    ybz = -zby * xbx
+
+    m00, m02 = xbx, xbz
+    m10, m11, m12 = ybx, yby, ybz
+    m20, m21, m22 = zbx, zby, zbz
+    tA = 1.0 + m00 - m11 - m22
+    qA = (m12 - m21, tA, m10, m20 + m02)
+    tB = 1.0 - m00 + m11 - m22
+    qB = (m20 - m02, m10, tB, m12 + m21)
+    tC = 1.0 - m00 - m11 + m22
+    qC = (-m10, m20 + m02, m12 + m21, tC)
+    tD = 1.0 + m00 + m11 + m22
+    qD = (tD, m12 - m21, m20 - m02, -m10)
+    neg, first, second = m22 < 0.0, m00 > m11, m00 < -m11
+
+    def select(a, b, c, d):
+        return torch.where(neg, torch.where(first, a, b), torch.where(second, c, d))
+
+    scale = 0.5 * torch.rsqrt(select(tA, tB, tC, tD))
+    dw, dx, dy, dz = (select(*qs) * scale for qs in zip(qA, qB, qC, qD))
+
+    ew = qw * dw + qx * dx + qy * dy + qz * dz
+    ex = qw * dx - qx * dw - qy * dz + qz * dy
+    ey = qw * dy + qx * dz - qy * dw - qz * dx
+    ez = qw * dz - qx * dy + qy * dx - qz * dw
+    k = two_over_tau * torch.sign(ew)
+
+    # Body z of the normalised quaternion, shared by thrust and dynamics.
+    bz = body_z(s)
+    return ax * bz[1] + ay * bz[2] + az * bz[3], k * ex, k * ey, k * ez, bz
 
 
 def quad3d_dynamics(s: torch.Tensor, bz, tq, wx, wy, wz, dt: float, gz: float, half_dt: float,
@@ -212,51 +263,8 @@ def quad3d_rollout_reference(states_t: torch.Tensor, seed: int, horizon: int,
     s = states_t.clone()
     reward_sum = torch.zeros_like(s[0])
     for t in range(horizon):
-        px, py, pz, qw, qx, qy, qz, vx, vy, vz = s.unbind(0)
-
-        # ---- geometric controller ----
-        ax = kp * (px - ref_x) + kv * vx
-        ay = kp * (py - ref_y) + kv * vy
-        az = kp * (pz - ref_z) + kv * vz - gz
-        an = torch.rsqrt(ax * ax + ay * ay + az * az)
-        zbx, zby, zbz = ax * an, ay * an, az * an
-        xn = torch.rsqrt(zbz * zbz + zbx * zbx)
-        xbx, xbz = zbz * xn, -zbx * xn
-        ybx = zby * xbz
-        yby = zbz * xbx - zbx * xbz
-        ybz = -zby * xbx
-
-        m00, m02 = xbx, xbz
-        m10, m11, m12 = ybx, yby, ybz
-        m20, m21, m22 = zbx, zby, zbz
-        tA = 1.0 + m00 - m11 - m22
-        qA = (m12 - m21, tA, m10, m20 + m02)
-        tB = 1.0 - m00 + m11 - m22
-        qB = (m20 - m02, m10, tB, m12 + m21)
-        tC = 1.0 - m00 - m11 + m22
-        qC = (-m10, m20 + m02, m12 + m21, tC)
-        tD = 1.0 + m00 + m11 + m22
-        qD = (tD, m12 - m21, m20 - m02, -m10)
-        neg, first, second = m22 < 0.0, m00 > m11, m00 < -m11
-
-        def select(a, b, c, d):
-            return torch.where(neg, torch.where(first, a, b), torch.where(second, c, d))
-
-        scale = 0.5 * torch.rsqrt(select(tA, tB, tC, tD))
-        dw, dx, dy, dz = (select(*qs) * scale for qs in zip(qA, qB, qC, qD))
-
-        ew = qw * dw + qx * dx + qy * dy + qz * dz
-        ex = qw * dx - qx * dw - qy * dz + qz * dy
-        ey = qw * dy + qx * dz - qy * dw - qz * dx
-        ez = qw * dz - qx * dy + qy * dx - qz * dw
-        k = two_over_tau * torch.sign(ew)
-        wx, wy, wz = k * ex, k * ey, k * ez
-
-        # Body z of the normalised quaternion, shared by thrust and dynamics.
-        bz = body_z(s)
-        thrust = ax * bz[1] + ay * bz[2] + az * bz[3]
-
-        # ---- dynamics ----
+        thrust, wx, wy, wz, bz = geometric_control(s, kp, kv, ref_x, ref_y, ref_z, gz,
+                                                   two_over_tau)
         s, reward, done = quad3d_dynamics(s, bz, thrust * inv_m, wx, wy, wz, dt, gz, half_dt,
                                           pos_lim2, vel_lim2)
         reward_sum = reward_sum + reward

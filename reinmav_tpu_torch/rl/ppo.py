@@ -9,17 +9,18 @@ optax's ``chain(clip_by_global_norm(0.5), adam(lr, eps=1e-5))``.
 One update (:func:`train_step`) is the rollout followed by
 :func:`update_phase`.  The rollout runs in the fused CUDA kernel
 (:mod:`reinmav_tpu_torch.ops.ppo_rollout`: K2 for quadrotor3d-v0,
-K6-hover for MujocoQuadForce-v1) when the states lie on the card and the
-env is the registry's, else as the eager loop :func:`collect_rollout`.  The update runs on the card as ONE launch
+K6-hover for MujocoQuadForce-v1, K6 for quadrotor2d-v0 and the slung-load
+envs) when the states lie on the card and the env is the registry's, else
+as the eager loop :func:`collect_rollout`.  The update runs on the card as ONE launch
 of the K4 CUDA kernel (:mod:`reinmav_tpu_torch.ops.ppo_update`: every
 epoch x minibatch pass of the loss gradient, clip + Adam and the floor),
 as the JAX package's ``fused_update`` does on its accelerator; with
 ``fused_update="off"`` it is a loop over the minibatches whose loss
 gradient runs in the K3 CUDA kernel (:mod:`reinmav_tpu_torch.ops.ppo_loss`)
 on the card, else through ``torch.autograd`` of :func:`ppo_loss`.  K3
-and K4 are built for the observation dims of quadrotor3d-v0 (10) and of
-the tpuquad family (13); an env of other dims takes the loop through
-autograd on the card.  ``train_step`` logs which paths ran and why.
+and K4 are built for the (obs, action) dims of the envs that K2/K6 take
+(``ops/ppo_loss.py::KERNEL_DIMS``); an env of other dims takes the loop
+through autograd on the card.  ``train_step`` logs which paths ran and why.
 
 State is functional as in the JAX package (each update returns a new
 :class:`TrainState`), with one exception: ``TrainState.generator``, a
@@ -446,7 +447,7 @@ def _tiling(cfg: PpoConfig, n: int):
 
 
 def _rollout_kernel_name(env: EnvDef) -> str:
-    return "K6-hover" if env.name == "MujocoQuadForce-v1" else "K2"
+    return {"quadrotor3d-v0": "K2", "MujocoQuadForce-v1": "K6-hover"}.get(env.name, "K6")
 
 
 def kind_refusal(env: EnvDef, what: str = "fused PPO rollout kernel"):

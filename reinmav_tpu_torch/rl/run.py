@@ -11,8 +11,9 @@ Usage (the JAX package's flags; ``--device`` is the port's own)::
         --num_env=8192 --batch_size=2048 --grad_steps=16 --updates_per_jit=64
 
 ``--alg`` ``ppo``, ``a2c`` (one epoch, one batch, no ratio clipping) and
-``ppo_kl`` (the adaptive-KL penalty): on the card every update is one K2
-launch for the rollout and one K4 launch for the update
+``ppo_kl`` (the adaptive-KL penalty): on the card every update is one
+launch of the fused rollout (K2 on quadrotor3d-v0, K6 on the hover task,
+quadrotor2d-v0 and the slung-load envs) and one K4 launch for the update
 (:func:`reinmav_tpu_torch.rl.ppo.train_step` logs which paths ran).
 ``--alg`` ``sac``, ``td3`` and ``ddpg`` (TD3 with one critic, no target
 smoothing and no delay): every iteration is one batched env step, one K7

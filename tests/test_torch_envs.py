@@ -167,8 +167,8 @@ def test_fused_kernel_mismatch():
     assert core.fused_kernel_mismatch(quadrotor3d.make(quadrotor3d.Params(ref_z=1.0))) is None
     foreign = dataclasses.replace(env, params=jq3.Params())
     assert "not the kernel's Params" in core.fused_kernel_mismatch(foreign)
-    other = dataclasses.replace(env, name="quadrotor2d-v0")
-    assert core.fused_kernel_mismatch(other) == "no fused kernel for quadrotor2d-v0"
+    other = dataclasses.replace(env, name="reinmav-v0")
+    assert core.fused_kernel_mismatch(other) == "no fused kernel for reinmav-v0"
 
 
 def test_fused_kernel_mismatch_for_policy_kernels():
@@ -194,7 +194,9 @@ def test_registry_unknown_id_raises_same_keyerror_as_jax():
         reinmav_tpu.make("nope-v0")
     assert str(t_err.value) == str(j_err.value)
     assert reinmav_tpu_torch.registered_ids() == [
-        "MujocoQuadForce-v0", "MujocoQuadForce-v1", "MujocoQuadQuat-v0", "quadrotor3d-v0"]
+        "MujocoQuadForce-v0", "MujocoQuadForce-v1", "MujocoQuadQuat-v0",
+        "quadrotor2d-slungload-v0", "quadrotor2d-v0", "quadrotor3d-slungload-v0",
+        "quadrotor3d-v0"]
 
 
 @pytest.mark.parametrize("env_id", sorted(set(reinmav_tpu.registered_ids()) - {"quadrotor3d-v0"}))

@@ -226,7 +226,7 @@ def test_collect_step_checks_its_arguments():
     with pytest.raises(ValueError, match="w3 must be"):
         call("quadrotor3d-v0", "sac", st, 1, consts, None, *weights)  # a TD3 head
     with pytest.raises(ValueError, match="env_kind"):
-        call("quadrotor2d-v0", "td3", st, 1, consts, None, *weights)
+        call("reinmav-v0", "td3", st, 1, consts, None, *weights)
     with pytest.raises(ValueError, match="states_t must be"):
         call("MujocoQuadForce-v1", "td3", st, 1, consts, None, *weights)
     with pytest.raises(TypeError, match="float32"):

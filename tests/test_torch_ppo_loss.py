@@ -180,5 +180,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     assert pl.kernel_dims_refusal(13, 4, (64, 64)) is None
     assert "(10, 4), (13, 4)" in pl.kernel_dims_refusal(7, 4, (64, 64))
     assert "hidden" in pl.kernel_dims_refusal(13, 4, (32, 32))
+    for d, a in ((5, 2), (9, 2), (16, 4)):
+        assert pl.kernel_dims_refusal(d, a, (64, 64)) is None
     with pytest.raises(ValueError, match="K3 kernel refuses obs/action dims"):
-        pl.require_kernel_dims("K3", 16, 4, 64)
+        pl.require_kernel_dims("K3", 16, 2, 64)
