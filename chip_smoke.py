@@ -118,12 +118,39 @@ Phases, in order; any failure raises and exits non-zero:
    phase 15 at 65,536 envs, 2 x 256; then SAC and TD3 through train_iters
    at that size, K7 once per iteration.
 23. The CLI on quadrotor2d-v0, as phase 11's.
+24. Kernel K10 (reinmav-v0's rollout of 50/51-substep steps), at
+   benchmarks/sweep.py:133-135's sizes: throughput_rollout(make(
+   "reinmav-v0")) through the public API at 131,072 x 500 and at 8192 x 500
+   must launch K10 once each, with reward sums exactly 90 x 500 and no
+   reset; K10 against its twin free-running at 131,072 x 50 from perturbed
+   init states (max |err| <= 1e-3, the envs outside rtol 2e-4 / atol 2e-5
+   reported, every step's substep count equal to the twin's), its counts
+   over 500 steps equal to the float32 recurrence's (14 x 51 in 400 steps
+   from t = 0), a bitwise rerun; K10 timed at 131,072 x 500, at 8192 x 500
+   and at 131,072 x 50, the twin at 131,072 x 50 (its time at 500 steps is
+   an estimate, scaled, in the text only).
+25. Kernel K11 (the contact envs' rollout with the coupled contact solve),
+   for each of MujocoQuadForce-v0 and MujocoQuadQuat-v0: throughput_rollout
+   at 131,072 x 500 through the public API must launch it once (zero reward
+   sums, the bodies resting on the plane) and be bitwise the kernel's run
+   that records its tier mix (the substeps that solved nothing, 16 or 48
+   candidates), from which the bound is counted; K11 against its twin 10
+   steps one at a time from the twin's state at 131,072 envs from contact-
+   heavy states, 0 envs outside rtol 2e-4 / atol 2e-5 off the knife edges (a
+   candidate within 1e-6 of the plane), which are counted; free-running at
+   8192 x 100, mean Σz within 1% of the twin's and min z > -0.1; the forced
+   48-candidate sweep bitwise the gated one; bitwise reruns; K11 timed at
+   131,072 x 500 and on one step at 131,072, the twin on one step (its time
+   at 500 steps is an estimate, scaled, in the text only); ptxas's
+   registers and spills of K10 and K11.
 
 The second-to-last line is a JSON object describing each kernel of the
-paths: its launches on its main path, its error against its twin, its
-time and its twin's, and its bound (the least time the card could take:
-the larger of its bytes over the memory rate and its FP32 operations
-over the FP32 rate).  The last line is {"ok": true, "device": {...}}.
+paths (K1-K11): its launches on its main path, its error against its twin,
+its time and its twin's (each measured; where the twin ran at a smaller
+shape than the kernel, ``plain_at`` names that shape and
+``ms_at_plain_shape`` is the kernel's time there), and its bound (the least
+time the card could take: the larger of its bytes over the memory rate and
+its FP32 operations over the FP32 rate).  The last line is {"ok": true, "device": {...}}.
 The script imports nothing of JAX.
 """
 
@@ -212,6 +239,29 @@ OPS_LOSS.update({d: 2 * (256 * d + 192 * a + 24_768) for d, a in NATIVE.values()
 OPS_ENV_STEP.update(OPS_STEP)
 T_RESYNC = 50  # steps of the closed loops' resynchronised check
 NATIVE_ITERS = 5  # SAC and TD3 iterations on each new kind
+# reinmav-v0 and the contact envs (phases 24-25), at benchmarks/sweep.py:133-
+# 135's sizes: every env at 131,072 x 500, reinmav-v0 also at its default
+# --reinmav_batch of 8192.
+B_SWEEP, T_SWEEP, B_REINMAV = 131_072, 500, 8192
+T_K10_CHECK = 50  # steps of K10's free-running check against its twin
+# K10, FP32 operations per substep, a hand count from csrc/reinmav_rollout.cu
+# (asin, atan2, sin and cos as one each): the quaternion's matrix 30, the
+# Euler extraction 10, the quintic reference 23, the PD controller 43, the
+# mixer with its clamps 27, the accelerations 7, the quaternion derivative
+# 35, the angular acceleration 42, the Euler update 26, the substep time 2.
+# A step runs 50 or 51 substeps, counted from this run's times.
+OPS_K10_SUBSTEP = 245
+# K11, FP32 operations, a hand count from csrc/contact_rollout.cu and
+# hover_common.cuh (sqrt, rsqrt, sin, cos and divisions as one each): per
+# substep the rigid body (rotation 30, free wrench 50, gyroscopic term 9,
+# integration 80) and the z test of the 48 candidates (20 each); per
+# substep that solves, the env's frame 40 and, per candidate of its tier
+# (16 or 48), the setup 190 and, per sweep stage, 22 (the projected update
+# 15, the arm products 3, its share of the four sums 4), plus 12 per stage
+# for the env (eF and the wrench).
+OPS_K11 = dict(rigid=170, ztest=20, frame=40, setup=190, stage_cand=22, stage_env=12)
+T_K11_RESYNC, B_K11_FREE, T_K11_FREE, T_K11_TIERS = 10, 8192, 100, 10
+KNIFE_PLANE = 1e-6  # a contact candidate this close to the plane is a knife edge
 # The learning artifact's config (benchmarks/artifacts/sac_hover_20M_r5/
 # metrics.jsonl, line 1: calls of 64 iterations, logged every 4 calls),
 # run for LEARN_CALLS calls.
@@ -388,16 +438,19 @@ def kernel_counters() -> dict:
     launches of every kind (K2, K6-hover, K6-rest), ``K8/K9`` the
     closed-loop template's of every kind."""
     from reinmav_tpu_torch.ops import closed_loop_rollout as cl
+    from reinmav_tpu_torch.ops import contact_rollout as cr
     from reinmav_tpu_torch.ops import hover_rollout as hr
     from reinmav_tpu_torch.ops import offpolicy as op
     from reinmav_tpu_torch.ops import ppo_loss as pl
     from reinmav_tpu_torch.ops import ppo_rollout as pr
     from reinmav_tpu_torch.ops import ppo_update as pu
+    from reinmav_tpu_torch.ops import reinmav_rollout as rr
     from reinmav_tpu_torch.ops import rollout as ro
 
     return {"K1": ro.quad3d_rollout_autoreset, "K2": pr.ppo_rollout,
             "K3": pl.ppo_loss_grads_gather, "K4": pu.ppo_update, "K5": hr.hover_rollout,
-            "K7": op.collect_step, "K8/K9": cl.closed_loop_rollout}
+            "K7": op.collect_step, "K8/K9": cl.closed_loop_rollout, "K10": rr.reinmav_rollout,
+            "K11": cr.contact_rollout}
 
 
 def ppo_state(env, cfg, dev, seed: int = 0):
@@ -708,7 +761,7 @@ def ppo_phases(torch, dev, gpu: str, env) -> list[dict]:
     updates = WARMUP_UPDATES + TIMED_UPDATES
     passes = cfg.num_epochs * cfg.num_minibatches
     require(launches == {"K1": 0, "K2": updates, "K3": updates * passes, "K4": 0, "K5": 0,
-                         "K7": 0, "K8/K9": 0}, f"launches {launches} on the K3 loop path, expected K2 {updates}, K3 "
+                         "K7": 0, "K8/K9": 0, "K10": 0, "K11": 0}, f"launches {launches} on the K3 loop path, expected K2 {updates}, K3 "
             f"{updates * passes}")
 
     # The same updates from the same state through the eager rollout and
@@ -738,7 +791,7 @@ def ppo_phases(torch, dev, gpu: str, env) -> list[dict]:
     main_launches, main_walls, main_summaries = training_phase(torch, dev, gpu, env, main_cfg,
                                                                "ppo update (K4)")
     require(main_launches == {"K1": 0, "K2": updates, "K3": 0, "K4": updates, "K5": 0,
-                              "K7": 0, "K8/K9": 0}, f"launches {main_launches} on the default path, expected K2 and K4 {updates}, K3 0")
+                              "K7": 0, "K8/K9": 0, "K10": 0, "K11": 0}, f"launches {main_launches} on the default path, expected K2 and K4 {updates}, K3 0")
     rewards = [s["mean_reward"] for s in main_summaries]
     for r, e in zip(rewards, loop_rewards):
         require(abs(r - e) <= 0.1 * abs(e), f"mean_reward {rewards} vs the K3 loop {loop_rewards}")
@@ -853,7 +906,8 @@ def hover_phases(torch, dev, gpu: str) -> list[dict]:
     big_final, reward_sum = reinmav_tpu_torch.throughput_rollout(env, big, gen, horizon=T_MAIN)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
-    require(launches == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 1, "K7": 0, "K8/K9": 0},
+    require(launches == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 1, "K7": 0, "K8/K9": 0,
+                         "K10": 0, "K11": 0},
             f"hover throughput_rollout launches {launches}, expected K5 1")
     require(big_final.shape == (B_MAIN, 13) and reward_sum.shape == (B_MAIN,), "output shapes")
     require(bool(torch.isfinite(big_final).all()) and bool(torch.isfinite(reward_sum).all()),
@@ -910,13 +964,13 @@ def hover_phases(torch, dev, gpu: str) -> list[dict]:
     main_launches, main_walls, main_summaries = training_phase(
         torch, dev, gpu, env, main_cfg, "hover ppo update (K6-hover + K4)")
     require(main_launches == {"K1": 0, "K2": updates, "K3": 0, "K4": updates, "K5": 0,
-                              "K7": 0, "K8/K9": 0}, f"launches {main_launches} on the hover default path, expected K6-hover and K4 "
+                              "K7": 0, "K8/K9": 0, "K10": 0, "K11": 0}, f"launches {main_launches} on the hover default path, expected K6-hover and K4 "
             f"{updates}, K3 0")
     loop_cfg = main_cfg._replace(fused_update="off")
     loop_launches, loop_walls, loop_summaries = training_phase(
         torch, dev, gpu, env, loop_cfg, "hover ppo update (K3 loop)")
     require(loop_launches == {"K1": 0, "K2": updates, "K3": updates * passes, "K4": 0, "K5": 0,
-                              "K7": 0, "K8/K9": 0}, f"launches {loop_launches} on the hover K3 loop, expected K6-hover {updates}, K3 "
+                              "K7": 0, "K8/K9": 0, "K10": 0, "K11": 0}, f"launches {loop_launches} on the hover K3 loop, expected K6-hover {updates}, K3 "
             f"{updates * passes}")
     eager = ppo_state(env, loop_cfg, dev)
     eager_rewards = []
@@ -1198,7 +1252,7 @@ def offpolicy_phases(torch, dev, gpu: str) -> list[dict]:
     state, met, wall, launches = offpolicy_iterations(torch, hover, cfg, sac, state, SAC_ITERS)
     sac_launches = launches["K7"]
     require(launches == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K7": SAC_ITERS,
-                         "K8/K9": 0},
+                         "K8/K9": 0, "K10": 0, "K11": 0},
             f"launches {launches} on the SAC path, expected K7 {SAC_ITERS}")
     require(all(math.isfinite(v) for v in met.values()), f"SAC metrics {met}")
     cap, total = sac._capacity(cfg, hover), (SAC_WARMUP_ITERS + SAC_ITERS) * B_OFF
@@ -1316,7 +1370,7 @@ def closed_loop_phase(torch, dev, gpu: str, name: str) -> dict:
     final, reward_sum = reinmav_tpu_torch.throughput_rollout(env, big, gen, horizon=T_MAIN)
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters.items()}
-    require(launches == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K7": 0, "K8/K9": 1},
+    require(launches == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K7": 0, "K8/K9": 1, "K10": 0, "K11": 0},
             f"throughput_rollout({name}) launches {launches}, expected K8/K9 1")
     require(final.shape == (B_MAIN, d) and bool(torch.isfinite(final).all()) and
             bool(torch.isfinite(reward_sum).all()), f"{name}: finite states and reward sums")
@@ -1417,13 +1471,13 @@ def native_phases(torch, dev, gpu: str) -> list[dict]:
         main_launches, main_walls, main_summaries = training_phase(
             torch, dev, gpu, env, main_cfg, f"{name} ppo update (K6 + K4)")
         require(main_launches == {"K1": 0, "K2": updates, "K3": 0, "K4": updates, "K5": 0,
-                                  "K7": 0, "K8/K9": 0},
+                                  "K7": 0, "K8/K9": 0, "K10": 0, "K11": 0},
                 f"launches {main_launches} on the {name} default path")
         loop_launches, loop_walls, loop_summaries = training_phase(
             torch, dev, gpu, env, main_cfg._replace(fused_update="off"),
             f"{name} ppo update (K3 loop)")
         require(loop_launches == {"K1": 0, "K2": updates, "K3": updates * passes, "K4": 0,
-                                  "K5": 0, "K7": 0, "K8/K9": 0},
+                                  "K5": 0, "K7": 0, "K8/K9": 0, "K10": 0, "K11": 0},
                 f"launches {loop_launches} on the {name} K3 loop")
         rewards = [s["mean_reward"] for s in main_summaries]
         loop_rewards = [s["mean_reward"] for s in loop_summaries]
@@ -1497,6 +1551,293 @@ def native_phases(torch, dev, gpu: str) -> list[dict]:
     # 23. The CLI on quadrotor2d-v0.
     cli_phase(gpu, "quadrotor2d-v0")
     return entries
+
+
+def reinmav_states(torch, gen, batch: int, t_hi: float = 0.0):
+    """reinmav-v0's init state with U(-0.05, 0.05) on the 13 states and the
+    time U(0, t_hi), ``(14, B)``: the JAX kernel test's perturbation."""
+    dev = gen.device
+    s = torch.zeros((14, batch), device=dev)
+    s[6] = 1.0
+    s[:13] += (torch.rand((13, batch), generator=gen, device=dev) * 2.0 - 1.0) * 0.05
+    s[13] = torch.rand(batch, generator=gen, device=dev) * t_hi
+    return s
+
+
+def reinmav_phase(torch, dev, gpu: str) -> dict:
+    """Phase 24: K10.  throughput_rollout(make("reinmav-v0")) through the
+    public API at B_SWEEP x T_SWEEP and at B_REINMAV x T_SWEEP must launch K10
+    once each, with reward sums exactly 90 T_SWEEP and the time T_SWEEP steps
+    of dt on; K10 against its twin free-running at B_SWEEP x T_K10_CHECK
+    (max |err| <= 1e-3, the envs outside TOL counted, every step's substep
+    count equal); the counts over T_SWEEP steps from random times equal to
+    the float32 recurrence's; a bitwise rerun; K10 and its twin timed.
+    Returns K10's entry of the ``kernels`` line."""
+    import reinmav_tpu_torch
+    from reinmav_tpu_torch.ops import reinmav_rollout as rr
+
+    env = reinmav_tpu_torch.make("reinmav-v0")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    counters = kernel_counters()
+    t_end = torch.zeros((), device=dev)
+    for _ in range(T_SWEEP):
+        t_end = t_end + torch.tensor(env.params.dt, device=dev)
+    main_launches = {}
+    for batch in (B_SWEEP, B_REINMAV):
+        for fn in counters.values():
+            fn.launches = 0
+        states = env.vreset(gen, batch)
+        final, reward_sum = reinmav_tpu_torch.throughput_rollout(env, states, gen,
+                                                                 horizon=T_SWEEP)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        require(launches == {**{k: 0 for k in counters}, "K10": 1},
+                f"throughput_rollout(reinmav-v0) launches {launches}, expected K10 1")
+        require(bool((reward_sum == 90.0 * T_SWEEP).all()), "reward sums are 90 T exactly")
+        require(final.shape == (batch, 14) and bool(torch.isfinite(final).all()) and
+                bool((final[:, 13] == t_end).all()), "finite states, the time T steps of dt on")
+        main_launches[batch] = launches["K10"]
+        if batch == B_SWEEP:
+            main_states = states
+        else:
+            small_states = states
+        dist = float((final[:, 0:3] - 1.0).norm(dim=1).mean())
+        say(f"throughput_rollout(reinmav-v0) B={batch} T={T_SWEEP} backend=auto: K10 launches "
+            f"{launches['K10']}, reward sums {float(reward_sum[0]):.1f} in every env, time "
+            f"{float(final[0, 13]):.6f}, mean distance to the trajectory's end (1, 1, 1) "
+            f"{dist:.4f}: ok")
+    del final, reward_sum, states
+
+    # K10 against its twin, free-running, in turns: plain, kernel, kernel, plain.
+    x = reinmav_states(torch, gen, B_SWEEP)
+    kernel_check = lambda: rr.reinmav_rollout(x, T_K10_CHECK, record_substeps=True)  # noqa: E731
+    plain_check = lambda: rr.reinmav_rollout_reference(x, T_K10_CHECK,  # noqa: E731
+                                                       record_substeps=True)
+    (plain0,), (f_p, n_p) = cuda_ms(plain_check, 1)
+    check0, (f_k, n_k) = cuda_ms(kernel_check, 3)
+    err = float((f_k - f_p).abs().max())
+    outside = int((~torch.isclose(f_k, f_p, **TOL).all(dim=0)).sum())
+    require(torch.equal(n_k, n_p), "K10 and its twin count the substeps alike")
+    require(err <= 1e-3, f"K10 vs twin: max |err| {err}")
+    again = kernel_check()
+    require(torch.equal(f_k, again[0]) and torch.equal(n_k, again[1]), "K10 bitwise rerun")
+    x_long = reinmav_states(torch, gen, B_REINMAV, t_hi=4.0)
+    x_long[13, : B_REINMAV // 2] = 0.0
+    _, n_long = rr.reinmav_rollout(x_long, T_SWEEP, record_substeps=True)
+    require(torch.equal(n_long, rr.substep_counts(x_long[13], T_SWEEP)),
+            "K10's counts over the horizon are the float32 recurrence's")
+    fifty_one = int((n_long[:400, 0] == 51).sum())
+    require(fifty_one == 14, f"14 x 51 substeps in 400 steps from t = 0, got {fifty_one}")
+    say(f"K10 vs twin, free-running B={B_SWEEP} T={T_K10_CHECK} from t = 0: max |err| {err:.3e} "
+        f"(limit 1e-3), {outside} envs outside rtol 2e-4 atol 2e-5 (reported), every step's "
+        f"substep count equal ({int((n_k == 51).sum())} env-steps of 51); B={B_REINMAV} "
+        f"T={T_SWEEP} from times in [0, 4]: counts equal to the float32 recurrence's, 14 x 51 "
+        f"in the first 400 steps from t = 0; bitwise equal on a rerun: ok")
+    del f_k, f_p, n_k, n_p, again
+
+    big_t = main_states.T.contiguous()
+    kernel_run = lambda: rr.reinmav_rollout(big_t, T_SWEEP)  # noqa: E731
+    kernel_run()
+    kern0, final_t = cuda_ms(kernel_run, 5)
+    kern1, _ = cuda_ms(kernel_run, 5)
+    (plain1,), _ = cuda_ms(plain_check, 1)
+    check1, _ = cuda_ms(kernel_check, 3)
+    ms = statistics.median(kern0 + kern1)
+    plain_ms, check_ms = (plain0 + plain1) / 2, statistics.median(check0 + check1)
+    substeps = int(rr.substep_counts(big_t[13], T_SWEEP).sum(dtype=torch.int64))
+    bound_ms, bound_by = bound(nbytes(big_t, final_t), OPS_K10_SUBSTEP * substeps)
+    # The 8192-env batch of the main path's second call: under one wave.
+    small_t = small_states.T.contiguous()
+    small_ms = statistics.median(cuda_ms(lambda: rr.reinmav_rollout(small_t, T_SWEEP), 5)[0])
+    small_substeps = int(rr.substep_counts(small_t[13], T_SWEEP).sum(dtype=torch.int64))
+    small_bound, _ = bound(nbytes(small_t, small_t), OPS_K10_SUBSTEP * small_substeps)
+    say(f"time K10 B={B_SWEEP} T={T_SWEEP}: {ms:.3f} ms (median of 10 launches, each "
+        f"{min(kern0 + kern1):.3f} to {max(kern0 + kern1):.3f}), "
+        f"{B_SWEEP * T_SWEEP / ms * 1e3:.4e} env-steps/s; bound {bound_ms:.3f} ms by "
+        f"{bound_by} ({substeps} substeps of {OPS_K10_SUBSTEP} operations); at "
+        f"B={B_SWEEP} T={T_K10_CHECK}: K10 {check_ms:.3f} ms (median of 6), twin {plain_ms:.1f} "
+        f"ms (runs {plain0:.1f}, {plain1:.1f}), so the twin at T={T_SWEEP} would take about "
+        f"{plain_ms * T_SWEEP / T_K10_CHECK:.0f} ms (an estimate, scaled, not measured); at "
+        f"B={B_REINMAV} T={T_SWEEP}: K10 {small_ms:.3f} ms (median of 5), bound "
+        f"{small_bound:.3f} ms ({small_substeps} substeps); on {gpu}")
+    del big_t, final_t, x, x_long, main_states, small_states, small_t
+    torch.cuda.empty_cache()
+    return {"name": "reinmav_rollout (reinmav-v0, K10)", "route": "cuda",
+            "source": "reinmav_tpu_torch/csrc/reinmav_rollout.cu",
+            "replaces": "reinmav_tpu/ops/pallas_reinmav.py:245",
+            "launches": main_launches[B_SWEEP], "launches_at_8192": main_launches[B_REINMAV],
+            "max_abs_err": err, "envs_outside_rtol_2e-4_atol_2e-5": outside,
+            "tolerance": f"max |err| <= 1e-3 free-running over {T_K10_CHECK} steps at B="
+                         f"{B_SWEEP}; every step's substep count equal",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "plain_at": f"states (14, {B_SWEEP}), horizon {T_K10_CHECK}",
+            "ms_at_plain_shape": check_ms, "ms_at_8192": small_ms,
+            "bound_ms_at_8192": small_bound,
+            "at": f"states (14, {B_SWEEP}), horizon {T_SWEEP}; plain_ms at plain_at"}
+
+
+def contact_states(torch, gen, batch: int, tilt: float = 0.25, z_lo: float = 0.0):
+    """tests/test_pallas_tpuquad.py's contact-heavy states, ``(13, B)``: the
+    z = 0 pose raised by U(z_lo, 0.05), the quaternion tilted by U(-tilt,
+    tilt) and renormalised, velocities and rates U(-0.2, 0.2)."""
+    dev = gen.device
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=dev) * 2.0 - 1.0
+
+    s = torch.zeros((13, batch), device=dev)
+    s[2] = z_lo + (0.05 - z_lo) * torch.rand(batch, generator=gen, device=dev)
+    s[3] = 1.0
+    s[4:7] = u(3, batch) * tilt
+    s[7:13] = u(6, batch) * 0.2
+    s[3:7] = s[3:7] / s[3:7].norm(dim=0)
+    return s
+
+
+def contact_ops(tiers, pgs_iters: int) -> float:
+    """FP32 operations K11's run needs, from its ``(B, 3)`` counts of the
+    substeps that solved nothing, 16 and 48 candidates (OPS_K11)."""
+    n0, n16, n48 = (int(v) for v in tiers.long().sum(dim=0))
+    k = OPS_K11
+
+    def solve(nc):
+        stage = nc * k["stage_cand"] + k["stage_env"]
+        return k["frame"] + nc * k["setup"] + pgs_iters * 4 * stage
+
+    return (n0 + n16 + n48) * (k["rigid"] + 48 * k["ztest"]) + n16 * solve(16) + n48 * solve(48)
+
+
+def contact_phase(torch, dev, gpu: str, name: str) -> dict:
+    """Phase 25 for one contact env: throughput_rollout through the public
+    API at B_SWEEP x T_SWEEP must launch K11 once (zero reward sums, finite
+    states resting on the plane); the same run with its tier mix recorded,
+    which the bound counts; K11 against its twin T_K11_RESYNC steps one at a
+    time from the twin's state at B_SWEEP from contact-heavy states, 0 envs
+    outside TOL off the knife edges (a candidate within KNIFE_PLANE of the
+    plane at the step's start or middle), which are counted; free-running
+    at B_K11_FREE x T_K11_FREE, mean Σz within 1% of the twin's and min z >
+    -0.1; the forced 48-candidate sweep bitwise the gated one on states
+    without arm contact; bitwise reruns; timings.  Returns K11's entry of the
+    ``kernels`` line."""
+    import reinmav_tpu_torch
+    from reinmav_tpu_torch.ops import contact_rollout as cr
+
+    env = reinmav_tpu_torch.make(name)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    states = env.vreset(gen, B_SWEEP)
+    (main_ms,), (final, reward_sum) = cuda_ms(
+        lambda: reinmav_tpu_torch.throughput_rollout(env, states, gen, horizon=T_SWEEP), 1)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    require(launches == {**{k: 0 for k in counters}, "K11": 1},
+            f"throughput_rollout({name}) launches {launches}, expected K11 1")
+    require(torch.equal(reward_sum, torch.zeros_like(reward_sum)), f"{name}: zero reward sums")
+    require(bool(torch.isfinite(final).all()) and float(final[:, 2].min()) > -0.1,
+            f"{name}: finite states on the plane")
+    say(f"throughput_rollout({name}) B={B_SWEEP} T={T_SWEEP} backend=auto: K11 launches "
+        f"{launches['K11']}, reward sums 0, final z {float(final[:, 2].min()):.5f} to "
+        f"{float(final[:, 2].max()):.5f}: ok")
+
+    # The main path's tier mix, from its inputs: the same run with the tiers
+    # recorded, timed too.
+    vec = cr.contact_params_vec(env.params)
+    big_t = states.T.contiguous()
+    (kern0,), (f_t, z_t, tiers) = cuda_ms(
+        lambda: cr.contact_rollout(big_t, T_SWEEP, params_vec=vec, record_tiers=True), 1)
+    require(torch.equal(f_t, final.T), f"{name}: the main path's run bitwise the kernel's")
+    del final, reward_sum, states
+
+    # One step at a time from the twin's state, at full width.
+    x, outside, knife, err, plain_steps = contact_states(torch, gen, B_SWEEP), 0, 0, 0.0, []
+    touching = 0
+    kernel_steps = []
+    for _ in range(T_K11_RESYNC):
+        (step_ms,), (f_k, z_k, t_k) = cuda_ms(
+            lambda: cr.contact_rollout(x, 1, params_vec=vec, record_tiers=True), 1)
+        kernel_steps.append(step_ms)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        mid, _, t_mid = cr.contact_rollout_reference(x, 1, params_vec=vec, frame_skip=1,
+                                                     record_tiers=True)
+        f_p, z_p, t_p = cr.contact_rollout_reference(mid, 1, params_vec=vec, frame_skip=1,
+                                                     record_tiers=True)
+        end.record()
+        torch.cuda.synchronize()
+        plain_steps.append(start.elapsed_time(end))
+        safe = ~(cr.near_plane(x, KNIFE_PLANE) | cr.near_plane(mid, KNIFE_PLANE))
+        close = (torch.isclose(f_k, f_p, **TOL).all(dim=0) & torch.isclose(z_k, z_p, **TOL)
+                 & (t_k == t_mid + t_p).all(dim=1))
+        outside += int((~close & safe).sum())
+        knife += int((~safe).sum())
+        touching += int((t_k[:, 0] < 2).sum())
+        err = max(err, float((f_k[:, safe] - f_p[:, safe]).abs().max()))
+        x = f_p
+    require(outside == 0, f"{name} resynchronised: {outside} envs outside")
+    plain_step, kernel_step = statistics.median(plain_steps), statistics.median(kernel_steps)
+    say(f"K11 {name} vs twin, {T_K11_RESYNC} steps resynchronised at B={B_SWEEP}: {outside} envs "
+        f"outside rtol 2e-4 atol 2e-5 (tiers equal too), {knife} env-steps on a knife edge "
+        f"skipped (a candidate within {KNIFE_PLANE:g} of the plane), {touching} env-steps in "
+        f"contact, max |err| {err:.3e}: ok")
+
+    # Free-running at B_K11_FREE x T_K11_FREE: the batch's mean Σz.
+    y = contact_states(torch, gen, B_K11_FREE)
+    f_k, z_k = cr.contact_rollout(y, T_K11_FREE, params_vec=vec)
+    f_p, z_p = cr.contact_rollout_reference(y, T_K11_FREE, params_vec=vec)
+    z_rel = abs(float(z_k.double().mean() - z_p.double().mean())) / abs(float(z_p.double().mean()))
+    apart = int((~torch.isclose(f_k, f_p, **TOL).all(dim=0)).sum())
+    require(z_rel <= 0.01 and float(f_k[2].min()) > -0.1,
+            f"{name} free-running: mean Σz rel err {z_rel}, min z {float(f_k[2].min())}")
+    again = cr.contact_rollout(y, T_K11_FREE, params_vec=vec)
+    require(torch.equal(f_k, again[0]) and torch.equal(z_k, again[1]), f"{name}: bitwise rerun")
+    say(f"K11 {name} free-running B={B_K11_FREE} T={T_K11_FREE}: mean Σz {float(z_k.mean()):.6f}, "
+        f"twin {float(z_p.mean()):.6f} (rel err {z_rel:.3e}, limit 1%), min z "
+        f"{float(f_k[2].min()):.5f} (> -0.1), {apart} envs apart at rtol 2e-4 atol 2e-5 "
+        f"(reported); bitwise equal on a rerun: ok")
+
+    # The tiers: no arm contact, gated against the forced 48-candidate sweep.
+    n = contact_states(torch, gen, B_SWEEP, tilt=0.02, z_lo=0.015)
+    gated_run = lambda: cr.contact_rollout(n, T_K11_TIERS, params_vec=vec,  # noqa: E731
+                                           record_tiers=True)
+    forced_run = lambda: cr.contact_rollout(n, T_K11_TIERS, params_vec=vec,  # noqa: E731
+                                            force48=True, record_tiers=True)
+    (gated_ms,), gated = cuda_ms(gated_run, 1)
+    (forced_ms,), forced = cuda_ms(forced_run, 1)
+    require(torch.equal(gated[0], forced[0]) and torch.equal(gated[1], forced[1]),
+            f"{name}: the 16-candidate tier bitwise the forced 48")
+    g_mix, f_mix = gated[2].sum(dim=0).tolist(), forced[2].sum(dim=0).tolist()
+    require(f_mix[1] == 0 and g_mix[1] > 0 and g_mix[1] + g_mix[2] == f_mix[2],
+            f"{name}: tier mixes gated {g_mix}, forced {f_mix}")
+    say(f"K11 {name} tiers, B={B_SWEEP} T={T_K11_TIERS}, nearly level bodies: the gated run "
+        f"(substeps without a solve, on 16, on 48: {g_mix}) bitwise equal to the forced 48-"
+        f"candidate sweep ({f_mix}); {gated_ms:.3f} ms against {forced_ms:.3f} ms: ok")
+
+    ms = (main_ms + kern0) / 2
+    mix = tiers.sum(dim=0).tolist()
+    bound_ms, bound_by = bound(nbytes(big_t, f_t, z_t), contact_ops(tiers, cr._PGS_ITERS))
+    say(f"time K11 {name} B={B_SWEEP} T={T_SWEEP}: {ms:.3f} ms (mean of 2 launches: the main "
+        f"path's call, {main_ms:.3f}, and the kernel's with its tiers recorded, {kern0:.3f}), "
+        f"{B_SWEEP * T_SWEEP / ms * 1e3:.4e} env-steps/s; substeps without a solve, on 16, on "
+        f"48 candidates: {mix}; bound {bound_ms:.3f} ms by {bound_by}; one step at B={B_SWEEP} "
+        f"from the contact-heavy states (medians of {T_K11_RESYNC}): K11 {kernel_step:.3f} ms, "
+        f"twin {plain_step:.1f} ms, so the twin at T={T_SWEEP} would take about "
+        f"{plain_step * T_SWEEP:.0f} ms (an estimate, scaled, not measured); on {gpu}")
+    del big_t, f_t, z_t, x, y, n, gated, forced, f_k, f_p, again
+    torch.cuda.empty_cache()
+    return {"name": f"contact_rollout ({name}, K11)", "route": "cuda",
+            "source": "reinmav_tpu_torch/csrc/contact_rollout.cu",
+            "replaces": "reinmav_tpu/ops/pallas_tpuquad.py:588",
+            "launches": launches["K11"], "max_abs_err": err, "mismatched_envs": outside,
+            "knife_edge_env_steps": knife, "free_running_envs_apart": apart,
+            "tier_mix": mix, "tiers_gated_ms": gated_ms, "tiers_forced48_ms": forced_ms,
+            "tolerance": f"rtol 2e-4 atol 2e-5 per env over {T_K11_RESYNC} steps resynchronised "
+                         f"at B={B_SWEEP}, 0 envs outside off the knife edges; max_abs_err there",
+            "ms": ms, "plain_ms": plain_step, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+            "plain_at": f"contact-heavy states (13, {B_SWEEP}), horizon 1, zero action",
+            "ms_at_plain_shape": kernel_step,
+            "at": f"states (13, {B_SWEEP}), horizon {T_SWEEP}, zero action; plain_ms at plain_at"}
 
 
 def ptxas_report(path) -> list[str]:
@@ -1693,6 +2034,13 @@ def main() -> int:
     kernels += hover_phases(torch, dev, gpu)
     kernels += offpolicy_phases(torch, dev, gpu)
     kernels += native_phases(torch, dev, gpu)
+    # 24. K10; 25. K11 on each contact env.
+    kernels.append(reinmav_phase(torch, dev, gpu))
+    for line in ptxas_report(_build.ptxas_log_path()):
+        if "contact_rollout" in line or "reinmav_rollout" in line:
+            say(line)
+    kernels += [contact_phase(torch, dev, gpu, name)
+                for name in ("MujocoQuadForce-v0", "MujocoQuadQuat-v0")]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,8 @@ linked into one shared library with a plain C interface, at first use,
 and loaded with ``ctypes``; ptxas's report of every kernel's registers,
 spills and shared memory is kept beside it (:func:`ptxas_log_path`).
 The library's name carries a hash of the
-sources, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+sources, the shared headers (``csrc/*.cuh``) and the flags (a source may
+add its own, :data:`SOURCE_FLAGS`), so an edited
 source or header builds anew and an unchanged tree is reused.
 The build directory ``_build/`` sits in the package and is not
 committed.  A missing ``nvcc`` or a failed build raises: there is no
@@ -30,6 +31,11 @@ SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
+#: Flags of one source beyond NVCC_FLAGS.  K10 and K11 are built without FMA
+#: contraction, so that their arithmetic is their twins', operation for
+#: operation: both run dynamics where a last-bit difference grows (K10's
+#: clamped, stiff rate loop; K11's contact knife edges).
+SOURCE_FLAGS = {"reinmav_rollout.cu": ("-fmad=false",), "contact_rollout.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 #: C entry point -> argtypes.  Every launch entry point returns a CUDA error
@@ -45,6 +51,14 @@ _SIGNATURES = {
     #  host params[17], host action[4], a_sq, 0.1 * a_sum, stream)
     "hover_rollout_launch": (_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P,
                              ctypes.c_float, ctypes.c_float, _P),
+    # K10: (states_in, states_out, substep counts or null, batch, horizon,
+    #  host params, number of params, stream)
+    "reinmav_rollout_launch": (_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P, ctypes.c_int, _P),
+    # K11: (states_in, states_out, z_sum_out, tier counts or null, batch,
+    #  horizon, frame_skip, pgs_iters, force48, host params, number of
+    #  params, stream)
+    "contact_rollout_launch": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P),
     # K8 / K9: (env kind, states_in, states_out, reward_out, batch, horizon,
     #  seed, autoreset, host params, number of params, stream)
     "closed_loop_rollout_launch": (ctypes.c_int, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
@@ -105,6 +119,7 @@ def _sources() -> list[Path]:
 def _library_path() -> Path:
     """Where the library for the current sources, headers and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for src in [*_sources(), *sorted(SRC_DIR.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -141,8 +156,8 @@ def build() -> Path:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, src.stem + ".o") for src in _sources()]
-        logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
-                         for src, obj in zip(_sources(), objs)])
+        logs = _run_all([[nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, ()), "-c", "-o", obj,
+                          str(src)] for src, obj in zip(_sources(), objs)])
         lib = os.path.join(tmp, out.name)
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
         Path(tmp, "ptxas.txt").write_text("".join(logs))

@@ -15,6 +15,14 @@
 // contract products into FMAs, and the comparisons count the envs that
 // disagree.  sinf / cosf / sqrtf are the accurate library functions (no
 // -use_fast_math), and the ang > 1e-9 guard of the exp-map is kept.
+//
+// contact_rollout.cu (K11) keeps its own copy of hover_substep's arithmetic,
+// cut into pieces around the contact solve (rigid_rotation,
+// rigid_free_wrench, rigid_gyro, rigid_integrate): an edit to one must be
+// made to the other.  tests/test_torch_contact_rollout.py::
+// test_rigid_substep_is_the_hover_substep holds the two twins bit for bit,
+// tests/test_torch_cuda_reinmav_contact.py::test_k11_in_flight_is_k5 the two
+// kernels at the float32 tolerance.
 
 #pragma once
 

@@ -19,8 +19,11 @@ Rollouts are Python loops over the horizon.  The public layout is
 states lie on the card and the env is the registry's own: the
 quadrotor3d closed loop (K1, :mod:`reinmav_tpu_torch.ops.rollout`), the
 closed loops of quadrotor2d-v0 (K8) and the slung-load envs (K9,
-:mod:`reinmav_tpu_torch.ops.closed_loop_rollout`), or the hover task's
-zero-action rollout (K5, :mod:`reinmav_tpu_torch.ops.hover_rollout`).
+:mod:`reinmav_tpu_torch.ops.closed_loop_rollout`), the hover task's
+zero-action rollout (K5, :mod:`reinmav_tpu_torch.ops.hover_rollout`),
+reinmav-v0's simulation (K10, :mod:`reinmav_tpu_torch.ops.reinmav_rollout`)
+or the contact envs' zero-action rollout (K11,
+:mod:`reinmav_tpu_torch.ops.contact_rollout`).
 """
 
 from __future__ import annotations
@@ -208,12 +211,15 @@ def control_rollout(env: EnvDef, init_states, generator, horizon: int, auto_rese
 def _fused_kernel_registry():
     """name -> (step_fn, control_fn or None, reset_fn, default Params) that
     the env's fused kernel computes: K1 for quadrotor3d-v0, K8 for
-    quadrotor2d-v0, K9 for the slung-load envs, K5 for the hover task (and
-    K2/K6/K7, the policy-driven kernels, for every one of them).  The
+    quadrotor2d-v0, K9 for the slung-load envs, K5 for the hover task, K10
+    for reinmav-v0, K11 for MujocoQuadForce-v0 and MujocoQuadQuat-v0 (and
+    K2/K6/K7, the policy-driven kernels, for the first five of them).  The
     kernels take the env's Params values as arguments, so a param sweep
     runs in them; params of another type do not.  ``control_fn`` None: the
-    kernel has no classical controller (K5 steps zero actions)."""
-    from . import quadrotor2d, quadrotor2d_slungload, quadrotor3d, quadrotor3d_slungload, tpuquad
+    kernel has no classical controller (K5 and K11 step zero actions,
+    K10's env takes none)."""
+    from . import (quadrotor2d, quadrotor2d_slungload, quadrotor3d, quadrotor3d_slungload,
+                   reinmav13, tpuquad)
 
     return {
         "quadrotor3d-v0": (quadrotor3d.step, quadrotor3d.control, quadrotor3d.reset,
@@ -226,14 +232,14 @@ def _fused_kernel_registry():
                                      quadrotor3d_slungload.reset, quadrotor3d_slungload.Params()),
         "MujocoQuadForce-v1": (tpuquad.hovering_step, None, tpuquad.hovering_reset,
                                tpuquad.Params(init_z=1.0)),
+        "reinmav-v0": (reinmav13.step, None, reinmav13.reset, reinmav13.Params()),
+        "MujocoQuadForce-v0": (tpuquad.force_step, None, tpuquad.force_reset, tpuquad.Params()),
+        "MujocoQuadQuat-v0": (tpuquad.quat_step, None, tpuquad.quat_reset, tpuquad.QuatParams()),
     }
 
 
-#: Envs of the port whose fused kernel is not ported yet -> which one.
-_KERNELS_NOT_PORTED = {
-    "MujocoQuadForce-v0": "K11, the contact rollout (ROADMAP.md queue 1 item 11)",
-    "MujocoQuadQuat-v0": "K11, the contact rollout (ROADMAP.md queue 1 item 11)",
-}
+#: The envs of K11, the contact rollout.
+_CONTACT_ENVS = ("MujocoQuadForce-v0", "MujocoQuadQuat-v0")
 
 
 def fused_kernel_mismatch(env: EnvDef, require_control: bool = True,
@@ -249,12 +255,11 @@ def fused_kernel_mismatch(env: EnvDef, require_control: bool = True,
     policy-driven kernels, K2, replace the controller with the policy).
     ``packed_params=True`` (every kernel of the port so far): the caller
     passes the live Params to the kernel as arguments, so any values are
-    accepted; ``False`` refuses non-default values rather than run them
-    with the defaults."""
+    accepted, but a value the kernel cannot honour (the contact envs'
+    ``contact_enabled=False``) is refused; ``False`` refuses non-default
+    values rather than run them with the defaults."""
     entry = _fused_kernel_registry().get(env.name)
     if entry is None:
-        if env.name in _KERNELS_NOT_PORTED:
-            return f"the fused kernel of {env.name}, {_KERNELS_NOT_PORTED[env.name]}, is not ported"
         return f"no fused kernel for {env.name}"
     step_fn, control_fn, reset_fn, default_params = entry
     if getattr(reset_fn, "det_reset_init_z", None) is not None:
@@ -269,6 +274,8 @@ def fused_kernel_mismatch(env: EnvDef, require_control: bool = True,
         return "env step/control/reset fns are wrapped or replaced"
     if type(env.params) is not type(default_params):
         return f"env params are a {type(env.params).__name__}, not the kernel's Params"
+    if not getattr(env.params, "contact_enabled", True) and env.name in _CONTACT_ENVS:
+        return "contact_enabled=False, and K11 always solves the contact"
     if not packed_params and env.params != default_params:
         return "non-default params, and the caller does not pass them to the kernel"
     return None
@@ -291,15 +298,21 @@ def throughput_rollout(env: EnvDef, init_states, generator, horizon: int,
     ``(final_states (B, D), per-env reward sums (B,))``.
 
     An env with a classical controller is flown by it; an env without one
-    (the tpuquad family) is stepped with zero actions.  ``backend``:
-    ``"kernel"`` runs the env's fused CUDA kernel (float32, the
-    registry's functions, any params: K1 for quadrotor3d-v0, K8 for
-    quadrotor2d-v0, K9 for the slung-load envs, K5 for MujocoQuadForce-v1)
-    and raises where it cannot; ``"scan"`` runs the eager loop; ``"auto"``
-    takes the kernel where it can and logs which path ran and why.  K1, K8
-    and K9 draw their reset states from their own Philox stream, seeded
-    from ``generator``: a different stream from the eager loop's,
-    deterministic per seed.  K5's resets are deterministic, as the env's.
+    (the tpuquad family) is stepped with zero actions; reinmav-v0, which
+    takes no action and whose done is always True, is stepped without
+    auto-reset.  ``backend``: ``"kernel"`` runs the env's fused CUDA
+    kernel (float32, the registry's functions, any params: K1 for
+    quadrotor3d-v0, K8 for quadrotor2d-v0, K9 for the slung-load envs, K5
+    for MujocoQuadForce-v1, K10 for reinmav-v0, K11 for MujocoQuadForce-v0
+    and MujocoQuadQuat-v0), one launch per call, and raises where it
+    cannot; ``"scan"`` runs the eager loop; ``"auto"`` takes the kernel
+    where it can and logs which path ran and why.  K1, K8 and K9 draw their
+    reset states from their own Philox stream, seeded from ``generator``: a
+    different stream from the eager loop's, deterministic per seed.  K5's
+    and K11's resets are deterministic, as the envs'.  reinmav-v0's reward
+    sums are ``90 * horizon``, the contact envs' 0, as their rewards (K11's
+    are ``0 * Σz``, as the JAX kernel path's: NaN for an env whose z went
+    non-finite).
     """
     if backend not in ("auto", "kernel", "scan"):
         raise ValueError(f"unknown backend {backend!r}")
@@ -313,6 +326,21 @@ def throughput_rollout(env: EnvDef, init_states, generator, horizon: int,
         if reason is not None:
             raise ValueError(f"kernel backend refused for {env.name}: {reason}")
         states_t = init_states.T.to(torch.float32).contiguous()
+        if env.name == "reinmav-v0":
+            from ..ops import reinmav_rollout as reinmav_ops
+
+            final_t = reinmav_ops.reinmav_rollout(
+                states_t, horizon, params_vec=reinmav_ops.reinmav_params_vec(env.params))
+            return final_t.T, torch.full_like(final_t[0], 90.0 * horizon)
+        if env.name in _CONTACT_ENVS:
+            from ..ops import contact_rollout as contact_ops
+
+            final_t, z_sum = contact_ops.contact_rollout(
+                states_t, horizon, params_vec=contact_ops.contact_params_vec(env.params),
+                frame_skip=env.params.frame_skip)
+            # The envs' reward is identically 0; 0 * Σz, as the JAX path, so
+            # that an env whose z went non-finite reports NaN, not 0.
+            return final_t.T, 0.0 * z_sum
         if env.name == "MujocoQuadForce-v1":
             from ..ops import hover_rollout as hover_ops
 
@@ -342,16 +370,17 @@ def throughput_rollout(env: EnvDef, init_states, generator, horizon: int,
 
 def _zero_action_rollout(env: EnvDef, init_states, generator, horizon: int):
     """The eager loop of :func:`throughput_rollout` for an env without a
-    controller: zero actions, fused auto-reset.  (The JAX package steps
-    reinmav-v0, whose done is always True, without auto-reset here; that
-    env is not ported: ROADMAP.md queue 1 item 9.)"""
+    controller: zero actions, fused auto-reset.  reinmav-v0 is a
+    continuous simulation whose done is always True (PARITY.md Q9):
+    auto-resetting it would re-init every step, so it steps plainly, as
+    the JAX package's loop and K10 do."""
 
     def zero_policy(states, generator):
         del generator
         return states.new_zeros((states.shape[0], env.action_dim))
 
     final, traj = rollout(env, zero_policy, init_states, generator, horizon,
-                          collect_trajectory=False)
+                          auto_reset=env.name != "reinmav-v0", collect_trajectory=False)
     return final, traj.reward.sum(dim=0)
 
 

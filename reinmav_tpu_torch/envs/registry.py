@@ -1,11 +1,10 @@
 """Environment registry of the PyTorch port: ``make(env_id)`` returns an
 :class:`~reinmav_tpu_torch.envs.core.EnvDef`.
 
-Ported so far: ``quadrotor3d-v0``, ``quadrotor2d-v0``, the two slung-load
-envs and the tpuquad family (``MujocoQuadForce-v0``,
-``MujocoQuadForce-v1``, ``MujocoQuadQuat-v0``).  ``reinmav-v0`` is known
-and raises ``NotImplementedError`` naming the ROADMAP.md item that ports
-it; an unknown id raises the same ``KeyError`` as
+Every id of the JAX package is ported: ``quadrotor3d-v0``,
+``quadrotor2d-v0``, the two slung-load envs, ``reinmav-v0`` and the
+tpuquad family (``MujocoQuadForce-v0``, ``MujocoQuadForce-v1``,
+``MujocoQuadQuat-v0``).  An unknown id raises the same ``KeyError`` as
 :func:`reinmav_tpu.make`.
 """
 
@@ -17,11 +16,6 @@ from .core import EnvDef
 
 _REGISTRY: Dict[str, Callable[..., EnvDef]] = {}
 
-#: Reference env ids not ported yet -> the ROADMAP.md item that ports them.
-_NOT_PORTED = {
-    "reinmav-v0": "ROADMAP.md queue 1 item 9 (remaining native envs, slice 9c)",
-}
-
 
 def register(env_id: str, factory: Callable[..., EnvDef]) -> None:
     if env_id in _REGISTRY:
@@ -30,14 +24,10 @@ def register(env_id: str, factory: Callable[..., EnvDef]) -> None:
 
 
 def make(env_id: str, **kwargs) -> EnvDef:
-    if env_id in _NOT_PORTED and env_id not in _REGISTRY:
-        raise NotImplementedError(
-            f"{env_id} is not ported to PyTorch yet: {_NOT_PORTED[env_id]}")
     try:
         factory = _REGISTRY[env_id]
     except KeyError:
-        known = sorted(set(_REGISTRY) | set(_NOT_PORTED))
-        raise KeyError(f"unknown env id {env_id!r}; known: {known}") from None
+        raise KeyError(f"unknown env id {env_id!r}; known: {sorted(_REGISTRY)}") from None
     return factory(**kwargs)
 
 
@@ -51,6 +41,7 @@ def _populate() -> None:
         quadrotor2d_slungload,
         quadrotor3d,
         quadrotor3d_slungload,
+        reinmav13,
         tpuquad,
     )
 
@@ -58,6 +49,7 @@ def _populate() -> None:
     register("quadrotor2d-slungload-v0", quadrotor2d_slungload.make)
     register("quadrotor3d-v0", quadrotor3d.make)
     register("quadrotor3d-slungload-v0", quadrotor3d_slungload.make)
+    register("reinmav-v0", reinmav13.make)
     register("MujocoQuadForce-v0", tpuquad.make_force_ground)
     register("MujocoQuadForce-v1", tpuquad.make_hovering)
     register("MujocoQuadQuat-v0", tpuquad.make_quat)

@@ -111,11 +111,14 @@ def test_throughput_rollout_launches_k5(cuda, caplog):
     f_e, r_e = reinmav_tpu_torch.throughput_rollout(env, states, gen, 200, backend="scan")
     np.testing.assert_allclose(final.cpu().numpy(), f_e.cpu().numpy(), **TOL)
     np.testing.assert_allclose(rew.cpu().numpy(), r_e.cpu().numpy(), rtol=2e-4, atol=1e-2)
-    # The contact envs take the eager loop and say that K11 is not ported.
+    # The contact env launches its own kernel, K11, once, and not K5.
+    from reinmav_tpu_torch.ops import contact_rollout as cr
+
     ground = reinmav_tpu_torch.make("MujocoQuadForce-v0")
-    with caplog.at_level("INFO", logger="reinmav_tpu_torch.envs.core"):
-        reinmav_tpu_torch.throughput_rollout(ground, ground.vreset(gen, 64), gen, 2)
-    assert "K11" in caplog.text and hr.hover_rollout.launches == before + 1
+    k11_before = cr.contact_rollout.launches
+    reinmav_tpu_torch.throughput_rollout(ground, ground.vreset(gen, 64), gen, 2)
+    assert cr.contact_rollout.launches == k11_before + 1
+    assert hr.hover_rollout.launches == before + 1
 
 
 def _rollout_args(device, batch, seed, params=None):

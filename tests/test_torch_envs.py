@@ -167,8 +167,10 @@ def test_fused_kernel_mismatch():
     assert core.fused_kernel_mismatch(quadrotor3d.make(quadrotor3d.Params(ref_z=1.0))) is None
     foreign = dataclasses.replace(env, params=jq3.Params())
     assert "not the kernel's Params" in core.fused_kernel_mismatch(foreign)
-    other = dataclasses.replace(env, name="reinmav-v0")
-    assert core.fused_kernel_mismatch(other) == "no fused kernel for reinmav-v0"
+    other = dataclasses.replace(env, name="quadrotor3d-custom-v0")
+    assert core.fused_kernel_mismatch(other) == "no fused kernel for quadrotor3d-custom-v0"
+    # Every id has its kernel; another env's functions under its name are refused.
+    assert "wrapped" in core.fused_kernel_mismatch(dataclasses.replace(env, name="reinmav-v0"))
 
 
 def test_fused_kernel_mismatch_for_policy_kernels():
@@ -196,7 +198,7 @@ def test_registry_unknown_id_raises_same_keyerror_as_jax():
     assert reinmav_tpu_torch.registered_ids() == [
         "MujocoQuadForce-v0", "MujocoQuadForce-v1", "MujocoQuadQuat-v0",
         "quadrotor2d-slungload-v0", "quadrotor2d-v0", "quadrotor3d-slungload-v0",
-        "quadrotor3d-v0"]
+        "quadrotor3d-v0", "reinmav-v0"]
 
 
 @pytest.mark.parametrize("env_id", sorted(set(reinmav_tpu.registered_ids()) - {"quadrotor3d-v0"}))
@@ -236,6 +238,8 @@ def test_import_leaves_jax_out():
             "reinmav_tpu_torch.envs.tpuquad, reinmav_tpu_torch.ops.hover_rollout, "
             "reinmav_tpu_torch.ops.ppo_rollout, reinmav_tpu_torch.ops.ppo_loss, "
             "reinmav_tpu_torch.rl.ppo, reinmav_tpu_torch.profile_main_path, "
+            "reinmav_tpu_torch.envs.reinmav13, reinmav_tpu_torch.ops.reinmav_rollout, "
+            "reinmav_tpu_torch.ops.contact_rollout, "
             "reinmav_tpu_torch._build; print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'reinmav_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

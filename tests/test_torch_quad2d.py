@@ -516,13 +516,13 @@ def test_wrapped_env_is_refused_and_runs_eagerly(caplog):
         state = ppo.init_train_state(wrapped, cfg, 0, device="cpu")
         ppo.train_step(wrapped, cfg, state)
     assert "eager loop" in caplog.text
-    # An env of an id without a kernel, reinmav-v0 (not ported), is refused
-    # by every policy kernel by name.
-    other = dataclasses.replace(env, name="reinmav-v0")
-    assert "no fused PPO rollout kernel for reinmav-v0" in ppo._rollout_refusal(cfg, other)
-    assert "no K7 for reinmav-v0" in sac.collect_refusal(scfg, other, cuda)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        reinmav_tpu_torch.make("reinmav-v0")
+    # reinmav-v0 builds now, but it takes no action: no policy kernel runs
+    # it, and each refuses it by name.
+    reinmav = reinmav_tpu_torch.make("reinmav-v0")
+    assert reinmav.name == "reinmav-v0" and reinmav.action_dim == 0
+    for other in (reinmav, dataclasses.replace(env, name="reinmav-v0")):
+        assert "no fused PPO rollout kernel for reinmav-v0" in ppo._rollout_refusal(cfg, other)
+        assert "no K7 for reinmav-v0" in sac.collect_refusal(scfg, other, cuda)
 
 
 @pytest.mark.parametrize("env_id,alg", [("quadrotor2d-v0", "ppo"),

@@ -250,7 +250,7 @@ def test_zero_action_throughput_matches_jax_scan(rng, caplog):
     ground = reinmav_tpu_torch.make("MujocoQuadForce-v0")
     with caplog.at_level(logging.INFO, logger="reinmav_tpu_torch.envs.core"):
         final, rew = reinmav_tpu_torch.throughput_rollout(ground, _t(s0), torch.Generator(), 2)
-    assert "eager loop" in caplog.text and "K11, the contact rollout" in caplog.text
+    assert "eager loop" in caplog.text and "needs a CUDA tensor" in caplog.text
     assert torch.equal(rew, torch.zeros_like(rew)) and bool(torch.isfinite(final).all())
 
 
@@ -270,5 +270,10 @@ def test_fused_kernel_mismatch_of_the_hover_task():
     assert "not the kernel's Params" in core.fused_kernel_mismatch(quat)
     assert "non-default" in core.fused_kernel_mismatch(
         tpuquad.make_hovering(tpuquad.Params(init_z=1.0, mass=0.4)), packed_params=False)
+    # The contact envs have their kernel, K11, which cannot switch the
+    # contact off.
     for env_id in ("MujocoQuadForce-v0", "MujocoQuadQuat-v0"):
-        assert "K11" in core.fused_kernel_mismatch(reinmav_tpu_torch.make(env_id))
+        contact = reinmav_tpu_torch.make(env_id)
+        assert core.fused_kernel_mismatch(contact) is None
+        off = dataclasses.replace(contact, params=contact.params._replace(contact_enabled=False))
+        assert "K11" in core.fused_kernel_mismatch(off)
