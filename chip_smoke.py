@@ -137,12 +137,17 @@ Phases, in order; any failure raises and exits non-zero:
    candidates), from which the bound is counted; K11 against its twin 10
    steps one at a time from the twin's state at 131,072 envs from contact-
    heavy states, 0 envs outside rtol 2e-4 / atol 2e-5 off the knife edges (a
-   candidate within 1e-6 of the plane), which are counted; free-running at
-   8192 x 100, mean Σz within 1% of the twin's and min z > -0.1; the forced
-   48-candidate sweep bitwise the gated one; bitwise reruns; K11 timed at
-   131,072 x 500 and on one step at 131,072, the twin on one step (its time
-   at 500 steps is an estimate, scaled, in the text only); ptxas's
-   registers and spills of K10 and K11.
+   candidate within 1e-6 of the plane), which are counted; the pairing of
+   two envs a warp: envs with no contact, on the 16- and on the 48-candidate
+   tier in every ordered pair of warp neighbours, and odd batches (1, 3,
+   4097), bit for bit the twin's over 3 steps (+0 and -0 counted equal)
+   with equal tier counts; free-running at 8192 x 100, Σz bit for bit the
+   twin's (+0 and -0 counted equal) and min z > -0.1; the forced
+   48-candidate sweep bitwise the gated one;
+   bitwise reruns; K11 timed at 131,072 x 500 and on one step at 131,072,
+   the twin on one step (its time at 500 steps is an estimate, scaled, in
+   the text only); ptxas's registers and spills of K3, K4, K10 and K11
+   (phases 10, 13 and 21 print K4's at each (obs, action) pair).
 
 The second-to-last line is a JSON object describing each kernel of the
 paths (K1-K11): its launches on its main path, its error against its twin,
@@ -260,7 +265,7 @@ OPS_K10_SUBSTEP = 245
 # 15, the arm products 3, its share of the four sums 4), plus 12 per stage
 # for the env (eF and the wrench).
 OPS_K11 = dict(rigid=170, ztest=20, frame=40, setup=190, stage_cand=22, stage_env=12)
-T_K11_RESYNC, B_K11_FREE, T_K11_FREE, T_K11_TIERS = 10, 8192, 100, 10
+T_K11_RESYNC, B_K11_FREE, T_K11_FREE, T_K11_TIERS, T_K11_PAIRS = 10, 8192, 100, 10, 3
 KNIFE_PLANE = 1e-6  # a contact candidate this close to the plane is a knife edge
 # The learning artifact's config (benchmarks/artifacts/sac_hover_20M_r5/
 # metrics.jsonl, line 1: calls of 64 iterations, logged every 4 calls),
@@ -425,11 +430,13 @@ def k4_phase(torch, dev, gpu: str, cfg, params, data, adv, tile: int, n_tiles: i
     bound_ms, bound_by = bound(
         nbytes(data, perm_all, adv_stats, params, opt.mu, opt.nu, k.params, k.opt_state.mu,
                k.opt_state.nu, k.grad0) + 4 * pu.N_METRIC_SUMS, OPS_LOSS[d] * mb * n_passes)
+    registers = kernel_registers(f"ppo_update_kernel<{d}, {adim}, false>")
     say(f"time K4 obs {d}, {e_} x {m_} passes of {mb}: {ms:.4f} ms (median of 20 launches, each "
         f"{min(kern0 + kern1):.4f} to {max(kern0 + kern1):.4f}), twin {plain_ms:.3f} ms (median of "
-        f"20), bound {bound_ms:.4f} ms by {bound_by}, on {gpu}")
+        f"20), bound {bound_ms:.4f} ms by {bound_by}, ptxas ppo_update_kernel<{d}, {adim}, false> "
+        f"{registers}, on {gpu}")
     return dict(max_abs_err=errs["params"][0], outside=errs["params"][1], ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, registers=registers,
                 at=f"{n_passes} passes of {mb} samples gathered in tiles of {tile} from {n}")
 
 
@@ -1787,14 +1794,18 @@ def contact_phase(torch, dev, gpu: str, name: str) -> dict:
     f_p, z_p = cr.contact_rollout_reference(y, T_K11_FREE, params_vec=vec)
     z_rel = abs(float(z_k.double().mean() - z_p.double().mean())) / abs(float(z_p.double().mean()))
     apart = int((~torch.isclose(f_k, f_p, **TOL).all(dim=0)).sum())
-    require(z_rel <= 0.01 and float(f_k[2].min()) > -0.1,
-            f"{name} free-running: mean Σz rel err {z_rel}, min z {float(f_k[2].min())}")
+    z_apart = int(not_same_bits(torch, z_k, z_p).sum())
+    require(z_apart == 0 and float(f_k[2].min()) > -0.1,
+            f"{name} free-running: {z_apart} envs' Σz not the twin's bits (mean rel err "
+            f"{z_rel}), min z {float(f_k[2].min())}")
     again = cr.contact_rollout(y, T_K11_FREE, params_vec=vec)
     require(torch.equal(f_k, again[0]) and torch.equal(z_k, again[1]), f"{name}: bitwise rerun")
     say(f"K11 {name} free-running B={B_K11_FREE} T={T_K11_FREE}: mean Σz {float(z_k.mean()):.6f}, "
-        f"twin {float(z_p.mean()):.6f} (rel err {z_rel:.3e}, limit 1%), min z "
+        f"twin {float(z_p.mean()):.6f}, every env's Σz bit for bit the twin's, min z "
         f"{float(f_k[2].min()):.5f} (> -0.1), {apart} envs apart at rtol 2e-4 atol 2e-5 "
         f"(reported); bitwise equal on a rerun: ok")
+
+    pairs = contact_pairs(torch, gen, vec, name)
 
     # The tiers: no arm contact, gated against the forced 48-candidate sweep.
     n = contact_states(torch, gen, B_SWEEP, tilt=0.02, z_lo=0.015)
@@ -1830,6 +1841,7 @@ def contact_phase(torch, dev, gpu: str, name: str) -> dict:
             "replaces": "reinmav_tpu/ops/pallas_tpuquad.py:588",
             "launches": launches["K11"], "max_abs_err": err, "mismatched_envs": outside,
             "knife_edge_env_steps": knife, "free_running_envs_apart": apart,
+            "pairing_check_envs": pairs, "registers": kernel_registers("contact_rollout_kernel"),
             "tier_mix": mix, "tiers_gated_ms": gated_ms, "tiers_forced48_ms": forced_ms,
             "tolerance": f"rtol 2e-4 atol 2e-5 per env over {T_K11_RESYNC} steps resynchronised "
                          f"at B={B_SWEEP}, 0 envs outside off the knife edges; max_abs_err there",
@@ -1838,6 +1850,74 @@ def contact_phase(torch, dev, gpu: str, name: str) -> dict:
             "plain_at": f"contact-heavy states (13, {B_SWEEP}), horizon 1, zero action",
             "ms_at_plain_shape": kernel_step,
             "at": f"states (13, {B_SWEEP}), horizon {T_SWEEP}, zero action; plain_ms at plain_at"}
+
+
+def contact_pairs(torch, gen, vec, name: str) -> int:
+    """Phase 25's pairing check of K11's two envs a warp: envs with no
+    contact (in flight), on the 16-candidate tier (nearly level, low) and on
+    the 48 (an arm corner below the plane in the first substep), in every
+    ordered pair of warp neighbours (envs 2i and 2i + 1), and odd batches of
+    1, 3 and 4097 (a half-warp without an env), over T_K11_PAIRS steps:
+    states and Σz bit for bit the twin's (+0 and -0 counted equal), tier
+    counts equal.  Returns the number of envs checked."""
+    from reinmav_tpu_torch.ops import contact_rollout as cr
+
+    fly = contact_states(torch, gen, 64)
+    fly[2] += 1.0
+    level = contact_states(torch, gen, 64, tilt=0.02, z_lo=0.015)
+    pool = contact_states(torch, gen, 8192)
+    _, _, first = cr.contact_rollout_reference(pool, 1, params_vec=vec, frame_skip=1,
+                                               record_tiers=True)
+    wide = pool[:, first[:, 2] == 1][:, :64]
+    require(wide.shape[1] == 64, f"{name} pairing: {wide.shape[1]} envs on the 48 tier")
+    kinds = (fly, level, wide)
+    used, cols = [0, 0, 0], []
+    for _ in range(7):
+        for a in range(3):
+            for b in range(3):
+                for k in (a, b):
+                    cols.append(kinds[k][:, used[k]])
+                    used[k] += 1
+    paired = torch.stack(cols, dim=1)
+    # The odd batches end on an env in contact alone in its warp.
+    alone = wide[:, -1:]
+    three = torch.stack([level[:, -1], wide[:, -2], wide[:, -3]], dim=1)
+    checked, mixes = 0, []
+    for x in (paired, alone, three, pool[:, :4097]):
+        x = x.contiguous()
+        f_k, z_k, t_k = cr.contact_rollout(x, T_K11_PAIRS, params_vec=vec, record_tiers=True)
+        f_p, z_p, t_p = cr.contact_rollout_reference(x, T_K11_PAIRS, params_vec=vec,
+                                                     record_tiers=True)
+        bits = (not_same_bits(torch, f_k, f_p).any(dim=0) | not_same_bits(torch, z_k, z_p)
+                | (t_k != t_p).any(dim=1))
+        require(not bool(bits.any()), f"{name} pairing, batch {x.shape[1]}: "
+                                      f"{int(bits.sum())} envs not the twin's bits")
+        checked += x.shape[1]
+        mixes.append(t_k.sum(dim=0).tolist())
+    say(f"K11 {name} pairing, {T_K11_PAIRS} steps: {paired.shape[1]} envs in every ordered pair "
+        f"of no contact / 16 / 48 candidates, and batches of 1, 3 and 4097, bit for bit the "
+        f"twin's (states, Σz; +0 and -0 counted equal), tier counts equal (mixes {mixes}): ok")
+    return checked
+
+
+def not_same_bits(torch, a, b):
+    """Where ``a`` and ``b`` differ in their bits, +0 and -0 counted equal:
+    K11 leaves the wrench of an env without contact untouched, while its
+    twin adds a zero wrench to it when another env of the batch has
+    contact (the TPU kernel: another env of its tile), and -0 + 0 is +0."""
+    return (a.view(torch.int32) != b.view(torch.int32)) & ~((a == 0) & (b == 0))
+
+
+def kernel_registers(short_name: str) -> str:
+    """ptxas's registers and spills of the kernel whose demangled name
+    starts with ``short_name`` (the first match), or "not reported"."""
+    from reinmav_tpu_torch import _build
+
+    for line in ptxas_report(_build.ptxas_log_path()):
+        head, _, info = line.partition(": ")[2].partition(": ")
+        if head.startswith(short_name):
+            return info
+    return "not reported"
 
 
 def ptxas_report(path) -> list[str]:
@@ -2037,7 +2117,8 @@ def main() -> int:
     # 24. K10; 25. K11 on each contact env.
     kernels.append(reinmav_phase(torch, dev, gpu))
     for line in ptxas_report(_build.ptxas_log_path()):
-        if "contact_rollout" in line or "reinmav_rollout" in line:
+        if any(k in line for k in ("contact_rollout", "reinmav_rollout", "ppo_loss_kernel",
+                                   "ppo_update_kernel")):
             say(line)
     kernels += [contact_phase(torch, dev, gpu, name)
                 for name in ("MujocoQuadForce-v0", "MujocoQuadQuat-v0")]

@@ -24,35 +24,53 @@
 // FP32 operations of setup per candidate and, per sweep stage, about 22
 // per candidate and four sums over the candidates; 120 sweeps x 4 stages
 // make about 1.8 x 10^5 operations per substep on the 16-candidate tier.
-// The env's 13 floats cross device memory once per ROLLOUT.  In this
-// design the sums, not the FP32 units, set the pace: each stage's four
-// sums are 20 warp shuffles, and an SM completes one warp-wide shuffle a
-// clock.
+// The env's 13 floats cross device memory once per ROLLOUT.  What sets the
+// pace is each stage's four candidate sums (warp shuffles: an SM completes
+// one warp-wide shuffle a clock) and the dependent chain from one stage's
+// sums to the next stage's update.
 //
-// What the design does about it: ONE WARP PER ENV.  The TPU kernel keeps,
-// per env, about 1,250 loop-invariant floats over the 48 candidates (the
-// activity, Ri, and per stage the arm, b and 1 / diag, and the running f):
-// one thread cannot hold that in registers.  Here lane l owns candidate l
-// and candidate 32 + (l & 15) (lanes 16-31 repeat lanes 0-15's second
-// candidate, so every lane ends each sum with the same value), about 52
-// floats a lane.  The env's state and the aggregate wrench (F, W) are
-// replicated in every lane.  Each stage's four candidate sums are warp
-// shuffles in _candidate_sum's order: the first 32 candidates by
-// __shfl_xor_sync at offsets 16, 8, 4, 2, 1 (the pairwise halving
-// x[:16] + x[16:], ...), candidates 32-47 at offsets 8, 4, 2, 1, then the
-// two added.  An env with no arm corner below the plane skips its second
-// candidates (the 16-candidate tier): the arm lanes of the first 32 add
-// exact zeros, so this is bitwise the 48-candidate sweep; the choice is per
-// warp, not the TPU kernel's per tile, and force48 turns it off for the
-// check.  An env with no candidate below the plane skips the solve: its
-// contact wrench is exactly zero, as the TPU kernel's sweep of masked rows
-// gives.  All pgs_iters sweeps always run: the reference has no
-// convergence exit.  The file is built with -fmad=false (_build.py) so that
-// no product is contracted into an FMA: the twin's order is the kernel's,
-// and the active test (z < 0), the f >= 0 projection and the spline's knot
-// are knife edges that a last-bit difference moves.  The params (with the
-// derived constants and the constant action's wrench, from float64 on the
-// host) and the 48 candidates' body points are kernel arguments.
+// What the design does about it: TWO ENVS PER WARP, A HALF-WARP (16 lanes)
+// PER ENV.  The TPU kernel keeps, per env, about 1,250 loop-invariant
+// floats over the 48 candidates (the activity, Ri, and per stage the arm,
+// b and 1 / diag, and the running f): one thread cannot hold that in
+// registers.  Here lane l of a half (l = lane & 15) owns candidate l, 26
+// floats in registers; the env's state and the aggregate wrench (F, W) are
+// replicated in the half's lanes.  Each substep first runs only the z test
+// of candidates 16 + l and 32 + l (the arm corners), and __ballot_sync,
+// masked to the half, picks the env's tier: none below the plane (no
+// solve: the wrench stays untouched, as the TPU kernel's sweep of masked
+// rows leaves it), no arm corner below (the first 16 candidates), or all
+// 48 (force48 forces it, for the check).  On the 48 tier the lane also
+// runs the full setup of candidates 16 + l and 32 + l and keeps them in
+// shared memory (a rare tier from rest; registers stay at the 16 tier's
+// need), so a lane updates three candidates a stage there.  With 80
+// registers a thread, 48 envs share an SM.
+//
+// The four sums of a stage are ONE TRANSPOSED BUTTERFLY over the half
+// (halving16): at offset 8 each lane keeps two of the four partial sums and
+// sends the other two (2 shuffles, selects on lane bit 3), at offset 4 it
+// keeps one and sends one (1 shuffle), offsets 2 and 1 take one each; the
+// lane then holds the finished sum 2 * bit3 + bit2, and four width-16
+// __shfl_sync broadcasts hand all four to every lane of the half: 9
+// shuffles a warp-stage for two envs, where a butterfly per sum over a warp
+// per env takes 20 an env.  Every add
+// is x[i] + x[i ^ off] at the same level of _candidate_sum's halving tree
+// (offsets 8, 4, 2, 1 over 16; over 48 the first 32 are first halved
+// lane-locally, x[l] + x[16 + l], then the butterfly, and the last 16 get
+// their own butterfly, added last), and IEEE addition is commutative bit
+// for bit, so each env's sums are its twin's, whatever its neighbour does.
+// The two envs of a warp may sit on different tiers: the warp runs the
+// larger tier's shuffles and each half takes its own tier's result (a 16-
+// tier half beside a 48-tier half sums its 16 candidates, not x[l] + 0).
+// An odd batch leaves a half without an env: it runs the shuffles on a copy
+// of the last env's state with no candidate active and writes nothing.
+// All pgs_iters sweeps always run: the reference has no convergence exit.
+// The file is built with -fmad=false (_build.py) so that no product is
+// contracted into an FMA: the twin's order is the kernel's, and the active
+// test (z < 0), the f >= 0 projection and the spline's knot are knife
+// edges that a last-bit difference moves.  The params (with the derived
+// constants and the constant action's wrench, from float64 on the host)
+// and the 48 candidates' body points are kernel arguments.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,6 +83,7 @@ using reinmav::HoverDrag;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
+constexpr int kEnvsPerBlock = 2 * kWarps;  // a half-warp per env
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kCandidates = 48;
 constexpr int kScalars = 33;
@@ -299,29 +318,95 @@ __device__ __forceinline__ float update(Candidate& c, int k, float eFm, float Wx
   return df;
 }
 
-// _candidate_sum's halving over the warp's first 32 candidates (lane l holds
-// candidate l) and over candidates 32-47 (lane l holds candidate 32 + (l &
-// 15)).  Every lane ends with the same bits: each add is commutative.
-__device__ __forceinline__ float sum32(float v) {
+// Candidates 16 + l and 32 + l of the 48-candidate tier, in shared memory
+// as [extra][field][thread] (consecutive threads, consecutive words): Ri,
+// then per stage k the arm (3), b, 1 / diag and the running f.
+constexpr int kExtRi = 0, kExtArm = 1, kExtB = 13, kExtRd = 17, kExtF = 21, kExtFields = 25;
+
+__device__ __forceinline__ void store_extra(float* e, const Candidate& c) {
+  e[kExtRi * kThreads] = c.Ri;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = v + __shfl_xor_sync(kFull, v, off);
-  return v;
+  for (int k = 0; k < 4; ++k) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) e[(kExtArm + 3 * k + i) * kThreads] = c.arm[k][i];
+    e[(kExtB + k) * kThreads] = c.b[k];
+    e[(kExtRd + k) * kThreads] = c.rd[k];
+    e[(kExtF + k) * kThreads] = c.f[k];
+  }
 }
 
-__device__ __forceinline__ float sum16(float v) {
+// update() of an extra candidate kept in shared memory; its arm in `arm`.
+__device__ __forceinline__ float update_extra(float* e, bool act, int k, float eFm, float Wx,
+                                              float Wy, float Wz, float w, float (&arm)[3]) {
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = v + __shfl_xor_sync(kFull, v, off);
-  return v;
+  for (int i = 0; i < 3; ++i) arm[i] = e[(kExtArm + 3 * k + i) * kThreads];
+  const float Ri = e[kExtRi * kThreads], f = e[(kExtF + k) * kThreads];
+  const float Af = eFm + arm[0] * Wx + arm[1] * Wy + arm[2] * Wz;
+  float nf = f - w * (Af + Ri * f + e[(kExtB + k) * kThreads]) * e[(kExtRd + k) * kThreads];
+  nf = nf < 0.0f ? 0.0f : nf;
+  const float df = act ? nf - f : 0.0f;
+  e[(kExtF + k) * kThreads] = f + df;
+  return df;
 }
 
-// The coupled contact solve of the warp's env: adds the contact wrench to the
-// unconstrained force f and torque t (_coupled_contact).  Returns the tier
-// it ran: 0 no contact, 1 the first 16 candidates, 2 all 48.
+// _candidate_sum's halving over the 16 lanes of a half, of four values at
+// once (the transposed butterfly): lane l holds x[j][l] in v[j] and ends
+// with the finished sum j = 2 * bit3(l) + bit2(l).  Each add is x[i] +
+// x[i ^ off] of the level before, the twin's pairwise halving x[:h] +
+// x[h:] up to commutation.
+__device__ __forceinline__ float halving16(const float (&v)[4], int hl) {
+  const bool b3 = (hl & 8) != 0, b2 = (hl & 4) != 0;
+  // Offset 8: keep sums 2 * bit3 + {0, 1}, send the other two.
+  const float keep0 = b3 ? v[2] : v[0], keep1 = b3 ? v[3] : v[1];
+  const float send0 = b3 ? v[0] : v[2], send1 = b3 ? v[1] : v[3];
+  const float p0 = keep0 + __shfl_xor_sync(kFull, send0, 8);
+  const float p1 = keep1 + __shfl_xor_sync(kFull, send1, 8);
+  // Offset 4: keep sum 2 * bit3 + bit2, send the other.
+  float q = (b2 ? p1 : p0) + __shfl_xor_sync(kFull, b2 ? p0 : p1, 4);
+  q = q + __shfl_xor_sync(kFull, q, 2);
+  return q + __shfl_xor_sync(kFull, q, 1);
+}
+
+// The tier of the half whose ballot bits start at bit `sh`: 0 no candidate
+// below the plane, 1 none of candidates 16-47 below, 2 all 48.
+__device__ __forceinline__ int half_tier(unsigned m0, unsigned m12, int sh, bool force48) {
+  const unsigned c0 = (m0 >> sh) & 0xffffu, c12 = (m12 >> sh) & 0xffffu;
+  if ((c0 | c12) == 0u) return 0;
+  return (force48 || c12 != 0u) ? 2 : 1;
+}
+
+// The coupled contact solve of the half-warp's env: adds the contact
+// wrench to the unconstrained force f and torque t (_coupled_contact), or
+// leaves them untouched without contact.  Returns the tier it ran: 0 no
+// contact, 1 the first 16 candidates, 2 all 48.  `pts` holds the lane's
+// three candidates' body points (l, 16 + l, 32 + l); `valid` is false on
+// the half without an env, whose candidates never count as active.
 __device__ __forceinline__ int coupled_contact(const float (&s)[13], const float (&r)[9],
                                                 float (&f)[3], float (&t)[3], const float (&gy)[3],
-                                                const ContactParams& p, const float (&b0)[3],
-                                                const float (&b1)[3], bool cap0, int pgs_iters,
-                                                bool force48, int lane) {
+                                                const ContactParams& p, const float (&pts)[3][3],
+                                                bool cap0, bool valid, int pgs_iters,
+                                                bool force48, int lane, float* ext) {
+  const int hl = lane & 15, sh = lane & 16;
+  // The thruster caps' rim direction (radial steepest descent, guarded).
+  const float uwx = r[8] * r[2], uwy = r[8] * r[5], uwz = r[8] * r[8] - 1.0f;
+  const float nu2 = uwx * uwx + uwy * uwy + uwz * uwz;
+  const float inv_nu = nu2 > 1e-24f ? rsqrtf(fmaxf(nu2, 1e-30f)) : 0.0f;
+  // The z tests of the lane's three candidates (setup's zc, operation for
+  // operation), and the tiers of both halves from the ballots.
+  float zc[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    float rwz = r[6] * pts[j][0] + r[7] * pts[j][1] + r[8] * pts[j][2];
+    if (j == 0 && cap0) rwz = rwz + p.cap_r * (uwz * inv_nu);
+    zc[j] = s[2] + rwz;
+  }
+  const bool act1 = valid && zc[1] < 0.0f, act2 = valid && zc[2] < 0.0f;
+  const unsigned m0 = __ballot_sync(kFull, valid && zc[0] < 0.0f);
+  const unsigned m1 = __ballot_sync(kFull, act1), m2 = __ballot_sync(kFull, act2);
+  const int tier = half_tier(m0, m1 | m2, sh, force48);
+  const int warp_tier = max(tier, half_tier(m0, m1 | m2, sh ^ 16, force48));
+  if (warp_tier == 0) return 0;  // no contact in either half: both wrenches untouched
+
   Frame e;
 #pragma unroll
   for (int i = 0; i < 9; ++i) e.r[i] = r[i];
@@ -340,20 +425,25 @@ __device__ __forceinline__ int coupled_contact(const float (&s)[13], const float
   e.aox = a0x - (r[0] * u0 + r[1] * u1 + r[2] * u2);
   e.aoy = a0y - (r[3] * u0 + r[4] * u1 + r[5] * u2);
   e.aoz = a0z - (r[6] * u0 + r[7] * u1 + r[8] * u2);
-  // The thruster caps' rim direction (radial steepest descent, guarded).
-  float uwx = r[8] * r[2], uwy = r[8] * r[5], uwz = r[8] * r[8] - 1.0f;
-  const float nu2 = uwx * uwx + uwy * uwy + uwz * uwz;
-  const float inv_nu = nu2 > 1e-24f ? rsqrtf(fmaxf(nu2, 1e-30f)) : 0.0f;
   e.uwx = uwx * inv_nu, e.uwy = uwy * inv_nu, e.uwz = uwz * inv_nu;
 
-  Candidate c0, c1;
-  setup(c0, b0[0], b0[1], b0[2], cap0, e, p);
-  setup(c1, b1[0], b1[1], b1[2], false, e, p);
-  if (!__any_sync(kFull, c0.act || c1.act)) return 0;  // no contact: the wrench is zero
-  // The 48-candidate tier where an arm corner (candidates 16-47) is below.
-  const bool wide = force48 || __any_sync(kFull, (lane >= 16 && c0.act) || c1.act);
-  float n_act = sum32(c0.act ? 1.0f : 0.0f);
-  if (wide) n_act = n_act + sum16(c1.act ? 1.0f : 0.0f);
+  Candidate c0;
+  setup(c0, pts[0][0], pts[0][1], pts[0][2], cap0, e, p);
+  c0.act = c0.act && valid;
+  float* ext1 = ext;
+  float* ext2 = ext + kExtFields * kThreads;
+  if (tier == 2) {
+#pragma unroll
+    for (int j = 1; j < 3; ++j) {
+      Candidate c;
+      setup(c, pts[j][0], pts[j][1], pts[j][2], false, e, p);
+      store_extra(j == 1 ? ext1 : ext2, c);
+    }
+  }
+  // The half's active candidates (exact in float: the twin's candidate_sum).
+  const float n_act = static_cast<float>(__popc((m0 >> sh) & 0xffffu) +
+                                         __popc((m1 >> sh) & 0xffffu) +
+                                         __popc((m2 >> sh) & 0xffffu));
   const float w = 1.0f / fmaxf(1.0f, n_act);
 
   float Fx = 0.0f, Fy = 0.0f, Fz = 0.0f, Wx = 0.0f, Wy = 0.0f, Wz = 0.0f;
@@ -364,17 +454,34 @@ __device__ __forceinline__ int coupled_contact(const float (&s)[13], const float
       const float eF = Fz + smu * (k < 2 ? Fy : -Fx);
       const float eFm = eF * p.inv_m;
       const float df0 = update(c0, k, eFm, Wx, Wy, Wz, w);
-      float sdf = sum32(df0);
-      float s0 = sum32(c0.arm[k][0] * df0);
-      float s1 = sum32(c0.arm[k][1] * df0);
-      float s2 = sum32(c0.arm[k][2] * df0);
-      if (wide) {
-        const float df1 = update(c1, k, eFm, Wx, Wy, Wz, w);
-        sdf = sdf + sum16(df1);
-        s0 = s0 + sum16(c1.arm[k][0] * df1);
-        s1 = s1 + sum16(c1.arm[k][1] * df1);
-        s2 = s2 + sum16(c1.arm[k][2] * df1);
+      const float v[4] = {df0, c0.arm[k][0] * df0, c0.arm[k][1] * df0, c0.arm[k][2] * df0};
+      float q;
+      if (warp_tier == 2) {  // warp-uniform: the 48 tier's shuffles
+        float lo[4] = {v[0], v[1], v[2], v[3]}, hi[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (tier == 2) {
+          float arm1[3], arm2[3];
+          const float df1 = update_extra(ext1, act1, k, eFm, Wx, Wy, Wz, w, arm1);
+          const float df2 = update_extra(ext2, act2, k, eFm, Wx, Wy, Wz, w, arm2);
+          // The first 32: x[l] + x[16 + l], halving's first level; the
+          // last 16 apart.
+          lo[0] = v[0] + df1;
+          hi[0] = df2;
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            lo[i + 1] = v[i + 1] + arm1[i] * df1;
+            hi[i + 1] = arm2[i] * df2;
+          }
+        }
+        q = halving16(lo, hl);
+        const float q16 = halving16(hi, hl);
+        if (tier == 2) q = q + q16;
+      } else {
+        q = halving16(v, hl);
       }
+      const float sdf = __shfl_sync(kFull, q, 0, 16);
+      const float s0 = __shfl_sync(kFull, q, 4, 16);
+      const float s1 = __shfl_sync(kFull, q, 8, 16);
+      const float s2 = __shfl_sync(kFull, q, 12, 16);
       Fz = Fz + sdf;
       if (k < 2) {
         Fy = Fy + smu * sdf;
@@ -386,33 +493,47 @@ __device__ __forceinline__ int coupled_contact(const float (&s)[13], const float
       Wz = Wz + s2 * p.inv_iz;
     }
   }
+  if (tier == 0) return 0;  // the neighbour's solve: this wrench stays untouched
   f[0] = f[0] + Fx;
   f[1] = f[1] + Fy;
   f[2] = f[2] + Fz;
   t[0] = t[0] + Wx * p.ix;
   t[1] = t[1] + Wy * p.iy;
   t[2] = t[2] + Wz * p.iz;
-  return wide ? 2 : 1;
+  return tier;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// At most 80 registers a thread, so that 48 envs (24 warps) share an SM:
+// ptxas spills a few (156 B), and the rollout from rest ran 7.7% faster than
+// at 128 registers and 16 warps an SM (PERF.md).
+__global__ void __launch_bounds__(kThreads, 6)
 contact_rollout_kernel(const float* __restrict__ s_in, float* __restrict__ s_out,
                        float* __restrict__ z_out, int* __restrict__ tiers_out, int64_t batch,
                        int horizon, int frame_skip, int pgs_iters, int force48,
                        const ContactParams p) {
-  const int lane = threadIdx.x & 31;
-  const int64_t env = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (env >= batch) return;  // the whole warp: the ragged tail
+  __shared__ float ext[2][kExtFields][kThreads];  // the 48 tier's extra candidates
+  const int lane = threadIdx.x & 31, hl = lane & 15;
+  const int64_t env = static_cast<int64_t>(blockIdx.x) * kEnvsPerBlock + (threadIdx.x >> 4);
+  if ((env & ~static_cast<int64_t>(1)) >= batch) return;  // the whole warp: the ragged tail
+  // An odd batch: the last warp's second half runs on a copy of the last
+  // env, with no candidate active, and writes nothing.
+  const bool valid = env < batch;
+  const int64_t src = valid ? env : batch - 1;
 
-  // This lane's two candidates: l, and 32 + (l & 15); the caps are 8-15.
-  const int i0 = lane, i1 = 32 + (lane & 15);
-  const float b0[3] = {p.pts[3 * i0], p.pts[3 * i0 + 1], p.pts[3 * i0 + 2]};
-  const float b1[3] = {p.pts[3 * i1], p.pts[3 * i1 + 1], p.pts[3 * i1 + 2]};
-  const bool cap0 = lane >= 8 && lane < 16;
+  // This lane's candidates: l (full setup; the caps are 8-15), and the arm
+  // corners 16 + l and 32 + l (their z test; their setup on the 48 tier).
+  float pts[3][3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) pts[j][i] = p.pts[3 * (16 * j + hl) + i];
+  }
+  const bool cap0 = hl >= 8;
+  float* ext_lane = &ext[0][0][threadIdx.x];
 
   float s[13];
 #pragma unroll
-  for (int d = 0; d < 13; ++d) s[d] = s_in[d * batch + env];
+  for (int d = 0; d < 13; ++d) s[d] = s_in[d * batch + src];
   float z_sum = 0.0f;
   int tiers[3] = {0, 0, 0};
 
@@ -428,7 +549,8 @@ contact_rollout_kernel(const float* __restrict__ s_in, float* __restrict__ s_out
       rigid_rotation(s, r);
       rigid_free_wrench(s, r, p.total, p.gm, t0, p.cz, p.drag, f, t);
       rigid_gyro(s, p.ix, p.iy, p.iz, gy);
-      ++tiers[coupled_contact(s, r, f, t, gy, p, b0, b1, cap0, pgs_iters, force48 != 0, lane)];
+      ++tiers[coupled_contact(s, r, f, t, gy, p, pts, cap0, valid, pgs_iters, force48 != 0, lane,
+                              ext_lane)];
       rigid_integrate(s, r, f, t, gy, p.ix, p.iy, p.iz, p.cz, p.mass, p.dt);
     }
     float total = s[0];
@@ -438,7 +560,7 @@ contact_rollout_kernel(const float* __restrict__ s_in, float* __restrict__ s_out
     if (!isfinite(total)) reinmav::hover_reset(s, p.init_z);
   }
 
-  if (lane == 0) {
+  if (valid && hl == 0) {
 #pragma unroll
     for (int d = 0; d < 13; ++d) s_out[d * batch + env] = s[d];
     z_out[env] = z_sum;
@@ -468,7 +590,7 @@ extern "C" int contact_rollout_launch(const void* states_in, void* states_out, v
   const float* h = static_cast<const float*>(params_host);
   float* dst = reinterpret_cast<float*>(&p);
   for (int k = 0; k < kParams; ++k) dst[k] = h[k];
-  const long long blocks = (batch + kWarps - 1) / kWarps;
+  const long long blocks = (batch + kEnvsPerBlock - 1) / kEnvsPerBlock;
   contact_rollout_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(states_in), static_cast<float*>(states_out),

@@ -11,22 +11,55 @@
 // clipfrac].  It writes raw SUMS over the CTA's share of the minibatch, in
 // the flat parameter layout (actor_critic.cuh), then the 4 metric sums.
 //
-// Design (see ppo_loss.cu for the bound): a CTA of 256 threads takes 128
-// samples at a time; thread (tower, s) runs sample s through one tower, so
-// a warp's threads read the same weight at once (broadcast).  Activations
-// stay in shared memory, in rows of 129 floats (padded, so that the
-// per-sample column accesses and the row reads of the weight-gradient
-// phases hit distinct banks).  The weight gradients are outer products
-// summed over samples: each thread owns a fixed set of gradient entries
-// (32 of dW2, 5 of dW1, ...) in registers for the CTA's whole share of the
-// minibatch; the D rows of dW1 are split between the towers' threads, the
-// first ceil(D / 2) rows to tower 0's and the rest to tower 1's (5 + 5 at D
-// = 10, 7 + 6 at D = 13, 8 + 8 at D = 16).  The gather: minibatch sample q
-// reads column perm[q / tile] * tile + q % tile of the full (R, n) batch, so
-// the minibatch is never stored.  Shared memory at D = 10, A = 4: 40 KB of
-// weights and 143 KB of activations; each obs dim adds about 1 KB (186 KB
-// at D = 16).  The head-gradient phase gives thread tid the entry
-// dW_pi[tid / A][tid % A]: all 256 threads at A = 4, the first 128 at A = 2.
+// What bounds it: FP32 arithmetic (see ppo_loss.cu for the count).  Per
+// tower and sub-block of 128 samples, five products carry nearly all of
+// it: forward L1 (128 x D x 64), forward L2 (128 x 64 x 64), dW2 = h1^T
+// dpre2 (64 x 64 over 128), dpre1 = dpre2 W2^T (128 x 64 x 64) and dW1 = x^T
+// dpre1 (D x 64 over 128).  A serial dot product per output has an ILP of
+// 1 and reads a shared-memory word per FMA, and an SM's shared memory
+// serves 32 words a clock against 128 FMAs: an r x c tile of outputs needs
+// (r + c) / (r c) words an FMA, at most 1/4 to keep up.
+//
+// Design: a CTA of 256 threads (one per SM, 8 warps) takes 128 samples at
+// a time, and each product is a REGISTER-TILED OUTER PRODUCT.  In the two
+// forward layers and in dpre1 a thread owns an 8 x 8 tile (8 samples x 8
+// units of one tower: 64 independent FMA chains) and reads, per step of
+// the contraction, 2 float4 of the sample operand (the same address across
+// each 8 lanes: a broadcast) and 2 float4 of the weight operand (8 lanes
+// read 128 contiguous bytes): 4 loads per 64 FMAs.  dW2 is a 4 x 8 tile of
+// (k, j) entries per thread, stepped 4 samples at a time: 12 float4 loads
+// per 128 FMAs; dW1 steps 4 samples at a time too.  The weight gradients
+// (32 of dW2, up to 8 of dW1, a bias, a head entry) stay in registers for
+// the CTA's whole share of the minibatch; each is summed over the samples
+// in order, one sample after the other.  The order of every sum is fixed:
+// L1 and dpre1 one product after another, L2 in groups of 4 (see
+// tile8x8_by4), the weight gradients sample by sample.  A straight chain of
+// 64 FMAs in L2 put 2 of 10,057 params of a KL-mode update outside the
+// tolerance of the twin (tests/test_torch_cuda_ppo.py); with this order
+// the tiled body computes the serial dot products' results bit for bit.
+//
+// The layouts that make every access free of bank conflicts: the
+// activations are [tower * 64 + unit][sample] rows of kSP = 132 floats (a
+// multiple of 4 for float4, and 132 = 4 mod 32, so that 8 consecutive rows
+// start on 8 distinct 4-bank groups); a tile thread's 8 units are ug, ug +
+// 8, ..., ug + 56 (so the 8 lanes of a quarter-warp write 8 consecutive
+// rows), and the weights are kept with their output columns permuted by
+// upos() so that those 8 units sit in two float4 at 4 ug and 32 + 4 ug.
+// W2 is kept twice, (in, out) for L2 and (out, in) for dpre1.  Shared
+// memory at D = 10, A = 4: 71 KiB of weights and 144 KiB of activations
+// (215 KiB); each obs dim adds about 1 KiB (221 KiB at D = 16).
+//
+// The elementwise phases keep their order: thread (tower, sample) computes
+// the heads, tower 0's threads the loss (P2), the head gradients sum over
+// the samples one by one, and dpre2 = (W_out dout) * (1 - h2^2) loops over
+// the units.  The D rows of dW1 are split between the thread halves, the
+// first ceil(D / 2) rows to threads 0-127 and the rest to threads 128-255
+// (5 + 5 at D = 10, 7 + 6 at D = 13, 8 + 8 at D = 16).  The gather:
+// minibatch sample q reads column perm[q / tile] * tile + q % tile of the
+// full (R, n) batch, so the minibatch is never stored.  The head-gradient
+// phase gives thread tid the entry dW_pi[tid / A][tid % A]: all 256 threads
+// at A = 4, the first 128 at A = 2.  No tensor cores: TF32 would round
+// the products beyond the twins' tolerances.
 
 #pragma once
 
@@ -44,7 +77,7 @@ namespace ac = reinmav::ac;
 
 constexpr int kH = ac::H;
 constexpr int kS = 128;       // samples per sub-block
-constexpr int kSP = kS + 1;   // padded row length
+constexpr int kSP = kS + 4;   // padded row length: float4-aligned, 4 mod 32
 constexpr int kThreads = 2 * kS;
 
 // The raw sums a CTA writes: the flat gradient, then the 4 metric sums.
@@ -69,20 +102,28 @@ R with_kernel_dims(int d, int a, R refused, F&& f) {
   return refused;
 }
 
+// The column of output unit u in the permuted weight rows: a tile thread
+// with unit group ug owns units ug + 8 i (i < 8), kept at 4 ug + i (i < 4)
+// and 32 + 4 ug + i - 4 (i >= 4).
+__host__ __device__ constexpr int upos(int u) {
+  return ((u & 7) << 2) + ((u >> 3) & 3) + ((u >> 5) << 5);
+}
+
 template <int kD, int kA>
 struct Smem {
   static constexpr int kRed = kA + 4;  // per-sample dls (A) and metric terms (4)
-  float w1t[2][kH][kD];
+  float w1[2][kD][kH];   // (tower, in, upos(out))
   float b1[2][kH];
-  float w2t[2][kH][kH];  // (tower, out, in)
+  float w2[2][kH][kH];   // (tower, in, upos(out))
+  float w2t[2][kH][kH];  // (tower, out, upos(in))
   float b2[2][kH];
   float wpi[kH][kA];
   float wvf[kH];
   float bo[kA + 1];
   float ls[kA];
-  float h1[2 * kH][kSP];  // h1, then dpre1
-  float h2[2 * kH][kSP];  // h2, then dpre2
-  float x[kD][kSP];
+  alignas(16) float h1[2 * kH][kSP];  // h1, then dpre1
+  alignas(16) float h2[2 * kH][kSP];  // h2, then dpre2
+  alignas(16) float x[kD][kSP];
   float dout[kA + 1][kSP];  // the heads' output, then its cotangent
   float red[kRed][kSP];
 };
@@ -99,13 +140,17 @@ template <int kD, int kA>
 __device__ __forceinline__ void load_weights(Smem<kD, kA>& sm, const float* net) {
   using L = ac::Layout<kD, kA>;
   const int tid = threadIdx.x;
-  for (int idx = tid; idx < kH * kD; idx += kThreads) {
-    const int j = idx / kD, d = idx % kD;
-    for (int t = 0; t < 2; ++t) sm.w1t[t][j][d] = __ldcg(net + L::tower_base(t) + L::kW1 + d * kH + j);
+  for (int idx = tid; idx < kD * kH; idx += kThreads) {
+    const int d = idx / kH, j = idx % kH;
+    for (int t = 0; t < 2; ++t) sm.w1[t][d][upos(j)] = __ldcg(net + L::tower_base(t) + L::kW1 + idx);
   }
   for (int idx = tid; idx < kH * kH; idx += kThreads) {
-    const int j = idx / kH, k = idx % kH;
-    for (int t = 0; t < 2; ++t) sm.w2t[t][j][k] = __ldcg(net + L::tower_base(t) + L::kW2 + k * kH + j);
+    const int k = idx / kH, j = idx % kH;
+    for (int t = 0; t < 2; ++t) {
+      const float w = __ldcg(net + L::tower_base(t) + L::kW2 + idx);
+      sm.w2[t][k][upos(j)] = w;
+      sm.w2t[t][j][upos(k)] = w;
+    }
   }
   for (int j = tid; j < kH; j += kThreads) {
     for (int t = 0; t < 2; ++t) {
@@ -122,12 +167,100 @@ __device__ __forceinline__ void load_weights(Smem<kD, kA>& sm, const float* net)
   if (tid == kA) sm.bo[kA] = __ldcg(net + L::kVfOutB);
 }
 
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+
+// acc[s][i] += sum over k < kK of a[k][s0 + s] * w[k][4 ug + i or 32 + 4 ug +
+// i - 4], k in order: the 8 x 8 tile product of rows `a` (stride kSP, at the
+// tile's first sample) and permuted weight rows `w` (stride kH, at 4 ug).
+template <int kK>
+__device__ __forceinline__ void tile8x8(const float* __restrict__ a, const float* __restrict__ w,
+                                        float (&acc)[8][8]) {
+#pragma unroll 4
+  for (int k = 0; k < kK; ++k) {
+    const float4 a0 = ld4(a + k * kSP), a1 = ld4(a + k * kSP + 4);
+    const float4 w0 = ld4(w + k * kH), w1 = ld4(w + k * kH + 32);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[s][i] = fmaf(av[s], wv[i], acc[s][i]);
+    }
+  }
+}
+
+// tile8x8's product over kK = 64 in L2's order: each group of 4 k is
+// summed apart, ((a0 w0 + a1 w1) + a2 w2) + a3 w3 as three FMAs on the
+// rounded a1 w1, and then added to the unit's sum.
+template <int kK>
+__device__ __forceinline__ void tile8x8_by4(const float* __restrict__ a,
+                                            const float* __restrict__ w, float (&acc)[8][8]) {
+  static_assert(kK % 4 == 0, "groups of 4");
+#pragma unroll 1
+  for (int k = 0; k < kK; k += 4) {
+    float av[4][8], wv[4][8];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 a0 = ld4(a + (k + q) * kSP), a1 = ld4(a + (k + q) * kSP + 4);
+      const float4 w0 = ld4(w + (k + q) * kH), w1 = ld4(w + (k + q) * kH + 32);
+      av[q][0] = a0.x, av[q][1] = a0.y, av[q][2] = a0.z, av[q][3] = a0.w;
+      av[q][4] = a1.x, av[q][5] = a1.y, av[q][6] = a1.z, av[q][7] = a1.w;
+      wv[q][0] = w0.x, wv[q][1] = w0.y, wv[q][2] = w0.z, wv[q][3] = w0.w;
+      wv[q][4] = w1.x, wv[q][5] = w1.y, wv[q][6] = w1.z, wv[q][7] = w1.w;
+    }
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float t = fmaf(av[0][s], wv[0][i], __fmul_rn(av[1][s], wv[1][i]));
+        t = fmaf(av[2][s], wv[2][i], t);
+        t = fmaf(av[3][s], wv[3][i], t);
+        acc[s][i] = acc[s][i] + t;
+      }
+    }
+  }
+}
+
+// A forward layer of one tower over the sub-block: h[unit][sample] =
+// tanh(b[unit] + sum_k in[k][sample] * w[k][unit]) for the thread's tile
+// (8 samples from s0, units ug + 8 i).  L1 (kBy4 false) adds the D products
+// one by one, L2 (kBy4) in groups of 4.
+template <int kK, bool kBy4>
+__device__ __forceinline__ void forward_layer(const float* __restrict__ in, const float* __restrict__ w,
+                                              const float* __restrict__ b, float* __restrict__ out,
+                                              int s0, int ug) {
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float bi = b[ug + 8 * i];
+#pragma unroll
+    for (int s = 0; s < 8; ++s) acc[s][i] = bi;
+  }
+  if constexpr (kBy4) {
+    tile8x8_by4<kK>(in + s0, w + 4 * ug, acc);
+  } else {
+    tile8x8<kK>(in + s0, w + 4 * ug, acc);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float* row = out + (ug + 8 * i) * kSP + s0;
+    st4(row, tanhf(acc[0][i]), tanhf(acc[1][i]), tanhf(acc[2][i]), tanhf(acc[3][i]));
+    st4(row + 4, tanhf(acc[4][i]), tanhf(acc[5][i]), tanhf(acc[6][i]), tanhf(acc[7][i]));
+  }
+}
+
 // The loss gradient over the sub-blocks of 128 samples blockIdx.x,
 // blockIdx.x + gridDim.x, ... of the minibatch of `mb` samples defined by
 // `perm`, with the weights already in `sm`.  Writes the CTA's raw sums
-// (out_size<kD, kA>() floats, each by exactly one thread) to `out`.  Ends after a block
-// synchronisation of its last sub-block; the write of `out` is not
-// followed by one.
+// (out_size<kD, kA>() floats, each by exactly one thread) to `out`.  Its
+// last writes to shared memory (x and red) and to `out` are not followed by
+// a block synchronisation: the caller synchronises before it reuses them.
 template <int kD, int kA, bool kKl>
 __device__ __forceinline__ void loss_body(Smem<kD, kA>& sm, const float* __restrict__ data, int64_t n,
                                           const int* __restrict__ perm, int64_t mb, int tile,
@@ -135,78 +268,87 @@ __device__ __forceinline__ void loss_body(Smem<kD, kA>& sm, const float* __restr
                                           const LossCfg& cfg, float* __restrict__ out) {
   using L = ac::Layout<kD, kA>;
   constexpr int kRed = Smem<kD, kA>::kRed;
-  // The dW1 rows of each tower's threads: [0, kD0) for tower 0, [kD0, kD)
-  // for tower 1.
+  // The dW1 rows of each thread half: [0, kD0) for threads 0-127, [kD0,
+  // kD) for threads 128-255.
   constexpr int kD0 = (kD + 1) / 2, kD1 = kD - kD0;
   const int tid = threadIdx.x;
-  const int tw = tid / kS;  // tower of this thread in the per-sample phases
-  const int s = tid % kS;   // sample of this thread in the per-sample phases
+  const int tw = tid / kS;  // tower of this thread in the per-sample and tile phases
+  const int s = tid % kS;   // sample (per-sample phases), fused unit (dW1, db1, db2)
   const int w1_rows = tw == 0 ? kD0 : kD1;
+  // Tile coordinates inside the tower: 16 groups of 8 samples (or of 4 k
+  // rows of dW2) x 8 unit groups; a quarter-warp shares its first one.
+  const int g16 = s >> 3, g8 = s & 7;
+  float* const h1t = &sm.h1[tw * kH][0];
+  float* const h2t = &sm.h2[tw * kH][0];
 
   // Gradient entries owned by this thread, summed over all its sub-blocks.
-  const int k2 = s % kH, j2 = (s / kH) * 32;  // dW2[tw][k2][j2 .. j2 + 31]
-  float g_w2[32];
+  float g_w2[4][8];  // dW2[tw][4 g16 + i][g8 + 8 m]
 #pragma unroll
-  for (int c = 0; c < 32; ++c) g_w2[c] = 0.0f;
-  float g_w1[kD0];  // dW1[tw * kD0 + c][unit s], c < w1_rows
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int m = 0; m < 8; ++m) g_w2[i][m] = 0.0f;
+  }
+  float g_w1[kD0];  // dW1[tw * kD0 + c][fused unit s], c < w1_rows
 #pragma unroll
   for (int c = 0; c < kD0; ++c) g_w1[c] = 0.0f;
-  float g_b = 0.0f;       // tower 0 threads: db1[unit s]; tower 1: db2[unit s]
+  float g_b = 0.0f;       // threads 0-127: db1[fused unit s]; 128-255: db2[fused unit s]
   float g_wpi = 0.0f;     // tid < H A: dwpi[tid / A][tid % A]
   float g_wvf = 0.0f;     // tid < 64: dwvf[tid]
   float g_red = 0.0f;     // tid < 2 A + 5: dbo (A + 1), dls (A), metrics (4)
 
+  // ---- P0: a sub-block's inputs, gathered into registers one sub-block
+  // ahead (during P7) and staged in shared memory: the observations by
+  // tower 0's threads into x, the action, old log-prob, old value, raw
+  // advantage and return by tower 1's into red (P2 overwrites them there).
+  constexpr int kPre = kD > kRed ? kD : kRed;
+  float pre[kPre];
+  auto fetch = [&](int64_t b) {
+    const int64_t qb = b * kS + s;
+    const bool ok = qb < mb;
+    int64_t col = 0;
+    if (ok) col = static_cast<int64_t>(perm[qb / tile]) * tile + qb % tile;
+    const int64_t row0 = tw == 0 ? 0 : kD;
+#pragma unroll
+    for (int r = 0; r < kPre; ++r) {
+      if (r < (tw == 0 ? kD : kRed)) pre[r] = ok ? data[(row0 + r) * n + col] : 0.0f;
+    }
+  };
+  auto stage = [&]() {
+#pragma unroll
+    for (int r = 0; r < kPre; ++r) {
+      if (tw == 0 && r < kD) sm.x[r][s] = pre[r];
+      if (tw == 1 && r < kRed) sm.red[r][s] = pre[r];
+    }
+  };
+  fetch(blockIdx.x);
+  stage();
+
   const int64_t n_sub = (mb + kS - 1) / kS;
   for (int64_t blk = blockIdx.x; blk < n_sub; blk += gridDim.x) {
-    const int64_t q = blk * kS + s;
-    const bool valid = q < mb;
-    int64_t col = 0;
-    if (valid) col = static_cast<int64_t>(perm[q / tile]) * tile + q % tile;
+    const bool valid = blk * kS + s < mb;
+    __syncthreads();  // the staged inputs
 
-    // ---- P1: forward through this thread's tower ------------------------
-    float x[kD];
-#pragma unroll
-    for (int d = 0; d < kD; ++d) x[d] = valid ? data[d * n + col] : 0.0f;
+    // ---- P1: forward through both towers, 8 x 8 tiles ---------------------
+    forward_layer<kD, false>(&sm.x[0][0], &sm.w1[tw][0][0], sm.b1[tw], h1t, 8 * g16, g8);
+    __syncthreads();
+    forward_layer<kH, true>(h1t, &sm.w2[tw][0][0], sm.b2[tw], h2t, 8 * g16, g8);
+    __syncthreads();
+    // The heads: thread (tower, sample).
     if (tw == 0) {
-#pragma unroll
-      for (int d = 0; d < kD; ++d) sm.x[d][s] = x[d];
-    }
-    {
-      float h1[kH];
-#pragma unroll
-      for (int k = 0; k < kH; ++k) {
-        float z = sm.b1[tw][k];
-#pragma unroll
-        for (int d = 0; d < kD; ++d) z += sm.w1t[tw][k][d] * x[d];
-        h1[k] = tanhf(z);
-        sm.h1[tw * kH + k][s] = h1[k];
-      }
       float mean[kA] = {};
-      float value = 0.0f;
+#pragma unroll 8
       for (int j = 0; j < kH; ++j) {
-        const float4* w = reinterpret_cast<const float4*>(sm.w2t[tw][j]);
-        float z = sm.b2[tw][j];
+        const float h2 = sm.h2[j][s];
 #pragma unroll
-        for (int qq = 0; qq < kH / 4; ++qq) {
-          const float4 v = w[qq];
-          z += v.x * h1[4 * qq] + v.y * h1[4 * qq + 1] + v.z * h1[4 * qq + 2] +
-               v.w * h1[4 * qq + 3];
-        }
-        const float h2 = tanhf(z);
-        sm.h2[tw * kH + j][s] = h2;
-        if (tw == 0) {
-#pragma unroll
-          for (int a = 0; a < kA; ++a) mean[a] += h2 * sm.wpi[j][a];
-        } else {
-          value += h2 * sm.wvf[j];
-        }
+        for (int a = 0; a < kA; ++a) mean[a] += h2 * sm.wpi[j][a];
       }
-      if (tw == 0) {
 #pragma unroll
-        for (int a = 0; a < kA; ++a) sm.dout[a][s] = mean[a] + sm.bo[a];
-      } else {
-        sm.dout[kA][s] = value + sm.bo[kA];
-      }
+      for (int a = 0; a < kA; ++a) sm.dout[a][s] = mean[a] + sm.bo[a];
+    } else {
+      float value = 0.0f;
+#pragma unroll 8
+      for (int j = 0; j < kH; ++j) value += sm.h2[kH + j][s] * sm.wvf[j];
+      sm.dout[kA][s] = value + sm.bo[kA];
     }
     __syncthreads();
 
@@ -221,15 +363,15 @@ __device__ __forceinline__ void loss_body(Smem<kD, kA>& sm, const float* __restr
 #pragma unroll
         for (int a = 0; a < kA; ++a) {
           var[a] = expf(2.0f * sm.ls[a]);
-          diff[a] = data[(kD + a) * n + col] - sm.dout[a][s];
+          diff[a] = sm.red[a][s] - sm.dout[a][s];
           quad[a] = diff[a] * diff[a] / var[a];
           qsum += quad[a];
           ls_sum += sm.ls[a];
         }
-        const float old_logp = data[(kD + kA) * n + col];
-        const float old_value = data[(kD + kA + 1) * n + col];
-        const float adv = (data[(kD + kA + 2) * n + col] - adv_shift) * adv_inv;
-        const float ret = data[(kD + kA + 3) * n + col];
+        const float old_logp = sm.red[kA][s];
+        const float old_value = sm.red[kA + 1][s];
+        const float adv = (sm.red[kA + 2][s] - adv_shift) * adv_inv;
+        const float ret = sm.red[kA + 3][s];
         const float logp = -0.5f * qsum - ls_sum - 0.5f * kA * ac::kLog2Pi;
         const float ratio = expf(logp - old_logp);
         const float kl = old_logp - logp;
@@ -291,80 +433,128 @@ __device__ __forceinline__ void loss_body(Smem<kD, kA>& sm, const float* __restr
     }
     __syncthreads();
 
-    // ---- P4: dpre2 = (W_out dout) * (1 - h2^2), in place of h2 ------------
-    for (int j = 0; j < kH; ++j) {
-      float dh2;
-      if (tw == 0) {
-        dh2 = 0.0f;
+    // ---- P4: dpre2 = (W_out dout) * (1 - h2^2), in place of h2, 8 units
+    // loaded before any is stored (the stores may alias the loads) -----------
+    {
+      float dv[kA + 1];
 #pragma unroll
-        for (int a = 0; a < kA; ++a) dh2 += sm.wpi[j][a] * sm.dout[a][s];
-      } else {
-        dh2 = sm.wvf[j] * sm.dout[kA][s];
+      for (int a = 0; a <= kA; ++a) dv[a] = sm.dout[a][s];
+      for (int j0 = 0; j0 < kH; j0 += 8) {
+        float dh2[8], h2[8];
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int j = j0 + jj;
+          if (tw == 0) {
+            dh2[jj] = 0.0f;
+#pragma unroll
+            for (int a = 0; a < kA; ++a) dh2[jj] += sm.wpi[j][a] * dv[a];
+          } else {
+            dh2[jj] = sm.wvf[j] * dv[kA];
+          }
+          h2[jj] = h2t[j * kSP + s];
+        }
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          h2t[(j0 + jj) * kSP + s] = dh2[jj] * (1.0f - h2[jj] * h2[jj]);
+        }
       }
-      const float h2 = sm.h2[tw * kH + j][s];
-      sm.h2[tw * kH + j][s] = dh2 * (1.0f - h2 * h2);
     }
     __syncthreads();
 
-    // ---- P5: dW2 += h1 (x) dpre2, db2 -------------------------------------
+    // ---- P5: dW2 += h1 (x) dpre2 (4 x 8 tiles, 4 samples a step), db2 -----
     {
-      const float* h1row = sm.h1[tw * kH + k2];
-      for (int ss = 0; ss < kS; ++ss) {
-        const float hk = h1row[ss];
+      const float* hrow = h1t + 4 * g16 * kSP;  // rows k = 4 g16 + i
+      const float* drow = h2t + g8 * kSP;       // rows j = g8 + 8 m
+      for (int ss = 0; ss < kS; ss += 4) {
+        float4 hk[4], dj[8];
 #pragma unroll
-        for (int c = 0; c < 32; ++c) g_w2[c] += hk * sm.h2[tw * kH + j2 + c][ss];
+        for (int i = 0; i < 4; ++i) hk[i] = ld4(hrow + i * kSP + ss);
+#pragma unroll
+        for (int m = 0; m < 8; ++m) dj[m] = ld4(drow + 8 * m * kSP + ss);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int m = 0; m < 8; ++m) {
+            g_w2[i][m] = fmaf(hk[i].x, dj[m].x, g_w2[i][m]);
+            g_w2[i][m] = fmaf(hk[i].y, dj[m].y, g_w2[i][m]);
+            g_w2[i][m] = fmaf(hk[i].z, dj[m].z, g_w2[i][m]);
+            g_w2[i][m] = fmaf(hk[i].w, dj[m].w, g_w2[i][m]);
+          }
+        }
       }
       if (tw == 1) {
-        for (int ss = 0; ss < kS; ++ss) g_b += sm.h2[s][ss];
-      }
-    }
-    __syncthreads();
-
-    // ---- P6: dpre1 = (W2 dpre2) * (1 - h1^2), in place of h1 --------------
-    {
-      float dh1[kH];
-#pragma unroll
-      for (int k = 0; k < kH; ++k) dh1[k] = 0.0f;
-      for (int j = 0; j < kH; ++j) {
-        const float dp = sm.h2[tw * kH + j][s];
-        const float4* w = reinterpret_cast<const float4*>(sm.w2t[tw][j]);
-#pragma unroll
-        for (int qq = 0; qq < kH / 4; ++qq) {
-          const float4 v = w[qq];
-          dh1[4 * qq] += v.x * dp;
-          dh1[4 * qq + 1] += v.y * dp;
-          dh1[4 * qq + 2] += v.z * dp;
-          dh1[4 * qq + 3] += v.w * dp;
+        const float* prow = sm.h2[s];  // fused unit s
+        for (int ss = 0; ss < kS; ss += 4) {
+          const float4 v = ld4(prow + ss);
+          g_b += v.x;
+          g_b += v.y;
+          g_b += v.z;
+          g_b += v.w;
         }
       }
+    }
+    __syncthreads();
+
+    // ---- P6: dpre1 = (dpre2 W2^T) * (1 - h1^2), 8 x 8 tiles, in place of h1
+    {
+      float acc[8][8];
 #pragma unroll
-      for (int k = 0; k < kH; ++k) {
-        const float h1 = sm.h1[tw * kH + k][s];
-        sm.h1[tw * kH + k][s] = dh1[k] * (1.0f - h1 * h1);
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int ss = 0; ss < 8; ++ss) acc[ss][i] = 0.0f;
+      }
+      const int s0 = 8 * g16;
+      tile8x8<kH>(h2t + s0, &sm.w2t[tw][0][0] + 4 * g8, acc);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float* row = h1t + (g8 + 8 * i) * kSP + s0;
+        const float4 h0 = ld4(row), h1 = ld4(row + 4);
+        st4(row, acc[0][i] * (1.0f - h0.x * h0.x), acc[1][i] * (1.0f - h0.y * h0.y),
+            acc[2][i] * (1.0f - h0.z * h0.z), acc[3][i] * (1.0f - h0.w * h0.w));
+        st4(row + 4, acc[4][i] * (1.0f - h1.x * h1.x), acc[5][i] * (1.0f - h1.y * h1.y),
+            acc[6][i] * (1.0f - h1.z * h1.z), acc[7][i] * (1.0f - h1.w * h1.w));
       }
     }
     __syncthreads();
 
-    // ---- P7: dW1 += x (x) dpre1, db1 ---------------------------------------
+    // ---- P7: dW1 += x (x) dpre1 (4 samples a step), db1; the next
+    // sub-block's inputs are gathered meanwhile --------------------------------
+    fetch(blk + gridDim.x);
     {
       const float* prow = sm.h1[s];  // fused unit s: tower s / 64
-      for (int ss = 0; ss < kS; ++ss) {
-        const float dp = prow[ss];
+      const float* xrow = &sm.x[tw * kD0][0];
+      for (int ss = 0; ss < kS; ss += 4) {
+        const float4 dp = ld4(prow + ss);
 #pragma unroll
         for (int c = 0; c < kD0; ++c) {
-          if (c < w1_rows) g_w1[c] += sm.x[tw * kD0 + c][ss] * dp;
+          if (c < w1_rows) {
+            const float4 xv = ld4(xrow + c * kSP + ss);
+            g_w1[c] = fmaf(xv.x, dp.x, g_w1[c]);
+            g_w1[c] = fmaf(xv.y, dp.y, g_w1[c]);
+            g_w1[c] = fmaf(xv.z, dp.z, g_w1[c]);
+            g_w1[c] = fmaf(xv.w, dp.w, g_w1[c]);
+          }
         }
-        if (tw == 0) g_b += dp;
+        if (tw == 0) {
+          g_b += dp.x;
+          g_b += dp.y;
+          g_b += dp.z;
+          g_b += dp.w;
+        }
       }
     }
     __syncthreads();
+    stage();
   }
 
   // ---- this CTA's partial sums, each entry written by exactly one thread --
   {
-    const int base = L::tower_base(tw) + L::kW2 + k2 * kH + j2;
+    const int base = L::tower_base(tw) + L::kW2;
 #pragma unroll
-    for (int c = 0; c < 32; ++c) out[base + c] = g_w2[c];
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int m = 0; m < 8; ++m) out[base + (4 * g16 + i) * kH + g8 + 8 * m] = g_w2[i][m];
+    }
   }
   {
     const int ut = s / kH, uu = s % kH;  // fused unit s = tower ut, unit uu

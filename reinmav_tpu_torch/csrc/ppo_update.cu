@@ -20,9 +20,10 @@
 // operations, 3.52 ms at 67 TFLOP/s.
 //
 // What the design does about it: a persistent cooperative grid, K3's grid
-// (min(sub-blocks of 128, SMs) CTAs of 256 threads, 183 KB of shared memory
-// at D = 10, about 1 KB more per obs dim, one CTA per SM), that stays resident for
-// the whole update, so the host
+// (min(sub-blocks of 128, SMs) CTAs of 256 threads, 215 KiB of shared
+// memory at D = 10, about 1 KiB more per obs dim, one CTA per SM), that
+// stays resident for the whole update and runs K3's body of register-tiled
+// products (ppo_loss_body.cuh), so the host
 // issues one launch in place of 16 loss launches, 16 reductions and 16
 // optimiser steps.  Per pass p (minibatch p of the epoch-concatenated
 // permutation):

@@ -16,7 +16,11 @@ Against the eager env step in float64 at the full 120 sweeps, 20 steps, at
 the 48-candidate sweep without arm contact.  The twin's rigid-body substep
 bitwise the hover twin's in flight (csrc/contact_rollout.cu keeps its own
 copy of csrc/hover_common.cuh's arithmetic; each kernel is held to its twin
-on the card).
+on the card).  The kernel's lane schedule of a stage's four sums (the
+half-warp's transposed butterfly) emulated in float32, bitwise
+``candidate_sum``; and the pairing contract the kernel's two envs a warp
+rely on: no env's result depends on its neighbour's, but for the sign of
+a zero.
 """
 
 import dataclasses
@@ -280,3 +284,131 @@ def test_params_vec_and_wrapper_checks():
         cr.contact_rollout(s, 2, params_vec=torch.zeros(5))
     f0, z0 = cr.contact_rollout(s[:, :3].contiguous(), 0)
     assert torch.equal(f0, s[:, :3]) and torch.equal(z0, torch.zeros(3))
+
+
+def _halving16(v: torch.Tensor) -> torch.Tensor:
+    """csrc/contact_rollout.cu::halving16, lane by lane: ``v`` ``(..., 4,
+    16)`` holds the four values of the half's 16 lanes; returns ``(...,
+    16)``, lane l's finished sum 2 * bit3(l) + bit2(l)."""
+    lane = torch.arange(16)
+    b3, b2 = (lane & 8) != 0, (lane & 4) != 0
+
+    def shfl_xor(x, off):
+        return x[..., lane ^ off]
+
+    keep0, keep1 = torch.where(b3, v[..., 2, :], v[..., 0, :]), torch.where(b3, v[..., 3, :], v[..., 1, :])
+    send0, send1 = torch.where(b3, v[..., 0, :], v[..., 2, :]), torch.where(b3, v[..., 1, :], v[..., 3, :])
+    p0, p1 = keep0 + shfl_xor(send0, 8), keep1 + shfl_xor(send1, 8)
+    q = torch.where(b2, p1, p0) + shfl_xor(torch.where(b2, p0, p1), 4)
+    q = q + shfl_xor(q, 2)
+    return q + shfl_xor(q, 1)
+
+
+def _kernel_sums(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's four sums of a stage over ``x`` ``(..., 4, nc)`` (nc 16
+    or 48; lane l holds candidates l, 16 + l and 32 + l): ``(..., 16)`` per
+    lane before the broadcast, then the four broadcast sums ``(..., 4)``."""
+    if x.shape[-1] == 16:
+        q = _halving16(x)
+    else:
+        q = _halving16(x[..., :16] + x[..., 16:32]) + _halving16(x[..., 32:])
+    return q, q[..., [0, 4, 8, 12]]
+
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+def _same_bits(a, b) -> bool:
+    """Bit for bit equal, except that +0 and -0 count as equal: the twin
+    adds a zero contact wrench to an env without contact when another env
+    of its batch has one (the TPU kernel: when another env of its tile has
+    one), and -0 + 0 is +0."""
+    return bool(((_bits(a) == _bits(b)) | ((a == 0) & (b == 0))).all())
+
+
+@pytest.mark.parametrize("nc", [16, 48])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_half_warp_butterfly_is_candidate_sum(nc, seed):
+    """The transposed butterfly's exact lane schedule (sends, keeps, selects
+    on lane bits 3 and 2, the width-16 broadcast from lanes 0, 4, 8, 12) is
+    bitwise candidate_sum's halving tree, for 16 and for 48 candidates, on
+    seeded inputs with +-0, +-inf and NaN among them; every lane that holds
+    a sum holds the same bits.  NaN results are compared as NaN: their
+    payload is not part of IEEE addition's commutativity on the host (the
+    card returns its canonical NaN)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((256, 4, nc)).astype(np.float32)
+    x *= np.float32(10.0) ** rng.integers(-30, 30, x.shape).astype(np.float32)
+    special = rng.random(x.shape)
+    x[special < 0.15] = 0.0
+    x[(special >= 0.15) & (special < 0.25)] = -0.0
+    rows = rng.random(256)
+    hot = rng.random(x.shape) < 0.05
+    x[(rows[:, None, None] < 0.2) & hot] = np.inf
+    x[(rows[:, None, None] >= 0.2) & (rows[:, None, None] < 0.35) & hot] = -np.inf
+    x[(rows[:, None, None] >= 0.35) & (rows[:, None, None] < 0.45) & hot] = np.nan
+    zeros = (rows > 0.85) & (rows <= 0.92)
+    x[zeros] = np.where(rng.random((int(zeros.sum()), 4, nc)) < 0.5, 0.0, -0.0)
+    x[rows > 0.92] = -0.0
+    x = torch.from_numpy(x)
+    lanes, got = _kernel_sums(x)
+    want = cr.candidate_sum(x)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(_bits(got)[~nan], _bits(want)[~nan])
+    for j, lane in enumerate((0, 4, 8, 12)):  # the lanes that hold sum j agree
+        held = lanes[..., [lane, lane + 1, lane + 2, lane + 3]]
+        ok = ~torch.isnan(held[..., :1]).expand_as(held)
+        assert torch.equal(_bits(held)[ok], _bits(held[..., :1].expand_as(held))[ok])
+    assert int(nan.sum()) > 0 and int((_bits(want) == _bits(torch.tensor(-0.0))).sum()) > 0
+
+
+def _kind_states(kind: str, n: int, seed: int) -> torch.Tensor:
+    """``(13, n)`` float32 states whose first substep has no contact
+    ("none": in flight), core or cap contacts only ("16"), or an arm corner
+    below the plane ("48")."""
+    if kind == "none":
+        s = _states(n, seed)
+        s[:, 2] += 1.0
+        return torch.from_numpy(s.T.copy())
+    if kind == "16":
+        return torch.from_numpy(_states(n, seed, tilt=0.02, z_lo=0.015).T.copy())
+    pool = torch.from_numpy(_states(16 * n, seed).T.copy())
+    _, _, tiers = cr.contact_rollout_reference(pool, 1, frame_skip=1, record_tiers=True)
+    pick = torch.nonzero(tiers[:, 2] == 1).squeeze(1)[:n]
+    assert pick.numel() == n
+    return pool[:, pick].contiguous()
+
+
+@pytest.mark.parametrize("env_id", [m for m, _ in MODELS])
+def test_twin_env_results_do_not_depend_on_the_neighbour(env_id, monkeypatch):
+    """The pairing contract of K11's two envs a warp: a batch of envs with
+    no contact, on the 16- and on the 48-candidate tier, in every ordered
+    pair of neighbours (envs 2i and 2i + 1 share a warp), and its prefixes
+    of odd length (the last env's half-warp without a neighbour), give each
+    env's state, Σz and tier counts bitwise, the sign of a zero aside, as
+    that env run alone.  8 sweeps a substep, as the JAX comparison lowers
+    them."""
+    monkeypatch.setattr(cr, "_PGS_ITERS", 8)
+    vec = cr.contact_params_vec(reinmav_tpu_torch.make(env_id).params)
+    kinds = ("none", "16", "48")
+    pool = {k: _kind_states(k, 9, 20 + i) for i, k in enumerate(kinds)}
+    cols, used = [], {k: 0 for k in kinds}
+    for a in kinds:
+        for b in kinds:
+            for k in (a, b):
+                cols.append(pool[k][:, used[k]])
+                used[k] += 1
+    batch = torch.stack(cols, dim=1).contiguous()
+    alone = [cr.contact_rollout(batch[:, i:i + 1].contiguous(), 3, params_vec=vec,
+                                record_tiers=True) for i in range(batch.shape[1])]
+    for n in (batch.shape[1], 1, 3, 5, 7):
+        f, z, t = cr.contact_rollout(batch[:, :n].contiguous(), 3, params_vec=vec,
+                                     record_tiers=True)
+        for i in range(n):
+            fa, za, ta = alone[i]
+            assert _same_bits(f[:, i], fa[:, 0]), (n, i)
+            assert _same_bits(z[i:i + 1], za) and torch.equal(t[i], ta[0])
+    mix = torch.stack([t[0] for _, _, t in alone]).sum(dim=0)
+    assert bool((mix > 0).all()), mix  # substeps with no solve, on 16 and on 48

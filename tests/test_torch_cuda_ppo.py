@@ -164,6 +164,28 @@ def test_k3_matches_twin_and_repeats_bitwise(cuda, kl_mode):
     assert all(torch.equal(m_k[k], m_k2[k]) for k in pl.METRICS)
 
 
+def test_k3_sub_blocks_not_dividing_the_grid(cuda):
+    """A minibatch of 201 sub-blocks of 128 samples (more than one per CTA
+    on some CTAs of the grid, one on the others), in both modes, against the
+    twin at the same tolerances; bitwise on a rerun."""
+    data, net, _ = _loss_batch(cuda, 128 * 300, 5)
+    perm = torch.tensor(np.random.default_rng(5).permutation(300)[:201], dtype=torch.int32,
+                        device=cuda)
+    for kl_mode in (False, True):
+        adv_stats = torch.tensor([0.1, 0.9, 0.5, 0.0], device=cuda)
+        cfg = dict(d=10, adim=4, clip_eps=0.2, value_clip_eps=0.2, value_coef=0.5, tile=128,
+                   kl_mode=kl_mode)
+        g_k, m_k = pl.ppo_loss_grads_gather(data, adv_stats, perm, net, ent_coef=0.01, **cfg)
+        sums = pl.ppo_loss_grads_reference(data, adv_stats, perm, net, **cfg)
+        g_p, m_p = pl._finish(sums, 201 * 128, 0.01, networks.Layout(10, 4))
+        np.testing.assert_allclose(g_k.cpu().numpy(), g_p.cpu().numpy(), **GRAD_TOL)
+        for name in pl.METRICS:
+            np.testing.assert_allclose(float(m_k[name]), float(m_p[name]), **METRIC_TOL,
+                                       err_msg=name)
+        g_k2, _ = pl.ppo_loss_grads_gather(data, adv_stats, perm, net, ent_coef=0.01, **cfg)
+        assert torch.equal(g_k, g_k2)
+
+
 def test_k3_ragged_minibatch(cuda):
     """A minibatch that is not a multiple of the kernel's 128-sample sub-block."""
     data, net, _ = _loss_batch(cuda, 4096, 4)
@@ -252,16 +274,18 @@ def test_bitwise_resume_on_the_card(cuda, tmp_path):
             assert a == b
 
 
-def _update_inputs(device, kl_mode=False, floor=None, ent_coef=0.0, value_clip_eps=0.2, lr=3e-4):
-    """One K2 rollout of 4096 envs x 16 steps, stacked as K4 takes it, with
-    4 epochs x 4 minibatches of tiles of 128, and the kernel's keywords."""
+def _update_inputs(device, kl_mode=False, floor=None, ent_coef=0.0, value_clip_eps=0.2, lr=3e-4,
+                   num_envs=4096):
+    """One K2 rollout of ``num_envs`` envs x 16 steps, stacked as K4 takes
+    it, with 4 epochs x 4 minibatches of tiles of 128, and the kernel's
+    keywords."""
     env = reinmav_tpu_torch.make("quadrotor3d-v0")
-    cfg = ppo.PpoConfig(num_envs=4096, rollout_len=16)
+    cfg = ppo.PpoConfig(num_envs=num_envs, rollout_len=16)
     state = ppo.init_train_state(env, cfg, 7, device=device)
     ro_ = ppo.collect_rollout_kernel(env, cfg, state.params, state.obs_norm, state.ret_norm,
                                      state.env_states, state.env_returns, 13)
     layout = networks.Layout(10, 4)
-    n = 4096 * 16
+    n = num_envs * 16
     with torch.no_grad():
         _, _, last_value = networks.apply_t(layout.unflatten(state.params),
                                             ppo._normalize_t(ro_.final_states.T, state.obs_norm))
@@ -288,6 +312,20 @@ def test_k4_matches_twin_k3_and_repeats_bitwise(cuda, mode):
              "floor-entropy": {"floor": -0.05, "ent_coef": 0.01},
              "value-clip-lr1e-3": {"lr": 1e-3},
              "no-value-clip-lr1e-3": {"lr": 1e-3, "value_clip_eps": 1e9}}[mode]
+    _check_k4(cuda, mode, **extra)
+
+
+def test_k4_sub_blocks_not_dividing_the_grid(cuda):
+    """6432 envs x 16 steps: minibatches of 201 sub-blocks of 128 samples,
+    more than one per CTA on some CTAs of the grid (one CTA per SM, at most
+    132 on an H100) and one on the others; the same checks as the clip mode
+    at the same tolerances."""
+    _check_k4(cuda, "clip", num_envs=6432)
+
+
+def _check_k4(cuda, mode, **extra):
+    """K4 against its twin at the JAX tolerances (the flipped ones after a
+    value-clip flip), pass 0 bitwise one K3 launch, a bitwise rerun."""
     data, stats, perm_all, params, opt, beta, kw = _update_inputs(cuda, **extra)
     before = pu.ppo_update.launches
     k = pu.ppo_update(data, stats, perm_all, params, opt, beta, keep_grad0=True, **kw)

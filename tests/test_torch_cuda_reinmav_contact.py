@@ -22,7 +22,13 @@ Tolerances:
   candidate within 1e-6 of the plane at the step's start or its middle
   (the active test's knife edge) are skipped and counted.  The
   16-candidate tier bitwise the forced 48-candidate sweep on states with
-  core and cap contacts only; a rerun bitwise equal.
+  core and cap contacts only; a rerun bitwise equal.  The kernel runs two
+  envs a warp, a half-warp each: envs with no contact, on the 16- and on
+  the 48-candidate tier next to each other in every order, and odd batches
+  (a half-warp without an env), bit for bit the twin's, the sign of a zero
+  aside (the kernel leaves the wrench of an env without contact untouched;
+  the twin adds a zero wrench to it when another env of the batch has
+  contact, and -0 + 0 is +0).
 """
 
 import logging
@@ -56,6 +62,12 @@ def _reinmav_states(device, batch, seed, t_max=0.0):
     s[:, :13] += rng.uniform(-0.05, 0.05, (batch, 13))
     s[:, 13] = rng.uniform(0.0, t_max, batch)
     return torch.tensor(s.T.copy(), device=device)
+
+
+def _same_bits(a, b) -> bool:
+    """Bit for bit equal, except that +0 and -0 count as equal."""
+    bits = a.view(torch.int32) == b.view(torch.int32)
+    return bool((bits | ((a == 0) & (b == 0))).all())
 
 
 def _contact_states(device, batch, seed, tilt=0.25, z_lo=0.0):
@@ -143,6 +155,44 @@ def test_k11_matches_twin_step_by_step(cuda, env_id):
     assert cr.contact_rollout.launches == before + 6
     assert outside == 0, (outside, knife)
     assert knife < 0.01 * 6 * x.shape[1]
+
+
+@pytest.mark.parametrize("env_id", CONTACT)
+def test_k11_mixed_tier_pairs_and_odd_batches_bitwise(cuda, env_id):
+    """Envs with no contact (in flight), on the 16-candidate tier (nearly
+    level, low) and on the 48 (an arm corner below the plane) in every
+    ordered pair of warp neighbours (envs 2i and 2i + 1), and odd batches
+    of 1, 3 and 4097 that end on an env in contact alone in its warp: over 3
+    steps, states and Σz bit for bit the twin's (+0 and -0 counted equal),
+    tier counts equal."""
+    env = reinmav_tpu_torch.make(env_id)
+    vec = cr.contact_params_vec(env.params)
+    fly = _contact_states(cuda, 64, 7)
+    fly[2] += 1.0
+    level = _contact_states(cuda, 64, 8, tilt=0.02, z_lo=0.015)
+    pool = _contact_states(cuda, 8192, 9)
+    _, _, first = cr.contact_rollout_reference(pool, 1, params_vec=vec, frame_skip=1,
+                                               record_tiers=True)
+    wide = pool[:, first[:, 2] == 1][:, :64]
+    assert wide.shape[1] == 64
+    kinds, used, cols = (fly, level, wide), [0, 0, 0], []
+    for _ in range(7):
+        for a in range(3):
+            for b in range(3):
+                for k in (a, b):
+                    cols.append(kinds[k][:, used[k]])
+                    used[k] += 1
+    batches = (torch.stack(cols, dim=1), wide[:, -1:],
+               torch.stack([level[:, -1], wide[:, -2], wide[:, -3]], dim=1), pool[:, :4097])
+    for x in batches:
+        x = x.contiguous()
+        f_k, z_k, t_k = cr.contact_rollout(x, 3, params_vec=vec, record_tiers=True)
+        f_p, z_p, t_p = cr.contact_rollout_reference(x, 3, params_vec=vec, record_tiers=True)
+        assert _same_bits(f_k, f_p), x.shape[1]
+        assert _same_bits(z_k, z_p), x.shape[1]
+        assert torch.equal(t_k, t_p), x.shape[1]
+    mix = t_k.sum(dim=0)
+    assert bool((mix > 0).all()), mix
 
 
 @pytest.mark.parametrize("env_id", CONTACT)
