@@ -8,7 +8,10 @@ Phases, in order; any failure raises and exits non-zero:
 1. Device: a CUDA device is required (no CPU carry-on); prints the
    card's name and power limit from nvidia-smi.
 2. Build: compiles the hand-written kernels from reinmav_tpu_torch/csrc/
-   with nvcc and prints the build time.
+   with nvcc and prints the build time, ptxas's registers and spills, and
+   the static SASS of K5's and K10's substep loops by pipe
+   (reinmav_tpu_torch/sass_report.py on cuobjdump -sass of the library
+   just built).
 3. Philox known answers: Random123's two vectors, on the device,
    through the kernel library.
 4. Kernel K1 against its plain PyTorch twin, on the card: a no-reset leg
@@ -121,14 +124,19 @@ Phases, in order; any failure raises and exits non-zero:
 24. Kernel K10 (reinmav-v0's rollout of 50/51-substep steps), at
    benchmarks/sweep.py:133-135's sizes: throughput_rollout(make(
    "reinmav-v0")) through the public API at 131,072 x 500 and at 8192 x 500
-   must launch K10 once each, with reward sums exactly 90 x 500 and no
-   reset; K10 against its twin free-running at 131,072 x 50 from perturbed
-   init states (max |err| <= 1e-3, the envs outside rtol 2e-4 / atol 2e-5
-   reported, every step's substep count equal to the twin's), its counts
-   over 500 steps equal to the float32 recurrence's (14 x 51 in 400 steps
-   from t = 0), a bitwise rerun; K10 timed at 131,072 x 500, at 8192 x 500
-   and at 131,072 x 50, the twin at 131,072 x 50 (its time at 500 steps is
-   an estimate, scaled, in the text only).
+   must launch K10 once each (the layout its wrapper picks, lanes_per_env,
+   printed), with reward sums exactly 90 x 500 and no reset; K10 in every
+   layout (lanes_per_env 1, 2) against its twin free-running at 131,072
+   and at 8192 x 50 from perturbed init states: bit for bit the twin's
+   states and every step's substep count, a bitwise rerun; its
+   straight-line atan2f and divisions bit for bit the library's on 2^23
+   operand triples and every triple of special values; its counts over 500
+   steps equal to the float32 recurrence's (14 x 51 in 400 steps from t =
+   0); every layout timed at 500 steps at 131,072, 32,768, 24,576, 16,384
+   and 8192 envs (the main path's states; the dispatch's cutover), with
+   the SM clock sampled meanwhile and the issue time the substep's SASS
+   implies there; K10 at 131,072 x 50 and the twin there (its time at 500
+   steps is an estimate, scaled, in the text only).
 25. Kernel K11 (the contact envs' rollout with the coupled contact solve),
    for each of MujocoQuadForce-v0 and MujocoQuadQuat-v0: throughput_rollout
    at 131,072 x 500 through the public API must launch it once (zero reward
@@ -146,7 +154,7 @@ Phases, in order; any failure raises and exits non-zero:
    48-candidate sweep bitwise the gated one;
    bitwise reruns; K11 timed at 131,072 x 500 and on one step at 131,072,
    the twin on one step (its time at 500 steps is an estimate, scaled, in
-   the text only); ptxas's registers and spills of K3, K4, K10 and K11
+   the text only); ptxas's registers and spills of K3, K4, K5, K10 and K11
    (phases 10, 13 and 21 print K4's at each (obs, action) pair).
 
 The second-to-last line is a JSON object describing each kernel of the
@@ -161,12 +169,14 @@ The script imports nothing of JAX.
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
 import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -201,6 +211,7 @@ OPS_K1, OPS_K2, OPS_K3 = 150, 19_584, 56_192
 # 64*1) = 20,352, plus that env step.  K3 at obs 13, per sample: forward
 # 10,176 FMA, backward 640 + 16,384 + 1,664 (dW1): 28,864 FMA = 57,728.
 OPS_K5 = 554
+HOVER_FRAME_SKIP = 2  # MujocoQuadForce-v1's, hover_rollout's default: substeps a step
 OPS_ROLLOUT = {10: OPS_K2, 13: 20_352 + OPS_K5}
 OPS_LOSS = {10: OPS_K3, 13: 57_728}
 B_HOVER_CHECK = 65_536
@@ -256,6 +267,8 @@ T_K10_CHECK = 50  # steps of K10's free-running check against its twin
 # 35, the angular acceleration 42, the Euler update 26, the substep time 2.
 # A step runs 50 or 51 substeps, counted from this run's times.
 OPS_K10_SUBSTEP = 245
+K10_KERNELS = ("reinmav_rollout_kernel", "reinmav_rollout_lanes_kernel")
+B_K10_LAYOUTS = (B_SWEEP, 32_768, 24_576, 16_384, B_REINMAV)  # every layout timed at these
 # K11, FP32 operations, a hand count from csrc/contact_rollout.cu and
 # hover_common.cuh (sqrt, rsqrt, sin, cos and divisions as one each): per
 # substep the rigid body (rotation 30, free wrench 50, gyroscopic term 9,
@@ -299,6 +312,61 @@ def cuda_ms(fn, reps: int):
         end.record()
     torch.cuda.synchronize()
     return [start.elapsed_time(end) for start, end in pairs], out
+
+
+class SmClock:
+    """Samples nvidia-smi's SM clock (one query every 0.1 s, in a thread)
+    while the ``with`` block runs; ``mhz`` is the median of the samples
+    (NaN if none came)."""
+
+    def __enter__(self):
+        self.samples, self._stop = [], threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _run(self):
+        while not self._stop.is_set():
+            out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                                  "--format=csv,noheader,nounits"],
+                                 capture_output=True, text=True, timeout=60).stdout.split()
+            if out and out[0].replace(".", "", 1).isdigit():
+                self.samples.append(float(out[0]))
+            self._stop.wait(0.1)
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.mhz = statistics.median(self.samples) if self.samples else math.nan
+        return False
+
+
+def issue_ms(instructions: int, threads_substeps: int, mhz: float) -> float:
+    """Milliseconds that ``instructions`` a substep, run by one thread for
+    each of ``threads_substeps`` substeps, take to issue at one
+    warp-instruction a clock on each of the card's four schedulers an SM."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return instructions * threads_substeps / 32 / (4 * sms * mhz * 1e6) * 1e3
+
+
+@functools.lru_cache(maxsize=None)
+def _sass_counts() -> dict:
+    from reinmav_tpu_torch import _build, sass_report
+
+    return sass_report.report(_build.build(), Path("chiprun_out") / "smoke_sass")
+
+
+def substep_sass(short_name: str) -> dict:
+    """The static SASS of one pass of the substep loop of the kernel named
+    ``short_name``, from cuobjdump -sass of the library this run built:
+    ``{"total", "fp32_int", "mufu", "other"}`` (a static count: the slow
+    paths that a branch skips included; the innermost loop that holds a
+    MUFU instruction, the loops nested in it left out)."""
+    sub = _sass_counts()[short_name]["substep"]
+    require(sub is not None, f"{short_name}: no substep loop found in its SASS")
+    return dict(total=sub["n"], fp32_int=sub["fp32/int"], mufu=sub["mufu"], other=sub["other"])
 
 
 def require(cond: bool, what: str) -> None:
@@ -935,8 +1003,9 @@ def hover_phases(torch, dev, gpu: str) -> list[dict]:
     hr.hover_rollout_reference(big_t, 5)  # warm-ups
     torch.cuda.synchronize()
     (plain0,), (f_p, r_p) = cuda_ms(plain_run, 1)
-    kern0, (f_k, r_k) = cuda_ms(kernel_run, 5)
-    kern1, _ = cuda_ms(kernel_run, 5)
+    with SmClock() as clock:
+        kern0, (f_k, r_k) = cuda_ms(kernel_run, 5)
+        kern1, _ = cuda_ms(kernel_run, 5)
     (plain1,), _ = cuda_ms(plain_run, 1)
     ok = torch.isclose(f_k, f_p, **TOL).all(dim=0)
     k5_mismatched = int((~ok).sum())
@@ -950,6 +1019,12 @@ def hover_phases(torch, dev, gpu: str) -> list[dict]:
         f"{min(kern0 + kern1):.3f} to {max(kern0 + kern1):.3f}), "
         f"{B_MAIN * T_MAIN / k5_ms * 1e3:.4e} env-steps/s; twin {k5_plain_ms:.1f} ms (runs "
         f"{plain0:.1f}, {plain1:.1f}); bound {k5_bound:.3f} ms by {k5_by}, on {gpu}")
+    k5_sass = substep_sass("hover_rollout_kernel")
+    k5_issue = issue_ms(k5_sass["total"], B_MAIN * T_MAIN * HOVER_FRAME_SKIP, clock.mhz)
+    say(f"K5's substep loop, {k5_sass['total']} static SASS instructions ({k5_sass}), would "
+        f"take {k5_issue:.3f} ms to issue for B={B_MAIN} T={T_MAIN} at {clock.mhz:.0f} MHz (the "
+        f"SM clock sampled during the timed launches; {len(clock.samples)} samples), against "
+        f"{k5_ms:.3f} ms measured, on {gpu}")
     at_k5 = f"states {tuple(f_k.shape)}, horizon {T_MAIN}, zero action"
     del big_t, f_k, f_p, r_k, r_p
     torch.cuda.empty_cache()
@@ -1014,7 +1089,10 @@ def hover_phases(torch, dev, gpu: str) -> list[dict]:
               dict(max_abs_err=k5_err, ms=k5_ms, plain_ms=k5_plain_ms, bound_ms=k5_bound,
                    bound_by=k5_by, at=at_k5),
               "rtol 2e-4 atol 2e-5 per env, <= 0.1% of envs may differ; max_abs_err over the "
-              "envs that agree", {"mismatched_envs": k5_mismatched}),
+              "envs that agree", {"mismatched_envs": k5_mismatched,
+                                  "registers": kernel_registers("hover_rollout_kernel"),
+                                  "sass_per_substep": k5_sass, "sm_clock_mhz": clock.mhz,
+                                  "issue_ms": k5_issue}),
         entry("ppo_rollout (MujocoQuadForce-v1, K6-hover)", "reinmav_tpu_torch/csrc/ppo_rollout.cu",
               "reinmav_tpu/ops/pallas_ppo_rollout.py:703", main_launches["K2"], k6,
               "rtol 2e-4 atol 2e-5 per env over its whole trajectory, <= 0.1% of envs may "
@@ -1571,25 +1649,54 @@ def reinmav_states(torch, gen, batch: int, t_hi: float = 0.0):
     return s
 
 
+def euler_operands(torch, gen, n: int):
+    """(a, b, cphi) for K10's Euler angle: n magnitudes 2^-70 to 2^70 of
+    either sign, n of the physical range (|a|, |b| <= 1, cphi in (0, 1]),
+    and every triple of zeros, infinities, NaN, subnormals and the ends of
+    the kernel's straight-line range with their neighbours."""
+    dev = gen.device
+
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand(n, generator=gen, device=dev)
+
+    def wide():
+        sign = torch.where(torch.rand(n, generator=gen, device=dev) < 0.5, -1.0, 1.0)
+        return sign * torch.exp2(u(-70.0, 70.0))
+
+    lo, hi = torch.tensor([2.0 ** -60, 2.0 ** 60], device=dev)
+    special = torch.tensor([0.0, -0.0, math.inf, -math.inf, math.nan, 1e-40, -1e-40, 1.0, -1.0],
+                           device=dev)
+    special = torch.cat([special, torch.stack([lo, hi, torch.nextafter(lo, torch.zeros_like(lo)),
+                                               torch.nextafter(hi, torch.full_like(hi, math.inf))])])
+    grid = torch.cartesian_prod(special, special, special)
+    return tuple(torch.cat([wide(), u(*rng), grid[:, k]])
+                 for k, rng in enumerate(((-1.0, 1.0), (-1.0, 1.0), (0.0, 1.0))))
+
+
 def reinmav_phase(torch, dev, gpu: str) -> dict:
     """Phase 24: K10.  throughput_rollout(make("reinmav-v0")) through the
     public API at B_SWEEP x T_SWEEP and at B_REINMAV x T_SWEEP must launch K10
     once each, with reward sums exactly 90 T_SWEEP and the time T_SWEEP steps
-    of dt on; K10 against its twin free-running at B_SWEEP x T_K10_CHECK
-    (max |err| <= 1e-3, the envs outside TOL counted, every step's substep
-    count equal); the counts over T_SWEEP steps from random times equal to
-    the float32 recurrence's; a bitwise rerun; K10 and its twin timed.
+    of dt on; K10 against its twin free-running at B_SWEEP and at B_REINMAV x
+    T_K10_CHECK in every layout (lanes_per_env 1, 2): bit for bit the
+    twin's states and every step's substep count, a bitwise rerun; its
+    straight-line atan2f and divisions bit for bit the library's on wide,
+    physical and special operands; the counts over T_SWEEP steps from
+    random times equal to the float32 recurrence's; every layout timed at
+    each batch of B_K10_LAYOUTS from the main path's states, the twin at
+    B_SWEEP.
     Returns K10's entry of the ``kernels`` line."""
     import reinmav_tpu_torch
     from reinmav_tpu_torch.ops import reinmav_rollout as rr
 
     env = reinmav_tpu_torch.make("reinmav-v0")
     gen = torch.Generator(device=dev).manual_seed(24)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     counters = kernel_counters()
     t_end = torch.zeros((), device=dev)
     for _ in range(T_SWEEP):
         t_end = t_end + torch.tensor(env.params.dt, device=dev)
-    main_launches = {}
+    main_launches, main_states, chosen = {}, {}, {}
     for batch in (B_SWEEP, B_REINMAV):
         for fn in counters.values():
             fn.launches = 0
@@ -1604,30 +1711,48 @@ def reinmav_phase(torch, dev, gpu: str) -> dict:
         require(final.shape == (batch, 14) and bool(torch.isfinite(final).all()) and
                 bool((final[:, 13] == t_end).all()), "finite states, the time T steps of dt on")
         main_launches[batch] = launches["K10"]
-        if batch == B_SWEEP:
-            main_states = states
-        else:
-            small_states = states
+        main_states[batch] = states.T.contiguous()
+        chosen[batch] = rr.lanes_per_env_for(batch, sms)
         dist = float((final[:, 0:3] - 1.0).norm(dim=1).mean())
         say(f"throughput_rollout(reinmav-v0) B={batch} T={T_SWEEP} backend=auto: K10 launches "
-            f"{launches['K10']}, reward sums {float(reward_sum[0]):.1f} in every env, time "
-            f"{float(final[0, 13]):.6f}, mean distance to the trajectory's end (1, 1, 1) "
-            f"{dist:.4f}: ok")
+            f"{launches['K10']} (lanes_per_env {chosen[batch]} on {sms} SMs), reward sums "
+            f"{float(reward_sum[0]):.1f} in every env, time {float(final[0, 13]):.6f}, mean "
+            f"distance to the trajectory's end (1, 1, 1) {dist:.4f}: ok")
     del final, reward_sum, states
 
-    # K10 against its twin, free-running, in turns: plain, kernel, kernel, plain.
-    x = reinmav_states(torch, gen, B_SWEEP)
-    kernel_check = lambda: rr.reinmav_rollout(x, T_K10_CHECK, record_substeps=True)  # noqa: E731
-    plain_check = lambda: rr.reinmav_rollout_reference(x, T_K10_CHECK,  # noqa: E731
-                                                       record_substeps=True)
-    (plain0,), (f_p, n_p) = cuda_ms(plain_check, 1)
-    check0, (f_k, n_k) = cuda_ms(kernel_check, 3)
-    err = float((f_k - f_p).abs().max())
-    outside = int((~torch.isclose(f_k, f_p, **TOL).all(dim=0)).sum())
-    require(torch.equal(n_k, n_p), "K10 and its twin count the substeps alike")
-    require(err <= 1e-3, f"K10 vs twin: max |err| {err}")
-    again = kernel_check()
-    require(torch.equal(f_k, again[0]) and torch.equal(n_k, again[1]), "K10 bitwise rerun")
+    # K10 against its twin, free-running, in every layout, at both batches.
+    check = {}
+    for batch in (B_SWEEP, B_REINMAV):
+        x = reinmav_states(torch, gen, batch)
+        plain_check = lambda: rr.reinmav_rollout_reference(  # noqa: E731
+            x, T_K10_CHECK, record_substeps=True)
+        (plain0,), (f_p, n_p) = cuda_ms(plain_check, 1)
+        for lanes in rr.LANES_PER_ENV:
+            f_k, n_k = rr.reinmav_rollout(x, T_K10_CHECK, record_substeps=True,
+                                          lanes_per_env=lanes)
+            err = float((f_k - f_p).abs().max())
+            require(torch.equal(n_k, n_p), f"K10 lanes_per_env={lanes} B={batch}: counts")
+            require(err <= 1e-3, f"K10 lanes_per_env={lanes} B={batch}: max |err| {err}")
+            require(torch.equal(f_k.view(torch.int32), f_p.view(torch.int32)),
+                    f"K10 lanes_per_env={lanes} B={batch}: not the twin's bits")
+            again = rr.reinmav_rollout(x, T_K10_CHECK, record_substeps=True, lanes_per_env=lanes)
+            require(torch.equal(f_k, again[0]) and torch.equal(n_k, again[1]),
+                    f"K10 lanes_per_env={lanes} B={batch}: bitwise rerun")
+        outside = int((~torch.isclose(f_k, f_p, **TOL).all(dim=0)).sum())
+        check[batch] = dict(x=x, plain=plain_check, plain0=plain0, err=err, outside=outside)
+        say(f"K10 vs twin, free-running B={batch} T={T_K10_CHECK} from t = 0, lanes_per_env "
+            f"{', '.join(map(str, rr.LANES_PER_ENV))}: bit for bit the twin's states and every "
+            f"step's substep count ({int((n_k == 51).sum())} env-steps of 51), max |err| "
+            f"{err:.3e} (limit 1e-3); bitwise equal on a rerun: ok")
+        del f_k, f_p, n_k, n_p, again
+    a, b, cphi = euler_operands(torch, gen, 1 << 22)
+    psi, library = rr.euler_angle_check(a, b, cphi)
+    same = int((psi.view(torch.int32) == library.view(torch.int32)).sum())
+    require(same == a.numel(), f"K10's Euler angle: {same} of {a.numel()} operand triples are "
+                               f"atan2f's bits")
+    say(f"K10's straight-line atan2f and divisions: {same} of {a.numel()} operand triples (wide, "
+        f"physical, special) bit for bit the library's: ok")
+    del a, b, cphi, psi, library
     x_long = reinmav_states(torch, gen, B_REINMAV, t_hi=4.0)
     x_long[13, : B_REINMAV // 2] = 0.0
     _, n_long = rr.reinmav_rollout(x_long, T_SWEEP, record_substeps=True)
@@ -1635,51 +1760,78 @@ def reinmav_phase(torch, dev, gpu: str) -> dict:
             "K10's counts over the horizon are the float32 recurrence's")
     fifty_one = int((n_long[:400, 0] == 51).sum())
     require(fifty_one == 14, f"14 x 51 substeps in 400 steps from t = 0, got {fifty_one}")
-    say(f"K10 vs twin, free-running B={B_SWEEP} T={T_K10_CHECK} from t = 0: max |err| {err:.3e} "
-        f"(limit 1e-3), {outside} envs outside rtol 2e-4 atol 2e-5 (reported), every step's "
-        f"substep count equal ({int((n_k == 51).sum())} env-steps of 51); B={B_REINMAV} "
-        f"T={T_SWEEP} from times in [0, 4]: counts equal to the float32 recurrence's, 14 x 51 "
-        f"in the first 400 steps from t = 0; bitwise equal on a rerun: ok")
-    del f_k, f_p, n_k, n_p, again
+    say(f"K10 B={B_REINMAV} T={T_SWEEP} from times in [0, 4]: counts equal to the float32 "
+        f"recurrence's, 14 x 51 in the first 400 steps from t = 0: ok")
 
-    big_t = main_states.T.contiguous()
-    kernel_run = lambda: rr.reinmav_rollout(big_t, T_SWEEP)  # noqa: E731
-    kernel_run()
-    kern0, final_t = cuda_ms(kernel_run, 5)
-    kern1, _ = cuda_ms(kernel_run, 5)
-    (plain1,), _ = cuda_ms(plain_check, 1)
-    check1, _ = cuda_ms(kernel_check, 3)
-    ms = statistics.median(kern0 + kern1)
-    plain_ms, check_ms = (plain0 + plain1) / 2, statistics.median(check0 + check1)
+    # Every layout timed at each batch of B_K10_LAYOUTS (the main path's
+    # states: every env at the init state), in two rounds.
+    for batch in B_K10_LAYOUTS:
+        if batch not in main_states:
+            main_states[batch] = env.vreset(gen, batch).T.contiguous()
+            chosen[batch] = rr.lanes_per_env_for(batch, sms)
+    times = {(b, lanes): [] for b in B_K10_LAYOUTS for lanes in rr.LANES_PER_ENV}
+    with SmClock() as clock:
+        for _ in range(2):
+            for (batch, lanes), samples in times.items():
+                run = lambda: rr.reinmav_rollout(main_states[batch], T_SWEEP,  # noqa: E731
+                                                 lanes_per_env=lanes)
+                run()
+                samples += cuda_ms(run, 5)[0]
+    ms_by = {(b, lanes): statistics.median(v) for (b, lanes), v in times.items()}
+    sass = {name: substep_sass(name) for name in K10_KERNELS}
+    ms, small_ms = ms_by[(B_SWEEP, chosen[B_SWEEP])], ms_by[(B_REINMAV, chosen[B_REINMAV])]
+    c = check[B_SWEEP]
+    kernel_check = lambda: rr.reinmav_rollout(c["x"], T_K10_CHECK)  # noqa: E731
+    check_ms = statistics.median(cuda_ms(kernel_check, 5)[0])
+    (plain1,), _ = cuda_ms(c["plain"], 1)
+    plain_ms = (c["plain0"] + plain1) / 2
+    big_t = main_states[B_SWEEP]
     substeps = int(rr.substep_counts(big_t[13], T_SWEEP).sum(dtype=torch.int64))
-    bound_ms, bound_by = bound(nbytes(big_t, final_t), OPS_K10_SUBSTEP * substeps)
-    # The 8192-env batch of the main path's second call: under one wave.
-    small_t = small_states.T.contiguous()
-    small_ms = statistics.median(cuda_ms(lambda: rr.reinmav_rollout(small_t, T_SWEEP), 5)[0])
+    bound_ms, bound_by = bound(2 * nbytes(big_t), OPS_K10_SUBSTEP * substeps)
+    small_t = main_states[B_REINMAV]
     small_substeps = int(rr.substep_counts(small_t[13], T_SWEEP).sum(dtype=torch.int64))
-    small_bound, _ = bound(nbytes(small_t, small_t), OPS_K10_SUBSTEP * small_substeps)
-    say(f"time K10 B={B_SWEEP} T={T_SWEEP}: {ms:.3f} ms (median of 10 launches, each "
-        f"{min(kern0 + kern1):.3f} to {max(kern0 + kern1):.3f}), "
-        f"{B_SWEEP * T_SWEEP / ms * 1e3:.4e} env-steps/s; bound {bound_ms:.3f} ms by "
-        f"{bound_by} ({substeps} substeps of {OPS_K10_SUBSTEP} operations); at "
-        f"B={B_SWEEP} T={T_K10_CHECK}: K10 {check_ms:.3f} ms (median of 6), twin {plain_ms:.1f} "
-        f"ms (runs {plain0:.1f}, {plain1:.1f}), so the twin at T={T_SWEEP} would take about "
-        f"{plain_ms * T_SWEEP / T_K10_CHECK:.0f} ms (an estimate, scaled, not measured); at "
-        f"B={B_REINMAV} T={T_SWEEP}: K10 {small_ms:.3f} ms (median of 5), bound "
-        f"{small_bound:.3f} ms ({small_substeps} substeps); on {gpu}")
-    del big_t, final_t, x, x_long, main_states, small_states, small_t
+    small_bound, _ = bound(2 * nbytes(small_t), OPS_K10_SUBSTEP * small_substeps)
+    issue = {}
+    for batch in B_K10_LAYOUTS:
+        n_sub = int(rr.substep_counts(main_states[batch][13], T_SWEEP).sum(dtype=torch.int64))
+        issue[batch] = issue_ms(sass["reinmav_rollout_kernel"]["total"], n_sub, clock.mhz)
+        say(f"time K10 B={batch} T={T_SWEEP} by lanes_per_env: " + ", ".join(
+            f"{lanes}: {ms_by[(batch, lanes)]:.3f} ms (each {min(times[(batch, lanes)]):.3f} to "
+            f"{max(times[(batch, lanes)]):.3f})" for lanes in rr.LANES_PER_ENV) +
+            f"; medians of 10; the dispatch takes {chosen[batch]}; one env a thread's substep "
+            f"loop, {sass['reinmav_rollout_kernel']['total']} static SASS instructions, would "
+            f"take {issue[batch]:.3f} ms to issue ({n_sub} substeps) at {clock.mhz:.0f} MHz (the "
+            f"SM clock sampled during the timed launches); on {gpu}")
+    say(f"K10's substep loops (static SASS; the 2-warp loop holds both warps' parts, each warp "
+        f"running its own): {sass}")
+    say(f"time K10 B={B_SWEEP} T={T_SWEEP}: {ms:.3f} ms, {B_SWEEP * T_SWEEP / ms * 1e3:.4e} "
+        f"env-steps/s; bound {bound_ms:.3f} ms by {bound_by} ({substeps} substeps of "
+        f"{OPS_K10_SUBSTEP} operations); at B={B_SWEEP} T={T_K10_CHECK}: K10 {check_ms:.3f} ms "
+        f"(median of 5), twin {plain_ms:.1f} ms (runs {c['plain0']:.1f}, {plain1:.1f}), so the "
+        f"twin at T={T_SWEEP} would take about {plain_ms * T_SWEEP / T_K10_CHECK:.0f} ms (an "
+        f"estimate, scaled, not measured); at B={B_REINMAV} T={T_SWEEP}: K10 {small_ms:.3f} ms, "
+        f"bound {small_bound:.3f} ms ({small_substeps} substeps); on {gpu}")
+    err, outside = c["err"], c["outside"]
+    del big_t, small_t, x_long, main_states, check, c
     torch.cuda.empty_cache()
     return {"name": "reinmav_rollout (reinmav-v0, K10)", "route": "cuda",
             "source": "reinmav_tpu_torch/csrc/reinmav_rollout.cu",
             "replaces": "reinmav_tpu/ops/pallas_reinmav.py:245",
             "launches": main_launches[B_SWEEP], "launches_at_8192": main_launches[B_REINMAV],
             "max_abs_err": err, "envs_outside_rtol_2e-4_atol_2e-5": outside,
-            "tolerance": f"max |err| <= 1e-3 free-running over {T_K10_CHECK} steps at B="
-                         f"{B_SWEEP}; every step's substep count equal",
+            "tolerance": f"bit for bit the twin's states and substep counts free-running over "
+                         f"{T_K10_CHECK} steps at B={B_SWEEP} and B={B_REINMAV}, every layout",
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "plain_at": f"states (14, {B_SWEEP}), horizon {T_K10_CHECK}",
             "ms_at_plain_shape": check_ms, "ms_at_8192": small_ms,
             "bound_ms_at_8192": small_bound,
+            "lanes_per_env": {str(b): chosen[b] for b in B_K10_LAYOUTS},
+            "ms_by_lanes_per_env": {str(b): {str(lanes): ms_by[(b, lanes)]
+                                             for lanes in rr.LANES_PER_ENV}
+                                    for b in B_K10_LAYOUTS},
+            "registers": {name: kernel_registers(name) for name in K10_KERNELS},
+            "sass_per_substep": sass, "sm_clock_mhz": clock.mhz,
+            "issue_ms_one_env_a_thread": {str(b): issue[b] for b in B_K10_LAYOUTS},
             "at": f"states (14, {B_SWEEP}), horizon {T_SWEEP}; plain_ms at plain_at"}
 
 
@@ -1913,41 +2065,11 @@ def kernel_registers(short_name: str) -> str:
     starts with ``short_name`` (the first match), or "not reported"."""
     from reinmav_tpu_torch import _build
 
-    for line in ptxas_report(_build.ptxas_log_path()):
+    for line in _build.ptxas_report():
         head, _, info = line.partition(": ")[2].partition(": ")
         if head.startswith(short_name):
             return info
     return "not reported"
-
-
-def ptxas_report(path) -> list[str]:
-    """One line per kernel of ptxas's report: registers, spill stores and
-    loads, shared memory."""
-    import re
-
-    rows, name, spill = [], None, ""
-    for line in Path(path).read_text().splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m:
-            spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
-        m = re.search(r"Used (\d+) registers(.*)", line)
-        if m and name:
-            rows.append((name, f"{m.group(1)} registers, {spill}{m.group(2)}"))
-            name, spill = None, ""
-    try:
-        names = subprocess.run(["c++filt"], input="\n".join(n for n, _ in rows),
-                               capture_output=True, text=True, timeout=60).stdout.splitlines()
-    except OSError:
-        names = [n for n, _ in rows]
-    if len(names) != len(rows):
-        names = [n for n, _ in rows]
-    short = [n.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
-             for n in names]
-    return [f"ptxas: {n}: {info}" for n, (_, info) in zip(short, rows)]
-
 
 
 def main() -> int:
@@ -1976,8 +2098,10 @@ def main() -> int:
     _build.load_library()
     say(f"build: {time.perf_counter() - t0:.2f} s, nvcc {' '.join(_build.NVCC_FLAGS)} "
         f"-> {lib_path.name}")
-    for line in ptxas_report(_build.ptxas_log_path()):
+    for line in _build.ptxas_report():
         say(line)
+    for name in ("hover_rollout_kernel", *K10_KERNELS):
+        say(f"sass: {name}: substep loop {substep_sass(name)}")
 
     # 3. Philox known answers, on the device through the kernel library.
     kat = [((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
@@ -2116,9 +2240,9 @@ def main() -> int:
     kernels += native_phases(torch, dev, gpu)
     # 24. K10; 25. K11 on each contact env.
     kernels.append(reinmav_phase(torch, dev, gpu))
-    for line in ptxas_report(_build.ptxas_log_path()):
-        if any(k in line for k in ("contact_rollout", "reinmav_rollout", "ppo_loss_kernel",
-                                   "ppo_update_kernel")):
+    for line in _build.ptxas_report():
+        if any(k in line for k in ("contact_rollout", "reinmav_rollout", "hover_rollout",
+                                   "ppo_loss_kernel", "ppo_update_kernel")):
             say(line)
     kernels += [contact_phase(torch, dev, gpu, name)
                 for name in ("MujocoQuadForce-v0", "MujocoQuadQuat-v0")]

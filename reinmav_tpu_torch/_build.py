@@ -22,6 +22,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -52,8 +53,12 @@ _SIGNATURES = {
     "hover_rollout_launch": (_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P,
                              ctypes.c_float, ctypes.c_float, _P),
     # K10: (states_in, states_out, substep counts or null, batch, horizon,
-    #  host params, number of params, stream)
-    "reinmav_rollout_launch": (_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P, ctypes.c_int, _P),
+    #  host params, number of params, lanes per env, stream)
+    "reinmav_rollout_launch": (_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P, ctypes.c_int,
+                               ctypes.c_int, _P),
+    # K10's Euler angles against atan2f: (a, b, cphi, psi out, library out,
+    #  n, stream)
+    "reinmav_euler_check_launch": (_P, _P, _P, _P, _P, ctypes.c_longlong, _P),
     # K11: (states_in, states_out, z_sum_out, tier counts or null, batch,
     #  horizon, frame_skip, pgs_iters, force48, host params, number of
     #  params, stream)
@@ -142,6 +147,34 @@ def ptxas_log_path() -> Path:
     """Where :func:`build` keeps ptxas's report (registers, spills, shared
     memory of every kernel) of the current library."""
     return _library_path().with_suffix(".ptxas.txt")
+
+
+def ptxas_report(path: Path | None = None) -> list[str]:
+    """One line per kernel of ptxas's report (the current library's when
+    ``path`` is None): registers, spill stores and loads, shared memory,
+    each kernel by its demangled name."""
+    rows, name, spill = [], None, ""
+    for line in Path(path or ptxas_log_path()).read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m and name:
+            rows.append((name, f"{m.group(1)} registers, {spill}{m.group(2)}"))
+            name, spill = None, ""
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(n for n, _ in rows),
+                               capture_output=True, text=True, timeout=60).stdout.splitlines()
+    except OSError:
+        names = [n for n, _ in rows]
+    if len(names) != len(rows):
+        names = [n for n, _ in rows]
+    short = [n.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+             for n in names]
+    return [f"ptxas: {n}: {info}" for n, (_, info) in zip(short, rows)]
 
 
 def build() -> Path:

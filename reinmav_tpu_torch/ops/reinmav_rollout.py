@@ -29,6 +29,13 @@ from them (the inverse inertia, the reciprocal mass, the mixer's
 ``0.5 / arm``, the trajectory's coefficients), derived in float64 on the
 host, so that kernel and twin start from the same floats.
 
+The kernel has two layouts (``lanes_per_env``): one env a thread, or the
+substep's independent branches dealt out to 2 warps that share 32 envs.  At a batch that fills the card the first is fastest; at a batch of
+about one warp a scheduler or fewer, one env's dependent chain sets the
+pace and 2 warps an env shorten it.  :func:`lanes_per_env_for` picks the
+layout from the batch and the card's SM count; the layouts agree bit for
+bit.
+
 The wrapper takes the twin only for a tensor that lies on the CPU; on a
 CUDA tensor it launches the kernel or raises.
 """
@@ -36,14 +43,24 @@ CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import logging
 
 import numpy as np
 import torch
 
 from ..envs.reinmav13 import Params, substep_count
 
+log = logging.getLogger(__name__)
+
 D = 14
 MAX_SUBSTEPS = 51
+LANES_PER_ENV = (1, 2)
+#: Warps per warp scheduler (four an SM) at one env a thread up to which
+#: :func:`lanes_per_env_for` deals an env out to 2 warps (PERF.md section 6,
+#: chip_smoke.py phase 24 on an NVIDIA H100 80GB HBM3 at 700 W: 2 warps an
+#: env are the fastest at 8192 to 24,576 envs, 1.45 warps a scheduler, one
+#: env a thread from 32,768, 1.94).
+LANES_2_UP_TO = 1.5
 #: The kernel's params vector, in the order ``csrc/reinmav_rollout.cu`` reads it.
 KERNEL_FIELDS = (
     "mass", "gravity", "arm_length", "min_force4", "max_force4", "dt", "ds", "inv_mass",
@@ -182,6 +199,40 @@ def reinmav_derivative(s: list, tk: torch.Tensor, c: dict) -> list:
     return [vx, vy, vz, ax, ay, az, qdw, qdx, qdy, qdz, pd, qd, rd]
 
 
+def lanes_per_env_for(batch: int, sm_count: int) -> int:
+    """The layout K10 takes for ``batch`` envs on a card of ``sm_count``
+    SMs: 2 warps an env while one env a thread would give each of the
+    card's ``4 sm_count`` warp schedulers at most :data:`LANES_2_UP_TO`
+    warps, else 1."""
+    per_scheduler = -(-int(batch) // 32) / (4 * int(sm_count))
+    return 2 if per_scheduler <= LANES_2_UP_TO else 1
+
+
+def euler_angle_check(a: torch.Tensor, b: torch.Tensor, cphi: torch.Tensor):
+    """K10's Euler angle psi (``csrc/reinmav_rollout.cu::euler_angles``,
+    straight-line copies of atan2f and the division, paired with its
+    neighbour's theta) beside the library's ``atan2f(-a / cphi, b / cphi)``,
+    elementwise on float32 tensors of one shape, for the check that the two
+    agree bit for bit: ``(psi, library)``.  On the CPU both are the twin's
+    ``torch.atan2``."""
+    a, b, cphi = (x.contiguous() for x in (a, b, cphi))
+    if (any(x.dtype != torch.float32 or x.shape != a.shape or x.device != a.device
+            for x in (b, cphi)) or a.dtype != torch.float32 or a.numel() == 0):
+        raise ValueError("a, b, cphi must be non-empty float32 tensors of one shape and device")
+    if a.device.type == "cpu":
+        twin = torch.atan2(-a / cphi, b / cphi)
+        return twin, twin.clone()
+    from .._build import check, load_library
+
+    out = tuple(torch.empty_like(a) for _ in range(2))
+    with torch.cuda.device(a.device):
+        rc = load_library().reinmav_euler_check_launch(
+            a.data_ptr(), b.data_ptr(), cphi.data_ptr(), *(x.data_ptr() for x in out),
+            a.numel(), torch.cuda.current_stream().cuda_stream)
+    check(rc, "reinmav_euler_check_launch")
+    return out
+
+
 def _check_args(states_t, horizon, params_vec) -> torch.Tensor:
     """Validate what the kernel takes; returns the params vector."""
     if not isinstance(states_t, torch.Tensor) or states_t.dtype != torch.float32:
@@ -229,7 +280,7 @@ def reinmav_rollout_reference(states_t: torch.Tensor, horizon: int,
 
 
 def reinmav_rollout(states_t: torch.Tensor, horizon: int, params_vec: torch.Tensor | None = None,
-                    record_substeps: bool = False):
+                    record_substeps: bool = False, lanes_per_env: int | None = None):
     """K10: ``horizon`` steps of reinmav-v0 (no action, no reset) in one CUDA
     launch.
 
@@ -238,11 +289,15 @@ def reinmav_rollout(states_t: torch.Tensor, horizon: int, params_vec: torch.Tens
     :func:`reinmav_params_vec` output (the defaults when None).  Returns
     the final ``(14, B)`` float32 states; with ``record_substeps=True``
     also the live substep count of every step and env, ``(horizon, B)``
-    uint8.  Launches on the current stream and does not synchronise.  A
-    CPU tensor runs the plain twin; a CUDA tensor runs the kernel or
-    raises.
+    uint8.  ``lanes_per_env``: the kernel's layout, 1 or 2 (None: by
+    :func:`lanes_per_env_for`, logged); every layout gives the same bits.
+    Launches on the current stream and does not synchronise.  A CPU tensor
+    runs the plain twin; a CUDA tensor runs the kernel or raises.
     """
     params = _check_args(states_t, horizon, params_vec)
+    if lanes_per_env is not None and lanes_per_env not in LANES_PER_ENV:
+        raise ValueError(f"lanes_per_env must be one of {LANES_PER_ENV} or None, "
+                         f"got {lanes_per_env!r}")
     if states_t.device.type == "cpu":
         return reinmav_rollout_reference(states_t, horizon, params, record_substeps)
     if states_t.device.type != "cuda":
@@ -255,11 +310,16 @@ def reinmav_rollout(states_t: torch.Tensor, horizon: int, params_vec: torch.Tens
     counts = (torch.empty((int(horizon), batch), dtype=torch.uint8, device=states_t.device)
               if record_substeps else None)
     host_params = (ctypes.c_float * len(KERNEL_FIELDS))(*params.tolist())
+    if lanes_per_env is None:
+        sms = torch.cuda.get_device_properties(states_t.device).multi_processor_count
+        lanes_per_env = lanes_per_env_for(batch, sms)
+        log.info("reinmav_rollout(B=%d): lanes_per_env=%d (by the batch and %d SMs)", batch,
+                 lanes_per_env, sms)
     with torch.cuda.device(states_t.device):
         rc = lib.reinmav_rollout_launch(
             states_t.data_ptr(), final.data_ptr(), None if counts is None else counts.data_ptr(),
             batch, int(horizon), ctypes.addressof(host_params), len(KERNEL_FIELDS),
-            torch.cuda.current_stream().cuda_stream)
+            int(lanes_per_env), torch.cuda.current_stream().cuda_stream)
     check(rc, "reinmav_rollout_launch")
     reinmav_rollout.launches += 1
     return (final, counts) if record_substeps else final

@@ -99,6 +99,39 @@ def test_k5_takes_live_params_and_frame_skip(cuda):
     assert not torch.equal(f_k, hr.hover_rollout(states, 100)[0])
 
 
+@pytest.mark.parametrize("frame_skip", [1, 3])
+def test_k5_live_params_at_the_smoke_gates(cuda, frame_skip):
+    """Live params and frame_skip 1 and 3, through resets, at chip_smoke.py
+    phase 12's gates: <= 0.1% of envs outside TOL, reward total rtol 1e-3,
+    a bitwise rerun, finite states above the done height."""
+    params = tpuquad.Params(init_z=0.9, mass=0.34, dt=0.008, frame_skip=frame_skip)
+    states = _hover_states(cuda, 4096 + 37, 4)
+    kw = dict(action=(0.8, 0.78, 0.79, 0.81), params_vec=hr.hover_params_vec(params),
+              frame_skip=frame_skip)
+    f_k, r_k = hr.hover_rollout(states, 300, **kw)
+    f_p, r_p = hr.hover_rollout_reference(states, 300, **kw)
+    assert int((~torch.isclose(f_k, f_p, **TOL).all(dim=0)).sum()) <= 0.001 * states.shape[1]
+    total_rel = abs(float(r_k.double().sum() - r_p.double().sum())) / abs(float(r_p.double().sum()))
+    assert total_rel <= 1e-3, total_rel
+    f_k2, r_k2 = hr.hover_rollout(states, 300, **kw)
+    assert torch.equal(f_k, f_k2) and torch.equal(r_k, r_k2)
+    assert bool(torch.isfinite(f_k).all()) and float(f_k[2].min()) > 0.3
+
+
+def test_k5_large_rotation_branch(cuda):
+    """Rates of 50-100 rad/s turn the body by more than 0.5 rad a substep,
+    where K5's exp-map takes the library's sqrtf, sinf and cosf in place of
+    its series: one step of every env within TOL of the twin."""
+    states = _hover_states(cuda, 2048, 5)
+    rng = np.random.default_rng(5)
+    rates = rng.uniform(50.0, 100.0, (3, 2048)) * rng.choice([-1.0, 1.0], (3, 2048))
+    states[10:13] = torch.tensor(rates / np.sqrt(3.0), dtype=torch.float32, device=cuda)
+    f_k, r_k = hr.hover_rollout(states, 1)
+    f_p, r_p = hr.hover_rollout_reference(states, 1)
+    torch.testing.assert_close(f_k, f_p, **TOL)
+    torch.testing.assert_close(r_k, r_p, rtol=2e-4, atol=1e-2)
+
+
 def test_throughput_rollout_launches_k5(cuda, caplog):
     env = reinmav_tpu_torch.make(HOVER)
     gen = torch.Generator(device=cuda).manual_seed(0)

@@ -13,7 +13,8 @@ Tolerances:
 
 - K10: max |err| <= 1e-3 against the twin, free-running from t = 0
   (tests/test_pallas_rollout.py's own for the reinmav kernel); the kernel
-  is built without FMA contraction, as its twin computes.  The live
+  is built without FMA contraction, as its twin computes, and each of its
+  layouts (lanes_per_env 1, 2) is held to the twin bit for bit.  The live
   substep count of every step and env equal to the twin's: a count that
   differs is a 0.2 ms shift of simulated time, not a tolerance.
 - K11: rtol 2e-4 / atol 2e-5 per value (the JAX kernel tests' float32
@@ -95,6 +96,56 @@ def test_k10_matches_twin_and_counts_alike(cuda):
     assert float((f_k - f_p).abs().max()) <= 1e-3
     assert torch.equal(f_k[13], f_p[13])
     assert torch.equal(f_k, rr.reinmav_rollout(states, 20))
+
+
+def test_k10_every_layout_is_the_twin_bitwise(cuda):
+    """lanes_per_env 1 and 2 on a ragged batch whose envs run 50 and 51
+    substeps side by side in a warp: final states and substep counts bit
+    for bit the twin's and each other's, and a rerun of each bitwise."""
+    states = _reinmav_states(cuda, 4096 + 37, 7, t_max=2.0)
+    states[13, ::3] = 0.0
+    f_p, n_p = rr.reinmav_rollout_reference(states, 20, record_substeps=True)
+    assert set(n_p.unique().tolist()) == {50, 51}
+    for lanes in rr.LANES_PER_ENV:
+        before = rr.reinmav_rollout.launches
+        f_k, n_k = rr.reinmav_rollout(states, 20, record_substeps=True, lanes_per_env=lanes)
+        torch.cuda.synchronize()
+        assert rr.reinmav_rollout.launches == before + 1
+        assert torch.equal(n_k, n_p), lanes
+        assert torch.equal(f_k.view(torch.int32), f_p.view(torch.int32)), lanes
+        again = rr.reinmav_rollout(states, 20, record_substeps=True, lanes_per_env=lanes)
+        assert torch.equal(f_k, again[0]) and torch.equal(n_k, again[1]), lanes
+
+
+def euler_operands(n, seed):
+    """(a, b, cphi) for K10's Euler angle: magnitudes 2^-70 to 2^70 of
+    either sign, the physical range (|a|, |b| <= 1, cphi in (0, 1]), and
+    every triple of zeros, infinities, NaN, subnormals and the ends of the
+    straight-line range with their neighbours."""
+    rng = np.random.default_rng(seed)
+
+    def wide(k):
+        return (rng.choice([-1.0, 1.0], k) * 2.0 ** rng.uniform(-70, 70, k)).astype(np.float32)
+
+    edge = np.float32(2.0 ** -60), np.float32(2.0 ** 60)
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-40, -1e-40, 1.0, -1.0, *edge,
+                        np.nextafter(edge[0], np.float32(0)), np.nextafter(edge[1], np.float32(np.inf))],
+                       np.float32)
+    grid = np.stack(np.meshgrid(special, special, special), -1).reshape(-1, 3)
+    a = np.concatenate([wide(n), rng.uniform(-1, 1, n).astype(np.float32), grid[:, 0]])
+    b = np.concatenate([wide(n), rng.uniform(-1, 1, n).astype(np.float32), grid[:, 1]])
+    c = np.concatenate([wide(n), rng.uniform(0, 1, n).astype(np.float32), grid[:, 2]])
+    return a, b, c
+
+
+def test_k10_euler_angle_is_atan2f_bitwise(cuda):
+    """K10's straight-line atan2f and divisions give the library's bits on
+    2^22 wide operands, 2^22 physical ones and every triple of the special
+    values (NaN payloads included)."""
+    a, b, c = (torch.tensor(x, device=cuda) for x in euler_operands(1 << 22, 8))
+    psi, library = rr.euler_angle_check(a, b, c)
+    same = psi.view(torch.int32) == library.view(torch.int32)
+    assert bool(same.all()), (a[~same][:4], b[~same][:4], c[~same][:4])
 
 
 def test_k10_substep_counts_over_the_horizon(cuda):

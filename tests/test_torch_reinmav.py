@@ -213,3 +213,22 @@ def test_wrapper_checks():
         rr.reinmav_rollout(s, 2, params_vec=rr.reinmav_params_vec()[:-1])
     final, counts = rr.reinmav_rollout(s[:, :5].contiguous(), 0, record_substeps=True)
     assert torch.equal(final, s[:, :5]) and counts.shape == (0, 5)
+
+
+def test_k10_layout_choice_and_its_checks():
+    """The layout K10's wrapper picks by the batch and the card's SM count
+    (PERF.md section 6, K10): 2 warps an env while one env a thread would
+    give a warp scheduler at most 1.5 warps (25,344 envs on 132 SMs), else
+    one env a thread; a lanes_per_env other than 1, 2 or None raises,
+    on the CPU too, where every layout runs the twin."""
+    assert [rr.lanes_per_env_for(b, 132) for b in (1, 8192, 16_384, 24_576, 25_344, 25_345,
+                                                   32_768, 131_072, 2_097_152)] == \
+        [2, 2, 2, 2, 2, 1, 1, 1, 1]
+    assert [rr.lanes_per_env_for(8192, sms) for sms in (16, 32, 43, 132)] == [1, 1, 2, 2]
+    s = torch.tensor(_perturbed(8, 3).T.copy(), dtype=torch.float32)
+    for bad in (0, 3, 4, 8, 1.5, "2"):
+        with pytest.raises(ValueError, match="lanes_per_env"):
+            rr.reinmav_rollout(s, 2, lanes_per_env=bad)
+    want = rr.reinmav_rollout_reference(s, 2)
+    for lanes in (None, 1, 2):
+        assert torch.equal(rr.reinmav_rollout(s, 2, lanes_per_env=lanes), want)
