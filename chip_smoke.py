@@ -9,7 +9,8 @@ Phases, in order; any failure raises and exits non-zero:
    card's name and power limit from nvidia-smi.
 2. Build: compiles the hand-written kernels from reinmav_tpu_torch/csrc/
    with nvcc and prints the build time, ptxas's registers and spills, and
-   the static SASS of K5's and K10's substep loops by pipe
+   the static SASS of K5's and K10's substep loops and of K8/K9's horizon
+   loops (their reset block apart) by pipe
    (reinmav_tpu_torch/sass_report.py on cuobjdump -sass of the library
    just built).
 3. Philox known answers: Random123's two vectors, on the device,
@@ -108,7 +109,13 @@ Phases, in order; any failure raises and exits non-zero:
    difference picks the other branch), both timed; then 50 steps one at a
    time from the twin's state at full width, 0 envs outside rtol 2e-4 /
    atol 2e-5 off the knife edges (within 1e-4 of the sphere, or a done
-   flag that differs), whose env-steps are counted; a bitwise rerun.
+   flag that differs), whose env-steps are counted; a bitwise rerun; the
+   same free run with the per-env counts (taut env-steps of the slung-load
+   kinds, done env-steps of quadrotor2d-v0) in kernel and twin, their
+   shares printed, the slung-load kinds' within 1 percentage point of each
+   other, the counting kernel bitwise the main path's; the horizon loop's
+   SASS, its registers and the SM clock sampled during the timed launches,
+   with the issue time that SASS implies.
 21. For each of those envs: the fused PPO rollout (K6-rest) against its
    twin at 32,768 x 32 with noise and resets on (quadrotor2d-v0 as phase
    7; the slung-load kinds one step at a time from the twin's state off
@@ -238,7 +245,9 @@ CLI_OFF_ENVS, CLI_OFF_BATCH, CLI_OFF_ITERS, CLI_OFF_RING = 8192, 2048, 8, 1 << 1
 # quadrotor2d-v0 and the slung-load envs (phases 20-23).  FP32 operations
 # per env-step, hand counts from csrc/quad2d_common.cuh and
 # csrc/slung_common.cuh (atan2, sin, cos and sqrt counted as one each; the
-# slung steps' taut branch): the planar PD controller 18, the geometric
+# slung steps' taut branch), kept for K8/K9's own steps in
+# csrc/closed_loop_rollout.cu (the same operations, a product by 1 / mass
+# for a division): the planar PD controller 18, the geometric
 # controller 100 (K1's count less its dynamics), the quad2d step 40, the
 # slung2d step 120, the slung3d step 200.  K3 per sample at (D, A): the
 # forward 128 D + 8192 + 64 A + 64 FMA, the backward 128 D + 16,384 + 128 A
@@ -367,6 +376,36 @@ def substep_sass(short_name: str) -> dict:
     sub = _sass_counts()[short_name]["substep"]
     require(sub is not None, f"{short_name}: no substep loop found in its SASS")
     return dict(total=sub["n"], fp32_int=sub["fp32/int"], mufu=sub["mufu"], other=sub["other"])
+
+
+#: The closed-loop template's loop struct of each env, as it appears in the
+#: demangled kernel name (closed_loop_kernel<...Quad2d...>).
+CLOSED_LOOP_TAG = {"quadrotor2d-v0": "Quad2d", "quadrotor2d-slungload-v0": "Slung2d",
+                   "quadrotor3d-slungload-v0": "Slung3d"}
+
+
+def closed_loop_kernel_name(name: str) -> str:
+    """The demangled name of the instantiation that the main path of env
+    ``name`` launches (the one without counts)."""
+    found = [k for k in _sass_counts() if k.startswith("closed_loop_kernel<")
+             and CLOSED_LOOP_TAG[name] in k and not k.replace(" ", "").endswith(",true>")]
+    require(len(found) == 1, f"{name}: closed-loop kernels {found} in the SASS")
+    return found[0]
+
+
+def horizon_sass(name: str) -> dict:
+    """The static SASS of one pass of the horizon loop of env ``name``'s
+    closed-loop kernel: ``substep_sass``'s counts, plus ``reset`` (the
+    Philox span of the auto-reset, by class, or None) and ``step`` (the
+    loop's count less the part of that span it holds: what an env-step
+    without a reset issues at most)."""
+    short = closed_loop_kernel_name(name)
+    counts = substep_sass(short)
+    reset = _sass_counts()[short]["reset"]
+    counts["reset"] = None if reset is None else {
+        k: reset[k] for k in ("n", "fp32/int", "mufu", "other", "in_loop")}
+    counts["step"] = counts["total"] - (0 if reset is None else reset["in_loop"])
+    return counts
 
 
 def require(cond: bool, what: str) -> None:
@@ -1470,8 +1509,9 @@ def closed_loop_phase(torch, dev, gpu: str, name: str) -> dict:
     cl.closed_loop_rollout_reference(name, big_t, 7, 5)  # warm-ups
     torch.cuda.synchronize()
     (plain0,), (f_p, r_p) = cuda_ms(plain_run, 1)
-    kern0, (f_k, r_k) = cuda_ms(kernel_run, 5)
-    kern1, _ = cuda_ms(kernel_run, 5)
+    with SmClock() as clock:
+        kern0, (f_k, r_k) = cuda_ms(kernel_run, 5)
+        kern1, _ = cuda_ms(kernel_run, 5)
     (plain1,), _ = cuda_ms(plain_run, 1)
     apart = ~torch.isclose(f_k, f_p, **TOL).all(dim=0)
     free_apart = int(apart.sum())
@@ -1484,6 +1524,27 @@ def closed_loop_phase(torch, dev, gpu: str, name: str) -> dict:
         else float("nan")
     reward_rel = abs(float(r_k.double().sum() - r_p.double().sum())) / abs(float(r_p.double().sum()))
     del again, f_p, r_p
+
+    # The same free run with the per-env counts: taut env-steps (the slung
+    # kinds) or done env-steps, the resets (quad2d), in kernel and twin.
+    n_k = torch.empty(B_MAIN, dtype=torch.int32, device=dev)
+    n_p = torch.empty_like(n_k)
+    counted = cl.closed_loop_rollout(name, big_t, 7, T_MAIN, counts=n_k)
+    require(torch.equal(counted[0], f_k) and torch.equal(counted[1], r_k),
+            f"{name}: the counting kernel's states and rewards bitwise the main path's")
+    del counted
+    cl.closed_loop_rollout_reference(name, big_t, 7, T_MAIN, counts=n_p)
+    share_k = float(n_k.double().sum()) / (B_MAIN * T_MAIN)
+    share_p = float(n_p.double().sum()) / (B_MAIN * T_MAIN)
+    what = "taut" if name in TETHER else "done (reset)"
+    if name in TETHER:
+        require(abs(share_k - share_p) <= 0.01,
+                f"{name}: taut share {share_k:.5f} vs the twin's {share_p:.5f}")
+    say(f"K8/K9 {name} counts, free-running B={B_MAIN} T={T_MAIN}: {what} env-steps, kernel "
+        f"{share_k:.6f} of all, twin {share_p:.6f}"
+        f"{' (within 1 point: ok)' if name in TETHER else ''}; the counting kernel bitwise the "
+        f"main path's states and rewards: ok")
+    del n_k, n_p
 
     # One step at a time from the twin's state, at full width, from states
     # of which 1% end at once.
@@ -1516,6 +1577,15 @@ def closed_loop_phase(torch, dev, gpu: str, name: str) -> dict:
         f"{B_MAIN * T_MAIN / ms * 1e3:.4e} env-steps/s; twin {plain_ms:.1f} ms (runs "
         f"{plain0:.1f}, {plain1:.1f}); bound {bound_ms:.3f} ms by {bound_by} ({ops} operations "
         f"per env-step), on {gpu}")
+    sass = horizon_sass(name)
+    issue = issue_ms(sass["step"], B_MAIN * T_MAIN, clock.mhz)
+    kernel = closed_loop_kernel_name(name)
+    registers = kernel_registers(kernel)
+    say(f"K8/K9 {name}: {kernel}, ptxas {registers}; its horizon loop, {sass['step']} static "
+        f"SASS instructions an env-step without the reset block ({sass}), would take "
+        f"{issue:.3f} ms to issue for B={B_MAIN} T={T_MAIN} at {clock.mhz:.0f} MHz (the SM clock "
+        f"sampled during the timed launches; {len(clock.samples)} samples), against {ms:.3f} ms "
+        f"measured, on {gpu}")
     del big_t, f_k, r_k, x
     torch.cuda.empty_cache()
     kid, line = ("K8", 567) if name == "quadrotor2d-v0" else (
@@ -1529,7 +1599,10 @@ def closed_loop_phase(torch, dev, gpu: str, name: str) -> dict:
             "tolerance": f"rtol 2e-4 atol 2e-5 per env over {T_RESYNC} steps resynchronised at "
                          f"full width, 0 envs outside off the knife edges; max_abs_err there",
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "at": f"states ({d}, {B_MAIN}), horizon {T_MAIN}, auto-reset"}
+            "library_ms": None, "at": f"states ({d}, {B_MAIN}), horizon {T_MAIN}, auto-reset",
+            "registers": registers, "sass_per_env_step": sass, "sm_clock_mhz": clock.mhz,
+            "issue_ms": issue, f"{what.split()[0]}_share": share_k,
+            f"{what.split()[0]}_share_twin": share_p}
 
 
 def native_phases(torch, dev, gpu: str) -> list[dict]:
@@ -2102,6 +2175,8 @@ def main() -> int:
         say(line)
     for name in ("hover_rollout_kernel", *K10_KERNELS):
         say(f"sass: {name}: substep loop {substep_sass(name)}")
+    for name in NATIVE:
+        say(f"sass: {closed_loop_kernel_name(name)}: horizon loop {horizon_sass(name)}")
 
     # 3. Philox known answers, on the device through the kernel library.
     kat = [((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),

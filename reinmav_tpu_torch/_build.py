@@ -64,10 +64,11 @@ _SIGNATURES = {
     #  params, stream)
     "contact_rollout_launch": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P),
-    # K8 / K9: (env kind, states_in, states_out, reward_out, batch, horizon,
-    #  seed, autoreset, host params, number of params, stream)
-    "closed_loop_rollout_launch": (ctypes.c_int, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                                   ctypes.c_uint, ctypes.c_int, _P, ctypes.c_int, _P),
+    # K8 / K9: (env kind, states_in, states_out, reward_out, counts or null,
+    #  batch, horizon, seed, autoreset, host params, number of params, stream)
+    "closed_loop_rollout_launch": (ctypes.c_int, _P, _P, _P, _P, ctypes.c_longlong,
+                                   ctypes.c_int, ctypes.c_uint, ctypes.c_int, _P, ctypes.c_int,
+                                   _P),
     # K2 / K6: (env kind, states_in, returns_in, net, consts, batch,
     #  horizon, seed, normalize_obs, normalize_rewards, host params, number
     #  of params, obs, action, log_prob, value, reward, done, final_states,
@@ -172,9 +173,9 @@ def ptxas_report(path: Path | None = None) -> list[str]:
         names = [n for n, _ in rows]
     if len(names) != len(rows):
         names = [n for n, _ in rows]
-    short = [n.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
-             for n in names]
-    return [f"ptxas: {n}: {info}" for n, (_, info) in zip(short, rows)]
+    from .sass_report import short_name
+
+    return [f"ptxas: {short_name(n)}: {info}" for n, (_, info) in zip(names, rows)]
 
 
 def build() -> Path:

@@ -12,13 +12,16 @@ Hopper (``csrc/closed_loop_rollout.cu``, a template on the env structs of
 arithmetic in the same order, and the same Philox4x32-10 reset draws as
 K1 (:func:`reinmav_tpu_torch.ops.rollout.reset_draws`, stream 0).
 
-This module also holds the three envs' controllers and steps in the
-kernels' arithmetic (:data:`KINDS`), which the twins of K6
-(:mod:`reinmav_tpu_torch.ops.ppo_rollout`) and K7 reuse, as the kernels
-share the env structs.  The slung-load step's taut branch parks the load
-on the tether sphere, where a last-bit difference selects the other
-branch next step: kernel and twin agree step by step away from the
-sphere, and free-running trajectories part on it.
+K8/K9 run the TPU kernels' own steps (``_quad2d_step_tiles``,
+``_slung2d_step_tiles``, ``_slung3d_step_tiles``): products with 1 / mass,
+done on squared norms, one branch-free tether body; their twins are
+:data:`LOOP_STEPS`.  This module also holds the three envs' controllers and
+the policy kernels' steps (:data:`KINDS`), which the twins of K6
+(:mod:`reinmav_tpu_torch.ops.ppo_rollout`) and K7 reuse, as those kernels
+share the env structs of ``csrc/env_kinds.cuh``.  The slung-load step's
+taut branch parks the load on the tether sphere, where a last-bit
+difference selects the other branch next step: kernel and twin agree step
+by step away from the sphere, and free-running trajectories part on it.
 
 The wrapper takes the twin only for a tensor that lies on the CPU; on a
 CUDA tensor it launches the kernel or raises.
@@ -82,6 +85,9 @@ def _scalars(fields, params: torch.Tensor) -> dict:
     c["neg_inv_tau"] = float(np.float32(-1.0) / p["tau"])
     c["two_over_tau"] = float(np.float32(2.0) / p["tau"])
     c["half_dt"] = float(np.float32(0.5) * p["dt"])
+    c["inv_m"] = float(np.float32(1.0) / p["mass"])
+    c["pos_lim2"] = float(p["pos_limit"] * p["pos_limit"])
+    c["vel_lim2"] = float(p["vel_limit"] * p["vel_limit"])
     if "load_mass" in p:
         c["inv_mml"] = float(np.float32(1.0) / (p["mass"] + p["load_mass"]))
     return c
@@ -261,6 +267,154 @@ def slung3d_step(s: torch.Tensor, act: torch.Tensor, c: dict):
     return new, reward, done
 
 
+# --- K8/K9's own steps, the TPU kernels' arithmetic, on (D, B) states ---------
+# Each returns ``(new states, reward, done, counted)``: ``counted`` is what
+# the kernel's optional counts add up, the taut tether at the start of the
+# step for the slung kinds, ``done`` for quad2d.
+
+
+def quad2d_loop_step(s: torch.Tensor, act: torch.Tensor, c: dict):
+    """closed_loop_rollout.cu::Quad2dLoop::step (_quad2d_step_tiles)."""
+    x, z, th, vx, vz = s.unbind(0)
+    dt = c["dt"]
+    tm = torch.clamp(c["thrust_scale"] * act[0], min=0.0) * c["inv_m"]
+    hx, hz = torch.cos(th + _HALF_PI), torch.sin(th + _HALF_PI)
+    ax = tm * hx
+    az = tm * hz + c["gravity"]
+    nx = x + vx * dt + 0.5 * ax * dt * dt
+    nz = z + vz * dt + 0.5 * az * dt * dt
+    nvx, nvz = vx + ax * dt, vz + az * dt
+    pn2 = nx * nx + nz * nz
+    vn2 = nvx * nvx + nvz * nvz
+    done = (pn2 > c["pos_lim2"]) | (vn2 > 100.0) | (vn2 > c["vel_lim2"])
+    reward = torch.where(done, torch.ones_like(pn2), -torch.sqrt(pn2))
+    return torch.stack([nx, nz, th + act[1] * dt, nvx, nvz]), reward, done, done
+
+
+def slung2d_loop_step(s: torch.Tensor, act: torch.Tensor, c: dict):
+    """closed_loop_rollout.cu::Slung2dLoop::step (_slung2d_step_tiles,
+    velocity-first Euler): the taut update once, the load's acceleration
+    selected to (0, g) and the pull on the quad to 0 when slack, the
+    projection selected."""
+    x, z, th, vx, vz, lx, lz, lvx, lvz = s.unbind(0)
+    thrust, w = act[0], act[1]
+    dt, g, L, m = c["dt"], c["gravity"], c["tether_length"], c["mass"]
+    hx, hz = torch.cos(th + _HALF_PI), torch.sin(th + _HALF_PI)
+    tx, tz = lx - x, lz - z
+    tn = torch.sqrt(tx * tx + tz * tz)
+    inv = _safe_inv(tn)
+    ux, uz = tx * inv, tz * inv
+    taut = tn >= L
+
+    sc = m * L * (lvx * lvx + lvz * lvz)
+    proj = ux * (thrust * hx - sc) + uz * (thrust * hz - sc)
+    lax_t = proj * ux * c["inv_mml"]
+    laz_t = proj * uz * c["inv_mml"] + g
+    lax, laz = torch.where(taut, lax_t, 0.0), torch.where(taut, laz_t, g)
+    nlvx, nlvz = lvx + lax * dt, lvz + laz * dt
+    nlx = lx + nlvx * dt + 0.5 * lax * dt * dt
+    nlz = lz + nlvz * dt + 0.5 * laz * dt * dt
+
+    dzg = laz_t - g
+    tmag = c["load_mass"] * torch.sqrt(lax_t * lax_t + dzg * dzg)
+    fx = torch.where(taut, tmag * ux * c["inv_m"], 0.0)
+    fz = torch.where(taut, tmag * uz * c["inv_m"], 0.0)
+    tm = thrust * c["inv_m"]
+    ax = tm * hx + fx
+    az = tm * hz + g + fz
+    nvx, nvz = vx + ax * dt, vz + az * dt
+    npx = x + nvx * dt + 0.5 * ax * dt * dt
+    npz = z + nvz * dt + 0.5 * az * dt * dt
+
+    dx, dz = nlx - npx, nlz - npz
+    dinv = _safe_inv(torch.sqrt(dx * dx + dz * dz))
+    ddx, ddz = dx * dinv, dz * dinv
+    rad = (nlvx - nvx) * ddx + (nlvz - nvz) * ddz
+    nlx = torch.where(taut, npx + ddx * L, nlx)
+    nlz = torch.where(taut, npz + ddz * L, nlz)
+    nlvx = torch.where(taut, nlvx - rad * ddx, nlvx)
+    nlvz = torch.where(taut, nlvz - rad * ddz, nlvz)
+    lpn2 = nlx * nlx + nlz * nlz
+    lvn2 = nlvx * nlvx + nlvz * nlvz
+    done = (lpn2 > c["pos_lim2"]) | (lvn2 > c["vel_lim2"])
+    reward = torch.where(done, torch.ones_like(lpn2), -torch.sqrt(npx * npx + npz * npz))
+    new = torch.stack([npx, npz, th + w * dt, nvx, nvz, nlx, nlz, nlvx, nlvz])
+    return new, reward, done, taut
+
+
+def slung3d_loop_step(s: torch.Tensor, act: torch.Tensor, c: dict):
+    """closed_loop_rollout.cu::Slung3dLoop::step (_slung3d_step_tiles,
+    position-first Euler), with :func:`slung2d_loop_step`'s branch-free
+    tether."""
+    px, py, pz, qw, qx, qy, qz, vx, vy, vz, lx, ly, lz, lvx, lvy, lvz = s.unbind(0)
+    thrust, wx, wy, wz = act.unbind(0)
+    dt, g, L, m = c["dt"], c["gravity"], c["tether_length"], c["mass"]
+    inv_qn, bzx, bzy, bzz = body_z(s)
+    tx, ty, tz = lx - px, ly - py, lz - pz
+    tn = torch.sqrt(tx * tx + ty * ty + tz * tz)
+    inv = _safe_inv(tn)
+    ux, uy, uz = tx * inv, ty * inv, tz * inv
+    taut = tn >= L
+
+    sc = m * L * (lvx * lvx + lvy * lvy + lvz * lvz)
+    proj = ux * (thrust * bzx - sc) + uy * (thrust * bzy - sc) + uz * (thrust * bzz - sc)
+    lax_t = proj * ux * c["inv_mml"]
+    lay_t = proj * uy * c["inv_mml"]
+    laz_t = proj * uz * c["inv_mml"] + g
+    lax, lay = torch.where(taut, lax_t, 0.0), torch.where(taut, lay_t, 0.0)
+    laz = torch.where(taut, laz_t, g)
+    nlx = lx + lvx * dt + 0.5 * lax * dt * dt
+    nly = ly + lvy * dt + 0.5 * lay * dt * dt
+    nlz = lz + lvz * dt + 0.5 * laz * dt * dt
+    nlvx, nlvy, nlvz = lvx + lax * dt, lvy + lay * dt, lvz + laz * dt
+
+    dzg = laz_t - g
+    tmag = c["load_mass"] * torch.sqrt(lax_t * lax_t + lay_t * lay_t + dzg * dzg)
+    fx = torch.where(taut, tmag * ux * c["inv_m"], 0.0)
+    fy = torch.where(taut, tmag * uy * c["inv_m"], 0.0)
+    fz = torch.where(taut, tmag * uz * c["inv_m"], 0.0)
+    tm = thrust * c["inv_m"]
+    ax, ay = tm * bzx + fx, tm * bzy + fy
+    az = tm * bzz + g + fz
+    npx = px + vx * dt + 0.5 * ax * dt * dt
+    npy = py + vy * dt + 0.5 * ay * dt * dt
+    npz = pz + vz * dt + 0.5 * az * dt * dt
+    nvx, nvy, nvz = vx + ax * dt, vy + ay * dt, vz + az * dt
+
+    dx, dy, dz = nlx - npx, nly - npy, nlz - npz
+    dinv = _safe_inv(torch.sqrt(dx * dx + dy * dy + dz * dz))
+    ddx, ddy, ddz = dx * dinv, dy * dinv, dz * dinv
+    rad = (nlvx - nvx) * ddx + (nlvy - nvy) * ddy + (nlvz - nvz) * ddz
+
+    hdt = c["half_dt"]
+    hw, hx, hy, hz = qw * inv_qn, qx * inv_qn, qy * inv_qn, qz * inv_qn
+    nqw = qw + hdt * (-hx * wx - hy * wy - hz * wz)
+    nqx = qx + hdt * (hw * wx + hy * wz - hz * wy)
+    nqy = qy + hdt * (hw * wy - hx * wz + hz * wx)
+    nqz = qz + hdt * (hw * wz + hx * wy - hy * wx)
+
+    nlx = torch.where(taut, npx + ddx * L, nlx)
+    nly = torch.where(taut, npy + ddy * L, nly)
+    nlz = torch.where(taut, npz + ddz * L, nlz)
+    nlvx = torch.where(taut, nlvx - rad * ddx, nlvx)
+    nlvy = torch.where(taut, nlvy - rad * ddy, nlvy)
+    nlvz = torch.where(taut, nlvz - rad * ddz, nlvz)
+    lpn2 = nlx * nlx + nly * nly + nlz * nlz
+    vn2 = nvx * nvx + nvy * nvy + nvz * nvz
+    done = (lpn2 > c["pos_lim2"]) | (vn2 > c["vel_lim2"])
+    reward = torch.where(done, torch.ones_like(lpn2), -torch.sqrt(lpn2))
+    new = torch.stack([npx, npy, npz, nqw, nqx, nqy, nqz, nvx, nvy, nvz,
+                       nlx, nly, nlz, nlvx, nlvy, nlvz])
+    return new, reward, done, taut
+
+
+#: env name -> K8/K9's step in the kernel's arithmetic (the controllers are
+#: :data:`KINDS`').
+LOOP_STEPS = {"quadrotor2d-v0": quad2d_loop_step,
+              "quadrotor2d-slungload-v0": slung2d_loop_step,
+              "quadrotor3d-slungload-v0": slung3d_loop_step}
+
+
 class ClosedLoopKind(NamedTuple):
     """One env kind of the closed-loop kernel: its id in the C entry point
     (the ids of ``csrc/env_kinds.cuh``), its dims, its Params pack and
@@ -296,7 +450,7 @@ def env_twin(kind: str, params: torch.Tensor):
     return (lambda s: k.control(s, c)), (lambda s, act: k.step(s, act, c))
 
 
-def _check_args(kind, states_t, seed, horizon, params_vec) -> torch.Tensor:
+def _check_args(kind, states_t, seed, horizon, params_vec, counts=None) -> torch.Tensor:
     """Validate what the kernel takes; returns the kind's params vector."""
     if kind not in KINDS:
         raise ValueError(f"kind {kind!r}: the closed-loop kernel takes {sorted(KINDS)}")
@@ -312,6 +466,12 @@ def _check_args(kind, states_t, seed, horizon, params_vec) -> torch.Tensor:
         raise ValueError(f"seed must fit in uint32, got {seed}")
     if not 0 <= int(horizon) < 2**31:
         raise ValueError(f"horizon must be in [0, 2**31), got {horizon}")
+    if counts is not None and (
+            not isinstance(counts, torch.Tensor) or counts.dtype != torch.int32
+            or counts.shape != states_t.shape[1:] or not counts.is_contiguous()
+            or counts.device != states_t.device):
+        raise ValueError(f"counts must be a contiguous int32 ({states_t.shape[1]},) tensor on "
+                         f"{states_t.device}")
     params = k.pack(None) if params_vec is None else params_vec
     if params.shape != (len(k.fields),):
         raise ValueError(f"params_vec must be ({len(k.fields)},), got {tuple(params.shape)}")
@@ -320,28 +480,34 @@ def _check_args(kind, states_t, seed, horizon, params_vec) -> torch.Tensor:
 
 def closed_loop_rollout_reference(kind: str, states_t: torch.Tensor, seed: int, horizon: int,
                                   params_vec: torch.Tensor | None = None,
-                                  autoreset: bool = True):
+                                  autoreset: bool = True, counts: torch.Tensor | None = None):
     """Plain PyTorch twin of K8/K9, on any device: the same float32
-    arithmetic in the same order, and the same Philox reset draws.  Same
-    arguments and returns as :func:`closed_loop_rollout`."""
-    params = _check_args(kind, states_t, seed, horizon, params_vec)
-    control, step = env_twin(kind, params)
-    dim = KINDS[kind].state_dim
+    arithmetic in the same order (:data:`LOOP_STEPS`), and the same Philox
+    reset draws.  Same arguments and returns as :func:`closed_loop_rollout`."""
+    params = _check_args(kind, states_t, seed, horizon, params_vec, counts)
+    k = KINDS[kind]
+    c = _scalars(k.fields, params)
+    step = LOOP_STEPS[kind]
     seed, horizon = int(seed), int(horizon)
     s = states_t.clone()
     reward_sum = torch.zeros_like(s[0])
+    count = torch.zeros(s.shape[1], dtype=torch.int32, device=s.device)
     for t in range(horizon):
-        s, reward, done = step(s, control(s))
+        s, reward, done, counted = step(s, k.control(s, c), c)
         reward_sum = reward_sum + reward
+        count += counted
         if autoreset:
             idx = torch.nonzero(done).squeeze(1)
             if idx.numel():
-                s[:, idx] = reset_draws(idx, t, seed, 0, dim)
+                s[:, idx] = reset_draws(idx, t, seed, 0, k.state_dim)
+    if counts is not None:
+        counts.copy_(count)
     return s, reward_sum
 
 
 def closed_loop_rollout(kind: str, states_t: torch.Tensor, seed: int, horizon: int,
-                        params_vec: torch.Tensor | None = None, autoreset: bool = True):
+                        params_vec: torch.Tensor | None = None, autoreset: bool = True,
+                        counts: torch.Tensor | None = None):
     """K8 (``kind`` quadrotor2d-v0) or K9 (quadrotor2d-slungload-v0,
     quadrotor3d-slungload-v0): ``horizon`` steps of the env's classical
     controller and dynamics with U(-1, 1)^D auto-reset (``autoreset=False``:
@@ -349,14 +515,18 @@ def closed_loop_rollout(kind: str, states_t: torch.Tensor, seed: int, horizon: i
 
     ``states_t``: ``(D, B)`` float32, contiguous, any ``B > 0``.  ``seed``:
     uint32 key of the Philox reset stream.  ``params_vec``: the kind's pack
-    of the env's live Params (default Params when None).  Returns ``(final
-    (D, B), reward_sum (B,))``, float32.  Launches on the current stream and
-    does not synchronise.  A CPU tensor runs the plain twin; a CUDA tensor
-    runs the kernel or raises.
+    of the env's live Params (default Params when None).  ``counts``: None
+    (the main path), or a ``(B,)`` int32 tensor on the states' device that
+    receives each env's count over the horizon: its taut env-steps for the
+    slung-load kinds, its done env-steps (the resets) for quadrotor2d-v0.
+    Returns ``(final (D, B), reward_sum (B,))``, float32.  Launches on the
+    current stream and does not synchronise.  A CPU tensor runs the plain
+    twin; a CUDA tensor runs the kernel or raises.
     """
-    params = _check_args(kind, states_t, seed, horizon, params_vec)
+    params = _check_args(kind, states_t, seed, horizon, params_vec, counts)
     if states_t.device.type == "cpu":
-        return closed_loop_rollout_reference(kind, states_t, seed, horizon, params, autoreset)
+        return closed_loop_rollout_reference(kind, states_t, seed, horizon, params, autoreset,
+                                             counts)
     if states_t.device.type != "cuda":
         raise ValueError(f"unsupported device {states_t.device}")
     from .._build import check, load_library
@@ -369,8 +539,9 @@ def closed_loop_rollout(kind: str, states_t: torch.Tensor, seed: int, horizon: i
     with torch.cuda.device(states_t.device):
         rc = lib.closed_loop_rollout_launch(
             KINDS[kind].kind_id, states_t.data_ptr(), final.data_ptr(), reward_sum.data_ptr(),
-            batch, int(horizon), int(seed), int(autoreset), ctypes.addressof(host_params),
-            params.shape[0], torch.cuda.current_stream().cuda_stream)
+            None if counts is None else counts.data_ptr(), batch, int(horizon), int(seed),
+            int(autoreset), ctypes.addressof(host_params), params.shape[0],
+            torch.cuda.current_stream().cuda_stream)
     check(rc, "closed_loop_rollout_launch")
     closed_loop_rollout.launches += 1
     return final, reward_sum

@@ -1,9 +1,10 @@
-"""The SASS of the closed-loop kernels K5 and K10: each loop of each
-kernel with its static instruction count by pipe, and the substep loop.
+"""The SASS of the closed-loop kernels K5, K10 and K8/K9: each loop of each
+kernel with its static instruction count by pipe, and the substep loop
+(K8/K9: the horizon loop, with its reset block counted apart).
 
 Run on a machine with the CUDA toolkit, from the root of a checkout::
 
-    python3 -m reinmav_tpu_torch.sass_report [LIB] [--out DIR]
+    python3 -m reinmav_tpu_torch.sass_report [LIB] [--out DIR] [--against OTHER_LIB]
 
 It disassembles the kernel library (``LIB``, or this checkout's, built by
 ``_build.build``) with ``cuobjdump -sass``, prints ptxas's registers and
@@ -13,10 +14,16 @@ target) with its static instruction count split into the FP32/INT pipes,
 MUFU (with the conversions, which share its quarter-rate pipe), and
 branch/other (memory, shuffles, barriers, control).  The substep loop is
 the innermost loop that holds a MUFU instruction; its count excludes the
-loops nested in it (the slow argument reduction of sinf/cosf).  A static
-count: a block that a branch skips on most substeps (a slow path) is
-counted as if it ran.  ``chip_smoke.py`` calls :func:`report` on the
-library it built.
+loops nested in it (the slow argument reduction of sinf/cosf).  The
+closed-loop template's horizon loop (``closed_loop_kernel<...>``) is
+that loop too; its reset block, the Philox rounds of the auto-reset, is
+the span from the loop's first to its last multiply by a Philox constant
+(nested loops included), counted by pipe beside the loop.  A static
+count: a block that a branch skips on most substeps (a slow path, the
+reset) is counted as if it ran.  ``chip_smoke.py`` calls :func:`report` on the
+library it built.  With ``--against``, it also lists which kernels of
+the two libraries have the same SASS, instruction for instruction (such a
+kernel gives the same bits on every input), and which differ.
 """
 
 from __future__ import annotations
@@ -32,7 +39,11 @@ OTHER = ("BRA", "BRX", "BSSY", "BSYNC", "CALL", "RET", "EXIT", "NOP", "BAR", "WA
          "MEMBAR", "DEPBAR", "VOTE", "VOTEU", "REDUX", "ATOM", "ATOMS", "RED", "MATCH", "BMOV",
          "BREAK", "KILL", "ELECT", "ERRBAR", "CCTL", "R2UR", "UMOV", "UIADD3", "ULOP3", "USHF",
          "UISETP", "USEL", "ULEA", "UIMAD", "UPRMT", "UFLO", "UPOPC", "USGXT", "UBMSK", "PLOP3U")
-KERNELS = ("hover_rollout_kernel", "reinmav_rollout_kernel", "reinmav_rollout_lanes_kernel")
+KERNELS = ("hover_rollout_kernel", "reinmav_rollout_kernel", "reinmav_rollout_lanes_kernel",
+           "closed_loop_kernel")
+#: Philox4x32's two multipliers as SASS prints an immediate: unsigned, or as
+#: the signed 32-bit value.
+PHILOX_IMMEDIATES = ("0xd2511f53", "-0x2daee0ad", "0xcd9e8d57", "-0x326172a9")
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+|\$[^:\s]+):")
 _TARGET = re.compile(r"`\(([^)]+)\)")
@@ -101,6 +112,31 @@ def substep_loop(rows: list[dict]) -> dict | None:
     return min(with_mufu, key=lambda r: r["end"] - r["start"]) if with_mufu else None
 
 
+def reset_span(insns, loop: dict) -> dict | None:
+    """The reset block of ``loop``: its instructions, nested loops
+    included, from the first to the last integer multiply by a Philox
+    constant, counted by class (None if the loop has no such multiply).
+    ``in_loop`` is the part of that span that ``loop``'s own count holds
+    (the part outside its nested loops)."""
+    body = [(a, op, args) for a, op, args in insns if loop["start"] <= a <= loop["end"]]
+    hits = [a for a, op, args in body if op.startswith("IMAD")
+            and any(k in args.lower() for k in PHILOX_IMMEDIATES)]
+    if not hits:
+        return None
+    span = [(a, op) for a, op, _ in body if hits[0] <= a <= hits[-1]]
+    counts = {"fp32/int": 0, "mufu": 0, "other": 0}
+    for _, op in span:
+        counts[opcode_class(op)] += 1
+    in_loop = sum(1 for a, _ in span if not any(s <= a <= e for s, e in loop["inner"]))
+    return {"start": hits[0], "end": hits[-1], "n": len(span), **counts, "in_loop": in_loop}
+
+
+def short_name(pretty: str) -> str:
+    """A demangled kernel name without its namespace, return type and
+    arguments: ``closed_loop_kernel<Quad2dLoop, false>``."""
+    return pretty.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+
+
 def demangle(names: list[str]) -> list[str]:
     try:
         out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True, text=True,
@@ -110,23 +146,47 @@ def demangle(names: list[str]) -> list[str]:
     return out if len(out) == len(names) else names
 
 
-def report(lib: Path, out_dir: Path | None = None) -> dict[str, dict]:
-    """Disassemble ``lib`` with the ``cuobjdump`` beside nvcc; print and
-    return each K5/K10 kernel's loops and its substep loop's counts, keyed
-    by the demangled name.  With ``out_dir``, each kernel's SASS is
-    written there."""
+def _disassemble(lib: Path) -> str:
     from . import _build
 
     cuobjdump = str(Path(_build._nvcc()).parent / "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+    return subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=600).stdout
-    funcs = parse_functions(sass)
+
+
+def compare(lib: Path, other: Path) -> dict[str, list[str]]:
+    """The kernels of ``lib`` whose SASS is ``other``'s instruction for
+    instruction (``same``), the ones in both that differ (``differ``), and
+    the ones in one library only (``only_lib``, ``only_other``), by their
+    short demangled names (nvcc mangles a kernel of an anonymous namespace
+    with a prefix of its own build)."""
+
+    def by_name(path: Path) -> dict:
+        funcs = parse_functions(_disassemble(path))
+        return {short_name(pretty): funcs[m] for m, pretty in zip(funcs, demangle(list(funcs)))}
+
+    a, b = by_name(lib), by_name(other)
+    group = {"same": [], "differ": [], "only_lib": [], "only_other": []}
+    for n in sorted(set(a) | set(b)):
+        key = ("only_other" if n not in a else "only_lib" if n not in b else
+               "same" if a[n] == b[n] else "differ")
+        group[key].append(n)
+    return group
+
+
+def report(lib: Path, out_dir: Path | None = None) -> dict[str, dict]:
+    """Disassemble ``lib`` with the ``cuobjdump`` beside nvcc; print and
+    return each K5/K10/K8/K9 kernel's loops, its substep loop's counts and
+    that loop's reset block (:func:`reset_span`, None where it has none),
+    keyed by the demangled name.  With ``out_dir``, each kernel's SASS is
+    written there."""
+    funcs = parse_functions(_disassemble(lib))
     names = list(funcs)
     result = {}
     if out_dir is not None:
         out_dir.mkdir(parents=True, exist_ok=True)
     for mangled, pretty in zip(names, demangle(names)):
-        short = pretty.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+        short = short_name(pretty)
         if not any(k in short for k in KERNELS):
             continue
         insns = funcs[mangled]
@@ -142,11 +202,16 @@ def report(lib: Path, out_dir: Path | None = None) -> dict[str, dict]:
                   f"(fp32/int {r['fp32/int']}, mufu {r['mufu']}, other {r['other']}; "
                   f"{len(r['inner'])} nested loops excluded; {' '.join(r['mufu_ops'])})")
         sub = substep_loop(rows)
+        reset = reset_span(insns, sub) if sub is not None else None
         if sub is not None:
             print(f"sass:   substep loop {sub['start']:#07x}-{sub['end']:#07x}: {sub['n']} "
                   f"instructions a pass: fp32/int {sub['fp32/int']}, mufu {sub['mufu']}, "
                   f"other {sub['other']}")
-        result[short] = {"loops": rows, "substep": sub}
+        if reset is not None:
+            print(f"sass:   reset block {reset['start']:#07x}-{reset['end']:#07x}: {reset['n']} "
+                  f"instructions (fp32/int {reset['fp32/int']}, mufu {reset['mufu']}, other "
+                  f"{reset['other']}), {reset['in_loop']} of them in the substep loop's count")
+        result[short] = {"loops": rows, "substep": sub, "reset": reset}
     return result
 
 
@@ -155,6 +220,8 @@ def main(argv=None) -> int:
     parser.add_argument("lib", nargs="?", help="a built kernel library (default: build this "
                         "checkout's)")
     parser.add_argument("--out", help="where each kernel's SASS is written")
+    parser.add_argument("--against", help="another kernel library: list the kernels whose "
+                        "SASS is the same in both")
     args = parser.parse_args(argv)
     from . import _build
 
@@ -165,6 +232,9 @@ def main(argv=None) -> int:
             if any(k in line for k in KERNELS):
                 print(line)
     report(lib, Path(args.out) if args.out else None)
+    if args.against:
+        for key, kernels in compare(lib, Path(args.against)).items():
+            print(f"sass: against {args.against}: {key} ({len(kernels)}): {'; '.join(kernels)}")
     return 0
 
 

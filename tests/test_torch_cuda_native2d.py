@@ -18,7 +18,10 @@ knife edge (quad2d's done test, the slung-load tether sphere) may take
 another branch in the two: quad2d allows 0.1% of its envs to disagree,
 and the slung-load kinds are compared one step at a time from the twin's
 state, skipping the lanes within 1e-4 of the sphere, as the JAX package's
-slung-load tests do.  A rerun is bitwise equal.
+slung-load tests do.  A rerun is bitwise equal.  The closed loops' reset
+states are bit for bit ``reset_draws``' (on a ragged batch, in warps where
+any number of envs end at once), and their optional counts change no bit
+of their output.
 """
 
 import logging
@@ -33,6 +36,7 @@ from reinmav_tpu_torch.ops import offpolicy as op
 from reinmav_tpu_torch.ops import ppo_loss as pl
 from reinmav_tpu_torch.ops import ppo_rollout as pr
 from reinmav_tpu_torch.ops import ppo_update as pu
+from reinmav_tpu_torch.ops.rollout import reset_draws
 from reinmav_tpu_torch.rl import networks, ppo, sac, td3
 
 TOL = dict(rtol=2e-4, atol=2e-5)
@@ -145,6 +149,87 @@ def test_throughput_rollout_launches_the_closed_loop_kernel(cuda, env_id, caplog
     with caplog.at_level(logging.INFO, logger="reinmav_tpu_torch.envs.core"):
         reinmav_tpu_torch.throughput_rollout(wrapped, states[:64], gen, 2)
     assert "wrapped or replaced" in caplog.text and cl.closed_loop_rollout.launches == before + 3
+
+
+def _far_by_warp(env_id, s_t):
+    """Put the quad (and the slung load beside it) far out in warp w's w
+    lanes, w = 0..32, chosen at random, and in every other lane of the
+    ragged tail; these envs end on the first step.  Returns the mask."""
+    batch = s_t.shape[1]
+    gen = torch.Generator().manual_seed(4)
+    far = torch.zeros(batch, dtype=torch.bool)
+    for w in range(min(33, batch // 32)):
+        far[w * 32 + torch.randperm(32, generator=gen)[:w]] = True
+    far[batch // 32 * 32::2] = True
+    d = s_t.shape[0]
+    k = 3 if d == 16 else 2
+    s_t[0:k, far.to(s_t.device)] = 6.0
+    if env_id != "quadrotor2d-v0":
+        s_t[d - 2 * k:d - k, far.to(s_t.device)] = 6.0
+    return far
+
+
+@pytest.mark.parametrize("env_id", IDS)
+def test_closed_loop_reset_in_every_warp_fill(cuda, env_id):
+    """K8/K9's reset on a batch of 33 full warps and a ragged one of 13
+    lanes: warp w has w envs that end on the first step
+    (w = 0..32; warp 32 ends whole), the ragged warp every other env.  Each
+    ended env's new state is bit for bit reset_draws', every other env's the
+    no-reset step's; the twin ends the same envs.  Then a ragged batch of
+    16,397 envs with resets on against the twin, as
+    test_closed_loop_kernel_against_twin."""
+    batch = 33 * 32 + 13
+    s = _states(env_id, cuda, batch, scale=0.3, seed=3)
+    s[:, :batch // 100] = s[:, batch // 100:2 * (batch // 100)]  # no far envs but ours
+    far = _far_by_warp(env_id, s)
+    f1, r1 = cl.closed_loop_rollout(env_id, s, 9, 1)
+    f0, _ = cl.closed_loop_rollout(env_id, s, 9, 1, autoreset=False)
+    _, q1 = cl.closed_loop_rollout_reference(env_id, s, 9, 1)
+    done = (r1 == 1.0).cpu()
+    assert torch.equal(done, far) and torch.equal((q1 == 1.0).cpu(), far)
+    idx = torch.nonzero(done).squeeze(1)
+    want = reset_draws(idx, 0, 9, 0, s.shape[0])
+    assert torch.equal(f1[:, idx].cpu(), want)
+    assert torch.equal(f1[:, ~done.to(cuda)], f0[:, ~done.to(cuda)])
+
+    s = _states(env_id, cuda, 16384 + 13, seed=2)
+    if env_id == "quadrotor2d-v0":
+        f_k, _ = cl.closed_loop_rollout(env_id, s, 5, 300)
+        f_p, _ = cl.closed_loop_rollout_reference(env_id, s, 5, 300)
+        assert _mismatched(f_k, f_p) <= 16
+    else:
+        x, ended = s, 0
+        for t in range(20):
+            f_k, r_k = cl.closed_loop_rollout(env_id, x, 5 + t, 1)
+            f_p, r_p = cl.closed_loop_rollout_reference(env_id, x, 5 + t, 1)
+            safe = _knife_safe(env_id, x)
+            assert _mismatched(f_k[:, safe], f_p[:, safe]) == 0, t
+            ended += int((r_p == 1.0).sum())
+            x = f_p
+        assert ended > 0
+
+
+@pytest.mark.parametrize("env_id", IDS)
+def test_closed_loop_counts_against_twin(cuda, env_id):
+    """The optional counts (taut env-steps, or quad2d's done env-steps):
+    asking for them changes no bit of the kernel's states or rewards; over
+    20 steps one at a time from the twin's state, the kernel's counts equal
+    the twin's on every env off the knife edges."""
+    s = _states(env_id, cuda, 8192 + 5, seed=6)
+    counts = torch.empty(s.shape[1], dtype=torch.int32, device=cuda)
+    with_counts = cl.closed_loop_rollout(env_id, s, 3, 200, counts=counts)
+    plain = cl.closed_loop_rollout(env_id, s, 3, 200)
+    assert all(torch.equal(a, b) for a, b in zip(with_counts, plain))
+    assert 0 < int(counts.sum()) < s.shape[1] * 200
+    x, n_k, n_p, seen = s, torch.empty_like(counts), torch.empty_like(counts), 0
+    for t in range(20):
+        f_k, r_k = cl.closed_loop_rollout(env_id, x, 7 + t, 1, counts=n_k)
+        f_p, r_p = cl.closed_loop_rollout_reference(env_id, x, 7 + t, 1, counts=n_p)
+        safe = _knife_safe(env_id, x) & ((r_k == 1.0) == (r_p == 1.0))
+        assert torch.equal(n_k[safe], n_p[safe]), t
+        seen += int(n_p[safe].sum())
+        x = f_p
+    assert seen > 0
 
 
 def _rollout_inputs(env_id, device, batch):

@@ -1,5 +1,6 @@
 """The SASS and ptxas parsers that chip_smoke.py reads K5's and K10's
-substep loops and registers with (reinmav_tpu_torch/sass_report.py,
+substep loops, K8/K9's horizon loops and reset blocks, and the kernels'
+registers with (reinmav_tpu_torch/sass_report.py,
 reinmav_tpu_torch/_build.py::ptxas_report), on hand-written text in the
 formats of cuobjdump -sass and ptxas -v.  Exact counts: no tolerance."""
 
@@ -67,3 +68,67 @@ def test_ptxas_report_lines(tmp_path):
     assert lines[0].endswith(": 48 registers, spill stores 0 B, loads 0 B, used 0 barriers, "
                              "32 bytes cumulative stack size")
     assert lines[1].endswith(": 255 registers, spill stores 8 B, loads 12 B, used 1 barriers")
+
+
+CLOSED_LOOP = """
+\t\tFunction : _ZN12_GLOBAL__N_118closed_loop_kernelINS_10Quad2dLoopELb0EEEvPKfPfS4_PixjjiNT_6ParamsE
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+.L_x_0:
+        /*0010*/                   FFMA R2, R3, R4, R5 ;
+        /*0020*/                   MUFU.SIN R6, R2 ;
+        /*0030*/                   VOTE.ANY R7, PT, P0 ;
+.L_x_1:
+        /*0040*/                   IMAD.WIDE.U32 R8, R9, -0x2daee0ad, RZ ;
+        /*0050*/                   LOP3.LUT R10, R11, R12, R13, 0x96, !PT ;
+        /*0060*/                   IMAD.HI.U32 R14, R15, 0xcd9e8d57, RZ ;
+        /*0070*/                   SHFL.IDX PT, R16, R17, R18, 0x1f ;
+        /*0080*/               @P1 BRA `(.L_x_1) ;
+        /*0090*/               @P2 BRA `(.L_x_0) ;
+        /*00a0*/                   EXIT ;
+"""
+
+
+def test_closed_loop_kernel_name_horizon_loop_and_reset_block():
+    """A template instance's demangled name, shortened; its horizon loop
+    (the one with the MUFU) without the nested reset loop; the reset block
+    spans the Philox multiplies, by either spelling of their immediates, in
+    the nested loop or, with no nested loop, in the horizon loop's count."""
+    (mangled, insns), = sass_report.parse_functions(CLOSED_LOOP).items()
+    pretty, = sass_report.demangle([mangled])
+    assert sass_report.short_name(pretty) == "closed_loop_kernel<Quad2dLoop, false>"
+    assert any(k in sass_report.short_name(pretty) for k in sass_report.KERNELS)
+    rows = sass_report.loops(insns)
+    horizon = sass_report.substep_loop(rows)
+    assert (horizon["start"], horizon["end"], horizon["inner"]) == (0x10, 0x90, [(0x40, 0x80)])
+    # FFMA | MUFU.SIN | VOTE, BRA
+    assert (horizon["n"], horizon["fp32/int"], horizon["mufu"], horizon["other"]) == (4, 1, 1, 2)
+    assert sass_report.reset_span(insns, horizon) == {
+        "start": 0x40, "end": 0x60, "n": 3, "fp32/int": 3, "mufu": 0, "other": 0, "in_loop": 0}
+    flat = CLOSED_LOOP.replace("@P1 BRA `(.L_x_1)", "NOP")
+    (_, insns), = sass_report.parse_functions(flat).items()
+    horizon = sass_report.substep_loop(sass_report.loops(insns))
+    assert horizon["n"] == 9 and sass_report.reset_span(insns, horizon)["in_loop"] == 3
+    no_reset = CLOSED_LOOP.replace("-0x2daee0ad", "R20").replace("0xcd9e8d57", "R21")
+    (_, insns), = sass_report.parse_functions(no_reset).items()
+    assert sass_report.reset_span(insns, sass_report.substep_loop(
+        sass_report.loops(insns))) is None
+
+
+def test_compare_two_libraries(monkeypatch, tmp_path):
+    """--against: a kernel with the same instructions is ``same``, one whose
+    instructions differ ``differ``, one in one library only is listed so;
+    kernels match by demangled name, whatever prefix their build gave the
+    anonymous namespace."""
+    other = CLOSED_LOOP.replace("FFMA R2, R3, R4, R5", "FMUL R2, R3, R4")
+    rebuilt = CLOSED_LOOP.replace("_GLOBAL__N_1", "_GLOBAL__N_2")
+    assert rebuilt != CLOSED_LOOP
+    texts = {tmp_path / "a.so": SASS + CLOSED_LOOP, tmp_path / "b.so": SASS + other,
+             tmp_path / "c.so": rebuilt}
+    monkeypatch.setattr(sass_report, "_disassemble", lambda lib: texts[lib])
+    got = sass_report.compare(tmp_path / "a.so", tmp_path / "b.so")
+    assert got == {"same": ["hover_rollout_kernel"],
+                   "differ": ["closed_loop_kernel<Quad2dLoop, false>"],
+                   "only_lib": [], "only_other": []}
+    got = sass_report.compare(tmp_path / "a.so", tmp_path / "c.so")
+    assert got["same"] == ["closed_loop_kernel<Quad2dLoop, false>"]
+    assert got["only_lib"] == ["hover_rollout_kernel"]
