@@ -3,33 +3,47 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
+``--only hashes`` runs phases 1-3 and then only K1 and every K2/K6 kind on
+fixed inputs like those of phases 4, 6, 7, 13 and 21, each drawn from a
+generator of its own: each output's SHA-256, each kernel timed with its
+SASS and the sampled SM clock, and K2/K6 on its other instances and
+inputs; it prints no result line.  Run in turns in two
+checkouts (the
+parent's with this script and sass_report.py copied in), the digests show
+whether two trees' kernels give the same bits.
+
 Phases, in order; any failure raises and exits non-zero:
 
 1. Device: a CUDA device is required (no CPU carry-on); prints the
    card's name and power limit from nvidia-smi.
 2. Build: compiles the hand-written kernels from reinmav_tpu_torch/csrc/
    with nvcc and prints the build time, ptxas's registers and spills, and
-   the static SASS of K5's and K10's substep loops and of K8/K9's horizon
-   loops (their reset block apart) by pipe
-   (reinmav_tpu_torch/sass_report.py on cuobjdump -sass of the library
-   just built).
+   the static SASS of K5's and K10's substep loops, of K1's and K8/K9's
+   horizon loops (their reset block apart) and of K2/K6's horizon loop an
+   env-step, by pipe (reinmav_tpu_torch/sass_report.py on cuobjdump -sass
+   of the library just built).
 3. Philox known answers: Random123's two vectors, on the device,
    through the kernel library.
 4. Kernel K1 against its plain PyTorch twin, on the card: a no-reset leg
    (65,536 envs x 200 steps), an auto-reset leg (65,536 x 1000, counting
    the envs that disagree), determinism, the state envelope, and the
-   kernel path of throughput_rollout against the env core's eager loop.
+   kernel path of throughput_rollout against the env core's eager loop;
+   each leg's SHA-256.
 5. The main path through the public API: make("quadrotor3d-v0"),
    vreset, control_rollout of 4096 envs x 400 steps (mean distance to
    the reference point), then throughput_rollout of 2,097,152 envs x
    1000 steps with backend="auto", which must launch K1.
 6. K1 against its plain twin at the main path's shape (2,097,152 envs
    x 1000 steps, auto-reset on, one seed on both sides), and both timed
-   there with CUDA events after a warm-up, in env-steps/s.
+   there with CUDA events after a warm-up, in env-steps/s; the output's
+   SHA-256, K1's registers, its horizon loop's SASS an env-step and the SM
+   clock sampled during the timed launches, with the issue time they imply.
 7. Kernel K2 (the fused PPO rollout) against its plain twin at the
    training path's 32,768 envs x 32 steps, with action noise and resets
    on: the envs that disagree anywhere in their trajectory, the relative
-   error of logp, value, reward and the moment sums; both timed.
+   error of logp, value, reward and the moment sums; both timed; the
+   outputs' SHA-256, the instance's registers, its SASS an env-step and
+   the SM clock, as phase 6.
 8. Kernel K3 (the fused PPO loss gradient) against its plain twin on one
    full minibatch (262,144 samples in tiles of 128) of the phase-7
    trajectory, in clip mode; a rerun must be bitwise equal; both timed.
@@ -65,7 +79,8 @@ Phases, in order; any failure raises and exits non-zero:
    2,097,152 envs x 1000 steps, backend="auto") must launch K5; K5 and its
    twin timed at that shape.
 13. Kernel K6-hover (the fused PPO rollout of MujocoQuadForce-v1) against
-   its twin at 32,768 x 32 with noise and resets on, as phase 7; then K3
+   its twin at 32,768 x 32 with noise and resets on, as phase 7 (digest,
+   registers, SASS, clock included); then K3
    and K4 built for the 13-dim observation against their twins on that
    trajectory, at phases 8 and 10's tolerances, with bitwise reruns; all
    timed.
@@ -119,14 +134,20 @@ Phases, in order; any failure raises and exits non-zero:
 21. For each of those envs: the fused PPO rollout (K6-rest) against its
    twin at 32,768 x 32 with noise and resets on (quadrotor2d-v0 as phase
    7; the slung-load kinds one step at a time from the twin's state off
-   the sphere, the free-running count reported), K3 and K4 built for its
+   the sphere, the free-running count reported; digest, registers, SASS
+   and clock as phase 7; for the slung-load kinds the taut env-steps of a
+   free-running 256-step rollout counted by K6's counting instance and by
+   the twin, within 1 percentage point, the counting instance bitwise the
+   main path's), K3 and K4 built for its
    (obs, action) dims, (5, 2), (9, 2) or (16, 4), against their twins as
    phases 8 and 10; then 2 warm-up and 5 timed updates of the default path
    (K6 and K4 once per update, K3 never) and of fused_update="off" (K6
    once, K3 16 times), each update's mean_reward within 10% of the other.
 22. K7 on each of those kinds against its twin in the five mode legs of
-   phase 15 at 65,536 envs, 2 x 256; then SAC and TD3 through train_iters
-   at that size, K7 once per iteration.
+   phase 15 at 65,536 envs, 2 x 256 (for the slung-load kinds also the
+   taut env-steps of 200 free-running iterations, K7's counting kernel
+   against the twin's, within 1 point); then SAC and TD3 through
+   train_iters at that size, K7 once per iteration.
 23. The CLI on quadrotor2d-v0, as phase 11's.
 24. Kernel K10 (reinmav-v0's rollout of 50/51-substep steps), at
    benchmarks/sweep.py:133-135's sizes: throughput_rollout(make(
@@ -395,17 +416,81 @@ def closed_loop_kernel_name(name: str) -> str:
 
 def horizon_sass(name: str) -> dict:
     """The static SASS of one pass of the horizon loop of env ``name``'s
-    closed-loop kernel: ``substep_sass``'s counts, plus ``reset`` (the
+    closed-loop kernel: :func:`loop_sass` of it."""
+    return loop_sass(closed_loop_kernel_name(name))
+
+
+def k1_kernel_name() -> str:
+    """K1's main-path instance: the closed-loop template's Quad3dLoop with
+    auto-reset, without counts (or ``quad3d_rollout_kernel``, K1's own
+    kernel in a library built before K1 joined the template)."""
+    found = [k for k in _sass_counts() if k.replace(" ", "") ==
+             "closed_loop_kernel<Quad3dLoop<true>,false>"]
+    return found[0] if found else "quad3d_rollout_kernel"
+
+
+def loop_sass(short: str) -> dict:
+    """The static SASS of one pass of the horizon loop of the closed-loop
+    kernel ``short``: ``substep_sass``'s counts, plus ``reset`` (the
     Philox span of the auto-reset, by class, or None) and ``step`` (the
     loop's count less the part of that span it holds: what an env-step
     without a reset issues at most)."""
-    short = closed_loop_kernel_name(name)
     counts = substep_sass(short)
     reset = _sass_counts()[short]["reset"]
     counts["reset"] = None if reset is None else {
         k: reset[k] for k in ("n", "fp32/int", "mufu", "other", "in_loop")}
     counts["step"] = counts["total"] - (0 if reset is None else reset["in_loop"])
     return counts
+
+
+#: The env struct of each kind in K2/K6's demangled instance names.
+PPO_STRUCT = {"quadrotor3d-v0": "Quad3dEnv", "MujocoQuadForce-v1": "HoverEnv",
+              "quadrotor2d-v0": "Quad2dEnv", "quadrotor2d-slungload-v0": "Slung2dEnv",
+              "quadrotor3d-slungload-v0": "Slung3dEnv"}
+
+
+def ppo_instance(name: str) -> str:
+    """The demangled name of the K2/K6 instance env ``name``'s main path
+    launches: both normalisers on, no counts."""
+    struct = PPO_STRUCT[name]
+    found = [k for k in _sass_counts() if k.replace(" ", "") in (
+        f"ppo_rollout_kernel<reinmav::{struct},true,true>",
+        f"ppo_rollout_kernel<reinmav::{struct},true,true,false>")]
+    require(len(found) == 1, f"{name}: K2/K6 instances {found} in the SASS")
+    return found[0]
+
+
+def ppo_sass(name: str) -> dict:
+    """The instructions an env-step of env ``name``'s K2/K6 instance issues
+    at most without slow paths, by class, and the horizon loop's static
+    count (sass_report.env_step_count on the library this run built)."""
+    from reinmav_tpu_torch import sass_report
+
+    return sass_report.env_step_count(_sass_counts()[ppo_instance(name)]["insns"])
+
+
+def cta_issue_ms(instructions: int, batch: int, threads: int, steps: int, mhz: float) -> float:
+    """Milliseconds that ``instructions`` an env-step, one env a thread in
+    CTAs of ``threads``, take to issue for ``steps`` steps at one
+    warp-instruction a clock on each scheduler, on the SM that holds the
+    most CTAs (ceil(CTAs / SMs), its warps spread over 4 schedulers)."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_sm = -(-(-(-batch // threads)) // sms)
+    return instructions * per_sm * threads / 32 / 4 * steps / (mhz * 1e6) * 1e3
+
+
+def digest(*tensors) -> str:
+    """SHA-256 of the tensors' bytes in order (its first 16 hex digits): two
+    trees' runs on the same inputs print the same digest when, and only
+    when, their outputs are bitwise equal."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def require(cond: bool, what: str) -> None:
@@ -711,6 +796,134 @@ def k6_resynchronised(torch, env, states_t, rets, params, consts, k2_kw):
     return outside, knife, stats_rel
 
 
+def k6_states(torch, env, gen):
+    """``make_states(train_state)`` of the fused PPO rollout's checks for
+    env ``env`` (phases 7, 13, 21), drawn from ``gen``: quadrotor3d states
+    twice as wide as a reset (the envs beyond |p| = 3 reset at once; no
+    draw), hover states between z = 0.35 and 1, the native states at 1.5
+    times a reset's spread."""
+    if env.name == "quadrotor3d-v0":
+        return lambda state: (state.env_states.T * 2.0).contiguous()
+    if env.name == HOVER:
+        return lambda state: hover_states(torch, gen, gen.device, B_PPO, 0.35, 1.0)
+    return lambda state: native_states(torch, env, gen, B_PPO, 1.5)
+
+
+def k2_inputs(torch, dev, env, make_states, ret_var: float = 4.0):
+    """The fused PPO rollout's inputs at B_PPO x T_PPO for env ``env``:
+    warmed normalisers (``ret_var`` the return normaliser's variance), a
+    spread of running returns, log_std -0.5, the start states
+    ``make_states(train_state)``.  Returns ``(cfg, layout, obs_norm,
+    ret_norm, params, consts, k2_args, k2_kw)``."""
+    from reinmav_tpu_torch.ops import ppo_rollout as pr
+    from reinmav_tpu_torch.rl import networks, ppo
+
+    d = env.obs_dim
+    cfg = ppo.PpoConfig(num_envs=B_PPO, rollout_len=T_PPO, fused_update="off")
+    layout = networks.Layout(env.obs_dim, env.action_dim, cfg.hidden)
+    state = ppo.init_train_state(env, cfg, seed=3, device=dev)
+    obs_norm = ppo.ObsNorm(torch.linspace(-0.1, 0.1, d, device=dev),
+                           torch.linspace(0.5, 2.0, d, device=dev),
+                           torch.tensor(100.0, device=dev))
+    ret_norm = ppo.RetNorm(torch.tensor(ret_var, device=dev), torch.tensor(100.0, device=dev))
+    params = state.params.clone()
+    params[layout.slices[("log_std",)]] = -0.5
+    consts = ppo._rollout_consts(params, layout, obs_norm, ret_norm, cfg.gamma)
+    rets = torch.linspace(-1.0, 1.0, B_PPO, device=dev)
+    k2_args = (make_states(state), rets, 21, params, consts, T_PPO)
+    k2_kw = dict(params_vec=pr.env_params_vec(env), env_kind=env.name)
+    return cfg, layout, obs_norm, ret_norm, params, consts, k2_args, k2_kw
+
+
+#: The per-instance numbers that K2/K6's and K7's entries of the ``kernels``
+#: line carry where their phase measured them.
+EXTRA_KEYS = ("registers", "sass_per_env_step", "sm_clock_mhz", "issue_ms", "taut_share",
+              "taut_share_twin")
+
+
+def extras(numbers: dict) -> dict:
+    return {k: numbers[k] for k in EXTRA_KEYS if k in numbers}
+
+
+def k2_sass_line(label: str, name: str, ms: float, clock, gpu: str) -> dict:
+    """Print K2/K6's instance for env ``name``: ptxas's registers, the
+    instructions an env-step issues at most (sass_report), the issue time
+    they imply at the SM clock sampled during the timed launches, against
+    ``ms``; return them for the ``kernels`` line."""
+    sass = ppo_sass(name)
+    issue = cta_issue_ms(sass["per_env_step"], B_PPO, 128, T_PPO, clock.mhz)
+    kernel = ppo_instance(name)
+    registers = kernel_registers(kernel)
+    say(f"{label}: {kernel}, ptxas {registers}; its horizon loop {sass['static']} static SASS "
+        f"instructions, {sass['per_env_step']} an env-step without slow paths ({sass}), would "
+        f"take {issue:.4f} ms to issue for B={B_PPO} T={T_PPO} at "
+        f"{clock.mhz:.0f} MHz (the SM clock sampled during the timed launches; "
+        f"{len(clock.samples)} samples; 2 warps a scheduler), against {ms:.4f} ms measured "
+        f"({issue / ms:.3f} of the issue slots), on {gpu}")
+    return {"registers": registers, "sass_per_env_step": sass, "sm_clock_mhz": clock.mhz,
+            "issue_ms": issue}
+
+
+#: Steps of the free-running taut counts of K6 (at B_PPO) and K7 (at B_OFF).
+T_TAUT_K6, T_TAUT_K7 = 256, 200
+
+
+def k6_taut(torch, env, k2_args, k2_kw, label: str) -> dict:
+    """Phase 21's taut counts of a slung-load kind: K6's counting instance
+    and the twin, free-running T_TAUT_K6 steps from phase 21's inputs; the
+    shares of taut env-steps within 1 point of each other, the counting
+    kernel's outputs bitwise the main path's."""
+    from reinmav_tpu_torch.ops import ppo_rollout as pr
+
+    args = (*k2_args[:5], T_TAUT_K6)
+    n_k = torch.zeros(B_PPO, dtype=torch.int32, device=k2_args[0].device)
+    n_p = torch.zeros_like(n_k)
+    counted = pr.ppo_rollout(*args, counts=n_k, **k2_kw)
+    main = pr.ppo_rollout(*args, **k2_kw)
+    require(all(torch.equal(a, b) for a, b in zip(counted, main)),
+            f"{label}: the counting kernel's outputs bitwise the main path's")
+    del counted, main
+    pr.ppo_rollout_reference(*args, counts=n_p, **k2_kw)
+    share_k = float(n_k.double().sum()) / (B_PPO * T_TAUT_K6)
+    share_p = float(n_p.double().sum()) / (B_PPO * T_TAUT_K6)
+    require(abs(share_k - share_p) <= 0.01, f"{label}: taut share {share_k:.5f} vs the twin's "
+                                            f"{share_p:.5f}")
+    say(f"{label} counts, free-running B={B_PPO} T={T_TAUT_K6}: taut env-steps, kernel "
+        f"{share_k:.6f} of all, twin {share_p:.6f} (within 1 point: ok); the counting kernel "
+        f"bitwise the main path's outputs: ok")
+    return {"taut_share": share_k, "taut_share_twin": share_p}
+
+
+def k7_taut(torch, env, states_t, args_at, label: str) -> dict:
+    """Phase 22's taut counts of a slung-load kind: K7's counting kernel
+    and the twin, each free-running T_TAUT_K7 iterations on its own states
+    from ``states_t`` (``args_at(states, seed)`` the collect_step arguments);
+    the shares within 1 point, the counting kernel bitwise the main
+    path's."""
+    from reinmav_tpu_torch.ops import offpolicy as op
+
+    batch = states_t.shape[1]
+    n_k = torch.zeros(batch, dtype=torch.int32, device=states_t.device)
+    n_p = torch.zeros_like(n_k)
+    x_k = x_p = states_t
+    for t in range(T_TAUT_K7):
+        counted = op.collect_step(*args_at(x_k, 100 + t), counts=n_k)
+        if t == 0:
+            main = op.collect_step(*args_at(x_k, 100 + t))
+            require(all(torch.equal(a, b) for a, b in zip(counted, main)),
+                    f"{label}: the counting kernel's outputs bitwise the main path's")
+        x_k = counted[0]
+        x_p = op.collect_step_reference(*args_at(x_p, 100 + t), counts=n_p)[0]
+    share_k = float(n_k.double().sum()) / (batch * T_TAUT_K7)
+    share_p = float(n_p.double().sum()) / (batch * T_TAUT_K7)
+    require(abs(share_k - share_p) <= 0.01, f"{label}: taut share {share_k:.5f} vs the twin's "
+                                            f"{share_p:.5f}")
+    say(f"{label} counts, free-running B={batch}, {T_TAUT_K7} iterations: taut env-steps, "
+        f"kernel {share_k:.6f} of all, twin {share_p:.6f} (within 1 point: ok); the counting "
+        f"kernel bitwise the main path's: ok")
+    return {"taut_share": share_k, "taut_share_twin": share_p}
+
+
 def fused_kernel_checks(torch, dev, gpu: str, env, make_states, names,
                         ret_var: float = 4.0) -> tuple[dict, dict, dict]:
     """Phases 7, 8 and 10 (quadrotor3d-v0) or 13 (the hover task): the
@@ -727,29 +940,18 @@ def fused_kernel_checks(torch, dev, gpu: str, env, make_states, names,
 
     k2_name, k3_name, k4_name = names
     d = env.obs_dim
-    # Warmed normalisers, a spread of running returns, log_std -0.5.
-    cfg = ppo.PpoConfig(num_envs=B_PPO, rollout_len=T_PPO, fused_update="off")
-    layout = networks.Layout(env.obs_dim, env.action_dim, cfg.hidden)
-    state = ppo.init_train_state(env, cfg, seed=3, device=dev)
-    obs_norm = ppo.ObsNorm(torch.linspace(-0.1, 0.1, d, device=dev),
-                           torch.linspace(0.5, 2.0, d, device=dev),
-                           torch.tensor(100.0, device=dev))
-    ret_norm = ppo.RetNorm(torch.tensor(ret_var, device=dev), torch.tensor(100.0, device=dev))
-    params = state.params.clone()
-    params[layout.slices[("log_std",)]] = -0.5
-    consts = ppo._rollout_consts(params, layout, obs_norm, ret_norm, cfg.gamma)
-    states_t = make_states(state)
-    rets = torch.linspace(-1.0, 1.0, B_PPO, device=dev)
-    k2_args = (states_t, rets, 21, params, consts, T_PPO)
-    k2_kw = dict(params_vec=pr.env_params_vec(env), env_kind=env.name)
+    cfg, layout, obs_norm, ret_norm, params, consts, k2_args, k2_kw = k2_inputs(
+        torch, dev, env, make_states, ret_var)
+    states_t, rets = k2_args[:2]
     k2_run = lambda: pr.ppo_rollout(*k2_args, **k2_kw)  # noqa: E731
     k2_plain = lambda: pr.ppo_rollout_reference(*k2_args, **k2_kw)  # noqa: E731
     k2_run()  # warm-up
     pr.ppo_rollout_reference(states_t, rets, 21, params, consts, 2, **k2_kw)  # warm-up
     torch.cuda.synchronize()
     (plain0,), ref = cuda_ms(k2_plain, 1)
-    kern0, out = cuda_ms(k2_run, 10)
-    kern1, _ = cuda_ms(k2_run, 10)
+    with SmClock() as clock:
+        kern0, out = cuda_ms(k2_run, 10)
+        kern1, _ = cuda_ms(k2_run, 10)
     (plain1,), _ = cuda_ms(k2_plain, 1)
     bad = _mismatched_envs(torch, out, ref)
     mismatched = int(bad.sum())
@@ -786,9 +988,13 @@ def fused_kernel_checks(torch, dev, gpu: str, env, make_states, names,
     say(f"time {k2_name} B={B_PPO} T={T_PPO}: {k2_ms:.4f} ms (median of 20 launches, each "
         f"{min(kern0 + kern1):.4f} to {max(kern0 + kern1):.4f}), twin {k2_plain_ms:.2f} ms "
         f"(runs {plain0:.2f}, {plain1:.2f}), bound {k2_bound:.4f} ms by {k2_by}, on {gpu}")
+    sass = k2_sass_line(k2_name, env.name, k2_ms, clock, gpu)
+    say(f"sha256 {k2_name} B={B_PPO} T={T_PPO} (seed 21): {digest(*out)}")
     rollout = dict(max_abs_err=k2_err, mismatched=mismatched, ms=k2_ms, plain_ms=k2_plain_ms,
                    bound_ms=k2_bound, bound_by=k2_by,
-                   at=f"states ({env.obs_dim}, {B_PPO}), horizon {T_PPO}")
+                   at=f"states ({env.obs_dim}, {B_PPO}), horizon {T_PPO}", **sass)
+    if env.name in TETHER:
+        rollout.update(k6_taut(torch, env, k2_args, k2_kw, k2_name))
 
     # K3 against its twin on one full minibatch of that trajectory, with
     # the params moved off the rollout's, so that ratios leave 1 and clip.
@@ -862,11 +1068,9 @@ def ppo_phases(torch, dev, gpu: str, env) -> list[dict]:
     from reinmav_tpu_torch.ops import ppo_rollout as pr
     from reinmav_tpu_torch.rl import ppo
 
-    # 7, 8 and 10.  States drawn twice as wide as a reset, so that the envs
-    # beyond |p| = 3 reset at once.
+    # 7, 8 and 10.
     cfg = ppo.PpoConfig(num_envs=B_PPO, rollout_len=T_PPO, fused_update="off")
-    k2, k3, k4 = fused_kernel_checks(torch, dev, gpu, env,
-                                     lambda state: (state.env_states.T * 2.0).contiguous(),
+    k2, k3, k4 = fused_kernel_checks(torch, dev, gpu, env, k6_states(torch, env, None),
                                      ("K2", "K3", "K4"))
     # 9. The training path through the public API, with the update as a
     # loop of 16 minibatch steps through K3 (fused_update="off").
@@ -937,6 +1141,7 @@ def ppo_phases(torch, dev, gpu: str, env) -> list[dict]:
         "bound_by": k2["bound_by"],
         "library_ms": None,
         "at": k2["at"],
+        **extras(k2),
     }, {
         "name": "ppo_loss_grads_gather",
         "route": "cuda",
@@ -1074,7 +1279,7 @@ def hover_phases(torch, dev, gpu: str) -> list[dict]:
     # phase 7's 4.0: normalised rewards of quadrotor3d's size, not all
     # clipped at 10 as an unwarmed normaliser would leave them.
     k6, k3, k4 = fused_kernel_checks(
-        torch, dev, gpu, env, lambda state: hover_states(torch, gen, dev, B_PPO, 0.35, 1.0),
+        torch, dev, gpu, env, k6_states(torch, env, gen),
         ("K6-hover", "K3 (obs 13)", "K4 (obs 13)"), ret_var=HOVER_RET_VAR)
 
     # 14. Hover training: the default path (K6-hover + K4), the K3 loop, and
@@ -1135,7 +1340,8 @@ def hover_phases(torch, dev, gpu: str) -> list[dict]:
         entry("ppo_rollout (MujocoQuadForce-v1, K6-hover)", "reinmav_tpu_torch/csrc/ppo_rollout.cu",
               "reinmav_tpu/ops/pallas_ppo_rollout.py:703", main_launches["K2"], k6,
               "rtol 2e-4 atol 2e-5 per env over its whole trajectory, <= 0.1% of envs may "
-              "differ; max_abs_err over the envs that agree", {"mismatched_envs": k6["mismatched"]}),
+              "differ; max_abs_err over the envs that agree",
+              {"mismatched_envs": k6["mismatched"], **extras(k6)}),
         entry("ppo_loss_grads_gather (obs 13)", "reinmav_tpu_torch/csrc/ppo_loss.cu",
               "reinmav_tpu/ops/pallas_ppo.py:424", loop_launches["K3"],
               {**k3, "at": f"{k3['at']}; launches on the hover fused_update=\"off\" path"},
@@ -1206,6 +1412,8 @@ def k7_phase(torch, dev, gpu: str, env, states_t, timed_mode: str) -> dict:
             timed = args, (new_k, blk_k, *weights, consts), out
 
     args, tensors, out = timed
+    taut = k7_taut(torch, env, states_t, lambda x, seed: (*args[:2], x, seed, *args[4:]),
+                   f"K7 {env.name}") if env.name in TETHER else {}
     kernel_run = lambda: op.collect_step(*args)  # noqa: E731
     plain_run = lambda: op.collect_step_reference(*args)  # noqa: E731
     kernel_run()
@@ -1224,7 +1432,8 @@ def k7_phase(torch, dev, gpu: str, env, states_t, timed_mode: str) -> dict:
         f"({ops_per_env} operations per env), on {gpu}")
     return dict(max_abs_err=max(errs), mismatched=max(mismatches), ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by,
-                at=f"states ({d}, {batch}), actor {d}-{H_SAC}-{H_SAC}-{out}, mode {timed_mode}")
+                at=f"states ({d}, {batch}), actor {d}-{H_SAC}-{H_SAC}-{out}, mode {timed_mode}",
+                **taut)
 
 
 def offpolicy_iterations(torch, env, cfg, module, state, iters: int):
@@ -1622,7 +1831,7 @@ def native_phases(torch, dev, gpu: str) -> list[dict]:
         env = reinmav_tpu_torch.make(name)
         gen = torch.Generator(device=dev).manual_seed(21)
         k6, k3, k4 = fused_kernel_checks(
-            torch, dev, gpu, env, lambda state: native_states(torch, env, gen, B_PPO, 1.5),
+            torch, dev, gpu, env, k6_states(torch, env, gen),
             (f"K6 {name}", f"K3 ({d}, {a})", f"K4 ({d}, {a})"))
         main_cfg = ppo.PpoConfig(num_envs=B_PPO, rollout_len=T_PPO)
         passes = main_cfg.num_epochs * main_cfg.num_minibatches
@@ -1686,7 +1895,7 @@ def native_phases(torch, dev, gpu: str) -> list[dict]:
                    "free-running envs that agree" if name in TETHER else
                    "rtol 2e-4 atol 2e-5 per env over its whole trajectory, <= 0.1% of envs may "
                    "differ; max_abs_err over the envs that agree"),
-                  {"free_running_envs_apart": k6["mismatched"]}),
+                  {"free_running_envs_apart": k6["mismatched"], **extras(k6)}),
             entry(f"ppo_loss_grads_gather ({d}, {a})", "reinmav_tpu_torch/csrc/ppo_loss.cu",
                   "reinmav_tpu/ops/pallas_ppo.py:424", loop_launches["K3"],
                   {**k3, "at": f"{k3['at']}; launches on the {name} fused_update=\"off\" path"},
@@ -1701,7 +1910,8 @@ def native_phases(torch, dev, gpu: str) -> list[dict]:
                   "rtol 2e-4 atol 2e-5 per env over its block and new state, <= 0.1% of envs "
                   "may differ, in five mode legs; max_abs_err over the envs that agree; "
                   "bitwise repeatable",
-                  {"mismatched_envs": k7["mismatched"], "td3_launches": k7_launches["td3"]}),
+                  {"mismatched_envs": k7["mismatched"], "td3_launches": k7_launches["td3"],
+                   **extras(k7)}),
         ]
         del env
         torch.cuda.empty_cache()
@@ -2145,8 +2355,111 @@ def kernel_registers(short_name: str) -> str:
     return "not reported"
 
 
-def main() -> int:
+def k1_check_states(torch, gen):
+    """Phase 4's states, (10, B_CHECK) each, from ``gen``: U(-1, 1) times
+    0.1 (the no-reset leg) and times 1 (the auto-reset leg)."""
+    return tuple((torch.rand((10, B_CHECK), generator=gen, device=gen.device) * 2.0 - 1.0) *
+                 scale for scale in (0.1, 1.0))
+
+
+def k1_sass_line(ms: float, clock, gpu: str) -> dict:
+    """Print K1's main-path instance: ptxas's registers, its horizon loop's
+    static SASS an env-step without the reset block, and the issue time
+    that implies at the sampled SM clock, against ``ms``."""
+    kernel = k1_kernel_name()
+    sass = loop_sass(kernel)
+    issue = issue_ms(sass["step"], B_MAIN * T_MAIN, clock.mhz)
+    registers = kernel_registers(kernel)
+    say(f"K1: {kernel}, ptxas {registers}; its horizon loop, {sass['step']} static SASS "
+        f"instructions an env-step without the reset block ({sass}), would take {issue:.3f} ms "
+        f"to issue for B={B_MAIN} T={T_MAIN} at {clock.mhz:.0f} MHz (the SM clock sampled during "
+        f"the timed launches; {len(clock.samples)} samples), against {ms:.3f} ms measured, on "
+        f"{gpu}")
+    return {"registers": registers, "sass_per_env_step": sass, "sm_clock_mhz": clock.mhz,
+            "issue_ms": issue}
+
+
+def hash_phase(torch, dev, gpu: str) -> None:
+    """``--only hashes``: K1 and every K2/K6 kind on the inputs of phases
+    4, 6, 7, 13 and 21, each output's SHA-256 (the same digests the full
+    run prints), each kernel timed as there, with its SASS and the SM
+    clock: a quick A/B of two trees, run in turns in one call."""
+    import reinmav_tpu_torch
+    from reinmav_tpu_torch.ops import ppo_rollout as pr
+    from reinmav_tpu_torch.ops import rollout as ro
+
+    tame, full = k1_check_states(torch, torch.Generator(device=dev).manual_seed(1234))
+    say(f"sha256 K1 no reset B={B_CHECK} T={T_NO_RESET} (seed 17): "
+        f"{digest(*ro.quad3d_rollout_autoreset(tame, 17, T_NO_RESET, autoreset=False))}")
+    say(f"sha256 K1 auto-reset B={B_CHECK} T={T_RESET} (seed 99): "
+        f"{digest(*ro.quad3d_rollout_autoreset(full, 99, T_RESET))}")
+    env = reinmav_tpu_torch.make("quadrotor3d-v0")
+    big_t = env.vreset(torch.Generator(device=dev).manual_seed(5), B_MAIN).T.contiguous()
+    kernel_run = lambda: ro.quad3d_rollout_autoreset(big_t, 7, T_MAIN)  # noqa: E731
+    kernel_run()
+    torch.cuda.synchronize()
+    with SmClock() as clock:
+        kern, out = cuda_ms(kernel_run, 10)
+    ms = statistics.median(kern)
+    say(f"sha256 K1 auto-reset B={B_MAIN} T={T_MAIN} (seed 7): {digest(*out)}")
+    say(f"time K1 B={B_MAIN} T={T_MAIN}: {ms:.3f} ms per rollout (median of 10 launches, each "
+        f"{min(kern):.3f} to {max(kern):.3f}) on {gpu}")
+    k1_sass_line(ms, clock, gpu)
+    del big_t, out
+    for name in PPO_STRUCT:
+        env = reinmav_tpu_torch.make(name)
+        gen = torch.Generator(device=dev).manual_seed(13 if name == HOVER else 21)
+        *_, k2_args, k2_kw = k2_inputs(torch, dev, env, k6_states(torch, env, gen),
+                                       HOVER_RET_VAR if name == HOVER else 4.0)
+        run = lambda: pr.ppo_rollout(*k2_args, **k2_kw)  # noqa: E731
+        run()
+        torch.cuda.synchronize()
+        with SmClock() as clock:
+            kern, out = cuda_ms(run, 20)
+        ms = statistics.median(kern)
+        label = "K2" if name == "quadrotor3d-v0" else "K6-hover" if name == HOVER else f"K6 {name}"
+        say(f"sha256 {label} B={B_PPO} T={T_PPO} (seed 21): {digest(*out)}")
+        say(f"time {label} B={B_PPO} T={T_PPO}: {ms:.4f} ms (median of 20 launches, each "
+            f"{min(kern):.4f} to {max(kern):.4f}) on {gpu}")
+        k2_sass_line(label, name, ms, clock, gpu)
+        del out
+        # The same inputs through the other instances: the normalisers
+        # off, the tether always slack or always taut (its length 1000 or
+        # 0), a quarter of the envs.
+        probes = {f"normalize (obs, rewards) {no, nr}": dict(normalize_obs=no,
+                                                            normalize_rewards=nr)
+                  for no, nr in ((False, False), (True, False), (False, True))}
+        if name in TETHER:
+            for length in (1000.0, 0.0):
+                pvec = k2_kw["params_vec"].clone()
+                pvec[4] = length  # tether_length, in both slung kinds' params
+                probes[f"tether length {length:g}"] = dict(params_vec=pvec)
+        times = {}
+        for what, kw in [*probes.items(), (f"B={B_PPO // 4}", None)]:
+            if kw is None:
+                args = (k2_args[0][:, :B_PPO // 4].contiguous(), k2_args[1][:B_PPO // 4],
+                        *k2_args[2:])
+                probe = lambda: pr.ppo_rollout(*args, **k2_kw)  # noqa: E731
+            else:
+                probe = lambda: pr.ppo_rollout(*k2_args, **{**k2_kw, **kw})  # noqa: E731
+            probe()
+            times[what] = statistics.median(cuda_ms(probe, 20)[0])
+        say(f"time {label} B={B_PPO} T={T_PPO}, other instances and inputs (medians of 20): "
+            + "; ".join(f"{k} {v:.4f} ms" for k, v in times.items()) + f", on {gpu}")
+        del k2_args
+        torch.cuda.empty_cache()
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", choices=("hashes",),
+                        help="after phases 1-3, run only the digests and times of K1 and "
+                        "K2/K6, and print no result line")
+    only = parser.parse_args(argv).only
 
     # 1. Device.
     if not torch.cuda.is_available():
@@ -2177,6 +2490,9 @@ def main() -> int:
         say(f"sass: {name}: substep loop {substep_sass(name)}")
     for name in NATIVE:
         say(f"sass: {closed_loop_kernel_name(name)}: horizon loop {horizon_sass(name)}")
+    say(f"sass: {k1_kernel_name()}: horizon loop {loop_sass(k1_kernel_name())}")
+    for name in PPO_STRUCT:
+        say(f"sass: {ppo_instance(name)}: horizon loop {ppo_sass(name)}")
 
     # 3. Philox known answers, on the device through the kernel library.
     kat = [((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
@@ -2187,17 +2503,16 @@ def main() -> int:
     for row, (_, _, expected) in zip(got.tolist(), kat):
         require(tuple(row) == expected, f"philox KAT {[hex(v) for v in row]} != {expected}")
     say("philox4x32-10 known answers: ok (zero and all-ones counter/key, on the device)")
+    if only == "hashes":
+        hash_phase(torch, dev, gpu)
+        return 0
 
     # 4. K1 against its plain twin.  The slice has no matmul; TF32 is set
     # off anyway, so that no reference here can run in reduced precision.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(1234)
-
-    def uniform_states(batch, scale):
-        return (torch.rand((10, batch), generator=gen, device=dev) * 2.0 - 1.0) * scale
-
-    tame = uniform_states(B_CHECK, 0.1)
+    tame, full = k1_check_states(torch, gen)
     f_k, r_k = ro.quad3d_rollout_autoreset(tame, 17, T_NO_RESET, autoreset=False)
     f_p, r_p = ro.quad3d_rollout_reference(tame, 17, T_NO_RESET, autoreset=False)
     torch.cuda.synchronize()
@@ -2207,14 +2522,15 @@ def main() -> int:
     require(reward_rel <= RTOL_REWARD, f"no-reset leg reward total, rel err {reward_rel}")
     say(f"K1 vs twin, no reset, B={B_CHECK} T={T_NO_RESET}: max |err| {err_no_reset:.3e}, "
         f"reward total rel err {reward_rel:.3e} (rtol 2e-4 atol 2e-5; reward rtol 1e-4): ok")
+    say(f"sha256 K1 no reset B={B_CHECK} T={T_NO_RESET} (seed 17): {digest(f_k, r_k)}")
 
-    full = uniform_states(B_CHECK, 1.0)
     f_k, r_k = ro.quad3d_rollout_autoreset(full, 99, T_RESET)
     f_p, r_p = ro.quad3d_rollout_reference(full, 99, T_RESET)
     torch.cuda.synchronize()
     mismatched = int((~torch.isclose(f_k, f_p, **TOL).all(dim=0)).sum())
     reward_rel_reset = (abs(float(r_k.double().sum() - r_p.double().sum()))
                         / abs(float(r_p.double().sum())))
+    say(f"sha256 K1 auto-reset B={B_CHECK} T={T_RESET} (seed 99): {digest(f_k, r_k)}")
     require(mismatched <= 0.001 * B_CHECK, f"auto-reset leg: {mismatched} envs mismatched")
     require(reward_rel_reset <= 1e-3, f"auto-reset leg reward total, rel err {reward_rel_reset}")
     say(f"K1 vs twin, auto-reset, B={B_CHECK} T={T_RESET}: {mismatched} of {B_CHECK} envs "
@@ -2269,9 +2585,11 @@ def main() -> int:
     ro.quad3d_rollout_reference(big_t, 7, 5)  # warm-up
     torch.cuda.synchronize()
     (plain0,), (f_p, r_p) = cuda_ms(plain_run, 1)
-    kern0, (f_k, r_k) = cuda_ms(kernel_run, 5)
-    kern1, _ = cuda_ms(kernel_run, 5)
+    with SmClock() as clock:
+        kern0, (f_k, r_k) = cuda_ms(kernel_run, 5)
+        kern1, _ = cuda_ms(kernel_run, 5)
     (plain1,), _ = cuda_ms(plain_run, 1)
+    say(f"sha256 K1 auto-reset B={B_MAIN} T={T_MAIN} (seed 7): {digest(f_k, r_k)}")
     mismatched_main = int((~torch.isclose(f_k, f_p, **TOL).all(dim=0)).sum())
     max_abs_err = float((f_k - f_p).abs().max())
     reward_rel_main = (abs(float(r_k.double().sum() - r_p.double().sum()))
@@ -2288,12 +2606,13 @@ def main() -> int:
     say(f"time plain twin B={B_MAIN} T={T_MAIN}: {plain_ms:.1f} ms per rollout "
         f"(runs {plain0:.1f}, {plain1:.1f}), {B_MAIN * T_MAIN / plain_ms * 1e3:.4e} "
         f"env-steps/s on {gpu}")
+    k1_sass = k1_sass_line(kernel_ms, clock, gpu)
 
     k1_bound, k1_by = bound(nbytes(big_t, f_k, r_k), OPS_K1 * B_MAIN * T_MAIN)
     kernels = [{
         "name": "quad3d_rollout_autoreset",
         "route": "cuda",
-        "source": "reinmav_tpu_torch/csrc/quad3d_rollout.cu",
+        "source": "reinmav_tpu_torch/csrc/closed_loop_rollout.cu",
         "replaces": "reinmav_tpu/ops/pallas_rollout.py:591",
         "launches": launches,
         "max_abs_err": max_abs_err,
@@ -2305,6 +2624,7 @@ def main() -> int:
         "bound_by": k1_by,
         "library_ms": None,
         "at": f"states {tuple(f_k.shape)}, horizon {T_MAIN}",
+        **k1_sass,
     }]
     del big, big_final, big_t, f_k, f_p, r_k, r_p, reward_sum
     torch.cuda.empty_cache()

@@ -42,10 +42,6 @@ _P = ctypes.c_void_p
 #: C entry point -> argtypes.  Every launch entry point returns a CUDA error
 #: code, 0 on success.
 _SIGNATURES = {
-    # (states_in, states_out, reward_out, batch, horizon, seed, autoreset,
-    #  host params[11], stream)
-    "quad3d_rollout_launch": (_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                              ctypes.c_uint, ctypes.c_int, _P, _P),
     # (counters (n, 4) u32, keys (n, 2) u32, out (n, 4) u32, n, stream)
     "philox4x32_10_launch": (_P, _P, _P, ctypes.c_longlong, _P),
     # K5: (states_in, states_out, reward_out, batch, horizon, frame_skip,
@@ -64,7 +60,7 @@ _SIGNATURES = {
     #  params, stream)
     "contact_rollout_launch": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P),
-    # K8 / K9: (env kind, states_in, states_out, reward_out, counts or null,
+    # K1 / K8 / K9: (env kind, states_in, states_out, reward_out, counts or null,
     #  batch, horizon, seed, autoreset, host params, number of params, stream)
     "closed_loop_rollout_launch": (ctypes.c_int, _P, _P, _P, _P, ctypes.c_longlong,
                                    ctypes.c_int, ctypes.c_uint, ctypes.c_int, _P, ctypes.c_int,
@@ -72,10 +68,10 @@ _SIGNATURES = {
     # K2 / K6: (env kind, states_in, returns_in, net, consts, batch,
     #  horizon, seed, normalize_obs, normalize_rewards, host params, number
     #  of params, obs, action, log_prob, value, reward, done, final_states,
-    #  returns_out, partials, stats, stream)
+    #  returns_out, partials, stats, taut counts or null, stream)
     "ppo_rollout_launch": (ctypes.c_int, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                            ctypes.c_uint, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P, _P, _P,
-                           _P, _P, _P, _P, _P, _P, _P, _P),
+                           _P, _P, _P, _P, _P, _P, _P, _P, _P),
     # K3: (obs dim, action dim, data, n, perm, m, tile, adv_stats, net,
     #  clip_eps, value_clip_eps, value_coef, kl_mode, blocks, partials, out,
     #  stream)
@@ -99,10 +95,11 @@ _SIGNATURES = {
                           ctypes.c_int, _P, _P, _P, _P, _P, _P),
     "ppo_update_metrics_size": (),
     # K7: (env kind, mode, host params, number of params, states_in, batch,
-    #  hidden, w1, b1, w2, b2, w3, b3, consts, seed, states_out, block, stream)
+    #  hidden, w1, b1, w2, b2, w3, b3, consts, seed, states_out, block, taut
+    #  counts or null, stream)
     "offpolicy_collect_launch": (ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P,
                                  ctypes.c_longlong, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
-                                 ctypes.c_uint, _P, _P, _P),
+                                 ctypes.c_uint, _P, _P, _P, _P),
 }
 
 

@@ -1,10 +1,15 @@
-// K8 and K9: the closed-loop rollouts of quadrotor2d-v0 (K8) and of the two
-// slung-load envs (K9) with fused auto-reset, one template on the three loop
-// structs of this file (env_kinds.cuh's env structs with their own steps),
-// written for NVIDIA Hopper (sm_90a).
+// K1, K8 and K9: the closed-loop rollouts of quadrotor3d-v0 (K1),
+// quadrotor2d-v0 (K8) and the two slung-load envs (K9) with fused
+// auto-reset, one template on the four loop structs of this file
+// (env_kinds.cuh's env structs with their own steps), written for NVIDIA
+// Hopper (sm_90a).
 //
 // Replaces reinmav_tpu/ops/pallas_rollout.py::component_rollout (:468,
 // pallas_call :492), the scaffold that runs
+//   K1  pallas_rollout.py::quad3d_rollout_autoreset_pallas8 (:591), step
+//       _closed_loop_step_tiles (:310) with tilt_controller_tiles (:241);
+//       and the flat quad3d_rollout_pallas (:359, no reset) and
+//       quad3d_rollout_autoreset_pallas (:385);
 //   K8  pallas_rollout.py::quad2d_rollout_autoreset_pallas8 (:567), step
 //       _quad2d_step_tiles (:520);
 //   K9  pallas_slungload.py::slung3d_rollout_pallas8 (:310) and
@@ -12,17 +17,17 @@
 //       _slung2d_step_tiles (:208);
 // each env's classical controller and dynamics repeated over the whole
 // horizon, with the U(-1, 1)^D redraw of done envs.  With autoreset = 0 it
-// is the no-reset form.  Its plain PyTorch twin, which computes the same
-// thing in the same order with the same Philox draws, is
+// is the no-reset form.  Its plain PyTorch twins, which compute the same
+// thing in the same order with the same Philox draws, are
+// reinmav_tpu_torch/ops/rollout.py::quad3d_rollout_reference (K1) and
 // reinmav_tpu_torch/ops/closed_loop_rollout.py::closed_loop_rollout_reference
-// (its steps: LOOP_STEPS there).  quadrotor3d-v0's closed loop stays K1
-// (quad3d_rollout.cu).
+// (K8/K9; its steps: LOOP_STEPS there).
 //
-// What bounds it on the card: instruction issue.  One env-step is about 60
-// (quad2d), 140 (slung2d) or 300 (slung3d) FP32 operations, an atan2 and a
-// sin/cos pair among them, while an env's state crosses device memory once
-// per ROLLOUT: 4 D B in and 4 D + 4 B out, under 0.1 B per env-step at 1000
-// steps.
+// What bounds it on the card: instruction issue.  One env-step is about 150
+// (quadrotor3d), 60 (quad2d), 140 (slung2d) or 300 (slung3d) FP32
+// operations, roots, an atan2 and a sin/cos pair among them, while an env's
+// state crosses device memory once per ROLLOUT: 4 D B in and 4 D + 4 B
+// out, under 0.1 B per env-step at 1000 steps.
 //
 // What the design does about it:
 // - One thread per env; the D state floats and the reward sum stay in
@@ -75,11 +80,15 @@
 //   slung3d, barely faster for slung2d, and was taken out (PERF.md).  The
 //   ragged tail is masked, so any B works.
 // - An optional per-env int32 count (taut env-steps for the slung kinds,
-//   done env-steps, which are the resets, for quad2d), in a template
-//   instance of its own, so the main path (no counts) carries none of it.
+//   done env-steps, which are the resets, for quad2d and quadrotor3d), in a
+//   template instance of its own, so the main path (no counts) carries none
+//   of it.  K1's loop fixes its auto-reset at compile time (Quad3dLoop<true>
+//   and <false>); K8/K9 keep the runtime flag.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "env_kinds.cuh"
 #include "quad2d_common.cuh"
@@ -92,6 +101,117 @@ using reinmav::BodyZ;
 using reinmav::kHalfPi;
 
 constexpr int kThreads = 256;
+
+// quadrotor3d-v0 (K1): _closed_loop_step_tiles (pallas_rollout.py:310) with
+// tilt_controller_tiles (:241).  The env struct of env_kinds.cuh (dims,
+// kind id, params) with K1's own step: the controller's command carries the
+// body z axis of the normalised quaternion, which the dynamics reuse, and
+// thrust / mass is thrust * inv_m with inv_m formed once (Quad3dEnv::step,
+// K2's and K7's, divides and recomputes body z).  kReset fixes the
+// auto-reset at compile time, so the main path's loop carries no test of
+// it.  Where this step departs from quad3d_common.cuh's geometric_control
+// (which K2, K7 and K9 keep byte for byte), with the same bits on every
+// input:
+// * pyquaternion's _from_matrix takes branch B or D, selected, not four
+//   branches: m11 = |(zbz, zbx)| >= 0 and m00 = zbz / |(zbz, zbx)| has the
+//   sign of m22 = zbz, so branch A (m22 < 0, m00 > m11) and branch C
+//   (m22 >= 0, m00 < -m11) are never taken, for any input (a NaN takes D).
+//   The two candidates' sums are rounded one operation at a time
+//   (__fadd_rn), as in the branches, where no product reaches them;
+// * sign(ew) is copysign(1, ew) where |ew| > 0, else 0 (NaN included).
+template <bool kReset>
+struct Quad3dLoop : reinmav::Quad3dEnv {
+  static constexpr bool kFixedReset = kReset;
+  struct Consts : reinmav::Quad3dEnv::Consts {
+    float inv_m;
+  };
+  using Act = reinmav::GeometricCmd;
+  __device__ static Consts consts(const Params& p) {
+    return {reinmav::Quad3dEnv::consts(p), 1.0f / p.mass};
+  }
+  __device__ static void control(const float (&s)[kD], const Params& p, const Consts& c,
+                                 Act& cmd) {
+    const float px = s[0], py = s[1], pz = s[2];
+    const float qw = s[3], qx = s[4], qy = s[5], qz = s[6];
+    const float vx = s[7], vy = s[8], vz = s[9];
+
+    const float ax = p.kp * (px - p.ref_x) + p.kv * vx;
+    const float ay = p.kp * (py - p.ref_y) + p.kv * vy;
+    const float az = p.kp * (pz - p.ref_z) + p.kv * vz - p.gravity;
+
+    const float an = rsqrtf(ax * ax + ay * ay + az * az);
+    const float zbx = ax * an, zby = ay * an, zbz = az * an;
+    // xb = yc x zb with yc = (0, 1, 0): (zbz, 0, -zbx), normalised.
+    const float xn = rsqrtf(zbz * zbz + zbx * zbx);
+    const float xbx = zbz * xn, xbz = -zbx * xn;
+    // yb = zb x xb
+    const float ybx = zby * xbz;
+    const float yby = zbz * xbx - zbx * xbz;
+    const float ybz = -zby * xbx;
+
+    // pyquaternion _from_matrix on the transposed [xb yb zb] (m01 = 0):
+    // branch B where m22 < 0, else branch D.
+    const float m00 = xbx, m02 = xbz;
+    const float m10 = ybx, m11 = yby, m12 = ybz;
+    const float m20 = zbx, m21 = zby, m22 = zbz;
+    const bool neg = m22 < 0.0f;
+    const float t_b = __fsub_rn(__fadd_rn(__fsub_rn(1.0f, m00), m11), m22);
+    const float t_d = __fadd_rn(__fadd_rn(__fadd_rn(1.0f, m00), m11), m22);
+    const float t = neg ? t_b : t_d;
+    const float m20_m02 = __fsub_rn(m20, m02);
+    const float m12_m21 = __fsub_rn(m12, m21);
+    const float scale = 0.5f * rsqrtf(t);
+    const float dw = (neg ? m20_m02 : t_d) * scale;
+    const float dx = (neg ? m10 : m12_m21) * scale;
+    const float dy = (neg ? t_b : m20_m02) * scale;
+    const float dz = (neg ? __fadd_rn(m12, m21) : -m10) * scale;
+
+    // qe = conj(q_raw) (x) q_des; rate command from the RAW quaternion.
+    const float ew = qw * dw + qx * dx + qy * dy + qz * dz;
+    const float ex = qw * dx - qx * dw - qy * dz + qz * dy;
+    const float ey = qw * dy + qx * dz - qy * dw - qz * dx;
+    const float ez = qw * dz - qx * dy + qy * dx - qz * dw;
+    const float sgn = fabsf(ew) > 0.0f ? copysignf(1.0f, ew) : 0.0f;  // sign(0) = 0 (Q10)
+    const float k = c.two_over_tau * sgn;
+
+    // Body z of the NORMALISED quaternion, shared by thrust and dynamics.
+    const BodyZ bz = reinmav::body_z(s);
+    cmd = {ax * bz.x + ay * bz.y + az * bz.z, k * ex, k * ey, k * ez, bz};
+  }
+  // counted: the step ended the env (a reset, with auto-reset on).
+  __device__ static float step(float (&s)[kD], const Act& cmd, const Params& p,
+                               const Consts& c, bool& done, bool& counted) {
+    const float px = s[0], py = s[1], pz = s[2];
+    const float qw = s[3], qx = s[4], qy = s[5], qz = s[6];
+    const float vx = s[7], vy = s[8], vz = s[9];
+    const float dt = p.dt, tq = cmd.thrust * c.inv_m;
+    const BodyZ& bz = cmd.bz;
+
+    const float accx = tq * bz.x;
+    const float accy = tq * bz.y;
+    const float accz = tq * bz.z + p.gravity;
+
+    const float npx = px + vx * dt + 0.5f * accx * dt * dt;
+    const float npy = py + vy * dt + 0.5f * accy * dt * dt;
+    const float npz = pz + vz * dt + 0.5f * accz * dt * dt;
+    const float nvx = vx + accx * dt, nvy = vy + accy * dt, nvz = vz + accz * dt;
+
+    const float wx = cmd.wx, wy = cmd.wy, wz = cmd.wz;
+    const float hw = qw * bz.inv_qn, hx = qx * bz.inv_qn, hy = qy * bz.inv_qn, hz = qz * bz.inv_qn;
+    s[3] = qw + c.half_dt * (-hx * wx - hy * wy - hz * wz);
+    s[4] = qx + c.half_dt * (hw * wx + hy * wz - hz * wy);
+    s[5] = qy + c.half_dt * (hw * wy - hx * wz + hz * wx);
+    s[6] = qz + c.half_dt * (hw * wz + hx * wy - hy * wx);
+    s[0] = npx; s[1] = npy; s[2] = npz;
+    s[7] = nvx; s[8] = nvy; s[9] = nvz;
+
+    const float pn2 = npx * npx + npy * npy + npz * npz;
+    const float vn2 = nvx * nvx + nvy * nvy + nvz * nvz;
+    done = (pn2 > c.pos_lim2) || (vn2 > c.vel_lim2);
+    counted = done;
+    return done ? 1.0f : -sqrtf(pn2);
+  }
+};
 
 // quadrotor2d-v0: _quad2d_step_tiles (pallas_rollout.py:520-563).  The env
 // struct of env_kinds.cuh (dims, kind id, params, controller) with the TPU
@@ -283,6 +403,28 @@ struct Slung3dLoop : reinmav::Slung3dEnv {
   }
 };
 
+// The controller's output of a loop: its Act type where it declares one
+// (Quad3dLoop: the command with the body frame), else kA floats.
+template <class Loop, class = void>
+struct ActOf {
+  using type = float[Loop::kA];
+};
+template <class Loop>
+struct ActOf<Loop, std::void_t<typename Loop::Act>> {
+  using type = typename Loop::Act;
+};
+
+// Whether a done env resets: the runtime flag, or the loop's compile-time one
+// where it fixes it (Quad3dLoop).
+template <class Loop, class = void>
+struct ResetOn {
+  __device__ static bool on(int autoreset) { return autoreset != 0; }
+};
+template <class Loop>
+struct ResetOn<Loop, std::void_t<decltype(Loop::kFixedReset)>> {
+  __device__ static constexpr bool on(int) { return Loop::kFixedReset; }
+};
+
 template <class Loop, bool kCount>
 __global__ void __launch_bounds__(kThreads)
 closed_loop_kernel(const float* __restrict__ s_in, float* __restrict__ s_out,
@@ -301,12 +443,14 @@ closed_loop_kernel(const float* __restrict__ s_in, float* __restrict__ s_out,
   int count = 0;
 
   for (int t = 0; t < horizon; ++t) {
-    float act[Loop::kA];
+    typename ActOf<Loop>::type act;
     Loop::control(s, p, c, act);
     bool done, counted;
     reward_sum += Loop::step(s, act, p, c, done, counted);
     if (kCount) count += counted ? 1 : 0;
-    if (autoreset && done) reinmav::reset_uniform(s, env, static_cast<uint32_t>(t), seed, 0u);
+    if (ResetOn<Loop>::on(autoreset) && done) {
+      reinmav::reset_uniform(s, env, static_cast<uint32_t>(t), seed, 0u);
+    }
   }
 
 #pragma unroll
@@ -336,12 +480,14 @@ cudaError_t launch(const float* s_in, float* s_out, float* reward_out, int* coun
 
 // C interface, bound with ctypes (reinmav_tpu_torch/_build.py).  Launches on
 // the given stream, does not synchronise, and returns a CUDA error code.
-// env_kind: 2 quadrotor2d-v0 (params_host: the 11 floats of
-// quad2d_params_vec, states (5, B)), 3 quadrotor2d-slungload-v0 (12 floats,
+// env_kind: 0 quadrotor3d-v0 (K1; params_host: the 11 floats of
+// quad3d_params_vec, states (10, B)), 2 quadrotor2d-v0 (11 floats of
+// quad2d_params_vec, (5, B)), 3 quadrotor2d-slungload-v0 (12 floats,
 // (9, B)), 4 quadrotor3d-slungload-v0 (13 floats, (16, B)); any other kind,
 // or another number of params, is refused with cudaErrorInvalidValue and
 // nothing runs.  counts: null, or B int32 that receive each env's count
-// (taut env-steps of the slung kinds, done env-steps of quad2d).
+// (taut env-steps of the slung kinds, done env-steps of quad2d and
+// quadrotor3d).
 extern "C" int closed_loop_rollout_launch(int env_kind, const void* states_in, void* states_out,
                                           void* reward_out, void* counts, long long batch,
                                           int horizon, unsigned int seed, int autoreset,
@@ -354,6 +500,12 @@ extern "C" int closed_loop_rollout_launch(int env_kind, const void* states_in, v
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (env_kind) {
+    case reinmav::Quad3dEnv::kKind:
+      err = autoreset ? launch<Quad3dLoop<true>>(s_in, s_out, r_out, n_out, batch, horizon, seed,
+                                                 autoreset, h, n_params, st)
+                      : launch<Quad3dLoop<false>>(s_in, s_out, r_out, n_out, batch, horizon,
+                                                  seed, autoreset, h, n_params, st);
+      break;
     case Quad2dLoop::kKind:
       err = launch<Quad2dLoop>(s_in, s_out, r_out, n_out, batch, horizon, seed, autoreset, h,
                                n_params, st);

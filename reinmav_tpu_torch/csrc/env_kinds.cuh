@@ -1,12 +1,15 @@
 // The env kinds of the port's templated kernels: K2/K6 (ppo_rollout.cu, the
 // fused PPO rollout), K7 (offpolicy_collect.cu, the fused off-policy
-// collection step) and K8/K9 (closed_loop_rollout.cu, the closed loops
+// collection step) and K1/K8/K9 (closed_loop_rollout.cu, the closed loops
 // under the classical controllers).  One struct per env with its dims
 // (kD state = obs, kA action), its params, the constants derived from
 // them, one env step under a per-env raw action, the classical controller
-// where the env has one, and the reset of a done env.  A kernel templated on
-// these structs takes a new env by adding a struct here (the JAX package's
-// _ENVS table, reinmav_tpu/ops/pallas_ppo_rollout.py:516).
+// where the env has one, and the reset of a done env.  kTether marks the
+// slung-load envs, whose taut() says whether a state's tether is taut, as
+// their step decides it (the taut counts of the counting kernel
+// instances).  A kernel
+// templated on these structs takes a new env by adding a struct here (the
+// JAX package's _ENVS table, reinmav_tpu/ops/pallas_ppo_rollout.py:516).
 //
 // Kind ids are the ones of reinmav_tpu_torch/ops/ppo_rollout.py::ENVS.
 
@@ -25,6 +28,7 @@ namespace reinmav {
 // quadrotor3d-v0 (_quad3d_step_tiles): thrust / mass keeps the scan's op
 // order; done envs redraw U(-1, 1)^10 from the given Philox stream.
 struct Quad3dEnv {
+  static constexpr bool kTether = false;
   static constexpr int kD = 10;
   static constexpr int kA = 4;
   static constexpr int kKind = 0;
@@ -62,6 +66,7 @@ struct Quad3dEnv {
 // action, the deterministic reset to (0, 0, init_z) (no draws).  No
 // classical controller.
 struct HoverEnv {
+  static constexpr bool kTether = false;
   static constexpr int kD = 13;
   static constexpr int kA = 4;
   static constexpr int kKind = 1;
@@ -90,6 +95,7 @@ struct HoverEnv {
 // (:205), the controller of pallas_rollout.py::_quad2d_step_tiles (:520),
 // the U(-1, 1)^5 reset.
 struct Quad2dEnv {
+  static constexpr bool kTether = false;
   static constexpr int kD = 5;
   static constexpr int kA = 2;
   static constexpr int kKind = 2;
@@ -121,6 +127,7 @@ struct Quad2dEnv {
 // planar PD controller on the quad state (pallas_slungload.py::
 // _slung2d_step_tiles :208), the U(-1, 1)^9 reset.
 struct Slung2dEnv {
+  static constexpr bool kTether = true;
   static constexpr int kD = 9;
   static constexpr int kA = 2;
   static constexpr int kKind = 3;
@@ -144,6 +151,9 @@ struct Slung2dEnv {
                                const Consts& c, bool& done) {
     return slung2d_step(s, act[0], act[1], p, c.inv_mml, done);
   }
+  __device__ static bool taut(const float (&s)[kD], const Params& p) {
+    return slung2d_taut(s, p.tether_length);
+  }
   __device__ static void reset(float (&s)[kD], uint32_t env, uint32_t t, uint32_t seed,
                                uint32_t stream, const Params&) {
     reset_uniform(s, env, t, seed, stream);
@@ -154,6 +164,7 @@ struct Slung2dEnv {
 // geometric controller on the quad state (pallas_slungload.py::
 // _slung3d_step_tiles :76), the U(-1, 1)^16 reset.
 struct Slung3dEnv {
+  static constexpr bool kTether = true;
   static constexpr int kD = 16;
   static constexpr int kA = 4;
   static constexpr int kKind = 4;
@@ -178,6 +189,9 @@ struct Slung3dEnv {
   __device__ static float step(float (&s)[kD], const float (&act)[kA], const Params& p,
                                const Consts& c, bool& done) {
     return slung3d_step(s, act[0], act[1], act[2], act[3], p, c.half_dt, c.inv_mml, done);
+  }
+  __device__ static bool taut(const float (&s)[kD], const Params& p) {
+    return slung3d_taut(s, p.tether_length);
   }
   __device__ static void reset(float (&s)[kD], uint32_t env, uint32_t t, uint32_t seed,
                                uint32_t stream, const Params&) {

@@ -84,12 +84,16 @@ inline size_t smem_bytes(int d, int h, int out) {
   return floats * sizeof(float);
 }
 
-template <class Env, int kMode>
-__global__ void __launch_bounds__(kThreads, 1)
-offpolicy_collect_kernel(const float* __restrict__ s_in, int64_t batch, int hidden, Actor w,
-                         const float* __restrict__ consts, uint32_t seed,
-                         typename Env::Params p, float* __restrict__ s_out,
-                         float* __restrict__ block) {
+// The kernel's body; kCount adds each env's taut tether (0 or 1) to
+// counts[env] (the counting kernel, slung-load kinds only).
+template <class Env, int kMode, bool kCount>
+__device__ __forceinline__ void collect_body(const float* __restrict__ s_in, int64_t batch,
+                                             int hidden, const Actor& w,
+                                             const float* __restrict__ consts, uint32_t seed,
+                                             const typename Env::Params& p,
+                                             float* __restrict__ s_out,
+                                             float* __restrict__ block,
+                                             int* __restrict__ counts) {
   constexpr int kD = Env::kD, kA = Env::kA;
   constexpr bool kIsSac = kMode == kSac || kMode == kSacDet;
   constexpr int kOut = kIsSac ? 2 * kA : kA;
@@ -257,6 +261,7 @@ offpolicy_collect_kernel(const float* __restrict__ s_in, int64_t batch, int hidd
   for (int d = 0; d < kD; ++d) block[d * batch + g] = s[d];
 #pragma unroll
   for (int a = 0; a < kA; ++a) block[(kD + a) * batch + g] = a_t[a];
+  if constexpr (kCount) counts[g] += Env::taut(s, p) ? 1 : 0;
   bool done;
   const float raw = Env::step(s, act, p, Env::consts(p), done);
   block[(kD + kA) * batch + g] = raw;
@@ -269,39 +274,73 @@ offpolicy_collect_kernel(const float* __restrict__ s_in, int64_t batch, int hidd
 }
 
 template <class Env, int kMode>
+__global__ void __launch_bounds__(kThreads, 1)
+offpolicy_collect_kernel(const float* __restrict__ s_in, int64_t batch, int hidden, Actor w,
+                         const float* __restrict__ consts, uint32_t seed,
+                         typename Env::Params p, float* __restrict__ s_out,
+                         float* __restrict__ block) {
+  collect_body<Env, kMode, false>(s_in, batch, hidden, w, consts, seed, p, s_out, block,
+                                  nullptr);
+}
+
+// The counting kernel (not on any training path): K7 with counts[env] += the
+// tether was taut at the start of the step.
+template <class Env, int kMode>
+__global__ void __launch_bounds__(kThreads, 1)
+offpolicy_collect_count_kernel(const float* __restrict__ s_in, int64_t batch, int hidden,
+                               Actor w, const float* __restrict__ consts, uint32_t seed,
+                               typename Env::Params p, float* __restrict__ s_out,
+                               float* __restrict__ block, int* __restrict__ counts) {
+  collect_body<Env, kMode, true>(s_in, batch, hidden, w, consts, seed, p, s_out, block, counts);
+}
+
+template <class Env, int kMode>
 cudaError_t launch_mode(const float* s_in, int64_t batch, int hidden, const Actor& w,
                         const float* consts, uint32_t seed, const float* params_host,
-                        float* s_out, float* block, cudaStream_t st) {
+                        float* s_out, float* block, int* counts, cudaStream_t st) {
   constexpr int kOut = (kMode == kSac || kMode == kSacDet) ? 2 * Env::kA : Env::kA;
   const size_t bytes = smem_bytes(Env::kD, hidden, kOut);
+  const auto blocks = static_cast<unsigned int>((batch + kTile - 1) / kTile);
+  const typename Env::Params p = Env::params(params_host);
+  if (counts != nullptr) {
+    if constexpr (Env::kTether) {
+      auto kernel = offpolicy_collect_count_kernel<Env, kMode>;
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      if (err != cudaSuccess) return err;
+      kernel<<<blocks, kThreads, bytes, st>>>(s_in, batch, hidden, w, consts, seed, p, s_out,
+                                              block, counts);
+      return cudaGetLastError();
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  }
   auto kernel = offpolicy_collect_kernel<Env, kMode>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  const auto blocks = static_cast<unsigned int>((batch + kTile - 1) / kTile);
-  kernel<<<blocks, kThreads, bytes, st>>>(s_in, batch, hidden, w, consts, seed,
-                                          Env::params(params_host), s_out, block);
+  kernel<<<blocks, kThreads, bytes, st>>>(s_in, batch, hidden, w, consts, seed, p, s_out, block);
   return cudaGetLastError();
 }
 
 template <class Env>
 cudaError_t launch_env(int mode, const float* s_in, int64_t batch, int hidden, const Actor& w,
                        const float* consts, uint32_t seed, const float* params_host,
-                       int n_params, float* s_out, float* block, cudaStream_t st) {
+                       int n_params, float* s_out, float* block, int* counts, cudaStream_t st) {
   if (n_params != Env::kParams) return cudaErrorInvalidValue;
   switch (mode) {
     case kSac:
       return launch_mode<Env, kSac>(s_in, batch, hidden, w, consts, seed, params_host, s_out,
-                                    block, st);
+                                    block, counts, st);
     case kSacDet:
       return launch_mode<Env, kSacDet>(s_in, batch, hidden, w, consts, seed, params_host, s_out,
-                                       block, st);
+                                       block, counts, st);
     case kTd3:
       return launch_mode<Env, kTd3>(s_in, batch, hidden, w, consts, seed, params_host, s_out,
-                                    block, st);
+                                    block, counts, st);
     case kTd3Det:
       return launch_mode<Env, kTd3Det>(s_in, batch, hidden, w, consts, seed, params_host, s_out,
-                                       block, st);
+                                       block, counts, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -319,13 +358,16 @@ cudaError_t launch_env(int mode, const float* s_in, int64_t batch, int hidden, c
 // width H of both hidden layers, a multiple of 32 from 32 to 256.  Any other
 // kind, mode, width or number of params is refused with
 // cudaErrorInvalidValue and nothing runs.  Outputs: states_out (D, B) and
-// block (2D + A + 2, B), float32.
+// block (2D + A + 2, B), float32.  counts: null (every training path), or B
+// int32 to which each env's taut tether at the start of the step (0 or 1)
+// is added (the slung-load kinds; refused for another kind).
 extern "C" int offpolicy_collect_launch(int env_kind, int mode, const void* params_host,
                                         int n_params, const void* states_in, long long batch,
                                         int hidden, const void* w1, const void* b1,
                                         const void* w2, const void* b2, const void* w3,
                                         const void* b3, const void* consts, unsigned int seed,
-                                        void* states_out, void* block, void* stream) {
+                                        void* states_out, void* block, void* counts,
+                                        void* stream) {
   if (batch <= 0 || hidden < kChunk || hidden > kMaxHidden || hidden % kChunk != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -340,7 +382,7 @@ extern "C" int offpolicy_collect_launch(int env_kind, int mode, const void* para
   const auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = reinmav::with_env_kind(env_kind, [&](auto env) {
     return launch_env<decltype(env)>(mode, s_in, batch, hidden, w, c, seed, h, n_params, s_out,
-                                     blk, st);
+                                     blk, static_cast<int*>(counts), st);
   });
   return static_cast<int>(err);
 }

@@ -20,22 +20,30 @@
 // same Philox draws, is reinmav_tpu_torch/ops/ppo_rollout.py::
 // ppo_rollout_reference.
 //
-// What bounds it on the card: arithmetic.  One env-step is 2 * (D*128 +
-// 2*64*64 + 64*A + 64*1) FP32 operations of MLP (19.6k for quadrotor3d, D =
-// 10; 20.4k for hover, D = 13; 17.8k to 20.8k for the others; the zero
+// What bounds it on the card: instruction issue.  One env-step is 2 * (D*128
+// + 2*64*64 + 64*A + 64*1) FP32 operations of MLP (19.6k for quadrotor3d, D
+// = 10; 20.4k for hover, D = 13; 17.8k to 20.8k for the others; the zero
 // blocks of the fused layer are not computed), plus the env step (about 30
 // for quadrotor3d, 2 x 257 for hover), against 4 * (D + A + 4) B of
-// trajectory written, far on the compute side of the H100's roofline.  At
-// D = 16 the 2D + 3 moment sums, the state and the first hidden layer
-// compete for the 255 registers a thread can have.
+// trajectory written, far on the compute side of the H100's roofline.  The
+// source's sums (each float4 step of a unit a 4-product partial, added to
+// the unit's sum) make a unit 80 instructions for 64 products, and tanhf 17
+// more: about 21k instructions an env-step.  At 32,768 envs, 256 CTAs of 128
+// threads leave 2 warps a scheduler, too few to hide the latency of one
+// unit's chain of partial sums, tanhf and heads.  At D = 16 the 2D + 3
+// moment sums, the state and the first hidden layer compete for the 255
+// registers a thread can have.
 //
 // What the design does about it: one thread per env, the env state, the
 // running return and the 2D + 3 moment sums in registers for the whole
 // horizon; the weights (40-42 KB) in shared memory, read as broadcasts
 // (every thread of a warp reads the same weight at the same time), the
 // second layer's as float4 rows; the first hidden layer of one tower (64
-// floats) in registers, the second consumed into the heads as it is
-// computed, so it is never stored.  Noise and resets come from
+// floats) in registers; the second computed kUnits units a pass, each
+// unit's sum its own chain in the source's order (so the bits are those of
+// one unit a pass), which gives the scheduler kUnits independent chains to
+// interleave, and consumed into the heads in unit order as it is computed,
+// so it is never stored.  Noise and resets come from
 // Philox4x32-10 (quad3d_common.cuh) with key (seed, 0) and counter (env,
 // step, draw, stream): stream 1 is the noise (two draws, Box-Muller cosine
 // branch as _normal :90-95; action a takes word a of each draw, so an A = 2
@@ -44,7 +52,9 @@
 // Each CTA reduces its moment sums in a fixed order, and a second launch
 // adds the CTAs' partials in block order, so the result is bitwise
 // repeatable.  Any B works; the tail is masked.  normalize_obs and
-// normalize_rewards are template switches.
+// normalize_rewards are template switches; a fourth, in instances the
+// training paths never launch, counts each slung-load env's taut env-steps
+// (the tether taut at the start of the step).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,6 +67,12 @@ namespace {
 namespace ac = reinmav::ac;
 constexpr int kThreads = 128;
 constexpr int kH = ac::H;
+// Hidden units of the second layer computed a pass: 4 on every kind but
+// quadrotor2d-slungload-v0, whose main-path instance ran slower with 4 than
+// with 1 on an H100, as it runs slower than its own instances without obs
+// normalisation, for no count that the SASS shows (PERF.md); it keeps 1.
+template <class Env>
+constexpr int kUnitsOf = Env::kKind == reinmav::Slung2dEnv::kKind ? 1 : 4;
 
 struct RolloutOut {
   float* obs;       // (T, D, B)
@@ -69,15 +85,16 @@ struct RolloutOut {
   float* returns;       // (B,)
   float* partials;      // (gridDim.x, 2D + 3)
   float* stats_out;     // (2D + 3,)
+  int* counts;          // (B,) taut env-steps, the counting instances only
 };
 
-template <class Env, bool kNormObs, bool kNormRew>
+template <class Env, bool kNormObs, bool kNormRew, bool kCount>
 __global__ void __launch_bounds__(kThreads)
 ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret_in,
                    const float* __restrict__ net, const float* __restrict__ consts,
                    int64_t batch, int horizon, uint32_t seed, typename Env::Params p,
                    RolloutOut o) {
-  constexpr int kD = Env::kD, kA = Env::kA;
+  constexpr int kD = Env::kD, kA = Env::kA, kUnits = kUnitsOf<Env>;
   constexpr int kStats = 2 * kD + 3;  // obs sum (D), obs sq (D), ret sum, ret sq, raw reward sum
   constexpr int kConsts = 2 * kD + kA + 3;
   using L = ac::Layout<kD, kA>;
@@ -132,6 +149,7 @@ ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret
 #pragma unroll
     for (int d = 0; d < kD; ++d) s[d] = s_in[d * batch + i];
     float ret = ret_in[i];
+    int count = 0;
 
     for (int t = 0; t < horizon; ++t) {
       const int64_t row = static_cast<int64_t>(t) * batch;
@@ -164,20 +182,30 @@ ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret
           for (int d = 0; d < kD; ++d) z += w1t[tw][k][d] * x[d];
           h1[k] = tanhf(z);
         }
-        for (int j = 0; j < kH; ++j) {
-          const float4* w = reinterpret_cast<const float4*>(w2t[tw][j]);
-          float z = b2[tw][j];
+        // kUnits hidden units a pass, each its own chain in its own order.
+#pragma unroll 1
+        for (int j0 = 0; j0 < kH; j0 += kUnits) {
+          float z[kUnits];
+#pragma unroll
+          for (int u = 0; u < kUnits; ++u) z[u] = b2[tw][j0 + u];
 #pragma unroll
           for (int q = 0; q < kH / 4; ++q) {
-            const float4 v = w[q];
-            z += v.x * h1[4 * q] + v.y * h1[4 * q + 1] + v.z * h1[4 * q + 2] + v.w * h1[4 * q + 3];
-          }
-          const float h2 = tanhf(z);
-          if (tw == 0) {
 #pragma unroll
-            for (int a = 0; a < kA; ++a) mean[a] += h2 * wpi[j][a];
-          } else {
-            value += h2 * wvf[j];
+            for (int u = 0; u < kUnits; ++u) {
+              const float4 v = reinterpret_cast<const float4*>(w2t[tw][j0 + u])[q];
+              z[u] += v.x * h1[4 * q] + v.y * h1[4 * q + 1] + v.z * h1[4 * q + 2] +
+                      v.w * h1[4 * q + 3];
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kUnits; ++u) {
+            const float h2 = tanhf(z[u]);
+            if (tw == 0) {
+#pragma unroll
+              for (int a = 0; a < kA; ++a) mean[a] += h2 * wpi[j0 + u][a];
+            } else {
+              value += h2 * wvf[j0 + u];
+            }
           }
         }
       }
@@ -203,6 +231,7 @@ ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret
       o.value[row + i] = value;
 
       // Env step.
+      if constexpr (kCount) count += Env::taut(s, p) ? 1 : 0;
       bool done;
       const float raw = Env::step(s, act, p, env_consts, done);
       const float done_f = done ? 1.0f : 0.0f;
@@ -223,6 +252,7 @@ ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret
 #pragma unroll
     for (int d = 0; d < kD; ++d) o.final_states[d * batch + i] = s[d];
     o.returns[i] = ret;
+    if constexpr (kCount) o.counts[i] = count;
   }
 
   // The CTA's moment sums in a fixed order: within each warp by shuffles,
@@ -260,18 +290,27 @@ cudaError_t launch_env(const float* s_in, const float* ret_in, const float* net,
                        const RolloutOut& o, unsigned int blocks, cudaStream_t st) {
   if (n_params != Env::kParams) return cudaErrorInvalidValue;
   const typename Env::Params p = Env::params(params_host);
-  if (norm_obs && norm_rew) {
-    ppo_rollout_kernel<Env, true, true><<<blocks, kThreads, 0, st>>>(s_in, ret_in, net, consts,
-                                                                     batch, horizon, seed, p, o);
+  if (o.counts != nullptr) {
+    // The counting instance: slung-load kinds, both normalisers on.
+    if constexpr (Env::kTether) {
+      if (!(norm_obs && norm_rew)) return cudaErrorInvalidValue;
+      ppo_rollout_kernel<Env, true, true, true><<<blocks, kThreads, 0, st>>>(
+          s_in, ret_in, net, consts, batch, horizon, seed, p, o);
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  } else if (norm_obs && norm_rew) {
+    ppo_rollout_kernel<Env, true, true, false><<<blocks, kThreads, 0, st>>>(
+        s_in, ret_in, net, consts, batch, horizon, seed, p, o);
   } else if (norm_obs) {
-    ppo_rollout_kernel<Env, true, false><<<blocks, kThreads, 0, st>>>(s_in, ret_in, net, consts,
-                                                                      batch, horizon, seed, p, o);
+    ppo_rollout_kernel<Env, true, false, false><<<blocks, kThreads, 0, st>>>(
+        s_in, ret_in, net, consts, batch, horizon, seed, p, o);
   } else if (norm_rew) {
-    ppo_rollout_kernel<Env, false, true><<<blocks, kThreads, 0, st>>>(s_in, ret_in, net, consts,
-                                                                      batch, horizon, seed, p, o);
+    ppo_rollout_kernel<Env, false, true, false><<<blocks, kThreads, 0, st>>>(
+        s_in, ret_in, net, consts, batch, horizon, seed, p, o);
   } else {
-    ppo_rollout_kernel<Env, false, false><<<blocks, kThreads, 0, st>>>(s_in, ret_in, net, consts,
-                                                                       batch, horizon, seed, p, o);
+    ppo_rollout_kernel<Env, false, false, false><<<blocks, kThreads, 0, st>>>(
+        s_in, ret_in, net, consts, batch, horizon, seed, p, o);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -290,19 +329,23 @@ cudaError_t launch_env(const float* s_in, const float* ret_in, const float* net,
 // quadrotor3d-slungload-v0), params_host the floats of its params vector
 // (ops/ppo_rollout.py::ENVS), states (D, B); any other kind, or another
 // number of params, is refused with cudaErrorInvalidValue and nothing runs.
-// `partials` is scratch of (ceil(batch / 128), 2D + 3) floats.
+// `partials` is scratch of (ceil(batch / 128), 2D + 3) floats.  counts:
+// null (the main path), or B int32 that receive each env's taut env-steps
+// (the slung-load kinds with both normalisers on; any other call with
+// counts is refused with cudaErrorInvalidValue).
 extern "C" int ppo_rollout_launch(int env_kind, const void* states_in, const void* returns_in,
                                   const void* net, const void* consts, long long batch,
                                   int horizon, unsigned int seed, int normalize_obs,
                                   int normalize_rewards, const void* params_host, int n_params,
                                   void* obs, void* action, void* log_prob, void* value,
                                   void* reward, void* done, void* final_states, void* returns_out,
-                                  void* partials, void* stats, void* stream) {
+                                  void* partials, void* stats, void* counts, void* stream) {
   const RolloutOut o{static_cast<float*>(obs),          static_cast<float*>(action),
                      static_cast<float*>(log_prob),     static_cast<float*>(value),
                      static_cast<float*>(reward),       static_cast<bool*>(done),
                      static_cast<float*>(final_states), static_cast<float*>(returns_out),
-                     static_cast<float*>(partials),     static_cast<float*>(stats)};
+                     static_cast<float*>(partials),     static_cast<float*>(stats),
+                     static_cast<int*>(counts)};
   const auto blocks = static_cast<unsigned int>((batch + kThreads - 1) / kThreads);
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* s_in = static_cast<const float*>(states_in);

@@ -1,7 +1,8 @@
-// Device code shared by the quadrotor3d kernels: K1 (quad3d_rollout.cu, the
-// closed loop under the geometric controller), K2 (ppo_rollout.cu, the
-// closed loop under the PPO policy) and, through env_kinds.cuh, K7 and the
-// quadrotor3d-slungload closed loop (K9).  Philox4x32-10, the U(-1, 1) and
+// Device code shared by the quadrotor3d kernels: K1 (closed_loop_rollout.cu,
+// the closed loop under the geometric controller: Philox, the reset and
+// body_z from here, its own controller and dynamics), K2 (ppo_rollout.cu,
+// the closed loop under the PPO policy) and, through env_kinds.cuh, K7 and
+// the quadrotor3d-slungload closed loop (K9).  Philox4x32-10, the U(-1, 1) and
 // U[0, 1) draws from its words and the U(-1, 1)^D reset, the geometric
 // controller, and the quadrotor3d dynamics step of
 // reinmav_tpu/envs/quadrotor3d.py:step.  The plain PyTorch twins write the

@@ -12,7 +12,12 @@
 // branch (the TPU kernels compute both and select per lane; a thread here
 // computes the one it needs).  The taut branch projects the load back onto
 // the tether sphere, so a taut env sits on the knife edge |load - quad| = L,
-// where a last-bit difference picks the other branch next step.
+// where a last-bit difference picks the other branch next step.  So the
+// three operations that decide it, the tether norm, the projection's norm
+// and quad + dir * L, are rounded as the twins round them, one operation
+// at a time (__fmul_rn / __fadd_rn, which nvcc never contracts into an
+// FMA): contracted, they moved the share of taut env-steps of a
+// free-running K6 and K7 by 0.75 to 1.06 points against the twins' (PERF.md).
 
 #pragma once
 
@@ -37,6 +42,24 @@ struct Slung3dParams {
 // 1 / where(n > 0, n, 1) (the envs' _safe_unit).
 __device__ __forceinline__ float safe_inv(float n) { return 1.0f / (n > 0.0f ? n : 1.0f); }
 
+// |(x, z)| and |(x, y, z)| of a tether or a projection: the knife edge,
+// each product and sum rounded on its own (never contracted).
+__device__ __forceinline__ float knife_norm(float x, float z) {
+  return sqrtf(__fadd_rn(__fmul_rn(x, x), __fmul_rn(z, z)));
+}
+__device__ __forceinline__ float knife_norm(float x, float y, float z) {
+  return sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z)));
+}
+
+// Whether the tether of a state is taut at the start of a step, as the
+// steps below decide it (the counting kernels' count).
+__device__ __forceinline__ bool slung2d_taut(const float (&s)[9], float L) {
+  return knife_norm(s[5] - s[0], s[6] - s[1]) >= L;
+}
+__device__ __forceinline__ bool slung3d_taut(const float (&s)[16], float L) {
+  return knife_norm(s[10] - s[0], s[11] - s[1], s[12] - s[2]) >= L;
+}
+
 // One quadrotor2d-slungload step on s = [x z th vx vz lx lz lvx lvz] under
 // [thrust_N, omega]; inv_mml = 1 / (mass + load_mass).  Returns the reward.
 __device__ __forceinline__ float slung2d_step(float (&s)[9], float thrust, float w,
@@ -51,7 +74,7 @@ __device__ __forceinline__ float slung2d_step(float (&s)[9], float thrust, float
   const float tqx = tq * hx, tqz = tq * hz;
 
   const float tx = lx - x, tz = lz - z;
-  const float tn = sqrtf(tx * tx + tz * tz);
+  const float tn = knife_norm(tx, tz);
   const float inv = safe_inv(tn);
   const float ux = tx * inv, uz = tz * inv;
 
@@ -74,10 +97,10 @@ __device__ __forceinline__ float slung2d_step(float (&s)[9], float thrust, float
     npz = z + nvz * dt + 0.5f * accz * dt * dt;
     // The kinematic projection onto the tether circle.
     const float dx = lpx_t - npx, dz = lpz_t - npz;
-    const float dinv = safe_inv(sqrtf(dx * dx + dz * dz));
+    const float dinv = safe_inv(knife_norm(dx, dz));
     const float ddx = dx * dinv, ddz = dz * dinv;
-    nlx = npx + ddx * L;
-    nlz = npz + ddz * L;
+    nlx = __fadd_rn(npx, __fmul_rn(ddx, L));
+    nlz = __fadd_rn(npz, __fmul_rn(ddz, L));
     const float rad = (lvx_t - nvx) * ddx + (lvz_t - nvz) * ddz;
     nlvx = lvx_t - rad * ddx;
     nlvz = lvz_t - rad * ddz;
@@ -116,7 +139,7 @@ __device__ __forceinline__ float slung3d_step(float (&s)[16], float thrust, floa
   const float tqx = tq * bz.x, tqy = tq * bz.y, tqz = tq * bz.z;
 
   const float tx = lx - px, ty = ly - py, tz = lz - pz;
-  const float tn = sqrtf(tx * tx + ty * ty + tz * tz);
+  const float tn = knife_norm(tx, ty, tz);
   const float inv = safe_inv(tn);
   const float ux = tx * inv, uy = ty * inv, uz = tz * inv;
 
@@ -145,11 +168,11 @@ __device__ __forceinline__ float slung3d_step(float (&s)[16], float thrust, floa
     nvz = vz + accz * dt;
     // The kinematic projection onto the tether sphere.
     const float dx = lpx_t - npx, dy = lpy_t - npy, dz = lpz_t - npz;
-    const float dinv = safe_inv(sqrtf(dx * dx + dy * dy + dz * dz));
+    const float dinv = safe_inv(knife_norm(dx, dy, dz));
     const float ddx = dx * dinv, ddy = dy * dinv, ddz = dz * dinv;
-    nlx = npx + ddx * L;
-    nly = npy + ddy * L;
-    nlz = npz + ddz * L;
+    nlx = __fadd_rn(npx, __fmul_rn(ddx, L));
+    nly = __fadd_rn(npy, __fmul_rn(ddy, L));
+    nlz = __fadd_rn(npz, __fmul_rn(ddz, L));
     const float rad = (lvx_t - nvx) * ddx + (lvy_t - nvy) * ddy + (lvz_t - nvz) * ddz;
     nlvx = lvx_t - rad * ddx;
     nlvy = lvy_t - rad * ddy;

@@ -310,9 +310,9 @@ def throughput_rollout(env: EnvDef, init_states, generator, horizon: int,
     reset states from their own Philox stream, seeded from ``generator``: a
     different stream from the eager loop's, deterministic per seed.  K5's
     and K11's resets are deterministic, as the envs'.  reinmav-v0's reward
-    sums are ``90 * horizon``, the contact envs' 0, as their rewards (K11's
-    are ``0 * Σz``, as the JAX kernel path's: NaN for an env whose z went
-    non-finite).
+    sums are ``90 * horizon``, the contact envs' 0, as their rewards (the
+    kernel branches return ``90 * horizon + 0 * x`` and ``0 * Σz``, as the
+    JAX kernel path's: NaN for an env whose state went non-finite).
     """
     if backend not in ("auto", "kernel", "scan"):
         raise ValueError(f"unknown backend {backend!r}")
@@ -331,7 +331,9 @@ def throughput_rollout(env: EnvDef, init_states, generator, horizon: int,
 
             final_t = reinmav_ops.reinmav_rollout(
                 states_t, horizon, params_vec=reinmav_ops.reinmav_params_vec(env.params))
-            return final_t.T, torch.full_like(final_t[0], 90.0 * horizon)
+            # 90 a step, tied to the kernel's states as the JAX kernel path
+            # ties it: NaN for an env whose state went non-finite.
+            return final_t.T, 90.0 * horizon + 0.0 * final_t[0]
         if env.name in _CONTACT_ENVS:
             from ..ops import contact_rollout as contact_ops
 

@@ -442,12 +442,45 @@ KINDS = {
 }
 
 
+#: The slung-load kinds: the ones whose tether the counting kernels count.
+TAUT_KINDS = ("quadrotor2d-slungload-v0", "quadrotor3d-slungload-v0")
+
+
+def taut_twin(kind: str, params: torch.Tensor):
+    """``taut(s)``: whether the tether of ``(D, B)`` states of a slung-load
+    kind is taut, ``|load - quad| >= L`` in the arithmetic of
+    :func:`slung2d_step` and :func:`slung3d_step` (what the counting
+    instances of K6 and K7 count, at the start of each step)."""
+    L = _scalars(KINDS[kind].fields, params)["tether_length"]
+    k = 2 + TAUT_KINDS.index(kind)  # position dims
+
+    def taut(s):
+        d = [s[s.shape[0] - 2 * k + i] - s[i] for i in range(k)]
+        sq = d[0] * d[0] + d[1] * d[1]
+        if k == 3:
+            sq = sq + d[2] * d[2]
+        return torch.sqrt(sq) >= L
+
+    return taut
+
+
 def env_twin(kind: str, params: torch.Tensor):
     """``(control, step)`` of a kind on ``(D, B)`` states with its params
     vector ``params`` bound (the kernels' derived constants included)."""
     k = KINDS[kind]
     c = _scalars(k.fields, params)
     return (lambda s: k.control(s, c)), (lambda s, act: k.step(s, act, c))
+
+
+def check_counts(counts, states_t) -> None:
+    """A kernel's optional per-env counts: None, or a contiguous int32
+    ``(B,)`` tensor on the states' device."""
+    if counts is not None and (
+            not isinstance(counts, torch.Tensor) or counts.dtype != torch.int32
+            or counts.shape != states_t.shape[1:] or not counts.is_contiguous()
+            or counts.device != states_t.device):
+        raise ValueError(f"counts must be a contiguous int32 ({states_t.shape[1]},) tensor on "
+                         f"{states_t.device}")
 
 
 def _check_args(kind, states_t, seed, horizon, params_vec, counts=None) -> torch.Tensor:
@@ -466,12 +499,7 @@ def _check_args(kind, states_t, seed, horizon, params_vec, counts=None) -> torch
         raise ValueError(f"seed must fit in uint32, got {seed}")
     if not 0 <= int(horizon) < 2**31:
         raise ValueError(f"horizon must be in [0, 2**31), got {horizon}")
-    if counts is not None and (
-            not isinstance(counts, torch.Tensor) or counts.dtype != torch.int32
-            or counts.shape != states_t.shape[1:] or not counts.is_contiguous()
-            or counts.device != states_t.device):
-        raise ValueError(f"counts must be a contiguous int32 ({states_t.shape[1]},) tensor on "
-                         f"{states_t.device}")
+    check_counts(counts, states_t)
     params = k.pack(None) if params_vec is None else params_vec
     if params.shape != (len(k.fields),):
         raise ValueError(f"params_vec must be ({len(k.fields)},), got {tuple(params.shape)}")

@@ -29,6 +29,7 @@ import ctypes
 
 import torch
 
+from .closed_loop_rollout import TAUT_KINDS, check_counts, taut_twin
 from .ppo_rollout import ENVS, _env_twin, normal_draws
 from .rollout import mantissa_fill, philox_words
 
@@ -114,14 +115,22 @@ def _uniform_pm1(env_idx: torch.Tensor, seed: int, a: int) -> torch.Tensor:
     return 2.0 * (f12 - 1.0) - 1.0
 
 
+def _check_counts(counts, env_kind, states_t) -> None:
+    if counts is not None and env_kind not in TAUT_KINDS:
+        raise ValueError(f"taut counts are kept for {TAUT_KINDS}, not {env_kind!r}")
+    check_counts(counts, states_t)
+
+
 def collect_step_reference(env_kind: str, mode: str, states_t, seed: int, consts,
-                           params_vec, w1, b1, w2, b2, w3, b3):
+                           params_vec, w1, b1, w2, b2, w3, b3,
+                           counts: torch.Tensor | None = None):
     """Plain PyTorch twin of K7, on any device: the same float32
     arithmetic and the same Philox draws.  Its products are float32
     matmuls; on a CUDA device the caller keeps TF32 off.  Same arguments
     and returns as :func:`collect_step`."""
     params = _check_args(env_kind, mode, states_t, seed, consts, params_vec,
                          (w1, b1, w2, b2, w3, b3))
+    _check_counts(counts, env_kind, states_t)
     kind = ENVS[env_kind]
     a = kind.action_dim
     seed = int(seed)
@@ -146,6 +155,8 @@ def collect_step_reference(env_kind: str, mode: str, states_t, seed: int, consts
     lo, hi = consts[2:2 + a, None], consts[2 + a:2 + 2 * a, None]
     act = lo + (a_t + 1.0) * (0.5 * (hi - lo))
 
+    if counts is not None:
+        counts += taut_twin(env_kind, params)(x)
     new, raw, done = env_step(x, act)
     block = torch.cat([x, a_t, raw[None], new, done[None].to(torch.float32)])
     new = new.clone()
@@ -154,7 +165,7 @@ def collect_step_reference(env_kind: str, mode: str, states_t, seed: int, consts
 
 
 def collect_step(env_kind: str, mode: str, states_t, seed: int, consts, params_vec,
-                 w1, b1, w2, b2, w3, b3):
+                 w1, b1, w2, b2, w3, b3, counts: torch.Tensor | None = None):
     """K7: one off-policy collection iteration in one CUDA launch.
 
     ``env_kind`` an :data:`ENVS` name; ``mode`` one of :data:`MODES`;
@@ -166,14 +177,19 @@ def collect_step(env_kind: str, mode: str, states_t, seed: int, consts, params_v
     w2 (H, H), b2 (H,), w3 (H, OUT), b3 (OUT,)`` with OUT = 2A for the
     SAC modes (mean, log_std) and A for the TD3 modes
     (:func:`actor_kernel_args`).  Returns ``(new states (D, B), block
-    (2D + A + 2, B))``, float32.  Launches on the current stream and does
-    not synchronise.  A CPU tensor runs the plain twin; a CUDA tensor runs
-    the kernel, which takes the widths :func:`width_refusal` accepts, or
-    raises."""
+    (2D + A + 2, B))``, float32.  ``counts``: None (every training path),
+    or a ``(B,)`` int32 tensor on the states' device to which each env's
+    taut tether at the start of the step (0 or 1) is added (the slung-load
+    kinds: a counting kernel, bitwise the main path's otherwise).
+    Launches on the current stream and does not synchronise.  A CPU tensor
+    runs the plain twin; a CUDA tensor runs the kernel, which takes the
+    widths :func:`width_refusal` accepts, or raises."""
     weights = (w1, b1, w2, b2, w3, b3)
     params = _check_args(env_kind, mode, states_t, seed, consts, params_vec, weights)
+    _check_counts(counts, env_kind, states_t)
     if states_t.device.type == "cpu":
-        return collect_step_reference(env_kind, mode, states_t, seed, consts, params, *weights)
+        return collect_step_reference(env_kind, mode, states_t, seed, consts, params, *weights,
+                                      counts=counts)
     if states_t.device.type != "cuda":
         raise ValueError(f"unsupported device {states_t.device}")
     h = w1.shape[1]
@@ -193,7 +209,8 @@ def collect_step(env_kind: str, mode: str, states_t, seed: int, consts, params_v
         rc = lib.offpolicy_collect_launch(
             kind.kind_id, MODES[mode], ctypes.addressof(host_params), params.shape[0],
             states_t.data_ptr(), batch, h, *(t.data_ptr() for t in weights), consts.data_ptr(),
-            int(seed), new.data_ptr(), block.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            int(seed), new.data_ptr(), block.data_ptr(),
+            None if counts is None else counts.data_ptr(), torch.cuda.current_stream().cuda_stream)
     check(rc, "offpolicy_collect_launch")
     collect_step.launches += 1
     return new, block

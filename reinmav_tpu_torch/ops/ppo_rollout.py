@@ -213,15 +213,27 @@ def _hover_twin(params: torch.Tensor):
     return hover_step, hover_reset
 
 
+def _check_counts(counts, states_t, env_kind, normalize_obs, normalize_rewards) -> None:
+    """The taut counts are the slung-load kinds', both normalisers on."""
+    if counts is not None and (env_kind not in cl_ops.TAUT_KINDS
+                               or not (normalize_obs and normalize_rewards)):
+        raise ValueError("taut counts are kept for the slung-load kinds with both normalisers "
+                         f"on, not {env_kind!r} ({normalize_obs}, {normalize_rewards})")
+    cl_ops.check_counts(counts, states_t)
+
+
 def ppo_rollout_reference(states_t, env_returns, seed: int, net, consts, horizon: int,
                           params_vec: torch.Tensor | None = None, normalize_obs: bool = True,
                           normalize_rewards: bool = True,
-                          env_kind: str = "quadrotor3d-v0") -> RolloutOut:
+                          env_kind: str = "quadrotor3d-v0",
+                          counts: torch.Tensor | None = None) -> RolloutOut:
     """Plain PyTorch twin of K2 / K6, on any device: the same float32
     arithmetic and the same Philox draws.  Its products are float32
     matmuls; on a CUDA device the caller keeps TF32 off."""
     params = _check_args(states_t, env_returns, seed, net, consts, horizon, params_vec, env_kind)
+    _check_counts(counts, states_t, env_kind, normalize_obs, normalize_rewards)
     env_step, env_reset = _env_twin(env_kind, params)
+    taut = cl_ops.taut_twin(env_kind, params) if counts is not None else None
     D, A = ENVS[env_kind].state_dim, ENVS[env_kind].action_dim
     seed, horizon = int(seed), int(horizon)
     batch = states_t.shape[1]
@@ -233,6 +245,7 @@ def ppo_rollout_reference(states_t, env_returns, seed: int, net, consts, horizon
     env_idx = torch.arange(batch, device=dev)
 
     s, ret = states_t.clone(), env_returns.clone()
+    count = torch.zeros(batch, dtype=torch.int32, device=dev)
     stats = torch.zeros(n_stats(env_kind), dtype=torch.float32, device=dev)
     cols = {k: [] for k in ("obs", "action", "log_prob", "value", "reward", "done")}
     for t in range(horizon):
@@ -247,6 +260,8 @@ def ppo_rollout_reference(states_t, env_returns, seed: int, net, consts, horizon
         z = (act - mean) * (1.0 / std)
         logp = -0.5 * (z * z).sum(dim=0) - ls_sum - logp_const(A)
 
+        if taut is not None:
+            count += taut(s)
         s, raw, done = env_step(s, act)
         reward = raw
         if normalize_rewards:
@@ -259,6 +274,9 @@ def ppo_rollout_reference(states_t, env_returns, seed: int, net, consts, horizon
         env_reset(s, done, t, seed)
         for k, v in zip(cols, (x, act, logp, value, reward, done)):
             cols[k].append(v)
+
+    if counts is not None:
+        counts.copy_(count)
 
     def stacked(k, shape):
         if horizon == 0:
@@ -274,7 +292,8 @@ def ppo_rollout_reference(states_t, env_returns, seed: int, net, consts, horizon
 
 def ppo_rollout(states_t, env_returns, seed: int, net, consts, horizon: int,
                 params_vec: torch.Tensor | None = None, normalize_obs: bool = True,
-                normalize_rewards: bool = True, env_kind: str = "quadrotor3d-v0") -> RolloutOut:
+                normalize_rewards: bool = True, env_kind: str = "quadrotor3d-v0",
+                counts: torch.Tensor | None = None) -> RolloutOut:
     """K2 (quadrotor3d-v0) or K6 (the other kinds of :data:`ENVS`):
     ``horizon`` policy + env steps in one CUDA launch.
 
@@ -286,14 +305,19 @@ def ppo_rollout(states_t, env_returns, seed: int, net, consts, horizon: int,
     ``[obs_mean (D), obs_invstd (D), exp(log_std) (A), sum(log_std),
     1/sqrt(ret_var + 1e-8), gamma]`` on the same device; ``params_vec``
     the env's live Params packed by the kind's ``pack`` (default Params
-    when None).  Returns :class:`RolloutOut`.  Launches on the current
-    stream and does not synchronise.  A CPU tensor runs the plain twin; a
-    CUDA tensor runs the kernel or raises.
+    when None).  ``counts``: None (every training path), or a ``(B,)``
+    int32 tensor on the states' device that receives each env's taut
+    env-steps, the tether taut at the start of the step (the slung-load
+    kinds with both normalisers on: a counting instance of the kernel,
+    bitwise the main path's otherwise).  Returns :class:`RolloutOut`.
+    Launches on the current stream and does not synchronise.  A CPU tensor
+    runs the plain twin; a CUDA tensor runs the kernel or raises.
     """
     params = _check_args(states_t, env_returns, seed, net, consts, horizon, params_vec, env_kind)
+    _check_counts(counts, states_t, env_kind, normalize_obs, normalize_rewards)
     if states_t.device.type == "cpu":
         return ppo_rollout_reference(states_t, env_returns, seed, net, consts, horizon, params,
-                                     normalize_obs, normalize_rewards, env_kind)
+                                     normalize_obs, normalize_rewards, env_kind, counts)
     if states_t.device.type != "cuda":
         raise ValueError(f"unsupported device {states_t.device}")
     from .._build import check, load_library
@@ -316,7 +340,9 @@ def ppo_rollout(states_t, env_returns, seed: int, net, consts, horizon: int,
             kind.kind_id, states_t.data_ptr(), env_returns.data_ptr(), net.data_ptr(),
             consts.data_ptr(), batch, T, int(seed), int(normalize_obs), int(normalize_rewards),
             ctypes.addressof(host_params), params.shape[0], *(t.data_ptr() for t in out[:8]),
-            partials.data_ptr(), out.stats.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            partials.data_ptr(), out.stats.data_ptr(),
+            None if counts is None else counts.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     check(rc, "ppo_rollout_launch")
     ppo_rollout.launches += 1
     return out

@@ -3,7 +3,9 @@
 The counterpart of :mod:`reinmav_tpu.ops.pallas_rollout` (the quadrotor3d
 part).  :func:`quad3d_rollout_autoreset` runs the whole horizon of
 controller + dynamics + auto-reset in one CUDA kernel written by hand
-for Hopper (``csrc/quad3d_rollout.cu``) on a ``(10, B)`` float32 state.
+for Hopper on a ``(10, B)`` float32 state: the ``Quad3dLoop`` instance of
+the closed-loop template of ``csrc/closed_loop_rollout.cu`` (K8/K9's), its
+own step, the auto-reset fixed at compile time.
 :func:`quad3d_rollout_reference` is its plain PyTorch twin: the same
 arithmetic in the same order, and the same Philox4x32-10 reset draws
 written with int64 tensor arithmetic.  So the two agree on the card to
@@ -23,6 +25,7 @@ import torch
 #: envs/quadrotor3d.Params field order, the order the kernel reads them in.
 _Q3_FIELDS = ("mass", "dt", "gravity", "ref_x", "ref_y", "ref_z",
               "pos_limit", "vel_limit", "kp", "kv", "tau")
+_QUAD3D_KIND = 0  # its kind id in csrc/env_kinds.cuh
 
 # Philox4x32-10 constants (Random123).
 _MASK = 0xFFFFFFFF
@@ -301,11 +304,11 @@ def quad3d_rollout_autoreset(states_t: torch.Tensor, seed: int, horizon: int,
     reward_sum = torch.empty(batch, dtype=torch.float32, device=states_t.device)
     host_params = (ctypes.c_float * len(_Q3_FIELDS))(*params.tolist())
     with torch.cuda.device(states_t.device):
-        rc = lib.quad3d_rollout_launch(
-            states_t.data_ptr(), final.data_ptr(), reward_sum.data_ptr(), batch,
-            int(horizon), int(seed), int(autoreset), ctypes.addressof(host_params),
-            torch.cuda.current_stream().cuda_stream)
-    check(rc, "quad3d_rollout_launch")
+        rc = lib.closed_loop_rollout_launch(
+            _QUAD3D_KIND, states_t.data_ptr(), final.data_ptr(), reward_sum.data_ptr(), None,
+            batch, int(horizon), int(seed), int(autoreset), ctypes.addressof(host_params),
+            len(_Q3_FIELDS), torch.cuda.current_stream().cuda_stream)
+    check(rc, "closed_loop_rollout_launch (K1)")
     quad3d_rollout_autoreset.launches += 1
     return final, reward_sum
 

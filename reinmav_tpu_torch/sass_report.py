@@ -1,10 +1,12 @@
-"""The SASS of the closed-loop kernels K5, K10 and K8/K9: each loop of each
-kernel with its static instruction count by pipe, and the substep loop
-(K8/K9: the horizon loop, with its reset block counted apart).
+"""The SASS of the closed-loop kernels K1, K5, K10 and K8/K9 and of the fused
+PPO rollout K2/K6: each loop of each kernel with its static instruction
+count by pipe, and the substep loop (K1, K8/K9: the horizon loop, with its
+reset block counted apart; K2/K6: the horizon loop split into its blocks).
 
 Run on a machine with the CUDA toolkit, from the root of a checkout::
 
     python3 -m reinmav_tpu_torch.sass_report [LIB] [--out DIR] [--against OTHER_LIB]
+        [--blocks [--src CSRC]]
 
 It disassembles the kernel library (``LIB``, or this checkout's, built by
 ``_build.build``) with ``cuobjdump -sass``, prints ptxas's registers and
@@ -18,12 +20,31 @@ loops nested in it (the slow argument reduction of sinf/cosf).  The
 closed-loop template's horizon loop (``closed_loop_kernel<...>``) is
 that loop too; its reset block, the Philox rounds of the auto-reset, is
 the span from the loop's first to its last multiply by a Philox constant
-(nested loops included), counted by pipe beside the loop.  A static
-count: a block that a branch skips on most substeps (a slow path, the
-reset) is counted as if it ran.  ``chip_smoke.py`` calls :func:`report` on the
-library it built.  With ``--against``, it also lists which kernels of
+(nested loops included), counted by pipe beside the loop.  K2/K6's
+horizon loop is the outermost loop that holds a MUFU instruction (its
+tanhf sit in the nested tower and hidden-unit loops), and
+:func:`env_step_count` weighs its loop levels into the instructions an
+env-step.  A static count: a block that a branch skips on most substeps (a
+slow path, the reset) is counted as if it ran.  ``chip_smoke.py`` calls
+:func:`report` on the library it built.  With ``--against``, it also lists which kernels of
 the two libraries have the same SASS, instruction for instruction (such a
 kernel gives the same bits on every input), and which differ.
+
+``--blocks`` splits the horizon loop of K2/K6 (``ppo_rollout_kernel<...>``)
+into the blocks of its source: the MLP (the two towers' products),
+``tanhf``, the Philox/Box-Muller noise, the env step with the reward, the
+reset, and the rest (obs normalisation, moment sums, stores, loop
+control).  It compiles ``ppo_rollout.cu`` (of ``--src``, default this
+checkout's) once more with ``-lineinfo`` into a cubin, which must hold the
+library's instructions, and attributes each instruction of the loop by
+``nvdisasm``'s line table to the source line in the kernel's own file that
+it was inlined at (:func:`block_counts`).  Each block is counted at the
+three loop levels of an env-step: the horizon loop's own body, the tower
+loop (2 passes an env-step) and the hidden-unit loop (``64 / units a
+pass`` passes a tower); loops nested deeper are slow paths, counted apart.
+It also prints each kernel's resident CTAs an SM from libcuda's
+``cuOccupancyMaxActiveBlocksPerMultiprocessor`` on that cubin (a card is
+needed).
 """
 
 from __future__ import annotations
@@ -40,7 +61,10 @@ OTHER = ("BRA", "BRX", "BSSY", "BSYNC", "CALL", "RET", "EXIT", "NOP", "BAR", "WA
          "BREAK", "KILL", "ELECT", "ERRBAR", "CCTL", "R2UR", "UMOV", "UIADD3", "ULOP3", "USHF",
          "UISETP", "USEL", "ULEA", "UIMAD", "UPRMT", "UFLO", "UPOPC", "USGXT", "UBMSK", "PLOP3U")
 KERNELS = ("hover_rollout_kernel", "reinmav_rollout_kernel", "reinmav_rollout_lanes_kernel",
-           "closed_loop_kernel")
+           "closed_loop_kernel", "quad3d_rollout_kernel", "ppo_rollout_kernel")
+#: Threads a CTA of each kernel family (for the occupancy query).
+CTA_THREADS = {"ppo_rollout_kernel": 128, "closed_loop_kernel": 256,
+               "quad3d_rollout_kernel": 256}
 #: Philox4x32's two multipliers as SASS prints an immediate: unsigned, or as
 #: the signed 32-bit value.
 PHILOX_IMMEDIATES = ("0xd2511f53", "-0x2daee0ad", "0xcd9e8d57", "-0x326172a9")
@@ -112,6 +136,16 @@ def substep_loop(rows: list[dict]) -> dict | None:
     return min(with_mufu, key=lambda r: r["end"] - r["start"]) if with_mufu else None
 
 
+def horizon_loop(rows: list[dict]) -> dict | None:
+    """The outermost loop that holds a MUFU instruction, nested loops
+    included (K2/K6's horizon loop: its tanhf sit in the unit loop)."""
+    def has_mufu(r):
+        return r["mufu_ops"] or any(
+            q["mufu_ops"] for q in rows if (q["start"], q["end"]) in r["inner"])
+    with_mufu = [r for r in rows if has_mufu(r)]
+    return max(with_mufu, key=lambda r: r["end"] - r["start"]) if with_mufu else None
+
+
 def reset_span(insns, loop: dict) -> dict | None:
     """The reset block of ``loop``: its instructions, nested loops
     included, from the first to the last integer multiply by a Philox
@@ -129,6 +163,329 @@ def reset_span(insns, loop: dict) -> dict | None:
         counts[opcode_class(op)] += 1
     in_loop = sum(1 for a, _ in span if not any(s <= a <= e for s, e in loop["inner"]))
     return {"start": hits[0], "end": hits[-1], "n": len(span), **counts, "in_loop": in_loop}
+
+
+# --- K2/K6's horizon loop by block, from a -lineinfo build ------------------------
+
+BLOCKS = ("mlp", "tanhf", "noise", "env step", "reset", "other")
+LEVELS = ("horizon", "tower", "unit", "slow")
+_SECTION = re.compile(r"^\s*\.section\s+\.text\.([^,\s]+)")
+_LINEINFO = re.compile(r"//##\s*File")
+_FRAME = re.compile(r'"([^"]+)",\s*line\s+(\d+)')
+#: Functions of the shared headers whose code is the reset's or the noise's
+#: draws, by name (the rest of a header's code is the env step's).
+_DRAWS = ("philox4x32_10", "uniform01", "uniform_pm1", "reset_uniform")
+_RESETS = ("hover_reset",)
+_FUNC = re.compile(r"^(?:template\s*<[^>]*>\s*)?(?:__device__|__host__|inline|static|"
+                   r"__forceinline__|\s)+[\w:<>,\s&*]+?\b(\w+)\s*\(")
+
+
+def parse_lineinfo(text: str) -> dict[str, list[tuple[int, str, str, list]]]:
+    """``nvdisasm -g`` (or ``-gi``) text -> {mangled name: [(address,
+    opcode, operands, frames)]}: ``frames`` the ``(file, line)`` of the
+    line-table comment above the instruction, innermost first (with
+    ``-gi``, the lines it was inlined at follow), branch targets resolved
+    as in :func:`parse_functions`."""
+    out: dict[str, list] = {}
+    name, insns, labels, pending, frames = None, [], {}, [], []
+
+    def close():
+        if name is not None:
+            out[name] = [(a, op, _TARGET.sub(lambda t: hex(labels.get(t.group(1), 0)), args), f)
+                         for a, op, args, f in insns]
+
+    for line in text.splitlines():
+        m = _SECTION.match(line)
+        if m:
+            close()
+            name, insns, labels, pending, frames = m.group(1), [], {}, [], []
+            continue
+        if name is None:
+            continue
+        if _LINEINFO.search(line):
+            frames = [(f, int(n)) for f, n in _FRAME.findall(line)]
+            continue
+        m = _LABEL.match(line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = _INSN.search(line)
+        if m:
+            addr = int(m.group(1), 16)
+            for label in pending:
+                labels[label] = addr
+            pending = []
+            insns.append((addr, m.group(3), m.group(4), frames))
+    close()
+    return out
+
+
+def source_blocks(source: str) -> dict[int, str]:
+    """Line number (1-based) -> block of K2/K6's horizon loop, from the
+    markers of ``ppo_rollout.cu``'s text: the lines from "The actor-critic"
+    to "Gaussian action" are the MLP (a line that calls ``tanhf`` is
+    ``tanhf``), from there to "Env step." the noise, from there to the line
+    that calls ``Env::reset`` the env step with the reward, that line the
+    reset; the other lines are ``other``."""
+    lines = source.splitlines()
+
+    def first(marker, start=0):
+        for i in range(start, len(lines)):
+            if marker in lines[i]:
+                return i
+        raise ValueError(f"marker {marker!r} not in the source")
+
+    mlp = first("The actor-critic")
+    noise = first("Gaussian action", mlp)
+    step = first("Env step.", noise)
+    reset = first("Env::reset(", step)
+    out = {}
+    for i, text in enumerate(lines):
+        block = ("other" if i < mlp or i > reset else
+                 ("tanhf" if "tanhf(" in text else "mlp") if i < noise else
+                 "noise" if i < step else "env step" if i < reset else "reset")
+        out[i + 1] = block
+    return out
+
+
+def header_functions(source: str) -> dict[int, str]:
+    """Line number (1-based) -> the name of the function whose definition
+    the line lies in, for a header of device functions (a definition starts
+    at a line of column 0 that declares a function; it runs to the next)."""
+    out, current = {}, ""
+    for i, text in enumerate(source.splitlines()):
+        m = _FUNC.match(text)
+        if m and not text.startswith((" ", "\t", "}")):
+            current = m.group(1)
+        out[i + 1] = current
+    return out
+
+
+def block_counts(insns, kernel_file: str, source: str, headers: dict[str, str]) -> dict:
+    """The horizon loop of one K2/K6 instance (``insns`` from
+    :func:`parse_lineinfo`) by block and loop level: ``{"counts": {block:
+    {level: n}}, "units": units a pass of the unit loop, "per_env_step":
+    {block: instructions an env-step issues}, "unattributed": n}``.
+
+    An instruction belongs to the block of the outermost line-table frame
+    in ``kernel_file`` (by basename; :func:`source_blocks` of ``source``).
+    Without such a frame (``nvdisasm -g`` without the inline frames), code
+    of a header's draw functions is the noise before the first env-step
+    instruction and the reset after it, a header's reset function the
+    reset, any other code of a header (``headers``: basename -> text) the
+    env step.  Loop levels: the tower loop is the loop nested in the horizon
+    loop that holds the most MLP instructions, the unit loop the one nested
+    in it that holds the most; other nested loops are slow paths.  The unit
+    loop makes ``64 / units`` passes a tower (:func:`units_per_pass`)."""
+    from pathlib import PurePath
+
+    base = PurePath(kernel_file).name
+    by_line = source_blocks(source)
+    funcs = {name: header_functions(text) for name, text in headers.items()}
+    rows = loops([(a, op, args) for a, op, args, _ in insns])
+    top = horizon_loop(rows)
+    if top is None:
+        raise ValueError("no horizon loop (no loop holds a MUFU instruction)")
+    body = [x for x in insns if top["start"] <= x[0] <= top["end"]]
+    blocks, pending, unattributed = {}, [], 0
+    for a, op, _, frames in body:
+        own = [ln for f, ln in frames if PurePath(f).name == base]
+        if own:
+            blocks[a] = by_line.get(own[-1], "other")
+            continue
+        block = None
+        for f, ln in frames:
+            if PurePath(f).name not in funcs:
+                continue  # the toolkit's headers: the frame that called them decides
+            fn = funcs[PurePath(f).name].get(ln)
+            block = "reset" if fn in _RESETS else "draw" if fn in _DRAWS else "env step"
+            break
+        if block is None:
+            unattributed += 1
+            block = "other"
+        blocks[a] = block
+        if block == "draw":
+            pending.append(a)
+    first_step = min((a for a, b in blocks.items() if b == "env step"), default=None)
+    for a in pending:
+        blocks[a] = "noise" if first_step is None or a < first_step else "reset"
+
+    level = loop_levels(rows, top)
+    counts = {b: dict.fromkeys(LEVELS, 0) for b in BLOCKS}
+    for a, op, _, _ in body:
+        counts[blocks[a]][level(a)] += 1
+    units = units_per_pass([(a, op) for a, op, _, _ in body], level)
+    passes = 64 // units if units else 0
+    per_step = {b: c["horizon"] + 2 * c["tower"] + 2 * passes * c["unit"]
+                for b, c in counts.items()}
+    return {"counts": counts, "units": units, "per_env_step": per_step,
+            "unattributed": unattributed}
+
+
+def loop_levels(rows: list[dict], top: dict):
+    """``level(address)`` of K2/K6's horizon loop ``top``: ``horizon`` (its
+    own body), ``tower`` (the largest loop nested in it), ``unit`` (the
+    largest loop nested in the tower loop) or ``slow`` (any other nested
+    loop: a library's slow path)."""
+    def size(r):
+        return r["end"] - r["start"]
+
+    nested = [r for r in rows if (r["start"], r["end"]) in top["inner"]]
+    tower = max(nested, key=size, default=None)
+    inner = [] if tower is None else [
+        r for r in nested if (r["start"], r["end"]) in tower["inner"]]
+    unit = max(inner, key=size, default=None)
+
+    def level(a):
+        around = [r for r in nested if r["start"] <= a <= r["end"]]
+        if not around:
+            return "horizon"
+        if unit is not None and unit in around and all(r in (tower, unit) for r in around):
+            return "unit"
+        return "tower" if around == [tower] else "slow"
+
+    return level
+
+
+def units_per_pass(insns, level) -> int:
+    """Hidden units a pass of K2/K6's unit loop: its ``tanhf`` calls, one a
+    unit, each one MUFU.EX2 (0 where there is no unit loop)."""
+    return sum(1 for a, op in insns if level(a) == "unit" and op.startswith("MUFU.EX2"))
+
+
+def env_step_count(insns) -> dict:
+    """Instructions an env-step of K2/K6's horizon loop issues at most
+    without its slow paths, from the loop levels of :func:`loop_levels`:
+    the horizon loop's own body, the tower loop's twice, the unit loop's
+    ``2 * 64 / units`` times (:func:`units_per_pass`), by class;
+    ``static`` the horizon loop's instructions, nested loops included."""
+    rows = loops(insns)
+    top = horizon_loop(rows)
+    if top is None:
+        raise ValueError("no horizon loop (no loop holds a MUFU instruction)")
+    level = loop_levels(rows, top)
+    units = units_per_pass([(a, op) for a, op, _ in insns
+                            if top["start"] <= a <= top["end"]], level)
+    weight = {"horizon": 1, "tower": 2, "unit": 2 * (64 // units) if units else 0, "slow": 0}
+    out = {"per_env_step": 0, "units": units, "fp32/int": 0, "mufu": 0, "other": 0,
+           "static": 0}
+    for a, op, _ in insns:
+        if top["start"] <= a <= top["end"]:
+            w = weight[level(a)]
+            out["static"] += 1
+            out["per_env_step"] += w
+            out[opcode_class(op)] += w
+    return out
+
+
+def lineinfo_build(src: Path, out_dir: Path) -> tuple[Path, str]:
+    """Compile ``src`` with the library's flags and ``-lineinfo`` into a
+    cubin in ``out_dir``; returns it and ``nvdisasm``'s text of it with the
+    line table (inline frames where this nvdisasm prints them)."""
+    from . import _build
+
+    nvcc = _build._nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cubin = out_dir / (src.stem + ".lineinfo.cubin")
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
+    subprocess.run([nvcc, *flags, *_build.SOURCE_FLAGS.get(src.name, ()), "-lineinfo", "-cubin",
+                    "-o", str(cubin), str(src)], check=True, capture_output=True, text=True,
+                   timeout=900)
+    nvdisasm = str(Path(nvcc).parent / "nvdisasm")
+    for opts in (["-g", "-gi"], ["-g"]):
+        run = subprocess.run([nvdisasm, *opts, "-c", str(cubin)], capture_output=True,
+                             text=True, timeout=600)
+        if run.returncode == 0:
+            cubin.with_suffix(".nvdisasm.txt").write_text(run.stdout)
+            return cubin, run.stdout
+    raise RuntimeError(f"nvdisasm failed on {cubin}: {run.stderr}")
+
+
+def occupancy(cubin: Path, kernels: dict[str, int]) -> dict[str, dict]:
+    """Resident CTAs an SM of each kernel of ``cubin`` (mangled name -> CTA
+    threads), no dynamic shared memory, by libcuda's
+    ``cuOccupancyMaxActiveBlocksPerMultiprocessor``, with its registers
+    (``cuFuncGetAttribute``); the card's primary context is made current
+    through torch."""
+    import ctypes
+
+    import torch
+
+    torch.zeros(1, device="cuda")  # the primary context, current on this thread
+    cu = ctypes.CDLL("libcuda.so.1")
+    module = ctypes.c_void_p()
+    data = cubin.read_bytes()
+    rc = cu.cuModuleLoadData(ctypes.byref(module), ctypes.c_char_p(data))
+    if rc != 0:
+        raise RuntimeError(f"cuModuleLoadData: CUresult {rc}")
+    out = {}
+    try:
+        for name, threads in kernels.items():
+            func, n, regs = ctypes.c_void_p(), ctypes.c_int(), ctypes.c_int()
+            rc = cu.cuModuleGetFunction(ctypes.byref(func), module, name.encode())
+            rc = rc or cu.cuOccupancyMaxActiveBlocksPerMultiprocessor(
+                ctypes.byref(n), func, ctypes.c_int(threads), ctypes.c_size_t(0))
+            rc = rc or cu.cuFuncGetAttribute(ctypes.byref(regs), 4, func)  # NUM_REGS
+            if rc != 0:
+                raise RuntimeError(f"occupancy of {name}: CUresult {rc}")
+            out[name] = {"threads": threads, "ctas_per_sm": n.value, "registers": regs.value,
+                         "warps_per_scheduler": n.value * threads / 32 / 4}
+    finally:
+        cu.cuModuleUnload(module)
+    return out
+
+
+def blocks_report(src_dir: Path, lib: Path | None, out_dir: Path) -> dict[str, dict]:
+    """Print and return, for each K2/K6 instance of ``src_dir``'s
+    ``ppo_rollout.cu`` and each K1 instance of the source that holds it
+    (``quad3d_rollout_kernel`` or ``closed_loop_kernel<Quad3dLoop...>``),
+    the -lineinfo build's registers, resident CTAs an SM and warps a
+    scheduler; for K2/K6 the horizon loop by block and level
+    (:func:`block_counts`); and whether each kernel's instructions are the
+    library ``lib``'s (when given)."""
+    headers = {p.name: p.read_text() for p in sorted(src_dir.glob("*.cuh"))}
+    ours = _disassemble(lib) if lib is not None else None
+    lib_funcs = parse_functions(ours) if ours is not None else {}
+    lib_ops = {short_name(p): [op for _, op, _ in lib_funcs[m]]
+               for m, p in zip(lib_funcs, demangle(list(lib_funcs)))}
+    result = {}
+    for src_name, family in (("ppo_rollout.cu", "ppo_rollout_kernel"),
+                             ("quad3d_rollout.cu", "quad3d_rollout_kernel"),
+                             ("closed_loop_rollout.cu", "closed_loop_kernel")):
+        src = src_dir / src_name
+        if not src.exists():
+            continue
+        cubin, text = lineinfo_build(src, out_dir)
+        funcs = parse_lineinfo(text)
+        names = list(funcs)
+        pretty = dict(zip(names, (short_name(p) for p in demangle(names))))
+        chosen = {m: CTA_THREADS[family] for m in names if pretty[m].startswith(family)
+                  and (family != "closed_loop_kernel" or "Quad3d" in pretty[m])}
+        if not chosen:
+            continue
+        occ = occupancy(cubin, chosen)
+        for m in chosen:
+            short = pretty[m]
+            ops = [op for _, op, _, _ in funcs[m]]
+            same = None if lib is None else lib_ops.get(short) == ops
+            o = occ[m]
+            print(f"blocks: {short}: {o['registers']} registers, {o['ctas_per_sm']} CTAs of "
+                  f"{o['threads']} threads an SM, {o['warps_per_scheduler']:g} warps a scheduler; "
+                  f"the -lineinfo build's instructions the library's: {same}")
+            row = {**o, "same_as_library": same}
+            if family == "ppo_rollout_kernel":
+                b = block_counts(funcs[m], src_name, src.read_text(), headers)
+                for block in BLOCKS:
+                    c = b["counts"][block]
+                    print(f"blocks:   {block}: horizon {c['horizon']}, tower {c['tower']}, unit "
+                          f"{c['unit']}, slow {c['slow']}; an env-step "
+                          f"{b['per_env_step'][block]}")
+                print(f"blocks:   unit loop {b['units']} units a pass; an env-step "
+                      f"{sum(b['per_env_step'].values())} instructions without slow paths; "
+                      f"{b['unattributed']} unattributed")
+                row.update(b)
+            result[short] = row
+    return result
 
 
 def short_name(pretty: str) -> str:
@@ -176,8 +533,9 @@ def compare(lib: Path, other: Path) -> dict[str, list[str]]:
 
 def report(lib: Path, out_dir: Path | None = None) -> dict[str, dict]:
     """Disassemble ``lib`` with the ``cuobjdump`` beside nvcc; print and
-    return each K5/K10/K8/K9 kernel's loops, its substep loop's counts and
-    that loop's reset block (:func:`reset_span`, None where it has none),
+    return each K1/K5/K10/K8/K9/K2/K6 kernel's loops, its substep loop's
+    counts (K2/K6: its horizon loop's), that loop's reset block
+    (:func:`reset_span`, None where it has none) and its instructions,
     keyed by the demangled name.  With ``out_dir``, each kernel's SASS is
     written there."""
     funcs = parse_functions(_disassemble(lib))
@@ -201,7 +559,7 @@ def report(lib: Path, out_dir: Path | None = None) -> dict[str, dict]:
             print(f"sass:   loop {r['start']:#07x}-{r['end']:#07x}: {r['n']} instructions "
                   f"(fp32/int {r['fp32/int']}, mufu {r['mufu']}, other {r['other']}; "
                   f"{len(r['inner'])} nested loops excluded; {' '.join(r['mufu_ops'])})")
-        sub = substep_loop(rows)
+        sub = (horizon_loop if "ppo_rollout_kernel" in short else substep_loop)(rows)
         reset = reset_span(insns, sub) if sub is not None else None
         if sub is not None:
             print(f"sass:   substep loop {sub['start']:#07x}-{sub['end']:#07x}: {sub['n']} "
@@ -211,7 +569,7 @@ def report(lib: Path, out_dir: Path | None = None) -> dict[str, dict]:
             print(f"sass:   reset block {reset['start']:#07x}-{reset['end']:#07x}: {reset['n']} "
                   f"instructions (fp32/int {reset['fp32/int']}, mufu {reset['mufu']}, other "
                   f"{reset['other']}), {reset['in_loop']} of them in the substep loop's count")
-        result[short] = {"loops": rows, "substep": sub, "reset": reset}
+        result[short] = {"loops": rows, "substep": sub, "reset": reset, "insns": insns}
     return result
 
 
@@ -222,6 +580,11 @@ def main(argv=None) -> int:
     parser.add_argument("--out", help="where each kernel's SASS is written")
     parser.add_argument("--against", help="another kernel library: list the kernels whose "
                         "SASS is the same in both")
+    parser.add_argument("--blocks", action="store_true", help="K2/K6's horizon loop by block "
+                        "and K1's and K2/K6's occupancy, from a -lineinfo build (a card is "
+                        "needed)")
+    parser.add_argument("--src", help="the csrc directory that LIB was built from, for "
+                        "--blocks (default: this checkout's)")
     args = parser.parse_args(argv)
     from . import _build
 
@@ -232,6 +595,12 @@ def main(argv=None) -> int:
             if any(k in line for k in KERNELS):
                 print(line)
     report(lib, Path(args.out) if args.out else None)
+    if args.blocks:
+        import tempfile
+
+        src = Path(args.src) if args.src else _build.SRC_DIR
+        with tempfile.TemporaryDirectory() as tmp:
+            blocks_report(src, lib, Path(args.out) if args.out else Path(tmp))
     if args.against:
         for key, kernels in compare(lib, Path(args.against)).items():
             print(f"sass: against {args.against}: {key} ({len(kernels)}): {'; '.join(kernels)}")

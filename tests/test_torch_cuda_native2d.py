@@ -21,7 +21,8 @@ state, skipping the lanes within 1e-4 of the sphere, as the JAX package's
 slung-load tests do.  A rerun is bitwise equal.  The closed loops' reset
 states are bit for bit ``reset_draws``' (on a ragged batch, in warps where
 any number of envs end at once), and their optional counts change no bit
-of their output.
+of their output; so do K6's and K7's taut counts, which equal the twins'
+one step at a time from the twin's state.
 """
 
 import logging
@@ -338,6 +339,44 @@ def test_k7_on_the_new_kinds_against_twin(cuda, env_id, mode):
     assert int(blk_p[2 * d + a + 1].sum()) > 0  # envs ended and reset
     again = op.collect_step(*args)
     assert torch.equal(new_k, again[0]) and torch.equal(blk_k, again[1])
+
+
+@pytest.mark.parametrize("env_id", SLUNG)
+def test_k6_k7_taut_counts_against_twin(cuda, env_id):
+    """The counting instances of K6 and K7: asking for the taut counts
+    changes no bit of the outputs; one step at a time from the twin's state,
+    the kernels' counts equal the twins' on every env (the tether test
+    rounds as the twin's); free-running, the taut shares within 1 point."""
+    env, layout, net, consts, rets = _rollout_inputs(env_id, cuda, 4096)
+    s = _states(env_id, cuda, 4096, scale=1.5)
+    kw = dict(params_vec=pr.env_params_vec(env), env_kind=env_id)
+    n_k = torch.zeros(4096, dtype=torch.int32, device=cuda)
+    n_p = torch.zeros_like(n_k)
+    counted = pr.ppo_rollout(s, rets, 3, net, consts, 64, counts=n_k, **kw)
+    plain = pr.ppo_rollout(s, rets, 3, net, consts, 64, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(counted, plain))
+    pr.ppo_rollout_reference(s, rets, 3, net, consts, 64, counts=n_p, **kw)
+    assert abs(int(n_k.sum()) - int(n_p.sum())) <= 0.01 * 4096 * 64
+    x, r = s, rets
+    for t in range(8):
+        n_k.zero_()
+        n_p.zero_()
+        pr.ppo_rollout(x, r, 3 + t, net, consts, 1, counts=n_k, **kw)
+        p = pr.ppo_rollout_reference(x, r, 3 + t, net, consts, 1, counts=n_p, **kw)
+        assert torch.equal(n_k, n_p), t
+        x, r = p.final_states, p.returns
+    d, a = env.obs_dim, env.action_dim
+    mlp = sac.MlpLayout((d, 128, 128, 2 * a))
+    w = op.actor_kernel_args(mlp.layers(sac.init_mlp(mlp, torch.Generator().manual_seed(31))
+                                        .to(cuda)))
+    c7 = sac.collect_consts(env, torch.tensor(False, device=cuda), 0.0)
+    args = (env_id, "sac", s, 15, c7, pr.env_params_vec(env), *w)
+    n_k.fill_(3)
+    n_p.fill_(3)
+    assert all(torch.equal(a, b) for a, b in zip(op.collect_step(*args, counts=n_k),
+                                                  op.collect_step(*args)))
+    op.collect_step_reference(*args, counts=n_p)
+    assert torch.equal(n_k, n_p) and 0 < int((n_k - 3).sum()) < 4096
 
 
 @pytest.mark.parametrize("env_id", IDS)

@@ -132,3 +132,168 @@ def test_compare_two_libraries(monkeypatch, tmp_path):
     got = sass_report.compare(tmp_path / "a.so", tmp_path / "c.so")
     assert got["same"] == ["closed_loop_kernel<Quad2dLoop, false>"]
     assert got["only_lib"] == ["hover_rollout_kernel"]
+
+
+K1_LOOP = """
+\t\tFunction : _ZN12_GLOBAL__N_121quad3d_rollout_kernelEPKfPfS2_xijiN7reinmav12Quad3dParamsE
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+.L_x_0:
+        /*0010*/                   FFMA R2, R3, R4, R5 ;
+        /*0020*/                   MUFU.RSQ R6, R2 ;
+        /*0030*/              @!P0 BRA `(.L_x_1) ;
+        /*0040*/                   IMAD.HI.U32 R8, R9, -0x2daee0ad, RZ ;
+        /*0050*/                   LOP3.LUT R10, R11, R12, R13, 0x96, !PT ;
+        /*0060*/                   IMAD.WIDE.U32 R14, R15, 0xcd9e8d57, RZ ;
+.L_x_1:
+        /*0070*/                   FADD R16, R6, R2 ;
+        /*0080*/               @P2 BRA `(.L_x_0) ;
+        /*0090*/                   EXIT ;
+"""
+
+
+def test_k1_horizon_loop_and_reset_block():
+    """K1's kernel is one of the reported families; its horizon loop holds
+    the reset block inline (no nested loop), counted apart."""
+    (mangled, insns), = sass_report.parse_functions(K1_LOOP).items()
+    short = sass_report.short_name(sass_report.demangle([mangled])[0])
+    assert short == "quad3d_rollout_kernel" and short in sass_report.KERNELS
+    horizon = sass_report.substep_loop(sass_report.loops(insns))
+    assert (horizon["start"], horizon["end"], horizon["n"]) == (0x10, 0x80, 8)
+    assert sass_report.horizon_loop(sass_report.loops(insns)) == horizon
+    assert sass_report.reset_span(insns, horizon) == {
+        "start": 0x40, "end": 0x60, "n": 3, "fp32/int": 3, "mufu": 0, "other": 0, "in_loop": 3}
+
+
+#: A K2/K6 source reduced to its markers (the line numbers are what counts).
+PPO_SRC = """\
+// 1
+    for (int t = 0; t < horizon; ++t) {
+      x[d] = s[d];                                   // 3 other
+      // The actor-critic, one tower at a time.
+      for (int tw = 0; tw < 2; ++tw) {
+        z += w1t[tw][k][d] * x[d];                   // 6 mlp
+        h1[k] = tanhf(z);                            // 7 tanhf
+        for (int j = 0; j < kH; ++j) z += v.x * h1[4 * q];  // 8 mlp
+      }
+      // Gaussian action; logp from the rounded action.
+      const uint4 ub = reinmav::philox4x32_10(c, seed, 0u);  // 11 noise
+      // Env step.
+      const float raw = Env::step(s, act, p, env_consts, done);  // 13 env step
+      if (done) Env::reset(s, env, t, seed, 2u, p);  // 14 reset
+    }
+    o.returns[i] = ret;                              // 16 other
+"""
+
+HEADER = """\
+#pragma once
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1) {
+  return c;
+}
+template <int D>
+__device__ __forceinline__ void reset_uniform(float (&s)[D], uint32_t env) {
+  s[0] = 1.0f;
+}
+__device__ __forceinline__ float quad3d_dynamics(float (&s)[10]) {
+  return s[0];
+}
+"""
+
+#: nvdisasm -g -gi text of one K2 instance: a tower loop (0x20-0xe0) that
+#: holds a unit loop (0x40-0xa0: 64 FFMAs and one tanhf's MUFU.EX2, one
+#: unit a pass), the horizon loop 0x10-0x180, and a slow path loop.
+PPO_LINEINFO = """
+\t.section\t.text._ZN12_GLOBAL__N_118ppo_rollout_kernelIN7reinmav9Quad3dEnvELb1ELb1EEEvPKfS4_S4_S4_xijNT_6ParamsENS_10RolloutOutE,"ax",@progbits
+_ZN12_GLOBAL__N_118ppo_rollout_kernelIN7reinmav9Quad3dEnvELb1ELb1EEEvPKfS4_S4_S4_xijNT_6ParamsENS_10RolloutOutE:
+        //## File "/src/ppo_rollout.cu", line 1
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+.L_x_0:
+        //## File "/src/ppo_rollout.cu", line 3
+        /*0010*/                   FADD R2, R3, R4 ;
+.L_x_1:
+        //## File "/src/ppo_rollout.cu", line 6
+        /*0020*/                   FFMA R2, R3, R4, R5 ;
+        //## File "/src/ppo_rollout.cu", line 7
+        /*0030*/                   MUFU.EX2 R6, R2 ;
+.L_x_2:
+        //## File "/src/ppo_rollout.cu", line 8
+        /*0040*/                   LDS.128 R8, [R9] ;
+""" + "".join(f"        /*{0x41 + k:04x}*/                   FFMA R2, R8, R4, R2 ;\n"
+              for k in range(64)) + """\
+        //## File "/src/ppo_rollout.cu", line 7
+        /*0090*/                   MUFU.EX2 R6, R2 ;
+        //## File "/src/ppo_rollout.cu", line 8
+        /*00a0*/               @P0 BRA `(.L_x_2) ;
+        /*00e0*/               @P1 BRA `(.L_x_1) ;
+        //## File "/src/quad3d_common.cuh", line 3 inlined at "/src/ppo_rollout.cu", line 11
+        /*00f0*/                   IMAD.HI.U32 R8, R9, -0x2daee0ad, RZ ;
+.L_x_3:
+        //## File "/cuda/include/crt/math_functions.hpp", line 900 inlined at "/src/ppo_rollout.cu", line 11
+        /*0100*/                   LDG.E.CONSTANT R10, [R12.64] ;
+        /*0110*/               @P2 BRA `(.L_x_3) ;
+        //## File "/src/quad3d_common.cuh", line 10 inlined at "/src/env_kinds.cuh", line 40 inlined at "/src/ppo_rollout.cu", line 13
+        /*0120*/                   FMUL R2, R3, R4 ;
+        //## File "/src/quad3d_common.cuh", line 3 inlined at "/src/quad3d_common.cuh", line 7 inlined at "/src/ppo_rollout.cu", line 14
+        /*0130*/                   IMAD.WIDE.U32 R14, R15, 0xcd9e8d57, RZ ;
+        //## File "/src/ppo_rollout.cu", line 2
+        /*0180*/               @P3 BRA `(.L_x_0) ;
+        //## File "/src/ppo_rollout.cu", line 16
+        /*0190*/                   EXIT ;
+"""
+
+
+def test_lineinfo_blocks_and_levels():
+    """nvdisasm's line table: each instruction of K2/K6's horizon loop goes
+    to the block of its outermost frame in the kernel's file; the tower
+    loop holds the unit loop; the unit loop's 64 FFMAs make one unit a
+    pass, so 64 passes a tower; a loop of the toolkit's slow path is
+    counted apart."""
+    (name, insns), = sass_report.parse_lineinfo(PPO_LINEINFO).items()
+    assert name.startswith("_ZN12_GLOBAL__N_118ppo_rollout_kernel")
+    assert insns[0][3] == [("/src/ppo_rollout.cu", 1)]
+    assert insns[-3][3] == [("/src/quad3d_common.cuh", 3), ("/src/quad3d_common.cuh", 7),
+                            ("/src/ppo_rollout.cu", 14)]
+    got = sass_report.block_counts(insns, "ppo_rollout.cu", PPO_SRC,
+                                   {"quad3d_common.cuh": HEADER})
+    c = got["counts"]
+    assert c["other"] == {"horizon": 2, "tower": 0, "unit": 0, "slow": 0}
+    assert c["mlp"] == {"horizon": 0, "tower": 2, "unit": 66, "slow": 0}
+    assert c["tanhf"] == {"horizon": 0, "tower": 1, "unit": 1, "slow": 0}
+    assert c["noise"] == {"horizon": 1, "tower": 0, "unit": 0, "slow": 2}
+    assert c["env step"]["horizon"] == 1 and c["reset"]["horizon"] == 1
+    assert got["units"] == 1 and got["unattributed"] == 0
+    assert got["per_env_step"]["mlp"] == 2 * 2 + 2 * 64 * 66
+    assert got["per_env_step"]["tanhf"] == 2 + 128
+
+
+def test_lineinfo_without_inline_frames():
+    """``nvdisasm -g`` alone: a header's draw code before the first env-step
+    instruction is the noise, after it the reset."""
+    text = "\n".join(line.split(" inlined at ")[0] for line in PPO_LINEINFO.splitlines())
+    (_, insns), = sass_report.parse_lineinfo(text).items()
+    got = sass_report.block_counts(insns, "ppo_rollout.cu", PPO_SRC,
+                                   {"quad3d_common.cuh": HEADER})
+    assert got["counts"]["noise"]["horizon"] == 1 and got["counts"]["reset"]["horizon"] == 1
+    assert got["counts"]["env step"]["horizon"] == 1
+    assert got["unattributed"] == 2  # the toolkit header's slow path
+    assert sass_report.header_functions(HEADER)[3] == "philox4x32_10"
+    assert sass_report.header_functions(HEADER)[7] == "reset_uniform"
+
+
+def test_env_step_count_weighs_the_loop_levels():
+    """K2/K6's instructions an env-step without a lineinfo build: the
+    horizon loop's own body once, the tower loop's twice, the unit loop's
+    2 * 64 / units times, the slow path's never."""
+    (_, insns), = sass_report.parse_lineinfo(PPO_LINEINFO).items()
+    plain = [(a, op, args) for a, op, args, _ in insns]
+    one = sass_report.env_step_count(plain)
+    assert one["units"] == 1 and one["static"] == 5 + 2 + 3 + 67
+    assert one["per_env_step"] == 5 + 2 * 3 + 128 * 67
+    assert one["mufu"] == 2 * 1 + 128 * 1
+    # Four tanhf a pass (four MUFU.EX2 in the unit loop): 16 passes a tower.
+    four = PPO_LINEINFO.replace("/*0090*/                   MUFU.EX2 R6, R2 ;",
+                                "/*0090*/                   MUFU.EX2 R6, R2 ;\n" + "".join(
+                                    f"        /*{0x91 + k:04x}*/                   MUFU.EX2 R6, "
+                                    f"R2 ;\n" for k in range(3)))
+    (_, insns), = sass_report.parse_lineinfo(four).items()
+    got = sass_report.env_step_count([(a, op, args) for a, op, args, _ in insns])
+    assert got["units"] == 4 and got["per_env_step"] == 5 + 2 * 3 + 32 * 70
