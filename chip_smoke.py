@@ -3,11 +3,14 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-``--only hashes`` runs phases 1-3 and then only K1 and every K2/K6 kind on
-fixed inputs like those of phases 4, 6, 7, 13 and 21, each drawn from a
-generator of its own: each output's SHA-256, each kernel timed with its
-SASS and the sampled SM clock, and K2/K6 on its other instances and
-inputs; it prints no result line.  Run in turns in two
+``--only hashes`` runs phases 1-3 and then only K1, every K2/K6 kind, K4
+at (10, 4) and (13, 4) and K7 on every kind on fixed inputs like those of
+phases 4, 6, 7, 10, 13, 15, 21 and 22, each drawn from a generator of its
+own: each output's SHA-256, each kernel timed with its SASS and the
+sampled SM clock, K2/K6 on its other instances and inputs, K4's clip
+edge counted on phase 13's second input and on three more hover inputs,
+and K7 in every mode leg, timed in its kind's training mode and at H = 32
+and in the four modes; it prints no result line.  Run in turns in two
 checkouts (the
 parent's with this script and sass_report.py copied in), the digests show
 whether two trees' kernels give the same bits.
@@ -83,7 +86,11 @@ Phases, in order; any failure raises and exits non-zero:
    registers, SASS, clock included); then K3
    and K4 built for the 13-dim observation against their twins on that
    trajectory, at phases 8 and 10's tolerances, with bitwise reruns; all
-   timed.
+   timed.  K4 also on a second input, K6-hover's trajectory from hover
+   states of a generator of their own (K4_SECOND_INPUTS[0]), at phase 10's
+   gates; on both inputs the samples within 4 and 16 ulps of the clip
+   edge 1 +- clip_eps on the twin's trajectory are counted, and K4 is held
+   to its twin again with their advantages masked (printed, not gated).
 14. Hover training: 2 warm-up and 5 timed updates of the default path
    (K6-hover and K4 once per update, K3 never) and of fused_update="off"
    (K6-hover once, K3 16 times per update), each update's mean_reward
@@ -96,7 +103,8 @@ Phases, in order; any failure raises and exits non-zero:
    and quadrotor3d-v0), in five legs: sac and td3 with noise, sac_det,
    td3_det, and sac with the warmup gate; the envs whose replay block or
    new state differ are counted (0.1% limit), a rerun must be bitwise
-   equal; K7 and its twin timed in the mode each kind trains with.
+   equal; K7 and its twin timed in the mode each kind trains with, with
+   its ptxas registers, resident CTAs an SM and the SM clock.
 16. SAC training at the reference bench's config (bench.py:175-177: the
    hover task, 65,536 envs, batch 8192, a 2^21-column ring, 2 x 256, one
    update per iteration, no warmup) through rl.sac.train_iters on the
@@ -246,6 +254,11 @@ B_HOVER_CHECK = 65_536
 HOVER_ACTIONS = ((0.0, 0.0, 0.0, 0.0), (0.75, 0.73, 0.74, 0.76))
 HOVER = "MujocoQuadForce-v1"
 HOVER_RET_VAR = 4.0 * (98.0 / 1.4) ** 2
+#: Phase 13's second input for K4 at obs 13 (the states ``--only hashes``
+#: gives K6-hover: a generator of their own, seed 13), and other inputs
+#: that ``--only hashes`` also tries: (generator seed, z_lo, z_hi) of the
+#: hover states K6-hover's trajectory starts from.
+K4_SECOND_INPUTS = ((13, 0.35, 1.0), (1313, 0.31, 1.5), (1316, 0.3, 1.2), (1317, 0.32, 1.3))
 UPDATE_TOL = dict(rtol=2e-4, atol=1e-6)  # tests/test_pallas_ppo_update.py's own
 MOMENT_TOL = dict(rtol=2e-4, atol=5e-8)
 UPDATE_METRIC_TOL = dict(rtol=1e-4, atol=1e-6)
@@ -532,11 +545,195 @@ def count_outside(a, b, tol) -> int:
     return int((~torch.isclose(a, b, **tol)).sum())
 
 
+def k4_setup(torch, dev, cfg, params, adv, tile: int, n_tiles: int, d: int, adim: int):
+    """K4's inputs besides the batch for one 4 x 4 update: the epochs'
+    shuffles (seed 9), each pass's advantage stats, the params, a fresh
+    Adam state and the keyword arguments of ``ppo_update``."""
+    from reinmav_tpu_torch.rl import ppo
+
+    e_, m_ = cfg.num_epochs, cfg.num_minibatches
+    gen = torch.Generator().manual_seed(9)
+    perm_all = torch.cat([ppo._shuffle_indices(gen, n_tiles, dev)
+                          for _ in range(e_)]).to(torch.int32).contiguous()
+    adv_stats = ppo.pass_adv_stats(adv.reshape(-1), perm_all, tile, e_ * m_, True)
+    params = params.contiguous()
+    opt = ppo.make_optimizer(cfg).init(params)
+    kw = dict(d=d, adim=adim, tile=tile, n_minibatches=m_, n_epochs=e_, clip_eps=cfg.clip_eps,
+              value_clip_eps=cfg.value_clip_eps, value_coef=cfg.value_coef,
+              ent_coef=cfg.entropy_coef, lr=cfg.learning_rate, max_grad_norm=cfg.max_grad_norm)
+    return perm_all, adv_stats, params, opt, kw
+
+
+def twin_ratio(torch, data, cols, net, d: int, adim: int):
+    """The PPO ratio and value of the columns ``cols`` of ``data`` under
+    the flat params ``net``, in the twin's float32 operations (K3's twin,
+    ops/ppo_loss.py): each tower layer a matmul and tanh, the heads, then
+    logp and exp(logp - old logp)."""
+    from reinmav_tpu_torch.ops import ppo_loss as pl
+    from reinmav_tpu_torch.rl import networks
+
+    p = networks.Layout(d, adim, (64, 64)).unflatten(net)
+    mb = data[:, cols]
+    acts = {}
+    for tower in ("pi", "vf"):
+        h = mb[:d]
+        for layer in p[tower]:
+            h = torch.tanh(layer["w"].T @ h + layer["b"][:, None])
+        acts[tower] = h
+    mean = p["pi_out"]["w"].T @ acts["pi"] + p["pi_out"]["b"][:, None]
+    if hasattr(pl, "value_head"):  # the twin's own rounding order, where it has one
+        value = pl.value_head(acts["vf"], p["vf_out"]["w"][:, 0], p["vf_out"]["b"][0])
+    else:
+        value = (p["vf_out"]["w"].T @ acts["vf"] + p["vf_out"]["b"][:, None])[0]
+    ls = p["log_std"]
+    var = torch.exp(2.0 * ls)[:, None]
+    diff = mb[d:d + adim] - mean
+    if hasattr(pl, "logp_ratio"):
+        return pl.logp_ratio(diff, var, ls, mb[d + adim])[2], value
+    logp = -0.5 * (diff * diff / var).sum(dim=0) - ls.sum() - 0.5 * adim * pl._LOG_2PI
+    return torch.exp(logp - mb[d + adim]), value
+
+
+#: Ulps of the ratio within which a sample counts as on the clip edge.
+CLIP_EDGE_ULPS = (4, 16)
+
+
+def value_edges(torch, value, old_value, ret, value_clip_eps: float):
+    """The value term's knife edges, counted as :func:`clip_edges` counts
+    the ratio's: samples whose ``|value - old_value|`` lies within each
+    ``CLIP_EDGE_ULPS`` of ``value_clip_eps`` (where ``vin`` flips), and
+    samples outside the value clip whose squared errors ``sq1``, ``sq2``
+    lie within that many ulps of each other (where ``vs1``/``vs2`` flip and
+    the value gradient jumps between ``e1`` and 0)."""
+    eps = float(torch.tensor(value_clip_eps, dtype=torch.float32))
+    vdiff = value - old_value
+    vcl = old_value + torch.clamp(vdiff, -eps, eps)
+    sq1, sq2 = (value - ret) ** 2, (vcl - ret) ** 2
+    outside = vdiff.abs() >= eps
+    ulp_v = torch.finfo(torch.float32).eps * max(eps, 1e-30)
+    ulp_sq = torch.finfo(torch.float32).eps * torch.maximum(sq1, sq2).double().clamp_min(1e-30)
+    return ({w: ((vdiff.abs().double() - eps).abs() <= w * ulp_v) for w in CLIP_EDGE_ULPS},
+            {w: outside & ((sq1.double() - sq2.double()).abs() <= w * ulp_sq)
+             for w in CLIP_EDGE_ULPS})
+
+
+def clip_edges(torch, ratio, adv_n, clip_eps: float):
+    """Masks of the samples whose ratio lies within each ``CLIP_EDGE_ULPS``
+    of 1 +- clip_eps (the float32 ``1 - clip_eps``, ``1 + clip_eps`` and
+    ``|ratio - 1| < clip_eps`` of K4 and the twin), and of the ``tie``
+    samples (pg1 == pg2) outside the clip."""
+    eps = torch.tensor(clip_eps, dtype=torch.float32)
+    lo, hi = float(1.0 - eps), float(1.0 + eps)
+    r = ratio.double()
+    ulp = torch.where(r < 1.0, 2.0 ** -24, 2.0 ** -23)
+    dist = torch.minimum((r - lo).abs(), (r - hi).abs()) / ulp
+    clipped = torch.clamp(ratio, lo, hi)
+    outside = (ratio - 1.0).abs() >= float(eps)
+    tie = (ratio * adv_n == clipped * adv_n) & outside
+    return {w: dist <= w for w in CLIP_EDGE_ULPS}, tie
+
+
+def k4_clip_edge(torch, data, adv_stats, perm_all, params, opt, kw, label: str) -> dict:
+    """K4 against its twin as it stands and, for each window of
+    ``CLIP_EDGE_ULPS``, with the advantages of the samples on the clip
+    edge set to their pass's shift (a normalised advantage of 0 in that
+    pass), in both: the edge samples of the twin's run one pass at a time
+    (:func:`clip_edges`), their counts and the ties', and the Adam moments
+    and params outside MOMENT_TOL / UPDATE_TOL in each run.  A masked run's
+    edges are recounted on its own trajectory and added, up to three
+    times.  Prints and returns the counts; gates nothing."""
+    from reinmav_tpu_torch.ops import ppo_loss as pl
+    from reinmav_tpu_torch.ops import ppo_update as pu
+    from reinmav_tpu_torch.rl import networks
+
+    d, adim, tile = kw["d"], kw["adim"], kw["tile"]
+    n_passes = kw["n_epochs"] * kw["n_minibatches"]
+    tpm = perm_all.shape[0] // n_passes
+    one = {**kw, "n_epochs": 1, "n_minibatches": 1}
+    adv_row = d + adim + 2
+
+    def edges(batch):
+        """The twin's run one pass at a time: ``{window: {pass: edge
+        columns}}`` and the counts by window."""
+        net, state = params, opt
+        found = {w: {} for w in CLIP_EDGE_ULPS}
+        counts = {f"within_{w}_ulps": 0 for w in CLIP_EDGE_ULPS}
+        counts["ties_outside"] = 0
+        counts.update({f"value_{k}_{w}_ulps": 0 for k in ("clip", "tie") for w in CLIP_EDGE_ULPS})
+        for q in range(n_passes):
+            perm = perm_all[q * tpm:(q + 1) * tpm]
+            cols = pl._gather_columns(perm, tile)
+            ratio, value = twin_ratio(torch, batch, cols, net, d, adim)
+            adv_n = (batch[adv_row, cols] - adv_stats[q, 0]) * adv_stats[q, 1]
+            near, tie = clip_edges(torch, ratio, adv_n, kw["clip_eps"])
+            for w, m in near.items():
+                counts[f"within_{w}_ulps"] += int(m.sum())
+                found[w][q] = cols[m]
+            counts["ties_outside"] += int(tie.sum())
+            vclip, vtie = value_edges(torch, value, batch[d + adim + 1, cols],
+                                      batch[d + adim + 3, cols], kw["value_clip_eps"])
+            for w in CLIP_EDGE_ULPS:
+                counts[f"value_clip_{w}_ulps"] += int(vclip[w].sum())
+                counts[f"value_tie_{w}_ulps"] += int(vtie[w].sum())
+            net, state, _, _ = pu.ppo_update_reference(batch, adv_stats[q:q + 1], perm, net,
+                                                       state, None, **one)
+        return found, counts
+
+    layout = networks.Layout(d, adim, (64, 64))
+
+    def outside(batch):
+        k = pu.ppo_update(batch, adv_stats, perm_all, params, opt, None, **kw)
+        tw_params, tw_opt, _, _ = pu.ppo_update_reference(batch, adv_stats, perm_all, params,
+                                                          opt, None, **kw)
+        torch.cuda.synchronize()
+        bad = ~torch.isclose(k.opt_state.mu, tw_opt.mu, **MOMENT_TOL)
+        groups = {}
+        for path, sl in layout.slices.items():
+            groups[path[0]] = groups.get(path[0], 0) + int(bad[sl].sum())
+        return {"params": count_outside(k.params, tw_params, UPDATE_TOL),
+                "mu": count_outside(k.opt_state.mu, tw_opt.mu, MOMENT_TOL),
+                "nu": count_outside(k.opt_state.nu, tw_opt.nu, MOMENT_TOL),
+                "mu_max_abs_err": float((k.opt_state.mu - tw_opt.mu).abs().max()),
+                "mu_by_group": {g: n for g, n in groups.items() if n}}
+
+    found, counts = edges(data)
+    result = {**counts, "outside_as_is": outside(data)}
+    text = []
+    for w in CLIP_EDGE_ULPS:
+        masked, cols, rounds, now = data.clone(), set(), 0, found[w]
+        while rounds < 3:
+            new = [c for c in now.values() if not set(c.tolist()) <= cols]
+            if rounds and not new:
+                break
+            for q, c in now.items():
+                masked[adv_row, c] = adv_stats[q, 0]
+                cols.update(c.tolist())
+            rounds += 1
+            now = edges(masked)[0][w]
+        r = outside(masked)
+        result[f"outside_masked_{w}_ulps"] = {**r, "samples": len(cols), "rounds": rounds}
+        text.append(f"within {w} ulps ({len(cols)} samples, {rounds} rounds): {r['mu']} "
+                    f"({r['mu_by_group']}), {r['nu']}, {r['params']} (max |err| "
+                    f"{r['mu_max_abs_err']:.3e})")
+    a = result["outside_as_is"]
+    say(f"{label} clip edge (clip_eps {kw['clip_eps']:g}, {n_passes} passes of {tpm * tile} "
+        f"samples, the twin's run one pass at a time): samples "
+        + ", ".join(f"{v} {k.replace('_', ' ')}" for k, v in counts.items())
+        + f"; K4 vs twin as it stands: {a['mu']} Adam first moments (by group "
+        f"{a['mu_by_group']}), {a['nu']} second moments outside rtol 2e-4 atol 5e-8 (max |err| "
+        f"{a['mu_max_abs_err']:.3e}), {a['params']} params outside rtol 2e-4 atol 1e-6; with "
+        f"the advantages of the samples on the edge "
+        f"set to their pass's shift, " + "; ".join(text))
+    return result
+
+
 def k4_phase(torch, dev, gpu: str, cfg, params, data, adv, tile: int, n_tiles: int,
-             adim: int) -> dict:
+             adim: int, clip_edge: str | None = None) -> dict:
     """Phase 10: K4 on the phase-7 trajectory, one 4 x 4 update from the
     rollout's own params (so pass 0's ratios are 1, as in training).
-    Returns K4's timings and errors for the ``kernels`` line."""
+    ``clip_edge``: a label under which :func:`k4_clip_edge` counts the
+    clip edge first (phase 13).  Returns K4's timings and errors for the
+    ``kernels`` line."""
     from reinmav_tpu_torch.ops import ppo_loss as pl
     from reinmav_tpu_torch.ops import ppo_update as pu
     from reinmav_tpu_torch.rl import ppo
@@ -544,16 +741,11 @@ def k4_phase(torch, dev, gpu: str, cfg, params, data, adv, tile: int, n_tiles: i
     n = data.shape[1]
     e_, m_ = cfg.num_epochs, cfg.num_minibatches
     n_passes, tpm = e_ * m_, n_tiles // m_
-    gen = torch.Generator().manual_seed(9)
-    perm_all = torch.cat([ppo._shuffle_indices(gen, n_tiles, dev)
-                          for _ in range(e_)]).to(torch.int32).contiguous()
-    adv_stats = ppo.pass_adv_stats(adv.reshape(n), perm_all, tile, n_passes, True)
-    params = params.contiguous()
-    opt = ppo.make_optimizer(cfg).init(params)
     d = data.shape[0] - adim - 4  # obs rows of the stacked batch
-    kw = dict(d=d, adim=adim, tile=tile, n_minibatches=m_, n_epochs=e_, clip_eps=cfg.clip_eps,
-              value_clip_eps=cfg.value_clip_eps, value_coef=cfg.value_coef,
-              ent_coef=cfg.entropy_coef, lr=cfg.learning_rate, max_grad_norm=cfg.max_grad_norm)
+    perm_all, adv_stats, params, opt, kw = k4_setup(torch, dev, cfg, params, adv, tile, n_tiles,
+                                                    d, adim)
+    edge = (None if clip_edge is None else
+            k4_clip_edge(torch, data, adv_stats, perm_all, params, opt, kw, clip_edge))
     k4_run = lambda: pu.ppo_update(data, adv_stats, perm_all, params, opt, None,  # noqa: E731
                                    keep_grad0=True, **kw)
     k4_plain = lambda: pu.ppo_update_reference(data, adv_stats, perm_all, params,  # noqa: E731
@@ -629,7 +821,8 @@ def k4_phase(torch, dev, gpu: str, cfg, params, data, adv, tile: int, n_tiles: i
         f"{registers}, on {gpu}")
     return dict(max_abs_err=errs["params"][0], outside=errs["params"][1], ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, registers=registers,
-                at=f"{n_passes} passes of {mb} samples gathered in tiles of {tile} from {n}")
+                at=f"{n_passes} passes of {mb} samples gathered in tiles of {tile} from {n}",
+                **({} if edge is None else {"clip_edge": edge}))
 
 
 def kernel_counters() -> dict:
@@ -838,7 +1031,7 @@ def k2_inputs(torch, dev, env, make_states, ret_var: float = 4.0):
 #: The per-instance numbers that K2/K6's and K7's entries of the ``kernels``
 #: line carry where their phase measured them.
 EXTRA_KEYS = ("registers", "sass_per_env_step", "sm_clock_mhz", "issue_ms", "taut_share",
-              "taut_share_twin")
+              "taut_share_twin", "occupancy")
 
 
 def extras(numbers: dict) -> dict:
@@ -925,14 +1118,15 @@ def k7_taut(torch, env, states_t, args_at, label: str) -> dict:
 
 
 def fused_kernel_checks(torch, dev, gpu: str, env, make_states, names,
-                        ret_var: float = 4.0) -> tuple[dict, dict, dict]:
+                        ret_var: float = 4.0, clip_edge: bool = False) -> tuple[dict, dict, dict]:
     """Phases 7, 8 and 10 (quadrotor3d-v0) or 13 (the hover task): the
     fused PPO rollout kernel (K2 or K6-hover) against its twin at 32,768 x
     32 with noise and resets on, K3 against its twin on one full minibatch
     of that trajectory, K4 against its twin over one update on it.
     ``make_states(state)`` gives the rollout's ``(D, B)`` start states,
     ``names`` the labels of the three kernels, ``ret_var`` the return
-    normaliser's variance (a warmed one, of the env's reward scale).
+    normaliser's variance (a warmed one, of the env's reward scale),
+    ``clip_edge`` whether K4's clip edge is counted (:func:`k4_clip_edge`).
     Returns each kernel's numbers for the ``kernels`` line."""
     from reinmav_tpu_torch.ops import ppo_loss as pl
     from reinmav_tpu_torch.ops import ppo_rollout as pr
@@ -999,15 +1193,7 @@ def fused_kernel_checks(torch, dev, gpu: str, env, make_states, names,
     # K3 against its twin on one full minibatch of that trajectory, with
     # the params moved off the rollout's, so that ratios leave 1 and clip.
     n = B_PPO * T_PPO
-    traj = ppo.Transition(out.obs, out.action, out.log_prob, out.value, out.reward, out.done)
-    with torch.no_grad():
-        last = ppo._normalize_t(out.final_states, obs_norm)
-        _, _, last_value = networks.apply_t(layout.unflatten(params), last)
-        adv, ret = ppo.compute_gae(cfg, traj, last_value)
-    flat_d = lambda x: x.permute(1, 0, 2).reshape(x.shape[1], n)  # noqa: E731
-    data = pl.stack_batch(flat_d(out.obs), flat_d(out.action), out.log_prob.reshape(n),
-                          out.value.reshape(n), adv.reshape(n), ret.reshape(n))
-    tile, n_tiles = ppo._tiling(cfg, n)
+    data, adv, tile, n_tiles = k4_batch(torch, cfg, layout, obs_norm, params, out)
     perm = ppo._shuffle_indices(torch.Generator().manual_seed(5), n_tiles, dev)
     tidx = perm.reshape(cfg.num_minibatches, -1)[0].to(torch.int32).contiguous()
     adv_mb = adv.reshape(n)[pl._gather_columns(tidx, tile)]
@@ -1053,10 +1239,32 @@ def fused_kernel_checks(torch, dev, gpu: str, env, make_states, names,
                 bound_by=k3_by, at=f"minibatch of {mb} samples gathered in tiles of {tile} from "
                                    f"{n}, obs {d}, action {env.action_dim}")
     # K4 on the same trajectory, from the rollout's own params.
-    update = k4_phase(torch, dev, gpu, cfg, params, data, adv, tile, n_tiles, env.action_dim)
-    del out, ref, again, data, traj, adv, ret
+    update = k4_phase(torch, dev, gpu, cfg, params, data, adv, tile, n_tiles, env.action_dim,
+                      clip_edge=f"{k4_name}, input 1" if clip_edge else None)
+    del out, ref, again, data, adv
     torch.cuda.empty_cache()
     return rollout, loss, update
+
+
+def k4_batch(torch, cfg, layout, obs_norm, params, out):
+    """K3's and K4's batch from a fused PPO rollout ``out`` at B_PPO x
+    T_PPO: GAE from the rollout's params, the ``(D + A + 4, n)`` rows, the
+    advantages and the shuffle tiling.  Returns ``(data, adv, tile,
+    n_tiles)``."""
+    from reinmav_tpu_torch.ops import ppo_loss as pl
+    from reinmav_tpu_torch.rl import networks, ppo
+
+    n = B_PPO * T_PPO
+    traj = ppo.Transition(out.obs, out.action, out.log_prob, out.value, out.reward, out.done)
+    with torch.no_grad():
+        last = ppo._normalize_t(out.final_states, obs_norm)
+        _, _, last_value = networks.apply_t(layout.unflatten(params), last)
+        adv, ret = ppo.compute_gae(cfg, traj, last_value)
+    flat_d = lambda x: x.permute(1, 0, 2).reshape(x.shape[1], n)  # noqa: E731
+    data = pl.stack_batch(flat_d(out.obs), flat_d(out.action), out.log_prob.reshape(n),
+                          out.value.reshape(n), adv.reshape(n), ret.reshape(n))
+    tile, n_tiles = ppo._tiling(cfg, n)
+    return data, adv, tile, n_tiles
 
 
 def ppo_phases(torch, dev, gpu: str, env) -> list[dict]:
@@ -1189,6 +1397,21 @@ def hover_states(torch, gen, dev, batch: int, z_lo: float, z_hi: float):
     return s
 
 
+def k4_on_hover_states(torch, dev, gpu: str, env, make_states, label: str) -> dict:
+    """K4 at obs 13 against its twin (phase 10's gates, the clip edge
+    counted) on K6-hover's trajectory at B_PPO x T_PPO from
+    ``make_states(state)``, as phase 13 builds its batch."""
+    from reinmav_tpu_torch.ops import ppo_rollout as pr
+
+    cfg, layout, obs_norm, _, params, _, k2_args, k2_kw = k2_inputs(
+        torch, dev, env, make_states, HOVER_RET_VAR)
+    out = pr.ppo_rollout(*k2_args, **k2_kw)
+    data, adv, tile, n_tiles = k4_batch(torch, cfg, layout, obs_norm, params, out)
+    del out
+    return k4_phase(torch, dev, gpu, cfg, params, data, adv, tile, n_tiles, env.action_dim,
+                    clip_edge=label)
+
+
 def hover_phases(torch, dev, gpu: str) -> list[dict]:
     """Phases 12-14: K5 against its twin and the hover throughput path; K6-
     hover, K3 and K4 at obs 13 against their twins; hover training and its
@@ -1280,7 +1503,15 @@ def hover_phases(torch, dev, gpu: str) -> list[dict]:
     # clipped at 10 as an unwarmed normaliser would leave them.
     k6, k3, k4 = fused_kernel_checks(
         torch, dev, gpu, env, k6_states(torch, env, gen),
-        ("K6-hover", "K3 (obs 13)", "K4 (obs 13)"), ret_var=HOVER_RET_VAR)
+        ("K6-hover", "K3 (obs 13)", "K4 (obs 13)"), ret_var=HOVER_RET_VAR, clip_edge=True)
+    # K4 at obs 13 on a second input: K6-hover's trajectory from hover
+    # states of a generator of their own, over a wider z range.
+    seed2, z_lo, z_hi = K4_SECOND_INPUTS[0]
+    gen2 = torch.Generator(device=dev).manual_seed(seed2)
+    k4_second = k4_on_hover_states(
+        torch, dev, gpu, env, lambda state: hover_states(torch, gen2, dev, B_PPO, z_lo, z_hi),
+        f"K4 (obs 13), input 2 (seed {seed2}, z in [{z_lo:g}, {z_hi:g}])")
+    k4["second_input"] = {k: k4_second[k] for k in ("max_abs_err", "outside", "clip_edge")}
 
     # 14. Hover training: the default path (K6-hover + K4), the K3 loop, and
     # the eager rollout + autograd from the same state.
@@ -1349,8 +1580,9 @@ def hover_phases(torch, dev, gpu: str) -> list[dict]:
         entry("ppo_update (obs 13)", "reinmav_tpu_torch/csrc/ppo_update.cu",
               "reinmav_tpu/ops/pallas_ppo_update.py:304", main_launches["K4"], k4,
               "params rtol 2e-4 atol 1e-6, moments rtol 2e-4 atol 5e-8 of the twin and of the K3 "
-              "loop; pass-0 gradient bitwise K3's; bitwise repeatable",
-              {"entries_outside_rtol_2e-4_atol_1e-6": k4["outside"]}),
+              "loop; pass-0 gradient bitwise K3's; bitwise repeatable; on two inputs",
+              {"entries_outside_rtol_2e-4_atol_1e-6": k4["outside"],
+               "clip_edge": k4["clip_edge"], "second_input": k4["second_input"]}),
     ]
 
 
@@ -1362,6 +1594,98 @@ def _fork(torch, state):
     return state._replace(buffer=state.buffer.clone(), generator=gen)
 
 
+def k7_states(torch, env, gen, batch: int = B_OFF):
+    """K7's start states ``(D, B)`` for env ``env`` (phases 15 and 22,
+    ``--only hashes``), from ``gen``: perturbed hover states, the first 1%
+    just above the z = 0.3 floor and falling (they end at once);
+    quadrotor3d states twice a reset's spread (the envs past |p| = 3 end at
+    once); :func:`native_states` for the other kinds."""
+    if env.name == HOVER:
+        s = hover_states(torch, gen, gen.device, batch, 0.35, 1.0)
+        s[2, :batch // 100], s[9, :batch // 100] = 0.302, -1.0
+        return s
+    if env.name == "quadrotor3d-v0":
+        return (env.vreset(gen, batch).T * 2.0).contiguous()
+    return native_states(torch, env, gen, batch)
+
+
+def k7_args(torch, env, states_t, mode: str, warm: float, noise: float, hidden=(H_SAC, H_SAC),
+            seed: int = 15):
+    """``collect_step``'s arguments for one leg: a perturbed actor of
+    ``hidden`` widths (init seed 31, off its 0.01 head init by 0.05 N(0, 1)
+    of seed 32, so that the actions spread over [-1, 1]), the consts of
+    ``warm`` and ``noise``, the env's default params."""
+    from reinmav_tpu_torch.ops import offpolicy as op
+    from reinmav_tpu_torch.ops import ppo_rollout as pr
+    from reinmav_tpu_torch.rl import sac
+
+    dev = states_t.device
+    a = env.action_dim
+    layout = sac.MlpLayout((env.obs_dim, *hidden, 2 * a if mode.startswith("sac") else a))
+    flat = sac.init_mlp(layout, torch.Generator().manual_seed(31)).to(dev)
+    flat = flat + 0.05 * torch.randn(flat.shape, device=dev,
+                                     generator=torch.Generator(device=dev).manual_seed(32))
+    consts = sac.collect_consts(env, torch.tensor(warm > 0.5, device=dev), noise)
+    return (env.name, mode, states_t, seed, consts, pr.env_params_vec(env),
+            *op.actor_kernel_args(layout.layers(flat)))
+
+
+def k7_bound(states_t, args, new, block) -> tuple[float, str, int]:
+    """K7's bound for one launch: its inputs read once, its outputs written
+    once, the actor's products and the env step's operations; returns
+    ``(ms, what bounds it, operations per env)``."""
+    d = states_t.shape[0]
+    w1, _, w2, _, w3, _ = args[6:]
+    h1, h2, out = w1.shape[1], w2.shape[1], w3.shape[1]
+    ops_per_env = 2 * (d * h1 + h1 * h2 + h2 * out) + OPS_ENV_STEP[d]
+    ms, by = bound(nbytes(states_t, new, block, args[4], *args[6:]),
+                   ops_per_env * states_t.shape[1])
+    return ms, by, ops_per_env
+
+
+def k7_timed(torch, args, reps: int = 20):
+    """K7 timed on ``args``: the median and range of ``reps`` launches
+    after a warm-up, and the outputs."""
+    from reinmav_tpu_torch.ops import offpolicy as op
+
+    op.collect_step(*args)
+    torch.cuda.synchronize()
+    ms, out = cuda_ms(lambda: op.collect_step(*args), reps)
+    return statistics.median(ms), min(ms), max(ms), out
+
+
+def k7_instance(name: str, mode: str, count: bool = False) -> str | None:
+    """The demangled name of K7's instance for env ``name`` and ``mode``
+    in the library this run built (the counting kernel's with ``count``)."""
+    from reinmav_tpu_torch.ops import offpolicy as op
+
+    head = "offpolicy_collect_count_kernel<" if count else "offpolicy_collect_kernel<"
+    found = [k for k in _sass_counts() if k.startswith(head) and PPO_STRUCT[name] in k
+             and k.replace(" ", "").endswith(f",{op.MODES[mode]}>")]
+    return found[0] if len(found) == 1 else None
+
+
+def k7_occupancy(env, mode: str, hidden=(H_SAC, H_SAC)) -> str:
+    """K7's resident CTAs an SM and dynamic shared memory for a launch of
+    env ``env``, ``mode`` and ``hidden`` widths, from the library's
+    occupancy query (``offpolicy_collect_occupancy``), or "not reported"
+    for a library without it."""
+    import ctypes
+
+    from reinmav_tpu_torch import _build
+    from reinmav_tpu_torch.ops import offpolicy as op
+    from reinmav_tpu_torch.ops import ppo_rollout as pr
+
+    lib = _build.load_library()
+    if not hasattr(lib, "offpolicy_collect_occupancy"):
+        return "not reported by this library"
+    ctas, smem = ctypes.c_int(), ctypes.c_longlong()
+    rc = lib.offpolicy_collect_occupancy(pr.ENVS[env.name].kind_id, op.MODES[mode], *hidden,
+                                         ctypes.byref(ctas), ctypes.byref(smem))
+    _build.check(rc, "offpolicy_collect_occupancy")
+    return f"{ctas.value} CTAs an SM, {smem.value} B of dynamic shared memory a CTA"
+
+
 def k7_phase(torch, dev, gpu: str, env, states_t, timed_mode: str) -> dict:
     """Phase 15 for one kind: K7 against its twin at B_OFF envs and H_SAC
     wide, in every mode leg of K7_MODES, counting the envs whose block or
@@ -1369,23 +1693,12 @@ def k7_phase(torch, dev, gpu: str, env, states_t, timed_mode: str) -> dict:
     timed in ``timed_mode`` (the mode the kind's training path runs), in
     turns.  Returns K7's numbers for the ``kernels`` line."""
     from reinmav_tpu_torch.ops import offpolicy as op
-    from reinmav_tpu_torch.ops import ppo_rollout as pr
-    from reinmav_tpu_torch.rl import sac
 
     d, a = env.obs_dim, env.action_dim
     batch = states_t.shape[1]
-    pvec = pr.env_params_vec(env)
     errs, mismatches, timed = [], [], None
     for mode, warm, noise in K7_MODES:
-        out = 2 * a if mode.startswith("sac") else a
-        layout = sac.MlpLayout((d, H_SAC, H_SAC, out))
-        flat = sac.init_mlp(layout, torch.Generator().manual_seed(31)).to(dev)
-        # Off the 0.01 head init, so that the actions spread over [-1, 1].
-        flat = flat + 0.05 * torch.randn(flat.shape, device=dev,
-                                         generator=torch.Generator(device=dev).manual_seed(32))
-        weights = op.actor_kernel_args(layout.layers(flat))
-        consts = sac.collect_consts(env, torch.tensor(warm > 0.5, device=dev), noise)
-        args = (env.name, mode, states_t, 15, consts, pvec, *weights)
+        args = k7_args(torch, env, states_t, mode, warm, noise)
         new_k, blk_k = op.collect_step(*args)
         new_p, blk_p = op.collect_step_reference(*args)
         torch.cuda.synchronize()
@@ -1409,9 +1722,10 @@ def k7_phase(torch, dev, gpu: str, env, states_t, timed_mode: str) -> dict:
         errs.append(err)
         mismatches.append(mismatched)
         if (mode, warm) == (timed_mode, 0.0):
-            timed = args, (new_k, blk_k, *weights, consts), out
+            timed = args, (new_k, blk_k)
 
-    args, tensors, out = timed
+    args, (new_k, blk_k) = timed
+    out = args[-1].shape[0]
     taut = k7_taut(torch, env, states_t, lambda x, seed: (*args[:2], x, seed, *args[4:]),
                    f"K7 {env.name}") if env.name in TETHER else {}
     kernel_run = lambda: op.collect_step(*args)  # noqa: E731
@@ -1420,18 +1734,23 @@ def k7_phase(torch, dev, gpu: str, env, states_t, timed_mode: str) -> dict:
     plain_run()  # warm-ups
     torch.cuda.synchronize()
     p0, _ = cuda_ms(plain_run, 3)
-    kern0, _ = cuda_ms(kernel_run, 10)
-    kern1, _ = cuda_ms(kernel_run, 10)
+    with SmClock() as clock:
+        kern0, _ = cuda_ms(kernel_run, 10)
+        kern1, _ = cuda_ms(kernel_run, 10)
     p1, _ = cuda_ms(plain_run, 3)
     ms, plain_ms = statistics.median(kern0 + kern1), statistics.median(p0 + p1)
-    ops_per_env = 2 * (d * H_SAC + H_SAC * H_SAC + H_SAC * out) + OPS_ENV_STEP[d]
-    bound_ms, bound_by = bound(nbytes(states_t, *tensors), ops_per_env * batch)
+    bound_ms, bound_by, ops_per_env = k7_bound(states_t, args, new_k, blk_k)
+    instance = k7_instance(env.name, timed_mode)
+    registers = "not reported" if instance is None else kernel_registers(instance)
+    occupancy = k7_occupancy(env, timed_mode)
     say(f"time K7 {env.name} {timed_mode}, B={batch} H={H_SAC}: {ms:.4f} ms (median of 20 "
-        f"launches, each {min(kern0 + kern1):.4f} to {max(kern0 + kern1):.4f}), twin "
-        f"{plain_ms:.3f} ms (median of 6), bound {bound_ms:.4f} ms by {bound_by} "
-        f"({ops_per_env} operations per env), on {gpu}")
+        f"launches, each {min(kern0 + kern1):.4f} to {max(kern0 + kern1):.4f}, SM clock "
+        f"{clock.mhz:.0f} MHz), twin {plain_ms:.3f} ms (median of 6), bound {bound_ms:.4f} ms by "
+        f"{bound_by} ({ops_per_env} operations per env); {instance}: ptxas {registers}; "
+        f"{occupancy}; on {gpu}")
     return dict(max_abs_err=max(errs), mismatched=max(mismatches), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by,
+                bound_ms=bound_ms, bound_by=bound_by, registers=registers,
+                sm_clock_mhz=clock.mhz, occupancy=occupancy,
                 at=f"states ({d}, {batch}), actor {d}-{H_SAC}-{H_SAC}-{out}, mode {timed_mode}",
                 **taut)
 
@@ -1570,11 +1889,8 @@ def offpolicy_phases(torch, dev, gpu: str) -> list[dict]:
     # falling just above the z = 0.3 floor (they end at once), and
     # quadrotor3d states twice a reset's spread (the envs past |p| = 3 end
     # at once).
-    hover_t = hover_states(torch, gen, dev, B_OFF, 0.35, 1.0)
-    hover_t[2, :B_OFF // 100], hover_t[9, :B_OFF // 100] = 0.302, -1.0
-    k7_hover = k7_phase(torch, dev, gpu, hover, hover_t, "sac")
-    k7_quad = k7_phase(torch, dev, gpu, quad,
-                       (quad.vreset(gen, B_OFF).T * 2.0).contiguous(), "td3")
+    k7_hover = k7_phase(torch, dev, gpu, hover, k7_states(torch, hover, gen), "sac")
+    k7_quad = k7_phase(torch, dev, gpu, quad, k7_states(torch, quad, gen), "td3")
 
     # 16. SAC at the bench config, the main path: train_iters on the card
     # with fused_collect="auto" must launch K7 once per iteration.
@@ -1656,7 +1972,8 @@ def offpolicy_phases(torch, dev, gpu: str) -> list[dict]:
                              "bitwise repeatable",
                 "ms": numbers["ms"], "plain_ms": numbers["plain_ms"],
                 "bound_ms": numbers["bound_ms"], "bound_by": numbers["bound_by"],
-                "library_ms": None, "at": f"{numbers['at']}; launches on {path}"}
+                "library_ms": None, "at": f"{numbers['at']}; launches on {path}",
+                **extras(numbers)}
 
     return [entry(HOVER, k7_hover, sac_launches, "the SAC bench path (phase 16)"),
             entry("quadrotor3d-v0", k7_quad, td3_launches, "the TD3 path (phase 17)")]
@@ -1856,7 +2173,7 @@ def native_phases(torch, dev, gpu: str) -> list[dict]:
             f"{statistics.median(loop_walls[WARMUP_UPDATES:]):.2f} ms, on {gpu}: ok")
 
         # 22. K7 on the kind, then SAC and TD3 through train_iters.
-        k7 = k7_phase(torch, dev, gpu, env, native_states(torch, env, gen, B_OFF), "sac")
+        k7 = k7_phase(torch, dev, gpu, env, k7_states(torch, env, gen), "sac")
         k7_launches = {}
         for alg, module, cfg in (
                 ("sac", sac, sac.SacConfig(num_envs=B_OFF, batch_size=BATCH_SAC,
@@ -2409,8 +2726,8 @@ def hash_phase(torch, dev, gpu: str) -> None:
     for name in PPO_STRUCT:
         env = reinmav_tpu_torch.make(name)
         gen = torch.Generator(device=dev).manual_seed(13 if name == HOVER else 21)
-        *_, k2_args, k2_kw = k2_inputs(torch, dev, env, k6_states(torch, env, gen),
-                                       HOVER_RET_VAR if name == HOVER else 4.0)
+        cfg, layout, obs_norm, _, params, _, k2_args, k2_kw = k2_inputs(
+            torch, dev, env, k6_states(torch, env, gen), HOVER_RET_VAR if name == HOVER else 4.0)
         run = lambda: pr.ppo_rollout(*k2_args, **k2_kw)  # noqa: E731
         run()
         torch.cuda.synchronize()
@@ -2422,6 +2739,12 @@ def hash_phase(torch, dev, gpu: str) -> None:
         say(f"time {label} B={B_PPO} T={T_PPO}: {ms:.4f} ms (median of 20 launches, each "
             f"{min(kern):.4f} to {max(kern):.4f}) on {gpu}")
         k2_sass_line(label, name, ms, clock, gpu)
+        if name in ("quadrotor3d-v0", HOVER):
+            # K4 at (10, 4) and (13, 4) on this trajectory, as phases 10 and 13.
+            batch = k4_batch(torch, cfg, layout, obs_norm, params, out)
+            k4_hash(torch, dev, gpu, cfg, params, *batch, env.action_dim,
+                    f"K4 ({env.obs_dim}, {env.action_dim})", clip=name == HOVER)
+            del batch
         del out
         # The same inputs through the other instances: the normalisers
         # off, the tether always slack or always taut (its length 1000 or
@@ -2447,6 +2770,138 @@ def hash_phase(torch, dev, gpu: str) -> None:
         say(f"time {label} B={B_PPO} T={T_PPO}, other instances and inputs (medians of 20): "
             + "; ".join(f"{k} {v:.4f} ms" for k, v in times.items()) + f", on {gpu}")
         del k2_args
+        torch.cuda.empty_cache()
+    hover = reinmav_tpu_torch.make(HOVER)
+    for seed2, z_lo, z_hi in K4_SECOND_INPUTS[1:]:  # the first is K6-hover's input above
+        gen2 = torch.Generator(device=dev).manual_seed(seed2)
+        cfg, layout, obs_norm, _, params, _, k2_args, k2_kw = k2_inputs(
+            torch, dev, hover, lambda state: hover_states(torch, gen2, dev, B_PPO, z_lo, z_hi),
+            HOVER_RET_VAR)
+        out = pr.ppo_rollout(*k2_args, **k2_kw)
+        batch = k4_batch(torch, cfg, layout, obs_norm, params, out)
+        del out, k2_args
+        k4_hash(torch, dev, gpu, cfg, params, *batch, hover.action_dim,
+                f"K4 (13, 4), seed {seed2}, z in [{z_lo:g}, {z_hi:g}]", clip=True)
+        del batch
+        torch.cuda.empty_cache()
+    k7_hash(torch, dev, gpu)
+
+
+def k4_hash(torch, dev, gpu: str, cfg, params, data, adv, tile: int, n_tiles: int, adim: int,
+            label: str, clip: bool) -> None:
+    """``--only hashes``: one K4 update on ``data`` as phase 10 runs it,
+    the SHA-256 of its params, moments and metric sums, its time (median
+    of 20) and, with ``clip``, the clip-edge counts
+    (:func:`k4_clip_edge`)."""
+    from reinmav_tpu_torch.ops import ppo_update as pu
+
+    d = data.shape[0] - adim - 4
+    perm_all, adv_stats, params, opt, kw = k4_setup(torch, dev, cfg, params, adv, tile, n_tiles,
+                                                    d, adim)
+    run = lambda: pu.ppo_update(data, adv_stats, perm_all, params, opt, None,  # noqa: E731
+                                keep_grad0=True, **kw)
+    run()
+    torch.cuda.synchronize()
+    ms, k = cuda_ms(run, 20)
+    say(f"sha256 {label}, one update of {kw['n_epochs']} x {kw['n_minibatches']} passes: "
+        f"{digest(k.params, k.opt_state.mu, k.opt_state.nu, k.grad0, *k.metrics.values())}")
+    say(f"time {label}: {statistics.median(ms):.4f} ms an update (median of 20 launches, each "
+        f"{min(ms):.4f} to {max(ms):.4f}) on {gpu}")
+    if clip:
+        k4_clip_edge(torch, data, adv_stats, perm_all, params, opt, kw, label)
+        k4_forward_orders(torch, data, params, d, adim, label)
+
+
+def k4_forward_orders(torch, data, params, d: int, adim: int, label: str,
+                      n: int = 16_384) -> None:
+    """Which summation order the twin's products (cuBLAS, float32) follow
+    on ``n`` samples of ``data``: the share of each layer's outputs bit for
+    bit equal to float32 FMA chains emulated in float64 (a product exact,
+    one rounding to float32 a step): from 0 over k in order with the bias
+    added last; from the bias over k in order (K4's first layer); from the
+    bias in groups of 4 (K4's second layer, ``tile8x8_by4``).  Layers 1 and
+    2 of both towers and the two heads.  Prints the shares."""
+    from reinmav_tpu_torch.rl import networks
+
+    p = networks.Layout(d, adim, (64, 64)).unflatten(params)
+    f32 = torch.float32
+
+    def chain(w, x, acc):
+        for k in range(w.shape[0]):
+            acc = (acc.double() + w[k].double()[:, None] * x[k].double()[None, :]).to(f32)
+        return acc
+
+    def by4(w, x, acc):
+        for k in range(0, w.shape[0], 4):
+            t = (w[k + 1].double()[:, None] * x[k + 1].double()[None, :]).to(f32)
+            for q in (0, 2, 3):
+                t = (t.double() + w[k + q].double()[:, None] * x[k + q].double()[None, :]).to(f32)
+            acc = acc + t
+        return acc
+
+    shares = {}
+    for tower in ("pi", "vf"):
+        x = data[:d, :n]
+        layers = [*p[tower], p[f"{tower}_out"]]
+        for i, layer in enumerate(layers):
+            w, b = layer["w"], layer["b"]
+            ref = w.T @ x + b[:, None]
+            zero = torch.zeros_like(ref)
+            orders = {"0 then bias": chain(w, x, zero) + b[:, None],
+                      "bias first": chain(w, x, zero + b[:, None])}
+            if w.shape[0] % 4 == 0:
+                orders["bias first, groups of 4"] = by4(w, x, zero + b[:, None])
+            name = f"{tower} {'head' if i == len(layers) - 1 else f'layer {i + 1}'}"
+            shares[name] = {k: float((v == ref).double().mean()) for k, v in orders.items()}
+            x = torch.tanh(ref)
+    say(f"{label} forward orders, the twin's products against FMA chains ({n} samples; share "
+        f"of outputs bit for bit equal): " + "; ".join(
+            f"{name}: " + ", ".join(f"{k} {v:.4f}" for k, v in o.items())
+            for name, o in shares.items()))
+
+
+#: K7's mode of each kind's training path in the smoke run (phases 15, 22).
+K7_TIMED_MODE = {"quadrotor3d-v0": "td3"}
+
+
+def k7_hash(torch, dev, gpu: str) -> None:
+    """``--only hashes``: K7 on every kind, on phase 15's and 22's inputs
+    drawn from a generator of their own (seed 15): each mode leg's SHA-256
+    of the new states and the block; the kind's training mode timed as
+    phase 15 times it, with the SM clock, the bound, registers and
+    occupancy; then the same launch at other widths and modes (a median of
+    20 each): H = 32, and sac, sac_det, td3, td3_det at H_SAC."""
+    import reinmav_tpu_torch
+    from reinmav_tpu_torch.ops import offpolicy as op
+
+    for name in PPO_STRUCT:
+        env = reinmav_tpu_torch.make(name)
+        states_t = k7_states(torch, env, torch.Generator(device=dev).manual_seed(15))
+        for mode, warm, noise in K7_MODES:
+            args = k7_args(torch, env, states_t, mode, warm, noise)
+            say(f"sha256 K7 {name} {mode} warm {warm:g} noise {noise:g} B={B_OFF} H={H_SAC}: "
+                f"{digest(*op.collect_step(*args))}")
+        mode = K7_TIMED_MODE.get(name, "sac")
+        noise = dict((m, n) for m, _, n in K7_MODES)[mode]
+        args = k7_args(torch, env, states_t, mode, 0.0, noise)
+        with SmClock() as clock:
+            ms, lo, hi, (new, block) = k7_timed(torch, args)
+        bound_ms, bound_by, ops_per_env = k7_bound(states_t, args, new, block)
+        instance = k7_instance(name, mode)
+        say(f"time K7 {name} {mode} B={B_OFF} H={H_SAC}: {ms:.4f} ms (median of 20 launches, each "
+            f"{lo:.4f} to {hi:.4f}; SM clock {clock.mhz:.0f} MHz, {len(clock.samples)} samples), "
+            f"bound {bound_ms:.4f} ms by {bound_by} ({ops_per_env} operations per env); "
+            f"{instance}: ptxas {kernel_registers(instance) if instance else 'not reported'}; "
+            f"{k7_occupancy(env, mode)}; on {gpu}")
+        times = {}
+        for what, m, n, hidden in (("H=32", mode, noise, (32, 32)), ("sac", "sac", 0.0, None),
+                                   ("sac_det", "sac_det", 0.0, None), ("td3", "td3", 0.3, None),
+                                   ("td3_det", "td3_det", 0.0, None)):
+            probe = k7_args(torch, env, states_t, m, 0.0, n, hidden or (H_SAC, H_SAC))
+            times[what] = k7_timed(torch, probe)[0]
+        say(f"time K7 {name} B={B_OFF}, other widths and modes (medians of 20; {mode} at H=32): "
+            + "; ".join(f"{k} {v:.4f} ms" for k, v in times.items()) + f", on {gpu}")
+        del states_t, new, block
         torch.cuda.empty_cache()
 
 

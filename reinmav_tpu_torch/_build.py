@@ -95,11 +95,15 @@ _SIGNATURES = {
                           ctypes.c_int, _P, _P, _P, _P, _P, _P),
     "ppo_update_metrics_size": (),
     # K7: (env kind, mode, host params, number of params, states_in, batch,
-    #  hidden, w1, b1, w2, b2, w3, b3, consts, seed, states_out, block, taut
-    #  counts or null, stream)
+    #  hidden1, hidden2, w1, b1, w2, b2, w3, b3, consts, seed, states_out,
+    #  block, taut counts or null, stream)
     "offpolicy_collect_launch": (ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P,
-                                 ctypes.c_longlong, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
-                                 ctypes.c_uint, _P, _P, _P, _P),
+                                 ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
+                                 _P, _P, _P, ctypes.c_uint, _P, _P, _P, _P),
+    # K7's main-path kernel: (env kind, mode, hidden1, hidden2, resident CTAs
+    #  an SM out (int), dynamic shared memory out (long long))
+    "offpolicy_collect_occupancy": (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
+                                    _P),
 }
 
 

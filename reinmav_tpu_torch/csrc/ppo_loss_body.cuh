@@ -32,11 +32,15 @@
 // (32 of dW2, up to 8 of dW1, a bias, a head entry) stay in registers for
 // the CTA's whole share of the minibatch; each is summed over the samples
 // in order, one sample after the other.  The order of every sum is fixed:
-// L1 and dpre1 one product after another, L2 in groups of 4 (see
-// tile8x8_by4), the weight gradients sample by sample.  A straight chain of
-// 64 FMAs in L2 put 2 of 10,057 params of a KL-mode update outside the
-// tolerance of the twin (tests/test_torch_cuda_ppo.py); with this order
-// the tiled body computes the serial dot products' results bit for bit.
+// the forward layers and the mean head FMA chains from 0 over k in order
+// with the bias added last, which is the twin's float32 matmul and bias
+// add bit for bit; the value head and logp -> ratio rounded one operation
+// at a time, as the twin rounds them (ops/ppo_loss.py); dpre1 one product
+// after another; the weight gradients sample by sample.  So the forward,
+// the clip and value-clip decisions and each sample's cotangent are the
+// twin's bit for bit, and a sample on a knife edge (1 +- clip_eps, the
+// value clip) falls on the same side in both; the sums over samples keep
+// their own order.
 //
 // The layouts that make every access free of bank conflicts: the
 // activations are [tower * 64 + unit][sample] rows of kSP = 132 floats (a
@@ -195,63 +199,29 @@ __device__ __forceinline__ void tile8x8(const float* __restrict__ a, const float
   }
 }
 
-// tile8x8's product over kK = 64 in L2's order: each group of 4 k is
-// summed apart, ((a0 w0 + a1 w1) + a2 w2) + a3 w3 as three FMAs on the
-// rounded a1 w1, and then added to the unit's sum.
-template <int kK>
-__device__ __forceinline__ void tile8x8_by4(const float* __restrict__ a,
-                                            const float* __restrict__ w, float (&acc)[8][8]) {
-  static_assert(kK % 4 == 0, "groups of 4");
-#pragma unroll 1
-  for (int k = 0; k < kK; k += 4) {
-    float av[4][8], wv[4][8];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float4 a0 = ld4(a + (k + q) * kSP), a1 = ld4(a + (k + q) * kSP + 4);
-      const float4 w0 = ld4(w + (k + q) * kH), w1 = ld4(w + (k + q) * kH + 32);
-      av[q][0] = a0.x, av[q][1] = a0.y, av[q][2] = a0.z, av[q][3] = a0.w;
-      av[q][4] = a1.x, av[q][5] = a1.y, av[q][6] = a1.z, av[q][7] = a1.w;
-      wv[q][0] = w0.x, wv[q][1] = w0.y, wv[q][2] = w0.z, wv[q][3] = w0.w;
-      wv[q][4] = w1.x, wv[q][5] = w1.y, wv[q][6] = w1.z, wv[q][7] = w1.w;
-    }
-#pragma unroll
-    for (int s = 0; s < 8; ++s) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float t = fmaf(av[0][s], wv[0][i], __fmul_rn(av[1][s], wv[1][i]));
-        t = fmaf(av[2][s], wv[2][i], t);
-        t = fmaf(av[3][s], wv[3][i], t);
-        acc[s][i] = acc[s][i] + t;
-      }
-    }
-  }
-}
-
 // A forward layer of one tower over the sub-block: h[unit][sample] =
-// tanh(b[unit] + sum_k in[k][sample] * w[k][unit]) for the thread's tile
-// (8 samples from s0, units ug + 8 i).  L1 (kBy4 false) adds the D products
-// one by one, L2 (kBy4) in groups of 4.
-template <int kK, bool kBy4>
+// tanh(sum_k in[k][sample] * w[k][unit] + b[unit]) for the thread's tile (8
+// samples from s0, units ug + 8 i): each sum an FMA chain from 0 over k in
+// order, then the bias, the twin's float32 matmul (cuBLAS) and bias add
+// bit for bit (chip_smoke.py's forward-order probe).
+template <int kK>
 __device__ __forceinline__ void forward_layer(const float* __restrict__ in, const float* __restrict__ w,
                                               const float* __restrict__ b, float* __restrict__ out,
                                               int s0, int ug) {
   float acc[8][8];
 #pragma unroll
+  for (int s = 0; s < 8; ++s)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[s][i] = 0.0f;
+  tile8x8<kK>(in + s0, w + 4 * ug, acc);
+#pragma unroll
   for (int i = 0; i < 8; ++i) {
     const float bi = b[ug + 8 * i];
-#pragma unroll
-    for (int s = 0; s < 8; ++s) acc[s][i] = bi;
-  }
-  if constexpr (kBy4) {
-    tile8x8_by4<kK>(in + s0, w + 4 * ug, acc);
-  } else {
-    tile8x8<kK>(in + s0, w + 4 * ug, acc);
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
     float* row = out + (ug + 8 * i) * kSP + s0;
-    st4(row, tanhf(acc[0][i]), tanhf(acc[1][i]), tanhf(acc[2][i]), tanhf(acc[3][i]));
-    st4(row + 4, tanhf(acc[4][i]), tanhf(acc[5][i]), tanhf(acc[6][i]), tanhf(acc[7][i]));
+    st4(row, tanhf(acc[0][i] + bi), tanhf(acc[1][i] + bi), tanhf(acc[2][i] + bi),
+        tanhf(acc[3][i] + bi));
+    st4(row + 4, tanhf(acc[4][i] + bi), tanhf(acc[5][i] + bi), tanhf(acc[6][i] + bi),
+        tanhf(acc[7][i] + bi));
   }
 }
 
@@ -329,9 +299,9 @@ __device__ __forceinline__ void loss_body(Smem<kD, kA>& sm, const float* __restr
     __syncthreads();  // the staged inputs
 
     // ---- P1: forward through both towers, 8 x 8 tiles ---------------------
-    forward_layer<kD, false>(&sm.x[0][0], &sm.w1[tw][0][0], sm.b1[tw], h1t, 8 * g16, g8);
+    forward_layer<kD>(&sm.x[0][0], &sm.w1[tw][0][0], sm.b1[tw], h1t, 8 * g16, g8);
     __syncthreads();
-    forward_layer<kH, true>(h1t, &sm.w2[tw][0][0], sm.b2[tw], h2t, 8 * g16, g8);
+    forward_layer<kH>(h1t, &sm.w2[tw][0][0], sm.b2[tw], h2t, 8 * g16, g8);
     __syncthreads();
     // The heads: thread (tower, sample).
     if (tw == 0) {
@@ -345,9 +315,11 @@ __device__ __forceinline__ void loss_body(Smem<kD, kA>& sm, const float* __restr
 #pragma unroll
       for (int a = 0; a < kA; ++a) sm.dout[a][s] = mean[a] + sm.bo[a];
     } else {
+      // The value head rounds each product and sum apart, in j order, as
+      // its twin does (a one-column matmul is no FMA chain in cuBLAS).
       float value = 0.0f;
 #pragma unroll 8
-      for (int j = 0; j < kH; ++j) value += sm.h2[kH + j][s] * sm.wvf[j];
+      for (int j = 0; j < kH; ++j) value = __fadd_rn(value, __fmul_rn(sm.h2[kH + j][s], sm.wvf[j]));
       sm.dout[kA][s] = value + sm.bo[kA];
     }
     __syncthreads();
@@ -359,21 +331,25 @@ __device__ __forceinline__ void loss_body(Smem<kD, kA>& sm, const float* __restr
       if (valid) {
         const float value = sm.dout[kA][s];
         float diff[kA], quad[kA], var[kA];
+        // logp and the ratio are rounded one operation at a time, in the
+        // twin's order (ops/ppo_loss.py::logp_ratio), so that a ratio on the
+        // clip edge clips in both or in neither.
         float qsum = 0.0f, ls_sum = 0.0f;
 #pragma unroll
         for (int a = 0; a < kA; ++a) {
           var[a] = expf(2.0f * sm.ls[a]);
-          diff[a] = sm.red[a][s] - sm.dout[a][s];
-          quad[a] = diff[a] * diff[a] / var[a];
-          qsum += quad[a];
-          ls_sum += sm.ls[a];
+          diff[a] = __fsub_rn(sm.red[a][s], sm.dout[a][s]);
+          quad[a] = __fdiv_rn(__fmul_rn(diff[a], diff[a]), var[a]);
+          qsum = __fadd_rn(qsum, quad[a]);
+          ls_sum = __fadd_rn(ls_sum, sm.ls[a]);
         }
         const float old_logp = sm.red[kA][s];
         const float old_value = sm.red[kA + 1][s];
         const float adv = (sm.red[kA + 2][s] - adv_shift) * adv_inv;
         const float ret = sm.red[kA + 3][s];
-        const float logp = -0.5f * qsum - ls_sum - 0.5f * kA * ac::kLog2Pi;
-        const float ratio = expf(logp - old_logp);
+        const float logp = __fsub_rn(__fsub_rn(__fmul_rn(-0.5f, qsum), ls_sum),
+                                     0.5f * kA * ac::kLog2Pi);
+        const float ratio = expf(__fsub_rn(logp, old_logp));
         const float kl = old_logp - logp;
         float dlogp, pg;
         if (kKl) {

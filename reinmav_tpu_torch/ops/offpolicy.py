@@ -36,8 +36,8 @@ from .rollout import mantissa_fill, philox_words
 #: Sampling modes, by their id in the C entry point.  The ``_det`` modes
 #: take eps = 0 (SAC) or noise = 0 (TD3).
 MODES = {"sac": 0, "sac_det": 1, "td3": 2, "td3_det": 3}
-#: Hidden widths the kernel is built for: multiples of 32 up to 256.
-HIDDEN_STEP, MAX_HIDDEN = 32, 256
+#: The widest hidden layer the kernel takes (each of the two, from 1).
+MAX_HIDDEN = 256
 _EPS_STREAM, _WARM_STREAM, _RESET_STREAM = 3, 4, 5
 
 
@@ -49,13 +49,12 @@ def supported(env) -> bool:
 
 def width_refusal(hidden) -> str | None:
     """Why the kernel cannot take an actor of these hidden widths (None =
-    it can): two equal layers, a multiple of 32 up to 256."""
+    it can): two layers, each from 1 to 256 wide."""
     hidden = tuple(hidden)
-    if len(hidden) != 2 or hidden[0] != hidden[1]:
-        return f"hidden {hidden} is not two equal layers"
-    h = hidden[0]
-    if h % HIDDEN_STEP or not HIDDEN_STEP <= h <= MAX_HIDDEN:
-        return f"hidden width {h}: K7 is built for multiples of {HIDDEN_STEP} up to {MAX_HIDDEN}"
+    if len(hidden) != 2:
+        return f"hidden {hidden} is not two layers"
+    if not all(1 <= h <= MAX_HIDDEN for h in hidden):
+        return f"hidden widths {hidden}: K7 takes each layer from 1 to {MAX_HIDDEN} wide"
     return None
 
 
@@ -87,9 +86,11 @@ def _check_args(env_kind, mode, states_t, seed, consts, params_vec, weights) -> 
     if states_t.dim() != 2 or states_t.shape[0] != d or states_t.shape[1] == 0:
         raise ValueError(f"states_t must be ({d}, B) with B > 0, got {tuple(states_t.shape)}")
     w1, b1, w2, b2, w3, b3 = weights
-    h = w1.shape[1] if w1.dim() == 2 else -1
+    h1 = w1.shape[1] if w1.dim() == 2 else -1
+    h2 = w2.shape[1] if w2.dim() == 2 else -1
     out = 2 * a if mode.startswith("sac") else a
-    shapes = ((w1, (d, h)), (b1, (h,)), (w2, (h, h)), (b2, (h,)), (w3, (h, out)), (b3, (out,)))
+    shapes = ((w1, (d, h1)), (b1, (h1,)), (w2, (h1, h2)), (b2, (h2,)), (w3, (h2, out)),
+              (b3, (out,)))
     for name, (t, shape) in zip(names[2:], shapes):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape} for mode {mode!r}, got {tuple(t.shape)}")
@@ -173,8 +174,8 @@ def collect_step(env_kind: str, mode: str, states_t, seed: int, consts, params_v
     draws; ``consts`` ``[warm_gate, explore_noise, lo (A), hi (A)]``
     float32 on the same device (warm_gate > 0.5 takes the uniform draws);
     ``params_vec`` the env's live Params packed by the kind's ``pack``
-    (default Params when None); the actor's weights ``w1 (D, H), b1 (H,),
-    w2 (H, H), b2 (H,), w3 (H, OUT), b3 (OUT,)`` with OUT = 2A for the
+    (default Params when None); the actor's weights ``w1 (D, H1), b1 (H1,),
+    w2 (H1, H2), b2 (H2,), w3 (H2, OUT), b3 (OUT,)`` with OUT = 2A for the
     SAC modes (mean, log_std) and A for the TD3 modes
     (:func:`actor_kernel_args`).  Returns ``(new states (D, B), block
     (2D + A + 2, B))``, float32.  ``counts``: None (every training path),
@@ -192,8 +193,8 @@ def collect_step(env_kind: str, mode: str, states_t, seed: int, consts, params_v
                                       counts=counts)
     if states_t.device.type != "cuda":
         raise ValueError(f"unsupported device {states_t.device}")
-    h = w1.shape[1]
-    reason = width_refusal((h, h))
+    hidden = (w1.shape[1], w2.shape[1])
+    reason = width_refusal(hidden)
     if reason is not None:
         raise ValueError(reason)
     from .._build import check, load_library
@@ -208,7 +209,8 @@ def collect_step(env_kind: str, mode: str, states_t, seed: int, consts, params_v
     with torch.cuda.device(states_t.device):
         rc = lib.offpolicy_collect_launch(
             kind.kind_id, MODES[mode], ctypes.addressof(host_params), params.shape[0],
-            states_t.data_ptr(), batch, h, *(t.data_ptr() for t in weights), consts.data_ptr(),
+            states_t.data_ptr(), batch, *hidden, *(t.data_ptr() for t in weights),
+            consts.data_ptr(),
             int(seed), new.data_ptr(), block.data_ptr(),
             None if counts is None else counts.data_ptr(), torch.cuda.current_stream().cuda_stream)
     check(rc, "offpolicy_collect_launch")

@@ -75,6 +75,37 @@ def _gather_columns(perm: torch.Tensor, tile: int) -> torch.Tensor:
     return (perm.to(torch.int64)[:, None] * tile + offs).reshape(-1)
 
 
+def value_head(h, w, b):
+    """The value head ``sum_j h[j] w[j] + b`` of K3/K4's body, rounded as
+    it rounds it: each product and each sum in float32 apart, in j order
+    from 0, then the bias (a one-column matmul is no FMA chain in cuBLAS,
+    so the kernel and its twin both take this order).  ``h`` ``(H, n)``,
+    ``w`` ``(H,)``, ``b`` 0-d."""
+    value = torch.zeros_like(h[0])
+    for j in range(h.shape[0]):
+        value = value + h[j] * w[j]
+    return value + b
+
+
+def logp_ratio(diff, var, ls, old_logp):
+    """The policy term's ``(quad, logp, ratio)`` of K3/K4's body
+    (csrc/ppo_loss_body.cuh), rounded as it rounds them, one float32
+    operation at a time: ``quad = diff * diff / var`` by action, ``qsum``
+    and ``ls_sum`` added left to right from 0 over the action dim, ``logp =
+    ((-0.5 qsum) - ls_sum) - 0.5 A log(2 pi)`` and ``ratio = exp(logp -
+    old_logp)``.  ``diff``, ``var`` ``(A, n)`` (``var`` may broadcast),
+    ``ls`` ``(A,)``, ``old_logp`` ``(n,)``.  A ratio on the clip edge
+    (1 +- clip_eps) clips in both or in neither, when the inputs agree."""
+    quad = diff * diff / var
+    qsum = torch.zeros_like(old_logp)
+    ls_sum = torch.zeros((), dtype=ls.dtype, device=ls.device)
+    for a in range(quad.shape[0]):
+        qsum = qsum + quad[a]
+        ls_sum = ls_sum + ls[a]
+    logp = -0.5 * qsum - ls_sum - 0.5 * quad.shape[0] * _LOG_2PI
+    return quad, logp, torch.exp(logp - old_logp)
+
+
 def ppo_loss_grads_reference(data, adv_stats, perm, net, *, d: int, adim: int,
                              clip_eps: float, value_clip_eps: float, value_coef: float,
                              tile: int, kl_mode: bool = False, hidden: int = 64) -> torch.Tensor:
@@ -100,14 +131,12 @@ def ppo_loss_grads_reference(data, adv_stats, perm, net, *, d: int, adim: int,
             hs.append(h)
         acts[tower] = hs
     mean = p["pi_out"]["w"].T @ acts["pi"][-1] + p["pi_out"]["b"][:, None]
-    value = (p["vf_out"]["w"].T @ acts["vf"][-1] + p["vf_out"]["b"][:, None])[0]
+    value = value_head(acts["vf"][-1], p["vf_out"]["w"][:, 0], p["vf_out"]["b"][0])
 
     # ---- policy-gradient term (pallas_ppo._tile_loss_grads) ----------------
     var = torch.exp(2.0 * ls)[:, None]
     diff = act - mean
-    quad = diff * diff / var
-    logp = -0.5 * quad.sum(dim=0) - ls.sum() - 0.5 * adim * _LOG_2PI
-    ratio = torch.exp(logp - old_logp)
+    quad, logp, ratio = logp_ratio(diff, var, ls, old_logp)
     kl = old_logp - logp
     if kl_mode:
         beta = adv_stats[2]

@@ -587,13 +587,12 @@ def update_step(env: EnvDef, cfg: SacConfig, nets: Nets, buffer, filled, ready, 
 
 def collect_refusal(cfg, env: EnvDef, device: torch.device):
     """Why K7 cannot collect for this config and env on ``device`` (None =
-    it can): its twin takes two equal hidden layers of any width; the
-    kernel, on a CUDA device, the widths it is built for; and the env
-    must be a kind of the kernel's table with the registry's functions and
-    Params type."""
+    it can): its twin takes two hidden layers of any widths; the kernel,
+    on a CUDA device, each from 1 to 256 wide; and the env must be a kind
+    of the kernel's table with the registry's functions and Params type."""
     hidden = tuple(cfg.hidden)
-    if len(hidden) != 2 or hidden[0] != hidden[1]:
-        return f"hidden {hidden} is not two equal layers"
+    if len(hidden) != 2:
+        return f"hidden {hidden} is not two layers"
     if device.type == "cuda":
         reason = collect_ops.width_refusal(hidden)
         if reason is not None:

@@ -1,7 +1,8 @@
-"""The SASS of the closed-loop kernels K1, K5, K10 and K8/K9 and of the fused
-PPO rollout K2/K6: each loop of each kernel with its static instruction
-count by pipe, and the substep loop (K1, K8/K9: the horizon loop, with its
-reset block counted apart; K2/K6: the horizon loop split into its blocks).
+"""The SASS of the closed-loop kernels K1, K5, K10 and K8/K9, of the fused
+PPO rollout K2/K6 and of the off-policy collection K7: each loop of each
+kernel with its static instruction count by pipe, and the substep loop
+(K1, K8/K9: the horizon loop, with its reset block counted apart; K2/K6:
+the horizon loop split into its blocks; K7: its phases, :func:`k7_counts`).
 
 Run on a machine with the CUDA toolkit, from the root of a checkout::
 
@@ -25,7 +26,13 @@ horizon loop is the outermost loop that holds a MUFU instruction (its
 tanhf sit in the nested tower and hidden-unit loops), and
 :func:`env_step_count` weighs its loop levels into the instructions an
 env-step.  A static count: a block that a branch skips on most substeps (a
-slow path, the reset) is counted as if it ran.  ``chip_smoke.py`` calls
+slow path, the reset) is counted as if it ran.  K7's report
+(``offpolicy_collect_kernel<...>`` and its counting instances) names its
+W2 loop (FFMA to LDS.128 a pass), its copies through registers (the LDG
+in flight before the first STS) and asynchronous copies (LDGSTS), its
+first layer's loop (LDS an FFMA) and phase 4 after the last barrier (the
+action, env step, block and reset, its Philox spans apart).
+``chip_smoke.py`` calls
 :func:`report` on the library it built.  With ``--against``, it also lists which kernels of
 the two libraries have the same SASS, instruction for instruction (such a
 kernel gives the same bits on every input), and which differ.
@@ -61,7 +68,8 @@ OTHER = ("BRA", "BRX", "BSSY", "BSYNC", "CALL", "RET", "EXIT", "NOP", "BAR", "WA
          "BREAK", "KILL", "ELECT", "ERRBAR", "CCTL", "R2UR", "UMOV", "UIADD3", "ULOP3", "USHF",
          "UISETP", "USEL", "ULEA", "UIMAD", "UPRMT", "UFLO", "UPOPC", "USGXT", "UBMSK", "PLOP3U")
 KERNELS = ("hover_rollout_kernel", "reinmav_rollout_kernel", "reinmav_rollout_lanes_kernel",
-           "closed_loop_kernel", "quad3d_rollout_kernel", "ppo_rollout_kernel")
+           "closed_loop_kernel", "quad3d_rollout_kernel", "ppo_rollout_kernel",
+           "offpolicy_collect_kernel", "offpolicy_collect_count_kernel")
 #: Threads a CTA of each kernel family (for the occupancy query).
 CTA_THREADS = {"ppo_rollout_kernel": 128, "closed_loop_kernel": 256,
                "quad3d_rollout_kernel": 256}
@@ -163,6 +171,139 @@ def reset_span(insns, loop: dict) -> dict | None:
         counts[opcode_class(op)] += 1
     in_loop = sum(1 for a, _ in span if not any(s <= a <= e for s, e in loop["inner"]))
     return {"start": hits[0], "end": hits[-1], "n": len(span), **counts, "in_loop": in_loop}
+
+
+# --- K7: the collection step by phase ------------------------------------------------
+
+#: Opcode families that K7's report counts, by the opcode's first field(s).
+K7_OPS = ("FFMA", "LDS.128", "LDS", "STS", "LDG", "LDGSTS", "BAR", "SHFL")
+
+
+def _k7_op(op: str) -> str | None:
+    """The family of ``K7_OPS`` an opcode belongs to (None: another)."""
+    parts = op.split(".")
+    base = parts[0]
+    if base == "LDS":
+        return "LDS.128" if "128" in parts[1:] else "LDS"
+    return base if base in K7_OPS else None
+
+
+def _k7_hist(ops) -> dict:
+    out = dict.fromkeys(K7_OPS, 0)
+    out["n"] = 0
+    for op in ops:
+        out["n"] += 1
+        fam = _k7_op(op)
+        if fam is not None:
+            out[fam] += 1
+    return out
+
+
+def philox_clusters(insns, gap: int = 40) -> list[dict]:
+    """The Philox spans of ``insns``: the integer multiplies by a Philox
+    constant, grouped where fewer than ``gap`` instructions part two of
+    them; each span from its first to its last multiply, with its
+    instruction count and its multiplies (20 for one philox4x32_10 block)."""
+    hits = [i for i, (_, op, args) in enumerate(insns) if op.startswith("IMAD")
+            and any(k in args.lower() for k in PHILOX_IMMEDIATES)]
+    spans = []
+    for i in hits:
+        if spans and i - spans[-1][1] < gap:
+            spans[-1][1] = i
+            spans[-1][2] += 1
+        else:
+            spans.append([i, i, 1])
+    return [{"start": insns[a][0], "end": insns[b][0], "n": b - a + 1, "multiplies": m}
+            for a, b, m in spans]
+
+
+def k7_counts(insns) -> dict:
+    """K7 (``offpolicy_collect_kernel<...>``) by phase, static counts.
+
+    ``mlp``: the W2 loop, of the innermost loops that hold FFMA (no loop
+    nested in them holds one) and LDS.128 the one with the most FFMA, a
+    pass of it without its nested loops, by ``K7_OPS`` family, with
+    ``ffma_per_lds128``; ``copy``: each loop without FFMA that holds both
+    LDG and STS (a copy through registers), with ``ldg_before_sts``, the
+    loads issued before the loop's first STS (the most in flight at once),
+    and ``in_w2`` whether a loop around the W2 loop holds it too (the W2
+    chunk copy); ``ldgsts``: the asynchronous copies (``cp.async``) in the
+    whole kernel; ``phase2``: of the other innermost FFMA loops, the one
+    with the most FFMA (the first layer), with ``lds_per_ffma``;
+    ``phase4``: the instructions after the last barrier (the action, the
+    env step, the block, the reset), by class, with the Philox spans in it
+    (:func:`philox_clusters`) and ``without_philox``, its count less
+    theirs."""
+    rows = loops(insns)
+
+    def flat(r):
+        return [(a, op) for a, op, _ in insns if r["start"] <= a <= r["end"]
+                and not any(s <= a <= e for s, e in r["inner"])]
+
+    hist = {(r["start"], r["end"]): _k7_hist(op for _, op in flat(r)) for r in rows}
+    innermost = [r for r in rows if hist[(r["start"], r["end"])]["FFMA"] and
+                 not any(hist[se]["FFMA"] for se in r["inner"])]
+    w2 = [r for r in innermost if hist[(r["start"], r["end"])]["LDS.128"]]
+    mlp = max(w2, key=lambda r: hist[(r["start"], r["end"])]["FFMA"], default=None)
+    out = {"mlp": None, "copy": [], "phase2": None, "phase4": None,
+           "ldgsts": sum(1 for _, op, _ in insns if op.startswith("LDGSTS"))}
+    around = [] if mlp is None else [r for r in rows if (mlp["start"], mlp["end"]) in r["inner"]]
+    if mlp is not None:
+        h = hist[(mlp["start"], mlp["end"])]
+        out["mlp"] = {"start": mlp["start"], "end": mlp["end"], **h,
+                      "ffma_per_lds128": h["FFMA"] / h["LDS.128"]}
+    for r in rows:
+        h = hist[(r["start"], r["end"])]
+        if h["FFMA"] == 0 and h["LDG"] and h["STS"]:
+            ops = [op for _, op in flat(r)]
+            first_sts = next(i for i, op in enumerate(ops) if _k7_op(op) == "STS")
+            out["copy"].append({
+                "start": r["start"], "end": r["end"], **h,
+                "ldg_before_sts": sum(1 for op in ops[:first_sts] if _k7_op(op) == "LDG"),
+                "in_w2": any((r["start"], r["end"]) in q["inner"] for q in around)})
+    rest = [r for r in innermost if r is not mlp]
+    p2 = max(rest, key=lambda r: hist[(r["start"], r["end"])]["FFMA"], default=None)
+    if p2 is not None:
+        h = hist[(p2["start"], p2["end"])]
+        out["phase2"] = {"start": p2["start"], "end": p2["end"], **h,
+                         "lds_per_ffma": (h["LDS"] + h["LDS.128"]) / h["FFMA"]}
+    bars = [i for i, (_, op, _) in enumerate(insns) if op.startswith("BAR")]
+    if bars:
+        tail = insns[bars[-1] + 1:]
+        counts = {"n": len(tail), "fp32/int": 0, "mufu": 0, "other": 0}
+        for _, op, _ in tail:
+            counts[opcode_class(op)] += 1
+        spans = philox_clusters(tail)
+        out["phase4"] = {**counts, "philox": spans,
+                         "without_philox": len(tail) - sum(s["n"] for s in spans)}
+    return out
+
+
+def k7_line(k7: dict) -> str:
+    """One line of :func:`k7_counts`: the W2 loop a pass, the copies, the
+    first layer's loop and phase 4."""
+    fam = lambda h: ", ".join(f"{k} {h[k]}" for k in ("n", *K7_OPS) if h[k])  # noqa: E731
+    parts = []
+    m = k7["mlp"]
+    if m is not None:
+        parts.append(f"W2 loop {m['start']:#07x}-{m['end']:#07x} a pass: {fam(m)}, "
+                     f"{m['ffma_per_lds128']:g} FFMA an LDS.128")
+    for c in k7["copy"]:
+        parts.append(f"{'W2 chunk' if c['in_w2'] else 'staging'} copy loop "
+                     f"{c['start']:#07x}-{c['end']:#07x} a pass: {fam(c)}, "
+                     f"{c['ldg_before_sts']} LDG before its first STS")
+    parts.append(f"cp.async (LDGSTS) {k7['ldgsts']}")
+    p2 = k7["phase2"]
+    if p2 is not None:
+        parts.append(f"first-layer loop {p2['start']:#07x}-{p2['end']:#07x} a pass: {fam(p2)}, "
+                     f"{p2['lds_per_ffma']:.3g} LDS an FFMA")
+    p4 = k7["phase4"]
+    if p4 is not None:
+        parts.append(f"phase 4 (after the last barrier) {p4['n']} (fp32/int {p4['fp32/int']}, "
+                     f"mufu {p4['mufu']}, other {p4['other']}), Philox spans "
+                     f"{[(s['n'], s['multiplies']) for s in p4['philox']]} (instructions, "
+                     f"multiplies), {p4['without_philox']} without them")
+    return "; ".join(parts)
 
 
 # --- K2/K6's horizon loop by block, from a -lineinfo build ------------------------
@@ -533,11 +674,11 @@ def compare(lib: Path, other: Path) -> dict[str, list[str]]:
 
 def report(lib: Path, out_dir: Path | None = None) -> dict[str, dict]:
     """Disassemble ``lib`` with the ``cuobjdump`` beside nvcc; print and
-    return each K1/K5/K10/K8/K9/K2/K6 kernel's loops, its substep loop's
-    counts (K2/K6: its horizon loop's), that loop's reset block
-    (:func:`reset_span`, None where it has none) and its instructions,
-    keyed by the demangled name.  With ``out_dir``, each kernel's SASS is
-    written there."""
+    return each K1/K5/K10/K8/K9/K2/K6/K7 kernel's loops, its substep loop's
+    counts (K2/K6: its horizon loop's; K7: none, its phases under ``k7``,
+    :func:`k7_counts`), that loop's reset block (:func:`reset_span`, None
+    where it has none) and its instructions, keyed by the demangled name.
+    With ``out_dir``, each kernel's SASS is written there."""
     funcs = parse_functions(_disassemble(lib))
     names = list(funcs)
     result = {}
@@ -559,6 +700,12 @@ def report(lib: Path, out_dir: Path | None = None) -> dict[str, dict]:
             print(f"sass:   loop {r['start']:#07x}-{r['end']:#07x}: {r['n']} instructions "
                   f"(fp32/int {r['fp32/int']}, mufu {r['mufu']}, other {r['other']}; "
                   f"{len(r['inner'])} nested loops excluded; {' '.join(r['mufu_ops'])})")
+        if "offpolicy_collect" in short:
+            k7 = k7_counts(insns)
+            print(f"sass:   K7 {k7_line(k7)}")
+            result[short] = {"loops": rows, "substep": None, "reset": None, "insns": insns,
+                             "k7": k7}
+            continue
         sub = (horizon_loop if "ppo_rollout_kernel" in short else substep_loop)(rows)
         reset = reset_span(insns, sub) if sub is not None else None
         if sub is not None:

@@ -57,14 +57,16 @@ def _states(env, device, batch):
 
 
 def _actor(env, device, hidden, out):
-    layout = sac.MlpLayout((env.obs_dim, hidden, hidden, out))
+    """A perturbed actor of widths ``hidden`` (an int: two equal layers)."""
+    widths = (hidden, hidden) if isinstance(hidden, int) else tuple(hidden)
+    layout = sac.MlpLayout((env.obs_dim, *widths, out))
     flat = sac.init_mlp(layout, torch.Generator().manual_seed(1)).to(device)
     flat = flat + 0.05 * torch.randn(flat.shape, device=device,
                                      generator=torch.Generator(device=device).manual_seed(2))
     return op.actor_kernel_args(layout.layers(flat))
 
 
-@pytest.mark.parametrize("hidden", [32, 96, 256])
+@pytest.mark.parametrize("hidden", [32, 96, 256, (48, 80), (256, 7), (1, 129)])
 @pytest.mark.parametrize("env_id", ["quadrotor3d-v0", "MujocoQuadForce-v1"])
 def test_k7_matches_twin_in_every_mode(cuda, env_id, hidden):
     env = reinmav_tpu_torch.make(env_id)
@@ -92,10 +94,13 @@ def test_k7_refuses_widths_and_kinds_it_is_not_built_for(cuda):
     env = reinmav_tpu_torch.make("MujocoQuadForce-v1")
     states = _states(env, cuda, 256)
     consts = sac.collect_consts(env, torch.tensor(False, device=cuda), 0.0)
-    for hidden in (48, 288):
-        with pytest.raises(ValueError, match="multiples of 32"):
+    for hidden in (288, (64, 512), 512):
+        with pytest.raises(ValueError, match="from 1 to 256"):
             op.collect_step(env.name, "sac", states, 1, consts, pr.env_params_vec(env),
                             *_actor(env, cuda, hidden, 8))
+    cfg = sac.SacConfig(hidden=(512, 512))
+    assert "from 1 to 256" in sac.collect_refusal(cfg, env, cuda)
+    assert sac.choose_collect(cfg, env, cuda)[0] is False
     with pytest.raises(ValueError, match="states_t must be"):
         op.collect_step("quadrotor3d-v0", "sac", states, 1, consts, None,
                         *_actor(env, cuda, 64, 8))

@@ -47,14 +47,15 @@ KINDS = ["quadrotor3d-v0", "MujocoQuadForce-v1"]
 ROW_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-def _setup(env_id, head_kind="sac", key=0):
-    """The JAX env and a perturbed 2 x 64 actor (float32 layer lists), and
-    start states (B, D) float32 of which some end in one step."""
+def _setup(env_id, head_kind="sac", key=0, hidden=(H, H)):
+    """The JAX env and a perturbed actor of widths ``hidden`` (2 x 64;
+    float32 layer lists), and start states (B, D) float32 of which some
+    end in one step."""
     env = reinmav_tpu.make(env_id)
     d, a = env.obs_dim, env.action_dim
     head = 2 * a if head_kind == "sac" else a
     rng = np.random.default_rng(key)
-    actor = jsac._mlp_init(jax.random.PRNGKey(key), (d, H, H, head))
+    actor = jsac._mlp_init(jax.random.PRNGKey(key), (d, *hidden, head))
     actor = [{k: np.asarray(v, np.float32) + np.float32(0.3) * rng.standard_normal(v.shape)
               .astype(np.float32) for k, v in layer.items()} for layer in actor]
     if env_id == "quadrotor3d-v0":
@@ -116,7 +117,19 @@ def _assert_step_rows(block, ref, d, a, what):
 @pytest.mark.parametrize("env_id", KINDS)
 @pytest.mark.parametrize("mode", ["sac_det", "td3_det"])
 def test_det_modes_match_the_jax_kernel(env_id, mode):
-    env, actor, states = _setup(env_id, mode[:3])
+    _assert_det_leg(env_id, mode, *_setup(env_id, mode[:3]))
+
+
+def test_unequal_widths_match_the_jax_kernel():
+    """Hidden (48, 80), widths the kernel takes since it takes each layer
+    from 1 to 256, in the sac_det leg."""
+    env_id = "MujocoQuadForce-v1"
+    env, actor, states = _setup(env_id, "sac", key=5, hidden=(48, 80))
+    assert [layer["w"].shape for layer in actor] == [(13, 48), (48, 80), (80, 8)]
+    _assert_det_leg(env_id, "sac_det", env, actor, states)
+
+
+def _assert_det_leg(env_id, mode, env, actor, states):
     d, a = env.obs_dim, env.action_dim
     new_j, block_j = _jax_kernel(env, actor, states, mode)
     new_t, block_t = _twin(env_id, actor, states, mode)
@@ -189,11 +202,14 @@ def test_dispatch_and_refusals():
         assert offpolicy.supported(env)
         assert sac.collect_refusal(cfg, env, cuda) is None
         assert sac.collect_refusal(cfg._replace(hidden=(64, 64)), env, cuda) is None
-    assert "multiples of 32" in sac.collect_refusal(cfg._replace(hidden=(48, 48)), hover, cuda)
-    assert "multiples of 32" in sac.collect_refusal(cfg._replace(hidden=(512, 512)), hover, cuda)
+    assert sac.collect_refusal(cfg._replace(hidden=(48, 48)), hover, cuda) is None
+    assert sac.collect_refusal(cfg._replace(hidden=(48, 80)), hover, cuda) is None
+    assert "from 1 to 256" in sac.collect_refusal(cfg._replace(hidden=(512, 512)), hover, cuda)
+    assert "from 1 to 256" in sac.collect_refusal(cfg._replace(hidden=(256, 257)), hover, cuda)
     assert sac.collect_refusal(cfg._replace(hidden=(48, 48)), hover, cpu) is None
-    assert "two equal layers" in sac.collect_refusal(cfg._replace(hidden=(64, 32)), hover, cpu)
-    assert "two equal layers" in sac.collect_refusal(cfg._replace(hidden=(64,) * 3), hover, cuda)
+    assert sac.collect_refusal(cfg._replace(hidden=(64, 32)), hover, cpu) is None
+    assert sac.collect_refusal(cfg._replace(hidden=(512, 512)), hover, cpu) is None
+    assert "is not two layers" in sac.collect_refusal(cfg._replace(hidden=(64,) * 3), hover, cuda)
     assert "no K7" in sac.collect_refusal(cfg, reinmav_tpu_torch.make("MujocoQuadForce-v0"), cuda)
     wrapped = dataclasses.replace(hover, step_fn=lambda s, a, p: hover.step_fn(s, a, p))
     assert "wrapped or replaced" in sac.collect_refusal(cfg, wrapped, cuda)

@@ -297,3 +297,88 @@ def test_env_step_count_weighs_the_loop_levels():
     (_, insns), = sass_report.parse_lineinfo(four).items()
     got = sass_report.env_step_count([(a, op, args) for a, op, args, _ in insns])
     assert got["units"] == 4 and got["per_env_step"] == 5 + 2 * 3 + 32 * 70
+
+
+K7_SASS = """
+\t\tFunction : _ZN12_GLOBAL__N_124offpolicy_collect_kernelIN7reinmav8HoverEnvELi0EEEvPKfxiNS_5ActorES4_jNT_6ParamsEPfS9_
+        /*0000*/                   LDGSTS.E [R1], desc[UR4][R2.64] ;
+.L_x_0:
+        /*0010*/                   LDG.E R2, desc[UR4][R4.64] ;
+        /*0020*/                   STS [R5], R2 ;
+        /*0030*/               @P0 BRA `(.L_x_0) ;
+        /*0040*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+.L_x_4:
+        /*0050*/                   LDS R20, [R21] ;
+        /*0060*/                   LDS R22, [R23] ;
+        /*0070*/                   FFMA R24, R20, R22, R24 ;
+        /*0080*/               @P4 BRA `(.L_x_4) ;
+.L_x_1:
+        /*0090*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+.L_x_2:
+        /*00a0*/                   LDG.E R6, desc[UR4][R8.64] ;
+        /*00b0*/                   LDG.E R7, desc[UR4][R8.64+0x80] ;
+        /*00c0*/                   STS [R9], R6 ;
+        /*00d0*/                   LDG.E R6, desc[UR4][R8.64+0x100] ;
+        /*00e0*/                   STS [R9+0x80], R7 ;
+        /*00f0*/               @P1 BRA `(.L_x_2) ;
+        /*0100*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+.L_x_3:
+        /*0110*/                   LDS.128 R12, [R10] ;
+        /*0120*/                   LDS.U.128 R16, [R11] ;
+        /*0130*/                   FFMA R30, R12, R16, R30 ;
+        /*0140*/                   FFMA R31, R13, R16, R31 ;
+        /*0150*/                   FFMA R32, R14, R16, R32 ;
+        /*0160*/                   FFMA R33, R15, R16, R33 ;
+        /*0170*/               @P2 BRA `(.L_x_3) ;
+        /*0180*/                   FFMA R40, R30, R41, R40 ;
+        /*0190*/                   SHFL.BFLY PT, R42, R40, 0x4, 0x1f ;
+        /*01a0*/               @P3 BRA `(.L_x_1) ;
+        /*01b0*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*01c0*/                   IMAD.WIDE.U32 R50, R51, -0x2daee0ad, RZ ;
+        /*01d0*/                   LOP3.LUT R52, R53, R54, R55, 0x96, !PT ;
+        /*01e0*/                   IMAD.HI.U32 R56, R57, 0xcd9e8d57, RZ ;
+        /*01f0*/                   MUFU.EX2 R58, R59 ;
+        /*0200*/                   STG.E desc[UR4][R60.64], R58 ;
+        /*0210*/                   EXIT ;
+"""
+
+
+def test_k7_phases_w2_loop_copies_and_phase4():
+    """K7's report: the W2 loop is the innermost FFMA loop with LDS.128
+    (both spellings), not the chunk loop around it, which holds FFMA and
+    shuffles of the fold; the chunk copy nested in that loop counts its
+    LDG before the first STS and is told apart from the staging copy; the
+    first layer is the other innermost FFMA loop; phase 4 is what follows
+    the last barrier, with its Philox span counted apart."""
+    (mangled, insns), = sass_report.parse_functions(K7_SASS).items()
+    short = sass_report.short_name(sass_report.demangle([mangled])[0])
+    assert any(k in short for k in sass_report.KERNELS)
+    k7 = sass_report.k7_counts(insns)
+    mlp = k7["mlp"]
+    assert (mlp["start"], mlp["end"], mlp["n"]) == (0x110, 0x170, 7)
+    assert (mlp["FFMA"], mlp["LDS.128"], mlp["LDS"], mlp["ffma_per_lds128"]) == (4, 2, 0, 2.0)
+    staging, chunk = k7["copy"]
+    assert (staging["start"], staging["ldg_before_sts"], staging["in_w2"]) == (0x10, 1, False)
+    assert (chunk["start"], chunk["end"], chunk["LDG"], chunk["STS"]) == (0xa0, 0xf0, 3, 2)
+    assert (chunk["ldg_before_sts"], chunk["in_w2"]) == (2, True)
+    assert k7["ldgsts"] == 1
+    p2 = k7["phase2"]
+    assert (p2["start"], p2["FFMA"], p2["LDS"], p2["lds_per_ffma"]) == (0x50, 1, 2, 2.0)
+    p4 = k7["phase4"]
+    assert (p4["n"], p4["fp32/int"], p4["mufu"], p4["other"]) == (6, 3, 1, 2)
+    assert p4["philox"] == [{"start": 0x1c0, "end": 0x1e0, "n": 3, "multiplies": 2}]
+    assert p4["without_philox"] == 3
+    line = sass_report.k7_line(k7)
+    assert "2 FFMA an LDS.128" in line and "W2 chunk copy loop" in line
+    assert "2 LDG before its first STS" in line and "cp.async (LDGSTS) 1" in line
+
+
+def test_philox_clusters_split_on_a_gap():
+    """Two Philox blocks far apart are two spans; multiplies closer than
+    the gap are one."""
+    mul = (0, "IMAD.HI.U32", "R1, R2, 0xd2511f53, RZ")
+    other = (0, "FADD", "R3, R4, R5")
+    seq = [mul, other, mul] + [other] * 50 + [mul]
+    insns = [(16 * i, op, args) for i, (_, op, args) in enumerate(seq)]
+    spans = sass_report.philox_clusters(insns)
+    assert [(s["n"], s["multiplies"]) for s in spans] == [(3, 2), (1, 1)]
