@@ -192,6 +192,35 @@ Phases, in order; any failure raises and exits non-zero:
    the twin on one step (its time at 500 steps is an estimate, scaled, in
    the text only); ptxas's registers and spills of K3, K4, K5, K10 and K11
    (phases 10, 13 and 21 print K4's at each (obs, action) pair).
+26. The GRU learner (rl/recurrent.py, eager, no kernel) at the CLI's
+   default shape (1024 envs x 128 steps, hidden 64): 2 warm-up and 5 timed
+   train_step calls on quadrotor2d-v0, 1 and 2 on quadrotor3d-v0, finite
+   metrics, no kernel launched, env-steps/s; one collection on the card
+   (float32, TF32 off) against the CPU's in float64 from one state with
+   the same action noise and reset states (envs apart at most 1%), and the
+   first minibatch's gradient from the CPU's trajectory (error norm over
+   norm at most 1e-3).
+27. The GRU learning run of tests/test_recurrent.py:86-109's config, 40
+   updates: the episode-return proxy's mean over the last 5 updates above
+   the first 5's.
+28. The GRU CLI in subprocesses: one update with a checkpoint, then play
+   with --html, and --gif where matplotlib is installed (where it is not,
+   --gif must exit before training, naming it).
+29. The geometric controller (quadrotor3d-v0, the demos' circle) and the
+   RPY PID (MujocoQuadForce-v1, control_rpy.py's loop), 4096 envs x 400
+   steps each on the card in float32 against the CPU in float64: positions
+   within 1 mm.
+30-31. GymAdapter flying quadrotor3d-v0 400 steps with control() (final
+   distance to the target under 0.5 m), VectorGymAdapter at 4096 envs x
+   200 steps of zero thrust (final_obs counted and masked), both on cuda;
+   where gymnasium is not installed, their step functions run the loops.
+32. chunked_throughput_rollout at 2,097,152 x 1000 on quadrotor3d-v0 with
+   a 3 ms budget: at least 4 chunks, K1 once a chunk, its wall against one
+   throughput_rollout call; on the eager backend at 4096 x 50 bitwise the
+   unchunked call.
+33. save_html (and save_gif where matplotlib is installed) of a card
+   rollout, one LiveViewer request on port 0, time_fn and trace on a K1
+   call, NanGuard.  The wall of phases 26-33 is printed.
 
 The second-to-last line is a JSON object describing each kernel of the
 paths (K1-K11): its launches on its main path, its error against its twin,
@@ -2905,6 +2934,493 @@ def k7_hash(torch, dev, gpu: str) -> None:
         torch.cuda.empty_cache()
 
 
+# Phases 26-33: the modules around the learners, which run no
+# kernel of their own (the GRU learner, the controllers, the gymnasium
+# adapters, the renderers and profiling) and chunked_throughput_rollout,
+# which launches K1 once a chunk.
+GRU_ENVS = {"quadrotor2d-v0": (WARMUP_UPDATES, TIMED_UPDATES), "quadrotor3d-v0": (1, 2)}
+B_GRU, T_GRU, H_GRU = 1024, 128, 64  # the CLI's defaults (--num_env, --rollout_len, --num_hidden)
+GRU_TRAJ_TOL = dict(rtol=1e-3, atol=1e-4)  # float32 on the card against float64 on the CPU
+GRU_GRAD_RTOL = 1e-3  # the minibatch gradient's error norm over its norm
+GRU_LEARN = dict(num_envs=128, rollout_len=32, hidden=32, embed=32, learning_rate=1e-3,
+                 entropy_coef=1e-3)  # tests/test_recurrent.py:86-109's configuration
+GRU_LEARN_UPDATES, GRU_LEARN_WINDOW = 40, 5
+B_CTRL, T_CTRL = 4096, 400
+CTRL_POS_TOL = 1e-3  # metres, the card's float32 flight against the CPU's float64
+B_VEC, T_VEC = 4096, 200
+CHUNK_BUDGET_S = 3e-3  # about a quarter of K1's 2,097,152 x 1000 call: at least 4 chunks
+
+
+def gru_states(torch, env, cfg, seed: int):
+    """The same GRU train state on the CPU in float64 and on the card in
+    float32."""
+    from reinmav_tpu_torch.rl import recurrent
+
+    cpu = recurrent.init_train_state(env, cfg, seed, device="cpu", dtype=torch.float64)
+    dev = torch.device("cuda", 0)
+    f32 = lambda t: t.to(dev, torch.float32)  # noqa: E731
+    card = cpu._replace(params=f32(cpu.params),
+                        opt_state=cpu.opt_state._replace(count=cpu.opt_state.count.to(dev),
+                                                         mu=f32(cpu.opt_state.mu),
+                                                         nu=f32(cpu.opt_state.nu)),
+                        env_states=f32(cpu.env_states), h=f32(cpu.h),
+                        prev_done=f32(cpu.prev_done))
+    return cpu, card
+
+
+def replay_env(env, resets):
+    """``env`` whose ``reset_fn`` returns the given states, one a call."""
+    import dataclasses
+
+    pending = iter(resets)
+
+    def reset_fn(params, generator, batch, device, dtype):
+        return next(pending).to(device=device, dtype=dtype)
+
+    return dataclasses.replace(env, reset_fn=reset_fn)
+
+
+def gru_phase(torch, dev, gpu: str) -> dict:
+    """26. The GRU learner's train_step on the card at the CLI's default
+    shape, on each env of GRU_ENVS with its (warm-up, timed) updates:
+    finite metrics, no kernel launched, env-steps/s.  Then one update's collection on the card (TF32
+    off) against the same on the CPU in float64, from one state with the
+    same action noise and reset states, and the first minibatch's gradient
+    on the card against the CPU's from the CPU's trajectory."""
+    import reinmav_tpu_torch
+    from reinmav_tpu_torch.rl import recurrent
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = recurrent.RecurrentPpoConfig(num_envs=B_GRU, rollout_len=T_GRU, hidden=H_GRU,
+                                       embed=H_GRU)
+    numbers = {}
+    for env_id, (warm, n_timed) in GRU_ENVS.items():
+        env = reinmav_tpu_torch.make(env_id)
+        state = recurrent.init_train_state(env, cfg, 0, device=dev)
+        counters = kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        walls, rows = [], []
+        for _ in range(warm + n_timed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = recurrent.train_step(env, cfg, state)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            rows.append({k: float(v) for k, v in metrics.items()})
+        require(all(math.isfinite(v) for row in rows for v in row.values()),
+                f"GRU {env_id}: finite metrics")
+        launched = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        require(not launched, f"GRU {env_id}: no kernel of the port runs, launched {launched}")
+        timed = walls[warm:]
+        wall = statistics.median(timed)
+        numbers[env_id] = wall
+        say(f"GRU train_step {env_id} B={B_GRU} T={T_GRU} H={H_GRU}: wall {wall * 1e3:.1f} ms "
+            f"(median of {n_timed}, {min(timed) * 1e3:.1f} to {max(timed) * 1e3:.1f}; warm-up "
+            f"{', '.join(f'{w * 1e3:.1f}' for w in walls[:warm])}), "
+            f"{B_GRU * T_GRU / wall:.4e} env-steps/s on {gpu}; no kernel launched; last update "
+            + ", ".join(f"{k} {v:.5g}" for k, v in rows[-1].items()))
+
+    env_id = next(iter(GRU_ENVS))
+    env = reinmav_tpu_torch.make(env_id)
+    cpu, card = gru_states(torch, env, cfg, 21)
+    gen = torch.Generator().manual_seed(22)
+    noise = torch.randn((T_GRU, env.action_dim, B_GRU), generator=gen, dtype=torch.float64)
+    resets = [env.vreset(gen, B_GRU, dtype=torch.float64) for _ in range(T_GRU)]
+    layout = recurrent.GruLayout.of(env, cfg)
+    out = {}
+    for name, state in (("cpu", cpu), ("card", card)):
+        tree = layout.unflatten(state.params)
+        (_, _, _), traj = recurrent.collect(replay_env(env, resets), cfg, tree, state,
+                                            torch.Generator(device=state.params.device), noise)
+        out[name] = traj
+    ref, got = out["cpu"], out["card"]
+    obs_ok = torch.isclose(got.obs.double().cpu(), ref.obs, **GRU_TRAJ_TOL).all(dim=(0, 1))
+    done_apart = int((got.done.double().cpu() != ref.done).any(dim=0).sum())
+    apart = int((~obs_ok).sum())
+    err = float((got.obs.double().cpu() - ref.obs)[:, :, obs_ok].abs().max())
+    lp_err = float((got.log_prob.double().cpu() - ref.log_prob)[:, obs_ok].abs().max())
+    require(apart <= 0.01 * B_GRU, f"GRU collection: {apart} of {B_GRU} envs apart")
+    say(f"GRU collection on the card (float32, TF32 off) vs the CPU (float64), {env_id} "
+        f"B={B_GRU} T={T_GRU}, same noise and resets: {apart} of {B_GRU} envs apart (limit 1%; "
+        f"rtol 1e-3 atol 1e-4 on every obs), max |obs err| {err:.3e}, max |logp err| "
+        f"{lp_err:.3e} on the others, {done_apart} envs with a done flag apart: ok")
+
+    with torch.no_grad():
+        _, _, _, last = recurrent.policy_step(layout.unflatten(cpu.params), cpu.h,
+                                              cpu.env_states.T[:env.obs_dim], cpu.prev_done)
+        adv, ret = recurrent.compute_gae(cfg, ref, last)
+    idx = torch.randperm(B_GRU, generator=gen)[:B_GRU // cfg.num_minibatches]
+    mb = tuple(x.index_select(-1, idx) for x in (ref.obs, ref.action, ref.log_prob, adv, ret,
+                                                 ref.done_prev))
+    h0 = (cpu.h * (1.0 - cpu.prev_done)[None, :]).index_select(-1, idx)
+    g_cpu, m_cpu = recurrent.minibatch_grads(layout, cpu.params, cfg, mb, h0)
+    g_card, m_card = recurrent.minibatch_grads(layout, card.params, cfg,
+                                               tuple(x.to(dev, torch.float32) for x in mb),
+                                               h0.to(dev, torch.float32))
+    g_card = g_card.double().cpu()
+    rel = float((g_card - g_cpu).norm() / g_cpu.norm())
+    require(rel <= GRU_GRAD_RTOL, f"GRU minibatch gradient: relative error {rel}")
+    say(f"GRU first-minibatch gradient ({B_GRU // cfg.num_minibatches} envs x {T_GRU} steps, "
+        f"{g_cpu.numel()} params) on the card vs the CPU in float64 from the CPU's trajectory: "
+        f"|err| / |g| {rel:.3e} (limit {GRU_GRAD_RTOL:g}), max |err| "
+        f"{float((g_card - g_cpu).abs().max()):.3e}, loss {float(m_card[0]):.6g} vs "
+        f"{float(m_cpu[0]):.6g}: ok")
+    return numbers
+
+
+def gru_learning_phase(torch, dev, gpu: str) -> None:
+    """27. tests/test_recurrent.py:86-109's learning run on the card: the
+    episode-return proxy (mean reward / done fraction) of the last
+    GRU_LEARN_WINDOW updates above that of the first."""
+    import reinmav_tpu_torch
+    from reinmav_tpu_torch.rl import recurrent
+
+    env = reinmav_tpu_torch.make("quadrotor2d-v0")
+    cfg = recurrent.RecurrentPpoConfig(**GRU_LEARN)
+    state = recurrent.init_train_state(env, cfg, 3, device=dev)
+    proxies = []
+    t0 = time.perf_counter()
+    for _ in range(GRU_LEARN_UPDATES):
+        state, met = recurrent.train_step(env, cfg, state)
+        proxies.append(float(met["mean_reward"]) / max(float(met["mean_episode_done_frac"]),
+                                                       1e-4))
+    wall = time.perf_counter() - t0
+    first = statistics.mean(proxies[:GRU_LEARN_WINDOW])
+    last = statistics.mean(proxies[-GRU_LEARN_WINDOW:])
+    require(math.isfinite(last) and last > first, f"GRU learning: {first} -> {last}")
+    say(f"GRU learning, quadrotor2d-v0 {GRU_LEARN}, {GRU_LEARN_UPDATES} updates in {wall:.1f} s on "
+        f"{gpu}: episode-return proxy, mean of the first {GRU_LEARN_WINDOW} {first:.4f} -> of the "
+        f"last {GRU_LEARN_WINDOW} {last:.4f} (single updates {proxies[0]:.4f} -> "
+        f"{proxies[-1]:.4f}): ok")
+
+
+def has_module(name: str) -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec(name) is not None
+
+
+def gru_cli_phase(gpu: str) -> None:
+    """28. The GRU CLI in subprocesses: train one update at the default
+    shape with a checkpoint, then play 200 steps with --html, and with
+    --gif where matplotlib is installed; where it is not, --gif must exit
+    before training, naming it."""
+    from reinmav_tpu_torch.rl import run
+
+    root = Path(__file__).resolve().parent
+    out = root / "chiprun_out"
+    ck = out / "smoke_gru_ckpt"
+    base = [sys.executable, "-m", "reinmav_tpu_torch.rl.run", "--network=gru",
+            "--env=quadrotor2d-v0"]
+    gif = has_module("matplotlib") and has_module("PIL")
+    play = [*base, f"--load_path={ck}", "--play", f"--play_steps={PLAY_STEPS}",
+            f"--html={out / 'smoke_gru_play.html'}"]
+    if gif:
+        play.append(f"--gif={out / 'smoke_gru_play.gif'}")
+    else:
+        try:
+            run.main(["--network=gru", "--play", f"--gif={out / 'smoke_gru_play.gif'}"])
+            raise RuntimeError("--gif without matplotlib did not exit")
+        except SystemExit as e:
+            refusal = str(e)
+        require("--gif needs matplotlib" in refusal, f"--gif refusal: {refusal}")
+        say(f"cli gru --gif: matplotlib is not installed on this machine; the CLI exits before "
+            f"training with: {refusal}")
+    runs = {"train": [*base, f"--num_timesteps={B_GRU * T_GRU}", "--log_interval=1",
+                      f"--save_path={ck}"], "play": play}
+    for name, cmd in runs.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=root)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the GRU CLI ({name}) exited {proc.returncode}:\n"
+                               f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+        require(bool(rows) and all(math.isfinite(v) for v in rows[-1].values()
+                                   if isinstance(v, float)), f"the GRU CLI ({name}) lines")
+        if name == "play":
+            require(rows[-1]["play_steps"] == PLAY_STEPS, "the GRU CLI's play line")
+            for key in ("html", "gif") if gif else ("html",):
+                require(Path(rows[-1][key]).stat().st_size > 1000, f"the GRU CLI's {key}")
+        say(f"cli gru {name}: exit 0 in {time.perf_counter() - t0:.1f} s on {gpu}; last line "
+            f"{json.dumps(rows[-1])}")
+
+
+def fly_controllers(torch, device, dtype, init_geo, init_pid):
+    """The two standalone controllers flown batched on ``device``:
+    geometric on quadrotor3d-v0 along the demos' circle, the RPY PID on
+    MujocoQuadForce-v1 (control_rpy.py's loop); the final states."""
+    import reinmav_tpu_torch
+    from reinmav_tpu_torch.controllers import geometric, rpy_pid
+
+    geo_env = reinmav_tpu_torch.make("quadrotor3d-v0")
+    s = init_geo.to(device, dtype)
+    gains = geometric.Gains()
+    for t in range(T_CTRL):
+        ref = geometric.circle_reference(t * 0.01, z=2.0, dtype=dtype, device=device)
+        a = geometric.control(gains, s[:, 0:3], s[:, 3:7], s[:, 7:10], ref)
+        s = geo_env.vstep(s, a).state
+    pid_env = reinmav_tpu_torch.make("MujocoQuadForce-v1")
+    p = pid_env.params
+    dt = p.dt * p.frame_skip
+    q = init_pid.to(device, dtype)
+    carry = rpy_pid.init_carry(dtype, device, (q.shape[0],))
+    for t in range(T_CTRL):
+        pos_d = torch.tensor([0.5 * math.cos(dt * t), 0.5 * math.sin(dt * t), 1.0], dtype=dtype,
+                             device=device)
+        yaw_d = math.remainder(dt * t, 2 * math.pi)
+        forces, carry = rpy_pid.control(rpy_pid.Gains(), carry, q[:, 0:3], q[:, 3:7], pos_d, yaw_d,
+                                        dt, p.mass, p.gravity)
+        q = pid_env.vstep(q, forces).state
+    return s, q
+
+
+def controllers_phase(torch, dev, gpu: str) -> None:
+    """29. geometric and rpy_pid flown batched on the card in float32
+    against the same flights on the CPU in float64."""
+    import reinmav_tpu_torch
+
+    gen = torch.Generator().manual_seed(29)
+    geo0 = reinmav_tpu_torch.make("quadrotor3d-v0").vreset(gen, B_CTRL, dtype=torch.float64) * 0.3
+    pid0 = reinmav_tpu_torch.make("MujocoQuadForce-v1").vreset(gen, B_CTRL, dtype=torch.float64)
+    pid0[:, 0:3] += torch.rand((B_CTRL, 3), generator=gen, dtype=torch.float64) * 0.2 - 0.1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    geo_card, pid_card = fly_controllers(torch, dev, torch.float32, geo0, pid0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    geo_cpu, pid_cpu = fly_controllers(torch, "cpu", torch.float64, geo0, pid0)
+    for name, card, cpu in (("geometric on quadrotor3d-v0", geo_card, geo_cpu),
+                            ("rpy_pid on MujocoQuadForce-v1", pid_card, pid_cpu)):
+        err = float((card[:, 0:3].double().cpu() - cpu[:, 0:3]).abs().max())
+        require(bool(torch.isfinite(card).all()) and err < CTRL_POS_TOL,
+                f"{name}: max |position err| {err}")
+        say(f"controllers: {name}, B={B_CTRL} T={T_CTRL}: card (float32) vs CPU (float64) max "
+            f"|position err| {err:.3e} m (limit {CTRL_POS_TOL:g}); mean final z "
+            f"{float(cpu[:, 2].mean()):.4f}: ok")
+    say(f"controllers: both flights {wall:.2f} s on {gpu} (eager)")
+
+
+def gym_phases(torch, dev, gpu: str) -> float:
+    """30-31. The gymnasium adapters on the card: GymAdapter flying
+    quadrotor3d-v0 400 steps with control(); VectorGymAdapter, B_VEC envs x
+    T_VEC steps of zero thrust, its final_obs counted.  Where gymnasium is
+    not installed, the adapters' own step functions (single_step,
+    batched_step: the whole of their work a step) run the same loops.
+    Returns the vector step's wall."""
+    import numpy as np
+
+    import reinmav_tpu_torch
+    from reinmav_tpu_torch.compat import gym_env, vector_env
+
+    gym = has_module("gymnasium")
+    if not gym:
+        say("gym: gymnasium is not installed on this machine; the adapters' step functions "
+            "(compat.gym_env.single_step, compat.vector_env.batched_step) run the loops")
+    env = reinmav_tpu_torch.make("quadrotor3d-v0")
+    if gym:
+        adapter = gym_env.make("quadrotor3d-v0")
+        require(adapter.device.type == "cuda", "GymAdapter device")
+        obs, _ = adapter.reset(seed=3)
+        control, step = adapter.control, lambda a: adapter.step(a)[:3]
+        reset = lambda: adapter.reset()[0]  # noqa: E731
+    else:
+        gen = torch.Generator(device=dev).manual_seed(3)
+        box = {"s": env.reset(gen)}
+        obs = box["s"][:10].cpu().numpy()
+        control = lambda: env.control(box["s"]).cpu().numpy()  # noqa: E731
+
+        def step(a):
+            box["s"], o, r, term, _ = gym_env.single_step(env, box["s"], a)
+            return o, r, term
+
+        def reset():
+            box["s"] = env.reset(gen)
+            return box["s"][:10].cpu().numpy()
+    resets = 0
+    t0 = time.perf_counter()
+    for _ in range(400):
+        obs, reward, term = step(control())
+        require(bool(np.isfinite(obs).all()), "GymAdapter: finite obs")
+        if term:
+            obs = reset()
+            resets += 1
+    wall = time.perf_counter() - t0
+    dist = float(np.linalg.norm(obs[:3] - np.array(REF)))
+    require(dist < 0.5 or resets > 0, f"GymAdapter: distance {dist} to {REF} after 400 steps")
+    say(f"{'GymAdapter' if gym else 'gym_env.single_step'} quadrotor3d-v0 on cuda: 400 steps of "
+        f"control() + step() in {wall:.2f} s ({wall / 400 * 1e3:.2f} ms a step on {gpu}), final z "
+        f"{float(obs[2]):.4f}, distance to {REF} {dist:.4f}, resets {resets}: ok")
+
+    zero = np.zeros((B_VEC, 4), np.float32)
+    if gym:
+        vec = vector_env.make_vec("quadrotor3d-v0", B_VEC)
+        vec.reset(seed=0)
+
+        def vstep():
+            obs, rew, term, trunc, infos = vec.step(zero)
+            return obs, rew, term | trunc, infos.get("_final_obs"), infos.get("final_obs")
+    else:
+        vgen = torch.Generator(device=dev).manual_seed(0)
+        vbox = {"s": env.vreset(vgen, B_VEC)}
+
+        def vstep():
+            vbox["s"], obs, final, rew, term, trunc, ended = vector_env.batched_step(
+                env, vbox["s"], zero, vgen)
+            return obs, rew, term | trunc, ended if ended.any() else None, final
+    vstep()  # warm-up
+    final, steps = 0, []
+    for _ in range(T_VEC):
+        t0 = time.perf_counter()
+        obs, rew, ended_flags, mask, final_obs = vstep()
+        steps.append(time.perf_counter() - t0)
+        if mask is not None:
+            require(bool(np.array_equal(mask, ended_flags)) and
+                    not np.isnan(final_obs[mask]).any(), "VectorGymAdapter: final_obs")
+            final += int(mask.sum())
+    require(obs.shape == (B_VEC, 10) and rew.dtype == np.float64 and final > 0
+            and bool(np.isfinite(obs).all()), "VectorGymAdapter outputs")
+    per_step = statistics.median(steps)
+    say(f"{'VectorGymAdapter' if gym else 'vector_env.batched_step'} quadrotor3d-v0 on cuda, "
+        f"B={B_VEC} x {T_VEC} steps of zero thrust: {final} final_obs delivered, wall "
+        f"{per_step * 1e3:.3f} ms a step (median; {min(steps) * 1e3:.3f} to "
+        f"{max(steps) * 1e3:.3f}), {B_VEC / per_step:.4e} env-steps/s on {gpu}: ok")
+    return per_step
+
+
+class _Lines(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def chunked_phase(torch, dev, gpu: str) -> dict:
+    """32. chunked_throughput_rollout at the main path's 2,097,152 x 1000
+    on quadrotor3d-v0 with a budget that forces at least 4 chunks: K1
+    launches once a chunk; its wall against one throughput_rollout call.
+    Then on the eager backend at 4096 x 50, bitwise the unchunked call."""
+    import reinmav_tpu_torch
+    from reinmav_tpu_torch.ops import rollout as ro
+
+    env = reinmav_tpu_torch.make("quadrotor3d-v0")
+    gen = torch.Generator(device=dev).manual_seed(32)
+    states = env.vreset(gen, B_MAIN)
+    handler = _Lines()
+    core_log = logging.getLogger("reinmav_tpu_torch.envs.core")
+    core_log.addHandler(handler)
+    try:
+        reinmav_tpu_torch.throughput_rollout(env, states, gen, 10)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f_one, r_one = reinmav_tpu_torch.throughput_rollout(env, states, gen, T_MAIN)
+        torch.cuda.synchronize()
+        one = time.perf_counter() - t0
+        ro.quad3d_rollout_autoreset.launches = 0
+        t0 = time.perf_counter()
+        f_ch, r_ch = reinmav_tpu_torch.chunked_throughput_rollout(
+            env, states, gen, T_MAIN, device_time_budget_s=CHUNK_BUDGET_S)
+        torch.cuda.synchronize()
+        chunked = time.perf_counter() - t0
+        launches = ro.quad3d_rollout_autoreset.launches
+    finally:
+        core_log.removeHandler(handler)
+    (summary,) = [line for line in handler.lines if " chunks of " in line]
+    n_chunks = int(summary.split("): ")[1].split(" chunks")[0])
+    require(n_chunks >= 4 and launches == n_chunks, f"chunked: {summary}, K1 launches {launches}")
+    require(bool(torch.isfinite(f_ch).all()) and bool(torch.isfinite(r_ch).all()),
+            "chunked: finite")
+    one_mean = float(r_one.double().mean())
+    rel = abs(float(r_ch.double().mean()) - one_mean) / abs(one_mean)
+    say(f"chunked_throughput_rollout quadrotor3d-v0 B={B_MAIN} T={T_MAIN}, budget "
+        f"{CHUNK_BUDGET_S * 1e3:g} ms: {summary.split('): ')[1]}, K1 launches {launches} (one a "
+        f"chunk), wall {chunked * 1e3:.2f} ms against {one * 1e3:.2f} ms for one throughput_rollout "
+        f"call on {gpu}; mean reward sum {float(r_ch.mean()):.4f} vs {float(r_one.mean()):.4f} "
+        f"(rel {rel:.2e}; the chunks are other Philox streams): ok")
+
+    small = env.vreset(gen, B_QUICK)
+    f_ref, r_ref = reinmav_tpu_torch.throughput_rollout(
+        env, small, torch.Generator(device=dev).manual_seed(5), 50, backend="scan")
+    f_e, r_e = reinmav_tpu_torch.chunked_throughput_rollout(
+        env, small, torch.Generator(device=dev).manual_seed(5), 50, backend="scan",
+        device_time_budget_s=1e-9, probe_steps=4)
+    require(torch.equal(f_e, f_ref) and torch.equal(r_e, r_ref), "chunked eager: not bitwise")
+    say(f"chunked_throughput_rollout eager backend on the card, B={B_QUICK} T=50 in chunks of 4, 4, "
+        f"then 1: bitwise the unchunked call: ok")
+    return {"chunked_ms": chunked * 1e3, "one_call_ms": one * 1e3, "chunks": n_chunks}
+
+
+def render_phase(torch, dev, gpu: str) -> None:
+    """33. save_html and save_gif of a rollout flown on the card, one
+    LiveViewer request, and time_fn and trace on a K1 call."""
+    import urllib.request
+
+    import reinmav_tpu_torch
+    from reinmav_tpu_torch.ops import rollout as ro
+    from reinmav_tpu_torch.render import LiveViewer, save_gif, save_html
+    from reinmav_tpu_torch.utils import profiling
+
+    out = Path(__file__).resolve().parent / "chiprun_out"
+    env = reinmav_tpu_torch.make("quadrotor3d-v0")
+    gen = torch.Generator(device=dev).manual_seed(33)
+    _, traj = reinmav_tpu_torch.control_rollout(env, env.vreset(gen, 64), gen, 200)
+    states = traj.state[:, 0]
+    html = save_html(env.name, states, str(out / "smoke_render.html"))
+    require(Path(html).stat().st_size > 1000, "the HTML file")
+    if has_module("matplotlib"):
+        gif = Path(save_gif(env.name, states, str(out / "smoke_render.gif"), every=8)).name
+        require((out / gif).stat().st_size > 1000, "the GIF file")
+    else:
+        try:
+            save_gif(env.name, states, str(out / "smoke_render.gif"), every=8)
+            raise RuntimeError("save_gif ran without matplotlib")
+        except ModuleNotFoundError as e:
+            require("matplotlib" in str(e), f"save_gif: {e}")
+        gif = "no GIF (matplotlib is not installed on this machine: save_gif raises)"
+    viewer = LiveViewer(env.name, port=0)
+    try:
+        for s in states[:20]:
+            viewer.push(s)
+        with urllib.request.urlopen(viewer.url + "frames.json?since=0", timeout=10) as r:
+            body = json.loads(r.read())
+        require(body["seq"] == 20 and len(body["frames"]) == 20, "LiveViewer frames")
+    finally:
+        viewer.close()
+    big_t = env.vreset(gen, B_MAIN).T.contiguous()
+    seconds, _ = profiling.time_fn(ro.quad3d_rollout_autoreset, big_t, 7, 100, warmup=1, iters=5)
+    with profiling.trace(str(out / "smoke_trace")) as prof:
+        ro.quad3d_rollout_autoreset(big_t, 7, 100)
+        torch.cuda.synchronize()
+    device_us = max((getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+                     for e in prof.key_averages()), default=0.0)
+    traces = [p.name for p in (out / "smoke_trace").iterdir() if p.name.endswith(".json")]
+    require(seconds > 0 and bool(traces), "profiling")
+    profiling.NanGuard.check(traj, "control_rollout")
+    say(f"render: {Path(html).name} and {gif} of a card rollout, LiveViewer "
+        f"{viewer.url} answered one frames request (20 frames); profiling: time_fn K1 B={B_MAIN} "
+        f"T=100 {seconds * 1e3:.3f} ms (median of 5, CUDA events), trace {traces[0]}, the most "
+        f"device time of an event in it {device_us / 1e3:.3f} ms "
+        f"({'CUPTI' if device_us else 'not measured'}) on {gpu}: ok")
+
+
+def modules_phases(torch, dev, gpu: str) -> None:
+    """Phases 26-33 and their wall."""
+    t0 = time.perf_counter()
+    gru = gru_phase(torch, dev, gpu)
+    gru_learning_phase(torch, dev, gpu)
+    gru_cli_phase(gpu)
+    controllers_phase(torch, dev, gpu)
+    vec_step = gym_phases(torch, dev, gpu)
+    chunked = chunked_phase(torch, dev, gpu)
+    render_phase(torch, dev, gpu)
+    say(f"phases 26-33 (GRU, controllers, gym adapters, chunking, renderers): "
+        f"{time.perf_counter() - t0:.1f} s on {gpu}; " + json.dumps(
+            {"gru_train_step_ms": {k: v * 1e3 for k, v in gru.items()},
+             "vector_step_ms": vec_step * 1e3, **chunked}))
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3096,6 +3612,8 @@ def main(argv=None) -> int:
             say(line)
     kernels += [contact_phase(torch, dev, gpu, name)
                 for name in ("MujocoQuadForce-v0", "MujocoQuadQuat-v0")]
+    # 26-33. The modules around the learners, and chunking.
+    modules_phases(torch, dev, gpu)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

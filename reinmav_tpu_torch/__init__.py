@@ -12,10 +12,11 @@ Quick start::
     gen = torch.Generator(device="cuda").manual_seed(0)
     states = env.vreset(gen, 4096)
     final, traj = reinmav_tpu_torch.control_rollout(env, states, gen, horizon=400)
+    final, rew = reinmav_tpu_torch.chunked_throughput_rollout(env, states, gen, horizon=100_000)
 """
 
-from .envs.core import (EnvDef, StepOut, control_rollout, controller_policy, rollout,
-                        throughput_rollout)
+from .envs.core import (EnvDef, StepOut, chunked_throughput_rollout, control_rollout,
+                        controller_policy, rollout, throughput_rollout)
 from .envs.registry import make, register, registered_ids
 
 __version__ = "0.1.0"
@@ -30,5 +31,6 @@ __all__ = [
     "control_rollout",
     "controller_policy",
     "throughput_rollout",
+    "chunked_throughput_rollout",
     "__version__",
 ]

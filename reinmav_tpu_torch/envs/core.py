@@ -24,12 +24,15 @@ zero-action rollout (K5, :mod:`reinmav_tpu_torch.ops.hover_rollout`),
 reinmav-v0's simulation (K10, :mod:`reinmav_tpu_torch.ops.reinmav_rollout`)
 or the contact envs' zero-action rollout (K11,
 :mod:`reinmav_tpu_torch.ops.contact_rollout`).
+:func:`chunked_throughput_rollout` splits a long horizon into calls of
+:func:`throughput_rollout` sized to a time budget.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import time
 from collections.abc import Mapping
 from typing import Any, Callable, NamedTuple, Optional
 
@@ -363,19 +366,21 @@ def throughput_rollout(env: EnvDef, init_states, generator, horizon: int,
         final_t, reward_sum = rollout_ops.quad3d_rollout_autoreset(
             states_t, seed, horizon, params_vec=rollout_ops.quad3d_params_vec(env.params))
         return final_t.T, reward_sum
-    if env.control_fn is None:
-        return _zero_action_rollout(env, init_states, generator, horizon)
-    final, traj = control_rollout(env, init_states, generator, horizon,
-                                  collect_trajectory=False)
-    return final, traj.reward.sum(dim=0)
+    final, rewards = _eager_rollout(env, init_states, generator, horizon)
+    return final, rewards.sum(dim=0)
 
 
-def _zero_action_rollout(env: EnvDef, init_states, generator, horizon: int):
-    """The eager loop of :func:`throughput_rollout` for an env without a
-    controller: zero actions, fused auto-reset.  reinmav-v0 is a
-    continuous simulation whose done is always True (PARITY.md Q9):
-    auto-resetting it would re-init every step, so it steps plainly, as
-    the JAX package's loop and K10 do."""
+def _eager_rollout(env: EnvDef, init_states, generator, horizon: int):
+    """The eager loop of :func:`throughput_rollout`: ``(final states, the
+    (T, B) rewards)``.  An env with a controller is flown by it with fused
+    auto-reset; one without is stepped with zero actions, with fused
+    auto-reset, except reinmav-v0: a continuous simulation whose done is
+    always True (PARITY.md Q9), which auto-resetting would re-init every
+    step, so it steps plainly, as the JAX package's loop and K10 do."""
+    if env.control_fn is not None:
+        final, traj = control_rollout(env, init_states, generator, horizon,
+                                      collect_trajectory=False)
+        return final, traj.reward
 
     def zero_policy(states, generator):
         del generator
@@ -383,7 +388,91 @@ def _zero_action_rollout(env: EnvDef, init_states, generator, horizon: int):
 
     final, traj = rollout(env, zero_policy, init_states, generator, horizon,
                           auto_reset=env.name != "reinmav-v0", collect_trajectory=False)
-    return final, traj.reward.sum(dim=0)
+    return final, traj.reward
+
+
+def chunked_throughput_rollout(env: EnvDef, init_states, generator, horizon: int,
+                               backend: str = "auto", device_time_budget_s: float = 30.0,
+                               probe_steps: int = 8):
+    """:func:`throughput_rollout` in several calls of at most about
+    ``device_time_budget_s`` each, carrying the states, the reward sums and
+    ``generator`` (its own continuation) from one to the next.  Returns
+    ``(final_states (B, D), per-env reward sums (B,))``.
+
+    A long horizon then never makes one launch of unbounded length: the
+    reference loops ``mj_step`` on the host, so any horizon works there
+    (``gym_reinmav/example/mujoco/control_rpy.py:58-79``).  Mechanics, as
+    the JAX package's: a ``probe_steps`` call (it absorbs a kernel's build
+    at first use), a second one timed, waiting for the device (the per-step
+    time), then chunks sized to the budget, quantised to powers of two,
+    each chunk's time refining the estimate.
+
+    The eager backend (``"scan"``, or ``"auto"`` where no kernel runs) is
+    bit for bit the unchunked call with the same generator: the loop's
+    draws continue across chunks, and the reward sums are taken once over
+    every step's rewards, as the unchunked loop takes them (which holds
+    ``(T, B)`` rewards, as that loop does).  On the kernel backend each
+    chunk is one launch of the env's kernel, and K1, K8 and K9 draw a
+    fresh seed for each from ``generator``: the chunks are distinct
+    streams, deterministic per seed.
+
+    It launches from the host, so it refuses to run during CUDA graph
+    capture (the JAX function refuses under ``jit``): call
+    :func:`throughput_rollout` there, with a horizon sized by the caller.
+    """
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise ValueError("chunked_throughput_rollout launches from the host and cannot run "
+                         "during CUDA graph capture: use throughput_rollout with a horizon "
+                         "sized by the caller")
+    horizon = int(horizon)
+    if horizon <= 0:
+        raise ValueError(f"horizon must be positive, got {horizon}")
+    if probe_steps <= 0:
+        raise ValueError(f"probe_steps must be positive, got {probe_steps}")
+    if backend not in ("auto", "kernel", "scan"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "auto":
+        reason = _kernel_refusal(env, init_states)
+        backend = "scan" if reason else "kernel"
+        log.info("chunked_throughput_rollout(%s, B=%d): %s", env.name, init_states.shape[0],
+                 f"eager loop ({reason})" if reason else "fused CUDA kernel")
+    cuda = init_states.device.type == "cuda"
+
+    def run(states, steps):
+        """One chunk and its wall time, the device waited for."""
+        if cuda:
+            torch.cuda.synchronize(init_states.device)
+        t0 = time.perf_counter()
+        if backend == "scan":
+            out = _eager_rollout(env, states, generator, steps)
+        else:
+            out = throughput_rollout(env, states, generator, steps, backend="kernel")
+        if cuda:
+            torch.cuda.synchronize(init_states.device)
+        return out, time.perf_counter() - t0
+
+    states, parts, lengths = init_states, [], []
+    remaining, per_step = horizon, None
+    while remaining > 0:
+        if len(lengths) < 2 or per_step is None or per_step <= 0:
+            steps = min(remaining, probe_steps)
+        else:
+            target = max(1, int(device_time_budget_s / per_step))
+            steps = min(remaining, 1 << (target.bit_length() - 1))
+        (states, part), seconds = run(states, steps)
+        parts.append(part)
+        lengths.append(steps)
+        remaining -= steps
+        if len(lengths) >= 2:  # the first call may include a kernel's build
+            per_step = seconds / steps
+    log.info("chunked_throughput_rollout(%s): %d chunks of %s steps", env.name, len(lengths),
+             lengths)
+    if backend == "scan":
+        return states, torch.cat(parts).sum(dim=0)
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return states, total
 
 
 def params_from_jax(params_type, p):

@@ -20,16 +20,26 @@ smoothing and no delay): every iteration is one batched env step, one K7
 launch on the card (:func:`reinmav_tpu_torch.rl.sac.train_iters` logs the
 path), and ``--grad_steps`` updates from the replay ring;
 ``--updates_per_jit`` iterations make one call between metric reads.
+``--network=gru`` (with ``--alg=ppo`` only) trains the GRU actor-critic
+of :mod:`reinmav_tpu_torch.rl.recurrent`, hidden and embedding widths
+``--num_hidden``: eager, no kernel, as the JAX package's.
 ``--device=cpu`` runs the same loops on the CPU, through the kernels'
-plain twins.  What is not ported yet exits with a message naming its
-ROADMAP.md item: ``--network=gru``, ``--shard_map``,
-``--compute_dtype=bfloat16``, and the renderers ``--gif``/``--html``/
-``--live``.  ``--no_mesh`` is accepted and changes nothing (one device).
+plain twins.
+
+``--play`` rolls one env out with the greedy policy (the PPO, off-policy
+or GRU one; the GRU hidden carried and masked on each episode's end);
+``--gif`` and ``--html`` write that rollout as a GIF or a self-contained
+HTML animation, ``--live`` serves it to a browser while it steps
+(``--live_port``, 0 for any free port; ``--live_hold`` seconds kept up
+after the end).  What is not ported yet exits with a message naming its
+ROADMAP.md item: ``--shard_map`` and ``--compute_dtype=bfloat16``.
+``--no_mesh`` is accepted and changes nothing (one device).
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import time
 
@@ -38,19 +48,15 @@ import torch
 from .. import make
 from ..utils import checkpoint as ckpt
 from ..utils.metrics import MetricsLogger, to_host
-from . import evaluate, networks, ppo, sac, td3
+from . import evaluate, networks, ppo, recurrent, sac, td3
 
 OFF_POLICY = ("sac", "td3", "ddpg")
 #: Flag values that are not ported yet -> the ROADMAP.md item that ports them.
 _NOT_PORTED = {
-    "network": ({"gru"}, "the GRU learner (ROADMAP.md queue 1 item 12)"),
     "compute_dtype": ({"bfloat16"}, "bf16 matmul inputs (ROADMAP.md queue 1 item 5)"),
 }
 _NOT_PORTED_FLAGS = {
     "shard_map": "the shard_map train step (ROADMAP.md queue 1 item 13)",
-    "gif": "the renderers (ROADMAP.md queue 1 item 7); they stay in reinmav_tpu",
-    "html": "the renderers (ROADMAP.md queue 1 item 7); they stay in reinmav_tpu",
-    "live": "the live viewer (ROADMAP.md queue 1 item 7); it stays in reinmav_tpu",
 }
 
 
@@ -65,7 +71,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "DDPG on the same ring; ddpg = td3 with one critic, policy_noise=0 and "
                         "policy_delay=1")
     p.add_argument("--network", default="mlp", choices=["mlp", "gru"],
-                   help="gru is not ported yet")
+                   help="policy network for --alg=ppo: the 2-layer MLP, or a GRU actor-critic "
+                        "(rl/recurrent.py; sequences train whole, minibatched over envs)")
     # Off-policy flags (the on-policy algs ignore them).
     p.add_argument("--buffer_capacity", type=int, default=1 << 20)
     p.add_argument("--batch_size", type=int, default=2048)
@@ -116,9 +123,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval_horizon", type=int, default=1000)
     p.add_argument("--play", action="store_true")
     p.add_argument("--play_steps", type=int, default=1000)
-    p.add_argument("--live", action="store_true", help="not ported yet")
-    p.add_argument("--gif", default=None, help="not ported yet")
-    p.add_argument("--html", default=None, help="not ported yet")
+    p.add_argument("--live", action="store_true",
+                   help="serve a live browser view of the --play rollout while it steps "
+                        "(prints the URL)")
+    p.add_argument("--live_port", type=int, default=0, help="port for --live (0 = any free port)")
+    p.add_argument("--live_hold", type=float, default=0.0,
+                   help="keep the --live server up this many seconds after the rollout ends")
+    p.add_argument("--gif", default=None, help="write the play rollout as a GIF")
+    p.add_argument("--html", default=None,
+                   help="write the play rollout as a self-contained HTML animation")
     p.add_argument("--no_mesh", action="store_true", help="accepted; one device, no mesh")
     p.add_argument("--shard_map", action="store_true", help="not ported yet")
     p.add_argument("--device", default="cuda",
@@ -135,6 +148,15 @@ def refuse_not_ported(args) -> None:
     for flag, what in _NOT_PORTED_FLAGS.items():
         if getattr(args, flag):
             raise SystemExit(f"--{flag} is not ported to PyTorch yet: {what}")
+
+
+def refuse_missing_renderer(args) -> None:
+    """``--gif`` draws its frames with matplotlib and writes them with PIL:
+    exit before any training when either is not installed."""
+    missing = [m for m in ("matplotlib", "PIL") if importlib.util.find_spec(m) is None]
+    if args.gif and missing:
+        raise SystemExit(f"--gif needs {' and '.join(missing)}, which is not installed "
+                         "(--html needs neither)")
 
 
 def make_config(args) -> ppo.PpoConfig:
@@ -270,29 +292,68 @@ def _log_eval(logger: MetricsLogger, step: int, stats: evaluate.EvalStats) -> No
 
 
 @torch.no_grad()
-def _greedy_rollout(env, args, device, policy):
+def _greedy_rollout(env, args, device, policy, observe=None):
     """The ``--play`` loop: one env stepped with ``policy(state (D,)) ->
-    action (A,)``, reset on each episode's end; prints one JSON line and
-    returns the ``(play_steps, obs_dim)`` observations."""
+    action (A,)``, reset on each episode's end (done or truncated);
+    ``observe(step_out)``, if given, sees each step.  With ``--live`` each
+    observation streams to the browser viewer as the loop runs.  Returns
+    ``(observations (play_steps, obs_dim) on the CPU, total reward,
+    episodes)``."""
 
     def reset(seed):
         return env.reset(torch.Generator(device=device).manual_seed(seed))
 
-    s = reset(args.seed + 1)
-    total_reward, episodes, obs = 0.0, 0, []
-    for t in range(args.play_steps):
-        out = env.step(s, policy(s))
-        total_reward += float(out.reward)
-        obs.append(out.obs)
-        truncated = out.truncated is not None and bool(out.truncated)
-        if bool(out.done) or truncated:
-            episodes += 1
-            s = reset(args.seed + 3 + t)
-        else:
-            s = out.state
+    viewer = None
+    if args.live:
+        from ..render import LiveViewer
+
+        viewer = LiveViewer(args.env, port=args.live_port)
+        print(f"# live view: {viewer.url}", flush=True)
+    try:
+        s = reset(args.seed + 1)
+        total_reward, episodes, obs = 0.0, 0, []
+        for t in range(args.play_steps):
+            out = env.step(s, policy(s))
+            if observe is not None:
+                observe(out)
+            total_reward += float(out.reward)
+            obs.append(out.obs)
+            if viewer is not None:
+                viewer.push(out.obs)
+            truncated = out.truncated is not None and bool(out.truncated)
+            if bool(out.done) or truncated:
+                episodes += 1
+                s = reset(args.seed + 3 + t)
+            else:
+                s = out.state
+        if viewer is not None:
+            viewer.finish()
+            if args.live_hold > 0:
+                print(f"# live view held for {args.live_hold}s: {viewer.url}", flush=True)
+                time.sleep(args.live_hold)
+    finally:
+        if viewer is not None:
+            viewer.close()
+    states = torch.stack(obs).cpu() if obs else torch.empty((0, env.obs_dim))
+    return states, total_reward, episodes
+
+
+def _emit_play_outputs(env, args, states, total_reward: float, episodes: int):
+    """Write ``--gif`` / ``--html`` of the play rollout, print its JSON
+    line, and return the observations."""
+    if args.gif:
+        from ..render import save_gif
+
+        save_gif(env.name, states, args.gif)
+    if args.html:
+        from ..render import save_html
+
+        save_html(env.name, states, args.html)
     print(json.dumps({"play_steps": args.play_steps, "episodes": episodes,
-                      "total_reward": round(total_reward, 3)}))
-    return torch.stack(obs).cpu() if obs else torch.empty((0, env.obs_dim))
+                      "total_reward": round(total_reward, 3),
+                      **({"gif": args.gif} if args.gif else {}),
+                      **({"html": args.html} if args.html else {})}))
+    return states
 
 
 def play(args, state: ppo.TrainState | None = None):
@@ -313,7 +374,7 @@ def play(args, state: ppo.TrainState | None = None):
         mean, _, _ = networks.apply_t(tree, norm)
         return mean[:, 0]
 
-    return _greedy_rollout(env, args, state.params.device, policy)
+    return _emit_play_outputs(env, args, *_greedy_rollout(env, args, state.params.device, policy))
 
 
 def play_offpolicy(args, state=None):
@@ -328,16 +389,103 @@ def play_offpolicy(args, state=None):
         state = alg.init_state(env, cfg, args.seed, device=args.device)
         if args.load_path:
             state = ckpt.restore(args.load_path, state)
-    return _greedy_rollout(env, args, state.actor.device,
-                           lambda s: alg.greedy_action(env, state.actor, s[:env.obs_dim],
-                                                       cfg.hidden))
+    rollout = _greedy_rollout(env, args, state.actor.device,
+                              lambda s: alg.greedy_action(env, state.actor, s[:env.obs_dim],
+                                                          cfg.hidden))
+    return _emit_play_outputs(env, args, *rollout)
+
+
+def recurrent_config(args) -> recurrent.RecurrentPpoConfig:
+    """``--network=gru``'s config: hidden = embed = ``--num_hidden``, the
+    rest from the PPO flags, as the JAX package's ``train_recurrent``."""
+    return recurrent.RecurrentPpoConfig(
+        num_envs=args.num_env, rollout_len=args.rollout_len, hidden=args.num_hidden,
+        embed=args.num_hidden, learning_rate=args.lr, gamma=args.gamma, lam=args.lam,
+        clip_eps=args.clip, entropy_coef=args.ent_coef)
+
+
+def train_recurrent(args) -> recurrent.RecurrentTrainState:
+    """The ``--network=gru`` loop: calls of ``train_many`` of
+    ``--updates_per_jit`` updates each, a checkpoint every
+    ``--save_interval`` calls and at the end."""
+    env = make(args.env)
+    cfg = recurrent_config(args)
+    k = max(1, args.updates_per_jit)
+    state = recurrent.init_train_state(env, cfg, args.seed, device=args.device)
+    if args.load_path:
+        state = ckpt.restore(args.load_path, state)
+    steps_per_update = cfg.num_envs * cfg.rollout_len
+    num_updates = max(1, int(args.num_timesteps) // steps_per_update)
+    logger = MetricsLogger(log_dir=args.log_dir, config=vars(args))
+    last_t, last_update, update = time.perf_counter(), 0, 0
+    while update < num_updates:
+        state, metrics = recurrent.train_many(env, cfg, state, k)
+        update += k
+        if (update // k) % args.log_interval == 0 or update >= num_updates:
+            host = to_host(metrics)  # waits for the device
+            now = time.perf_counter()
+            sps = steps_per_update * (update - last_update) / max(now - last_t, 1e-9)
+            last_t, last_update = now, update
+            logger.log(update, {"env_steps": steps_per_update * update,
+                                "steps_per_sec": round(sps), **host})
+        if args.save_path and (update // k) % args.save_interval == 0:
+            ckpt.save(args.save_path, state)
+    if args.save_path:
+        ckpt.save(args.save_path, state)
+    logger.close()
+    return state
+
+
+def recurrent_play_policy(env, cfg, state):
+    """``(policy, observe)`` for :func:`_greedy_rollout`: the GRU policy's
+    mean action with its hidden carried from call to call, and the mask
+    set after each episode's end (done or truncated), as the JAX package's
+    play loop sets it."""
+    tree = recurrent.GruLayout.of(env, cfg).unflatten(state.params)
+    device = state.params.device
+    carry = {"h": torch.zeros((cfg.hidden, 1), device=device),
+             "d": torch.zeros(1, device=device)}
+
+    def policy(s):
+        a, carry["h"] = recurrent.greedy_action(env, tree, carry["h"],
+                                                s[:env.obs_dim].to(torch.float32), carry["d"])
+        return a.to(s.dtype)
+
+    def observe(out):
+        ended = bool(out.done) or (out.truncated is not None and bool(out.truncated))
+        carry["d"] = torch.full((1,), float(ended), device=device)
+
+    return policy, observe
+
+
+def play_recurrent(args, state=None):
+    """``--play`` for ``--network=gru``: the mean action of the GRU policy,
+    its hidden carried through the loop and masked after each episode's
+    end (done or truncated), as the JAX package's play loop does (training
+    masks on done only)."""
+    env = make(args.env)
+    cfg = recurrent_config(args)
+    if state is None:
+        state = recurrent.init_train_state(env, cfg, args.seed, device=args.device)
+        if args.load_path:
+            state = ckpt.restore(args.load_path, state)
+    device = state.params.device
+    return _emit_play_outputs(env, args, *_greedy_rollout(env, args, device,
+                                                          *recurrent_play_policy(env, cfg, state)))
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     refuse_not_ported(args)
-    train_fn, play_fn = ((train_offpolicy, play_offpolicy) if args.alg in OFF_POLICY
-                         else (train, play))
+    refuse_missing_renderer(args)
+    if args.alg in OFF_POLICY:
+        train_fn, play_fn = train_offpolicy, play_offpolicy
+    elif args.network == "gru":
+        if args.alg != "ppo":
+            raise SystemExit("--network=gru supports --alg=ppo only")
+        train_fn, play_fn = train_recurrent, play_recurrent
+    else:
+        train_fn, play_fn = train, play
     state = None
     if not args.play or args.load_path is None:
         state = train_fn(args)

@@ -22,7 +22,7 @@ import reinmav_tpu
 import reinmav_tpu_torch
 from reinmav_tpu.rl import evaluate as jevaluate
 from reinmav_tpu_torch import run as run_alias
-from reinmav_tpu_torch.rl import evaluate, ppo, run
+from reinmav_tpu_torch.rl import evaluate, ppo, recurrent, run
 from reinmav_tpu_torch.utils import CheckpointManager, MetricsLogger
 from reinmav_tpu_torch.utils import checkpoint as ckpt
 
@@ -141,12 +141,136 @@ def test_checkpoint_manager_rotates_and_restores_the_latest(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    ("--network=gru", "item 12"), ("--shard_map", "item 13"),
-    ("--compute_dtype=bfloat16", "item 5"), ("--gif=out.gif", "item 7"),
-    ("--html=out.html", "item 7"), ("--live", "item 7")])
+    ("--shard_map", "item 13"), ("--compute_dtype=bfloat16", "item 5")])
 def test_cli_refuses_what_is_not_ported(flag, item):
     with pytest.raises(SystemExit, match=f"not ported to PyTorch yet: .*ROADMAP.md queue 1 {item}"):
         run.main([*SMALL, flag])
+
+
+def test_cli_flags_are_the_jax_clis_plus_device():
+    from reinmav_tpu.rl import run as jrun
+
+    def flags(parser):
+        return {a.dest: a.default for a in parser._actions if a.dest != "help"}
+
+    ours, theirs = flags(run.build_parser()), flags(jrun.build_parser())
+    assert set(ours) == set(theirs) | {"device"} and ours.pop("device") == "cuda"
+    assert ours == theirs
+
+
+def test_cli_gif_without_its_renderer_exits_before_training(monkeypatch):
+    import importlib.util
+
+    real = importlib.util.find_spec
+    monkeypatch.setattr(importlib.util, "find_spec",
+                        lambda name, *a: None if name == "matplotlib" else real(name, *a))
+    with pytest.raises(SystemExit, match="--gif needs matplotlib, which is not installed"):
+        run.main([*SMALL, "--play", "--gif=out.gif"])
+
+
+GRU = ["--device=cpu", "--network=gru", "--env=quadrotor2d-v0", "--num_env=32",
+       "--rollout_len=16", "--num_hidden=16"]
+
+
+def test_cli_gru_train_save_play_with_html_and_gif(tmp_path, capsys):
+    """tests/test_recurrent.py's round trip on the port: train a few
+    updates, checkpoint, then --play restores it and writes the HTML
+    animation and the GIF of the greedy rollout."""
+    save, html, gif = (str(tmp_path / n) for n in ("gru_ckpt", "gru_play.html", "gru_play.gif"))
+    run.main([*GRU, "--num_timesteps=1024", "--log_interval=1", "--updates_per_jit=2",
+              f"--save_path={save}"])
+    train = [row for row in _lines(capsys.readouterr().out) if "env_steps" in row]
+    assert [row["env_steps"] for row in train] == [1024.0]
+    assert all(math.isfinite(v) for v in train[0].values())
+    assert {"loss", "pg_loss", "v_loss", "ratio_dev", "mean_reward"} <= set(train[0])
+    run.main([*GRU, "--play", "--play_steps=60", f"--load_path={save}", f"--html={html}",
+              f"--gif={gif}"])
+    (played,) = _lines(capsys.readouterr().out)
+    assert played["play_steps"] == 60 and played["html"] == html and played["gif"] == gif
+    assert math.isfinite(played["total_reward"])
+    with open(html) as f:
+        assert len(f.read()) > 1000
+    with open(gif, "rb") as f:
+        assert f.read(3) == b"GIF"
+    with pytest.raises(SystemExit, match="--network=gru supports --alg=ppo only"):
+        run.main([*GRU, "--alg=a2c"])
+
+
+def test_cli_gru_resume_is_bitwise(tmp_path, capsys):
+    """4 updates straight against 2, a checkpoint, and 2 more resumed from
+    it through --load_path: every leaf of the saved states equal."""
+    steps = 32 * 16
+    run.main([*GRU, f"--num_timesteps={4 * steps}", f"--save_path={tmp_path / 'straight'}"])
+    run.main([*GRU, f"--num_timesteps={2 * steps}", f"--save_path={tmp_path / 'half'}"])
+    run.main([*GRU, f"--num_timesteps={2 * steps}", f"--load_path={tmp_path / 'half'}",
+              f"--save_path={tmp_path / 'resumed'}"])
+    capsys.readouterr()
+    env = reinmav_tpu_torch.make("quadrotor2d-v0")
+    target = recurrent.init_train_state(env, run.recurrent_config(run.build_parser().parse_args(
+        GRU)), 99, device="cpu")
+    ref = ckpt.restore(str(tmp_path / "straight"), target)
+    got = ckpt.restore(str(tmp_path / "resumed"), target)
+    assert ref.update_step == got.update_step == 4
+    for a, b in zip(_state_leaves(ref), _state_leaves(got)):
+        if isinstance(a, torch.Tensor):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        else:
+            assert a == b
+
+
+def test_gru_play_threads_and_masks_the_hidden():
+    """The play loop's hidden carries between steps and is masked after an
+    episode's end: held against policy_step run by hand, on an env cut to
+    3-step episodes by a time limit (a truncation masks in play)."""
+    from reinmav_tpu_torch.envs import wrappers
+
+    args = run.build_parser().parse_args([*GRU, "--play", "--play_steps=7"])
+    env = wrappers.time_limit(reinmav_tpu_torch.make("quadrotor2d-v0"), 3)
+    cfg = run.recurrent_config(args)
+    state = recurrent.init_train_state(env, cfg, 0, device="cpu")
+    state = state._replace(params=state.params + 0.05)  # a policy head that acts
+    played, total, episodes = run._greedy_rollout(env, args, "cpu",
+                                                  *run.recurrent_play_policy(env, cfg, state))
+    assert played.shape == (7, env.obs_dim) and episodes == 2
+
+    tree = recurrent.GruLayout.of(env, cfg).unflatten(state.params)
+    h, d, ref = torch.zeros((16, 1)), torch.zeros(1), []
+    s = env.reset(torch.Generator().manual_seed(args.seed + 1))
+    for t in range(7):
+        h, mean, _, _ = recurrent.policy_step(tree, h, s[:env.obs_dim, None], d)
+        out = env.step(s, mean[:, 0])
+        ref.append(out.obs)
+        ended = bool(out.done) or bool(out.truncated)
+        d = torch.full((1,), float(ended))
+        s = env.reset(torch.Generator().manual_seed(args.seed + 3 + t)) if ended else out.state
+    assert torch.equal(played, torch.stack(ref))
+    # Without the mask (no observe), the rollout differs after the first
+    # episode's end.
+    policy, _ = run.recurrent_play_policy(env, cfg, state)
+    played_no_mask, _, _ = run._greedy_rollout(env, args, "cpu", policy)
+    assert torch.equal(played_no_mask[:3], played[:3]) and not torch.equal(played_no_mask, played)
+
+
+def test_cli_play_serves_the_live_view(tmp_path, capsys):
+    """--play --live --live_port=0 on the PPO, the GRU and the SAC paths:
+    the URL of the bound server is printed, the rollout runs, the server
+    is closed afterwards."""
+    import urllib.error
+    import urllib.request
+
+    sac = ["--alg=sac", "--buffer_capacity=1024", "--batch_size=64", "--warmup_steps=128"]
+    for flags in (["--alg=ppo"], GRU[1:], sac):
+        # One short training call, then the play of its state.
+        run.main([*SMALL, *flags, "--num_timesteps=1024", "--log_interval=100", "--play",
+                  "--play_steps=20", "--live", "--live_port=0"])
+        out = capsys.readouterr().out
+        (url,) = [line.split(": ", 1)[1] for line in out.splitlines()
+                  if line.startswith("# live view: ")]
+        assert url.startswith("http://127.0.0.1:") and url.endswith("/")
+        (played,) = [row for row in _lines(out) if "play_steps" in row]
+        assert played["play_steps"] == 20
+        with pytest.raises(urllib.error.URLError):
+            urllib.request.urlopen(url, timeout=5)
 
 
 def test_metrics_logger_writes_jsonl_and_csv(tmp_path, capsys):
