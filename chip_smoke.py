@@ -62,7 +62,11 @@ Phases, in order; any failure raises and exits non-zero:
    entries outside rtol 2e-4 / atol 1e-6 are counted), against the loop of
    16 K3 launches + ClipAdam (whose per-pass sums are K4's), pass 0's
    gradient bitwise equal to one K3 launch, a rerun bitwise equal; K4 and
-   its twin timed.
+   its twin timed.  Beside that gate, K4 resynchronised: each pass a
+   one-pass launch from the twin's state after the pass before, the
+   samples within 16 ulps of the ratio or value clip replaced (counted),
+   0 entries of the gradient, params and moments outside (phases 13 and
+   21 run it too).
 11. The default training path: PpoConfig(num_envs=32768, rollout_len=32)
    through rl.ppo.train_step, 2 warm-up and 5 timed updates.  K2 and K4
    must launch once per update and K3 never; each update's mean_reward
@@ -221,9 +225,31 @@ Phases, in order; any failure raises and exits non-zero:
 33. save_html (and save_gif where matplotlib is installed) of a card
    rollout, one LiveViewer request on port 0, time_fn and trace on a K1
    call, NanGuard.  The wall of phases 26-33 is printed.
+34-36. compute_dtype="bfloat16", for every kind of the fused PPO rollout
+   (quadrotor3d-v0, the hover task, quadrotor2d-v0, the slung-load envs):
+   K2/K6's bf16 instance against its bf16 twin at 32,768 x 32 (phase 7's
+   gate; the slung-load kinds resynchronised as phase 21), K3's on a
+   262,144-sample minibatch of that trajectory (phase 8's tolerances), K4's
+   one 4 x 4 update held to its twin resynchronised each pass (phase 10's
+   resynchronised gate), each timed in turns with its float32 instance on
+   the same inputs, with registers and spills and its bf16 bound (products
+   at 989 TFLOP/s); then the kind's bf16 training paths: the default
+   (K2/K6 + K4 once an update) and fused_update="off" (K3 16 times), 2
+   warm-up and 5 timed updates on quadrotor3d-v0 and 3 on the others, each
+   update's mean_reward within 10% of the float32 path's from the same
+   state, the params finite and float32.
+37. K7's bf16 instance on every kind against its bf16 twin in phase 15's
+   five mode legs at 65,536 envs, 2 x 256, timed in turns with the float32
+   instance; then the bf16 off-policy path of the kind: SAC on the hover
+   task at the bench config (20 iterations), 3 iterations of SAC or TD3 on
+   the others, K7 once an iteration.
+38. The CLI once with --compute_dtype=bfloat16 (3 updates at 32,768 x 32).
 
 The second-to-last line is a JSON object describing each kernel of the
-paths (K1-K11): its launches on its main path, its error against its twin,
+paths (K1-K11, and the bf16 instances of K2/K6, K3, K4 and K7, whose
+bound counts their products at the tensor cores' bf16 rate and whose
+``f32_ms`` is the float32 instance's time in the same turns): its
+launches on its main path, its error against its twin,
 its time and its twin's (each measured; where the twin ran at a smaller
 shape than the kernel, ``plain_at`` names that shape and
 ``ms_at_plain_shape`` is the kernel's time there), and its bound (the least
@@ -491,24 +517,27 @@ PPO_STRUCT = {"quadrotor3d-v0": "Quad3dEnv", "MujocoQuadForce-v1": "HoverEnv",
               "quadrotor3d-slungload-v0": "Slung3dEnv"}
 
 
-def ppo_instance(name: str) -> str:
+def ppo_instance(name: str, bf16: bool = False) -> str:
     """The demangled name of the K2/K6 instance env ``name``'s main path
-    launches: both normalisers on, no counts."""
+    launches: both normalisers on, no counts, float32 (or with ``bf16`` its
+    bf16 instance)."""
     struct = PPO_STRUCT[name]
-    found = [k for k in _sass_counts() if k.replace(" ", "") in (
-        f"ppo_rollout_kernel<reinmav::{struct},true,true>",
-        f"ppo_rollout_kernel<reinmav::{struct},true,true,false>")]
+    head = f"ppo_rollout_kernel<reinmav::{struct},true,true"
+    names = ((f"{head},false,true>",) if bf16 else
+             (f"{head}>", f"{head},false>", f"{head},false,false>"))
+    found = [k for k in _sass_counts() if k.replace(" ", "") in names]
     require(len(found) == 1, f"{name}: K2/K6 instances {found} in the SASS")
     return found[0]
 
 
-def ppo_sass(name: str) -> dict:
-    """The instructions an env-step of env ``name``'s K2/K6 instance issues
-    at most without slow paths, by class, and the horizon loop's static
-    count (sass_report.env_step_count on the library this run built)."""
+def ppo_sass(name: str, bf16: bool = False) -> dict:
+    """The instructions an env-step of env ``name``'s K2/K6 instance (its
+    bf16 instance with ``bf16``) issues at most without slow paths, by
+    class, and the horizon loop's static count (sass_report.env_step_count
+    on the library this run built)."""
     from reinmav_tpu_torch import sass_report
 
-    return sass_report.env_step_count(_sass_counts()[ppo_instance(name)]["insns"])
+    return sass_report.env_step_count(_sass_counts()[ppo_instance(name, bf16)]["insns"])
 
 
 def cta_issue_ms(instructions: int, batch: int, threads: int, steps: int, mhz: float) -> float:
@@ -593,25 +622,27 @@ def k4_setup(torch, dev, cfg, params, adv, tile: int, n_tiles: int, d: int, adim
     return perm_all, adv_stats, params, opt, kw
 
 
-def twin_ratio(torch, data, cols, net, d: int, adim: int):
+def twin_ratio(torch, data, cols, net, d: int, adim: int, bf16: bool = False):
     """The PPO ratio and value of the columns ``cols`` of ``data`` under
     the flat params ``net``, in the twin's float32 operations (K3's twin,
     ops/ppo_loss.py): each tower layer a matmul and tanh, the heads, then
-    logp and exp(logp - old logp)."""
+    logp and exp(logp - old logp); with ``bf16`` the products' operands
+    rounded to bf16, as the twin's bf16 mode rounds them."""
     from reinmav_tpu_torch.ops import ppo_loss as pl
     from reinmav_tpu_torch.rl import networks
 
+    r = networks.bf16_round if bf16 else (lambda t: t)  # noqa: E731
     p = networks.Layout(d, adim, (64, 64)).unflatten(net)
     mb = data[:, cols]
     acts = {}
     for tower in ("pi", "vf"):
         h = mb[:d]
         for layer in p[tower]:
-            h = torch.tanh(layer["w"].T @ h + layer["b"][:, None])
+            h = torch.tanh(r(layer["w"].T) @ r(h) + layer["b"][:, None])
         acts[tower] = h
-    mean = p["pi_out"]["w"].T @ acts["pi"] + p["pi_out"]["b"][:, None]
+    mean = r(p["pi_out"]["w"].T) @ r(acts["pi"]) + p["pi_out"]["b"][:, None]
     if hasattr(pl, "value_head"):  # the twin's own rounding order, where it has one
-        value = pl.value_head(acts["vf"], p["vf_out"]["w"][:, 0], p["vf_out"]["b"][0])
+        value = pl.value_head(r(acts["vf"]), r(p["vf_out"]["w"][:, 0]), p["vf_out"]["b"][0])
     else:
         value = (p["vf_out"]["w"].T @ acts["vf"] + p["vf_out"]["b"][:, None])[0]
     ls = p["log_std"]
@@ -834,6 +865,8 @@ def k4_phase(torch, dev, gpu: str, cfg, params, data, adv, tile: int, n_tiles: i
             all(torch.equal(a, b) for a, b in zip(k.opt_state, again.opt_state)) and
             all(torch.equal(k.metrics[x], again.metrics[x]) for x in k.metrics),
             "K4 bitwise determinism")
+    # Beside the gate above: every pass resynchronised to the twin's state.
+    resync = k4_resync(torch, data, adv_stats, perm_all, params, opt, kw, f"K4 obs {d} float32")
     say(f"K4 pass-0 gradient: bitwise equal to one K3 launch, max |err| {grad0_err:.3e} against "
         f"the twin's (rtol 2e-3 atol 2e-6); params and moments within tolerance of the twin; vs "
         f"the K3 loop max |err| {loop_err:.3e} (rtol 2e-4 atol 1e-6, moments atol 5e-8); metrics "
@@ -843,15 +876,15 @@ def k4_phase(torch, dev, gpu: str, cfg, params, data, adv, tile: int, n_tiles: i
     bound_ms, bound_by = bound(
         nbytes(data, perm_all, adv_stats, params, opt.mu, opt.nu, k.params, k.opt_state.mu,
                k.opt_state.nu, k.grad0) + 4 * pu.N_METRIC_SUMS, OPS_LOSS[d] * mb * n_passes)
-    registers = kernel_registers(f"ppo_update_kernel<{d}, {adim}, false>")
+    registers = k4_registers(d, adim)
     say(f"time K4 obs {d}, {e_} x {m_} passes of {mb}: {ms:.4f} ms (median of 20 launches, each "
         f"{min(kern0 + kern1):.4f} to {max(kern0 + kern1):.4f}), twin {plain_ms:.3f} ms (median of "
-        f"20), bound {bound_ms:.4f} ms by {bound_by}, ptxas ppo_update_kernel<{d}, {adim}, false> "
-        f"{registers}, on {gpu}")
+        f"20), bound {bound_ms:.4f} ms by {bound_by}, ptxas ppo_update_kernel<{d}, {adim}, false, "
+        f"false> {registers}, on {gpu}")
     return dict(max_abs_err=errs["params"][0], outside=errs["params"][1], ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, registers=registers,
                 at=f"{n_passes} passes of {mb} samples gathered in tiles of {tile} from {n}",
-                **({} if edge is None else {"clip_edge": edge}))
+                resync=resync, **({} if edge is None else {"clip_edge": edge}))
 
 
 def kernel_counters() -> dict:
@@ -880,10 +913,12 @@ def ppo_state(env, cfg, dev, seed: int = 0):
     return ppo.init_train_state(env, cfg, seed=seed, device=dev)
 
 
-def training_phase(torch, dev, gpu: str, env, cfg, label: str, **train_kw):
-    """Drive 2 warm-up and 5 timed updates of ``train_step`` from seed 0,
-    with every kernel count set to 0 just before; returns the launch
-    counts, the walls and the summaries."""
+def training_phase(torch, dev, gpu: str, env, cfg, label: str, updates: int | None = None,
+                   **train_kw):
+    """Drive 2 warm-up and 5 timed updates of ``train_step`` from seed 0
+    (``updates`` in all, the first 2 the warm-up, when given), with every
+    kernel count set to 0 just before; returns the launch counts, the walls
+    and the summaries."""
     state = ppo_state(env, cfg, dev)
     counters = kernel_counters()
     from reinmav_tpu_torch.rl.ppo import train_step
@@ -891,7 +926,7 @@ def training_phase(torch, dev, gpu: str, env, cfg, label: str, **train_kw):
     for fn in counters.values():
         fn.launches = 0
     walls, summaries = [], []
-    for _ in range(WARMUP_UPDATES + TIMED_UPDATES):
+    for _ in range(WARMUP_UPDATES + TIMED_UPDATES if updates is None else updates):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, summary = train_step(env, cfg, state, **train_kw)
@@ -1683,14 +1718,18 @@ def k7_timed(torch, args, reps: int = 20):
     return statistics.median(ms), min(ms), max(ms), out
 
 
-def k7_instance(name: str, mode: str, count: bool = False) -> str | None:
+def k7_instance(name: str, mode: str, count: bool = False, bf16: bool = False) -> str | None:
     """The demangled name of K7's instance for env ``name`` and ``mode``
-    in the library this run built (the counting kernel's with ``count``)."""
+    in the library this run built (the counting kernel's with ``count``,
+    the bf16 instance with ``bf16``)."""
     from reinmav_tpu_torch.ops import offpolicy as op
 
     head = "offpolicy_collect_count_kernel<" if count else "offpolicy_collect_kernel<"
+    tails = ((f",{op.MODES[mode]}>",) if count else
+             (f",{op.MODES[mode]},{'true' if bf16 else 'false'}>",) if bf16 else
+             (f",{op.MODES[mode]}>", f",{op.MODES[mode]},false>"))
     found = [k for k in _sass_counts() if k.startswith(head) and PPO_STRUCT[name] in k
-             and k.replace(" ", "").endswith(f",{op.MODES[mode]}>")]
+             and k.replace(" ", "").endswith(tails)]
     return found[0] if len(found) == 1 else None
 
 
@@ -2689,6 +2728,16 @@ def not_same_bits(torch, a, b):
     return (a.view(torch.int32) != b.view(torch.int32)) & ~((a == 0) & (b == 0))
 
 
+def k4_registers(d: int, adim: int, bf16: bool = False) -> str:
+    """ptxas's registers and spills of K4's clip-mode instance at (d,
+    adim), float32 or bf16 (a library built before the bf16 instances
+    names the float32 one without the dtype)."""
+    found = kernel_registers(f"ppo_update_kernel<{d}, {adim}, false, {'true' if bf16 else 'false'}>")
+    if found == "not reported" and not bf16:
+        return kernel_registers(f"ppo_update_kernel<{d}, {adim}, false>")
+    return found
+
+
 def kernel_registers(short_name: str) -> str:
     """ptxas's registers and spills of the kernel whose demangled name
     starts with ``short_name`` (the first match), or "not reported"."""
@@ -3421,15 +3470,487 @@ def modules_phases(torch, dev, gpu: str) -> None:
              "vector_step_ms": vec_step * 1e3, **chunked}))
 
 
+# Phases 34-40: compute_dtype="bfloat16", the bf16 instances of K2/K6, K3,
+# K4 and K7 and the learners' bf16 paths.
+BF16 = "bfloat16"
+#: The tensor cores' dense bf16 rate (H100 SXM data sheet, at 700 W): the
+#: bound of a bf16 instance counts its products at this rate.
+PEAK_BF16_FLOPS = 989e12
+#: bf16 updates of each path on the kinds but quadrotor3d-v0 (quadrotor3d-v0
+#: runs 2 warm-up and 5 timed), and bf16 SAC iterations at the bench config.
+BF16_UPDATES, BF16_SAC_WARMUP, BF16_SAC_ITERS, BF16_OFF_ITERS = 3, 3, 20, 3
+#: Ulps of the ratio or value clip within which K4's resynchronised check
+#: counts a sample as on the knife edge.
+RESYNC_ULPS = 16
+
+
+def bound_bf16(nbytes: float, product_flops: float, other_flops: float) -> tuple[float, str]:
+    """The least milliseconds the card could take for work that moves
+    ``nbytes``, does ``product_flops`` operations of bf16 products (at the
+    tensor cores' rate) and ``other_flops`` FP32 operations, and which
+    bounds it."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = (product_flops / PEAK_BF16_FLOPS + other_flops / PEAK_FP32_FLOPS) * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def mlp_flops(d: int, a: int) -> int:
+    """The 2 x 64 actor-critic's products an env-step or sample, forward:
+    2 (64 D + 64 * 64) a tower, the heads 2 * 64 (A + 1)."""
+    return 2 * (d * 128 + 2 * 64 * 64 + 64 * a + 64)
+
+
+def bits_apart(torch, a, b) -> int:
+    """Entries of ``a`` and ``b`` whose bits differ (+0 and -0 equal)."""
+    if a.dtype == torch.bool:
+        return int((a != b).sum())
+    return int(not_same_bits(torch, a.contiguous(), b.contiguous()).sum())
+
+
+def in_turns(torch, first, second, reps: int = 10):
+    """``first`` and ``second`` timed in turns (first, second, second,
+    first), ``reps`` launches each time: the two medians and ranges."""
+    a0, _ = cuda_ms(first, reps)
+    b0, _ = cuda_ms(second, reps)
+    b1, _ = cuda_ms(second, reps)
+    a1, _ = cuda_ms(first, reps)
+    return ((statistics.median(a0 + a1), min(a0 + a1), max(a0 + a1)),
+            (statistics.median(b0 + b1), min(b0 + b1), max(b0 + b1)))
+
+
+def k4_resync(torch, data, adv_stats, perm_all, params, opt, kw, label: str,
+              bf16: bool = False) -> dict:
+    """K4 against its twin resynchronised: each pass q of the update as a
+    one-pass K4 launch from the twin's params and Adam state after pass q -
+    1 (the twin's own run, one pass at a time), on the pass's minibatch
+    gathered, with the samples on a knife edge replaced by a copy of the
+    pass's first sample that is not: within RESYNC_ULPS ulps of the ratio
+    clip (1 +- clip_eps) or of the value clip (|value - old_value| =
+    value_clip_eps, or sq1 = sq2 outside it), on the twin's forward.  The
+    twin's one pass on the same batch is the reference: the pass's gradient
+    within GRAD_TOL, the params within UPDATE_TOL, the Adam moments within
+    MOMENT_TOL, every entry (gated), and the Adam count.  Returns the
+    counts."""
+    from reinmav_tpu_torch.ops import ppo_loss as pl
+    from reinmav_tpu_torch.ops import ppo_update as pu
+
+    cd = BF16 if bf16 else None
+    d, adim, tile = kw["d"], kw["adim"], kw["tile"]
+    n_passes = kw["n_epochs"] * kw["n_minibatches"]
+    tpm = perm_all.shape[0] // n_passes
+    one = {**kw, "n_epochs": 1, "n_minibatches": 1}
+    ident = torch.arange(tpm, dtype=torch.int32, device=data.device)
+    net, state = params, opt
+    edges, out, errs = 0, {"grad": 0, "params": 0, "mu": 0, "nu": 0}, dict.fromkeys(
+        ("grad", "params", "mu", "nu"), 0.0)
+    for q in range(n_passes):
+        perm = perm_all[q * tpm:(q + 1) * tpm].contiguous()
+        cols = pl._gather_columns(perm, tile)
+        stats = adv_stats[q:q + 1].contiguous()
+        ratio, value = twin_ratio(torch, data, cols, net, d, adim, bf16)
+        adv_n = (data[d + adim + 2, cols] - stats[0, 0]) * stats[0, 1]
+        near, _ = clip_edges(torch, ratio, adv_n, kw["clip_eps"])
+        vclip, vtie = value_edges(torch, value, data[d + adim + 1, cols], data[d + adim + 3, cols],
+                                  kw["value_clip_eps"])
+        edge = near[RESYNC_ULPS] | vclip[RESYNC_ULPS] | vtie[RESYNC_ULPS]
+        batch = data[:, cols].contiguous()
+        n_edge = int(edge.sum())
+        if n_edge:
+            keep = int((~edge).nonzero()[0, 0])
+            batch[:, edge] = batch[:, keep:keep + 1]
+        edges += n_edge
+        k = pu.ppo_update(batch, stats, ident, net, state, None, keep_grad0=True,
+                          compute_dtype=cd, **one)
+        t_params, t_state, _, t_grad = pu.ppo_update_reference(batch, stats, ident, net, state,
+                                                               None, compute_dtype=cd, **one)
+        require(int(k.opt_state.count) == int(t_state.count), f"{label} resync: Adam count")
+        for name, a, b, tol in (("grad", k.grad0, t_grad, GRAD_TOL),
+                                ("params", k.params, t_params, UPDATE_TOL),
+                                ("mu", k.opt_state.mu, t_state.mu, MOMENT_TOL),
+                                ("nu", k.opt_state.nu, t_state.nu, MOMENT_TOL)):
+            out[name] += count_outside(a, b, tol)
+            errs[name] = max(errs[name], float((a - b).abs().max()))
+        # The twin's own run on the pass as it is carries the state on.
+        net, state, _, _ = pu.ppo_update_reference(data, stats, perm, net, state, None,
+                                                   compute_dtype=cd, **one)
+    torch.cuda.synchronize()
+    say(f"{label} resynchronised ({n_passes} passes of {tpm * tile} samples, each from the "
+        f"twin's state; {edges} samples within {RESYNC_ULPS} ulps of the ratio or value clip "
+        f"replaced): entries outside, gradient {out['grad']} (rtol 2e-3 atol 2e-6), params "
+        f"{out['params']} (rtol 2e-4 atol 1e-6), Adam mu {out['mu']} and nu {out['nu']} (rtol "
+        f"2e-4 atol 5e-8); max |err| " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    require(not any(out.values()), f"{label} resynchronised: entries outside {out}")
+    return {"edge_samples": edges, "outside": out, "max_abs_err": errs}
+
+
+def bf16_kind_phase(torch, dev, gpu: str, env, ret_var: float) -> list[dict]:
+    """Phases 34-36 for one kind: the bf16 instances of K2/K6, K3 and K4
+    against their bf16 twins at the main path's shapes, each timed in turns
+    with its float32 instance on the same inputs, registers and spills
+    beside; then the kind's bf16 training paths (K2/K6 + K4, and the K3
+    loop), their launches counted.  Returns the three kernels' entries."""
+    from reinmav_tpu_torch.ops import ppo_loss as pl
+    from reinmav_tpu_torch.ops import ppo_rollout as pr
+    from reinmav_tpu_torch.ops import ppo_update as pu
+    from reinmav_tpu_torch.rl import ppo
+
+    d, a, name = env.obs_dim, env.action_dim, env.name
+    gen = torch.Generator(device=dev).manual_seed(34)
+    cfg, layout, obs_norm, ret_norm, params, consts, k2_args, k2_kw = k2_inputs(
+        torch, dev, env, k6_states(torch, env, gen), ret_var)
+    kw16 = {**k2_kw, "compute_dtype": BF16}
+    k2_name = {"quadrotor3d-v0": "K2", HOVER: "K6-hover"}.get(name, f"K6 {name}")
+
+    # 34. K2/K6's bf16 instance against its bf16 twin.
+    pr.ppo_rollout(*k2_args, **kw16)  # warm-up
+    out = pr.ppo_rollout(*k2_args, **kw16)
+    ref = pr.ppo_rollout_reference(*k2_args, **kw16)
+    torch.cuda.synchronize()
+    bad = _mismatched_envs(torch, out, ref)
+    mismatched, ok = int(bad.sum()), ~bad
+    apart = [bits_apart(torch, x, y) for x, y in zip(out, ref)]
+    k2_err = max(float((x[..., ok] - y[..., ok]).abs().max())
+                 for x, y in zip((*out[:5], out.final_states), (*ref[:5], ref.final_states)))
+    # The gate: one step at a time from the twin's state.  Free-running,
+    # a last-bit difference of the env step or the noise (FMA contraction,
+    # library calls) moves an obs or a hidden unit across a bf16 rounding
+    # edge now and then, and the env's trajectory parts: counted, not gated.
+    x, r, outside, knife, v_apart, stats_rel = *k2_args[:2], 0, 0, 0, None
+    for t in range(T_PPO):
+        ks = pr.ppo_rollout(x, r, 21 + t, params, consts, 1, **kw16)
+        ps = pr.ppo_rollout_reference(x, r, 21 + t, params, consts, 1, **kw16)
+        safe = off_sphere(torch, env, x)
+        outside += int((_mismatched_envs(torch, ks, ps) & safe).sum())
+        knife += int((~safe).sum())
+        v_apart += bits_apart(torch, ks.value, ps.value)
+        if stats_rel is None:
+            stats_rel = float(((ks.stats - ps.stats).abs() / ps.stats.abs().clamp_min(1.0)).max())
+        x, r = ps.final_states, ps.returns
+    del ks, ps, x, r
+    limit = 0 if name in TETHER else int(0.001 * B_PPO)
+    require(outside <= limit, f"{k2_name} bf16 vs twin, resynchronised: {outside} envs outside")
+    gate = (f"resynchronised over {T_PPO} steps: {outside} env-steps outside rtol 2e-4 atol 2e-5 "
+            f"(limit {limit}), {knife} within {KNIFE:g} of the tether sphere skipped, values "
+            f"whose bits differ {v_apart} of {B_PPO * T_PPO}; free-running {mismatched} of "
+            f"{B_PPO} envs apart (reported)")
+    require(stats_rel <= 1e-3, f"{k2_name} bf16 moment sums, rel err {stats_rel}")
+    again = pr.ppo_rollout(*k2_args, **kw16)
+    require(all(torch.equal(x, y) for x, y in zip(out, again)), f"{k2_name} bf16 determinism")
+    f32_out = pr.ppo_rollout(*k2_args, **k2_kw)
+    require(not torch.equal(f32_out.value, out.value), f"{k2_name}: bf16 equals float32")
+    (ms32, lo32, hi32), (ms, lo, hi) = in_turns(
+        torch, lambda: pr.ppo_rollout(*k2_args, **k2_kw), lambda: pr.ppo_rollout(*k2_args, **kw16))
+    plain = [cuda_ms(lambda: pr.ppo_rollout_reference(*k2_args, **kw16), 1)[0][0] for _ in range(2)]
+    prod = mlp_flops(d, a) * B_PPO * T_PPO
+    k2_bound, k2_by = bound_bf16(nbytes(*k2_args[:2], params, consts, *out), prod,
+                                 OPS_ROLLOUT[d] * B_PPO * T_PPO - prod)
+    regs, regs32 = (kernel_registers(ppo_instance(name, b)) for b in (True, False))
+    say(f"{k2_name} bf16 vs bf16 twin, B={B_PPO} T={T_PPO}, noise and resets on "
+        f"({int(ref.done.sum())} resets): {gate}; on the envs that agree max |err| {k2_err:.3e}; "
+        f"entries whose bits differ by output {apart}; moment sums rel err {stats_rel:.3e}; "
+        f"bitwise equal on a rerun: ok")
+    say(f"time {k2_name} B={B_PPO} T={T_PPO}: bf16 {ms:.4f} ms ({lo:.4f} to {hi:.4f}), float32 "
+        f"{ms32:.4f} ms ({lo32:.4f} to {hi32:.4f}) in turns, 20 launches each; bf16 twin "
+        f"{statistics.median(plain):.2f} ms; bf16 bound {k2_bound:.4f} ms by {k2_by} (products "
+        f"at 989 TFLOP/s); ptxas bf16 {regs}; float32 {regs32}; on {gpu}")
+    rollout = dict(max_abs_err=k2_err, mismatched=mismatched, ms=ms, f32_ms=ms32,
+                   plain_ms=statistics.median(plain), bound_ms=k2_bound, bound_by=k2_by,
+                   registers=regs, f32_registers=regs32, bits_apart=apart)
+
+    # 35. K3's bf16 instance on one full minibatch of that trajectory.
+    n = B_PPO * T_PPO
+    data, adv, tile, n_tiles = k4_batch(torch, cfg, layout, obs_norm, params, out)
+    del f32_out, again, ref
+    perm = ppo._shuffle_indices(torch.Generator().manual_seed(5), n_tiles, dev)
+    tidx = perm.reshape(cfg.num_minibatches, -1)[0].to(torch.int32).contiguous()
+    adv_mb = adv.reshape(n)[pl._gather_columns(tidx, tile)]
+    zero = torch.zeros((), device=dev)
+    adv_stats = torch.stack([adv_mb.mean(), 1.0 / (adv_mb.std(unbiased=False) + 1e-8), zero,
+                             zero]).contiguous()
+    net = (params + 0.02 * torch.randn(params.shape, generator=torch.Generator(
+        device=dev).manual_seed(8), device=dev)).contiguous()
+    kcfg = dict(d=d, adim=a, clip_eps=cfg.clip_eps, value_clip_eps=cfg.value_clip_eps,
+                value_coef=cfg.value_coef, tile=tile)
+    mb = tidx.numel() * tile
+    k3 = lambda cd: pl.ppo_loss_grads_gather(data, adv_stats, tidx, net,  # noqa: E731
+                                             ent_coef=0.01, compute_dtype=cd, **kcfg)
+    g_k, m_k = k3(BF16)
+    g_p, m_p = pl._finish(pl.ppo_loss_grads_reference(data, adv_stats, tidx, net,
+                                                      compute_dtype=BF16, **kcfg), mb, 0.01, layout)
+    g_again, _ = k3(BF16)
+    g32, _ = k3(None)
+    torch.cuda.synchronize()
+    require(torch.allclose(g_k, g_p, **GRAD_TOL), f"K3 ({d}, {a}) bf16 vs twin, gradients")
+    for m in pl.METRICS:
+        require(torch.allclose(m_k[m], m_p[m], **METRIC_TOL), f"K3 ({d}, {a}) bf16 vs twin, {m}")
+    require(torch.equal(g_k, g_again), f"K3 ({d}, {a}) bf16 determinism")
+    require(float(m_k["clip_frac"]) > 0.0 and not torch.equal(g_k, g32),
+            f"K3 ({d}, {a}) bf16: no clip, or bf16 equals float32")
+    (ms32_3, _, _), (ms3, lo3, hi3) = in_turns(torch, lambda: k3(None), lambda: k3(BF16))
+    plain3 = [cuda_ms(lambda: pl.ppo_loss_grads_reference(data, adv_stats, tidx, net,
+                                                          compute_dtype=BF16, **kcfg), 1)[0][0]
+              for _ in range(2)]
+    k3_err = float((g_k - g_p).abs().max())
+    k3_bound, k3_by = bound_bf16(nbytes(tidx, adv_stats, net, g_k) + mb * data.shape[0] * 4,
+                                 OPS_LOSS[d] * mb, 0.0)
+    regs3 = kernel_registers(f"ppo_loss_kernel<{d}, {a}, false, true>")
+    regs3_32 = kernel_registers(f"ppo_loss_kernel<{d}, {a}, false, false>")
+    say(f"K3 ({d}, {a}) bf16 vs bf16 twin, one minibatch of {mb} samples: grads max |err| "
+        f"{k3_err:.3e}, rel err {rel_err(g_k, g_p):.3e} (rtol 2e-3 atol 2e-6), metrics "
+        f"{', '.join(f'{m} {float(m_k[m]):.5g}' for m in pl.METRICS)} (rtol 2e-4 atol 1e-6); "
+        f"bitwise equal on a rerun: ok")
+    say(f"time K3 ({d}, {a}) minibatch {mb}: bf16 {ms3:.4f} ms ({lo3:.4f} to {hi3:.4f}), float32 "
+        f"{ms32_3:.4f} ms in turns; bf16 twin {statistics.median(plain3):.2f} ms; bf16 bound "
+        f"{k3_bound:.4f} ms by {k3_by}; ptxas bf16 {regs3}; float32 {regs3_32}; on {gpu}")
+    loss = dict(max_abs_err=k3_err, ms=ms3, f32_ms=ms32_3, plain_ms=statistics.median(plain3),
+                bound_ms=k3_bound, bound_by=k3_by, registers=regs3, f32_registers=regs3_32)
+
+    # 36. K4's bf16 instance: one 4 x 4 update, held to its twin resynchronised.
+    e_, m_ = cfg.num_epochs, cfg.num_minibatches
+    perm_all, k4_stats, k4_params, opt, kw = k4_setup(torch, dev, cfg, params, adv, tile, n_tiles,
+                                                      d, a)
+    resync = k4_resync(torch, data, k4_stats, perm_all, k4_params, opt, kw,
+                       f"K4 ({d}, {a}) bf16", bf16=True)
+    k4 = lambda cd: pu.ppo_update(data, k4_stats, perm_all, k4_params, opt, None,  # noqa: E731
+                                  compute_dtype=cd, **kw)
+    k = k4(BF16)
+    tw_params, tw_opt, _, _ = pu.ppo_update_reference(data, k4_stats, perm_all, k4_params, opt,
+                                                      None, compute_dtype=BF16, **kw)
+    again = k4(BF16)
+    torch.cuda.synchronize()
+    require(torch.equal(k.params, again.params) and
+            all(torch.equal(x, y) for x, y in zip(k.opt_state, again.opt_state)),
+            f"K4 ({d}, {a}) bf16 determinism")
+    require(int(k.opt_state.count) == e_ * m_ and bool(torch.isfinite(k.params).all()),
+            f"K4 ({d}, {a}) bf16 count or finite params")
+    free = {x: count_outside(p, q, tol) for x, p, q, tol in (
+        ("params", k.params, tw_params, UPDATE_TOL), ("mu", k.opt_state.mu, tw_opt.mu, MOMENT_TOL),
+        ("nu", k.opt_state.nu, tw_opt.nu, MOMENT_TOL))}
+    k4_err = float((k.params - tw_params).abs().max())
+    (ms32_4, _, _), (ms4, lo4, hi4) = in_turns(torch, lambda: k4(None), lambda: k4(BF16), 5)
+    (plain4,), _ = cuda_ms(lambda: pu.ppo_update_reference(
+        data, k4_stats, perm_all, k4_params, opt, None, compute_dtype=BF16, **kw), 1)
+    mb4 = perm_all.shape[0] // (e_ * m_) * tile
+    k4_bound, k4_by = bound_bf16(
+        nbytes(data, perm_all, k4_stats, k4_params, opt.mu, opt.nu, k.params, k.opt_state.mu,
+               k.opt_state.nu) + 4 * pu.N_METRIC_SUMS, OPS_LOSS[d] * mb4 * e_ * m_, 0.0)
+    regs4, regs4_32 = k4_registers(d, a, True), k4_registers(d, a)
+    say(f"K4 ({d}, {a}) bf16, one update of {e_} x {m_} passes of {mb4}: free-running against "
+        f"the bf16 twin (reported, not gated: a weight on a bf16 rounding edge can round the "
+        f"other way once the params part in their last bit) params max |err| {k4_err:.3e}, "
+        f"entries outside {free}; bitwise equal on a rerun: ok")
+    say(f"time K4 ({d}, {a}) {e_} x {m_} passes of {mb4}: bf16 {ms4:.4f} ms ({lo4:.4f} to "
+        f"{hi4:.4f}), float32 {ms32_4:.4f} ms in turns, 10 launches each; bf16 twin {plain4:.1f} "
+        f"ms; bf16 bound {k4_bound:.4f} ms by {k4_by}; ptxas bf16 {regs4}; float32 {regs4_32}; "
+        f"on {gpu}")
+    update = dict(max_abs_err=max(resync["max_abs_err"]["params"], 0.0), ms=ms4, f32_ms=ms32_4,
+                  plain_ms=plain4, bound_ms=k4_bound, bound_by=k4_by, registers=regs4,
+                  f32_registers=regs4_32, resync=resync, free_running_outside=free)
+    del data, adv, out, k, again
+    torch.cuda.empty_cache()
+
+    # The kind's bf16 training paths: the default (K2/K6 + K4) and the K3 loop.
+    updates = WARMUP_UPDATES + TIMED_UPDATES if name == "quadrotor3d-v0" else BF16_UPDATES
+    main_cfg = ppo.PpoConfig(num_envs=B_PPO, rollout_len=T_PPO, compute_dtype=BF16)
+    runs = {}
+    for label, c in (("default", main_cfg), ("K3 loop", main_cfg._replace(fused_update="off")),
+                     ("float32", main_cfg._replace(compute_dtype="float32"))):
+        runs[label] = training_phase(torch, dev, gpu, env, c, f"{name} {label} ppo update "
+                                     f"({c.compute_dtype})", updates=updates)
+    passes = main_cfg.num_epochs * main_cfg.num_minibatches
+    quiet = {"K1": 0, "K5": 0, "K7": 0, "K8/K9": 0, "K10": 0, "K11": 0}
+    require(runs["default"][0] == {**quiet, "K2": updates, "K3": 0, "K4": updates},
+            f"{name} bf16 default path launches {runs['default'][0]}")
+    require(runs["K3 loop"][0] == {**quiet, "K2": updates, "K3": updates * passes, "K4": 0},
+            f"{name} bf16 K3 loop launches {runs['K3 loop'][0]}")
+    rewards = {k: [s["mean_reward"] for s in v[2]] for k, v in runs.items()}
+    for r, e in zip(rewards["default"], rewards["float32"]):
+        require(abs(r - e) <= 0.1 * abs(e), f"{name} bf16 mean_reward {rewards}")
+    timed = runs["default"][1][WARMUP_UPDATES:]
+    say(f"{name} bf16 training: default path K2/K6 {runs['default'][0]['K2']} and K4 "
+        f"{runs['default'][0]['K4']} launches in {updates} updates, the K3 loop K3 "
+        f"{runs['K3 loop'][0]['K3']}; mean_reward per update bf16 "
+        f"{[round(r, 4) for r in rewards['default']]}, float32 from the same state "
+        f"{[round(r, 4) for r in rewards['float32']]} (rtol 0.1), the bf16 K3 loop "
+        f"{[round(r, 4) for r in rewards['K3 loop']]}; bf16 update median "
+        f"{statistics.median(timed):.2f} ms, float32 "
+        f"{statistics.median(runs['float32'][1][WARMUP_UPDATES:]):.2f} ms; on {gpu}: ok")
+
+    def entry(fn, source, replaces, numbers, launches, tolerance, at):
+        return {"name": f"{fn} (bf16, {name})", "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches, "max_abs_err": numbers["max_abs_err"],
+                "tolerance": tolerance, "ms": numbers["ms"], "plain_ms": numbers["plain_ms"],
+                "bound_ms": numbers["bound_ms"], "bound_by": numbers["bound_by"],
+                "library_ms": None, "f32_ms": numbers["f32_ms"],
+                "registers": numbers["registers"], "f32_registers": numbers["f32_registers"],
+                "at": at}
+
+    path = f"the bf16 training path of {name}"
+    return [
+        {**entry("ppo_rollout", "reinmav_tpu_torch/csrc/ppo_rollout.cu",
+                 "reinmav_tpu/ops/pallas_ppo_rollout.py:703", rollout, runs["default"][0]["K2"],
+                 "one step at a time from the twin's state over 32 steps: rtol 2e-4 atol 2e-5, "
+                 "<= 0.1% of envs outside (the slung-load kinds 0, the env-steps near the tether "
+                 "sphere skipped, as phase 21); free-running mismatches reported",
+                 f"states ({d}, {B_PPO}), horizon {T_PPO}; launches on {path}"),
+         "mismatched_envs_free_running": mismatched, "resync_outside": outside,
+         "value_bits_apart_resync": v_apart, "bits_apart": apart},
+        entry("ppo_loss_grads_gather", "reinmav_tpu_torch/csrc/ppo_loss.cu",
+              "reinmav_tpu/ops/pallas_ppo.py:424", loss, runs["K3 loop"][0]["K3"],
+              "grads rtol 2e-3 atol 2e-6, metrics rtol 2e-4 atol 1e-6, bitwise repeatable",
+              f"minibatch of {mb} samples, obs {d}, action {a}; launches on {path} with "
+              f"fused_update=\"off\""),
+        {**entry("ppo_update", "reinmav_tpu_torch/csrc/ppo_update.cu",
+                 "reinmav_tpu/ops/pallas_ppo_update.py:304", update, runs["default"][0]["K4"],
+                 "resynchronised: each pass from the twin's state, the samples within 16 ulps of "
+                 "the ratio or value clip replaced; gradient rtol 2e-3 atol 2e-6, params rtol 2e-4 "
+                 "atol 1e-6, moments rtol 2e-4 atol 5e-8; max_abs_err the params' there",
+                 f"{e_ * m_} passes of {mb4} samples; launches on {path}"),
+         "resync": resync, "free_running_outside": free},
+    ]
+
+
+def bf16_offpolicy_phase(torch, dev, gpu: str, env, timed_mode: str) -> dict:
+    """Phase 37 for one kind: K7's bf16 instance against its bf16 twin in
+    the five mode legs of phase 15 at B_OFF envs, 2 x 256, timed in turns
+    with the float32 instance in the kind's training mode; then the bf16
+    off-policy training path (SAC on the hover task at the bench config,
+    else 3 iterations of the kind's learner), K7 once an iteration.
+    Returns the entry of the ``kernels`` line."""
+    from reinmav_tpu_torch.ops import offpolicy as op
+    from reinmav_tpu_torch.rl import sac, td3
+
+    d, a, name = env.obs_dim, env.action_dim, env.name
+    states_t = k7_states(torch, env, torch.Generator(device=dev).manual_seed(37))
+    errs, mismatches, apart, timed = [], [], [], None
+    for mode, warm, noise in K7_MODES:
+        args = k7_args(torch, env, states_t, mode, warm, noise)
+        new_k, blk_k = op.collect_step(*args, compute_dtype=BF16)
+        new_p, blk_p = op.collect_step_reference(*args, compute_dtype=BF16)
+        torch.cuda.synchronize()
+        bad = ~(torch.isclose(new_k, new_p, **TOL).all(dim=0)
+                & torch.isclose(blk_k, blk_p, **TOL).all(dim=0))
+        mismatched, ok = int(bad.sum()), ~bad
+        err = max(float((new_k[:, ok] - new_p[:, ok]).abs().max()),
+                  float((blk_k[:, ok] - blk_p[:, ok]).abs().max()))
+        again = op.collect_step(*args, compute_dtype=BF16)
+        require(torch.equal(new_k, again[0]) and torch.equal(blk_k, again[1]),
+                f"K7 bf16 {name} {mode}: bitwise equal on a rerun")
+        require(mismatched <= 0.001 * B_OFF, f"K7 bf16 {name} {mode}: {mismatched} envs mismatched")
+        require(bool(torch.isfinite(blk_k).all()), f"K7 bf16 {name} {mode}: a finite block")
+        n_apart = bits_apart(torch, blk_k[d:d + a], blk_p[d:d + a])
+        say(f"K7 bf16 vs bf16 twin, {name}, mode {mode}, warm {warm:g}: {mismatched} of {B_OFF} "
+            f"envs mismatched (limit 0.1%), on the others max |err| {err:.3e}; action entries "
+            f"whose bits differ {n_apart}; bitwise equal on a rerun: ok")
+        errs.append(err)
+        mismatches.append(mismatched)
+        apart.append(n_apart)
+        if (mode, warm) == (timed_mode, 0.0):
+            timed = args, (new_k, blk_k)
+    args, (new_k, blk_k) = timed
+    (ms32, _, _), (ms, lo, hi) = in_turns(torch, lambda: op.collect_step(*args),
+                                          lambda: op.collect_step(*args, compute_dtype=BF16))
+    plain = [cuda_ms(lambda: op.collect_step_reference(*args, compute_dtype=BF16), 1)[0][0]
+             for _ in range(2)]
+    w1, _, w2, _, w3, _ = args[6:]
+    prod = 2 * (d * w1.shape[1] + w2.shape[0] * w2.shape[1] + w3.shape[0] * w3.shape[1]) * B_OFF
+    k7_b, k7_by = bound_bf16(nbytes(states_t, new_k, blk_k, args[4], *args[6:]), prod,
+                             OPS_ENV_STEP[d] * B_OFF)
+    inst, inst32 = k7_instance(name, timed_mode, bf16=True), k7_instance(name, timed_mode)
+    regs = kernel_registers(inst) if inst else "not reported"
+    regs32 = kernel_registers(inst32) if inst32 else "not reported"
+    say(f"time K7 {name} {timed_mode}, B={B_OFF} H={H_SAC}: bf16 {ms:.4f} ms ({lo:.4f} to "
+        f"{hi:.4f}), float32 {ms32:.4f} ms in turns, 20 launches each; bf16 twin "
+        f"{statistics.median(plain):.2f} ms; bf16 bound {k7_b:.4f} ms by {k7_by}; {inst}: ptxas "
+        f"{regs}; float32 {regs32}; on {gpu}")
+
+    # The bf16 off-policy training path of the kind.
+    if name == HOVER:
+        module, iters = sac, BF16_SAC_ITERS
+        cfg = sac.SacConfig(num_envs=B_OFF, batch_size=BATCH_SAC, buffer_capacity=RING_SAC,
+                            hidden=(H_SAC, H_SAC), warmup_steps=0, compute_dtype=BF16)
+    else:
+        module, iters = (td3, sac)[timed_mode == "sac"], BF16_OFF_ITERS
+        cls = sac.SacConfig if module is sac else td3.Td3Config
+        cfg = cls(num_envs=B_OFF, batch_size=BATCH_SAC, buffer_capacity=RING_SAC,
+                  hidden=(H_SAC, H_SAC), warmup_steps=0, compute_dtype=BF16)
+    state = module.init_state(env, cfg, seed=0, device=dev)
+    state, _, _, _ = offpolicy_iterations(torch, env, cfg, module, state, BF16_SAC_WARMUP)
+    state, met, wall, launches = offpolicy_iterations(torch, env, cfg, module, state, iters)
+    require(launches["K7"] == iters and sum(launches.values()) == iters,
+            f"{name} bf16 off-policy launches {launches}")
+    require(all(math.isfinite(v) for v in met.values()) and state.actor.dtype == torch.float32
+            and bool(torch.isfinite(state.actor).all()), f"{name} bf16 off-policy metrics {met}")
+    say(f"{name} bf16 {module.__name__.split('.')[-1]} training path, B={B_OFF} batch {BATCH_SAC} "
+        f"2 x {H_SAC}: K7 launches {launches['K7']} in {iters} iterations, "
+        f"{wall / iters:.3f} ms per iteration, {iters * B_OFF / wall * 1e3:.4e} env-steps/s; "
+        f"metrics " + ", ".join(f"{k} {v:.5g}" for k, v in met.items()) + f"; on {gpu}: ok")
+    del state
+    torch.cuda.empty_cache()
+    return {"name": f"offpolicy_collect (bf16, {name})", "route": "cuda",
+            "source": "reinmav_tpu_torch/csrc/offpolicy_collect.cu",
+            "replaces": "reinmav_tpu/ops/pallas_offpolicy.py:155", "launches": launches["K7"],
+            "max_abs_err": max(errs), "mismatched_envs": max(mismatches),
+            "action_bits_apart": apart,
+            "tolerance": "rtol 2e-4 atol 2e-5 per env over its block and new state, <= 0.1% of "
+                         "envs may differ, in five mode legs; bitwise repeatable",
+            "ms": ms, "plain_ms": statistics.median(plain), "bound_ms": k7_b, "bound_by": k7_by,
+            "library_ms": None, "f32_ms": ms32, "registers": regs, "f32_registers": regs32,
+            "at": f"states ({d}, {B_OFF}), actor {d}-{H_SAC}-{H_SAC}-{w3.shape[1]}, mode "
+                  f"{timed_mode}; launches on the bf16 {module.__name__.split('.')[-1]} path"}
+
+
+def bf16_cli_phase(gpu: str) -> None:
+    """Phase 38: the training CLI once with --compute_dtype=bfloat16, in a
+    subprocess, at B_PPO x T_PPO for 3 updates."""
+    root = Path(__file__).resolve().parent
+    steps = 3 * B_PPO * T_PPO
+    cmd = [sys.executable, "-m", "reinmav_tpu_torch.rl.run", "--compute_dtype=bfloat16",
+           f"--num_env={B_PPO}", f"--rollout_len={T_PPO}", f"--num_timesteps={steps}",
+           "--log_interval=1"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=root)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the bf16 CLI exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                           f"{proc.stderr[-3000:]}")
+    rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    train = [row for row in rows if "env_steps" in row]
+    require(bool(train) and train[-1]["env_steps"] == steps and
+            all(math.isfinite(v) for v in train[-1].values()), "the bf16 CLI's metrics")
+    say(f"cli bf16: exit 0 in {time.perf_counter() - t0:.1f} s on {gpu}; last line "
+        f"{json.dumps(train[-1])}")
+
+
+def bf16_phases(torch, dev, gpu: str) -> list[dict]:
+    """Phases 34-38 and their wall: the bf16 instances of K2/K6, K3 and K4
+    on every kind (34-36), of K7 on every kind (37), with each kind's bf16
+    training paths; the bf16 CLI (38).  Returns their entries of the
+    ``kernels`` line."""
+    import reinmav_tpu_torch
+
+    t0 = time.perf_counter()
+    entries = []
+    for name in PPO_STRUCT:
+        env = reinmav_tpu_torch.make(name)
+        entries += bf16_kind_phase(torch, dev, gpu, env, HOVER_RET_VAR if name == HOVER else 4.0)
+    for name in PPO_STRUCT:
+        entries.append(bf16_offpolicy_phase(torch, dev, gpu, reinmav_tpu_torch.make(name),
+                                            "td3" if name == "quadrotor3d-v0" else "sac"))
+    bf16_cli_phase(gpu)
+    say(f"phases 34-38 (compute_dtype bfloat16): {time.perf_counter() - t0:.1f} s on {gpu}")
+    return entries
+
+
 def main(argv=None) -> int:
     import argparse
 
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=("hashes",),
+    parser.add_argument("--only", choices=("hashes", "bf16"),
                         help="after phases 1-3, run only the digests and times of K1 and "
-                        "K2/K6, and print no result line")
+                        "K2/K6 (hashes), or phases 34-38 and their kernels line (bf16); print "
+                        "no result line")
     only = parser.parse_args(argv).only
 
     # 1. Device.
@@ -3476,6 +3997,11 @@ def main(argv=None) -> int:
     say("philox4x32-10 known answers: ok (zero and all-ones counter/key, on the device)")
     if only == "hashes":
         hash_phase(torch, dev, gpu)
+        return 0
+    if only == "bf16":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        say(json.dumps({"kernels": bf16_phases(torch, dev, gpu)}))
         return 0
 
     # 4. K1 against its plain twin.  The slice has no matmul; TF32 is set
@@ -3614,6 +4140,8 @@ def main(argv=None) -> int:
                 for name in ("MujocoQuadForce-v0", "MujocoQuadQuat-v0")]
     # 26-33. The modules around the learners, and chunking.
     modules_phases(torch, dev, gpu)
+    # 34-38. compute_dtype="bfloat16".
+    kernels += bf16_phases(torch, dev, gpu)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

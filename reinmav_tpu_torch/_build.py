@@ -66,18 +66,18 @@ _SIGNATURES = {
                                    ctypes.c_int, ctypes.c_uint, ctypes.c_int, _P, ctypes.c_int,
                                    _P),
     # K2 / K6: (env kind, states_in, returns_in, net, consts, batch,
-    #  horizon, seed, normalize_obs, normalize_rewards, host params, number
-    #  of params, obs, action, log_prob, value, reward, done, final_states,
-    #  returns_out, partials, stats, taut counts or null, stream)
+    #  horizon, seed, normalize_obs, normalize_rewards, bf16, host params,
+    #  number of params, obs, action, log_prob, value, reward, done,
+    #  final_states, returns_out, partials, stats, taut counts or null, stream)
     "ppo_rollout_launch": (ctypes.c_int, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                           ctypes.c_uint, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P, _P, _P,
-                           _P, _P, _P, _P, _P, _P, _P, _P, _P),
+                           ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
+                           ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     # K3: (obs dim, action dim, data, n, perm, m, tile, adv_stats, net,
-    #  clip_eps, value_clip_eps, value_coef, kl_mode, blocks, partials, out,
-    #  stream)
+    #  clip_eps, value_clip_eps, value_coef, kl_mode, bf16, blocks, partials,
+    #  out, stream)
     "ppo_loss_launch": (ctypes.c_int, ctypes.c_int, _P, ctypes.c_longlong, _P, ctypes.c_longlong, ctypes.c_int,
                         _P, _P, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                        ctypes.c_int, _P, _P, _P),
+                        ctypes.c_int, ctypes.c_int, _P, _P, _P),
     # (minibatch samples) -> CTAs of the K3 launch, -1 on a CUDA error
     "ppo_loss_blocks": (ctypes.c_longlong,),
     # (obs dim, action dim) -> sums K3 writes, -1 for dims it is not built for
@@ -85,19 +85,19 @@ _SIGNATURES = {
     # K4: (obs dim, action dim, data, n, perm, tile, tiles per minibatch, passes,
     #  minibatches, adv_stats, kl_beta, count_in, count_out, params, mu, nu,
     #  clip_eps, value_clip_eps, value_coef, inv_n, ent_coef, lr,
-    #  max_grad_norm, b1, b2, eps, has_floor, log_std_floor, kl_mode, blocks,
-    #  partials, gbuf, slots, metrics, grad0, stream)
+    #  max_grad_norm, b1, b2, eps, has_floor, log_std_floor, kl_mode, bf16,
+    #  blocks, partials, gbuf, slots, metrics, grad0, stream)
     "ppo_update_launch": (ctypes.c_int, ctypes.c_int, _P, ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int,
                           ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float,
                           ctypes.c_float, ctypes.c_float, ctypes.c_double, ctypes.c_float,
                           ctypes.c_float, ctypes.c_float, ctypes.c_double, ctypes.c_double,
                           ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                          ctypes.c_int, _P, _P, _P, _P, _P, _P),
+                          ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P),
     "ppo_update_metrics_size": (),
-    # K7: (env kind, mode, host params, number of params, states_in, batch,
-    #  hidden1, hidden2, w1, b1, w2, b2, w3, b3, consts, seed, states_out,
-    #  block, taut counts or null, stream)
-    "offpolicy_collect_launch": (ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P,
+    # K7: (env kind, mode, bf16, host params, number of params, states_in,
+    #  batch, hidden1, hidden2, w1, b1, w2, b2, w3, b3, consts, seed,
+    #  states_out, block, taut counts or null, stream)
+    "offpolicy_collect_launch": (ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P,
                                  ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
                                  _P, _P, _P, ctypes.c_uint, _P, _P, _P, _P),
     # K7's main-path kernel: (env kind, mode, hidden1, hidden2, resident CTAs

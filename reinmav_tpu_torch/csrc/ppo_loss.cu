@@ -32,6 +32,13 @@
 // The reduction across CTAs is deterministic: each CTA writes its partial
 // sums, and a second launch adds them in block order, one thread per
 // entry.
+//
+// compute_dtype "bfloat16" launches the kBf instances of the same body
+// (ppo_loss_body.cuh): the operands of every product rounded to bf16 and
+// summed in float32, as the TPU kernel's bf16 mode (its default,
+// pallas_ppo.py:381, :429); their twin is the same function with
+// compute_dtype="bfloat16".  What bounds them is the same count of FP32
+// operations, since the products still run on the FP32 pipes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,17 +49,17 @@ namespace {
 
 using namespace reinmav::ppo_loss;
 
-template <int kD, int kA, bool kKl>
+template <int kD, int kA, bool kKl, bool kBf>
 __global__ void __launch_bounds__(kThreads, 1)
 ppo_loss_kernel(const float* __restrict__ data, int64_t n, const int* __restrict__ perm,
                 int64_t mb, int tile, const float* __restrict__ adv_stats,
                 const float* __restrict__ net, LossCfg cfg, float* __restrict__ partials) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<kD, kA>& sm = *reinterpret_cast<Smem<kD, kA>*>(smem_raw);
-  load_weights<kD, kA>(sm, net);
+  load_weights<kD, kA, kBf>(sm, net);
   const float adv_shift = adv_stats[0], adv_inv = adv_stats[1], kl_beta = adv_stats[2];
   __syncthreads();
-  loss_body<kD, kA, kKl>(sm, data, n, perm, mb, tile, adv_shift, adv_inv, kl_beta, cfg,
+  loss_body<kD, kA, kKl, kBf>(sm, data, n, perm, mb, tile, adv_shift, adv_inv, kl_beta, cfg,
                          partials + static_cast<int64_t>(blockIdx.x) * out_size<kD, kA>());
 }
 
@@ -66,29 +73,33 @@ __global__ void ppo_loss_reduce_kernel(const float* __restrict__ partials, int b
   out[e] = v;
 }
 
-template <int kD, int kA, bool kKl>
+template <int kD, int kA, bool kKl, bool kBf>
 cudaError_t launch(const float* data, int64_t n, const int* perm, int64_t mb, int tile,
                    const float* adv_stats, const float* net, const LossCfg& cfg, float* partials,
                    int blocks, cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(Smem<kD, kA>));
-  cudaError_t err = cudaFuncSetAttribute(ppo_loss_kernel<kD, kA, kKl>,
+  cudaError_t err = cudaFuncSetAttribute(ppo_loss_kernel<kD, kA, kKl, kBf>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  ppo_loss_kernel<kD, kA, kKl><<<blocks, kThreads, smem, stream>>>(data, n, perm, mb, tile,
-                                                                   adv_stats, net, cfg, partials);
+  ppo_loss_kernel<kD, kA, kKl, kBf><<<blocks, kThreads, smem, stream>>>(
+      data, n, perm, mb, tile, adv_stats, net, cfg, partials);
   return cudaGetLastError();
 }
 
 template <int kD, int kA>
 cudaError_t launch_dims(const float* data, int64_t n, const int* perm, int64_t mb, int tile,
                         const float* adv_stats, const float* net, const LossCfg& cfg,
-                        bool kl_mode, float* partials, float* out, int blocks,
+                        bool kl_mode, bool bf16, float* partials, float* out, int blocks,
                         cudaStream_t stream) {
-  cudaError_t err = kl_mode
-                        ? launch<kD, kA, true>(data, n, perm, mb, tile, adv_stats, net, cfg,
-                                               partials, blocks, stream)
-                        : launch<kD, kA, false>(data, n, perm, mb, tile, adv_stats, net, cfg,
-                                                partials, blocks, stream);
+  auto run = [&](auto kl, auto bf) {
+    return launch<kD, kA, decltype(kl)::value, decltype(bf)::value>(
+        data, n, perm, mb, tile, adv_stats, net, cfg, partials, blocks, stream);
+  };
+  using std::integral_constant;
+  using T = integral_constant<bool, true>;
+  using F = integral_constant<bool, false>;
+  cudaError_t err = kl_mode ? (bf16 ? run(T{}, T{}) : run(T{}, F{}))
+                            : (bf16 ? run(F{}, T{}) : run(F{}, F{}));
   if (err != cudaSuccess) return err;
   constexpr int n_out = out_size<kD, kA>();
   ppo_loss_reduce_kernel<<<(n_out + 255) / 256, 256, 0, stream>>>(partials, blocks, n_out, out);
@@ -114,11 +125,13 @@ extern "C" int ppo_loss_blocks(long long mb) {
 // is refused with cudaErrorInvalidValue and nothing runs); data (d + adim +
 // 4, n) f32; perm (m,) int32 tile indices;
 // adv_stats (4,) f32 = [adv shift, adv inverse scale, kl beta, 0] on the
-// device; net the flat parameters; out (NET + 4,) raw sums.
+// device; net the flat parameters; out (NET + 4,) raw sums; bf16 nonzero
+// launches the bf16 instance.
 extern "C" int ppo_loss_launch(int d, int adim, const void* data, long long n, const void* perm,
                                long long m, int tile, const void* adv_stats, const void* net,
                                float clip_eps, float value_clip_eps, float value_coef,
-                               int kl_mode, int blocks, void* partials, void* out, void* stream) {
+                               int kl_mode, int bf16, int blocks, void* partials, void* out,
+                               void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   const LossCfg cfg{clip_eps, value_clip_eps, value_coef};
   const long long mb = m * tile;
@@ -131,7 +144,7 @@ extern "C" int ppo_loss_launch(int d, int adim, const void* data, long long n, c
   const cudaError_t err =
       with_kernel_dims(d, adim, cudaErrorInvalidValue, [&](auto dc, auto ac_) {
         return launch_dims<decltype(dc)::value, decltype(ac_)::value>(
-            x, n, p, mb, tile, a, w, cfg, kl_mode, part, o, blocks, st);
+            x, n, p, mb, tile, a, w, cfg, kl_mode, bf16 != 0, part, o, blocks, st);
       });
   return static_cast<int>(err);
 }

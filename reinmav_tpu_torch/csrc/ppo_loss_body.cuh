@@ -64,6 +64,19 @@
 // phase gives thread tid the entry dW_pi[tid / A][tid % A]: all 256 threads
 // at A = 4, the first 128 at A = 2.  No tensor cores: TF32 would round
 // the products beyond the twins' tolerances.
+//
+// The bf16 instances (kBf, compute_dtype "bfloat16": the TPU kernel's _mm,
+// pallas_ppo.py:63-67, on the forward :92-94 and the five backward products
+// :145-155) round the operands of every product to bf16 (bf16_round.cuh)
+// and run this float32 body: a product of two bf16 values is exact in
+// float32, so each FMA chain rounds as the twin's float32 sums of the same
+// products.  The weights are rounded once, when staged (the biases and the
+// log-std are not), and the obs when staged (it feeds products only).
+// h1, h2 (dpre1, dpre2 in place) are rounded where a product loads them:
+// their float32 values are needed as well, by the (1 - h^2) factors and
+// the bias gradients, and shared memory holds no second copy.  dout is
+// rounded where the head-gradient and dh2 products load it; dbo sums the
+// float32 dout.
 
 #pragma once
 
@@ -73,6 +86,7 @@
 #include <type_traits>
 
 #include "actor_critic.cuh"
+#include "bf16_round.cuh"
 
 namespace reinmav {
 namespace ppo_loss {
@@ -136,22 +150,26 @@ struct LossCfg {
   float clip_eps, value_clip_eps, value_coef;
 };
 
-// The weights of the flat vector `net` into shared memory.  The loads go
+// The weights of the flat vector `net` into shared memory, rounded to bf16
+// in the kBf instances (the biases and the log-std are not).  The loads go
 // through L2 (__ldcg), never the non-coherent read-only path: in K4 the
 // same vector is rewritten by other CTAs between passes.  The caller
 // synchronises the block before the body reads them.
-template <int kD, int kA>
+template <int kD, int kA, bool kBf>
 __device__ __forceinline__ void load_weights(Smem<kD, kA>& sm, const float* net) {
   using L = ac::Layout<kD, kA>;
+  using reinmav::bf16r;
   const int tid = threadIdx.x;
   for (int idx = tid; idx < kD * kH; idx += kThreads) {
     const int d = idx / kH, j = idx % kH;
-    for (int t = 0; t < 2; ++t) sm.w1[t][d][upos(j)] = __ldcg(net + L::tower_base(t) + L::kW1 + idx);
+    for (int t = 0; t < 2; ++t) {
+      sm.w1[t][d][upos(j)] = bf16r<kBf>(__ldcg(net + L::tower_base(t) + L::kW1 + idx));
+    }
   }
   for (int idx = tid; idx < kH * kH; idx += kThreads) {
     const int k = idx / kH, j = idx % kH;
     for (int t = 0; t < 2; ++t) {
-      const float w = __ldcg(net + L::tower_base(t) + L::kW2 + idx);
+      const float w = bf16r<kBf>(__ldcg(net + L::tower_base(t) + L::kW2 + idx));
       sm.w2[t][k][upos(j)] = w;
       sm.w2t[t][j][upos(k)] = w;
     }
@@ -161,8 +179,8 @@ __device__ __forceinline__ void load_weights(Smem<kD, kA>& sm, const float* net)
       sm.b1[t][j] = __ldcg(net + L::tower_base(t) + L::kB1 + j);
       sm.b2[t][j] = __ldcg(net + L::tower_base(t) + L::kB2 + j);
     }
-    for (int a = 0; a < kA; ++a) sm.wpi[j][a] = __ldcg(net + L::kPiOutW + j * kA + a);
-    sm.wvf[j] = __ldcg(net + L::kVfOutW + j);
+    for (int a = 0; a < kA; ++a) sm.wpi[j][a] = bf16r<kBf>(__ldcg(net + L::kPiOutW + j * kA + a));
+    sm.wvf[j] = bf16r<kBf>(__ldcg(net + L::kVfOutW + j));
   }
   if (tid < kA) {
     sm.bo[tid] = __ldcg(net + L::kPiOutB + tid);
@@ -181,13 +199,15 @@ __device__ __forceinline__ void st4(float* p, float a, float b, float c, float d
 
 // acc[s][i] += sum over k < kK of a[k][s0 + s] * w[k][4 ug + i or 32 + 4 ug +
 // i - 4], k in order: the 8 x 8 tile product of rows `a` (stride kSP, at the
-// tile's first sample) and permuted weight rows `w` (stride kH, at 4 ug).
-template <int kK>
+// tile's first sample) and permuted weight rows `w` (stride kH, at 4 ug);
+// with kRoundA, each `a` rounded to bf16 as it is loaded.
+template <int kK, bool kRoundA>
 __device__ __forceinline__ void tile8x8(const float* __restrict__ a, const float* __restrict__ w,
                                         float (&acc)[8][8]) {
+  using reinmav::bf16r;
 #pragma unroll 4
   for (int k = 0; k < kK; ++k) {
-    const float4 a0 = ld4(a + k * kSP), a1 = ld4(a + k * kSP + 4);
+    const float4 a0 = bf16r<kRoundA>(ld4(a + k * kSP)), a1 = bf16r<kRoundA>(ld4(a + k * kSP + 4));
     const float4 w0 = ld4(w + k * kH), w1 = ld4(w + k * kH + 32);
     const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
     const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
@@ -203,8 +223,9 @@ __device__ __forceinline__ void tile8x8(const float* __restrict__ a, const float
 // tanh(sum_k in[k][sample] * w[k][unit] + b[unit]) for the thread's tile (8
 // samples from s0, units ug + 8 i): each sum an FMA chain from 0 over k in
 // order, then the bias, the twin's float32 matmul (cuBLAS) and bias add
-// bit for bit (chip_smoke.py's forward-order probe).
-template <int kK>
+// bit for bit (chip_smoke.py's forward-order probe).  kRoundA rounds the
+// inputs to bf16 as they are loaded.
+template <int kK, bool kRoundA>
 __device__ __forceinline__ void forward_layer(const float* __restrict__ in, const float* __restrict__ w,
                                               const float* __restrict__ b, float* __restrict__ out,
                                               int s0, int ug) {
@@ -213,7 +234,7 @@ __device__ __forceinline__ void forward_layer(const float* __restrict__ in, cons
   for (int s = 0; s < 8; ++s)
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[s][i] = 0.0f;
-  tile8x8<kK>(in + s0, w + 4 * ug, acc);
+  tile8x8<kK, kRoundA>(in + s0, w + 4 * ug, acc);
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const float bi = b[ug + 8 * i];
@@ -231,12 +252,15 @@ __device__ __forceinline__ void forward_layer(const float* __restrict__ in, cons
 // (out_size<kD, kA>() floats, each by exactly one thread) to `out`.  Its
 // last writes to shared memory (x and red) and to `out` are not followed by
 // a block synchronisation: the caller synchronises before it reuses them.
-template <int kD, int kA, bool kKl>
+// kBf: the bf16 instance (the weights in `sm` already rounded by
+// load_weights<kD, kA, true>).
+template <int kD, int kA, bool kKl, bool kBf>
 __device__ __forceinline__ void loss_body(Smem<kD, kA>& sm, const float* __restrict__ data, int64_t n,
                                           const int* __restrict__ perm, int64_t mb, int tile,
                                           float adv_shift, float adv_inv, float kl_beta,
                                           const LossCfg& cfg, float* __restrict__ out) {
   using L = ac::Layout<kD, kA>;
+  using reinmav::bf16r;
   constexpr int kRed = Smem<kD, kA>::kRed;
   // The dW1 rows of each thread half: [0, kD0) for threads 0-127, [kD0,
   // kD) for threads 128-255.
@@ -286,7 +310,7 @@ __device__ __forceinline__ void loss_body(Smem<kD, kA>& sm, const float* __restr
   auto stage = [&]() {
 #pragma unroll
     for (int r = 0; r < kPre; ++r) {
-      if (tw == 0 && r < kD) sm.x[r][s] = pre[r];
+      if (tw == 0 && r < kD) sm.x[r][s] = bf16r<kBf>(pre[r]);
       if (tw == 1 && r < kRed) sm.red[r][s] = pre[r];
     }
   };
@@ -299,16 +323,16 @@ __device__ __forceinline__ void loss_body(Smem<kD, kA>& sm, const float* __restr
     __syncthreads();  // the staged inputs
 
     // ---- P1: forward through both towers, 8 x 8 tiles ---------------------
-    forward_layer<kD>(&sm.x[0][0], &sm.w1[tw][0][0], sm.b1[tw], h1t, 8 * g16, g8);
+    forward_layer<kD, false>(&sm.x[0][0], &sm.w1[tw][0][0], sm.b1[tw], h1t, 8 * g16, g8);
     __syncthreads();
-    forward_layer<kH>(h1t, &sm.w2[tw][0][0], sm.b2[tw], h2t, 8 * g16, g8);
+    forward_layer<kH, kBf>(h1t, &sm.w2[tw][0][0], sm.b2[tw], h2t, 8 * g16, g8);
     __syncthreads();
     // The heads: thread (tower, sample).
     if (tw == 0) {
       float mean[kA] = {};
 #pragma unroll 8
       for (int j = 0; j < kH; ++j) {
-        const float h2 = sm.h2[j][s];
+        const float h2 = bf16r<kBf>(sm.h2[j][s]);
 #pragma unroll
         for (int a = 0; a < kA; ++a) mean[a] += h2 * sm.wpi[j][a];
       }
@@ -319,7 +343,9 @@ __device__ __forceinline__ void loss_body(Smem<kD, kA>& sm, const float* __restr
       // its twin does (a one-column matmul is no FMA chain in cuBLAS).
       float value = 0.0f;
 #pragma unroll 8
-      for (int j = 0; j < kH; ++j) value = __fadd_rn(value, __fmul_rn(sm.h2[kH + j][s], sm.wvf[j]));
+      for (int j = 0; j < kH; ++j) {
+        value = __fadd_rn(value, __fmul_rn(bf16r<kBf>(sm.h2[kH + j][s]), sm.wvf[j]));
+      }
       sm.dout[kA][s] = value + sm.bo[kA];
     }
     __syncthreads();
@@ -397,10 +423,14 @@ __device__ __forceinline__ void loss_body(Smem<kD, kA>& sm, const float* __restr
     {
       const int jp = tid / kA, ap = tid % kA;
       if (tid < kH * kA) {
-        for (int ss = 0; ss < kS; ++ss) g_wpi += sm.h2[jp][ss] * sm.dout[ap][ss];
+        for (int ss = 0; ss < kS; ++ss) {
+          g_wpi += bf16r<kBf>(sm.h2[jp][ss]) * bf16r<kBf>(sm.dout[ap][ss]);
+        }
       }
       if (tid < kH) {
-        for (int ss = 0; ss < kS; ++ss) g_wvf += sm.h2[kH + tid][ss] * sm.dout[kA][ss];
+        for (int ss = 0; ss < kS; ++ss) {
+          g_wvf += bf16r<kBf>(sm.h2[kH + tid][ss]) * bf16r<kBf>(sm.dout[kA][ss]);
+        }
       }
       if (tid < kA + 1 + kRed) {
         const float* row = tid <= kA ? sm.dout[tid] : sm.red[tid - kA - 1];
@@ -414,7 +444,7 @@ __device__ __forceinline__ void loss_body(Smem<kD, kA>& sm, const float* __restr
     {
       float dv[kA + 1];
 #pragma unroll
-      for (int a = 0; a <= kA; ++a) dv[a] = sm.dout[a][s];
+      for (int a = 0; a <= kA; ++a) dv[a] = bf16r<kBf>(sm.dout[a][s]);
       for (int j0 = 0; j0 < kH; j0 += 8) {
         float dh2[8], h2[8];
 #pragma unroll
@@ -444,9 +474,9 @@ __device__ __forceinline__ void loss_body(Smem<kD, kA>& sm, const float* __restr
       for (int ss = 0; ss < kS; ss += 4) {
         float4 hk[4], dj[8];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) hk[i] = ld4(hrow + i * kSP + ss);
+        for (int i = 0; i < 4; ++i) hk[i] = bf16r<kBf>(ld4(hrow + i * kSP + ss));
 #pragma unroll
-        for (int m = 0; m < 8; ++m) dj[m] = ld4(drow + 8 * m * kSP + ss);
+        for (int m = 0; m < 8; ++m) dj[m] = bf16r<kBf>(ld4(drow + 8 * m * kSP + ss));
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -480,7 +510,7 @@ __device__ __forceinline__ void loss_body(Smem<kD, kA>& sm, const float* __restr
         for (int ss = 0; ss < 8; ++ss) acc[ss][i] = 0.0f;
       }
       const int s0 = 8 * g16;
-      tile8x8<kH>(h2t + s0, &sm.w2t[tw][0][0] + 4 * g8, acc);
+      tile8x8<kH, kBf>(h2t + s0, &sm.w2t[tw][0][0] + 4 * g8, acc);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         float* row = h1t + (g8 + 8 * i) * kSP + s0;
@@ -501,14 +531,15 @@ __device__ __forceinline__ void loss_body(Smem<kD, kA>& sm, const float* __restr
       const float* xrow = &sm.x[tw * kD0][0];
       for (int ss = 0; ss < kS; ss += 4) {
         const float4 dp = ld4(prow + ss);
+        const float4 dr = bf16r<kBf>(dp);  // the x (x) dpre1 product's operand; db1 sums dp
 #pragma unroll
         for (int c = 0; c < kD0; ++c) {
           if (c < w1_rows) {
             const float4 xv = ld4(xrow + c * kSP + ss);
-            g_w1[c] = fmaf(xv.x, dp.x, g_w1[c]);
-            g_w1[c] = fmaf(xv.y, dp.y, g_w1[c]);
-            g_w1[c] = fmaf(xv.z, dp.z, g_w1[c]);
-            g_w1[c] = fmaf(xv.w, dp.w, g_w1[c]);
+            g_w1[c] = fmaf(xv.x, dr.x, g_w1[c]);
+            g_w1[c] = fmaf(xv.y, dr.y, g_w1[c]);
+            g_w1[c] = fmaf(xv.z, dr.z, g_w1[c]);
+            g_w1[c] = fmaf(xv.w, dr.w, g_w1[c]);
           }
         }
         if (tw == 0) {

@@ -55,11 +55,22 @@
 // normalize_rewards are template switches; a fourth, in instances the
 // training paths never launch, counts each slung-load env's taut env-steps
 // (the tether taut at the start of the step).
+//
+// A fifth, kBf, is compute_dtype "bfloat16" (the TPU kernel's _mm with cd
+// bf16, pallas_ppo_rollout.py:102-105, :622-624): the operands of every
+// product rounded to bf16 (bf16_round.cuh) and this float32 body run on
+// them, where a product of two bf16 values is exact, so that each sum
+// rounds as the twin's float32 additions in the same order (ops/
+// ppo_rollout.py::_towers_bf16).  The weights are rounded once, when
+// staged (the biases are not); the normalised obs after it is stored to
+// the trajectory (float32), and each hidden activation as it is computed
+// (it feeds products only).  The bf16 instances count nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "actor_critic.cuh"
+#include "bf16_round.cuh"
 #include "env_kinds.cuh"
 
 namespace {
@@ -88,7 +99,7 @@ struct RolloutOut {
   int* counts;          // (B,) taut env-steps, the counting instances only
 };
 
-template <class Env, bool kNormObs, bool kNormRew, bool kCount>
+template <class Env, bool kNormObs, bool kNormRew, bool kCount, bool kBf>
 __global__ void __launch_bounds__(kThreads)
 ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret_in,
                    const float* __restrict__ net, const float* __restrict__ consts,
@@ -98,6 +109,7 @@ ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret
   constexpr int kStats = 2 * kD + 3;  // obs sum (D), obs sq (D), ret sum, ret sq, raw reward sum
   constexpr int kConsts = 2 * kD + kA + 3;
   using L = ac::Layout<kD, kA>;
+  using reinmav::bf16r;
   __shared__ __align__(16) float w1t[2][kH][kD];  // (tower, out, in)
   __shared__ __align__(16) float b1[2][kH];
   __shared__ __align__(16) float w2t[2][kH][kH];  // (tower, out, in)
@@ -110,19 +122,23 @@ ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret
 
   for (int idx = threadIdx.x; idx < kH * kD; idx += kThreads) {
     const int j = idx / kD, d = idx % kD;
-    for (int tw = 0; tw < 2; ++tw) w1t[tw][j][d] = net[L::tower_base(tw) + L::kW1 + d * kH + j];
+    for (int tw = 0; tw < 2; ++tw) {
+      w1t[tw][j][d] = bf16r<kBf>(net[L::tower_base(tw) + L::kW1 + d * kH + j]);
+    }
   }
   for (int idx = threadIdx.x; idx < kH * kH; idx += kThreads) {
     const int j = idx / kH, k = idx % kH;
-    for (int tw = 0; tw < 2; ++tw) w2t[tw][j][k] = net[L::tower_base(tw) + L::kW2 + k * kH + j];
+    for (int tw = 0; tw < 2; ++tw) {
+      w2t[tw][j][k] = bf16r<kBf>(net[L::tower_base(tw) + L::kW2 + k * kH + j]);
+    }
   }
   for (int j = threadIdx.x; j < kH; j += kThreads) {
     for (int tw = 0; tw < 2; ++tw) {
       b1[tw][j] = net[L::tower_base(tw) + L::kB1 + j];
       b2[tw][j] = net[L::tower_base(tw) + L::kB2 + j];
     }
-    for (int a = 0; a < kA; ++a) wpi[j][a] = net[L::kPiOutW + j * kA + a];
-    wvf[j] = net[L::kVfOutW + j];
+    for (int a = 0; a < kA; ++a) wpi[j][a] = bf16r<kBf>(net[L::kPiOutW + j * kA + a]);
+    wvf[j] = bf16r<kBf>(net[L::kVfOutW + j]);
   }
   if (threadIdx.x < kA) bo[threadIdx.x] = net[L::kPiOutB + threadIdx.x];
   if (threadIdx.x == kA) bo[kA] = net[L::kVfOutB];
@@ -165,6 +181,7 @@ ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret
           x[d] = s[d];
         }
         o.obs[(row * kD) + d * batch + i] = x[d];
+        x[d] = bf16r<kBf>(x[d]);  // from here on an operand of the first layer only
       }
 
       // The actor-critic, one tower at a time (networks.apply_t).
@@ -180,7 +197,7 @@ ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret
           float z = b1[tw][k];
 #pragma unroll
           for (int d = 0; d < kD; ++d) z += w1t[tw][k][d] * x[d];
-          h1[k] = tanhf(z);
+          h1[k] = bf16r<kBf>(tanhf(z));
         }
         // kUnits hidden units a pass, each its own chain in its own order.
 #pragma unroll 1
@@ -199,7 +216,7 @@ ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret
           }
 #pragma unroll
           for (int u = 0; u < kUnits; ++u) {
-            const float h2 = tanhf(z[u]);
+            const float h2 = bf16r<kBf>(tanhf(z[u]));
             if (tw == 0) {
 #pragma unroll
               for (int a = 0; a < kA; ++a) mean[a] += h2 * wpi[j0 + u][a];
@@ -283,34 +300,49 @@ __global__ void ppo_rollout_stats_kernel(const float* __restrict__ partials, int
   }
 }
 
+// The instances without counts, for both normalisers' switches.
+template <class Env, bool kBf>
+void launch_norm(bool norm_obs, bool norm_rew, const float* s_in, const float* ret_in,
+                 const float* net, const float* consts, int64_t batch, int horizon,
+                 uint32_t seed, const typename Env::Params& p, const RolloutOut& o,
+                 unsigned int blocks, cudaStream_t st) {
+  if (norm_obs && norm_rew) {
+    ppo_rollout_kernel<Env, true, true, false, kBf><<<blocks, kThreads, 0, st>>>(
+        s_in, ret_in, net, consts, batch, horizon, seed, p, o);
+  } else if (norm_obs) {
+    ppo_rollout_kernel<Env, true, false, false, kBf><<<blocks, kThreads, 0, st>>>(
+        s_in, ret_in, net, consts, batch, horizon, seed, p, o);
+  } else if (norm_rew) {
+    ppo_rollout_kernel<Env, false, true, false, kBf><<<blocks, kThreads, 0, st>>>(
+        s_in, ret_in, net, consts, batch, horizon, seed, p, o);
+  } else {
+    ppo_rollout_kernel<Env, false, false, false, kBf><<<blocks, kThreads, 0, st>>>(
+        s_in, ret_in, net, consts, batch, horizon, seed, p, o);
+  }
+}
+
 template <class Env>
 cudaError_t launch_env(const float* s_in, const float* ret_in, const float* net,
                        const float* consts, int64_t batch, int horizon, uint32_t seed,
-                       bool norm_obs, bool norm_rew, const float* params_host, int n_params,
-                       const RolloutOut& o, unsigned int blocks, cudaStream_t st) {
+                       bool norm_obs, bool norm_rew, bool bf16, const float* params_host,
+                       int n_params, const RolloutOut& o, unsigned int blocks, cudaStream_t st) {
   if (n_params != Env::kParams) return cudaErrorInvalidValue;
   const typename Env::Params p = Env::params(params_host);
   if (o.counts != nullptr) {
-    // The counting instance: slung-load kinds, both normalisers on.
+    // The counting instance: slung-load kinds, both normalisers on, float32.
     if constexpr (Env::kTether) {
-      if (!(norm_obs && norm_rew)) return cudaErrorInvalidValue;
-      ppo_rollout_kernel<Env, true, true, true><<<blocks, kThreads, 0, st>>>(
+      if (!(norm_obs && norm_rew) || bf16) return cudaErrorInvalidValue;
+      ppo_rollout_kernel<Env, true, true, true, false><<<blocks, kThreads, 0, st>>>(
           s_in, ret_in, net, consts, batch, horizon, seed, p, o);
     } else {
       return cudaErrorInvalidValue;
     }
-  } else if (norm_obs && norm_rew) {
-    ppo_rollout_kernel<Env, true, true, false><<<blocks, kThreads, 0, st>>>(
-        s_in, ret_in, net, consts, batch, horizon, seed, p, o);
-  } else if (norm_obs) {
-    ppo_rollout_kernel<Env, true, false, false><<<blocks, kThreads, 0, st>>>(
-        s_in, ret_in, net, consts, batch, horizon, seed, p, o);
-  } else if (norm_rew) {
-    ppo_rollout_kernel<Env, false, true, false><<<blocks, kThreads, 0, st>>>(
-        s_in, ret_in, net, consts, batch, horizon, seed, p, o);
+  } else if (bf16) {
+    launch_norm<Env, true>(norm_obs, norm_rew, s_in, ret_in, net, consts, batch, horizon, seed,
+                           p, o, blocks, st);
   } else {
-    ppo_rollout_kernel<Env, false, false, false><<<blocks, kThreads, 0, st>>>(
-        s_in, ret_in, net, consts, batch, horizon, seed, p, o);
+    launch_norm<Env, false>(norm_obs, norm_rew, s_in, ret_in, net, consts, batch, horizon, seed,
+                            p, o, blocks, st);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -332,11 +364,13 @@ cudaError_t launch_env(const float* s_in, const float* ret_in, const float* net,
 // `partials` is scratch of (ceil(batch / 128), 2D + 3) floats.  counts:
 // null (the main path), or B int32 that receive each env's taut env-steps
 // (the slung-load kinds with both normalisers on; any other call with
-// counts is refused with cudaErrorInvalidValue).
+// counts is refused with cudaErrorInvalidValue).  bf16 nonzero: the bf16
+// instance (no counts).
 extern "C" int ppo_rollout_launch(int env_kind, const void* states_in, const void* returns_in,
                                   const void* net, const void* consts, long long batch,
                                   int horizon, unsigned int seed, int normalize_obs,
-                                  int normalize_rewards, const void* params_host, int n_params,
+                                  int normalize_rewards, int bf16, const void* params_host,
+                                  int n_params,
                                   void* obs, void* action, void* log_prob, void* value,
                                   void* reward, void* done, void* final_states, void* returns_out,
                                   void* partials, void* stats, void* counts, void* stream) {
@@ -355,7 +389,7 @@ extern "C" int ppo_rollout_launch(int env_kind, const void* states_in, const voi
   const auto* h = static_cast<const float*>(params_host);
   const cudaError_t err = reinmav::with_env_kind(env_kind, [&](auto env) {
     return launch_env<decltype(env)>(s_in, r_in, w, c, batch, horizon, seed, normalize_obs,
-                                     normalize_rewards, h, n_params, o, blocks, st);
+                                     normalize_rewards, bf16 != 0, h, n_params, o, blocks, st);
   });
   return static_cast<int>(err);
 }

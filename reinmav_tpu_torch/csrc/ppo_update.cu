@@ -54,6 +54,12 @@
 // the last epoch's passes (lane 5 of the TPU kernel, :240-246), for the
 // adaptive-KL rule.  The per-pass advantage [shift, inv_scale] comes from
 // the caller, as in the JAX package.
+//
+// compute_dtype "bfloat16" (the TPU kernel's default, pallas_ppo_update.py:
+// 311, cd :337) launches the kBf instance: K3's bf16 body in every pass
+// (ppo_loss_body.cuh), the weights rounded as each pass stages them from
+// the float32 params; the params, the Adam moments and the optimiser's
+// arithmetic stay float32.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -96,7 +102,7 @@ struct UpdateArgs {
   float log_std_floor;
 };
 
-template <int kD, int kA, bool kKl>
+template <int kD, int kA, bool kKl, bool kBf>
 __global__ void __launch_bounds__(kThreads, 1) ppo_update_kernel(UpdateArgs a) {
   using L = ac::Layout<kD, kA>;
   constexpr int kOut = out_size<kD, kA>();
@@ -122,7 +128,7 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_update_kernel(UpdateArgs a) {
 
   for (int p = 0; p < a.n_passes; ++p) {
     // ---- 1. the loss gradient of pass p, with the weights Adam wrote ----
-    load_weights<kD, kA>(sm, a.params);
+    load_weights<kD, kA, kBf>(sm, a.params);
     __syncthreads();
     if (blockIdx.x == 0 && tid == 0) {
       float ent = 0.0f;
@@ -130,7 +136,7 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_update_kernel(UpdateArgs a) {
       for (int i = 0; i < kA; ++i) ent += sm.ls[i] + a.ent_const;
       ent_acc += ent;
     }
-    loss_body<kD, kA, kKl>(sm, a.data, a.n, a.perm + static_cast<int64_t>(p) * a.tpm, mb, a.tile,
+    loss_body<kD, kA, kKl, kBf>(sm, a.data, a.n, a.perm + static_cast<int64_t>(p) * a.tpm, mb, a.tile,
                    a.adv_stats[2 * p], a.adv_stats[2 * p + 1], kl_beta, a.loss, out);
     grid.sync();
 
@@ -201,10 +207,10 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_update_kernel(UpdateArgs a) {
   }
 }
 
-template <int kD, int kA, bool kKl>
+template <int kD, int kA, bool kKl, bool kBf>
 cudaError_t launch(const UpdateArgs& args, int blocks, cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(Smem<kD, kA>));
-  const void* kern = reinterpret_cast<const void*>(ppo_update_kernel<kD, kA, kKl>);
+  const void* kern = reinterpret_cast<const void*>(ppo_update_kernel<kD, kA, kKl, kBf>);
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
@@ -238,7 +244,8 @@ cudaError_t launch(const UpdateArgs& args, int blocks, cudaStream_t stream) {
 // (n_passes * tpm,) int32 tile ids; adv_stats (n_passes, 2) f32; kl_beta
 // f32 and count_in int32 device scalars; params, mu, nu (NET,) f32 updated
 // in place; count_out int32 scalar; partials (blocks, NET + 4), gbuf (NET,),
-// slots (blocks,) f32 scratch; metrics (8,) raw sums; grad0 (NET,) or null.
+// slots (blocks,) f32 scratch; metrics (8,) raw sums; grad0 (NET,) or null;
+// bf16 nonzero launches the bf16 instance.
 extern "C" int ppo_update_launch(int d, int adim, const void* data, long long n, const void* perm, int tile,
                                  int tpm, int n_passes, int n_minibatches, const void* adv_stats,
                                  const void* kl_beta, const void* count_in, void* count_out,
@@ -246,7 +253,7 @@ extern "C" int ppo_update_launch(int d, int adim, const void* data, long long n,
                                  float value_clip_eps, float value_coef, double inv_n,
                                  float ent_coef, float lr, float max_norm, double b1, double b2,
                                  float eps, int has_floor, float log_std_floor, int kl_mode,
-                                 int blocks, void* partials, void* gbuf, void* slots, void* metrics,
+                                 int bf16, int blocks, void* partials, void* gbuf, void* slots, void* metrics,
                                  void* grad0, void* stream) {
   UpdateArgs a{};
   a.data = static_cast<const float*>(data);
@@ -290,7 +297,12 @@ extern "C" int ppo_update_launch(int d, int adim, const void* data, long long n,
   const cudaError_t err =
       with_kernel_dims(d, adim, cudaErrorInvalidValue, [&](auto dc, auto ac_) {
         constexpr int kD = decltype(dc)::value, kA = decltype(ac_)::value;
-        return kl_mode ? launch<kD, kA, true>(a, blocks, st) : launch<kD, kA, false>(a, blocks, st);
+        if (bf16) {
+          return kl_mode ? launch<kD, kA, true, true>(a, blocks, st)
+                         : launch<kD, kA, false, true>(a, blocks, st);
+        }
+        return kl_mode ? launch<kD, kA, true, false>(a, blocks, st)
+                       : launch<kD, kA, false, false>(a, blocks, st);
       });
   return static_cast<int>(err);
 }

@@ -19,8 +19,16 @@ stream 3, warmup uniforms on stream 4, the U(-1, 1)^D resets on stream 5
 of :func:`reinmav_tpu_torch.ops.rollout.philox_words`; K2 uses streams 1
 and 2), so the two agree on the card, and the CPU tests run the twin.
 
+``compute_dtype="bfloat16"`` is the TPU kernel's bf16 mode: the operands
+of the actor's three products (the weights, the states, both ReLU
+layers) rounded to bf16 and the exact products summed in float32.  The
+twin then sums in the kernel's order (:func:`_actor_bf16`), so that the
+two agree bit for bit wherever their float32 operations do; the wrapper
+hands the kernel's bf16 instance W2 already rounded (it streams W2 from
+device memory), and the kernel rounds the rest.
+
 The wrapper takes the twin only for a tensor that lies on the CPU; on a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches the kernel of the dtype asked for or raises.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import ctypes
 
 import torch
 
+from ..rl.networks import bf16_round, is_bf16
 from .closed_loop_rollout import TAUT_KINDS, check_counts, taut_twin
 from .ppo_rollout import ENVS, _env_twin, normal_draws
 from .rollout import mantissa_fill, philox_words
@@ -122,13 +131,57 @@ def _check_counts(counts, env_kind, states_t) -> None:
     check_counts(counts, states_t)
 
 
+#: Units of a chunk of the head's fold in the kernel (``kChunk``).
+_CHUNK = 32
+
+
+def _actor_bf16(x, w1, b1, w2, b2, w3, b3):
+    """The actor's head outputs ``(OUT, B)`` with bf16 products, summed in
+    the bf16 kernel's order: each first-layer unit from 0 over the state
+    dims in order, then its bias; each second-layer unit from 0 over the
+    first layer's units in order, then its bias; the head folded chunk by
+    chunk of 32 units (in a chunk, lane g of 4 sums its units 4 g + k and
+    16 + 4 g + k, k = 0..3, each run from 0; the lanes add as (0 + 2) + (1
+    + 3)), the chunks added in order from 0, then the head's bias.  Every
+    product of two bf16 values is exact in float32, so each sum rounds as
+    the kernel's FMA chain does."""
+    r = bf16_round
+    xr, w1r, w2r, w3r = r(x), r(w1), r(w2), r(w3)
+    acc = torch.zeros((w1.shape[1], x.shape[1]), dtype=torch.float32, device=x.device)
+    for d in range(x.shape[0]):
+        acc = acc + w1r[d][:, None] * xr[d]
+    h1 = r(torch.relu(acc + b1[:, None]))
+    acc = torch.zeros((w2.shape[1], x.shape[1]), dtype=torch.float32, device=x.device)
+    for j in range(w2.shape[0]):
+        acc = acc + w2r[j][:, None] * h1[j]
+    h2 = r(torch.relu(acc + b2[:, None]))
+    pad = -h2.shape[0] % _CHUNK  # zero units past the width add +0
+    h2 = torch.cat([h2, h2.new_zeros((pad, h2.shape[1]))])
+    w3r = torch.cat([w3r, w3r.new_zeros((pad, w3r.shape[1]))])
+    # prod[o, c, half, g, k, e]: unit 32 c + 16 half + 4 g + k.
+    prod = (w3r.T[:, :, None] * h2[None]).reshape(w3.shape[1], -1, 2, 4, 4, x.shape[1])
+    halves = []
+    for half in range(2):
+        s = torch.zeros_like(prod[:, :, half, :, 0])
+        for k in range(4):
+            s = s + prod[:, :, half, :, k]
+        halves.append(s)
+    v = halves[0] + halves[1]  # (OUT, chunks, 4 lanes, B)
+    chunk = (v[:, :, 0] + v[:, :, 2]) + (v[:, :, 1] + v[:, :, 3])
+    head = torch.zeros((w3.shape[1], x.shape[1]), dtype=torch.float32, device=x.device)
+    for c in range(chunk.shape[1]):
+        head = head + chunk[:, c]
+    return head + b3[:, None]
+
+
 def collect_step_reference(env_kind: str, mode: str, states_t, seed: int, consts,
                            params_vec, w1, b1, w2, b2, w3, b3,
-                           counts: torch.Tensor | None = None):
+                           counts: torch.Tensor | None = None, compute_dtype=None):
     """Plain PyTorch twin of K7, on any device: the same float32
     arithmetic and the same Philox draws.  Its products are float32
-    matmuls; on a CUDA device the caller keeps TF32 off.  Same arguments
-    and returns as :func:`collect_step`."""
+    matmuls (on a CUDA device the caller keeps TF32 off), or with
+    ``compute_dtype`` "bfloat16" the bf16 products of :func:`_actor_bf16`.
+    Same arguments and returns as :func:`collect_step`."""
     params = _check_args(env_kind, mode, states_t, seed, consts, params_vec,
                          (w1, b1, w2, b2, w3, b3))
     _check_counts(counts, env_kind, states_t)
@@ -139,9 +192,12 @@ def collect_step_reference(env_kind: str, mode: str, states_t, seed: int, consts
     env_idx = torch.arange(states_t.shape[1], device=states_t.device)
 
     x = states_t
-    h = torch.relu(w1.T @ x + b1[:, None])
-    h = torch.relu(w2.T @ h + b2[:, None])
-    out = w3.T @ h + b3[:, None]
+    if is_bf16(compute_dtype):
+        out = _actor_bf16(x, w1, b1, w2, b2, w3, b3)
+    else:
+        h = torch.relu(w1.T @ x + b1[:, None])
+        h = torch.relu(w2.T @ h + b2[:, None])
+        out = w3.T @ h + b3[:, None]
     if mode.startswith("sac"):
         u = out[:a]
         if mode == "sac":
@@ -166,7 +222,8 @@ def collect_step_reference(env_kind: str, mode: str, states_t, seed: int, consts
 
 
 def collect_step(env_kind: str, mode: str, states_t, seed: int, consts, params_vec,
-                 w1, b1, w2, b2, w3, b3, counts: torch.Tensor | None = None):
+                 w1, b1, w2, b2, w3, b3, counts: torch.Tensor | None = None,
+                 compute_dtype=None):
     """K7: one off-policy collection iteration in one CUDA launch.
 
     ``env_kind`` an :data:`ENVS` name; ``mode`` one of :data:`MODES`;
@@ -182,15 +239,18 @@ def collect_step(env_kind: str, mode: str, states_t, seed: int, consts, params_v
     or a ``(B,)`` int32 tensor on the states' device to which each env's
     taut tether at the start of the step (0 or 1) is added (the slung-load
     kinds: a counting kernel, bitwise the main path's otherwise).
+    ``compute_dtype`` None or "float32", or "bfloat16" (the kernel's bf16
+    instance, the twin's :func:`_actor_bf16`).
     Launches on the current stream and does not synchronise.  A CPU tensor
     runs the plain twin; a CUDA tensor runs the kernel, which takes the
     widths :func:`width_refusal` accepts, or raises."""
+    bf16 = is_bf16(compute_dtype)
     weights = (w1, b1, w2, b2, w3, b3)
     params = _check_args(env_kind, mode, states_t, seed, consts, params_vec, weights)
     _check_counts(counts, env_kind, states_t)
     if states_t.device.type == "cpu":
         return collect_step_reference(env_kind, mode, states_t, seed, consts, params, *weights,
-                                      counts=counts)
+                                      counts=counts, compute_dtype=compute_dtype)
     if states_t.device.type != "cuda":
         raise ValueError(f"unsupported device {states_t.device}")
     hidden = (w1.shape[1], w2.shape[1])
@@ -205,10 +265,12 @@ def collect_step(env_kind: str, mode: str, states_t, seed: int, consts, params_v
     new = torch.empty_like(states_t)
     block = torch.empty((2 * d + kind.action_dim + 2, batch), dtype=torch.float32,
                         device=states_t.device)
+    if bf16:  # the bf16 instance streams W2 as given: rounded here, once a launch
+        weights = (w1, b1, bf16_round(w2), b2, w3, b3)
     host_params = (ctypes.c_float * params.shape[0])(*params.tolist())
     with torch.cuda.device(states_t.device):
         rc = lib.offpolicy_collect_launch(
-            kind.kind_id, MODES[mode], ctypes.addressof(host_params), params.shape[0],
+            kind.kind_id, MODES[mode], int(bf16), ctypes.addressof(host_params), params.shape[0],
             states_t.data_ptr(), batch, *hidden, *(t.data_ptr() for t in weights),
             consts.data_ptr(),
             int(seed), new.data_ptr(), block.data_ptr(),

@@ -20,8 +20,18 @@ The gradients come out in the layout of the parameters themselves: the
 towers' blocks, without the zero blocks of the fused layer that the TPU
 kernel differentiates and ``ppo._unfuse_grads`` then drops.
 
+``compute_dtype="bfloat16"`` is the TPU kernel's bf16 mode (its ``_mm``):
+the two operands of each product rounded to bf16 and the exact products
+summed in float32, in the forward (the weights, the obs, ``h1`` and
+``h2``) and in the five backward products (their ``dout``, ``dpre2`` and
+``dpre1`` cotangents and the activations of the weight gradients); the
+``(1 - h^2)`` factors take the float32 ``h``, and the bias gradients sum
+the float32 cotangents.  The kernel's bf16 instance rounds the same
+operands and runs the float32 body: a product of two bf16 values is exact
+in float32.
+
 The wrapper takes the twin only for a tensor that lies on the CPU; on a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches the kernel of the dtype asked for or raises.
 """
 
 from __future__ import annotations
@@ -30,7 +40,7 @@ import math
 
 import torch
 
-from ..rl.networks import Layout
+from ..rl.networks import Layout, bf16_mm, bf16_round, is_bf16
 
 #: The (obs, action) dims the K3 and K4 kernels are built for
 #: (quadrotor3d-v0, the tpuquad family, quadrotor2d-v0, the 2D and 3D
@@ -108,12 +118,20 @@ def logp_ratio(diff, var, ls, old_logp):
 
 def ppo_loss_grads_reference(data, adv_stats, perm, net, *, d: int, adim: int,
                              clip_eps: float, value_clip_eps: float, value_coef: float,
-                             tile: int, kl_mode: bool = False, hidden: int = 64) -> torch.Tensor:
+                             tile: int, kl_mode: bool = False, hidden: int = 64,
+                             compute_dtype=None) -> torch.Tensor:
     """Plain twin of K3: raw SUMS over the minibatch of the loss gradient in
     the flat layout of ``net``, then the metric sums ``[pg, v, kl,
     clipfrac]``.  Any obs and action width and any two equal hidden
     layers of width ``hidden``.  ``adv_stats`` ``[shift, inv_scale,
-    kl_beta, 0]``."""
+    kl_beta, 0]``.  ``compute_dtype`` "bfloat16": the bf16 products of
+    the module docstring."""
+    bf16 = is_bf16(compute_dtype)
+    r = bf16_round if bf16 else (lambda t: t)  # noqa: E731
+
+    def mm(a, b):  # a @ b, or its bf16 product
+        return bf16_mm(a, b) if bf16 else a @ b
+
     layout = Layout(d, adim, (hidden, hidden))
     p = layout.unflatten(net)
     mb = data[:, _gather_columns(perm, tile)]
@@ -127,11 +145,11 @@ def ppo_loss_grads_reference(data, adv_stats, perm, net, *, d: int, adim: int,
     for tower in ("pi", "vf"):
         hs, h = [], x
         for layer in p[tower]:
-            h = torch.tanh(layer["w"].T @ h + layer["b"][:, None])
+            h = torch.tanh(mm(layer["w"].T, h) + layer["b"][:, None])
             hs.append(h)
         acts[tower] = hs
-    mean = p["pi_out"]["w"].T @ acts["pi"][-1] + p["pi_out"]["b"][:, None]
-    value = value_head(acts["vf"][-1], p["vf_out"]["w"][:, 0], p["vf_out"]["b"][0])
+    mean = mm(p["pi_out"]["w"].T, acts["pi"][-1]) + p["pi_out"]["b"][:, None]
+    value = value_head(r(acts["vf"][-1]), r(p["vf_out"]["w"][:, 0]), p["vf_out"]["b"][0])
 
     # ---- policy-gradient term (pallas_ppo._tile_loss_grads) ----------------
     var = torch.exp(2.0 * ls)[:, None]
@@ -168,14 +186,14 @@ def ppo_loss_grads_reference(data, adv_stats, perm, net, *, d: int, adim: int,
     g = {"pi": [{} for _ in p["pi"]], "vf": [{} for _ in p["vf"]], "pi_out": {}, "vf_out": {}}
     for tower, dout in (("pi", dmean), ("vf", dvalue[None])):
         hs = acts[tower]
-        g[f"{tower}_out"] = {"w": hs[-1] @ dout.T, "b": dout.sum(dim=1)}
-        dh = p[f"{tower}_out"]["w"] @ dout
+        g[f"{tower}_out"] = {"w": mm(hs[-1], dout.T), "b": dout.sum(dim=1)}
+        dh = mm(p[f"{tower}_out"]["w"], dout)
         for i in range(len(hs) - 1, -1, -1):
             dpre = dh * (1.0 - hs[i] * hs[i])
             below = hs[i - 1] if i else x
-            g[tower][i] = {"w": below @ dpre.T, "b": dpre.sum(dim=1)}
+            g[tower][i] = {"w": mm(below, dpre.T), "b": dpre.sum(dim=1)}
             if i:
-                dh = p[tower][i]["w"] @ dpre
+                dh = mm(p[tower][i]["w"], dpre)
     g["log_std"] = (dlogp * (quad - 1.0)).sum(dim=1)
     metrics = torch.stack([pg.sum(), 0.5 * torch.maximum(sq1, sq2).sum(), kl.sum(),
                            ((ratio - 1.0).abs() > clip_eps).to(ratio.dtype).sum()])
@@ -195,7 +213,7 @@ def _finish(sums: torch.Tensor, n: int, ent_coef: float, layout: Layout):
 
 def ppo_loss_grads_gather(data, adv_stats, perm, net, *, d: int, adim: int, clip_eps: float,
                           value_clip_eps: float, value_coef: float, ent_coef: float, tile: int,
-                          kl_mode: bool = False, hidden: int = 64):
+                          kl_mode: bool = False, hidden: int = 64, compute_dtype=None):
     """K3: the PPO loss gradient over the minibatch DEFINED by ``perm``
     (int32 ``(m,)`` shuffle-tile indices into the full batch ``data``, the
     :func:`stack_batch` rows), in one CUDA launch plus a second that adds
@@ -207,10 +225,13 @@ def ppo_loss_grads_gather(data, adv_stats, perm, net, *, d: int, adim: int, clip
     Returns ``(grads, metrics)``: ``grads`` the loss-mean gradient in the
     flat layout of ``net`` (entropy term included), ``metrics``
     ``{pg_loss, v_loss, approx_kl, clip_frac}`` as 0-d tensors (means).
+    ``compute_dtype`` None or "float32", or "bfloat16" (the kernel's bf16
+    instance, the twin's bf16 products).
     Launches on the current stream and does not synchronise.  A CPU
     tensor runs the plain twin; a CUDA tensor runs the kernel (the
     :data:`KERNEL_DIMS` pairs, hidden 64) or raises.
     """
+    bf16 = is_bf16(compute_dtype)
     layout = Layout(d, adim, (hidden, hidden))
     for name, t in (("data", data), ("adv_stats", adv_stats), ("net", net)):
         if not isinstance(t, torch.Tensor) or t.dtype != torch.float32:
@@ -231,7 +252,7 @@ def ppo_loss_grads_gather(data, adv_stats, perm, net, *, d: int, adim: int, clip
                          f"{tuple(net.shape)} and {tuple(adv_stats.shape)}")
     m = perm.shape[0]
     cfg = dict(d=d, adim=adim, clip_eps=clip_eps, value_clip_eps=value_clip_eps,
-               value_coef=value_coef, tile=tile, kl_mode=kl_mode)
+               value_coef=value_coef, tile=tile, kl_mode=kl_mode, compute_dtype=compute_dtype)
     if data.device.type == "cpu":
         sums = ppo_loss_grads_reference(data, adv_stats, perm, net, hidden=hidden, **cfg)
         return _finish(sums, m * tile, ent_coef, layout)
@@ -255,8 +276,8 @@ def ppo_loss_grads_gather(data, adv_stats, perm, net, *, d: int, adim: int, clip
         sums = torch.empty(out_size, dtype=torch.float32, device=data.device)
         rc = lib.ppo_loss_launch(
             d, adim, data.data_ptr(), n, perm.data_ptr(), m, tile, adv_stats.data_ptr(), net.data_ptr(),
-            clip_eps, value_clip_eps, value_coef, int(kl_mode), blocks, partials.data_ptr(),
-            sums.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            clip_eps, value_clip_eps, value_coef, int(kl_mode), int(bf16), blocks,
+            partials.data_ptr(), sums.data_ptr(), torch.cuda.current_stream().cuda_stream)
     check(rc, "ppo_loss_launch")
     ppo_loss_grads_gather.launches += 1
     return _finish(sums, m * tile, ent_coef, layout)
@@ -268,7 +289,7 @@ ppo_loss_grads_gather.launches = 0
 
 def ppo_loss_grads(obs, act, old_logp, old_value, adv, ret, net, *, clip_eps: float,
                    value_clip_eps: float, value_coef: float, ent_coef: float,
-                   kl_beta: float | None = None, hidden: int = 64):
+                   kl_beta: float | None = None, hidden: int = 64, compute_dtype=None):
     """K3 over a CONTIGUOUS transposed minibatch (``obs`` ``(D, n)``,
     ``act`` ``(A, n)``, per-sample rows ``(n,)``, ``adv`` already
     normalised): :func:`ppo_loss_grads_gather` with the whole batch as one
@@ -280,4 +301,5 @@ def ppo_loss_grads(obs, act, old_logp, old_value, adv, ret, net, *, clip_eps: fl
     return ppo_loss_grads_gather(
         data, adv_stats, perm, net, d=obs.shape[0], adim=act.shape[0], clip_eps=clip_eps,
         value_clip_eps=value_clip_eps, value_coef=value_coef, ent_coef=ent_coef,
-        tile=data.shape[1], kl_mode=kl_beta is not None, hidden=hidden)
+        tile=data.shape[1], kl_mode=kl_beta is not None, hidden=hidden,
+        compute_dtype=compute_dtype)

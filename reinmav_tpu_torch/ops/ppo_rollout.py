@@ -18,8 +18,15 @@ on, and the CPU tests run the twin.  :data:`ENVS` is the per-env table
 (state and action dims, params pack) that the wrapper and the learner
 read, as the JAX package's ``_ENVS``.
 
+``compute_dtype="bfloat16"`` is the TPU kernel's bf16 mode: the operands
+of every actor-critic product (the weights, the normalised obs, both
+hidden layers) rounded to bf16, the exact products summed in float32;
+the trajectory keeps the float32 normalised obs.  The twin then sums in
+the kernel's order (:func:`_towers_bf16`), so that the two agree bit for
+bit wherever their float32 operations do.
+
 The wrapper takes the twin only for a tensor that lies on the CPU; on a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches the kernel of the dtype asked for or raises.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..rl.networks import Layout
+from ..rl.networks import Layout, bf16_round, is_bf16
 from . import closed_loop_rollout as cl_ops
 from . import hover_rollout as hover_ops
 from .rollout import (_Q3_FIELDS, body_z, mantissa_fill, philox_words, quad3d_dynamics,
@@ -162,6 +169,37 @@ def _towers(net: torch.Tensor, x: torch.Tensor, adim: int):
     return heads[0], heads[1][0]
 
 
+def _towers_bf16(net: torch.Tensor, x: torch.Tensor, adim: int):
+    """:func:`_towers` with bf16 products, summed in the bf16 kernel's
+    order: each first-layer unit from its bias over the obs dims in order;
+    each second-layer unit from its bias, adding the partial sum of each
+    run of 4 inputs (``((p0 + p1) + p2) + p3``); each head from its bias
+    over the units in order.  Every product of two bf16 values is exact in
+    float32, so each sum rounds as the kernel's FMA chain does."""
+    p = Layout(x.shape[0], adim, HIDDEN).unflatten(net)
+    r = bf16_round
+    xr = r(x)
+    heads = []
+    for tower in ("pi", "vf"):
+        (l1, l2), out = p[tower], p[f"{tower}_out"]
+        w1, w2, wo = r(l1["w"]), r(l2["w"]), r(out["w"])
+        z = l1["b"][:, None].expand(-1, x.shape[1])
+        for d in range(x.shape[0]):
+            z = z + w1[d][:, None] * xr[d]
+        h1 = r(torch.tanh(z))
+        z = l2["b"][:, None].expand(-1, x.shape[1])
+        for q in range(0, h1.shape[0], 4):
+            part = w2[q][:, None] * h1[q] + w2[q + 1][:, None] * h1[q + 1]
+            part = part + w2[q + 2][:, None] * h1[q + 2]
+            z = z + (part + w2[q + 3][:, None] * h1[q + 3])
+        h2 = r(torch.tanh(z))
+        head = out["b"][:, None].expand(-1, x.shape[1])
+        for j in range(h2.shape[0]):
+            head = head + wo[j][:, None] * h2[j]
+        heads.append(head)
+    return heads[0], heads[1][0]
+
+
 def _env_twin(env_kind: str, params: torch.Tensor, reset_stream: int = _RESET_STREAM):
     """``(step, reset)`` of a kind in the kernel's arithmetic: ``step(s,
     act) -> (states, raw reward, done)`` on ``(D, B)`` states and ``(A,
@@ -226,10 +264,13 @@ def ppo_rollout_reference(states_t, env_returns, seed: int, net, consts, horizon
                           params_vec: torch.Tensor | None = None, normalize_obs: bool = True,
                           normalize_rewards: bool = True,
                           env_kind: str = "quadrotor3d-v0",
-                          counts: torch.Tensor | None = None) -> RolloutOut:
+                          counts: torch.Tensor | None = None,
+                          compute_dtype=None) -> RolloutOut:
     """Plain PyTorch twin of K2 / K6, on any device: the same float32
     arithmetic and the same Philox draws.  Its products are float32
-    matmuls; on a CUDA device the caller keeps TF32 off."""
+    matmuls (on a CUDA device the caller keeps TF32 off), or with
+    ``compute_dtype`` "bfloat16" the bf16 products of :func:`_towers_bf16`."""
+    towers = _towers_bf16 if is_bf16(compute_dtype) else _towers
     params = _check_args(states_t, env_returns, seed, net, consts, horizon, params_vec, env_kind)
     _check_counts(counts, states_t, env_kind, normalize_obs, normalize_rewards)
     env_step, env_reset = _env_twin(env_kind, params)
@@ -255,7 +296,7 @@ def ppo_rollout_reference(states_t, env_returns, seed: int, net, consts, horizon
             x = torch.clamp((s - obs_mean) * obs_invstd, -10.0, 10.0)
         else:
             x = s
-        mean, value = _towers(net, x, A)
+        mean, value = towers(net, x, A)
         act = mean + std * normal_draws(env_idx, t, seed, A)
         z = (act - mean) * (1.0 / std)
         logp = -0.5 * (z * z).sum(dim=0) - ls_sum - logp_const(A)
@@ -293,7 +334,7 @@ def ppo_rollout_reference(states_t, env_returns, seed: int, net, consts, horizon
 def ppo_rollout(states_t, env_returns, seed: int, net, consts, horizon: int,
                 params_vec: torch.Tensor | None = None, normalize_obs: bool = True,
                 normalize_rewards: bool = True, env_kind: str = "quadrotor3d-v0",
-                counts: torch.Tensor | None = None) -> RolloutOut:
+                counts: torch.Tensor | None = None, compute_dtype=None) -> RolloutOut:
     """K2 (quadrotor3d-v0) or K6 (the other kinds of :data:`ENVS`):
     ``horizon`` policy + env steps in one CUDA launch.
 
@@ -309,15 +350,19 @@ def ppo_rollout(states_t, env_returns, seed: int, net, consts, horizon: int,
     int32 tensor on the states' device that receives each env's taut
     env-steps, the tether taut at the start of the step (the slung-load
     kinds with both normalisers on: a counting instance of the kernel,
-    bitwise the main path's otherwise).  Returns :class:`RolloutOut`.
+    bitwise the main path's otherwise).  ``compute_dtype`` None or
+    "float32", or "bfloat16" (the kernel's bf16 instance, the twin's
+    :func:`_towers_bf16`).  Returns :class:`RolloutOut`.
     Launches on the current stream and does not synchronise.  A CPU tensor
     runs the plain twin; a CUDA tensor runs the kernel or raises.
     """
+    bf16 = is_bf16(compute_dtype)
     params = _check_args(states_t, env_returns, seed, net, consts, horizon, params_vec, env_kind)
     _check_counts(counts, states_t, env_kind, normalize_obs, normalize_rewards)
     if states_t.device.type == "cpu":
         return ppo_rollout_reference(states_t, env_returns, seed, net, consts, horizon, params,
-                                     normalize_obs, normalize_rewards, env_kind, counts)
+                                     normalize_obs, normalize_rewards, env_kind, counts,
+                                     compute_dtype)
     if states_t.device.type != "cuda":
         raise ValueError(f"unsupported device {states_t.device}")
     from .._build import check, load_library
@@ -339,6 +384,7 @@ def ppo_rollout(states_t, env_returns, seed: int, net, consts, horizon: int,
         rc = lib.ppo_rollout_launch(
             kind.kind_id, states_t.data_ptr(), env_returns.data_ptr(), net.data_ptr(),
             consts.data_ptr(), batch, T, int(seed), int(normalize_obs), int(normalize_rewards),
+            int(bf16),
             ctypes.addressof(host_params), params.shape[0], *(t.data_ptr() for t in out[:8]),
             partials.data_ptr(), out.stats.data_ptr(),
             None if counts is None else counts.data_ptr(),

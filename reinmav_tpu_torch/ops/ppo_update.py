@@ -17,9 +17,14 @@ The TPU kernel's packed parameter plane and structure masks
 counterpart: the flat :class:`reinmav_tpu_torch.rl.networks.Layout`
 vector holds only the towers' real blocks.
 
+``compute_dtype="bfloat16"``: each pass's loss gradient with K3's bf16
+products (:mod:`reinmav_tpu_torch.ops.ppo_loss`); the params, the Adam
+moments and the optimiser's arithmetic stay float32.
+
 The wrapper takes the twin only for a tensor that lies on the CPU; on a
-CUDA tensor it launches the kernel or raises (a grid that cannot be
-co-resident raises too: there is no fallback to the per-minibatch loop).
+CUDA tensor it launches the kernel of the dtype asked for or raises (a
+grid that cannot be co-resident raises too: there is no fallback to the
+per-minibatch loop).
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from typing import NamedTuple
 import torch
 
 from ..rl import networks
-from ..rl.networks import Layout
+from ..rl.networks import Layout, is_bf16
 from . import ppo_loss as loss_ops
 
 #: The kernel's raw metric sums: [pg, v, kl, clipfrac] over every processed
@@ -99,7 +104,7 @@ def ppo_update_reference(data, adv_stats, perm_all, params, opt_state, kl_beta, 
                          clip_eps: float, value_clip_eps: float, value_coef: float,
                          ent_coef: float, lr: float, max_grad_norm: float,
                          log_std_floor: float | None = None, kl_mode: bool = False,
-                         hidden: int = 64):
+                         hidden: int = 64, compute_dtype=None):
     """Plain twin of K4: for each pass, K3's twin
     (:func:`reinmav_tpu_torch.ops.ppo_loss.ppo_loss_grads_reference`) and
     :func:`reinmav_tpu_torch.ops.ppo_loss._finish`, then :func:`clip_adam`
@@ -119,7 +124,7 @@ def ppo_update_reference(data, adv_stats, perm_all, params, opt_state, kl_beta, 
         sums = loss_ops.ppo_loss_grads_reference(
             data, stats, perm_all[p * tpm:(p + 1) * tpm], params, d=d, adim=adim,
             clip_eps=clip_eps, value_clip_eps=value_clip_eps, value_coef=value_coef, tile=tile,
-            kl_mode=kl_mode, hidden=hidden)
+            kl_mode=kl_mode, hidden=hidden, compute_dtype=compute_dtype)
         grads, _ = loss_ops._finish(sums, mb, ent_coef, layout)
         grad0 = grads if p == 0 else grad0
         ent = ent + networks.entropy(params[layout.slices[("log_std",)]])
@@ -137,7 +142,7 @@ def ppo_update(data, adv_stats, perm_all, params, opt_state, kl_beta, *, d: int,
                tile: int, n_minibatches: int, n_epochs: int, clip_eps: float,
                value_clip_eps: float, value_coef: float, ent_coef: float, lr: float,
                max_grad_norm: float, log_std_floor: float | None = None, kl_mode: bool = False,
-               hidden: int = 64, keep_grad0: bool = False) -> UpdateOut:
+               hidden: int = 64, keep_grad0: bool = False, compute_dtype=None) -> UpdateOut:
     """K4: one full PPO update, ``n_epochs x n_minibatches`` passes, in one
     CUDA launch.
 
@@ -149,11 +154,14 @@ def ppo_update(data, adv_stats, perm_all, params, opt_state, kl_beta, *, d: int,
     ``opt_state`` ``(count, mu, nu)`` with ``count`` an int32 0-d tensor
     (the Adam count before the update); ``kl_beta`` a float32 0-d tensor,
     read in ``kl_mode`` only (None otherwise).  Nothing is read back to
-    the host.  Returns :class:`UpdateOut`; the inputs are not modified.
+    the host.  ``compute_dtype`` None or "float32", or "bfloat16" (the
+    bf16 instance: K3's bf16 products in every pass).  Returns
+    :class:`UpdateOut`; the inputs are not modified.
     Launches on the current stream and does not synchronise.  A CPU tensor
     runs the plain twin; a CUDA tensor runs the kernel (the
     ``ppo_loss.KERNEL_DIMS`` pairs, hidden 64) or raises.
     """
+    bf16 = is_bf16(compute_dtype)
     layout = Layout(d, adim, (hidden, hidden))
     count, mu, nu = opt_state
     for name, t in (("data", data), ("adv_stats", adv_stats), ("params", params), ("mu", mu),
@@ -190,7 +198,8 @@ def ppo_update(data, adv_stats, perm_all, params, opt_state, kl_beta, *, d: int,
     cfg = dict(d=d, adim=adim, tile=tile, n_minibatches=n_minibatches, n_epochs=n_epochs,
                clip_eps=clip_eps, value_clip_eps=value_clip_eps, value_coef=value_coef,
                ent_coef=ent_coef, lr=lr, max_grad_norm=max_grad_norm,
-               log_std_floor=log_std_floor, kl_mode=kl_mode, hidden=hidden)
+               log_std_floor=log_std_floor, kl_mode=kl_mode, hidden=hidden,
+               compute_dtype=compute_dtype)
     if data.device.type == "cpu":
         new_params, new_opt, sums, grad0 = ppo_update_reference(
             data, adv_stats, perm_all, params, opt_state, kl_beta, **cfg)
@@ -222,7 +231,7 @@ def ppo_update(data, adv_stats, perm_all, params, opt_state, kl_beta, *, d: int,
             new_count.data_ptr(), new_params.data_ptr(), new_mu.data_ptr(), new_nu.data_ptr(),
             clip_eps, value_clip_eps, value_coef, 1.0 / mb, ent_coef, lr, max_grad_norm,
             ADAM_B1, ADAM_B2, ADAM_EPS, int(log_std_floor is not None),
-            0.0 if log_std_floor is None else log_std_floor, int(kl_mode), blocks,
+            0.0 if log_std_floor is None else log_std_floor, int(kl_mode), int(bf16), blocks,
             partials.data_ptr(), gbuf.data_ptr(), slots.data_ptr(), sums.data_ptr(),
             None if grad0 is None else grad0.data_ptr(),
             torch.cuda.current_stream().cuda_stream)

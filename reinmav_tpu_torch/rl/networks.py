@@ -13,9 +13,11 @@ pointer.  A JAX params pytree maps onto the vector leaf by leaf
 (:func:`params_from_jax`).
 
 Activations are batch-minor, ``(D, B)``, as in the JAX package's
-transposed path (``apply_t``).  ``compute_dtype="bfloat16"`` (the JAX
-package's bf16 matmul inputs with a bf16 autodiff residual) is not
-ported: it raises ``NotImplementedError``.
+transposed path (``apply_t``).  ``compute_dtype="bfloat16"`` is the JAX
+package's bf16 path: each product's two operands rounded to bf16 (round
+to nearest even), the products summed in float32 (:func:`bf16_mm`), the
+bias adds, the nonlinearities and the distribution math in float32, and
+each tanh's autodiff residual saved as bf16 (:class:`TanhBf16Residual`).
 """
 
 from __future__ import annotations
@@ -28,13 +30,51 @@ import torch
 from torch import nn
 
 _LOG_2PI = math.log(2.0 * math.pi)
-_BF16_NOT_PORTED = ("compute_dtype='bfloat16' (reinmav_tpu.rl.networks: bf16 matmul inputs "
-                    "with a bf16 autodiff residual) is not ported yet: ROADMAP.md queue 1 item 5")
+COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
-def _require_f32_compute(compute_dtype) -> None:
-    if compute_dtype not in (None, "float32"):
-        raise NotImplementedError(_BF16_NOT_PORTED)
+def is_bf16(compute_dtype) -> bool:
+    """Whether ``compute_dtype`` (None, "float32" or "bfloat16") selects
+    the bf16 products; raises ``ValueError`` on any other value."""
+    if compute_dtype in (None, "float32"):
+        return False
+    if compute_dtype == "bfloat16":
+        return True
+    raise ValueError(f"compute_dtype {compute_dtype!r}: expected one of {COMPUTE_DTYPES}")
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 (round to nearest even) and back to float32.
+    Under autograd the cotangent is rounded the same way on its way back,
+    as JAX's ``convert_element_type`` pair does."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def bf16_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with both operands rounded to bf16 and the exact products
+    summed in float32; float32 out, for float64 inputs too (JAX's
+    ``dot_general(a.astype(bf16), b.astype(bf16),
+    preferred_element_type=float32)``).  Never a matmul ON bf16 tensors:
+    that rounds the sums to bf16 as well."""
+    return bf16_round(a) @ bf16_round(b)
+
+
+class TanhBf16Residual(torch.autograd.Function):
+    """tanh of the float32 sum whose saved backward residual is the output
+    rounded to bf16: ``g * (1 - h16^2)`` (the JAX package's
+    ``networks._tanh_bf16_residual``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        h = torch.tanh(x)
+        ctx.save_for_backward(h.to(torch.bfloat16))
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        (h16,) = ctx.saved_tensors
+        h = h16.to(g.dtype)
+        return g * (1.0 - h * h)
 
 
 class Layout:
@@ -132,7 +172,8 @@ class ActorCritic(nn.Module):
                  init_log_std: float = 0.0, generator: torch.Generator | None = None,
                  dtype=torch.float32, compute_dtype: str = "float32"):
         super().__init__()
-        _require_f32_compute(compute_dtype)
+        is_bf16(compute_dtype)
+        self.compute_dtype = compute_dtype
         self.layout = Layout(obs_dim, action_dim, hidden)
         generator = generator or torch.Generator().manual_seed(0)
         self.flat = nn.Parameter(init_params(self.layout, generator, init_log_std, dtype))
@@ -141,7 +182,7 @@ class ActorCritic(nn.Module):
         return self.layout.unflatten(self.flat)
 
     def forward(self, obs_t: torch.Tensor):
-        return apply_t(self.params(), obs_t)
+        return apply_t(self.params(), obs_t, self.compute_dtype)
 
 
 def _block_diag2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -167,14 +208,23 @@ def fused_weights(params):
 
 def apply_t(params, obs_t: torch.Tensor, compute_dtype=None):
     """Transposed fused forward: ``obs_t`` is ``(obs_dim, *batch)``.
-    Returns ``(mean_t (A, *batch), log_std (A,), value (*batch))``."""
-    _require_f32_compute(compute_dtype)
+    Returns ``(mean_t (A, *batch), log_std (A,), value (*batch))``.
+    ``compute_dtype`` "bfloat16": bf16 products (:func:`bf16_mm`) and the
+    bf16 tanh residual, float32 out."""
+    bf16 = is_bf16(compute_dtype)
     layers, w_out, b_out = fused_weights(params)
     x = obs_t
     tail = (1,) * (x.dim() - 1)
+
+    def mm(w, x):
+        if bf16:
+            return bf16_mm(w.T, x.reshape(x.shape[0], -1)).reshape(w.shape[1:] + x.shape[1:])
+        return torch.tensordot(w, x, dims=([0], [0]))
+
     for w, b in layers:
-        x = torch.tanh(torch.tensordot(w, x, dims=([0], [0])) + b.reshape(b.shape + tail))
-    out = torch.tensordot(w_out, x, dims=([0], [0])) + b_out.reshape(b_out.shape + tail)
+        pre = mm(w, x) + b.reshape(b.shape + tail)
+        x = TanhBf16Residual.apply(pre) if bf16 else torch.tanh(pre)
+    out = mm(w_out, x) + b_out.reshape(b_out.shape + tail)
     return out[:-1], params["log_std"], out[-1]
 
 

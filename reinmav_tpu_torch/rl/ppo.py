@@ -52,8 +52,14 @@ log = logging.getLogger(__name__)
 
 class PpoConfig(NamedTuple):
     """The JAX package's ``PpoConfig``: the same fields and defaults (see
-    there for each).  ``compute_dtype="bfloat16"`` raises
-    ``NotImplementedError`` here."""
+    there for each).  ``compute_dtype="bfloat16"`` rounds the operands of
+    every policy/value product to bf16 and sums in float32, on every path
+    (the eager loops, and the bf16 instances of K2/K6, K3 and K4); the
+    master params and the Adam state stay float32.  As in the JAX package
+    the two update paths are then not gradient-identical: K3/K4
+    back-propagate tanh through the float32 activation, autograd through
+    the bf16 residual (:class:`.networks.TanhBf16Residual`), so toggling
+    ``fused_loss`` shifts the gradients at bf16 rounding magnitude."""
 
     num_envs: int = 1024
     rollout_len: int = 128
@@ -150,11 +156,10 @@ class Rollout(NamedTuple):
     raw_reward_mean: torch.Tensor
 
 
-def _require_float32(cfg) -> None:
-    """Refuse a config (PPO's, SAC's or TD3's) whose ``compute_dtype`` is
-    not float32: bf16 is ROADMAP item 5."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(networks._BF16_NOT_PORTED)
+def check_compute_dtype(cfg) -> None:
+    """Raise ``ValueError`` unless a config's (PPO's, SAC's or TD3's)
+    ``compute_dtype`` is "float32" or "bfloat16"."""
+    networks.is_bf16(cfg.compute_dtype)
 
 
 def _normalize_t(obs_t, norm: ObsNorm):
@@ -264,7 +269,7 @@ def _draw_seed(generator: torch.Generator) -> int:
 def init_train_state(env: EnvDef, cfg: PpoConfig, seed: int = 0, device="cuda") -> TrainState:
     """Fresh params (orthogonal init), optimiser, env states, normalisers;
     on ``device`` (the card unless the caller asks for the CPU)."""
-    _require_float32(cfg)
+    check_compute_dtype(cfg)
     generator = torch.Generator().manual_seed(seed)
     layout = Layout(env.obs_dim, env.action_dim, cfg.hidden)
     params = networks.init_params(layout, generator).to(device)
@@ -302,7 +307,8 @@ def collect_rollout(env: EnvDef, cfg: PpoConfig, params, obs_norm: ObsNorm, ret_
                                  omom.total_sq + torch.square(obs_t).sum(dim=1),
                                  omom.count + batch)
         norm_obs = _normalize_t(obs_t, obs_norm) if cfg.normalize_obs else obs_t
-        action, log_prob, value = networks.sample_action_t(tree, norm_obs, generator)
+        action, log_prob, value = networks.sample_action_t(tree, norm_obs, generator,
+                                                           cfg.compute_dtype)
         out = env.autoreset_step_t(states_t, action, generator)
         done = episode_boundary(out)
         reward = out.reward
@@ -348,7 +354,8 @@ def collect_rollout_kernel(env: EnvDef, cfg: PpoConfig, params, obs_norm: ObsNor
         seed, params.to(torch.float32).contiguous(),
         _rollout_consts(params, layout, obs_norm, ret_norm, cfg.gamma), cfg.rollout_len,
         params_vec=rollout_ops.env_params_vec(env), normalize_obs=cfg.normalize_obs,
-        normalize_rewards=cfg.normalize_rewards, env_kind=env.name)
+        normalize_rewards=cfg.normalize_rewards, env_kind=env.name,
+        compute_dtype=cfg.compute_dtype)
     d = env.obs_dim
     n = torch.tensor(float(cfg.rollout_len * env_states.shape[0]), device=env_states.device)
     s = out.stats
@@ -556,7 +563,8 @@ def update_phase(env: EnvDef, cfg: PpoConfig, state: TrainState, rollout: Rollou
     last_obs_t = rollout.final_states.T[:env.obs_dim]
     last_norm = _normalize_t(last_obs_t, state.obs_norm) if cfg.normalize_obs else last_obs_t
     with torch.no_grad(), record_function("ppo.gae"):
-        _, _, last_value = networks.apply_t(layout.unflatten(state.params), last_norm)
+        _, _, last_value = networks.apply_t(layout.unflatten(state.params), last_norm,
+                                            cfg.compute_dtype)
         advantages, returns = compute_gae(cfg, traj, last_value)
 
     # Flatten to the transposed sample axis, sample t * B + b.
@@ -593,7 +601,7 @@ def update_phase(env: EnvDef, cfg: PpoConfig, state: TrainState, rollout: Rollou
                 data_full, adv_stats, tidx.to(torch.int32), params.to(torch.float32),
                 d=d, adim=adim, clip_eps=cfg.clip_eps, value_clip_eps=cfg.value_clip_eps,
                 value_coef=cfg.value_coef, ent_coef=cfg.entropy_coef, tile=tile,
-                kl_mode=kl_mode, hidden=cfg.hidden[0])
+                kl_mode=kl_mode, hidden=cfg.hidden[0], compute_dtype=cfg.compute_dtype)
             return grads, {**metrics, "entropy": networks.entropy(params[ls_slice])}
         mb = Transition(flat.obs[:, cols], flat.action[:, cols], flat.log_prob[cols],
                         flat.value[cols], flat.reward[cols], flat.done[cols])
@@ -601,8 +609,8 @@ def update_phase(env: EnvDef, cfg: PpoConfig, state: TrainState, rollout: Rollou
         if cfg.normalize_advantages:
             adv = (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-8)
         p = params.detach().requires_grad_(True)
-        loss, metrics = ppo_loss(layout.unflatten(p), cfg, mb, adv, flat_ret[cols], None,
-                                 state.kl_beta)
+        loss, metrics = ppo_loss(layout.unflatten(p), cfg, mb, adv, flat_ret[cols],
+                                 cfg.compute_dtype, state.kl_beta)
         (grads,) = torch.autograd.grad(loss, p)
         return grads, {k: v.detach() for k, v in metrics.items()}
 
@@ -618,7 +626,8 @@ def update_phase(env: EnvDef, cfg: PpoConfig, state: TrainState, rollout: Rollou
             d=d, adim=adim, tile=tile, n_minibatches=cfg.num_minibatches, n_epochs=len(perms),
             clip_eps=cfg.clip_eps, value_clip_eps=cfg.value_clip_eps, value_coef=cfg.value_coef,
             ent_coef=cfg.entropy_coef, lr=cfg.learning_rate, max_grad_norm=cfg.max_grad_norm,
-            log_std_floor=cfg.log_std_floor, kl_mode=kl_mode, hidden=cfg.hidden[0])
+            log_std_floor=cfg.log_std_floor, kl_mode=kl_mode, hidden=cfg.hidden[0],
+            compute_dtype=cfg.compute_dtype)
         metrics = dict(out.metrics)
         measured = metrics.pop("approx_kl_last", None)
         return out.params, out.opt_state, metrics, measured
@@ -682,8 +691,8 @@ def train_step(env: EnvDef, cfg: PpoConfig, state: TrainState, fused_rollout: bo
     config is supported, "on" the kernel's wrapper, which runs its plain
     twin on the CPU, "off" the eager path or the loop); True / False
     force.  K4 needs K3's preconditions and a loss path that is not
-    switched off.  Logs which paths ran and why."""
-    _require_float32(cfg)
+    switched off.  Logs which paths ran and why, and the compute dtype."""
+    check_compute_dtype(cfg)
     device = state.env_states.device
     use_k2, rollout_how = _choose("fused_rollout", fused_rollout, cfg.fused_rollout,
                                   _rollout_refusal(cfg, env), device)
@@ -699,8 +708,8 @@ def train_step(env: EnvDef, cfg: PpoConfig, state: TrainState, fused_rollout: bo
         update = (f"K4 {update_how}; {passes} minibatch steps of clip + Adam, loss gradient "
                   + (f"K3 {loss_how}, {passes} launches" if use_k3 else f"autograd, K3 {loss_how}"))
     k2 = _rollout_kernel_name(env)
-    log.info("train_step(%s, B=%d, T=%d): rollout: %s; update: %s", env.name,
-             state.env_states.shape[0], cfg.rollout_len,
+    log.info("train_step(%s, B=%d, T=%d, %s): rollout: %s; update: %s", env.name,
+             state.env_states.shape[0], cfg.rollout_len, cfg.compute_dtype,
              f"{k2} {rollout_how}" if use_k2 else f"eager loop, {k2} {rollout_how}", update)
 
     seed = _draw_seed(state.generator)

@@ -31,8 +31,10 @@ or GRU one; the GRU hidden carried and masked on each episode's end);
 ``--gif`` and ``--html`` write that rollout as a GIF or a self-contained
 HTML animation, ``--live`` serves it to a browser while it steps
 (``--live_port``, 0 for any free port; ``--live_hold`` seconds kept up
-after the end).  What is not ported yet exits with a message naming its
-ROADMAP.md item: ``--shard_map`` and ``--compute_dtype=bfloat16``.
+after the end).  ``--compute_dtype=bfloat16`` runs every learner's
+products with bf16 operands and float32 sums (the bf16 instances of K2/K6,
+K4 and K7 on the card).  What is not ported yet exits with a message
+naming its ROADMAP.md item: ``--shard_map``.
 ``--no_mesh`` is accepted and changes nothing (one device).
 """
 
@@ -51,10 +53,7 @@ from ..utils.metrics import MetricsLogger, to_host
 from . import evaluate, networks, ppo, recurrent, sac, td3
 
 OFF_POLICY = ("sac", "td3", "ddpg")
-#: Flag values that are not ported yet -> the ROADMAP.md item that ports them.
-_NOT_PORTED = {
-    "compute_dtype": ({"bfloat16"}, "bf16 matmul inputs (ROADMAP.md queue 1 item 5)"),
-}
+#: Flags that are not ported yet -> the ROADMAP.md item that ports them.
 _NOT_PORTED_FLAGS = {
     "shard_map": "the shard_map train step (ROADMAP.md queue 1 item 13)",
 }
@@ -105,7 +104,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_layers", type=int, default=2)
     p.add_argument("--num_hidden", type=int, default=64)
     p.add_argument("--compute_dtype", default="float32", choices=("float32", "bfloat16"),
-                   help="bfloat16 is not ported yet")
+                   help="bfloat16: the policy/value products take bf16 operands with float32 "
+                        "sums; params and optimiser state stay float32")
     p.add_argument("--ent_coef", type=float, default=0.0)
     p.add_argument("--log_std_floor", type=float, default=None,
                    help="lower clamp on the policy log-std after each optimiser step")
@@ -140,11 +140,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def refuse_not_ported(args) -> None:
-    """Exit with a message naming the ROADMAP.md item of each flag value
-    that is not ported yet."""
-    for flag, (values, what) in _NOT_PORTED.items():
-        if getattr(args, flag) in values:
-            raise SystemExit(f"--{flag}={getattr(args, flag)} is not ported to PyTorch yet: {what}")
+    """Exit with a message naming the ROADMAP.md item of each flag that is
+    not ported yet."""
     for flag, what in _NOT_PORTED_FLAGS.items():
         if getattr(args, flag):
             raise SystemExit(f"--{flag} is not ported to PyTorch yet: {what}")

@@ -16,7 +16,11 @@ updates; :func:`train_iters` runs ``num_iters`` of them.  The collection
 runs in the fused CUDA kernel K7 (:mod:`reinmav_tpu_torch.ops.offpolicy`)
 when the states lie on the card and the env, its kind and the actor's
 widths are the kernel's, else eagerly (``fused_collect``, logged).  The
-updates are ``torch.autograd`` with FP32 matmuls.  The TD3/DDPG learner
+updates are ``torch.autograd``, with FP32 matmuls, or with
+``compute_dtype="bfloat16"`` the JAX package's bf16 products (operands
+rounded to bf16, float32 sums: :func:`.networks.bf16_mm`) and bf16 ReLU
+residuals (:class:`ReluBf16Residual`); the collection then runs K7's bf16
+instance or its eager counterpart.  The TD3/DDPG learner
 (:mod:`.td3`) shares the ring, the collection and the optimiser.
 
 Differences from the JAX package, by design:
@@ -34,8 +38,6 @@ Differences from the JAX package, by design:
 - The gate, the counters and the metrics stay on the device; an
   iteration reads nothing from it, and :func:`train_iters` reads the
   metrics once at its end.
-
-``compute_dtype="bfloat16"`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -53,8 +55,9 @@ from ..envs.core import EnvDef
 from ..ops import offpolicy as collect_ops
 from ..ops import ppo_rollout as rollout_ops
 from ..utils.metrics import to_host
-from .ppo import (AdamState, ClipAdam, _choose, _device_generator, _draw_seed,
-                  _require_float32, adam_from_jax, kind_refusal)
+from .networks import bf16_mm, bf16_round, is_bf16
+from .ppo import (AdamState, ClipAdam, _choose, _device_generator, _draw_seed, adam_from_jax,
+                  check_compute_dtype, kind_refusal)
 
 log = logging.getLogger(__name__)
 
@@ -73,7 +76,8 @@ class SacConfig(NamedTuple):
     where it can, "on" forces K7's wrapper (its plain twin on the CPU) and
     raises where it cannot, "off" collects eagerly.  ``sample_tile``
     "auto" is exact uniform sampling (tile 1).  ``compute_dtype=
-    "bfloat16"`` raises ``NotImplementedError``."""
+    "bfloat16"``: bf16 products with float32 sums in the updates and the
+    collection (K7's bf16 instance on the card)."""
 
     num_envs: int = 256
     buffer_capacity: int = 1 << 20
@@ -160,55 +164,87 @@ def init_mlp(layout: MlpLayout, generator: torch.Generator, dtype=torch.float32)
     return flat
 
 
-def mlp_t(layers, x_t):
-    """ReLU MLP on ``(features, batch)``; linear final layer."""
+class ReluBf16Residual(torch.autograd.Function):
+    """ReLU whose saved backward residual is its output rounded to bf16:
+    ``g * (h16 > 0)`` (the JAX package's ``sac._relu_bf16_residual``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        h = torch.relu(x)
+        ctx.save_for_backward(h.to(torch.bfloat16))
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        (h16,) = ctx.saved_tensors
+        return g * (h16 > 0).to(g.dtype)
+
+
+def _relu(x, bf16: bool):
+    return ReluBf16Residual.apply(x) if bf16 else torch.relu(x)
+
+
+def _dot_t(w, x_t, bf16: bool):
+    """``w^T x_t`` for ``w`` ``(din, dout)`` and ``x_t`` ``(din, batch)``:
+    a float32 matmul, or with ``bf16`` the bf16 product."""
+    return bf16_mm(w.T, x_t) if bf16 else w.T @ x_t
+
+
+def mlp_t(layers, x_t, compute_dtype=None):
+    """ReLU MLP on ``(features, batch)``; linear final layer.
+    ``compute_dtype`` "bfloat16": bf16 products and ReLU residuals; the
+    bias adds and the ReLUs in float32."""
+    bf16 = is_bf16(compute_dtype)
     for i, layer in enumerate(layers):
-        x_t = layer["w"].T @ x_t + layer["b"][:, None]
+        x_t = _dot_t(layer["w"], x_t, bf16) + layer["b"][:, None]
         if i < len(layers) - 1:
-            x_t = torch.relu(x_t)
+            x_t = _relu(x_t, bf16)
     return x_t
 
 
-def twin_mlp_t(la, lb, x_t):
+def twin_mlp_t(la, lb, x_t, compute_dtype=None):
     """BOTH critics on one shared input in one stacked pass -> ``(ya, yb)``:
     layer 0 as ONE ``(din, 2H)`` product, every later layer as one batched
-    ``(2, H, H)`` product (``torch.bmm``), as the JAX package stacks them."""
+    ``(2, H, H)`` product (``torch.bmm``, with ``compute_dtype``
+    "bfloat16" on bf16-rounded operands, the sums in float32), as the JAX
+    package stacks them."""
+    bf16 = is_bf16(compute_dtype)
     w0 = torch.cat([la[0]["w"], lb[0]["w"]], dim=1)
     b0 = torch.cat([la[0]["b"], lb[0]["b"]])
     h = la[0]["b"].shape[0]
-    x = torch.relu(w0.T @ x_t + b0[:, None]).reshape(2, h, x_t.shape[-1])
+    x = _relu(_dot_t(w0, x_t, bf16) + b0[:, None], bf16).reshape(2, h, x_t.shape[-1])
     for i in range(1, len(la)):
-        w = torch.stack([la[i]["w"], lb[i]["w"]])
+        w = torch.stack([la[i]["w"], lb[i]["w"]]).transpose(1, 2)
         b = torch.stack([la[i]["b"], lb[i]["b"]])
-        x = torch.bmm(w.transpose(1, 2), x) + b[:, :, None]
+        x = (torch.bmm(bf16_round(w), bf16_round(x)) if bf16 else torch.bmm(w, x)) + b[:, :, None]
         if i < len(la) - 1:
-            x = torch.relu(x)
+            x = _relu(x, bf16)
     return x[0, 0], x[1, 0]
 
 
-def twin_q_value_t(qa, qb, obs_t, act_t):
+def twin_q_value_t(qa, qb, obs_t, act_t, compute_dtype=None):
     """Stacked twin-critic values -> ``((batch,), (batch,))``."""
-    return twin_mlp_t(qa, qb, torch.cat([obs_t, act_t], dim=0))
+    return twin_mlp_t(qa, qb, torch.cat([obs_t, act_t], dim=0), compute_dtype)
 
 
-def q_value_t(q, obs_t, act_t):
+def q_value_t(q, obs_t, act_t, compute_dtype=None):
     """Single-critic values -> ``(batch,)``."""
-    return mlp_t(q, torch.cat([obs_t, act_t], dim=0))[0]
+    return mlp_t(q, torch.cat([obs_t, act_t], dim=0), compute_dtype)[0]
 
 
-def actor_dist_t(actor, obs_t, action_dim: int):
+def actor_dist_t(actor, obs_t, action_dim: int, compute_dtype=None):
     """-> ``(mean_t, log_std_t)``, each ``(A, batch)``; log_std clamped to
     [-20, 2]."""
-    out = mlp_t(actor, obs_t)
+    out = mlp_t(actor, obs_t, compute_dtype)
     return out[:action_dim], torch.clamp(out[action_dim:], LOG_STD_MIN, LOG_STD_MAX)
 
 
-def sample_squashed_eps_t(actor, obs_t, eps, action_dim: int):
+def sample_squashed_eps_t(actor, obs_t, eps, action_dim: int, compute_dtype=None):
     """Reparameterised tanh-Gaussian sample from given standard-normal
     draws ``eps`` ``(A, batch)`` -> ``(action_t in [-1, 1], log_prob
     (batch,))``.  The squash correction uses log(1 - tanh(u)^2) = 2 (log 2
     - u - softplus(-2u)), with softplus as ``logaddexp(x, 0)``."""
-    mean, log_std = actor_dist_t(actor, obs_t, action_dim)
+    mean, log_std = actor_dist_t(actor, obs_t, action_dim, compute_dtype)
     std = torch.exp(log_std)
     u = mean + std * eps
     logp_u = torch.sum(-0.5 * torch.square((u - mean) / std) - log_std - 0.5 * _LOG_2PI, dim=0)
@@ -217,11 +253,12 @@ def sample_squashed_eps_t(actor, obs_t, eps, action_dim: int):
     return torch.tanh(u), logp_u - squash
 
 
-def sample_squashed_t(actor, obs_t, generator: torch.Generator, action_dim: int):
+def sample_squashed_t(actor, obs_t, generator: torch.Generator, action_dim: int,
+                      compute_dtype=None):
     """:func:`sample_squashed_eps_t` with ``eps`` drawn from ``generator``
     (on the device of ``obs_t``)."""
     return sample_squashed_eps_t(actor, obs_t, _randn(generator, (action_dim, obs_t.shape[-1]),
-                                                      obs_t), action_dim)
+                                                      obs_t), action_dim, compute_dtype)
 
 
 def _randn(generator, shape, like):
@@ -304,40 +341,45 @@ def split_rows(env: EnvDef, rows):
             rows[2 * d + a + 1])
 
 
-def _critic_loss_eps(q_params, cfg, env: EnvDef, batch_rows, target_q, eps, actor, log_alpha):
+def _critic_loss_eps(q_params, cfg, env: EnvDef, batch_rows, target_q, eps, actor, log_alpha,
+                     compute_dtype=None):
     """MSE of both critics against the soft Bellman target, with the
     target action's standard-normal draw given as ``eps`` ``(A, batch)``.
     ``q_params`` ``{"q1": layers, "q2": layers}``, ``target_q`` the target
     critics' ``(layers, layers)``.  Returns ``(loss, (mean q1, mean
     target))``; the target carries no gradient."""
+    cd = compute_dtype
     obs, act, rew, nobs, done = split_rows(env, batch_rows)
     with torch.no_grad():
         q1t, q2t = target_q
-        na, nlogp = sample_squashed_eps_t(actor, nobs, eps, env.action_dim)
-        tq = torch.minimum(*twin_q_value_t(q1t, q2t, nobs, na))
+        na, nlogp = sample_squashed_eps_t(actor, nobs, eps, env.action_dim, cd)
+        tq = torch.minimum(*twin_q_value_t(q1t, q2t, nobs, na, cd))
         alpha = torch.exp(log_alpha)
         target = rew * cfg.reward_scale + cfg.gamma * (1.0 - done) * (tq - alpha * nlogp)
-    q1v, q2v = twin_q_value_t(q_params["q1"], q_params["q2"], obs, act)
+    q1v, q2v = twin_q_value_t(q_params["q1"], q_params["q2"], obs, act, cd)
     loss = torch.mean(torch.square(q1v - target) + torch.square(q2v - target))
     return loss, (torch.mean(q1v.detach()), torch.mean(target))
 
 
-def critic_loss(q_params, cfg, env: EnvDef, batch_rows, target_q, generator, actor, log_alpha):
+def critic_loss(q_params, cfg, env: EnvDef, batch_rows, target_q, generator, actor, log_alpha,
+                compute_dtype=None):
     """:func:`_critic_loss_eps` with ``eps`` drawn from ``generator``."""
     eps = _randn(generator, (env.action_dim, batch_rows.shape[-1]), batch_rows)
-    return _critic_loss_eps(q_params, cfg, env, batch_rows, target_q, eps, actor, log_alpha)
+    return _critic_loss_eps(q_params, cfg, env, batch_rows, target_q, eps, actor, log_alpha,
+                            compute_dtype)
 
 
 def _actor_alpha_loss_eps(aa_params, cfg, env: EnvDef, batch_rows, q1, q2, eps,
-                          target_entropy: float):
+                          target_entropy: float, compute_dtype=None):
     """Actor + temperature loss with the resample draw given as ``eps``
     ``(A, batch)``.  ``aa_params`` ``{"actor": layers, "log_alpha": 0-d}``;
     the critics ``q1``, ``q2`` are held fixed.  The alpha term is
     ``-log_alpha * mean(logp + target_entropy)`` with logp detached.
     Returns ``(loss, (pi_loss, entropy, alpha))``."""
     obs = batch_rows[:env.obs_dim]
-    act_s, logp = sample_squashed_eps_t(aa_params["actor"], obs, eps, env.action_dim)
-    qmin = torch.minimum(*twin_q_value_t(q1, q2, obs, act_s))
+    act_s, logp = sample_squashed_eps_t(aa_params["actor"], obs, eps, env.action_dim,
+                                        compute_dtype)
+    qmin = torch.minimum(*twin_q_value_t(q1, q2, obs, act_s, compute_dtype))
     alpha = torch.exp(aa_params["log_alpha"].detach())
     pi_loss = torch.mean(alpha * logp - qmin)
     a_loss = -aa_params["log_alpha"] * torch.mean(logp.detach() + target_entropy)
@@ -345,10 +387,11 @@ def _actor_alpha_loss_eps(aa_params, cfg, env: EnvDef, batch_rows, q1, q2, eps,
 
 
 def actor_alpha_loss(aa_params, cfg, env: EnvDef, batch_rows, q1, q2, generator,
-                     target_entropy: float):
+                     target_entropy: float, compute_dtype=None):
     """:func:`_actor_alpha_loss_eps` with ``eps`` drawn from ``generator``."""
     eps = _randn(generator, (env.action_dim, batch_rows.shape[-1]), batch_rows)
-    return _actor_alpha_loss_eps(aa_params, cfg, env, batch_rows, q1, q2, eps, target_entropy)
+    return _actor_alpha_loss_eps(aa_params, cfg, env, batch_rows, q1, q2, eps, target_entropy,
+                                 compute_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -464,7 +507,7 @@ def _ring(env: EnvDef, cfg, device):
 def init_state(env: EnvDef, cfg: SacConfig, seed: int = 0, device="cuda") -> SacState:
     """Fresh params (orthogonal init), optimisers, ring and env states, on
     ``device`` (the card unless the caller asks for the CPU)."""
-    _require_float32(cfg)
+    check_compute_dtype(cfg)
     generator = torch.Generator().manual_seed(seed)
     la, lq = _sac_layouts(env, cfg)
     actor = init_mlp(la, generator).to(device)
@@ -564,7 +607,7 @@ def update_step(env: EnvDef, cfg: SacConfig, nets: Nets, buffer, filled, ready, 
         qloss, (q_mean, tgt_mean) = _critic_loss_eps(
             {"q1": lq.layers(q, 0), "q2": lq.layers(q, 1)}, cfg, env, rows,
             (lq.layers(nets.critics_target, 0), lq.layers(nets.critics_target, 1)),
-            draws.eps_target, la.layers(nets.actor), nets.log_alpha)
+            draws.eps_target, la.layers(nets.actor), nets.log_alpha, cfg.compute_dtype)
         (qg,) = torch.autograd.grad(qloss, q)
         critics, opt_q_state = gated_step(opt_q, qg * gate, nets.opt_q, nets.critics, ready)
 
@@ -572,7 +615,8 @@ def update_step(env: EnvDef, cfg: SacConfig, nets: Nets, buffer, filled, ready, 
         log_alpha = nets.log_alpha.detach().requires_grad_(True)
         ploss, (pi_loss, ent, alpha) = _actor_alpha_loss_eps(
             {"actor": la.layers(a), "log_alpha": log_alpha}, cfg, env, rows,
-            lq.layers(critics, 0), lq.layers(critics, 1), draws.eps_pi, target_entropy)
+            lq.layers(critics, 0), lq.layers(critics, 1), draws.eps_pi, target_entropy,
+            cfg.compute_dtype)
         ag, alg = torch.autograd.grad(ploss, (a, log_alpha))
         actor, opt_a_state = gated_step(opt_a, ag * gate, nets.opt_actor, nets.actor, ready)
         new_log_alpha, opt_al_state = gated_step(opt_al, alg * gate, nets.opt_alpha,
@@ -618,7 +662,7 @@ def collect(env: EnvDef, cfg, actor_layers, env_states, warm, use_k7: bool, mode
     ``explore_noise``), uniform [-1, 1] actions while the 0-d bool ``warm``
     is set.  ``use_k7``: one K7 launch keyed by ``seed`` (its twin on the
     CPU), ``tail`` the constant part of its consts (:func:`consts_tail`);
-    else eagerly with ``generator``.  Returns ``(new states (D, B),
+    else eagerly with ``generator``.  Both take ``cfg.compute_dtype``.  Returns ``(new states (D, B),
     replay block (R, B), reward (B,), done (B,) float)``; the block's
     next_obs rows are the TERMINAL observations."""
     d, a = env.obs_dim, env.action_dim
@@ -630,13 +674,13 @@ def collect(env: EnvDef, cfg, actor_layers, env_states, warm, use_k7: bool, mode
              for layer in actor_layers])
         new_t, block = collect_ops.collect_step(
             env.name, mode, states_t.to(torch.float32).contiguous(), seed, consts,
-            rollout_ops.env_params_vec(env), *weights)
+            rollout_ops.env_params_vec(env), *weights, compute_dtype=cfg.compute_dtype)
         return new_t.to(env_states.dtype), block, block[d + a], block[2 * d + a + 1]
     obs_t = states_t[:d]
     if mode == "sac":
-        a_pol, _ = sample_squashed_t(actor_layers, obs_t, generator, a)
+        a_pol, _ = sample_squashed_t(actor_layers, obs_t, generator, a, cfg.compute_dtype)
     else:
-        a_pol = torch.clamp(torch.tanh(mlp_t(actor_layers, obs_t))
+        a_pol = torch.clamp(torch.tanh(mlp_t(actor_layers, obs_t, cfg.compute_dtype))
                             + explore_noise * _randn(generator, (a, obs_t.shape[1]), obs_t),
                             -1.0, 1.0)
     a_rand = torch.rand(a_pol.shape, generator=generator, device=obs_t.device,
@@ -677,14 +721,15 @@ def train_iters(env: EnvDef, cfg: SacConfig, state: SacState, num_iters: int,
     metrics)``: the metrics averaged as the JAX package does, read to the
     host once at the end (floats).  ``fused_collect`` None follows
     ``cfg.fused_collect``; True / False force.  Logs which collection ran
-    and why."""
-    _require_float32(cfg)
+    and why, and the compute dtype."""
+    check_compute_dtype(cfg)
     device = state.env_states.device
     use_k7, how = choose_collect(cfg, env, device, fused_collect)
     tile = resolve_sample_tile(cfg, state.env_states.shape[0])
     la, _ = _sac_layouts(env, cfg)
-    log.info("sac.train_iters(%s, B=%d, %d iterations): collection: %s; %d updates per "
+    log.info("sac.train_iters(%s, B=%d, %d iterations, %s): collection: %s; %d updates per "
              "iteration through autograd", env.name, state.env_states.shape[0], num_iters,
+             cfg.compute_dtype,
              f"K7 {how}, 1 launch per iteration" if use_k7 else f"eager, K7 {how}",
              cfg.grad_steps)
     tail = consts_tail(env, 0.0, device) if use_k7 else None

@@ -25,8 +25,8 @@ from torch.profiler import record_function
 from ..envs.core import EnvDef
 from ..utils.metrics import to_host
 from . import sac
-from .ppo import (AdamState, ClipAdam, _device_generator, _draw_seed, _require_float32,
-                  adam_from_jax)
+from .ppo import (AdamState, ClipAdam, _device_generator, _draw_seed, adam_from_jax,
+                  check_compute_dtype)
 from .sac import (MlpLayout, actor_layout, buffer_insert, buffer_sample, collect, critic_layout,
                   finish_metrics, gated_step, init_mlp, iteration_metrics, mlp_t, polyak,
                   q_value_t, resolve_sample_tile, scale_action_t, split_rows, twin_q_value_t)
@@ -76,9 +76,9 @@ class Td3State(NamedTuple):
     ever_done: torch.Tensor
 
 
-def actor_action_t(actor, obs_t):
+def actor_action_t(actor, obs_t, compute_dtype=None):
     """Deterministic policy: tanh(MLP(obs)) in [-1, 1], ``(A, batch)``."""
-    return torch.tanh(mlp_t(actor, obs_t))
+    return torch.tanh(mlp_t(actor, obs_t, compute_dtype))
 
 
 def layouts(env: EnvDef, cfg: Td3Config):
@@ -107,7 +107,7 @@ def make_optimizers(cfg: Td3Config):
 def init_state(env: EnvDef, cfg: Td3Config, seed: int = 0, device="cuda") -> Td3State:
     """Fresh params (orthogonal init), optimisers, ring and env states, on
     ``device`` (the card unless the caller asks for the CPU)."""
-    _require_float32(cfg)
+    check_compute_dtype(cfg)
     generator = torch.Generator().manual_seed(seed)
     la, lq = layouts(env, cfg)
     actor = init_mlp(la, generator).to(device)
@@ -145,44 +145,47 @@ def state_from_jax(env: EnvDef, cfg: Td3Config, jstate, seed: int = 0, device=No
 
 
 def _critic_loss_noise(q_params, cfg: Td3Config, env: EnvDef, batch_rows, targets, noise,
-                       actor_target):
+                       actor_target, compute_dtype=None):
     """MSE of the critic(s) against the smoothed Bellman target, with the
     smoothing noise's standard normals given as ``noise`` ``(A, batch)``
     (the JAX package draws them inside ``critic_loss``): the target
     action is ``clip(tanh(actor_target) + clip(policy_noise * noise,
     +-noise_clip), -1, 1)``.  ``q_params`` / ``targets``: ``{"q1": layers[,
     "q2": layers]}``.  Returns ``(loss, (mean q1, mean target))``."""
+    cd = compute_dtype
     obs, act, rew, nobs, done = split_rows(env, batch_rows)
     with torch.no_grad():
-        na = actor_action_t(actor_target, nobs)
+        na = actor_action_t(actor_target, nobs, cd)
         smooth = torch.clamp(cfg.policy_noise * noise, -cfg.noise_clip, cfg.noise_clip)
         na = torch.clamp(na + smooth, -1.0, 1.0)
         if cfg.single_critic:
-            tq = q_value_t(targets["q1"], nobs, na)
+            tq = q_value_t(targets["q1"], nobs, na, cd)
         else:
-            tq = torch.minimum(*twin_q_value_t(targets["q1"], targets["q2"], nobs, na))
+            tq = torch.minimum(*twin_q_value_t(targets["q1"], targets["q2"], nobs, na, cd))
         target = rew * cfg.reward_scale + cfg.gamma * (1.0 - done) * tq
     if cfg.single_critic:
-        q1v = q_value_t(q_params["q1"], obs, act)
+        q1v = q_value_t(q_params["q1"], obs, act, cd)
         loss = torch.mean(torch.square(q1v - target))
     else:
-        q1v, q2v = twin_q_value_t(q_params["q1"], q_params["q2"], obs, act)
+        q1v, q2v = twin_q_value_t(q_params["q1"], q_params["q2"], obs, act, cd)
         loss = torch.mean(torch.square(q1v - target)) + torch.mean(torch.square(q2v - target))
     return loss, (torch.mean(q1v.detach()), torch.mean(target))
 
 
 def critic_loss(q_params, cfg: Td3Config, env: EnvDef, batch_rows, targets, generator,
-                actor_target):
+                actor_target, compute_dtype=None):
     """:func:`_critic_loss_noise` with the noise drawn from ``generator``."""
     noise = sac._randn(generator, (env.action_dim, batch_rows.shape[-1]), batch_rows)
-    return _critic_loss_noise(q_params, cfg, env, batch_rows, targets, noise, actor_target)
+    return _critic_loss_noise(q_params, cfg, env, batch_rows, targets, noise, actor_target,
+                              compute_dtype)
 
 
-def actor_loss(actor, env: EnvDef, batch_rows, q1):
+def actor_loss(actor, env: EnvDef, batch_rows, q1, compute_dtype=None):
     """Deterministic policy gradient: minus the mean of ``q1`` along the
     actor's action."""
     obs = batch_rows[:env.obs_dim]
-    return -torch.mean(q_value_t(q1, obs, actor_action_t(actor, obs)))
+    return -torch.mean(q_value_t(q1, obs, actor_action_t(actor, obs, compute_dtype),
+                                 compute_dtype))
 
 
 class Draws(NamedTuple):
@@ -232,14 +235,14 @@ def update_step(env: EnvDef, cfg: Td3Config, nets: Nets, buffer, filled, ready, 
         q = nets.critics.detach().requires_grad_(True)
         qloss, (q_mean, tgt_mean) = _critic_loss_noise(
             qdict(cfg, lq, q), cfg, env, rows, qdict(cfg, lq, nets.critics_target), draws.noise,
-            la.layers(nets.actor_target))
+            la.layers(nets.actor_target), cfg.compute_dtype)
         (qg,) = torch.autograd.grad(qloss, q)
         critics, opt_q_state = gated_step(opt_q, qg * gate, nets.opt_q, nets.critics, ready)
         updates = nets.updates + ready.to(nets.updates.dtype)
 
         slow = gate * (updates % cfg.policy_delay == 0).to(torch.float32)
         a = nets.actor.detach().requires_grad_(True)
-        ploss = actor_loss(la.layers(a), env, rows, lq.layers(critics, 0))
+        ploss = actor_loss(la.layers(a), env, rows, lq.layers(critics, 0), cfg.compute_dtype)
         (ag,) = torch.autograd.grad(ploss, a)
         actor, opt_a_state = gated_step(opt_a, ag * slow, nets.opt_actor, nets.actor, slow > 0.5)
         with torch.no_grad():
@@ -258,15 +261,16 @@ def train_iters(env: EnvDef, cfg: Td3Config, state: Td3State, num_iters: int,
     (K7 in ``td3`` mode, or eagerly), the ring insert, ``cfg.grad_steps``
     updates.  Returns ``(state, metrics)`` as :func:`.sac.train_iters`
     does, reading the host once at the end.  Logs which collection ran and
-    why."""
-    _require_float32(cfg)
+    why, and the compute dtype."""
+    check_compute_dtype(cfg)
     device = state.env_states.device
     use_k7, how = sac.choose_collect(cfg, env, device, fused_collect)
     tile = resolve_sample_tile(cfg, state.env_states.shape[0])
     la, _ = layouts(env, cfg)
     alg = "ddpg" if cfg.single_critic else "td3"
-    log.info("%s.train_iters(%s, B=%d, %d iterations): collection: %s; %d updates per "
+    log.info("%s.train_iters(%s, B=%d, %d iterations, %s): collection: %s; %d updates per "
              "iteration through autograd", alg, env.name, state.env_states.shape[0], num_iters,
+             cfg.compute_dtype,
              f"K7 {how}, 1 launch per iteration" if use_k7 else f"eager, K7 {how}",
              cfg.grad_steps)
     tail = sac.consts_tail(env, cfg.explore_noise, device) if use_k7 else None

@@ -125,10 +125,15 @@ def test_actor_critic_module_and_init():
     assert mean.shape == (4, 3) and value.shape == (3,)
     (mean.sum() + value.sum()).backward()
     assert net.flat.grad is not None and float(net.flat.grad.abs().sum()) > 0
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        networks.ActorCritic(10, 4, compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        networks.apply_t(p, torch.zeros(10, 3), compute_dtype="bfloat16")
+    # compute_dtype="bfloat16" runs (tests/test_torch_bf16_learners.py holds
+    # it to the JAX package); any other compute dtype is refused.
+    bf16 = networks.ActorCritic(10, 4, compute_dtype="bfloat16")
+    bf_mean, _, bf_value = bf16(torch.ones(10, 3))
+    assert bf_mean.dtype == bf_value.dtype == torch.float32 and bool(torch.isfinite(bf_mean).all())
+    with pytest.raises(ValueError, match="compute_dtype"):
+        networks.ActorCritic(10, 4, compute_dtype="float16")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        networks.apply_t(p, torch.zeros(10, 3), compute_dtype="float16")
 
 
 @pytest.mark.parametrize("grad_scale", [1e-3, 10.0], ids=["below-clip", "above-clip"])

@@ -164,10 +164,13 @@ def test_train_many_and_the_paths_not_ported():
     assert np.isfinite(float(k4_summary["v_loss"]))
     with pytest.raises(ValueError, match="fused_loss is off"):
         ppo.train_step(env, cfg._replace(fused_update="on", fused_loss="off"), state)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        ppo.train_step(env, cfg._replace(compute_dtype="bfloat16"), state)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        ppo.init_train_state(env, cfg._replace(compute_dtype="bfloat16"), device="cpu")
+    # bf16 is ported (tests/test_torch_bf16_learners.py); another dtype is refused.
+    bf_state, bf_summary = ppo.train_step(env, cfg._replace(compute_dtype="bfloat16"), state)
+    assert bf_state.params.dtype == torch.float32 and np.isfinite(float(bf_summary["v_loss"]))
+    with pytest.raises(ValueError, match="compute_dtype"):
+        ppo.train_step(env, cfg._replace(compute_dtype="float16"), state)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        ppo.init_train_state(env, cfg._replace(compute_dtype="float16"), device="cpu")
     with pytest.raises(ValueError, match="fused_rollout"):
         ppo.train_step(env, cfg._replace(hidden=(32, 32)), state, fused_rollout=True)
 

@@ -140,11 +140,18 @@ def test_checkpoint_manager_rotates_and_restores_the_latest(tmp_path):
     assert torch.equal(restored.params, target.params)
 
 
-@pytest.mark.parametrize("flag,item", [
-    ("--shard_map", "item 13"), ("--compute_dtype=bfloat16", "item 5")])
+@pytest.mark.parametrize("flag,item", [("--shard_map", "item 13")])
 def test_cli_refuses_what_is_not_ported(flag, item):
     with pytest.raises(SystemExit, match=f"not ported to PyTorch yet: .*ROADMAP.md queue 1 {item}"):
         run.main([*SMALL, flag])
+
+
+def test_cli_trains_with_bf16_products(capsys):
+    """--compute_dtype=bfloat16 on the CPU: one update through the eager
+    loop and autograd, finite metrics."""
+    run.main([*SMALL, "--compute_dtype=bfloat16", "--num_timesteps=1024", "--log_interval=1"])
+    (row,) = [r for r in _lines(capsys.readouterr().out) if "env_steps" in r]
+    assert row["env_steps"] == 1024.0 and all(math.isfinite(v) for v in row.values()), row
 
 
 def test_cli_flags_are_the_jax_clis_plus_device():

@@ -278,8 +278,11 @@ def test_config_defaults_match_jax_and_bf16_raises():
     env = reinmav_tpu_torch.make("quadrotor3d-v0")
     cfg = sac.SacConfig(num_envs=16, batch_size=16, buffer_capacity=64, hidden=(8, 8))
     state = sac.init_state(env, cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        sac.train_iters(env, cfg._replace(compute_dtype="bfloat16"), state, 1)
+    # bf16 is ported (tests/test_torch_bf16_learners.py); another dtype raises.
+    bf_state, bf_metrics = sac.train_iters(env, cfg._replace(compute_dtype="bfloat16"), state, 1)
+    assert bf_state.actor.dtype == torch.float32 and math.isfinite(bf_metrics["mean_reward"])
+    with pytest.raises(ValueError, match="compute_dtype"):
+        sac.train_iters(env, cfg._replace(compute_dtype="float16"), state, 1)
     with pytest.raises(ValueError, match="too small"):
         sac.init_state(env, cfg._replace(buffer_capacity=8), device="cpu")
 

@@ -180,8 +180,11 @@ def test_config_defaults_match_jax():
     env = reinmav_tpu_torch.make("quadrotor3d-v0")
     cfg = td3.Td3Config(num_envs=16, batch_size=16, buffer_capacity=64, hidden=(8, 8))
     state = td3.init_state(env, cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        td3.train_iters(env, cfg._replace(compute_dtype="bfloat16"), state, 1)
+    # bf16 is ported (tests/test_torch_bf16_learners.py); another dtype raises.
+    bf_state, bf_metrics = td3.train_iters(env, cfg._replace(compute_dtype="bfloat16"), state, 1)
+    assert bf_state.actor.dtype == torch.float32 and math.isfinite(bf_metrics["mean_reward"])
+    with pytest.raises(ValueError, match="compute_dtype"):
+        td3.train_iters(env, cfg._replace(compute_dtype="float16"), state, 1)
 
 
 @pytest.mark.parametrize("alg,env_id,fused", [("td3", "quadrotor3d-v0", "on"),
