@@ -244,6 +244,38 @@ Phases, in order; any failure raises and exits non-zero:
    task at the bench config (20 iterations), 3 iterations of SAC or TD3 on
    the others, K7 once an iteration.
 38. The CLI once with --compute_dtype=bfloat16 (3 updates at 32,768 x 32).
+39. One rank on NCCL (a spawned process, world size 1) at 32,768 x 32 on
+   quadrotor3d-v0, 3 updates a leg: the mesh mode bitwise the unsharded
+   train_step (K2 and K4 once an update), the shard_map step (K2 once, K3
+   16 times an update, the NCCL all-reduces counted), each update's
+   mean_reward within 10% of the unsharded step's; all three timed.
+40. Two ranks on the one card over gloo: sharded_dense_rollout of 1,048,576
+   of 2,097,152 quadrotor3d-v0 envs each for 1000 steps (K1 once a rank,
+   no collective, bitwise equal on a rerun, the two ranks' results apart;
+   the first call and the rerun timed); then 16,384 of the 32,768 envs
+   each: after 3 shard_map updates the replicas' params and Adam moments
+   bitwise equal (K2 3, K3 48 a rank); the mesh mode's params against the one-rank
+   run's (this process, one rank and no group): the first update bitwise,
+   every update within rtol 2e-4 / atol 1e-6, the largest difference
+   printed (K2 3, K4 3 a rank).
+41. SAC on the two ranks at the bench config split (65,536 envs, batch
+   8192 a rank, a 2^21-column ring, 2 x 256): 20 iterations, K7 once an
+   iteration on each rank, the replicas' actor and critics bitwise equal,
+   the time an iteration; TD3 on quadrotor3d-v0 at 8192 envs, 5 iterations.
+42. The collective checkpoint on two ranks: 2 shard_map updates, a save,
+   the group torn down, a fresh group restoring into a state of another
+   seed, 2 more updates: bitwise the 4 uninterrupted on each rank.
+43. The CLI under python -m torch.distributed.run --nproc_per_node=2 with
+   --shard_map, 3 updates at 32,768 x 32: rank 0 logs one line an update,
+   rank 1 none.
+44. The examples on the card (reinmav_tpu_torch.examples): control_quat
+   and control_rpy 150 steps on the circle (final radius within 0.2 m of
+   0.5), reinmav_sim 50 steps against
+   the min-jerk reference, train_quadrotor2d_ppo at its full size (K6 and
+   K4 once an update, then a 1000-step play); control_quat's plots and
+   train_vector_env refuse by name where matplotlib or gymnasium is not
+   installed.  The wall of phases 39-44 is printed; ``--only parallel``
+   runs phases 1-3 and 39-44.
 
 The second-to-last line is a JSON object describing each kernel of the
 paths (K1-K11, and the bf16 instances of K2/K6, K3, K4 and K7, whose
@@ -254,7 +286,9 @@ its time and its twin's (each measured; where the twin ran at a smaller
 shape than the kernel, ``plain_at`` names that shape and
 ``ms_at_plain_shape`` is the kernel's time there), and its bound (the least
 time the card could take: the larger of its bytes over the memory rate and
-its FP32 operations over the FP32 rate).  The last line is {"ok": true, "device": {...}}.
+its FP32 operations over the FP32 rate); K1's, K2's, K3's, K4's and
+K7's ``launches_sharded`` are their launches on phases 39-41's
+multi-rank paths.  The last line is {"ok": true, "device": {...}}.
 The script imports nothing of JAX.
 """
 
@@ -264,6 +298,8 @@ import functools
 import json
 import logging
 import math
+import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -376,6 +412,8 @@ B_K10_LAYOUTS = (B_SWEEP, 32_768, 24_576, 16_384, B_REINMAV)  # every layout tim
 # 15, the arm products 3, its share of the four sums 4), plus 12 per stage
 # for the env (eF and the wrench).
 OPS_K11 = dict(rigid=170, ztest=20, frame=40, setup=190, stage_cand=22, stage_env=12)
+# K11's resynchronised check runs 4 steps (10 through PR 14: its twin at full width takes
+# about 7 s a step, and the whole smoke must stay well inside its time limit).
 T_K11_RESYNC, B_K11_FREE, T_K11_FREE, T_K11_TIERS, T_K11_PAIRS = 10, 8192, 100, 10, 3
 KNIFE_PLANE = 1e-6  # a contact candidate this close to the plane is a knife edge
 # The learning artifact's config (benchmarks/artifacts/sac_hover_20M_r5/
@@ -3941,16 +3979,475 @@ def bf16_phases(torch, dev, gpu: str) -> list[dict]:
     return entries
 
 
+# Phases 39-44: the multi-rank paths (reinmav_tpu_torch.parallel), each
+# rank a process spawned with the "spawn" start method after the library
+# was built (a rank loads it, never builds it), its group formed from
+# torchrun's variables: NCCL at one rank, gloo for two ranks on the one
+# card (NCCL takes one rank a device).
+PAR_UPDATES = 3  # PPO updates of each leg; the first is the warm-up
+PAR_SAC_WARMUP, PAR_SAC_ITERS = 2, 20
+PAR_TD3 = dict(num_envs=8192, batch_size=1024, buffer_capacity=1 << 16, warmup_steps=0)
+PAR_TD3_ITERS = 5
+PAR_CKPT = dict(num_envs=4096, rollout_len=16)
+#: The examples' sizes on the card: their full size where that takes
+#: seconds, else their reduced size (``--quick``): the eager loops of one
+#: env launch a kernel an operation (control_quat about 23 ms a step on the
+#: card), so the controllers fly 150 of their steps and reinmav-v0 (50
+#: substeps a step) 50 of its 400.  The final radius of the demos' 0.5 m
+#: circle: the mass-blind geometric controller flies about 0.41 m, the
+#: lagging PID 0.58-0.66 m (both from 150 steps on).
+PAR_EXAMPLE_STEPS = {"control_quat": 150, "control_rpy": 150, "reinmav_sim": 50}
+CIRCLE_TOL = 0.2
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_ranks(torch, task: str, world: int, out_dir: Path) -> list:
+    """Run ``task`` on ``world`` spawned ranks; returns each rank's result
+    (what the task returned)."""
+    import torch.multiprocessing as mp
+
+    port = free_port()
+    mp.spawn(rank_main, args=(world, port, task, str(out_dir)), nprocs=world, join=True,
+             start_method="spawn")
+    return [torch.load(out_dir / f"{task}_rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def rank_main(rank: int, world: int, port: int, task: str, out_dir: str) -> None:
+    """One spawned rank: torchrun's variables, the group
+    (``distributed.init()`` in auto-detect mode), ``task``, its result
+    saved for the parent.  Rank 0 logs the learners' paths."""
+    import torch
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if rank == 0:
+        logging.basicConfig(level=logging.INFO, stream=sys.stdout,
+                            format=f"log[rank {rank} of {world}]: %(name)s: %(message)s")
+    from reinmav_tpu_torch.parallel import distributed, make_mesh
+
+    distributed.init(device="cuda")
+    mesh = make_mesh()
+    out = RANK_TASKS[task](torch, mesh)
+    torch.save(out, Path(out_dir) / f"{task}_rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def ppo_leg(torch, step, state, updates: int = PAR_UPDATES) -> dict:
+    """``updates`` calls of ``step`` from ``state`` with every kernel count
+    and the collective counts set to 0 just before: the launches, the
+    collectives, each update's wall (synchronised), summary and params."""
+    from reinmav_tpu_torch.parallel import COLLECTIVES
+
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    COLLECTIVES.clear()
+    walls, summaries, params = [], [], []
+    for _ in range(updates):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, summary = step(state)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        summaries.append({k: float(v) for k, v in summary.items()})
+        params.append(state.params.detach().cpu().clone())
+    require(all(math.isfinite(v) for s in summaries for v in s.values()), "finite metrics")
+    return {"launches": {k: fn.launches for k, fn in counters.items() if fn.launches},
+            "collectives": dict(COLLECTIVES), "walls": walls,
+            "ms": statistics.median(walls[1:]), "summaries": summaries, "params": params,
+            "state": state}
+
+
+def ppo_setup(torch, mesh, num_envs: int | None = None, rollout_len: int | None = None,
+              seed: int = 0):
+    """quadrotor3d-v0, the PPO config (the bench shape by default) and a
+    maker of this rank's shard of a fresh state of ``seed``."""
+    import reinmav_tpu_torch
+    from reinmav_tpu_torch.parallel import shard_state
+    from reinmav_tpu_torch.rl import ppo
+
+    env = reinmav_tpu_torch.make("quadrotor3d-v0")
+    cfg = ppo.PpoConfig(num_envs=num_envs or B_PPO, rollout_len=rollout_len or T_PPO)
+    return env, cfg, lambda s=seed: shard_state(
+        mesh, ppo.init_train_state(env, cfg, s, device=mesh.device))
+
+
+def strip(leg: dict) -> dict:
+    return {k: v for k, v in leg.items() if k != "state"}
+
+
+def task_nccl1(torch, mesh) -> dict:
+    """Phase 39, one rank on NCCL at the bench config: the unsharded step,
+    the mesh mode (bitwise the unsharded step, K2 + K4 an update) and the
+    shard_map step (K2 + 16 K3 an update, NCCL all-reduces)."""
+    from reinmav_tpu_torch.rl import ppo
+
+    require(mesh.backend == "nccl" and mesh.world_size == 1, f"one rank on NCCL, got {mesh}")
+    env, cfg, fresh = ppo_setup(torch, mesh)
+    plain = ppo_leg(torch, lambda s: ppo.train_step(env, cfg, s), fresh())
+    meshed = ppo_leg(torch, lambda s: ppo.mesh_train_step(env, cfg, s, mesh), fresh())
+    shardmap = ppo_leg(torch, lambda s: ppo.train_step(env, cfg, s, axis=mesh), fresh())
+    return {"plain": strip(plain), "mesh": strip(meshed), "shard_map": strip(shardmap)}
+
+
+def offpolicy_leg(torch, mesh, module, env_id: str, cfg, iters: int, warmup: int = 0) -> dict:
+    """A sharded off-policy run: ``warmup`` iterations, then ``iters`` timed
+    with the kernel counts set to 0 just before."""
+    import reinmav_tpu_torch
+    from reinmav_tpu_torch.parallel import COLLECTIVES, shard_state
+
+    env = reinmav_tpu_torch.make(env_id)
+    state = shard_state(mesh, module.init_state(env, cfg, 0, device=mesh.device))
+    if warmup:
+        state, _ = module.train_iters(env, cfg, state, warmup, axis=mesh)
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    COLLECTIVES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = module.train_iters(env, cfg, state, iters, axis=mesh)  # reads the host
+    wall = (time.perf_counter() - t0) * 1e3
+    require(all(math.isfinite(v) for v in metrics.values()), f"{env_id}: finite metrics")
+    return {"launches": {k: fn.launches for k, fn in counters.items() if fn.launches},
+            "collectives": dict(COLLECTIVES), "ms_per_iteration": wall / iters,
+            "actor": digest(state.actor, state.critics), "metrics": metrics,
+            "b_local": state.env_states.shape[0], "ring_columns": state.buffer.shape[1]}
+
+
+def checkpoint_path() -> Path:
+    return Path(__file__).resolve().parent / "chiprun_out" / "smoke_parallel_ckpt"
+
+
+def state_digest(state) -> str:
+    return digest(*[x if hasattr(x, "numel") else __import__("torch").as_tensor(x)
+                    for x in _leaves(state)])
+
+
+def dense_leg(torch, mesh) -> dict:
+    """Phase 40's closed-loop leg: ``sharded_dense_rollout`` of this rank's
+    half of B_MAIN quadrotor3d-v0 envs for T_MAIN steps, K1 on the rank's
+    shard, with the kernel counts set to 0 just before; a second call from
+    the same states and seed must be bitwise the first."""
+    import reinmav_tpu_torch
+    from reinmav_tpu_torch.parallel import COLLECTIVES, sharded_dense_rollout
+
+    env = reinmav_tpu_torch.make("quadrotor3d-v0")
+    states = env.vreset(torch.Generator(device=mesh.device).manual_seed(3), B_MAIN,
+                        device=mesh.device)[mesh.shard(B_MAIN)].contiguous()
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    COLLECTIVES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, rewards = sharded_dense_rollout(env, mesh, states, 7, T_MAIN)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    t0 = time.perf_counter()
+    again = sharded_dense_rollout(env, mesh, states, 7, T_MAIN)
+    torch.cuda.synchronize()
+    warm = (time.perf_counter() - t0) * 1e3
+    require(bool(torch.isfinite(final).all() and torch.isfinite(rewards).all()),
+            "phase 40: the sharded dense rollout's states and rewards are finite")
+    require(torch.equal(final, again[0]) and torch.equal(rewards, again[1]),
+            "phase 40: the sharded dense rollout is not deterministic per (seed, world size)")
+    return {"launches": launches, "collectives": dict(COLLECTIVES), "ms": wall, "ms_warm": warm,
+            "b_local": states.shape[0], "digest": digest(final, rewards),
+            "mean_reward": float(rewards.mean())}
+
+
+def task_gloo2(torch, mesh) -> dict:
+    """Phases 40-42, two ranks on the one card over gloo: the closed-loop
+    dense rollout (K1 a rank), the shard_map and mesh PPO legs at 16,384
+    of the 32,768 envs each, SAC at the bench config split, TD3 small, and
+    the checkpoint's save."""
+    from reinmav_tpu_torch.rl import ppo, sac, td3
+    from reinmav_tpu_torch.utils import checkpoint as ckpt
+
+    require(mesh.backend == "gloo" and mesh.world_size == 2, f"two gloo ranks, got {mesh}")
+    dense = dense_leg(torch, mesh)
+    env, cfg, fresh = ppo_setup(torch, mesh)
+    shardmap = ppo_leg(torch, lambda s: ppo.train_step(env, cfg, s, axis=mesh), fresh())
+    shardmap["digest"] = digest(shardmap["state"].params, shardmap["state"].opt_state.mu)
+    meshed = ppo_leg(torch, lambda s: ppo.mesh_train_step(env, cfg, s, mesh), fresh())
+    sac_cfg = sac.SacConfig(num_envs=B_OFF, batch_size=BATCH_SAC, buffer_capacity=RING_SAC,
+                            hidden=(H_SAC, H_SAC), warmup_steps=0)
+    sac_leg = offpolicy_leg(torch, mesh, sac, HOVER, sac_cfg, PAR_SAC_ITERS, PAR_SAC_WARMUP)
+    td3_leg = offpolicy_leg(torch, mesh, td3, "quadrotor3d-v0", td3.Td3Config(**PAR_TD3),
+                            PAR_TD3_ITERS)
+    # The checkpoint: 4 shard_map updates straight, and 2, a collective save.
+    env_c, cfg_c, fresh_c = ppo_setup(torch, mesh, **PAR_CKPT)
+    step = ppo.make_train_step_shardmap(env_c, cfg_c, mesh)
+    straight, state = fresh_c(5), fresh_c(5)
+    for _ in range(4):
+        straight, _ = step(straight)
+    for _ in range(2):
+        state, _ = step(state)
+    ckpt.save(str(checkpoint_path()), state, mesh)
+    return {"dense": dense, "shard_map": strip(shardmap), "mesh": strip(meshed), "sac": sac_leg,
+            "td3": td3_leg, "ckpt_ref": state_digest(straight)}
+
+
+def task_restore(torch, mesh) -> dict:
+    """Phase 42's second half: a fresh group restores the checkpoint into
+    states of another seed and runs the last 2 updates."""
+    from reinmav_tpu_torch.rl import ppo
+    from reinmav_tpu_torch.utils import checkpoint as ckpt
+
+    env_c, cfg_c, fresh_c = ppo_setup(torch, mesh, **PAR_CKPT)
+    state = ckpt.restore(str(checkpoint_path()), fresh_c(6), mesh)
+    require(state.env_states.device == mesh.device, "restored onto the rank's card")
+    step = ppo.make_train_step_shardmap(env_c, cfg_c, mesh)
+    for _ in range(2):
+        state, _ = step(state)
+    return {"resumed": state_digest(state)}
+
+
+RANK_TASKS = {"nccl1": task_nccl1, "gloo2": task_gloo2, "restore": task_restore}
+
+
+def collectives_per_update(leg: dict) -> dict:
+    return {k: v / PAR_UPDATES for k, v in leg["collectives"].items()}
+
+
+def parallel_cli_phase(gpu: str) -> float:
+    """Phase 43: the CLI on two ranks under ``torch.distributed.run`` with
+    ``--shard_map``: rank 0 logs each update, rank 1 nothing."""
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2",
+           "-m", "reinmav_tpu_torch.rl.run", "--shard_map", f"--num_env={B_PPO}",
+           f"--rollout_len={T_PPO}", f"--num_timesteps={PAR_UPDATES * B_PPO * T_PPO}",
+           "--log_interval=1"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=root)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"the two-rank CLI exited {proc.returncode}:\n{proc.stdout[-3000:]}"
+                           f"\n{proc.stderr[-3000:]}")
+    rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    steps = [row["env_steps"] for row in rows if "env_steps" in row]
+    require(steps == [float(B_PPO * T_PPO * (i + 1)) for i in range(PAR_UPDATES)],
+            f"rank 0 alone logs one line an update: {steps}")
+    require(all(math.isfinite(v) for row in rows for v in row.values()), "the CLI's metrics")
+    say(f"phase 43, cli: torch.distributed.run --nproc_per_node=2 -m reinmav_tpu_torch.rl.run "
+        f"--shard_map, {PAR_UPDATES} updates at {B_PPO} x {T_PPO}: exit 0 in {wall:.1f} s, "
+        f"{len(steps)} metric lines (rank 0 only) on {gpu}; last {json.dumps(rows[-1])}")
+    return wall
+
+
+def examples_phase(torch, dev, gpu: str) -> dict:
+    """Phase 44: the examples on the card, their simulations at
+    :data:`PAR_EXAMPLE_STEPS`, PPO at its full size (K6 and K4 once an
+    update); their plots and the gymnasium loop where the packages are
+    installed, else their refusal by name."""
+    from reinmav_tpu_torch.examples import (control_quat, control_rpy, reinmav_sim,
+                                            train_quadrotor2d_ppo, train_vector_env)
+
+    walls = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    for name, module in (("control_quat", control_quat), ("control_rpy", control_rpy)):
+        steps = PAR_EXAMPLE_STEPS[name]
+        traj = timed(name, lambda: module.simulate(steps, dev))
+        final = traj[-1].cpu()
+        radius = math.hypot(float(final[0]), float(final[1]))
+        require(traj.device.type == "cuda" and bool(torch.isfinite(traj).all()), f"{name} finite")
+        require(abs(radius - 0.5) < CIRCLE_TOL,
+                f"{name}: final radius {radius} on the 0.5 m circle (+- {CIRCLE_TOL})")
+        say(f"phase 44, {name}: {steps} steps on the card in {walls[name]:.2f} s, final position "
+            f"{[round(float(v), 4) for v in final[:3]]}, radius {radius:.4f} (circle 0.5) on {gpu}")
+    steps = PAR_EXAMPLE_STEPS["reinmav_sim"]
+    traj, desired = timed("reinmav_sim", lambda: reinmav_sim.simulate(steps, dev))
+    err = float((traj[:, :3] - desired[:, :3]).abs().max())
+    require(err < 0.01, f"reinmav_sim: |x - x_des| {err}")
+    say(f"phase 44, reinmav_sim: {steps} steps on the card in {walls['reinmav_sim']:.2f} s, max "
+        f"|x - x_des| {err:.3e} on {gpu}")
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    rewards, ret = timed("train_quadrotor2d_ppo",
+                         lambda: train_quadrotor2d_ppo.main(["--device=cuda"]))
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    n = len(rewards)
+    require(launches == {"K2": n, "K4": n}, f"train_quadrotor2d_ppo: K6 + K4 an update, {launches}")
+    require(all(math.isfinite(r) for r in rewards) and math.isfinite(ret), "finite rewards")
+    say(f"phase 44, train_quadrotor2d_ppo: {n} updates at 512 x 64 and a 1000-step play in "
+        f"{walls['train_quadrotor2d_ppo']:.2f} s, launches {launches}, mean_reward "
+        f"{rewards[0]:.4f} -> {rewards[-1]:.4f}, play return {ret:.3f} on {gpu}")
+    out_dir = Path(__file__).resolve().parent / "chiprun_out" / "examples"
+    for name, module, package in (("control_quat", control_quat, "matplotlib"),
+                                  ("train_vector_env", train_vector_env, "gymnasium")):
+        argv = ["--quick", f"--out_dir={out_dir}"]
+        if has_module(package):
+            module.main(argv)
+            say(f"phase 44, {name} --quick: ran ({package} installed)")
+            continue
+        try:
+            module.main(argv)
+        except SystemExit as e:
+            require(f"needs {package}, which is not installed" in str(e), f"{name}: {e}")
+            say(f"phase 44, {name}: refuses by name: {e}")
+        else:
+            raise RuntimeError(f"{name} ran without {package}")
+    return walls
+
+
+def parallel_phases(torch, dev, gpu: str) -> dict:
+    """Phases 39-44 and their wall; returns what the kernels line records
+    of them."""
+    from reinmav_tpu_torch.rl import ppo
+
+    t0 = time.perf_counter()
+    out_dir = Path(__file__).resolve().parent / "chiprun_out" / "smoke_parallel"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # 39. One rank on NCCL.
+    walls = {}
+    t1 = time.perf_counter()
+    (one,) = spawn_ranks(torch, "nccl1", 1, out_dir)
+    walls["39"] = time.perf_counter() - t1
+    plain, meshed, sm = one["plain"], one["mesh"], one["shard_map"]
+    for i, (a, b) in enumerate(zip(plain["params"], meshed["params"])):
+        require(torch.equal(a, b), f"phase 39: the mesh step's params after update {i + 1} are "
+                                   "not bitwise the unsharded step's")
+    require(meshed["launches"] == {"K2": PAR_UPDATES, "K4": PAR_UPDATES},
+            f"phase 39: mesh mode launches {meshed['launches']}")
+    require(sm["launches"] == {"K2": PAR_UPDATES, "K3": 16 * PAR_UPDATES},
+            f"phase 39: shard_map launches {sm['launches']}")
+    require(sm["collectives"].get("all_reduce", 0) >= 16 * PAR_UPDATES,
+            f"phase 39: shard_map all-reduces {sm['collectives']}")
+    for i, (a, b) in enumerate(zip(plain["summaries"], sm["summaries"])):
+        rel = abs(b["mean_reward"] - a["mean_reward"]) / abs(a["mean_reward"])
+        require(rel <= 0.1, f"phase 39: update {i} mean_reward {b['mean_reward']} vs the "
+                            f"unsharded {a['mean_reward']}")
+    say(f"phase 39, one rank on NCCL, B={B_PPO} T={T_PPO}: unsharded {plain['ms']:.2f} ms an "
+        f"update; mesh mode {meshed['ms']:.2f} ms, bitwise the unsharded step over "
+        f"{PAR_UPDATES} updates, launches {meshed['launches']}, collectives an update "
+        f"{collectives_per_update(meshed)}; shard_map {sm['ms']:.2f} ms, launches "
+        f"{sm['launches']}, collectives an update {collectives_per_update(sm)}, mean_reward "
+        f"{[round(s['mean_reward'], 4) for s in sm['summaries']]} vs unsharded "
+        f"{[round(s['mean_reward'], 4) for s in plain['summaries']]} (within 10%) on {gpu}")
+    # 40-42. Two ranks over gloo on the one card.
+    t1 = time.perf_counter()
+    two = spawn_ranks(torch, "gloo2", 2, out_dir)
+    walls["40-42a"] = time.perf_counter() - t1
+    dense = [two[r]["dense"] for r in range(2)]
+    for r in range(2):
+        require(dense[r]["launches"] == {"K1": 1} and not dense[r]["collectives"],
+                f"phase 40: rank {r}'s dense rollout launches {dense[r]['launches']} and "
+                f"collectives {dense[r]['collectives']} (K1 once, none)")
+    require(dense[0]["digest"] != dense[1]["digest"],
+            "phase 40: the two ranks' dense rollouts are equal")
+    say(f"phase 40, sharded_dense_rollout on two gloo ranks, {dense[0]['b_local']} of the "
+        f"{B_MAIN} quadrotor3d-v0 envs each, T={T_MAIN}: K1 once a rank, no collective, "
+        f"{[round(d['ms'], 3) for d in dense]} ms on the rank's first kernel call (the library's "
+        f"load in it), {[round(d['ms_warm'], 3) for d in dense]} ms on the rerun (synchronised, "
+        f"both ranks at once), bitwise equal ({dense[0]['digest']}, {dense[1]['digest']}), "
+        f"mean reward sums "
+        f"{[round(d['mean_reward'], 3) for d in dense]} on {gpu}")
+    require(two[0]["shard_map"]["digest"] == two[1]["shard_map"]["digest"],
+            "phase 40: the shard_map replicas' params differ")
+    for r in range(2):
+        require(two[r]["shard_map"]["launches"] == {"K2": PAR_UPDATES, "K3": 16 * PAR_UPDATES},
+                f"phase 40: rank {r} shard_map launches {two[r]['shard_map']['launches']}")
+        require(two[r]["mesh"]["launches"] == {"K2": PAR_UPDATES, "K4": PAR_UPDATES},
+                f"phase 40: rank {r} mesh launches {two[r]['mesh']['launches']}")
+    # The one-rank run of the mesh mode (one rank, no group: the plain step).
+    import reinmav_tpu_torch
+
+    env = reinmav_tpu_torch.make("quadrotor3d-v0")
+    cfg = ppo.PpoConfig(num_envs=B_PPO, rollout_len=T_PPO)
+    ref = ppo.init_train_state(env, cfg, 0, device=dev)
+    ref_params = []
+    for _ in range(PAR_UPDATES):
+        ref, _ = ppo.train_step(env, cfg, ref)
+        ref_params.append(ref.params.cpu())
+    for r in range(2):
+        require(all(torch.equal(a, b) for a, b in zip(two[r]["mesh"]["params"],
+                                                      two[0]["mesh"]["params"])),
+                "phase 40: the mesh replicas' params differ")
+    require(torch.equal(two[0]["mesh"]["params"][0], ref_params[0]),
+            "phase 40: the two-rank mesh mode's first update is not bitwise the one-rank run's")
+    mesh_diff = [float((a - b).abs().max()) for a, b in zip(two[0]["mesh"]["params"], ref_params)]
+    require(all(torch.allclose(a, b, **UPDATE_TOL)
+                for a, b in zip(two[0]["mesh"]["params"], ref_params)),
+            f"phase 40: the mesh mode against the one-rank run, max |diff| {mesh_diff}")
+    say(f"phase 40, two gloo ranks on one card, {B_PPO // 2} of the {B_PPO} envs each: shard_map "
+        f"{[round(two[r]['shard_map']['ms'], 2) for r in range(2)]} ms an update, replicas "
+        f"bitwise equal after {PAR_UPDATES} updates (params and Adam mu {two[0]['shard_map']['digest']}), "
+        f"launches a rank {two[0]['shard_map']['launches']}, collectives an update "
+        f"{collectives_per_update(two[0]['shard_map'])}; mesh mode "
+        f"{[round(two[r]['mesh']['ms'], 2) for r in range(2)]} ms an update, launches a rank "
+        f"{two[0]['mesh']['launches']}, against the one-rank run: update 1 bitwise, max |diff| "
+        f"by update {mesh_diff} (the moment sums add per rank; rtol 2e-4 atol 1e-6) on {gpu}")
+    for name, n in (("sac", PAR_SAC_ITERS), ("td3", PAR_TD3_ITERS)):
+        legs = [two[r][name] for r in range(2)]
+        require(legs[0]["actor"] == legs[1]["actor"], f"phase 41: the {name} replicas differ")
+        require(all(leg["launches"] == {"K7": n} for leg in legs),
+                f"phase 41: {name} launches {[leg['launches'] for leg in legs]}")
+        say(f"phase 41, {name} on two gloo ranks, {legs[0]['b_local']} envs and "
+            f"{legs[0]['ring_columns']} ring columns a rank: {n} iterations, K7 {n} a rank, "
+            f"{[round(leg['ms_per_iteration'], 2) for leg in legs]} ms an iteration, collectives "
+            f"an iteration {({k: v / n for k, v in legs[0]['collectives'].items()})}, actor and "
+            f"critics bitwise equal ({legs[0]['actor']}), mean_reward "
+            f"{legs[0]['metrics']['mean_reward']:.5g} on {gpu}")
+    t1 = time.perf_counter()
+    resumed = spawn_ranks(torch, "restore", 2, out_dir)
+    walls["42b"] = time.perf_counter() - t1
+    for r in range(2):
+        require(resumed[r]["resumed"] == two[r]["ckpt_ref"],
+                f"phase 42: rank {r}'s resume differs from the uninterrupted run")
+    say(f"phase 42, collective checkpoint on two ranks ({PAR_CKPT['num_envs']} x "
+        f"{PAR_CKPT['rollout_len']}): 2 updates, save, a fresh group restores into a seed-6 "
+        f"state, 2 more: bitwise the 4 uninterrupted, each rank ({two[0]['ckpt_ref']}, "
+        f"{two[1]['ckpt_ref']}) on {gpu}")
+    walls["43"] = parallel_cli_phase(gpu)
+    example_walls = examples_phase(torch, dev, gpu)
+    wall = time.perf_counter() - t0
+    say(f"phases 39-44 (multi-rank paths, examples): {wall:.1f} s on {gpu}; spawned ranks and "
+        f"the CLI by phase {json.dumps({k: round(v, 1) for k, v in walls.items()})} s, examples "
+        f"{json.dumps({k: round(v, 2) for k, v in example_walls.items()})} s")
+    return {
+        "quad3d_rollout_autoreset": {"gloo2_dense_a_rank": two[0]["dense"]["launches"]["K1"]},
+        "ppo_rollout": {"nccl1_mesh": meshed["launches"]["K2"], "nccl1_shard_map":
+                        sm["launches"]["K2"], "gloo2_shard_map_a_rank":
+                        two[0]["shard_map"]["launches"]["K2"], "gloo2_mesh_a_rank":
+                        two[0]["mesh"]["launches"]["K2"]},
+        "ppo_loss_grads_gather": {"nccl1_shard_map": sm["launches"]["K3"],
+                                  "gloo2_shard_map_a_rank": two[0]["shard_map"]["launches"]["K3"]},
+        "ppo_update": {"nccl1_mesh": meshed["launches"]["K4"],
+                       "gloo2_mesh_a_rank": two[0]["mesh"]["launches"]["K4"]},
+        "offpolicy_collect (MujocoQuadForce-v1)": {"gloo2_sac_a_rank":
+                                                   two[0]["sac"]["launches"]["K7"]},
+        "offpolicy_collect (quadrotor3d-v0)": {"gloo2_td3_a_rank": two[0]["td3"]["launches"]["K7"]},
+    }
+
+
 def main(argv=None) -> int:
     import argparse
 
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=("hashes", "bf16"),
+    parser.add_argument("--only", choices=("hashes", "bf16", "parallel"),
                         help="after phases 1-3, run only the digests and times of K1 and "
-                        "K2/K6 (hashes), or phases 34-38 and their kernels line (bf16); print "
-                        "no result line")
+                        "K2/K6 (hashes), phases 34-38 and their kernels line (bf16), or phases "
+                        "39-44 (parallel); print no result line")
     only = parser.parse_args(argv).only
 
     # 1. Device.
@@ -4002,6 +4499,11 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         say(json.dumps({"kernels": bf16_phases(torch, dev, gpu)}))
+        return 0
+    if only == "parallel":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        say(json.dumps({"launches_sharded": parallel_phases(torch, dev, gpu)}))
         return 0
 
     # 4. K1 against its plain twin.  The slice has no matmul; TF32 is set
@@ -4142,6 +4644,11 @@ def main(argv=None) -> int:
     modules_phases(torch, dev, gpu)
     # 34-38. compute_dtype="bfloat16".
     kernels += bf16_phases(torch, dev, gpu)
+    # 39-44. The multi-rank paths and the examples.
+    sharded = parallel_phases(torch, dev, gpu)
+    for entry in kernels:
+        if entry["name"] in sharded:
+            entry["launches_sharded"] = sharded[entry["name"]]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

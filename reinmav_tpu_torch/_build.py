@@ -66,11 +66,12 @@ _SIGNATURES = {
                                    ctypes.c_int, ctypes.c_uint, ctypes.c_int, _P, ctypes.c_int,
                                    _P),
     # K2 / K6: (env kind, states_in, returns_in, net, consts, batch,
-    #  horizon, seed, normalize_obs, normalize_rewards, bf16, host params,
-    #  number of params, obs, action, log_prob, value, reward, done,
+    #  horizon, seed, env_base, normalize_obs, normalize_rewards, bf16, host
+    #  params, number of params, obs, action, log_prob, value, reward, done,
     #  final_states, returns_out, partials, stats, taut counts or null, stream)
     "ppo_rollout_launch": (ctypes.c_int, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                           ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
+                           ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, _P,
                            ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     # K3: (obs dim, action dim, data, n, perm, m, tile, adv_stats, net,
     #  clip_eps, value_clip_eps, value_coef, kl_mode, bf16, blocks, partials,

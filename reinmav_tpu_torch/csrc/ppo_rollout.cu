@@ -45,7 +45,10 @@
 // interleave, and consumed into the heads in unit order as it is computed,
 // so it is never stored.  Noise and resets come from
 // Philox4x32-10 (quad3d_common.cuh) with key (seed, 0) and counter (env,
-// step, draw, stream): stream 1 is the noise (two draws, Box-Muller cosine
+// step, draw, stream), env the thread's env index plus env_base (0 on one
+// rank; a rank's first env of the global batch when the batch is split
+// over ranks, so that each env draws what it draws in the one-rank run):
+// stream 1 is the noise (two draws, Box-Muller cosine
 // branch as _normal :90-95; action a takes word a of each draw, so an A = 2
 // kind uses the first two words of the same two draws), stream 2 the
 // U(-1, 1)^D resets (ceil(D / 4) draws).
@@ -103,8 +106,8 @@ template <class Env, bool kNormObs, bool kNormRew, bool kCount, bool kBf>
 __global__ void __launch_bounds__(kThreads)
 ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret_in,
                    const float* __restrict__ net, const float* __restrict__ consts,
-                   int64_t batch, int horizon, uint32_t seed, typename Env::Params p,
-                   RolloutOut o) {
+                   int64_t batch, int horizon, uint32_t seed, uint32_t env_base,
+                   typename Env::Params p, RolloutOut o) {
   constexpr int kD = Env::kD, kA = Env::kA, kUnits = kUnitsOf<Env>;
   constexpr int kStats = 2 * kD + 3;  // obs sum (D), obs sq (D), ret sum, ret sq, raw reward sum
   constexpr int kConsts = 2 * kD + kA + 3;
@@ -159,7 +162,7 @@ ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret
     const float inv_ret_std = cst[2 * kD + kA + 1];
     const float gamma = cst[2 * kD + kA + 2];
     const typename Env::Consts env_consts = Env::consts(p);
-    const uint32_t env = static_cast<uint32_t>(i);
+    const uint32_t env = static_cast<uint32_t>(i) + env_base;
 
     float s[kD];
 #pragma unroll
@@ -304,28 +307,29 @@ __global__ void ppo_rollout_stats_kernel(const float* __restrict__ partials, int
 template <class Env, bool kBf>
 void launch_norm(bool norm_obs, bool norm_rew, const float* s_in, const float* ret_in,
                  const float* net, const float* consts, int64_t batch, int horizon,
-                 uint32_t seed, const typename Env::Params& p, const RolloutOut& o,
-                 unsigned int blocks, cudaStream_t st) {
+                 uint32_t seed, uint32_t env_base, const typename Env::Params& p,
+                 const RolloutOut& o, unsigned int blocks, cudaStream_t st) {
   if (norm_obs && norm_rew) {
     ppo_rollout_kernel<Env, true, true, false, kBf><<<blocks, kThreads, 0, st>>>(
-        s_in, ret_in, net, consts, batch, horizon, seed, p, o);
+        s_in, ret_in, net, consts, batch, horizon, seed, env_base, p, o);
   } else if (norm_obs) {
     ppo_rollout_kernel<Env, true, false, false, kBf><<<blocks, kThreads, 0, st>>>(
-        s_in, ret_in, net, consts, batch, horizon, seed, p, o);
+        s_in, ret_in, net, consts, batch, horizon, seed, env_base, p, o);
   } else if (norm_rew) {
     ppo_rollout_kernel<Env, false, true, false, kBf><<<blocks, kThreads, 0, st>>>(
-        s_in, ret_in, net, consts, batch, horizon, seed, p, o);
+        s_in, ret_in, net, consts, batch, horizon, seed, env_base, p, o);
   } else {
     ppo_rollout_kernel<Env, false, false, false, kBf><<<blocks, kThreads, 0, st>>>(
-        s_in, ret_in, net, consts, batch, horizon, seed, p, o);
+        s_in, ret_in, net, consts, batch, horizon, seed, env_base, p, o);
   }
 }
 
 template <class Env>
 cudaError_t launch_env(const float* s_in, const float* ret_in, const float* net,
                        const float* consts, int64_t batch, int horizon, uint32_t seed,
-                       bool norm_obs, bool norm_rew, bool bf16, const float* params_host,
-                       int n_params, const RolloutOut& o, unsigned int blocks, cudaStream_t st) {
+                       uint32_t env_base, bool norm_obs, bool norm_rew, bool bf16,
+                       const float* params_host, int n_params, const RolloutOut& o,
+                       unsigned int blocks, cudaStream_t st) {
   if (n_params != Env::kParams) return cudaErrorInvalidValue;
   const typename Env::Params p = Env::params(params_host);
   if (o.counts != nullptr) {
@@ -333,16 +337,16 @@ cudaError_t launch_env(const float* s_in, const float* ret_in, const float* net,
     if constexpr (Env::kTether) {
       if (!(norm_obs && norm_rew) || bf16) return cudaErrorInvalidValue;
       ppo_rollout_kernel<Env, true, true, true, false><<<blocks, kThreads, 0, st>>>(
-          s_in, ret_in, net, consts, batch, horizon, seed, p, o);
+          s_in, ret_in, net, consts, batch, horizon, seed, env_base, p, o);
     } else {
       return cudaErrorInvalidValue;
     }
   } else if (bf16) {
     launch_norm<Env, true>(norm_obs, norm_rew, s_in, ret_in, net, consts, batch, horizon, seed,
-                           p, o, blocks, st);
+                           env_base, p, o, blocks, st);
   } else {
     launch_norm<Env, false>(norm_obs, norm_rew, s_in, ret_in, net, consts, batch, horizon, seed,
-                            p, o, blocks, st);
+                            env_base, p, o, blocks, st);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -365,10 +369,12 @@ cudaError_t launch_env(const float* s_in, const float* ret_in, const float* net,
 // null (the main path), or B int32 that receive each env's taut env-steps
 // (the slung-load kinds with both normalisers on; any other call with
 // counts is refused with cudaErrorInvalidValue).  bf16 nonzero: the bf16
-// instance (no counts).
+// instance (no counts).  env_base: added to each env's index in the Philox
+// counters (see above); 0 gives the draws of every earlier build.
 extern "C" int ppo_rollout_launch(int env_kind, const void* states_in, const void* returns_in,
                                   const void* net, const void* consts, long long batch,
-                                  int horizon, unsigned int seed, int normalize_obs,
+                                  int horizon, unsigned int seed, unsigned int env_base,
+                                  int normalize_obs,
                                   int normalize_rewards, int bf16, const void* params_host,
                                   int n_params,
                                   void* obs, void* action, void* log_prob, void* value,
@@ -388,8 +394,9 @@ extern "C" int ppo_rollout_launch(int env_kind, const void* states_in, const voi
   const auto* c = static_cast<const float*>(consts);
   const auto* h = static_cast<const float*>(params_host);
   const cudaError_t err = reinmav::with_env_kind(env_kind, [&](auto env) {
-    return launch_env<decltype(env)>(s_in, r_in, w, c, batch, horizon, seed, normalize_obs,
-                                     normalize_rewards, bf16 != 0, h, n_params, o, blocks, st);
+    return launch_env<decltype(env)>(s_in, r_in, w, c, batch, horizon, seed, env_base,
+                                     normalize_obs, normalize_rewards, bf16 != 0, h, n_params, o,
+                                     blocks, st);
   });
   return static_cast<int>(err);
 }

@@ -14,7 +14,10 @@ arithmetic and the same Philox4x32-10 draws (noise on stream 1, the
 U(-1, 1)^D resets on stream 2 of
 :func:`reinmav_tpu_torch.ops.rollout.philox_words`; the hover task resets
 deterministically), so the two agree on the card with noise and resets
-on, and the CPU tests run the twin.  :data:`ENVS` is the per-env table
+on, and the CPU tests run the twin.  ``env_base`` is added to each env's
+index in the Philox counters: a rank holding envs ``env_base`` onwards of
+a global batch draws what those envs draw in the one-rank run (0, the
+default, is every earlier call's draws).  :data:`ENVS` is the per-env table
 (state and action dims, params pack) that the wrapper and the learner
 read, as the JAX package's ``_ENVS``.
 
@@ -108,7 +111,7 @@ def n_stats(env_kind: str) -> int:
 
 
 def _check_args(states_t, env_returns, seed, net, consts, horizon, params_vec,
-                env_kind) -> torch.Tensor:
+                env_kind, env_base: int = 0) -> torch.Tensor:
     """Validate what the kernel takes; returns the kind's params vector."""
     if env_kind not in ENVS:
         raise ValueError(f"env_kind {env_kind!r}: the kernel takes {sorted(ENVS)}")
@@ -137,6 +140,8 @@ def _check_args(states_t, env_returns, seed, net, consts, horizon, params_vec,
         raise ValueError(f"seed must fit in uint32, got {seed}")
     if not 0 <= int(horizon) < 2**31:
         raise ValueError(f"horizon must be in [0, 2**31), got {horizon}")
+    if not (0 <= int(env_base) and int(env_base) + states_t.shape[1] <= 2**32):
+        raise ValueError(f"env_base + B must fit in uint32, got {env_base} + {states_t.shape[1]}")
     params = kind.pack(None) if params_vec is None else params_vec
     n_params = kind.pack(None).shape[0]
     if params.shape != (n_params,):
@@ -204,14 +209,15 @@ def _env_twin(env_kind: str, params: torch.Tensor, reset_stream: int = _RESET_ST
     """``(step, reset)`` of a kind in the kernel's arithmetic: ``step(s,
     act) -> (states, raw reward, done)`` on ``(D, B)`` states and ``(A,
     B)`` actions; ``reset(s, done, t, seed)`` resets the done envs of
-    ``s`` in place (U(-1, 1)^D from Philox stream ``reset_stream``)."""
+    ``s`` in place (U(-1, 1)^D from Philox stream ``reset_stream``), env
+    ``i`` of ``s`` drawing as env ``env_base + i``."""
     if env_kind == "MujocoQuadForce-v1":
         return _hover_twin(params)
 
-    def uniform_reset(s, done, t, seed):
+    def uniform_reset(s, done, t, seed, env_base=0):
         idx = torch.nonzero(done).squeeze(1)
         if idx.numel():
-            s[:, idx] = reset_draws(idx, t, seed, reset_stream, s.shape[0])
+            s[:, idx] = reset_draws(idx + env_base, t, seed, reset_stream, s.shape[0])
 
     if env_kind in cl_ops.KINDS:
         return cl_ops.env_twin(env_kind, params)[1], uniform_reset
@@ -244,8 +250,8 @@ def _hover_twin(params: torch.Tensor):
         raw = terms - a_sq + 0.1 * (a0 + a1 + a2 + a3) + 100.0
         return torch.stack(rows), raw, done
 
-    def hover_reset(s, done, t, seed):
-        del t, seed
+    def hover_reset(s, done, t, seed, env_base=0):
+        del t, seed, env_base
         s[:, done] = fresh.to(s.device)[:, None]
 
     return hover_step, hover_reset
@@ -265,13 +271,15 @@ def ppo_rollout_reference(states_t, env_returns, seed: int, net, consts, horizon
                           normalize_rewards: bool = True,
                           env_kind: str = "quadrotor3d-v0",
                           counts: torch.Tensor | None = None,
-                          compute_dtype=None) -> RolloutOut:
+                          compute_dtype=None, env_base: int = 0) -> RolloutOut:
     """Plain PyTorch twin of K2 / K6, on any device: the same float32
-    arithmetic and the same Philox draws.  Its products are float32
+    arithmetic and the same Philox draws (env ``i`` as env ``env_base +
+    i``).  Its products are float32
     matmuls (on a CUDA device the caller keeps TF32 off), or with
     ``compute_dtype`` "bfloat16" the bf16 products of :func:`_towers_bf16`."""
     towers = _towers_bf16 if is_bf16(compute_dtype) else _towers
-    params = _check_args(states_t, env_returns, seed, net, consts, horizon, params_vec, env_kind)
+    params = _check_args(states_t, env_returns, seed, net, consts, horizon, params_vec, env_kind,
+                         env_base)
     _check_counts(counts, states_t, env_kind, normalize_obs, normalize_rewards)
     env_step, env_reset = _env_twin(env_kind, params)
     taut = cl_ops.taut_twin(env_kind, params) if counts is not None else None
@@ -283,7 +291,7 @@ def ppo_rollout_reference(states_t, env_returns, seed: int, net, consts, horizon
     obs_mean, obs_invstd = consts[:D, None], consts[D:2 * D, None]
     std = consts[2 * D:2 * D + A, None]
     ls_sum, inv_ret_std, gamma = consts[2 * D + A], consts[2 * D + A + 1], consts[2 * D + A + 2]
-    env_idx = torch.arange(batch, device=dev)
+    env_idx = torch.arange(batch, device=dev) + int(env_base)
 
     s, ret = states_t.clone(), env_returns.clone()
     count = torch.zeros(batch, dtype=torch.int32, device=dev)
@@ -312,7 +320,7 @@ def ppo_rollout_reference(states_t, env_returns, seed: int, net, consts, horizon
             reward = torch.clamp(raw * inv_ret_std, -10.0, 10.0)
             ret = ret * (1.0 - done.to(ret.dtype))
         stats[2 * D + 2] += raw.sum()
-        env_reset(s, done, t, seed)
+        env_reset(s, done, t, seed, int(env_base))
         for k, v in zip(cols, (x, act, logp, value, reward, done)):
             cols[k].append(v)
 
@@ -334,7 +342,8 @@ def ppo_rollout_reference(states_t, env_returns, seed: int, net, consts, horizon
 def ppo_rollout(states_t, env_returns, seed: int, net, consts, horizon: int,
                 params_vec: torch.Tensor | None = None, normalize_obs: bool = True,
                 normalize_rewards: bool = True, env_kind: str = "quadrotor3d-v0",
-                counts: torch.Tensor | None = None, compute_dtype=None) -> RolloutOut:
+                counts: torch.Tensor | None = None, compute_dtype=None,
+                env_base: int = 0) -> RolloutOut:
     """K2 (quadrotor3d-v0) or K6 (the other kinds of :data:`ENVS`):
     ``horizon`` policy + env steps in one CUDA launch.
 
@@ -352,17 +361,20 @@ def ppo_rollout(states_t, env_returns, seed: int, net, consts, horizon: int,
     kinds with both normalisers on: a counting instance of the kernel,
     bitwise the main path's otherwise).  ``compute_dtype`` None or
     "float32", or "bfloat16" (the kernel's bf16 instance, the twin's
-    :func:`_towers_bf16`).  Returns :class:`RolloutOut`.
+    :func:`_towers_bf16`).  ``env_base``: the global index of env 0 of
+    ``states_t`` in the Philox counters (a rank's first env when the batch
+    is split over ranks; 0 on one rank).  Returns :class:`RolloutOut`.
     Launches on the current stream and does not synchronise.  A CPU tensor
     runs the plain twin; a CUDA tensor runs the kernel or raises.
     """
     bf16 = is_bf16(compute_dtype)
-    params = _check_args(states_t, env_returns, seed, net, consts, horizon, params_vec, env_kind)
+    params = _check_args(states_t, env_returns, seed, net, consts, horizon, params_vec, env_kind,
+                         env_base)
     _check_counts(counts, states_t, env_kind, normalize_obs, normalize_rewards)
     if states_t.device.type == "cpu":
         return ppo_rollout_reference(states_t, env_returns, seed, net, consts, horizon, params,
                                      normalize_obs, normalize_rewards, env_kind, counts,
-                                     compute_dtype)
+                                     compute_dtype, env_base)
     if states_t.device.type != "cuda":
         raise ValueError(f"unsupported device {states_t.device}")
     from .._build import check, load_library
@@ -383,7 +395,8 @@ def ppo_rollout(states_t, env_returns, seed: int, net, consts, horizon: int,
     with torch.cuda.device(states_t.device):
         rc = lib.ppo_rollout_launch(
             kind.kind_id, states_t.data_ptr(), env_returns.data_ptr(), net.data_ptr(),
-            consts.data_ptr(), batch, T, int(seed), int(normalize_obs), int(normalize_rewards),
+            consts.data_ptr(), batch, T, int(seed), int(env_base), int(normalize_obs),
+            int(normalize_rewards),
             int(bf16),
             ctypes.addressof(host_params), params.shape[0], *(t.data_ptr() for t in out[:8]),
             partials.data_ptr(), out.stats.data_ptr(),

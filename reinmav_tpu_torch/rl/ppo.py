@@ -22,6 +22,14 @@ and K4 are built for the (obs, action) dims of the envs that K2/K6 take
 (``ops/ppo_loss.py::KERNEL_DIMS``); an env of other dims takes the loop
 through autograd on the card.  ``train_step`` logs which paths ran and why.
 
+Across ranks (:mod:`reinmav_tpu_torch.parallel`), as the JAX package's two
+mesh paths: :func:`make_train_step` with a mesh runs the one-rank update
+on a batch split over the ranks (each rank rolls out its envs with the
+one-rank run's draws, the trajectory is gathered and every rank runs the
+same whole update, K4 included), and :func:`make_train_step_shardmap` the
+MPI data-parallel recipe (each rank its own rollout stream and
+minibatches, each minibatch's gradient all-reduced, K4 off).
+
 State is functional as in the JAX package (each update returns a new
 :class:`TrainState`), with one exception: ``TrainState.generator``, a
 CPU ``torch.Generator`` in place of the PRNG key, advances in place.
@@ -44,6 +52,7 @@ from ..envs.core import EnvDef, episode_boundary, fused_kernel_mismatch
 from ..ops import ppo_loss as loss_ops
 from ..ops import ppo_rollout as rollout_ops
 from ..ops import ppo_update as update_ops
+from ..parallel.mesh import Mesh, fold_in
 from . import networks
 from .networks import Layout
 
@@ -283,15 +292,41 @@ def init_train_state(env: EnvDef, cfg: PpoConfig, seed: int = 0, device="cuda") 
         torch.zeros(cfg.num_envs, **f32), generator, 0, torch.tensor(1.0, **f32))
 
 
+def _sliced_step(env: EnvDef, tree, norm_obs, states_t, generator, compute_dtype, rows: slice,
+                 global_batch: int):
+    """One policy + env step of the envs ``rows`` of a ``global_batch``:
+    :func:`networks.sample_action_t` and ``env.autoreset_step_t`` with the
+    noise and the reset states drawn for the whole batch and cut to
+    ``rows``, so that each env draws what it draws in the one-rank loop."""
+    mean, log_std, value = networks.apply_t(tree, norm_obs, compute_dtype)
+    std = torch.exp(log_std).reshape(log_std.shape + (1,))
+    noise = torch.randn((mean.shape[0], global_batch), generator=generator, device=mean.device,
+                        dtype=mean.dtype)[:, rows]
+    action = mean + std * noise
+    out = env.vstep(states_t.T, action.T)
+    fresh = env.vreset(generator, global_batch, device=states_t.device,
+                       dtype=out.state.dtype)[rows]
+    out = out._replace(state=torch.where(episode_boundary(out)[:, None], fresh, out.state))
+    return (action, networks.gaussian_log_prob_t(mean, log_std, action), value,
+            out._replace(state=out.state.T, obs=out.obs.T))
+
+
 @torch.no_grad()
 def collect_rollout(env: EnvDef, cfg: PpoConfig, params, obs_norm: ObsNorm, ret_norm: RetNorm,
-                    env_states, env_returns, generator: torch.Generator) -> Rollout:
+                    env_states, env_returns, generator: torch.Generator, env_base: int = 0,
+                    global_batch: int | None = None) -> Rollout:
     """``cfg.rollout_len`` policy + env steps as an eager loop in the
     ``(D, B)`` layout (the JAX package's ``collect_rollout`` with
     ``dense8=False``).  Noise and resets come from ``generator``, which
-    lives on the device of the states."""
+    lives on the device of the states.  The states are the envs
+    ``env_base`` onwards of a batch of ``global_batch`` envs (by default
+    their own count; a rank's shard in the mesh mode): each step draws the
+    noise and reset states of the whole batch and keeps its envs'
+    (:func:`_sliced_step`)."""
     tree = Layout(env.obs_dim, env.action_dim, cfg.hidden).unflatten(params)
     batch = env_states.shape[0]
+    rows = slice(env_base, env_base + batch)
+    global_batch = batch if global_batch is None else global_batch
     dtype, dev = env_states.dtype, env_states.device
     zero = torch.zeros((), dtype=dtype, device=dev)
     omom = RawObsMoments(torch.zeros(env.obs_dim, dtype=dtype, device=dev),
@@ -307,9 +342,8 @@ def collect_rollout(env: EnvDef, cfg: PpoConfig, params, obs_norm: ObsNorm, ret_
                                  omom.total_sq + torch.square(obs_t).sum(dim=1),
                                  omom.count + batch)
         norm_obs = _normalize_t(obs_t, obs_norm) if cfg.normalize_obs else obs_t
-        action, log_prob, value = networks.sample_action_t(tree, norm_obs, generator,
-                                                           cfg.compute_dtype)
-        out = env.autoreset_step_t(states_t, action, generator)
+        action, log_prob, value, out = _sliced_step(env, tree, norm_obs, states_t, generator,
+                                                    cfg.compute_dtype, rows, global_batch)
         done = episode_boundary(out)
         reward = out.reward
         if cfg.normalize_rewards:
@@ -340,14 +374,15 @@ def _rollout_consts(params, layout: Layout, obs_norm: ObsNorm, ret_norm: RetNorm
 
 @torch.no_grad()
 def collect_rollout_kernel(env: EnvDef, cfg: PpoConfig, params, obs_norm: ObsNorm,
-                           ret_norm: RetNorm, env_states, env_returns, seed: int) -> Rollout:
+                           ret_norm: RetNorm, env_states, env_returns, seed: int,
+                           env_base: int = 0) -> Rollout:
     """The rollout through the fused kernel of ``env``'s kind, K2 or
     K6-hover (:func:`reinmav_tpu_torch.ops.ppo_rollout.ppo_rollout`, with
     the env's live Params packed by the kind's entry of its ``ENVS``
     table): the kernel on a CUDA tensor, its plain twin on a CPU one.  Same
     return contract as :func:`collect_rollout`; the noise and
     quadrotor3d's resets come from the kernel's Philox streams keyed by
-    ``seed``."""
+    ``seed``, env ``i`` of the states counted as env ``env_base + i``."""
     layout = Layout(env.obs_dim, env.action_dim, cfg.hidden)
     out = rollout_ops.ppo_rollout(
         env_states.T.to(torch.float32).contiguous(), env_returns.to(torch.float32).contiguous(),
@@ -355,7 +390,7 @@ def collect_rollout_kernel(env: EnvDef, cfg: PpoConfig, params, obs_norm: ObsNor
         _rollout_consts(params, layout, obs_norm, ret_norm, cfg.gamma), cfg.rollout_len,
         params_vec=rollout_ops.env_params_vec(env), normalize_obs=cfg.normalize_obs,
         normalize_rewards=cfg.normalize_rewards, env_kind=env.name,
-        compute_dtype=cfg.compute_dtype)
+        compute_dtype=cfg.compute_dtype, env_base=env_base)
     d = env.obs_dim
     n = torch.tensor(float(cfg.rollout_len * env_states.shape[0]), device=env_states.device)
     s = out.stats
@@ -541,8 +576,26 @@ def pass_adv_stats(flat_adv, perm_all, tile: int, n_passes: int, normalize: bool
                        dim=1).to(torch.float32).contiguous()
 
 
+def _reduce_rollout(axis: Mesh, rollout: Rollout) -> Rollout:
+    """The rollout's moment sums added over the ranks and its mean raw
+    reward averaged, in one all-reduce (the JAX package's ``psum`` of the
+    moments and ``pmean`` of the reward)."""
+    om, rm = rollout.obs_moments, rollout.ret_moments
+    d = om.total.shape[0]
+    vec = torch.cat([om.total, om.total_sq, *(x.reshape(1).to(om.total.dtype) for x in (
+        om.count, rm.total, rm.total_sq, rm.count, rollout.raw_reward_mean))])
+    vec = axis.all_reduce_sum(vec)
+    cut = lambda i, like: vec[i].to(like.dtype)  # noqa: E731
+    return rollout._replace(
+        obs_moments=RawObsMoments(vec[:d].to(om.total.dtype), vec[d:2 * d].to(om.total.dtype),
+                                  cut(2 * d, om.count)),
+        ret_moments=RawObsMoments(cut(2 * d + 1, rm.total), cut(2 * d + 2, rm.total_sq),
+                                  cut(2 * d + 3, rm.count)),
+        raw_reward_mean=(vec[2 * d + 4] / axis.world_size).to(rollout.raw_reward_mean.dtype))
+
+
 def update_phase(env: EnvDef, cfg: PpoConfig, state: TrainState, rollout: Rollout, perms,
-                 fused_loss: bool, fused_update: bool = False):
+                 fused_loss: bool, fused_update: bool = False, axis: Mesh | None = None):
     """The update after a rollout: GAE, then ``len(perms)`` epochs of
     ``cfg.num_minibatches`` minibatches of clip + Adam, the normaliser
     updates and the adaptive-KL coefficient.  ``perms``: one permutation
@@ -553,7 +606,20 @@ def update_phase(env: EnvDef, cfg: PpoConfig, state: TrainState, rollout: Rollou
     (:func:`reinmav_tpu_torch.ops.ppo_loss.ppo_loss_grads_gather`, the
     kernel on the card, its twin on the CPU), else through
     ``torch.autograd`` of :func:`ppo_loss`.  Returns ``(new state,
-    summary)``; the summary's values are 0-d tensors on the device."""
+    summary)``; the summary's values are 0-d tensors on the device.
+
+    ``axis``: the mesh of a shard_map update (the JAX package's
+    ``axis_name``): ``rollout`` is this rank's, its moment sums are added
+    over the ranks and its mean reward and done share averaged; each
+    minibatch's gradient and metrics are averaged over the ranks in one
+    all-reduce before the optimiser step, so the params stay bitwise
+    replicated; advantages are normalised per rank.  K4 cannot run there
+    (its passes never leave the launch)."""
+    if axis is not None and fused_update:
+        raise ValueError("fused_update (K4) under shard_map: each minibatch's gradient must be "
+                         "all-reduced between its passes")
+    if axis is not None:
+        rollout = _reduce_rollout(axis, rollout)
     layout = Layout(env.obs_dim, env.action_dim, cfg.hidden)
     traj = rollout.traj
     T, d, batch = traj.obs.shape
@@ -643,6 +709,9 @@ def update_phase(env: EnvDef, cfg: PpoConfig, state: TrainState, rollout: Rollou
             for tidx in perm.reshape(cfg.num_minibatches, n_tiles // cfg.num_minibatches):
                 with record_function("ppo.loss_grads"):
                     grads, metrics = loss_grads(tidx, params)
+                if axis is not None:
+                    with record_function("ppo.all_reduce"):
+                        grads, metrics = _average_grads(axis, grads, metrics)
                 with record_function("ppo.optimizer"):
                     params, opt_state = optimizer.update(grads, opt_state, params)
                     params = update_ops.floor_log_std(params, layout, cfg.log_std_floor)
@@ -673,14 +742,89 @@ def update_phase(env: EnvDef, cfg: PpoConfig, state: TrainState, rollout: Rollou
                                env_states=rollout.final_states, obs_norm=obs_norm,
                                ret_norm=ret_norm, env_returns=rollout.env_returns,
                                update_step=state.update_step + 1, kl_beta=kl_beta)
-    summary = {"mean_reward": rollout.raw_reward_mean,
-               "mean_episode_done_frac": traj.done.to(torch.float32).mean(),
+    done_frac = traj.done.to(torch.float32).mean()
+    if axis is not None:
+        done_frac = axis.all_reduce_mean(done_frac)
+    summary = {"mean_reward": rollout.raw_reward_mean, "mean_episode_done_frac": done_frac,
                **metrics}
     return new_state, summary
 
 
+def _average_grads(axis: Mesh, grads, metrics: dict):
+    """A minibatch's gradient and metrics averaged over the ranks, in one
+    all-reduce (the JAX package's ``pmean`` of both)."""
+    names = list(metrics)
+    vec = axis.all_reduce_mean(torch.cat([grads.reshape(-1), torch.stack(
+        [metrics[k].reshape(()).to(grads.dtype) for k in names])]))
+    n = grads.numel()
+    return (vec[:n].reshape(grads.shape),
+            {k: vec[n + i].to(metrics[k].dtype) for i, k in enumerate(names)})
+
+
+def _paths(env: EnvDef, cfg: PpoConfig, state: TrainState, fused_rollout, fused_loss,
+           fused_update, axis: Mesh | None = None, label: str = "train_step"):
+    """Choose the rollout and update paths of one update and log them:
+    ``(use K2/K6, use K3, use K4)``.  Under shard_map (``axis``) K4 is
+    off: each minibatch's gradient is all-reduced between K3 and the
+    optimiser step, and K4 runs every pass inside one launch."""
+    check_compute_dtype(cfg)
+    device = state.env_states.device
+    use_k2, rollout_how = _choose("fused_rollout", fused_rollout, cfg.fused_rollout,
+                                  _rollout_refusal(cfg, env), device)
+    if axis is not None:
+        if fused_update:
+            raise ValueError("fused_update refused: under shard_map each minibatch's gradient is "
+                             "all-reduced between its passes")
+        use_k4, update_how = False, ("off under shard_map (each minibatch's gradient is "
+                                     "all-reduced between K3 and the optimiser step; K4 keeps "
+                                     "every pass inside one launch)")
+    else:
+        use_k4, update_how = _choose("fused_update", fused_update, cfg.fused_update,
+                                     _update_refusal(cfg, env, fused_loss, device), device)
+    passes = cfg.num_epochs * cfg.num_minibatches
+    if use_k4:
+        use_k3 = False
+        update = f"K4 {update_how}, 1 launch for {passes} passes of loss gradient + clip + Adam"
+    else:
+        use_k3, loss_how = _choose("fused_loss", fused_loss, cfg.fused_loss,
+                                   _loss_refusal(cfg, env, device), device)
+        update = (f"K4 {update_how}; {passes} minibatch steps of clip + Adam, loss gradient "
+                  + (f"K3 {loss_how}, {passes} launches" if use_k3 else f"autograd, K3 {loss_how}"))
+    if axis is not None:
+        update += f"; {passes} gradient all-reduces over {axis.world_size} ranks"
+    k2 = _rollout_kernel_name(env)
+    log.info("%s(%s, B=%d, T=%d, %s): rollout: %s; update: %s", label, env.name,
+             state.env_states.shape[0], cfg.rollout_len, cfg.compute_dtype,
+             f"{k2} {rollout_how}" if use_k2 else f"eager loop, {k2} {rollout_how}", update)
+    return use_k2, use_k3, use_k4
+
+
+def _rollout(env: EnvDef, cfg: PpoConfig, state: TrainState, use_k2: bool, seed: int,
+             env_base: int = 0, global_batch: int | None = None) -> Rollout:
+    """The rollout of ``state``'s envs keyed by ``seed``: K2/K6, or the
+    eager loop with a device generator seeded with it."""
+    with record_function("ppo.rollout"):
+        if use_k2:
+            return collect_rollout_kernel(env, cfg, state.params, state.obs_norm, state.ret_norm,
+                                          state.env_states, state.env_returns, seed, env_base)
+        return collect_rollout(env, cfg, state.params, state.obs_norm, state.ret_norm,
+                               state.env_states, state.env_returns,
+                               _device_generator(seed, state.env_states.device), env_base,
+                               global_batch)
+
+
+def _perms(cfg: PpoConfig, state: TrainState, batch: int):
+    """Each epoch's permutation of the shuffle tiles of ``batch`` envs,
+    from ``state.generator`` (replicated: every rank draws the same)."""
+    with record_function("ppo.shuffle"):
+        _, n_tiles = _tiling(cfg, cfg.rollout_len * batch)
+        return [_shuffle_indices(state.generator, n_tiles, state.env_states.device)
+                for _ in range(cfg.num_epochs)]
+
+
 def train_step(env: EnvDef, cfg: PpoConfig, state: TrainState, fused_rollout: bool | None = None,
-               fused_loss: bool | None = None, fused_update: bool | None = None):
+               fused_loss: bool | None = None, fused_update: bool | None = None,
+               axis: Mesh | None = None):
     """One PPO update: the rollout (K2 / K6-hover or the eager loop), then
     :func:`update_phase` (every pass in one K4 launch, or a loop over the
     minibatches with each gradient through K3 or autograd).
@@ -691,56 +835,129 @@ def train_step(env: EnvDef, cfg: PpoConfig, state: TrainState, fused_rollout: bo
     config is supported, "on" the kernel's wrapper, which runs its plain
     twin on the CPU, "off" the eager path or the loop); True / False
     force.  K4 needs K3's preconditions and a loss path that is not
-    switched off.  Logs which paths ran and why, and the compute dtype."""
-    check_compute_dtype(cfg)
-    device = state.env_states.device
-    use_k2, rollout_how = _choose("fused_rollout", fused_rollout, cfg.fused_rollout,
-                                  _rollout_refusal(cfg, env), device)
-    use_k4, update_how = _choose("fused_update", fused_update, cfg.fused_update,
-                                 _update_refusal(cfg, env, fused_loss, device), device)
-    passes = cfg.num_epochs * cfg.num_minibatches
-    if use_k4:
-        use_k3 = False
-        update = f"K4 {update_how}, 1 launch for {passes} passes of loss gradient + clip + Adam"
-    else:
-        use_k3, loss_how = _choose("fused_loss", fused_loss, cfg.fused_loss,
-                                   _loss_refusal(cfg, env, device), device)
-        update = (f"K4 {update_how}; {passes} minibatch steps of clip + Adam, loss gradient "
-                  + (f"K3 {loss_how}, {passes} launches" if use_k3 else f"autograd, K3 {loss_how}"))
-    k2 = _rollout_kernel_name(env)
-    log.info("train_step(%s, B=%d, T=%d, %s): rollout: %s; update: %s", env.name,
-             state.env_states.shape[0], cfg.rollout_len, cfg.compute_dtype,
-             f"{k2} {rollout_how}" if use_k2 else f"eager loop, {k2} {rollout_how}", update)
+    switched off.  Logs which paths ran and why, and the compute dtype.
 
+    ``axis``: the mesh of a shard_map step (:func:`make_train_step_shardmap`,
+    the JAX package's ``axis_name``): ``state`` holds this rank's envs, the
+    rollout seed is folded with the rank, the permutations come from the
+    replicated generator, and :func:`update_phase` averages over the ranks;
+    K4 is off."""
+    use_k2, use_k3, use_k4 = _paths(env, cfg, state, fused_rollout, fused_loss, fused_update,
+                                    axis)
     seed = _draw_seed(state.generator)
-    with record_function("ppo.rollout"):
-        if use_k2:
-            rollout = collect_rollout_kernel(env, cfg, state.params, state.obs_norm,
-                                             state.ret_norm, state.env_states, state.env_returns,
-                                             seed)
-        else:
-            rollout = collect_rollout(env, cfg, state.params, state.obs_norm, state.ret_norm,
-                                      state.env_states, state.env_returns,
-                                      _device_generator(seed, device))
-    with record_function("ppo.shuffle"):
-        _, n_tiles = _tiling(cfg, cfg.rollout_len * state.env_states.shape[0])
-        perms = [_shuffle_indices(state.generator, n_tiles, device)
-                 for _ in range(cfg.num_epochs)]
-    return update_phase(env, cfg, state, rollout, perms, use_k3, use_k4)
+    if axis is not None:
+        seed = fold_in(seed, axis.rank)
+    rollout = _rollout(env, cfg, state, use_k2, seed)
+    perms = _perms(cfg, state, state.env_states.shape[0])
+    return update_phase(env, cfg, state, rollout, perms, use_k3, use_k4, axis)
+
+
+def mesh_train_step(env: EnvDef, cfg: PpoConfig, state: TrainState, mesh: Mesh,
+                    fused_rollout: bool | None = None, fused_loss: bool | None = None,
+                    fused_update: bool | None = None):
+    """One PPO update of the mesh mode (the JAX package's
+    ``make_train_step(env, cfg, mesh)``): the one-rank update on a batch
+    split over the ranks.  ``state`` holds this rank's envs (rank ``r`` the
+    envs ``r * B_local`` onwards); every rank draws the same seed, and its
+    rollout (K2/K6 with ``env_base``, or the eager loop cutting the whole
+    batch's draws) gives its envs what they get in the one-rank run.  The
+    trajectory and the final states are gathered, the moment sums added,
+    and every rank runs the same whole update on the whole batch, K4
+    included.  Returns this rank's new state (its envs) and the summary."""
+    use_k2, use_k3, use_k4 = _paths(env, cfg, state, fused_rollout, fused_loss, fused_update,
+                                    label=f"mesh_train_step[rank {mesh.rank} of "
+                                          f"{mesh.world_size}]")
+    b_local = state.env_states.shape[0]
+    global_batch = b_local * mesh.world_size
+    seed = _draw_seed(state.generator)
+    local = _rollout(env, cfg, state, use_k2, seed, mesh.rank * b_local, global_batch)
+    with record_function("ppo.gather"):
+        final_states, traj = _gather_rollout(mesh, local)
+        rollout = _reduce_rollout(mesh, local)._replace(final_states=final_states, traj=traj)
+    perms = _perms(cfg, state, global_batch)
+    new_state, summary = update_phase(env, cfg, state, rollout, perms, use_k3, use_k4)
+    return new_state._replace(env_states=local.final_states), summary
+
+
+def _gather_rollout(mesh: Mesh, local: Rollout):
+    """The ranks' final states ``(B, D)`` and trajectories ``(T, *, B)``
+    in rank order (env order), in one gather: every field packed as rows
+    of one ``(rows, B_local)`` tensor of the trajectory's dtype (``done``
+    as 0 / 1, exact)."""
+    traj = local.traj
+    dtype = traj.value.dtype
+    T, b = traj.value.shape
+    fields = [local.final_states.T, *(x.reshape(-1, b) for x in traj)]
+    rows = [f.shape[0] for f in fields]
+    packed = mesh.all_gather(torch.cat([f.to(dtype) for f in fields]), dim=1)
+    parts = packed.split(rows)
+    out = [p.reshape((T, -1, packed.shape[1]) if x.dim() == 3 else (T, packed.shape[1]))
+           .to(x.dtype) for p, x in zip(parts[1:], traj)]
+    return parts[0].T.to(local.final_states.dtype), Transition(*out)
+
+
+def _mean_summaries(summaries: list) -> dict:
+    if not summaries:
+        return {}
+    return {k: torch.stack([s[k] for s in summaries]).mean() for k in summaries[0]}
 
 
 def train_many(env: EnvDef, cfg: PpoConfig, state: TrainState, num_updates: int,
                fused_rollout: bool | None = None, fused_loss: bool | None = None,
-               fused_update: bool | None = None):
-    """``num_updates`` :func:`train_step` calls in a plain loop.  Returns
-    the final state and the per-update metrics averaged over the updates
-    (0-d tensors on the device)."""
+               fused_update: bool | None = None, axis: Mesh | None = None,
+               mesh: Mesh | None = None):
+    """``num_updates`` :func:`train_step` calls in a plain loop (each a
+    shard_map step with ``axis``, a :func:`mesh_train_step` with
+    ``mesh``).  Returns the final state and the per-update metrics
+    averaged over the updates (0-d tensors on the device)."""
+    kw = dict(fused_rollout=fused_rollout, fused_loss=fused_loss, fused_update=fused_update)
     summaries = []
     for _ in range(num_updates):
-        state, summary = train_step(env, cfg, state, fused_rollout=fused_rollout,
-                                    fused_loss=fused_loss, fused_update=fused_update)
+        if mesh is not None:
+            state, summary = mesh_train_step(env, cfg, state, mesh, **kw)
+        else:
+            state, summary = train_step(env, cfg, state, axis=axis, **kw)
         summaries.append(summary)
-    if not summaries:
-        return state, {}
-    return state, {k: torch.stack([s[k] for s in summaries]).mean() for k in summaries[0]}
+    return state, _mean_summaries(summaries)
 
+
+def _check_divides(cfg: PpoConfig, mesh: Mesh) -> None:
+    if cfg.num_envs % mesh.world_size != 0:
+        raise ValueError(f"num_envs {cfg.num_envs} not divisible by mesh size {mesh.world_size}")
+
+
+def make_train_step(env: EnvDef, cfg: PpoConfig, mesh: Mesh | None = None):
+    """``step(state) -> (state, summary)``: :func:`train_step`, or with a
+    mesh :func:`mesh_train_step` (the one-rank update on a batch split
+    over the ranks).  ``cfg.num_envs`` is the global batch; the state is
+    the rank's shard (:func:`reinmav_tpu_torch.parallel.shard_state`)."""
+    if mesh is None:
+        return lambda state: train_step(env, cfg, state)
+    _check_divides(cfg, mesh)
+    return lambda state: mesh_train_step(env, cfg, state, mesh)
+
+
+def make_train_many(env: EnvDef, cfg: PpoConfig, num_updates: int, mesh: Mesh | None = None):
+    """``num_updates`` steps of :func:`make_train_step` a call, the metrics
+    averaged over them."""
+    if mesh is not None:
+        _check_divides(cfg, mesh)
+    return lambda state: train_many(env, cfg, state, num_updates, mesh=mesh)
+
+
+def make_train_step_shardmap(env: EnvDef, cfg: PpoConfig, mesh: Mesh):
+    """The shard_map step, the fast mesh path: the MPI data-parallel recipe
+    (baselines PPO2 under mpirun).  Each rank rolls out its shard with its
+    own stream, draws the same permutations, normalises advantages on its
+    own minibatches, and all-reduces each minibatch's gradient, the moment
+    sums and the metrics: not bitwise a one-rank run, but the same
+    algorithm at N times the batch.  ``cfg.num_envs`` (the global batch)
+    must divide by the world size."""
+    _check_divides(cfg, mesh)
+    return lambda state: train_step(env, cfg, state, axis=mesh)
+
+
+def make_train_many_shardmap(env: EnvDef, cfg: PpoConfig, num_updates: int, mesh: Mesh):
+    """``num_updates`` shard_map steps a call, the metrics averaged."""
+    _check_divides(cfg, mesh)
+    return lambda state: train_many(env, cfg, state, num_updates, axis=mesh)

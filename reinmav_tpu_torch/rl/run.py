@@ -1,5 +1,6 @@
 """Train/play CLI of the PyTorch port: the learners of
-:mod:`reinmav_tpu.rl.run`, on one CUDA device.
+:mod:`reinmav_tpu.rl.run`, on a CUDA device, or on several ranks under
+``torchrun``.
 
 Usage (the JAX package's flags; ``--device`` is the port's own)::
 
@@ -33,9 +34,21 @@ HTML animation, ``--live`` serves it to a browser while it steps
 (``--live_port``, 0 for any free port; ``--live_hold`` seconds kept up
 after the end).  ``--compute_dtype=bfloat16`` runs every learner's
 products with bf16 operands and float32 sums (the bf16 instances of K2/K6,
-K4 and K7 on the card).  What is not ported yet exits with a message
-naming its ROADMAP.md item: ``--shard_map``.
-``--no_mesh`` is accepted and changes nothing (one device).
+K4 and K7 on the card).
+
+Several ranks (:mod:`reinmav_tpu_torch.parallel`)::
+
+    torchrun --nproc_per_node=N -m reinmav_tpu_torch.rl.run --num_env=32768 ...
+    torchrun --nproc_per_node=N -m reinmav_tpu_torch.rl.run --shard_map ...
+
+Unless ``--no_mesh`` (one process, no group), the CLI forms the group from
+torchrun's environment (a no-op for a plain ``python -m`` run) and splits
+``--num_env`` over the ranks.  PPO then runs the mesh mode by default (the
+one-rank update on the split batch, K2/K6 and K4 on every rank) and with
+``--shard_map`` the fast path (each rank its own rollout stream and
+minibatches, each minibatch's gradient all-reduced, K3 on the card); its
+checkpoints are collective.  The off-policy and GRU paths stay unsharded,
+as the JAX CLI's.  Logs, evaluation and play run on rank 0 only.
 """
 
 from __future__ import annotations
@@ -48,15 +61,12 @@ import time
 import torch
 
 from .. import make
+from ..parallel import distributed, make_mesh, shard_state
 from ..utils import checkpoint as ckpt
 from ..utils.metrics import MetricsLogger, to_host
 from . import evaluate, networks, ppo, recurrent, sac, td3
 
 OFF_POLICY = ("sac", "td3", "ddpg")
-#: Flags that are not ported yet -> the ROADMAP.md item that ports them.
-_NOT_PORTED_FLAGS = {
-    "shard_map": "the shard_map train step (ROADMAP.md queue 1 item 13)",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -132,19 +142,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gif", default=None, help="write the play rollout as a GIF")
     p.add_argument("--html", default=None,
                    help="write the play rollout as a self-contained HTML animation")
-    p.add_argument("--no_mesh", action="store_true", help="accepted; one device, no mesh")
-    p.add_argument("--shard_map", action="store_true", help="not ported yet")
+    p.add_argument("--no_mesh", action="store_true",
+                   help="one process with no group: torchrun's environment is not read")
+    p.add_argument("--shard_map", action="store_true",
+                   help="PPO's fast mesh path: per-rank rollouts and minibatches, each "
+                        "minibatch's gradient all-reduced (needs a mesh)")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (the port's own flag; cpu runs the plain twins)")
     return p
-
-
-def refuse_not_ported(args) -> None:
-    """Exit with a message naming the ROADMAP.md item of each flag that is
-    not ported yet."""
-    for flag, what in _NOT_PORTED_FLAGS.items():
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag} is not ported to PyTorch yet: {what}")
 
 
 def refuse_missing_renderer(args) -> None:
@@ -178,26 +183,63 @@ def make_config(args) -> ppo.PpoConfig:
     return cfg
 
 
+def _device(args):
+    """The rank's device (the one the group gave it), else ``--device``."""
+    return distributed.device() or args.device
+
+
 def _eval_generator(args, update: int) -> torch.Generator:
     """The evaluation's own stream, so that evaluating leaves training's
     generator untouched."""
-    return torch.Generator(device=args.device).manual_seed(args.seed * 1_000_003 + update)
+    return torch.Generator(device=_device(args)).manual_seed(args.seed * 1_000_003 + update)
 
 
-def train(args) -> ppo.TrainState:
+def setup_mesh(args):
+    """The run's mesh: None with ``--no_mesh``; else the group that
+    :func:`reinmav_tpu_torch.parallel.distributed.init` forms from
+    torchrun's environment (none for a plain run: one rank, no group)."""
+    if args.no_mesh:
+        return None
+    distributed.init(device=args.device)
+    return make_mesh(args.device)
+
+
+def _ppo_state(env, cfg, args, mesh):
+    """A fresh PPO state on the rank's device, cut to its shard, restored
+    (collectively) from ``--load_path`` when given."""
+    state = ppo.init_train_state(env, cfg, args.seed,
+                                 device=_device(args) if mesh is None else mesh.device)
+    if mesh is not None:
+        state = shard_state(mesh, state)
+    if args.load_path:
+        state = ckpt.restore(args.load_path, state, mesh)
+    return state
+
+
+def train(args, mesh=None) -> ppo.TrainState:
+    """The PPO loop: calls of ``--updates_per_jit`` updates, the mesh mode
+    across the ranks of ``mesh`` (``--shard_map``: the shard_map step),
+    rank 0 logging and evaluating, the checkpoints collective."""
     env = make(args.env)
     cfg = make_config(args)
     k = max(1, args.updates_per_jit)
-    state = ppo.init_train_state(env, cfg, args.seed, device=args.device)
-    if args.load_path:
-        state = ckpt.restore(args.load_path, state)
+    if args.shard_map and mesh is None:
+        raise SystemExit("--shard_map requires a mesh (drop --no_mesh)")
+    if args.shard_map:
+        step_fn = ppo.make_train_many_shardmap(env, cfg, k, mesh)
+    else:
+        # One rank with no group is the plain step (the mesh mode's own
+        # at world size 1, without the identity collectives).
+        grouped = mesh if mesh is not None and mesh.group is not None else None
+        step_fn = ppo.make_train_many(env, cfg, k, grouped)
+    state = _ppo_state(env, cfg, args, mesh)
 
     steps_per_update = cfg.num_envs * cfg.rollout_len
     num_updates = max(1, int(args.num_timesteps) // steps_per_update)
     logger = MetricsLogger(log_dir=args.log_dir, config=vars(args))
     last_t, last_update, update = time.perf_counter(), 0, 0
     while update < num_updates:
-        state, metrics = ppo.train_many(env, cfg, state, k)
+        state, metrics = step_fn(state)
         update += k
         if (update // k) % args.log_interval == 0 or update >= num_updates:
             # The metrics depend on the update, so reading them to the host
@@ -208,16 +250,17 @@ def train(args) -> ppo.TrainState:
             last_t, last_update = now, update
             logger.log(update, {"env_steps": steps_per_update * update,
                                 "steps_per_sec": round(sps), **host})
-        if args.eval_interval and (update // k) % args.eval_interval == 0:
+        if args.eval_interval and (update // k) % args.eval_interval == 0 and distributed.is_main():
             stats = evaluate.evaluate(env, state.params,
                                       state.obs_norm if cfg.normalize_obs else None,
                                       _eval_generator(args, update), num_envs=args.eval_envs,
                                       horizon=args.eval_horizon, hidden=cfg.hidden)
             _log_eval(logger, update, stats)
+        # Collective: every rank writes its shard.
         if args.save_path and (update // k) % args.save_interval == 0:
-            ckpt.save(args.save_path, state)
+            ckpt.save(args.save_path, state, mesh)
     if args.save_path:
-        ckpt.save(args.save_path, state)
+        ckpt.save(args.save_path, state, mesh)
     logger.close()
     return state
 
@@ -250,7 +293,7 @@ def train_offpolicy(args):
     env = make(args.env)
     alg, cfg = offpolicy_config(args)
     k = max(1, args.updates_per_jit)
-    state = alg.init_state(env, cfg, args.seed, device=args.device)
+    state = alg.init_state(env, cfg, args.seed, device=_device(args))
     if args.load_path:
         state = ckpt.restore(args.load_path, state)
     steps_per_call = cfg.num_envs * k
@@ -267,17 +310,24 @@ def train_offpolicy(args):
             last_t, last_call = now, call
             logger.log(call, {"env_steps": steps_per_call * call, "steps_per_sec": round(sps),
                               **metrics})
-        if args.eval_interval and call % args.eval_interval == 0:
+        if args.eval_interval and call % args.eval_interval == 0 and distributed.is_main():
             stats = evaluate.evaluate_actor(env, alg, state.actor, cfg.hidden,
                                             _eval_generator(args, call), num_envs=args.eval_envs,
                                             horizon=args.eval_horizon)
             _log_eval(logger, call, stats)
         if args.save_path and call % args.save_interval == 0:
-            ckpt.save(args.save_path, state)
+            _save_replica(args.save_path, state)
     if args.save_path:
-        ckpt.save(args.save_path, state)
+        _save_replica(args.save_path, state)
     logger.close()
     return state
+
+
+def _save_replica(path: str, state) -> None:
+    """The unsharded paths' checkpoint: every rank holds the same replica,
+    so rank 0 writes it alone."""
+    if distributed.is_main():
+        ckpt.save(path, state)
 
 
 def _log_eval(logger: MetricsLogger, step: int, stats: evaluate.EvalStats) -> None:
@@ -353,17 +403,18 @@ def _emit_play_outputs(env, args, states, total_reward: float, episodes: int):
     return states
 
 
-def play(args, state: ppo.TrainState | None = None):
+def play(args, state: ppo.TrainState | None = None, mesh=None):
     """Deterministic greedy rollout of one env with the trained PPO policy
-    (its mean action), resetting on each episode's end."""
+    (its mean action), resetting on each episode's end; on rank 0 only
+    (the restore is collective)."""
     env = make(args.env)
     cfg = make_config(args)
     if state is None:
         # The restore target mirrors the training shapes (num_env and
         # rollout_len size the checkpoint's env states).
-        state = ppo.init_train_state(env, cfg, args.seed, device=args.device)
-        if args.load_path:
-            state = ckpt.restore(args.load_path, state)
+        state = _ppo_state(env, cfg, args, mesh)
+    if not distributed.is_main():
+        return None
     tree = networks.Layout(env.obs_dim, env.action_dim, cfg.hidden).unflatten(state.params)
 
     def policy(s):
@@ -383,9 +434,11 @@ def play_offpolicy(args, state=None):
     env = make(args.env)
     alg, cfg = offpolicy_config(args)
     if state is None:
-        state = alg.init_state(env, cfg, args.seed, device=args.device)
+        state = alg.init_state(env, cfg, args.seed, device=_device(args))
         if args.load_path:
             state = ckpt.restore(args.load_path, state)
+    if not distributed.is_main():
+        return None
     rollout = _greedy_rollout(env, args, state.actor.device,
                               lambda s: alg.greedy_action(env, state.actor, s[:env.obs_dim],
                                                           cfg.hidden))
@@ -408,7 +461,7 @@ def train_recurrent(args) -> recurrent.RecurrentTrainState:
     env = make(args.env)
     cfg = recurrent_config(args)
     k = max(1, args.updates_per_jit)
-    state = recurrent.init_train_state(env, cfg, args.seed, device=args.device)
+    state = recurrent.init_train_state(env, cfg, args.seed, device=_device(args))
     if args.load_path:
         state = ckpt.restore(args.load_path, state)
     steps_per_update = cfg.num_envs * cfg.rollout_len
@@ -426,9 +479,9 @@ def train_recurrent(args) -> recurrent.RecurrentTrainState:
             logger.log(update, {"env_steps": steps_per_update * update,
                                 "steps_per_sec": round(sps), **host})
         if args.save_path and (update // k) % args.save_interval == 0:
-            ckpt.save(args.save_path, state)
+            _save_replica(args.save_path, state)
     if args.save_path:
-        ckpt.save(args.save_path, state)
+        _save_replica(args.save_path, state)
     logger.close()
     return state
 
@@ -463,9 +516,11 @@ def play_recurrent(args, state=None):
     env = make(args.env)
     cfg = recurrent_config(args)
     if state is None:
-        state = recurrent.init_train_state(env, cfg, args.seed, device=args.device)
+        state = recurrent.init_train_state(env, cfg, args.seed, device=_device(args))
         if args.load_path:
             state = ckpt.restore(args.load_path, state)
+    if not distributed.is_main():
+        return None
     device = state.params.device
     return _emit_play_outputs(env, args, *_greedy_rollout(env, args, device,
                                                           *recurrent_play_policy(env, cfg, state)))
@@ -473,7 +528,6 @@ def play_recurrent(args, state=None):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    refuse_not_ported(args)
     refuse_missing_renderer(args)
     if args.alg in OFF_POLICY:
         train_fn, play_fn = train_offpolicy, play_offpolicy
@@ -482,7 +536,9 @@ def main(argv=None):
             raise SystemExit("--network=gru supports --alg=ppo only")
         train_fn, play_fn = train_recurrent, play_recurrent
     else:
-        train_fn, play_fn = train, play
+        train_fn = lambda a: train(a, mesh)  # noqa: E731
+        play_fn = lambda a, s: play(a, s, mesh)  # noqa: E731
+    mesh = setup_mesh(args)
     state = None
     if not args.play or args.load_path is None:
         state = train_fn(args)

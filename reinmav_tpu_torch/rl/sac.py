@@ -38,6 +38,15 @@ Differences from the JAX package, by design:
 - The gate, the counters and the metrics stay on the device; an
   iteration reads nothing from it, and :func:`train_iters` reads the
   metrics once at its end.
+
+Sharded over ranks (``axis``, the JAX package's ``axis_name`` under
+``shard_map``; :func:`make_train_iters` with a mesh): each rank steps its
+own envs into its own ring (its share of the columns; ``ptr`` and
+``filled`` stay replicated, since the inserts are symmetric), draws its
+collection, reset and sampling streams from the replicated generator
+folded with its rank, and averages the critic gradient and the actor and
+alpha gradient over the ranks before their gated steps, so the params
+stay bitwise replicated; ``batch_size`` is per rank.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ from torch.profiler import record_function
 
 from ..envs.core import EnvDef
 from ..ops import offpolicy as collect_ops
+from ..parallel.mesh import Mesh, fold_in
 from ..ops import ppo_rollout as rollout_ops
 from ..utils.metrics import to_host
 from .networks import bf16_mm, bf16_round, is_bf16
@@ -586,13 +596,28 @@ class Nets(NamedTuple):
     opt_alpha: AdamState
 
 
+def average_grads(axis: Mesh | None, *grads):
+    """The gradients averaged over the ranks in one all-reduce (the JAX
+    package's ``pmean``); as they are without ``axis``."""
+    if axis is None:
+        return grads if len(grads) > 1 else grads[0]
+    with record_function("sac.all_reduce"):
+        vec = axis.all_reduce_mean(torch.cat([g.reshape(-1) for g in grads]))
+    out, at = [], 0
+    for g in grads:
+        out.append(vec[at:at + g.numel()].reshape(g.shape))
+        at += g.numel()
+    return tuple(out) if len(out) > 1 else out[0]
+
+
 def update_step(env: EnvDef, cfg: SacConfig, nets: Nets, buffer, filled, ready, draws: Draws,
-                tile: int = 1):
+                tile: int = 1, axis: Mesh | None = None):
     """One SAC update from the ring (the JAX package's ``one_update``): the
     critics' step, then the actor's and alpha's against the new critics,
     each with the gradient times the gate and the optimiser state frozen
-    while ``ready`` is False, then the polyak blend ``tau * gate``.
-    Returns ``(nets, metrics)``, the metrics 0-d tensors."""
+    while ``ready`` is False, then the polyak blend ``tau * gate``.  With
+    ``axis`` each gradient is first averaged over the ranks.  Returns
+    ``(nets, metrics)``, the metrics 0-d tensors (this rank's)."""
     la, lq = _sac_layouts(env, cfg)
     opt_a, opt_q, opt_al = make_optimizers(cfg)
     target_entropy = (-float(env.action_dim) if cfg.target_entropy is None
@@ -609,6 +634,7 @@ def update_step(env: EnvDef, cfg: SacConfig, nets: Nets, buffer, filled, ready, 
             (lq.layers(nets.critics_target, 0), lq.layers(nets.critics_target, 1)),
             draws.eps_target, la.layers(nets.actor), nets.log_alpha, cfg.compute_dtype)
         (qg,) = torch.autograd.grad(qloss, q)
+        qg = average_grads(axis, qg)
         critics, opt_q_state = gated_step(opt_q, qg * gate, nets.opt_q, nets.critics, ready)
 
         a = nets.actor.detach().requires_grad_(True)
@@ -617,7 +643,7 @@ def update_step(env: EnvDef, cfg: SacConfig, nets: Nets, buffer, filled, ready, 
             {"actor": la.layers(a), "log_alpha": log_alpha}, cfg, env, rows,
             lq.layers(critics, 0), lq.layers(critics, 1), draws.eps_pi, target_entropy,
             cfg.compute_dtype)
-        ag, alg = torch.autograd.grad(ploss, (a, log_alpha))
+        ag, alg = average_grads(axis, *torch.autograd.grad(ploss, (a, log_alpha)))
         actor, opt_a_state = gated_step(opt_a, ag * gate, nets.opt_actor, nets.actor, ready)
         new_log_alpha, opt_al_state = gated_step(opt_al, alg * gate, nets.opt_alpha,
                                                  nets.log_alpha, ready)
@@ -694,14 +720,16 @@ def collect(env: EnvDef, cfg, actor_layers, env_states, warm, use_k7: bool, mode
     return out.state, block, out.reward, done
 
 
-def iteration_metrics(update_metrics: list, gate, reward, done, filled, ever_done) -> dict:
+def iteration_metrics(update_metrics: list, gate, reward, done, filled, ever_done,
+                      axis: Mesh | None = None) -> dict:
     """One iteration's metrics on the device: the updates' means masked by
-    the gate, and the collection's."""
+    the gate, and the collection's; with ``axis`` averaged over the ranks
+    in one all-reduce."""
     out = {k: torch.stack([m[k] for m in update_metrics]).mean() * gate
            for k in update_metrics[0]}
     out.update(update_gate=gate, mean_reward=reward.mean(), done_frac=done.mean(),
                buffer_filled=filled.to(gate.dtype), desync_frac=ever_done.mean())
-    return out
+    return out if axis is None else axis.mean_dict(out)
 
 
 def finish_metrics(per_iter: list) -> dict:
@@ -714,29 +742,49 @@ def finish_metrics(per_iter: list) -> dict:
     return {k: (v.mean() if k in UNGATED else v.sum() / denom) for k, v in stacked.items()}
 
 
+def sharding(axis: Mesh | None) -> str:
+    """How the learners' logs name the sharding of an iteration."""
+    if axis is None:
+        return ""
+    return (f"; sharded over {axis.world_size} ranks (rank {axis.rank}): rank-local streams, "
+            "gradients and metrics all-reduced")
+
+
+def iteration_seeds(generator: torch.Generator, device, axis: Mesh | None):
+    """One iteration's K7 seed and device generator for the eager draws,
+    from the replicated ``generator``; with ``axis`` each folded with the
+    rank (the JAX package's ``fold_in(key, axis_index)``)."""
+    seed, gseed = _draw_seed(generator), _draw_seed(generator)
+    if axis is not None:
+        seed, gseed = fold_in(seed, axis.rank), fold_in(gseed, axis.rank)
+    return seed, _device_generator(gseed, device)
+
+
 def train_iters(env: EnvDef, cfg: SacConfig, state: SacState, num_iters: int,
-                fused_collect=None):
+                fused_collect=None, axis: Mesh | None = None):
     """Run ``num_iters`` SAC iterations (each: one batched env step, the
     ring insert, ``cfg.grad_steps`` updates).  Returns ``(state,
     metrics)``: the metrics averaged as the JAX package does, read to the
     host once at the end (floats).  ``fused_collect`` None follows
     ``cfg.fused_collect``; True / False force.  Logs which collection ran
-    and why, and the compute dtype."""
+    and why, and the compute dtype.  ``axis``: the mesh of a sharded run
+    (see the module docstring); ``state`` then holds this rank's envs and
+    ring columns, and the warm-up counter still advances by the global
+    ``cfg.num_envs`` an iteration, as the JAX package counts it."""
     check_compute_dtype(cfg)
     device = state.env_states.device
     use_k7, how = choose_collect(cfg, env, device, fused_collect)
     tile = resolve_sample_tile(cfg, state.env_states.shape[0])
     la, _ = _sac_layouts(env, cfg)
     log.info("sac.train_iters(%s, B=%d, %d iterations, %s): collection: %s; %d updates per "
-             "iteration through autograd", env.name, state.env_states.shape[0], num_iters,
+             "iteration through autograd%s", env.name, state.env_states.shape[0], num_iters,
              cfg.compute_dtype,
              f"K7 {how}, 1 launch per iteration" if use_k7 else f"eager, K7 {how}",
-             cfg.grad_steps)
+             cfg.grad_steps, sharding(axis))
     tail = consts_tail(env, 0.0, device) if use_k7 else None
     per_iter = []
     for _ in range(num_iters):
-        seed = _draw_seed(state.generator)
-        gen = _device_generator(_draw_seed(state.generator), device)
+        seed, gen = iteration_seeds(state.generator, device, axis)
         warm = state.total_steps < cfg.warmup_steps
         with record_function("sac.collect"), torch.no_grad():
             new_t, block, reward, done = collect(env, cfg, la.layers(state.actor),
@@ -751,14 +799,30 @@ def train_iters(env: EnvDef, cfg: SacConfig, state: SacState, num_iters: int,
         step_metrics = []
         for _ in range(cfg.grad_steps):
             nets, m = update_step(env, cfg, nets, buffer, filled, ready,
-                                  draw_update(gen, cfg, env, tile, state.actor), tile)
+                                  draw_update(gen, cfg, env, tile, state.actor), tile, axis)
             step_metrics.append(m)
         ever_done = torch.maximum(state.ever_done, done.to(state.ever_done.dtype))
         per_iter.append(iteration_metrics(step_metrics, ready.to(torch.float32), reward,
-                                          done, filled, ever_done))
+                                          done, filled, ever_done, axis))
         state = SacState(*nets[:4], nets.opt_actor, nets.opt_q, nets.opt_alpha, buffer, ptr,
                          filled, new_t.T, state.generator, total, ever_done)
     return state, (to_host(finish_metrics(per_iter)) if per_iter else {})
+
+
+def check_divides(cfg, mesh: Mesh) -> None:
+    """``cfg.num_envs`` (global) must divide by the world size."""
+    if cfg.num_envs % mesh.world_size != 0:
+        raise ValueError(f"num_envs {cfg.num_envs} not divisible by mesh size {mesh.world_size}")
+
+
+def make_train_iters(env: EnvDef, cfg: SacConfig, num_iters: int, mesh: Mesh | None = None):
+    """``run(state) -> (state, metrics)``: ``num_iters`` iterations of
+    :func:`train_iters`, sharded over ``mesh`` when given (``cfg.num_envs``
+    global and divisible by the world size, ``cfg.batch_size`` per rank,
+    the state this rank's shard: :func:`reinmav_tpu_torch.parallel.shard_state`)."""
+    if mesh is not None:
+        check_divides(cfg, mesh)
+    return lambda state: train_iters(env, cfg, state, num_iters, axis=mesh)
 
 
 @torch.no_grad()

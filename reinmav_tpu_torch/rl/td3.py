@@ -12,6 +12,10 @@ Classic DDPG is ``single_critic=True`` with ``policy_noise=0``,
 ``noise_clip=0`` and ``policy_delay=1`` (the CLI's ``--alg=ddpg``): the
 critic vector then holds ``q1`` alone, so DDPG has no ``q2`` entry in its
 params, optimiser state or checkpoint.
+
+Sharded over ranks (``axis``; :func:`make_train_iters` with a mesh) as
+:mod:`.sac` is: rank-local envs, rings and streams, the critic and actor
+gradients averaged over the ranks before their gated steps.
 """
 
 from __future__ import annotations
@@ -23,13 +27,15 @@ import torch
 from torch.profiler import record_function
 
 from ..envs.core import EnvDef
+from ..parallel.mesh import Mesh
 from ..utils.metrics import to_host
 from . import sac
 from .ppo import (AdamState, ClipAdam, _device_generator, _draw_seed, adam_from_jax,
                   check_compute_dtype)
-from .sac import (MlpLayout, actor_layout, buffer_insert, buffer_sample, collect, critic_layout,
-                  finish_metrics, gated_step, init_mlp, iteration_metrics, mlp_t, polyak,
-                  q_value_t, resolve_sample_tile, scale_action_t, split_rows, twin_q_value_t)
+from .sac import (MlpLayout, actor_layout, average_grads, buffer_insert, buffer_sample, collect,
+                  critic_layout, finish_metrics, gated_step, init_mlp, iteration_metrics,
+                  iteration_seeds, mlp_t, polyak, q_value_t, resolve_sample_tile,
+                  scale_action_t, sharding, split_rows, twin_q_value_t)
 
 log = logging.getLogger(__name__)
 
@@ -216,14 +222,15 @@ class Nets(NamedTuple):
 
 
 def update_step(env: EnvDef, cfg: Td3Config, nets: Nets, buffer, filled, ready, draws: Draws,
-                tile: int = 1):
+                tile: int = 1, axis: Mesh | None = None):
     """One TD3 update (the JAX package's ``one_update``): the critics' step
     with the gradient times the gate and the optimiser frozen while the
     gate is closed; the counter of gate-open updates; then, with ``slow =
     gate`` on every ``policy_delay``-th of them and 0 otherwise, the
     actor's step on the gradient times ``slow`` (its optimiser state kept
     unless ``slow``) and the polyak blend ``tau * slow`` of the actor and
-    critic targets.  Returns ``(nets, metrics)``."""
+    critic targets.  With ``axis`` each gradient is first averaged over the
+    ranks.  Returns ``(nets, metrics)``."""
     la, lq = layouts(env, cfg)
     opt_a, opt_q = make_optimizers(cfg)
     dtype = nets.actor.dtype
@@ -237,6 +244,7 @@ def update_step(env: EnvDef, cfg: Td3Config, nets: Nets, buffer, filled, ready, 
             qdict(cfg, lq, q), cfg, env, rows, qdict(cfg, lq, nets.critics_target), draws.noise,
             la.layers(nets.actor_target), cfg.compute_dtype)
         (qg,) = torch.autograd.grad(qloss, q)
+        qg = average_grads(axis, qg)
         critics, opt_q_state = gated_step(opt_q, qg * gate, nets.opt_q, nets.critics, ready)
         updates = nets.updates + ready.to(nets.updates.dtype)
 
@@ -244,6 +252,7 @@ def update_step(env: EnvDef, cfg: Td3Config, nets: Nets, buffer, filled, ready, 
         a = nets.actor.detach().requires_grad_(True)
         ploss = actor_loss(la.layers(a), env, rows, lq.layers(critics, 0), cfg.compute_dtype)
         (ag,) = torch.autograd.grad(ploss, a)
+        ag = average_grads(axis, ag)
         actor, opt_a_state = gated_step(opt_a, ag * slow, nets.opt_actor, nets.actor, slow > 0.5)
         with torch.no_grad():
             blend = cfg.tau * slow
@@ -256,12 +265,13 @@ def update_step(env: EnvDef, cfg: Td3Config, nets: Nets, buffer, filled, ready, 
 
 
 def train_iters(env: EnvDef, cfg: Td3Config, state: Td3State, num_iters: int,
-                fused_collect=None):
+                fused_collect=None, axis: Mesh | None = None):
     """Run ``num_iters`` TD3 (or DDPG) iterations: one batched env step
     (K7 in ``td3`` mode, or eagerly), the ring insert, ``cfg.grad_steps``
     updates.  Returns ``(state, metrics)`` as :func:`.sac.train_iters`
     does, reading the host once at the end.  Logs which collection ran and
-    why, and the compute dtype."""
+    why, and the compute dtype.  ``axis``: sharded as
+    :func:`.sac.train_iters`."""
     check_compute_dtype(cfg)
     device = state.env_states.device
     use_k7, how = sac.choose_collect(cfg, env, device, fused_collect)
@@ -269,15 +279,14 @@ def train_iters(env: EnvDef, cfg: Td3Config, state: Td3State, num_iters: int,
     la, _ = layouts(env, cfg)
     alg = "ddpg" if cfg.single_critic else "td3"
     log.info("%s.train_iters(%s, B=%d, %d iterations, %s): collection: %s; %d updates per "
-             "iteration through autograd", alg, env.name, state.env_states.shape[0], num_iters,
+             "iteration through autograd%s", alg, env.name, state.env_states.shape[0], num_iters,
              cfg.compute_dtype,
              f"K7 {how}, 1 launch per iteration" if use_k7 else f"eager, K7 {how}",
-             cfg.grad_steps)
+             cfg.grad_steps, sharding(axis))
     tail = sac.consts_tail(env, cfg.explore_noise, device) if use_k7 else None
     per_iter = []
     for _ in range(num_iters):
-        seed = _draw_seed(state.generator)
-        gen = _device_generator(_draw_seed(state.generator), device)
+        seed, gen = iteration_seeds(state.generator, device, axis)
         warm = state.total_steps < cfg.warmup_steps
         with record_function("sac.collect"), torch.no_grad():
             new_t, block, reward, done = collect(env, cfg, la.layers(state.actor),
@@ -292,15 +301,24 @@ def train_iters(env: EnvDef, cfg: Td3Config, state: Td3State, num_iters: int,
         step_metrics = []
         for _ in range(cfg.grad_steps):
             nets, m = update_step(env, cfg, nets, buffer, filled, ready,
-                                  draw_update(gen, cfg, env, tile, state.actor), tile)
+                                  draw_update(gen, cfg, env, tile, state.actor), tile, axis)
             step_metrics.append(m)
         ever_done = torch.maximum(state.ever_done, done.to(state.ever_done.dtype))
         per_iter.append(iteration_metrics(step_metrics, ready.to(torch.float32), reward,
-                                          done, filled, ever_done))
+                                          done, filled, ever_done, axis))
         state = Td3State(nets.actor, nets.actor_target, nets.critics, nets.critics_target,
                          nets.opt_actor, nets.opt_q, buffer, ptr, filled, new_t.T,
                          state.generator, total, nets.updates, ever_done)
     return state, (to_host(finish_metrics(per_iter)) if per_iter else {})
+
+
+def make_train_iters(env: EnvDef, cfg: Td3Config, num_iters: int, mesh: Mesh | None = None):
+    """``run(state) -> (state, metrics)``: ``num_iters`` iterations of
+    :func:`train_iters`, sharded over ``mesh`` when given (see
+    :func:`.sac.make_train_iters`)."""
+    if mesh is not None:
+        sac.check_divides(cfg, mesh)
+    return lambda state: train_iters(env, cfg, state, num_iters, axis=mesh)
 
 
 @torch.no_grad()

@@ -17,6 +17,16 @@ and puts each tensor on the device of the target's.  A checkpoint whose
 structure, shapes or types do not fit the target (another network width,
 env count or state layout) raises :class:`CheckpointStructureError`; a
 missing one raises ``FileNotFoundError``.
+
+Collective across ranks (``mesh`` of more than one rank, the JAX
+package's multi-host orbax call): every rank calls :func:`save` and
+:func:`restore` with its own state.  Each rank writes its shard (the
+fields of :data:`reinmav_tpu_torch.parallel.mesh.SHARDED_FIELDS`: env
+states, running returns, the replay ring) to a file of its own, rank 0
+also the replicated rest, and a barrier ends the call, so that no rank
+reads or overwrites a checkpoint another is still writing.  A checkpoint
+restores only at the world size that wrote it; another is refused by
+name (:class:`CheckpointStructureError`), never re-sliced.
 """
 
 from __future__ import annotations
@@ -25,8 +35,15 @@ import os
 
 import torch
 
+from ..parallel.mesh import SHARDED_FIELDS
+
 _FILE = "train_state.pt"
 _FORMAT = 1
+_FORMAT_SHARDED = 2  # the replicated tree in _FILE, each rank's shard in _shard_file(rank)
+
+
+def _shard_file(rank: int) -> str:
+    return f"shard_{rank}.pt"
 
 
 class CheckpointStructureError(ValueError):
@@ -89,26 +106,76 @@ def _from_saved(saved, target, where: str):
     return saved
 
 
-def save(path: str, tree) -> None:
+def _write(path: str, name: str, blob) -> None:
+    tmp = os.path.join(path, name + ".tmp")
+    torch.save(blob, tmp)
+    os.replace(tmp, os.path.join(path, name))
+
+
+def _sharded(mesh) -> bool:
+    return mesh is not None and mesh.world_size > 1
+
+
+def save(path: str, tree, mesh=None) -> None:
     """Save ``tree`` (e.g. a ``TrainState``) as the checkpoint directory
-    ``path``, replacing any checkpoint there."""
+    ``path``, replacing any checkpoint there.  With a ``mesh`` of more
+    than one rank, collective: every rank calls it with its shard of the
+    state (see the module docstring)."""
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
-    tmp = os.path.join(path, _FILE + ".tmp")
-    torch.save({"format": _FORMAT, "tree": _to_saved(tree)}, tmp)
-    os.replace(tmp, os.path.join(path, _FILE))
+    saved = _to_saved(tree)
+    if not _sharded(mesh):
+        _write(path, _FILE, {"format": _FORMAT, "tree": saved})
+        return
+    fields = saved.get("fields") if isinstance(saved, dict) else None
+    if fields is None:
+        raise TypeError(f"a sharded checkpoint takes a state NamedTuple, not a "
+                        f"{type(tree).__name__}")
+    shard = {f: fields[f] for f in SHARDED_FIELDS if f in fields}
+    _write(path, _shard_file(mesh.rank), {"world_size": mesh.world_size, "rank": mesh.rank,
+                                          "fields": shard})
+    if mesh.rank == 0:
+        replicated = {"fields": {f: (None if f in shard else v) for f, v in fields.items()}}
+        _write(path, _FILE, {"format": _FORMAT_SHARDED, "world_size": mesh.world_size,
+                             "tree": replicated})
+    mesh.barrier()
 
 
-def restore(path: str, target):
+def _load(file: str):
+    return torch.load(file, map_location="cpu", weights_only=True)
+
+
+def restore(path: str, target, mesh=None):
     """The checkpoint at ``path`` in the structure of ``target``, each
     tensor on the device of the target's (the target is not modified).
     Raises ``FileNotFoundError`` when there is no checkpoint at ``path``
-    and :class:`CheckpointStructureError` when it does not fit."""
+    and :class:`CheckpointStructureError` when it does not fit, or was
+    written by another number of ranks than ``mesh`` has (one without a
+    mesh).  With a ``mesh`` of more than one rank, collective: each rank
+    gets the replicated state and its own shard."""
     path = os.path.abspath(path)
     file = os.path.join(path, _FILE)
     if not os.path.isfile(file):
         raise FileNotFoundError(f"no checkpoint at {path}")
-    blob = torch.load(file, map_location="cpu", weights_only=True)
-    if not isinstance(blob, dict) or blob.get("format") != _FORMAT:
-        raise CheckpointStructureError(f"{file} is not a checkpoint of format {_FORMAT}")
-    return _from_saved(blob["tree"], target, "")
+    blob = _load(file)
+    if not isinstance(blob, dict) or blob.get("format") not in (_FORMAT, _FORMAT_SHARDED):
+        raise CheckpointStructureError(f"{file} is not a checkpoint of format {_FORMAT} or "
+                                       f"{_FORMAT_SHARDED}")
+    written = blob.get("world_size", 1)
+    ranks = mesh.world_size if mesh is not None else 1
+    if written != ranks:
+        raise CheckpointStructureError(
+            f"checkpoint at {path} was written by {written} rank(s); this run has {ranks}: "
+            "restore it at the world size that wrote it")
+    tree = blob["tree"]
+    if blob["format"] == _FORMAT_SHARDED:
+        rank = mesh.rank if mesh is not None else 0
+        shard = _load(os.path.join(path, _shard_file(rank)))
+        if shard.get("world_size") != written or shard.get("rank") != rank:
+            raise CheckpointStructureError(f"{path}: {_shard_file(rank)} is not rank {rank} "
+                                           f"of {written}")
+        tree = {"fields": {**tree["fields"], **shard["fields"]}}
+    out = _from_saved(tree, target, "")
+    if mesh is not None:
+        mesh.barrier()
+    return out

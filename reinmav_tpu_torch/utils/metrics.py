@@ -1,9 +1,9 @@
 """Training scalars to stdout, JSONL and CSV.
 
-The counterpart of :mod:`reinmav_tpu.utils.metrics`, single-process (one
-device), so there is no rank gate.  The device scalars of a log call
-come to the host in one transfer (:func:`to_host`), not one ``float()``
-each.
+The counterpart of :mod:`reinmav_tpu.utils.metrics`: in a multi-rank run
+only rank 0 writes (:func:`reinmav_tpu_torch.parallel.distributed.is_main`,
+the reference's MPI rank-0 gate).  The device scalars of a log call come
+to the host in one transfer (:func:`to_host`), not one ``float()`` each.
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ import time
 from typing import Mapping, Optional
 
 import torch
+
+from ..parallel import distributed
 
 
 def to_host(metrics: Mapping[str, object]) -> dict:
@@ -31,9 +33,9 @@ def to_host(metrics: Mapping[str, object]) -> dict:
 
 
 class MetricsLogger:
-    """Write training scalars to stdout / JSONL / CSV.  With ``log_dir``
-    and ``config``, the first JSONL line is ``{"config": {...}}``, the
-    run's flags."""
+    """Write training scalars to stdout / JSONL / CSV (rank 0 only).  With
+    ``log_dir`` and ``config``, the first JSONL line is ``{"config":
+    {...}}``, the run's flags."""
 
     def __init__(
         self,
@@ -43,13 +45,14 @@ class MetricsLogger:
         csv: bool = False,
         config: Optional[Mapping[str, object]] = None,
     ):
+        self.is_main = distributed.is_main()
         self.log_dir = log_dir
         self.stdout = stdout
         self._jsonl = None
         self._csv = None
         self._csv_keys = None
         self._t0 = time.perf_counter()
-        if log_dir:
+        if self.is_main and log_dir:
             os.makedirs(log_dir, exist_ok=True)
             if jsonl:
                 self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
@@ -60,6 +63,8 @@ class MetricsLogger:
                 self._csv = open(os.path.join(log_dir, "metrics.csv"), "a")
 
     def log(self, step: int, metrics: Mapping[str, object]) -> None:
+        if not self.is_main:
+            return
         row = {"step": int(step), "wall_s": round(time.perf_counter() - self._t0, 3)}
         for name, val in to_host(metrics).items():
             try:

@@ -140,10 +140,29 @@ def test_checkpoint_manager_rotates_and_restores_the_latest(tmp_path):
     assert torch.equal(restored.params, target.params)
 
 
-@pytest.mark.parametrize("flag,item", [("--shard_map", "item 13")])
-def test_cli_refuses_what_is_not_ported(flag, item):
-    with pytest.raises(SystemExit, match=f"not ported to PyTorch yet: .*ROADMAP.md queue 1 {item}"):
-        run.main([*SMALL, flag])
+@pytest.mark.parametrize("mode", ["--shard_map", "mesh"])
+def test_cli_trains_on_two_ranks_under_torchrun(mode, tmp_path):
+    """``torch.distributed.run --nproc_per_node=2`` on the CPU (gloo): 3
+    updates of the shard_map step or of the mesh mode, rank 0 alone logging
+    (3 lines, not 6), finite metrics, a collective checkpoint of 2 shards."""
+    import os
+    import subprocess
+    import sys
+
+    ck = tmp_path / "ck"
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2",
+           "-m", "reinmav_tpu_torch.rl.run", *SMALL, "--num_timesteps=3072", "--log_interval=1",
+           f"--save_path={ck}", *([mode] if mode == "--shard_map" else [])]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env,
+                         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    rows = [row for row in _lines(out.stdout) if "env_steps" in row]
+    assert [row["env_steps"] for row in rows] == [1024.0, 2048.0, 3072.0], out.stdout[-3000:]
+    for row in rows:
+        assert all(math.isfinite(v) for v in row.values()), row
+    assert sorted(p.name for p in ck.iterdir()) == ["shard_0.pt", "shard_1.pt", "train_state.pt"]
 
 
 def test_cli_trains_with_bf16_products(capsys):
@@ -201,6 +220,19 @@ def test_cli_gru_train_save_play_with_html_and_gif(tmp_path, capsys):
         assert f.read(3) == b"GIF"
     with pytest.raises(SystemExit, match="--network=gru supports --alg=ppo only"):
         run.main([*GRU, "--alg=a2c"])
+
+
+@pytest.mark.parametrize("alg", ["sac", "td3", "ddpg"])
+def test_cli_offpolicy_ignores_network_gru(alg, capsys):
+    """As the JAX CLI (reinmav_tpu/rl/run.py:533-542): --network=gru with an
+    off-policy --alg trains the off-policy learner; only the on-policy
+    algorithms other than ppo are refused."""
+    run.main([*SMALL, f"--alg={alg}", "--network=gru", "--buffer_capacity=1024",
+              "--batch_size=64", "--warmup_steps=0", "--num_timesteps=128", "--log_interval=1"])
+    rows = [row for row in _lines(capsys.readouterr().out) if "env_steps" in row]
+    assert [row["env_steps"] for row in rows] == [64.0, 128.0]
+    for row in rows:
+        assert "buffer_filled" in row and all(math.isfinite(v) for v in row.values()), row
 
 
 def test_cli_gru_resume_is_bitwise(tmp_path, capsys):
