@@ -3,14 +3,16 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-``--only hashes`` runs phases 1-3 and then only K1, every K2/K6 kind, K4
-at (10, 4) and (13, 4) and K7 on every kind on fixed inputs like those of
-phases 4, 6, 7, 10, 13, 15, 21 and 22, each drawn from a generator of its
-own: each output's SHA-256, each kernel timed with its SASS and the
-sampled SM clock, K2/K6 on its other instances and inputs, K4's clip
-edge counted on phase 13's second input and on three more hover inputs,
-and K7 in every mode leg, timed in its kind's training mode and at H = 32
-and in the four modes; it prints no result line.  Run in turns in two
+``--only hashes`` runs phases 1-3 and then only K1, every K2/K6 kind, K3
+and K4 at every kind's dims, and K7 on every kind on fixed inputs like
+those of phases 4, 6, 7, 10, 13, 15, 21, 22 and 35-36, each drawn from a
+generator of its own: each output's SHA-256, each kernel timed with its
+SASS and the sampled SM clock, K2/K6 on its other instances and inputs,
+K3's and K4's float32 digests and their bf16 instances' times, digests,
+registers and HMMA counts, K4's clip edge counted on phase 13's second
+input and on three more hover inputs, and K7 in every mode leg, timed in
+its kind's training mode and at H = 32 and in the four modes; it prints
+no result line.  Run in turns in two
 checkouts (the
 parent's with this script and sass_report.py copied in), the digests show
 whether two trees' kernels give the same bits.
@@ -229,11 +231,17 @@ Phases, in order; any failure raises and exits non-zero:
    (quadrotor3d-v0, the hover task, quadrotor2d-v0, the slung-load envs):
    K2/K6's bf16 instance against its bf16 twin at 32,768 x 32 (phase 7's
    gate; the slung-load kinds resynchronised as phase 21), K3's on a
-   262,144-sample minibatch of that trajectory (phase 8's tolerances), K4's
-   one 4 x 4 update held to its twin resynchronised each pass (phase 10's
-   resynchronised gate), each timed in turns with its float32 instance on
-   the same inputs, with registers and spills and its bf16 bound (products
-   at 989 TFLOP/s); then the kind's bf16 training paths: the default
+   262,144-sample minibatch of that trajectory (phase 8's tolerances), with
+   the samples whose ratio or value from the tensor cores (K3's forward
+   probe) differ from the twin's in any bit and the clip decisions they
+   would flip counted, and the samples near a decision that the kernel
+   recomputes in the twin's order (gated: bitwise the twin's, no decision
+   flipped), K4's one 4 x 4 update held to its twin resynchronised each
+   pass (phase 10's resynchronised gate), each timed in turns with its
+   float32 instance on the same inputs, with registers and spills, the
+   HMMA (bf16) and FFMA counts of K3's and K4's instances (the bf16 ones
+   must issue HMMA) and the bf16 bound (products at 989 TFLOP/s); then the
+   kind's bf16 training paths: the default
    (K2/K6 + K4 once an update) and fused_update="off" (K3 16 times), 2
    warm-up and 5 timed updates on quadrotor3d-v0 and 3 on the others, each
    update's mean_reward within 10% of the float32 path's from the same
@@ -412,8 +420,8 @@ B_K10_LAYOUTS = (B_SWEEP, 32_768, 24_576, 16_384, B_REINMAV)  # every layout tim
 # 15, the arm products 3, its share of the four sums 4), plus 12 per stage
 # for the env (eF and the wrench).
 OPS_K11 = dict(rigid=170, ztest=20, frame=40, setup=190, stage_cand=22, stage_env=12)
-# K11's resynchronised check runs 4 steps (10 through PR 14: its twin at full width takes
-# about 7 s a step, and the whole smoke must stay well inside its time limit).
+# K11's resynchronised check runs T_K11_RESYNC steps (its twin at full width takes about 7 s
+# a step, and the whole smoke must stay well inside its time limit).
 T_K11_RESYNC, B_K11_FREE, T_K11_FREE, T_K11_TIERS, T_K11_PAIRS = 10, 8192, 100, 10, 3
 KNIFE_PLANE = 1e-6  # a contact candidate this close to the plane is a knife edge
 # The learning artifact's config (benchmarks/artifacts/sac_hover_20M_r5/
@@ -2855,13 +2863,13 @@ def hash_phase(torch, dev, gpu: str) -> None:
         say(f"time {label} B={B_PPO} T={T_PPO}: {ms:.4f} ms (median of 20 launches, each "
             f"{min(kern):.4f} to {max(kern):.4f}) on {gpu}")
         k2_sass_line(label, name, ms, clock, gpu)
-        if name in ("quadrotor3d-v0", HOVER):
-            # K4 at (10, 4) and (13, 4) on this trajectory, as phases 10 and 13.
-            batch = k4_batch(torch, cfg, layout, obs_norm, params, out)
-            k4_hash(torch, dev, gpu, cfg, params, *batch, env.action_dim,
-                    f"K4 ({env.obs_dim}, {env.action_dim})", clip=name == HOVER)
-            del batch
-        del out
+        # K3 and K4 at the kind's dims on this trajectory, as phases 35-36
+        # (phases 10 and 13 for quadrotor3d-v0 and hover).
+        batch = k4_batch(torch, cfg, layout, obs_norm, params, out)
+        k3_hash(torch, dev, gpu, cfg, params, *batch, env.obs_dim, env.action_dim)
+        k4_hash(torch, dev, gpu, cfg, params, *batch, env.action_dim,
+                f"K4 ({env.obs_dim}, {env.action_dim})", clip=name == HOVER)
+        del batch, out
         # The same inputs through the other instances: the normalisers
         # off, the tether always slack or always taut (its length 1000 or
         # 0), a quarter of the envs.
@@ -2903,11 +2911,36 @@ def hash_phase(torch, dev, gpu: str) -> None:
     k7_hash(torch, dev, gpu)
 
 
+def k3_hash(torch, dev, gpu: str, cfg, params, data, adv, tile: int, n_tiles: int, d: int,
+            adim: int) -> None:
+    """``--only hashes``: K3 float32 and bf16 on phase 35's minibatch of
+    ``data`` (:func:`k3_inputs`), the SHA-256 of each instance's gradient
+    and metrics, each timed (median of 20), with the registers and the
+    HMMA counts of each instance."""
+    from reinmav_tpu_torch.ops import ppo_loss as pl
+
+    tidx, adv_stats, net, kcfg = k3_inputs(torch, dev, cfg, params, adv, tile, n_tiles, d, adim)
+    for cd in (None, BF16):
+        run = lambda: pl.ppo_loss_grads_gather(data, adv_stats, tidx, net,  # noqa: E731
+                                               ent_coef=0.01, compute_dtype=cd, **kcfg)
+        run()
+        torch.cuda.synchronize()
+        ms, (g, m) = cuda_ms(run, 20)
+        what = f"K3 ({d}, {adim}) {cd or 'float32'}"
+        bf16 = cd is not None
+        say(f"sha256 {what}, one minibatch of {tidx.numel() * tile}: {digest(g, *m.values())}")
+        say(f"time {what}: {statistics.median(ms):.4f} ms a minibatch (median of 20 launches, "
+            f"each {min(ms):.4f} to {max(ms):.4f}); ptxas "
+            f"{kernel_registers(f'ppo_loss_kernel<{d}, {adim}, false, {str(bf16).lower()}>')}; "
+            f"SASS {mma_text(k3k4_mma('ppo_loss_kernel', d, adim, bf16, gate=False))}; on {gpu}")
+
+
 def k4_hash(torch, dev, gpu: str, cfg, params, data, adv, tile: int, n_tiles: int, adim: int,
             label: str, clip: bool) -> None:
     """``--only hashes``: one K4 update on ``data`` as phase 10 runs it,
     the SHA-256 of its params, moments and metric sums, its time (median
-    of 20) and, with ``clip``, the clip-edge counts
+    of 20); the same of its bf16 instance (median of 10), with the
+    registers and HMMA counts; and, with ``clip``, the clip-edge counts
     (:func:`k4_clip_edge`)."""
     from reinmav_tpu_torch.ops import ppo_update as pu
 
@@ -2923,6 +2956,16 @@ def k4_hash(torch, dev, gpu: str, cfg, params, data, adv, tile: int, n_tiles: in
         f"{digest(k.params, k.opt_state.mu, k.opt_state.nu, k.grad0, *k.metrics.values())}")
     say(f"time {label}: {statistics.median(ms):.4f} ms an update (median of 20 launches, each "
         f"{min(ms):.4f} to {max(ms):.4f}) on {gpu}")
+    run16 = lambda: pu.ppo_update(data, adv_stats, perm_all, params, opt, None,  # noqa: E731
+                                  keep_grad0=True, compute_dtype=BF16, **kw)
+    run16()
+    torch.cuda.synchronize()
+    ms, k = cuda_ms(run16, 10)
+    say(f"sha256 {label} bf16, one update: "
+        f"{digest(k.params, k.opt_state.mu, k.opt_state.nu, k.grad0, *k.metrics.values())}")
+    say(f"time {label} bf16: {statistics.median(ms):.4f} ms an update (median of 10 launches, "
+        f"each {min(ms):.4f} to {max(ms):.4f}); ptxas {k4_registers(d, adim, True)}; SASS "
+        f"{mma_text(k3k4_mma('ppo_update_kernel', d, adim, True, gate=False))}; on {gpu}")
     if clip:
         k4_clip_edge(torch, data, adv_stats, perm_all, params, opt, kw, label)
         k4_forward_orders(torch, data, params, d, adim, label)
@@ -3556,6 +3599,87 @@ def in_turns(torch, first, second, reps: int = 10):
             (statistics.median(b0 + b1), min(b0 + b1), max(b0 + b1)))
 
 
+def k3_inputs(torch, dev, cfg, params, adv, tile: int, n_tiles: int, d: int, adim: int):
+    """K3's inputs on the first minibatch of a trajectory (phases 35 and
+    ``--only hashes``): its tile indices (shuffle seed 5), the minibatch's
+    advantage stats, the params perturbed by 0.02 N(0, 1) (seed 8), and
+    the keyword arguments."""
+    from reinmav_tpu_torch.ops import ppo_loss as pl
+    from reinmav_tpu_torch.rl import ppo
+
+    perm = ppo._shuffle_indices(torch.Generator().manual_seed(5), n_tiles, dev)
+    tidx = perm.reshape(cfg.num_minibatches, -1)[0].to(torch.int32).contiguous()
+    adv_mb = adv.reshape(-1)[pl._gather_columns(tidx, tile)]
+    zero = torch.zeros((), device=dev)
+    adv_stats = torch.stack([adv_mb.mean(), 1.0 / (adv_mb.std(unbiased=False) + 1e-8), zero,
+                             zero]).contiguous()
+    net = (params + 0.02 * torch.randn(params.shape, generator=torch.Generator(
+        device=dev).manual_seed(8), device=dev)).contiguous()
+    kcfg = dict(d=d, adim=adim, clip_eps=cfg.clip_eps, value_clip_eps=cfg.value_clip_eps,
+                value_coef=cfg.value_coef, tile=tile)
+    return tidx, adv_stats, net, kcfg
+
+
+def k3_forward_flips(torch, data, adv_stats, tidx, net, kcfg) -> dict:
+    """K3's bf16 forward (its probe kernel) against the bf16 twin's on the
+    same minibatch: the samples whose ratio or value from the tensor cores
+    differ from the twin's in any bit, the largest differences, and the
+    clip decisions (|ratio - 1| > clip_eps) and value-clip decisions
+    (|value - old value| < value_clip_eps) they would flip; then, as the
+    loss takes them (the twin's own forward for a sample near a decision),
+    the samples recomputed and the decisions that flipped.  Gated: no
+    decision flips as the loss takes them, and the recomputed samples are
+    the twin's bit for bit."""
+    from reinmav_tpu_torch.ops import ppo_loss as pl
+
+    d, a, tile = kcfg["d"], kcfg["adim"], kcfg["tile"]
+    ratio_tc, value_tc, ratio_k, value_k = pl.ppo_loss_bf16_probe(data, adv_stats, tidx, net,
+                                                                 **kcfg)
+    cols = pl._gather_columns(tidx, tile)
+    ratio_t, value_t = twin_ratio(torch, data, cols, net, d, a, bf16=True)
+    old_value = data[d + a + 1, cols]
+
+    def flips(ratio, value):
+        clip = ((ratio - 1.0).abs() > kcfg["clip_eps"]) != ((ratio_t - 1.0).abs() > kcfg["clip_eps"])
+        vin = lambda v: (v - old_value).abs() < kcfg["value_clip_eps"]  # noqa: E731
+        return int(clip.sum()), int((vin(value) != vin(value_t)).sum())
+
+    redone_r, redone_v = ratio_k != ratio_tc, value_k != value_tc
+    out = dict(samples=int(cols.numel()), ratio_bits_apart=bits_apart(torch, ratio_tc, ratio_t),
+               value_bits_apart=bits_apart(torch, value_tc, value_t),
+               ratio_max_abs=float((ratio_tc - ratio_t).abs().max()),
+               value_max_abs=float((value_tc - value_t).abs().max()))
+    out["clip_flips_tc"], out["value_clip_flips_tc"] = flips(ratio_tc, value_tc)
+    out["recomputed"] = int(redone_r.sum()) + int(redone_v.sum())
+    out["clip_flips"], out["value_clip_flips"] = flips(ratio_k, value_k)
+    out["recomputed_apart"] = (bits_apart(torch, ratio_k[redone_r], ratio_t[redone_r])
+                               + bits_apart(torch, value_k[redone_v], value_t[redone_v]))
+    require(out["clip_flips"] == 0 and out["value_clip_flips"] == 0 and
+            out["recomputed_apart"] == 0, f"K3 ({d}, {a}) bf16 forward: {out}")
+    return out
+
+
+def k3k4_mma(family: str, d: int, adim: int, bf16: bool, gate: bool = True) -> dict:
+    """The static HMMA (bf16 apart), FFMA, LDSM, MUFU and BAR counts of the
+    clipped-mode instance of K3 (``ppo_loss_kernel``) or K4
+    (``ppo_update_kernel``) at (d, adim), bf16 or float32, in the library
+    this run built (sass_report.mma_counts); with ``gate``, the bf16
+    instance must issue bf16 HMMA (``--only hashes`` reports a parent's
+    library, which may not)."""
+    short = f"{family}<{d}, {adim}, false, {'true' if bf16 else 'false'}>"
+    found = _sass_counts().get(short)
+    require(found is not None and "mma" in found, f"{short}: not in the SASS")
+    mma = found["mma"]
+    require(not (gate and bf16) or mma["HMMA_BF16"] > 0,
+            f"{short}: no bf16 HMMA in its SASS: {mma}")
+    return mma
+
+
+def mma_text(mma: dict) -> str:
+    return (f"HMMA {mma['HMMA']} (bf16 {mma['HMMA_BF16']}), FFMA {mma['FFMA']}, LDSM "
+            f"{mma['LDSM']}, MUFU {mma['MUFU']}, BAR {mma['BAR']}")
+
+
 def k4_resync(torch, data, adv_stats, perm_all, params, opt, kw, label: str,
               bf16: bool = False) -> dict:
     """K4 against its twin resynchronised: each pass q of the update as a
@@ -3696,19 +3820,9 @@ def bf16_kind_phase(torch, dev, gpu: str, env, ret_var: float) -> list[dict]:
                    registers=regs, f32_registers=regs32, bits_apart=apart)
 
     # 35. K3's bf16 instance on one full minibatch of that trajectory.
-    n = B_PPO * T_PPO
     data, adv, tile, n_tiles = k4_batch(torch, cfg, layout, obs_norm, params, out)
     del f32_out, again, ref
-    perm = ppo._shuffle_indices(torch.Generator().manual_seed(5), n_tiles, dev)
-    tidx = perm.reshape(cfg.num_minibatches, -1)[0].to(torch.int32).contiguous()
-    adv_mb = adv.reshape(n)[pl._gather_columns(tidx, tile)]
-    zero = torch.zeros((), device=dev)
-    adv_stats = torch.stack([adv_mb.mean(), 1.0 / (adv_mb.std(unbiased=False) + 1e-8), zero,
-                             zero]).contiguous()
-    net = (params + 0.02 * torch.randn(params.shape, generator=torch.Generator(
-        device=dev).manual_seed(8), device=dev)).contiguous()
-    kcfg = dict(d=d, adim=a, clip_eps=cfg.clip_eps, value_clip_eps=cfg.value_clip_eps,
-                value_coef=cfg.value_coef, tile=tile)
+    tidx, adv_stats, net, kcfg = k3_inputs(torch, dev, cfg, params, adv, tile, n_tiles, d, a)
     mb = tidx.numel() * tile
     k3 = lambda cd: pl.ppo_loss_grads_gather(data, adv_stats, tidx, net,  # noqa: E731
                                              ent_coef=0.01, compute_dtype=cd, **kcfg)
@@ -3733,15 +3847,25 @@ def bf16_kind_phase(torch, dev, gpu: str, env, ret_var: float) -> list[dict]:
                                  OPS_LOSS[d] * mb, 0.0)
     regs3 = kernel_registers(f"ppo_loss_kernel<{d}, {a}, false, true>")
     regs3_32 = kernel_registers(f"ppo_loss_kernel<{d}, {a}, false, false>")
+    mma3, mma3_32 = (k3k4_mma("ppo_loss_kernel", d, a, b) for b in (True, False))
+    fwd = k3_forward_flips(torch, data, adv_stats, tidx, net, kcfg)
     say(f"K3 ({d}, {a}) bf16 vs bf16 twin, one minibatch of {mb} samples: grads max |err| "
         f"{k3_err:.3e}, rel err {rel_err(g_k, g_p):.3e} (rtol 2e-3 atol 2e-6), metrics "
         f"{', '.join(f'{m} {float(m_k[m]):.5g}' for m in pl.METRICS)} (rtol 2e-4 atol 1e-6); "
-        f"bitwise equal on a rerun: ok")
+        f"bitwise equal on a rerun: ok; the forward against the twin's (K3's bf16 probe): "
+        f"from the tensor cores, ratios whose bits differ {fwd['ratio_bits_apart']}, values "
+        f"{fwd['value_bits_apart']} of {mb} samples (max |err| ratio {fwd['ratio_max_abs']:.3e}, "
+        f"value {fwd['value_max_abs']:.3e}), clip and value-clip decisions they would flip "
+        f"{fwd['clip_flips_tc']}, {fwd['value_clip_flips_tc']}; {fwd['recomputed']} samples near "
+        f"a decision recomputed in the twin's order (bitwise the twin's), decisions flipped "
+        f"{fwd['clip_flips']}, {fwd['value_clip_flips']}")
     say(f"time K3 ({d}, {a}) minibatch {mb}: bf16 {ms3:.4f} ms ({lo3:.4f} to {hi3:.4f}), float32 "
         f"{ms32_3:.4f} ms in turns; bf16 twin {statistics.median(plain3):.2f} ms; bf16 bound "
-        f"{k3_bound:.4f} ms by {k3_by}; ptxas bf16 {regs3}; float32 {regs3_32}; on {gpu}")
+        f"{k3_bound:.4f} ms by {k3_by}; ptxas bf16 {regs3}; float32 {regs3_32}; SASS bf16 "
+        f"{mma_text(mma3)}; float32 {mma_text(mma3_32)}; on {gpu}")
     loss = dict(max_abs_err=k3_err, ms=ms3, f32_ms=ms32_3, plain_ms=statistics.median(plain3),
-                bound_ms=k3_bound, bound_by=k3_by, registers=regs3, f32_registers=regs3_32)
+                bound_ms=k3_bound, bound_by=k3_by, registers=regs3, f32_registers=regs3_32,
+                sass=mma3, f32_sass=mma3_32, forward=fwd)
 
     # 36. K4's bf16 instance: one 4 x 4 update, held to its twin resynchronised.
     e_, m_ = cfg.num_epochs, cfg.num_minibatches
@@ -3773,6 +3897,7 @@ def bf16_kind_phase(torch, dev, gpu: str, env, ret_var: float) -> list[dict]:
         nbytes(data, perm_all, k4_stats, k4_params, opt.mu, opt.nu, k.params, k.opt_state.mu,
                k.opt_state.nu) + 4 * pu.N_METRIC_SUMS, OPS_LOSS[d] * mb4 * e_ * m_, 0.0)
     regs4, regs4_32 = k4_registers(d, a, True), k4_registers(d, a)
+    mma4, mma4_32 = (k3k4_mma("ppo_update_kernel", d, a, b) for b in (True, False))
     say(f"K4 ({d}, {a}) bf16, one update of {e_} x {m_} passes of {mb4}: free-running against "
         f"the bf16 twin (reported, not gated: a weight on a bf16 rounding edge can round the "
         f"other way once the params part in their last bit) params max |err| {k4_err:.3e}, "
@@ -3780,10 +3905,11 @@ def bf16_kind_phase(torch, dev, gpu: str, env, ret_var: float) -> list[dict]:
     say(f"time K4 ({d}, {a}) {e_} x {m_} passes of {mb4}: bf16 {ms4:.4f} ms ({lo4:.4f} to "
         f"{hi4:.4f}), float32 {ms32_4:.4f} ms in turns, 10 launches each; bf16 twin {plain4:.1f} "
         f"ms; bf16 bound {k4_bound:.4f} ms by {k4_by}; ptxas bf16 {regs4}; float32 {regs4_32}; "
-        f"on {gpu}")
+        f"SASS bf16 {mma_text(mma4)}; float32 {mma_text(mma4_32)}; on {gpu}")
     update = dict(max_abs_err=max(resync["max_abs_err"]["params"], 0.0), ms=ms4, f32_ms=ms32_4,
                   plain_ms=plain4, bound_ms=k4_bound, bound_by=k4_by, registers=regs4,
-                  f32_registers=regs4_32, resync=resync, free_running_outside=free)
+                  f32_registers=regs4_32, resync=resync, free_running_outside=free, sass=mma4,
+                  f32_sass=mma4_32)
     del data, adv, out, k, again
     torch.cuda.empty_cache()
 
@@ -3821,7 +3947,8 @@ def bf16_kind_phase(torch, dev, gpu: str, env, ret_var: float) -> list[dict]:
                 "bound_ms": numbers["bound_ms"], "bound_by": numbers["bound_by"],
                 "library_ms": None, "f32_ms": numbers["f32_ms"],
                 "registers": numbers["registers"], "f32_registers": numbers["f32_registers"],
-                "at": at}
+                "at": at, **{k: numbers[k] for k in ("sass", "f32_sass", "forward")
+                             if k in numbers}}
 
     path = f"the bf16 training path of {name}"
     return [

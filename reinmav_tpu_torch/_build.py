@@ -79,6 +79,12 @@ _SIGNATURES = {
     "ppo_loss_launch": (ctypes.c_int, ctypes.c_int, _P, ctypes.c_longlong, _P, ctypes.c_longlong, ctypes.c_int,
                         _P, _P, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
                         ctypes.c_int, ctypes.c_int, _P, _P, _P),
+    # K3's bf16 forward probe: (obs dim, action dim, data, n, perm, m, tile,
+    #  adv_stats, net, clip_eps, value_clip_eps, value_coef, blocks, partials,
+    #  probe, stream)
+    "ppo_loss_probe_launch": (ctypes.c_int, ctypes.c_int, _P, ctypes.c_longlong, _P,
+                              ctypes.c_longlong, ctypes.c_int, _P, _P, ctypes.c_float,
+                              ctypes.c_float, ctypes.c_float, ctypes.c_int, _P, _P, _P),
     # (minibatch samples) -> CTAs of the K3 launch, -1 on a CUDA error
     "ppo_loss_blocks": (ctypes.c_longlong,),
     # (obs dim, action dim) -> sums K3 writes, -1 for dims it is not built for

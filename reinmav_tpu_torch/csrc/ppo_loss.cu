@@ -33,17 +33,26 @@
 // sums, and a second launch adds them in block order, one thread per
 // entry.
 //
-// compute_dtype "bfloat16" launches the kBf instances of the same body
-// (ppo_loss_body.cuh): the operands of every product rounded to bf16 and
-// summed in float32, as the TPU kernel's bf16 mode (its default,
+// compute_dtype "bfloat16" launches the kBf instances, the same function
+// with the operands of every product rounded to bf16 and the exact
+// products summed in float32, as the TPU kernel's bf16 mode (its default,
 // pallas_ppo.py:381, :429); their twin is the same function with
-// compute_dtype="bfloat16".  What bounds them is the same count of FP32
-// operations, since the products still run on the FP32 pipes.
+// compute_dtype="bfloat16".  They run their own body,
+// ppo_loss_body_bf16.cuh, whose products are on the tensor cores
+// (mma.sync m16n8k16 bf16, 989 TFLOP/s against the FP32 pipes' 67) but
+// the first layer's, which runs in the twin's order: 64 samples a
+// sub-block, a warp carrying one tower's chain of 16 samples from the obs
+// to dpre1 in registers, the weight gradients after one barrier; a sample
+// at a decision of the loss takes its head from the twin's order.  What
+// bounds them then is no longer the products alone but the tanhf of the
+// two layers, the loss and the barriers between the dependent products
+// (ppo_loss_body_bf16.cuh).  The reduction across CTAs is the same.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "ppo_loss_body.cuh"
+#include "ppo_loss_body_bf16.cuh"
 
 namespace {
 
@@ -55,12 +64,44 @@ ppo_loss_kernel(const float* __restrict__ data, int64_t n, const int* __restrict
                 int64_t mb, int tile, const float* __restrict__ adv_stats,
                 const float* __restrict__ net, LossCfg cfg, float* __restrict__ partials) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<kD, kA>& sm = *reinterpret_cast<Smem<kD, kA>*>(smem_raw);
-  load_weights<kD, kA, kBf>(sm, net);
-  const float adv_shift = adv_stats[0], adv_inv = adv_stats[1], kl_beta = adv_stats[2];
+  if constexpr (kBf) {
+    namespace tc = reinmav::ppo_loss_bf16;
+    tc::Smem<kD, kA>& sm = *reinterpret_cast<tc::Smem<kD, kA>*>(smem_raw);
+    tc::load_weights<kD, kA>(sm, net);
+    const float adv_shift = adv_stats[0], adv_inv = adv_stats[1], kl_beta = adv_stats[2];
+    __syncthreads();
+    tc::loss_body<kD, kA, kKl>(sm, data, n, perm, mb, tile, adv_shift, adv_inv, kl_beta, cfg,
+                               partials + static_cast<int64_t>(blockIdx.x) * out_size<kD, kA>());
+  } else {
+    Smem<kD, kA>& sm = *reinterpret_cast<Smem<kD, kA>*>(smem_raw);
+    load_weights<kD, kA, kBf>(sm, net);
+    const float adv_shift = adv_stats[0], adv_inv = adv_stats[1], kl_beta = adv_stats[2];
+    __syncthreads();
+    loss_body<kD, kA, kKl, kBf>(sm, data, n, perm, mb, tile, adv_shift, adv_inv, kl_beta, cfg,
+                                partials + static_cast<int64_t>(blockIdx.x) * out_size<kD, kA>());
+  }
+}
+
+// The bf16 body's forward, sample by sample (clipped mode): each minibatch
+// sample's ratio and value from the tensor cores and as the loss takes
+// them into probe (4 mb floats), the partial sums as ppo_loss_kernel writes
+// them.  A diagnostic beside the main path, which
+// never launches it: it counts the samples whose forward, or whose clip
+// decision, is not the twin's.
+template <int kD, int kA>
+__global__ void __launch_bounds__(kThreads, 1)
+ppo_loss_probe_kernel(const float* __restrict__ data, int64_t n, const int* __restrict__ perm,
+                      int64_t mb, int tile, const float* __restrict__ adv_stats,
+                      const float* __restrict__ net, LossCfg cfg, float* __restrict__ partials,
+                      float* __restrict__ probe) {
+  namespace tc = reinmav::ppo_loss_bf16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  tc::Smem<kD, kA>& sm = *reinterpret_cast<tc::Smem<kD, kA>*>(smem_raw);
+  tc::load_weights<kD, kA>(sm, net);
   __syncthreads();
-  loss_body<kD, kA, kKl, kBf>(sm, data, n, perm, mb, tile, adv_shift, adv_inv, kl_beta, cfg,
-                         partials + static_cast<int64_t>(blockIdx.x) * out_size<kD, kA>());
+  tc::loss_body<kD, kA, false, true>(sm, data, n, perm, mb, tile, adv_stats[0], adv_stats[1], 0.0f,
+                                     cfg, partials + static_cast<int64_t>(blockIdx.x) * out_size<kD, kA>(),
+                                     probe);
 }
 
 // out[e] = the CTAs' partials of entry e, added in block order.
@@ -77,7 +118,8 @@ template <int kD, int kA, bool kKl, bool kBf>
 cudaError_t launch(const float* data, int64_t n, const int* perm, int64_t mb, int tile,
                    const float* adv_stats, const float* net, const LossCfg& cfg, float* partials,
                    int blocks, cudaStream_t stream) {
-  const int smem = static_cast<int>(sizeof(Smem<kD, kA>));
+  const int smem = static_cast<int>(
+      kBf ? sizeof(reinmav::ppo_loss_bf16::Smem<kD, kA>) : sizeof(Smem<kD, kA>));
   cudaError_t err = cudaFuncSetAttribute(ppo_loss_kernel<kD, kA, kKl, kBf>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -110,7 +152,8 @@ cudaError_t launch_dims(const float* data, int64_t n, const int* perm, int64_t m
 
 // The number of CTAs ppo_loss_launch uses for a minibatch of mb samples:
 // one per sub-block of 128, at most one per SM (each takes 215-221 KiB of
-// shared memory).  The caller sizes the (blocks, NET + 4) partials scratch.
+// shared memory in float32, 125-128 KiB in bf16; the bf16 body's sub-blocks of
+// 64 are twice as many).  The caller sizes the (blocks, NET + 4) partials scratch.
 extern "C" int ppo_loss_blocks(long long mb) {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return -1;
@@ -145,6 +188,31 @@ extern "C" int ppo_loss_launch(int d, int adim, const void* data, long long n, c
       with_kernel_dims(d, adim, cudaErrorInvalidValue, [&](auto dc, auto ac_) {
         return launch_dims<decltype(dc)::value, decltype(ac_)::value>(
             x, n, p, mb, tile, a, w, cfg, kl_mode, bf16 != 0, part, o, blocks, st);
+      });
+  return static_cast<int>(err);
+}
+
+// The bf16 body's forward probe (ppo_loss_probe_kernel): ppo_loss_launch's
+// arguments in the clipped mode, probe (m tile, 4) f32 out.
+extern "C" int ppo_loss_probe_launch(int d, int adim, const void* data, long long n,
+                                     const void* perm, long long m, int tile,
+                                     const void* adv_stats, const void* net, float clip_eps,
+                                     float value_clip_eps, float value_coef, int blocks,
+                                     void* partials, void* probe, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  const LossCfg cfg{clip_eps, value_clip_eps, value_coef};
+  const cudaError_t err =
+      with_kernel_dims(d, adim, cudaErrorInvalidValue, [&](auto dc, auto ac_) {
+        constexpr int kD = decltype(dc)::value, kA = decltype(ac_)::value;
+        const int smem = static_cast<int>(sizeof(reinmav::ppo_loss_bf16::Smem<kD, kA>));
+        cudaError_t e = cudaFuncSetAttribute(ppo_loss_probe_kernel<kD, kA>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return e;
+        ppo_loss_probe_kernel<kD, kA><<<blocks, kThreads, smem, st>>>(
+            static_cast<const float*>(data), n, static_cast<const int*>(perm), m * tile, tile,
+            static_cast<const float*>(adv_stats), static_cast<const float*>(net), cfg,
+            static_cast<float*>(partials), static_cast<float*>(probe));
+        return cudaGetLastError();
       });
   return static_cast<int>(err);
 }

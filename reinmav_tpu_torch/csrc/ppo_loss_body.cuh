@@ -65,18 +65,13 @@
 // at A = 4, the first 128 at A = 2.  No tensor cores: TF32 would round
 // the products beyond the twins' tolerances.
 //
-// The bf16 instances (kBf, compute_dtype "bfloat16": the TPU kernel's _mm,
-// pallas_ppo.py:63-67, on the forward :92-94 and the five backward products
-// :145-155) round the operands of every product to bf16 (bf16_round.cuh)
-// and run this float32 body: a product of two bf16 values is exact in
-// float32, so each FMA chain rounds as the twin's float32 sums of the same
-// products.  The weights are rounded once, when staged (the biases and the
-// log-std are not), and the obs when staged (it feeds products only).
-// h1, h2 (dpre1, dpre2 in place) are rounded where a product loads them:
-// their float32 values are needed as well, by the (1 - h^2) factors and
-// the bias gradients, and shared memory holds no second copy.  dout is
-// rounded where the head-gradient and dh2 products load it; dbo sums the
-// float32 dout.
+// This body is the float32 instances' (compute_dtype None or "float32").
+// The bf16 instances run ppo_loss_body_bf16.cuh, whose products are on the
+// tensor cores, and no kernel instantiates this body with kBf true any
+// more.  Its bf16 hooks (kBf, bf16r) stay: without them nvcc allocates the
+// float32 K4 instances' registers otherwise at A = 4, and those instances
+// are held instruction for instruction to the ones their digests were
+// taken on (chip_smoke.py --only hashes, sass_report.py --against).
 
 #pragma once
 

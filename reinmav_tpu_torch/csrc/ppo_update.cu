@@ -56,24 +56,44 @@
 // the caller, as in the JAX package.
 //
 // compute_dtype "bfloat16" (the TPU kernel's default, pallas_ppo_update.py:
-// 311, cd :337) launches the kBf instance: K3's bf16 body in every pass
-// (ppo_loss_body.cuh), the weights rounded as each pass stages them from
-// the float32 params; the params, the Adam moments and the optimiser's
-// arithmetic stay float32.
+// 311, cd :337) launches the kBf instance: K3's bf16 body on the tensor
+// cores in every pass (ppo_loss_body_bf16.cuh: mma.sync m16n8k16 bf16 but
+// the first layer, 64 samples a sub-block, one tower's chain of 16 samples
+// a warp in registers), the weights rounded once as each pass stages them
+// from the float32 params; the params, the Adam moments and the
+// optimiser's arithmetic stay float32, and the reduction across CTAs is
+// the float32 instances'.  Its bound is the products at 989 TFLOP/s; the
+// tanhf, the loss and the barriers of each sub-block, and the 3 grid
+// barriers a pass, stand above it.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <cmath>
+#include <type_traits>
 
 #include "ppo_loss_body.cuh"
+#include "ppo_loss_body_bf16.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 using namespace reinmav::ppo_loss;
+namespace tc = reinmav::ppo_loss_bf16;
+
+// The shared memory of a pass's body: the float32 body's, or the bf16
+// body's (kBf).
+template <int kD, int kA, bool kBf>
+using PassSmem = std::conditional_t<kBf, tc::Smem<kD, kA>, Smem<kD, kA>>;
+
+// 256 floats of block scratch, free between the body's runs.
+template <int kD, int kA>
+__device__ __forceinline__ float* scratch(Smem<kD, kA>& sm) {
+  return &sm.red[0][0];
+}
+using tc::scratch;
 
 constexpr int kMetrics = 8;  // [pg, v, kl, clipfrac, entropy, kl of the last epoch, 0, 0]
 
@@ -107,7 +127,7 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_update_kernel(UpdateArgs a) {
   using L = ac::Layout<kD, kA>;
   constexpr int kOut = out_size<kD, kA>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<kD, kA>& sm = *reinterpret_cast<Smem<kD, kA>*>(smem_raw);
+  PassSmem<kD, kA, kBf>& sm = *reinterpret_cast<PassSmem<kD, kA, kBf>*>(smem_raw);
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x;
   const int blocks = gridDim.x;
@@ -120,7 +140,7 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_update_kernel(UpdateArgs a) {
   const int count0 = *a.count_in;
   const float kl_beta = kKl ? *a.kl_beta : 0.0f;
   float* out = a.partials + static_cast<int64_t>(blockIdx.x) * kOut;
-  float* scratch = &sm.red[0][0];  // free between the body's runs
+  float* const red = scratch(sm);
 
   float metric_acc = 0.0f;  // the metric entry this thread owns, if any
   float kl_last = 0.0f;     // the owner of the KL entry: its last-epoch sum
@@ -128,7 +148,11 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_update_kernel(UpdateArgs a) {
 
   for (int p = 0; p < a.n_passes; ++p) {
     // ---- 1. the loss gradient of pass p, with the weights Adam wrote ----
-    load_weights<kD, kA, kBf>(sm, a.params);
+    if constexpr (kBf) {
+      tc::load_weights<kD, kA>(sm, a.params);
+    } else {
+      load_weights<kD, kA, kBf>(sm, a.params);
+    }
     __syncthreads();
     if (blockIdx.x == 0 && tid == 0) {
       float ent = 0.0f;
@@ -136,8 +160,14 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_update_kernel(UpdateArgs a) {
       for (int i = 0; i < kA; ++i) ent += sm.ls[i] + a.ent_const;
       ent_acc += ent;
     }
-    loss_body<kD, kA, kKl, kBf>(sm, a.data, a.n, a.perm + static_cast<int64_t>(p) * a.tpm, mb, a.tile,
-                   a.adv_stats[2 * p], a.adv_stats[2 * p + 1], kl_beta, a.loss, out);
+    if constexpr (kBf) {
+      tc::loss_body<kD, kA, kKl>(sm, a.data, a.n, a.perm + static_cast<int64_t>(p) * a.tpm, mb,
+                                 a.tile, a.adv_stats[2 * p], a.adv_stats[2 * p + 1], kl_beta,
+                                 a.loss, out);
+    } else {
+      loss_body<kD, kA, kKl, kBf>(sm, a.data, a.n, a.perm + static_cast<int64_t>(p) * a.tpm, mb, a.tile,
+                             a.adv_stats[2 * p], a.adv_stats[2 * p + 1], kl_beta, a.loss, out);
+    }
     grid.sync();
 
     // ---- 2. this CTA's slice of the gradient, and its sum of g^2 ---------
@@ -156,23 +186,23 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_update_kernel(UpdateArgs a) {
         if (e == L::kNetSize + 2 && p >= a.n_passes - a.n_minibatches) kl_last += v;
       }
     }
-    scratch[tid] = sq;
+    red[tid] = sq;
     __syncthreads();
     for (int half = kThreads / 2; half > 0; half >>= 1) {
-      if (tid < half) scratch[tid] += scratch[tid + half];
+      if (tid < half) red[tid] += red[tid + half];
       __syncthreads();
     }
-    if (tid == 0) a.slots[blockIdx.x] = scratch[0];
+    if (tid == 0) a.slots[blockIdx.x] = red[0];
     grid.sync();
 
     // ---- 3. the global norm, then clip + Adam + floor on the slice -------
     if (tid == 0) {
       float total = 0.0f;
       for (int c = 0; c < blocks; ++c) total += __ldcg(a.slots + c);
-      scratch[0] = total;
+      red[0] = total;
     }
     __syncthreads();
-    const float gnorm = sqrtf(scratch[0]);
+    const float gnorm = sqrtf(red[0]);
     const bool clip = !(gnorm < a.max_norm);
     const double t = static_cast<double>(count0) + p + 1;
     const float bc1 = static_cast<float>(1.0 - pow(a.b1d, t));
@@ -209,7 +239,7 @@ __global__ void __launch_bounds__(kThreads, 1) ppo_update_kernel(UpdateArgs a) {
 
 template <int kD, int kA, bool kKl, bool kBf>
 cudaError_t launch(const UpdateArgs& args, int blocks, cudaStream_t stream) {
-  const int smem = static_cast<int>(sizeof(Smem<kD, kA>));
+  const int smem = static_cast<int>(sizeof(PassSmem<kD, kA, kBf>));
   const void* kern = reinterpret_cast<const void*>(ppo_update_kernel<kD, kA, kKl, kBf>);
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;

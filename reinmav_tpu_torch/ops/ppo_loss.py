@@ -26,9 +26,12 @@ summed in float32, in the forward (the weights, the obs, ``h1`` and
 ``h2``) and in the five backward products (their ``dout``, ``dpre2`` and
 ``dpre1`` cotangents and the activations of the weight gradients); the
 ``(1 - h^2)`` factors take the float32 ``h``, and the bias gradients sum
-the float32 cotangents.  The kernel's bf16 instance rounds the same
-operands and runs the float32 body: a product of two bf16 values is exact
-in float32.
+the float32 cotangents.  The kernel's bf16 instance runs its products on
+the tensor cores (``csrc/ppo_loss_body_bf16.cuh``): the same exact
+products, summed in float32 in the tensor cores' own order, a few ulps
+from this twin's sums; its bf16 activations and its loss's clip decisions
+are this twin's, each recomputed in this twin's order where the order of
+summation could change them (:func:`ppo_loss_bf16_probe` counts both).
 
 The wrapper takes the twin only for a tensor that lies on the CPU; on a
 CUDA tensor it launches the kernel of the dtype asked for or raises.
@@ -285,6 +288,38 @@ def ppo_loss_grads_gather(data, adv_stats, perm, net, *, d: int, adim: int, clip
 
 #: Kernel launches so far (a run can show that its path went through K3).
 ppo_loss_grads_gather.launches = 0
+
+
+def ppo_loss_bf16_probe(data, adv_stats, perm, net, *, d: int, adim: int, clip_eps: float,
+                        value_clip_eps: float, value_coef: float, tile: int):
+    """The forward of K3's bf16 body, sample by sample, in the clipped mode:
+    ``(ratio_tc, value_tc, ratio, value)``, each ``(m * tile,)`` in
+    minibatch order: the ratio and value of the tensor cores' forward, and
+    as the kernel's loss takes them (the twin's own forward for a sample
+    within ``kEdge`` of a decision, ``csrc/ppo_loss_body_bf16.cuh``).  A
+    diagnostic on the card (a kernel of its own, launched by no training
+    path and counted in no launch count): held against the twin's forward,
+    it counts the samples whose forward the tensor cores' order of
+    summation changed, the decisions that would have flipped, and those
+    that did.  The arguments are :func:`ppo_loss_grads_gather`'s."""
+    if data.device.type != "cuda":
+        raise ValueError("the probe runs K3's bf16 kernel, on a CUDA tensor only")
+    require_kernel_dims("K3", d, adim, HIDDEN[0])
+    from .._build import check, load_library
+
+    lib = load_library()
+    m = perm.shape[0]
+    with torch.cuda.device(data.device):
+        blocks = lib.ppo_loss_blocks(m * tile)
+        partials = torch.empty((blocks, lib.ppo_loss_out_size(d, adim)), dtype=torch.float32,
+                               device=data.device)
+        probe = torch.empty((m * tile, 4), dtype=torch.float32, device=data.device)
+        rc = lib.ppo_loss_probe_launch(
+            d, adim, data.data_ptr(), data.shape[1], perm.data_ptr(), m, tile,
+            adv_stats.data_ptr(), net.data_ptr(), clip_eps, value_clip_eps, value_coef, blocks,
+            partials.data_ptr(), probe.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    check(rc, "ppo_loss_probe_launch")
+    return probe.unbind(1)
 
 
 def ppo_loss_grads(obs, act, old_logp, old_value, adv, ret, net, *, clip_eps: float,

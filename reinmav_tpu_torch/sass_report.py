@@ -32,10 +32,15 @@ W2 loop (FFMA to LDS.128 a pass), its copies through registers (the LDG
 in flight before the first STS) and asynchronous copies (LDGSTS), its
 first layer's loop (LDS an FFMA) and phase 4 after the last barrier (the
 action, env step, block and reset, its Philox spans apart).
+K3's and K4's instances (``ppo_loss_kernel<D, A, kl, bf16>``,
+``ppo_update_kernel<...>``) get one line each: their tensor-core
+products (``HMMA``, the bf16 ones apart) beside their ``FFMA``, with the
+``ldmatrix`` loads (``LDSM``), ``MUFU`` and barriers (:func:`mma_counts`).
 ``chip_smoke.py`` calls
 :func:`report` on the library it built.  With ``--against``, it also lists which kernels of
 the two libraries have the same SASS, instruction for instruction (such a
-kernel gives the same bits on every input), and which differ.
+kernel gives the same bits on every input), and which differ, and the
+float32 K3/K4 instances apart (:func:`float32_k3k4`).
 
 ``--blocks`` splits the horizon loop of K2/K6 (``ppo_rollout_kernel<...>``)
 into the blocks of its source: the MLP (the two towers' products),
@@ -70,6 +75,9 @@ OTHER = ("BRA", "BRX", "BSSY", "BSYNC", "CALL", "RET", "EXIT", "NOP", "BAR", "WA
 KERNELS = ("hover_rollout_kernel", "reinmav_rollout_kernel", "reinmav_rollout_lanes_kernel",
            "closed_loop_kernel", "quad3d_rollout_kernel", "ppo_rollout_kernel",
            "offpolicy_collect_kernel", "offpolicy_collect_count_kernel")
+#: K3's and K4's kernel families (one instance per obs and action dim, mode
+#: and compute dtype).
+PPO_LOSS_KERNELS = ("ppo_loss_kernel", "ppo_update_kernel")
 #: Threads a CTA of each kernel family (for the occupancy query).
 CTA_THREADS = {"ppo_rollout_kernel": 128, "closed_loop_kernel": 256,
                "quad3d_rollout_kernel": 256}
@@ -644,6 +652,37 @@ def demangle(names: list[str]) -> list[str]:
     return out if len(out) == len(names) else names
 
 
+def mma_counts(insns) -> dict:
+    """The static count of a kernel's product and feed instructions:
+    ``HMMA`` (tensor-core products) and ``HMMA_BF16`` (those on bf16
+    operands), ``FFMA``, ``LDSM`` (ldmatrix), ``MUFU`` and ``BAR``."""
+    out = dict.fromkeys(("HMMA", "HMMA_BF16", "FFMA", "LDSM", "MUFU", "BAR"), 0)
+    for _, op, _ in insns:
+        base = op.split(".")[0]
+        if base == "HMMA":
+            out["HMMA"] += 1
+            out["HMMA_BF16"] += ".BF16" in op
+        elif base in out:
+            out[base] += 1
+    return out
+
+
+def is_bf16_instance(short: str) -> bool:
+    """Whether a K3/K4 instance's name (``ppo_loss_kernel<10, 4, false,
+    true>``) is its bf16 instance: the last template argument."""
+    return short.replace(" ", "").endswith(",true>")
+
+
+def float32_k3k4(groups: dict[str, list[str]]) -> dict[str, list[str]]:
+    """Of :func:`compare`'s groups, the float32 K3/K4 instances: ``same``,
+    ``differ`` and ``missing`` (in one library only)."""
+    def pick(names):
+        return [n for n in names if n.startswith(PPO_LOSS_KERNELS) and not is_bf16_instance(n)]
+
+    return {"same": pick(groups["same"]), "differ": pick(groups["differ"]),
+            "missing": pick(groups["only_lib"] + groups["only_other"])}
+
+
 def _disassemble(lib: Path) -> str:
     from . import _build
 
@@ -677,7 +716,9 @@ def report(lib: Path, out_dir: Path | None = None) -> dict[str, dict]:
     return each K1/K5/K10/K8/K9/K2/K6/K7 kernel's loops, its substep loop's
     counts (K2/K6: its horizon loop's; K7: none, its phases under ``k7``,
     :func:`k7_counts`), that loop's reset block (:func:`reset_span`, None
-    where it has none) and its instructions, keyed by the demangled name.
+    where it has none) and its instructions, and each K3/K4 instance's
+    :func:`mma_counts` (under ``mma``) and instructions, keyed by the
+    demangled name.
     With ``out_dir``, each kernel's SASS is written there."""
     funcs = parse_functions(_disassemble(lib))
     names = list(funcs)
@@ -686,15 +727,24 @@ def report(lib: Path, out_dir: Path | None = None) -> dict[str, dict]:
         out_dir.mkdir(parents=True, exist_ok=True)
     for mangled, pretty in zip(names, demangle(names)):
         short = short_name(pretty)
-        if not any(k in short for k in KERNELS):
-            continue
         insns = funcs[mangled]
-        rows = loops(insns)
+        k3k4 = short.startswith(PPO_LOSS_KERNELS)
+        if not k3k4 and not any(k in short for k in KERNELS):
+            continue
         where = ""
         if out_dir is not None:
             path = out_dir / (re.sub(r"[^A-Za-z0-9_]+", "_", short).strip("_") + ".sass")
             path.write_text("\n".join(f"/*{a:05x}*/ {op} {args}" for a, op, args in insns) + "\n")
             where = f" ({path})"
+        if k3k4:
+            mma = mma_counts(insns)
+            print(f"sass: {short}: {len(insns)} instructions, HMMA {mma['HMMA']} (bf16 "
+                  f"{mma['HMMA_BF16']}), FFMA {mma['FFMA']}, LDSM {mma['LDSM']}, MUFU "
+                  f"{mma['MUFU']}, BAR {mma['BAR']}{where}")
+            result[short] = {"loops": [], "substep": None, "reset": None, "insns": insns,
+                             "mma": mma}
+            continue
+        rows = loops(insns)
         print(f"sass: {short}: {len(insns)} instructions, {len(rows)} loops{where}")
         for r in sorted(rows, key=lambda r: r["start"]):
             print(f"sass:   loop {r['start']:#07x}-{r['end']:#07x}: {r['n']} instructions "
@@ -739,7 +789,7 @@ def main(argv=None) -> int:
     ptxas = lib.with_suffix(".ptxas.txt")
     if ptxas.exists():
         for line in _build.ptxas_report(ptxas):
-            if any(k in line for k in KERNELS):
+            if any(k in line for k in KERNELS + PPO_LOSS_KERNELS):
                 print(line)
     report(lib, Path(args.out) if args.out else None)
     if args.blocks:
@@ -749,8 +799,13 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             blocks_report(src, lib, Path(args.out) if args.out else Path(tmp))
     if args.against:
-        for key, kernels in compare(lib, Path(args.against)).items():
+        groups = compare(lib, Path(args.against))
+        for key, kernels in groups.items():
             print(f"sass: against {args.against}: {key} ({len(kernels)}): {'; '.join(kernels)}")
+        f32 = float32_k3k4(groups)
+        print(f"sass: against {args.against}: float32 K3/K4 instances the same instruction for "
+              f"instruction {len(f32['same'])}, differ {len(f32['differ'])} "
+              f"({'; '.join(f32['differ'])}), in one library only {len(f32['missing'])}")
     return 0
 
 

@@ -56,6 +56,16 @@ MAX_FLIPS = 0.01
 A, TILE = 4, 128
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread a test worker: the suite runs six workers on the
+    host's cores, and torch's intra-op threads oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _f32(x):
     return np.asarray(x, np.float32)
 

@@ -19,6 +19,16 @@ import reinmav_tpu_torch
 from reinmav_tpu_torch.envs import core
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread a test worker: the suite runs six workers on the
+    host's cores, and torch's intra-op threads oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.mark.parametrize("env_id", ["quadrotor3d-v0", "quadrotor2d-v0",
                                     "quadrotor3d-slungload-v0", "MujocoQuadForce-v1",
                                     "reinmav-v0"])

@@ -24,6 +24,16 @@ SLUNG = ["quadrotor2d-slungload-v0", "quadrotor3d-slungload-v0"]
 KINDS = ["quadrotor2d-v0", *SLUNG]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread a test worker: the suite runs six workers on the
+    host's cores, and torch's intra-op threads oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Where ``a`` and ``b`` hold the same float32 bits (any NaN equal to any NaN)."""
     return (a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())

@@ -33,6 +33,16 @@ TOL = dict(rtol=1e-5, atol=1e-6)
 CPU = dict(device="cpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread a test worker: the suite runs six workers on the
+    host's cores, and torch's intra-op threads oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def test_register_all_under_the_ports_prefix():
     gym_env.register_all()
     jgym.register_all()

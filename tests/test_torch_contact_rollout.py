@@ -43,6 +43,16 @@ MODELS = [("MujocoQuadForce-v0", "ground"), ("MujocoQuadQuat-v0", "quat")]
 TOL = dict(rtol=2e-4, atol=2e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread a test worker: the suite runs six workers on the
+    host's cores, and torch's intra-op threads oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _states(batch=64, seed=3, tilt=0.25, z_lo=0.0):
     """tests/test_pallas_tpuquad.py's contact-heavy states, (B, 13) float32
     (z from ``z_lo`` to 0.05)."""

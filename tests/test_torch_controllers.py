@@ -12,6 +12,7 @@ batch row is its own oracle instance.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from reinmav_tpu.controllers import geometric as jgeo
@@ -20,6 +21,16 @@ from reinmav_tpu.oracle.rpy_pid_ref import RpyControllerOracle
 from reinmav_tpu_torch.controllers import geometric, rpy_pid
 
 TOL = dict(rtol=1e-10, atol=1e-12)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread a test worker: the suite runs six workers on the
+    host's cores, and torch's intra-op threads oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _t(x):

@@ -32,6 +32,16 @@ Tolerances:
   clipping off match at the JAX tolerances.  Pass 0's gradient is bitwise
   equal to one K3 launch (the same per-CTA body and reduction order) and
   within K3's gradient tolerance of the twin's; a rerun is bitwise equal.
+- The bf16 instances of K3 and K4 (compute_dtype "bfloat16", products on
+  the tensor cores) at every (obs, action) pair the kernels are built for,
+  against the bf16 twin: K3 at K3's tolerances; K4 resynchronised, each
+  pass a one-pass launch from the twin's state after the pass before, on
+  the pass's minibatch with the samples within 16 ulps of the ratio or
+  value clip (on the twin's forward) replaced, at K3's gradient and K4's
+  params and moments tolerances; both bitwise on a rerun, K4's pass 0
+  bitwise one K3 launch.  The tensor cores sum in their own order, so the
+  forward is not the twin's bit for bit, and a free-running update carries
+  a weight across a bf16 rounding edge now and then: not compared.
 """
 
 import numpy as np
@@ -57,6 +67,12 @@ UPDATE_METRIC_TOL = dict(rtol=1e-4, atol=1e-6)
 FLIPPED_PARAM_TOL = dict(rtol=2e-4, atol=1e-4)
 FLIPPED_MOMENT_TOL = dict(rtol=2e-4, atol=2e-5)
 MAX_FLIPPED_OUTSIDE = 0.05
+BF16 = "bfloat16"
+#: The env of each (obs, action) pair of the K3/K4 kernels (its K2/K6 kind).
+DIMS_ENV = {(10, 4): "quadrotor3d-v0", (13, 4): "MujocoQuadForce-v1", (5, 2): "quadrotor2d-v0",
+            (9, 2): "quadrotor2d-slungload-v0", (16, 4): "quadrotor3d-slungload-v0"}
+DIMS = [pytest.param(d, a, id=f"{d}x{a}") for d, a in pl.KERNEL_DIMS]
+RESYNC_ULPS = 16
 
 pytestmark = pytest.mark.cuda
 
@@ -131,30 +147,31 @@ def test_k2_takes_live_params(cuda):
     assert not torch.equal(k.reward, default.reward)
 
 
-def _loss_batch(device, n, seed):
+def _loss_batch(device, n, seed, d=10, adim=4):
     rng = np.random.default_rng(seed)
-    layout = networks.Layout(10, 4)
+    layout = networks.Layout(d, adim)
     net = networks.init_params(layout, torch.Generator().manual_seed(seed))
-    net[layout.slices[("log_std",)]] = torch.tensor([-0.5, 0.0, 0.3, -1.0])
-    data = np.concatenate([rng.normal(size=(10, n)), rng.normal(size=(4, n)),
-                           rng.normal(-4.0, 1.0, size=(1, n)), rng.normal(size=(1, n)),
+    net[layout.slices[("log_std",)]] = torch.tensor([-0.5, 0.0, 0.3, -1.0])[:adim]
+    data = np.concatenate([rng.normal(size=(d, n)), rng.normal(size=(adim, n)),
+                           rng.normal(-1.0 * adim, 1.0, size=(1, n)), rng.normal(size=(1, n)),
                            rng.normal(size=(1, n)), rng.normal(size=(1, n))]).astype(np.float32)
     return (torch.tensor(data, device=device), net.to(device),
             torch.tensor(rng.permutation(n // 128)[: n // 512], dtype=torch.int32, device=device))
 
 
-@pytest.mark.parametrize("kl_mode", [False, True], ids=["clip", "kl"])
-def test_k3_matches_twin_and_repeats_bitwise(cuda, kl_mode):
-    data, net, perm = _loss_batch(cuda, 65536, 3)
+def _check_k3(cuda, kl_mode, d=10, adim=4, compute_dtype=None):
+    """K3 against its twin of the same dtype on a 16,384-sample minibatch,
+    one launch counted; bitwise on a rerun."""
+    data, net, perm = _loss_batch(cuda, 65536, 3, d, adim)
     adv_stats = torch.tensor([0.1, 0.9, 0.5, 0.0], device=cuda)
-    cfg = dict(d=10, adim=4, clip_eps=0.2, value_clip_eps=0.2, value_coef=0.5, tile=128,
-               kl_mode=kl_mode)
+    cfg = dict(d=d, adim=adim, clip_eps=0.2, value_clip_eps=0.2, value_coef=0.5, tile=128,
+               kl_mode=kl_mode, compute_dtype=compute_dtype)
     before = pl.ppo_loss_grads_gather.launches
     g_k, m_k = pl.ppo_loss_grads_gather(data, adv_stats, perm, net, ent_coef=0.01, **cfg)
     torch.cuda.synchronize()
     assert pl.ppo_loss_grads_gather.launches == before + 1
     sums = pl.ppo_loss_grads_reference(data, adv_stats, perm, net, **cfg)
-    g_p, m_p = pl._finish(sums, perm.shape[0] * 128, 0.01, networks.Layout(10, 4))
+    g_p, m_p = pl._finish(sums, perm.shape[0] * 128, 0.01, networks.Layout(d, adim))
     np.testing.assert_allclose(g_k.cpu().numpy(), g_p.cpu().numpy(), **GRAD_TOL)
     for name in pl.METRICS:
         np.testing.assert_allclose(float(m_k[name]), float(m_p[name]), **METRIC_TOL,
@@ -164,20 +181,31 @@ def test_k3_matches_twin_and_repeats_bitwise(cuda, kl_mode):
     assert all(torch.equal(m_k[k], m_k2[k]) for k in pl.METRICS)
 
 
-def test_k3_sub_blocks_not_dividing_the_grid(cuda):
+@pytest.mark.parametrize("kl_mode", [False, True], ids=["clip", "kl"])
+def test_k3_matches_twin_and_repeats_bitwise(cuda, kl_mode):
+    _check_k3(cuda, kl_mode)
+
+
+@pytest.mark.parametrize("kl_mode", [False, True], ids=["clip", "kl"])
+@pytest.mark.parametrize("d,adim", DIMS)
+def test_k3_bf16_matches_twin_and_repeats_bitwise(cuda, d, adim, kl_mode):
+    _check_k3(cuda, kl_mode, d, adim, BF16)
+
+
+def _check_k3_sub_blocks(cuda, d=10, adim=4, compute_dtype=None):
     """A minibatch of 201 sub-blocks of 128 samples (more than one per CTA
     on some CTAs of the grid, one on the others), in both modes, against the
     twin at the same tolerances; bitwise on a rerun."""
-    data, net, _ = _loss_batch(cuda, 128 * 300, 5)
+    data, net, _ = _loss_batch(cuda, 128 * 300, 5, d, adim)
     perm = torch.tensor(np.random.default_rng(5).permutation(300)[:201], dtype=torch.int32,
                         device=cuda)
     for kl_mode in (False, True):
         adv_stats = torch.tensor([0.1, 0.9, 0.5, 0.0], device=cuda)
-        cfg = dict(d=10, adim=4, clip_eps=0.2, value_clip_eps=0.2, value_coef=0.5, tile=128,
-                   kl_mode=kl_mode)
+        cfg = dict(d=d, adim=adim, clip_eps=0.2, value_clip_eps=0.2, value_coef=0.5, tile=128,
+                   kl_mode=kl_mode, compute_dtype=compute_dtype)
         g_k, m_k = pl.ppo_loss_grads_gather(data, adv_stats, perm, net, ent_coef=0.01, **cfg)
         sums = pl.ppo_loss_grads_reference(data, adv_stats, perm, net, **cfg)
-        g_p, m_p = pl._finish(sums, 201 * 128, 0.01, networks.Layout(10, 4))
+        g_p, m_p = pl._finish(sums, 201 * 128, 0.01, networks.Layout(d, adim))
         np.testing.assert_allclose(g_k.cpu().numpy(), g_p.cpu().numpy(), **GRAD_TOL)
         for name in pl.METRICS:
             np.testing.assert_allclose(float(m_k[name]), float(m_p[name]), **METRIC_TOL,
@@ -186,18 +214,38 @@ def test_k3_sub_blocks_not_dividing_the_grid(cuda):
         assert torch.equal(g_k, g_k2)
 
 
-def test_k3_ragged_minibatch(cuda):
-    """A minibatch that is not a multiple of the kernel's 128-sample sub-block."""
-    data, net, _ = _loss_batch(cuda, 4096, 4)
+def test_k3_sub_blocks_not_dividing_the_grid(cuda):
+    _check_k3_sub_blocks(cuda)
+
+
+@pytest.mark.parametrize("d,adim", DIMS)
+def test_k3_bf16_sub_blocks_not_dividing_the_grid(cuda, d, adim):
+    _check_k3_sub_blocks(cuda, d, adim, BF16)
+
+
+def _check_k3_ragged(cuda, d=10, adim=4, compute_dtype=None):
+    """A minibatch that is not a multiple of the kernel's sub-block, against
+    the twin on the CPU."""
+    data, net, _ = _loss_batch(cuda, 4096, 4, d, adim)
     perm = torch.tensor([5, 0, 31, 7, 12], dtype=torch.int32, device=cuda)
     adv_stats = torch.tensor([0.0, 1.0, 0.0, 0.0], device=cuda)
-    cfg = dict(d=10, adim=4, clip_eps=0.2, value_clip_eps=0.2, value_coef=0.5, tile=32)
+    cfg = dict(d=d, adim=adim, clip_eps=0.2, value_clip_eps=0.2, value_coef=0.5, tile=32,
+               compute_dtype=compute_dtype)
     g_k, m_k = pl.ppo_loss_grads_gather(data, adv_stats, perm, net, ent_coef=0.0, **cfg)
     g_p, m_p = pl.ppo_loss_grads_gather(data.cpu(), adv_stats.cpu(), perm.cpu(), net.cpu(),
                                         ent_coef=0.0, **cfg)
     np.testing.assert_allclose(g_k.cpu().numpy(), g_p.numpy(), **GRAD_TOL)
     for name in pl.METRICS:
         np.testing.assert_allclose(float(m_k[name]), float(m_p[name]), **METRIC_TOL)
+
+
+def test_k3_ragged_minibatch(cuda):
+    _check_k3_ragged(cuda)
+
+
+@pytest.mark.parametrize("d,adim", DIMS)
+def test_k3_bf16_ragged_minibatch(cuda, d, adim):
+    _check_k3_ragged(cuda, d, adim, BF16)
 
 
 def test_train_step_launches_both_kernels(cuda, caplog):
@@ -275,16 +323,17 @@ def test_bitwise_resume_on_the_card(cuda, tmp_path):
 
 
 def _update_inputs(device, kl_mode=False, floor=None, ent_coef=0.0, value_clip_eps=0.2, lr=3e-4,
-                   num_envs=4096):
-    """One K2 rollout of ``num_envs`` envs x 16 steps, stacked as K4 takes
-    it, with 4 epochs x 4 minibatches of tiles of 128, and the kernel's
-    keywords."""
-    env = reinmav_tpu_torch.make("quadrotor3d-v0")
+                   num_envs=4096, env_id="quadrotor3d-v0"):
+    """One K2/K6 rollout of ``num_envs`` envs x 16 steps of ``env_id``,
+    stacked as K4 takes it, with 4 epochs x 4 minibatches of tiles of 128,
+    and the kernel's keywords."""
+    env = reinmav_tpu_torch.make(env_id)
+    d, adim = env.obs_dim, env.action_dim
     cfg = ppo.PpoConfig(num_envs=num_envs, rollout_len=16)
     state = ppo.init_train_state(env, cfg, 7, device=device)
     ro_ = ppo.collect_rollout_kernel(env, cfg, state.params, state.obs_norm, state.ret_norm,
                                      state.env_states, state.env_returns, 13)
-    layout = networks.Layout(10, 4)
+    layout = networks.Layout(d, adim)
     n = num_envs * 16
     with torch.no_grad():
         _, _, last_value = networks.apply_t(layout.unflatten(state.params),
@@ -298,7 +347,7 @@ def _update_inputs(device, kl_mode=False, floor=None, ent_coef=0.0, value_clip_e
     perm_all = torch.cat([ppo._shuffle_indices(gen, n_tiles) for _ in range(4)]).to(
         device=device, dtype=torch.int32)
     adv_stats = ppo.pass_adv_stats(adv.reshape(n), perm_all, tile, 16, True)
-    kw = dict(d=10, adim=4, tile=tile, n_minibatches=4, n_epochs=4, clip_eps=0.2,
+    kw = dict(d=d, adim=adim, tile=tile, n_minibatches=4, n_epochs=4, clip_eps=0.2,
               value_clip_eps=value_clip_eps, value_coef=0.5, ent_coef=ent_coef, lr=lr,
               max_grad_norm=0.5, log_std_floor=floor, kl_mode=kl_mode)
     beta = torch.tensor(0.7, device=device) if kl_mode else None
@@ -373,6 +422,109 @@ def _check_k4(cuda, mode, **extra):
     assert torch.equal(k.params, again.params)
     assert all(torch.equal(a, b) for a, b in zip(k.opt_state, again.opt_state))
     assert all(torch.equal(k.metrics[n], again.metrics[n]) for n in k.metrics)
+
+
+def _twin_edges(batch, net, d, adim, clip_eps, value_clip_eps):
+    """The samples of ``batch`` within RESYNC_ULPS ulps of the ratio clip
+    (1 +- clip_eps) or of the value clip (|value - old value| =
+    value_clip_eps, or the two squared errors equal outside it), on the
+    bf16 twin's forward (ops/ppo_loss.py's rounding)."""
+    r = networks.bf16_round
+    p = networks.Layout(d, adim).unflatten(net)
+    acts = {}
+    for tower in ("pi", "vf"):
+        h = batch[:d]
+        for layer in p[tower]:
+            h = torch.tanh(r(layer["w"].T) @ r(h) + layer["b"][:, None])
+        acts[tower] = h
+    mean = r(p["pi_out"]["w"].T) @ r(acts["pi"]) + p["pi_out"]["b"][:, None]
+    value = pl.value_head(r(acts["vf"]), r(p["vf_out"]["w"][:, 0]), p["vf_out"]["b"][0])
+    ls = p["log_std"]
+    ratio = pl.logp_ratio(batch[d:d + adim] - mean, torch.exp(2.0 * ls)[:, None], ls,
+                          batch[d + adim])[2].double()
+    f32 = torch.finfo(torch.float32).eps
+    eps = torch.tensor(clip_eps, dtype=torch.float32)
+    ulp = torch.where(ratio < 1.0, 2.0 ** -24, 2.0 ** -23)
+    near = torch.minimum((ratio - float(1.0 - eps)).abs(),
+                         (ratio - float(1.0 + eps)).abs()) <= RESYNC_ULPS * ulp
+    veps = float(torch.tensor(value_clip_eps, dtype=torch.float32))
+    old_value, ret = batch[d + adim + 1], batch[d + adim + 3]
+    vdiff = value - old_value
+    sq1 = (value - ret) ** 2
+    sq2 = (old_value + torch.clamp(vdiff, -veps, veps) - ret) ** 2
+    vclip = (vdiff.abs().double() - veps).abs() <= RESYNC_ULPS * f32 * veps
+    vtie = (vdiff.abs() >= veps) & ((sq1.double() - sq2.double()).abs() <= RESYNC_ULPS * f32 *
+                                    torch.maximum(sq1, sq2).double().clamp_min(1e-30))
+    return near | vclip | vtie
+
+
+def _check_k4_bf16(cuda, env_id, kl_mode=False, num_envs=4096):
+    """K4's bf16 instance: one launch counted, bitwise on a rerun, pass 0
+    bitwise one K3 bf16 launch, and resynchronised against the bf16 twin
+    (the module docstring)."""
+    data, stats, perm_all, params, opt, beta, kw = _update_inputs(
+        cuda, kl_mode=kl_mode, num_envs=num_envs, env_id=env_id)
+    d, adim, tile = kw["d"], kw["adim"], kw["tile"]
+    before = pu.ppo_update.launches
+    k = pu.ppo_update(data, stats, perm_all, params, opt, beta, keep_grad0=True,
+                      compute_dtype=BF16, **kw)
+    torch.cuda.synchronize()
+    assert pu.ppo_update.launches == before + 1
+    assert int(k.opt_state.count) == int(opt.count) + 16 and bool(torch.isfinite(k.params).all())
+    again = pu.ppo_update(data, stats, perm_all, params, opt, beta, keep_grad0=True,
+                          compute_dtype=BF16, **kw)
+    assert torch.equal(k.params, again.params) and torch.equal(k.grad0, again.grad0)
+    assert all(torch.equal(a, b) for a, b in zip(k.opt_state, again.opt_state))
+    assert all(torch.equal(k.metrics[n], again.metrics[n]) for n in k.metrics)
+    tpm = perm_all.numel() // 16
+    k3_stats = torch.stack([stats[0, 0], stats[0, 1], beta if beta is not None else stats[0, 0] * 0,
+                            stats[0, 0] * 0]).contiguous()
+    g3, _ = pl.ppo_loss_grads_gather(data, k3_stats, perm_all[:tpm].contiguous(), params, d=d,
+                                     adim=adim, clip_eps=0.2, value_clip_eps=kw["value_clip_eps"],
+                                     value_coef=0.5, ent_coef=kw["ent_coef"], tile=tile,
+                                     kl_mode=kl_mode, compute_dtype=BF16)
+    assert torch.equal(k.grad0, g3)
+    # Resynchronised: each pass from the twin's state, the edge samples replaced.
+    one = {**kw, "n_epochs": 1, "n_minibatches": 1}
+    ident = torch.arange(tpm, dtype=torch.int32, device=cuda)
+    net, state, replaced = params, opt, 0
+    for q in range(16):
+        perm = perm_all[q * tpm:(q + 1) * tpm].contiguous()
+        batch = data[:, pl._gather_columns(perm, tile)].contiguous()
+        edge = _twin_edges(batch, net, d, adim, 0.2, kw["value_clip_eps"])
+        if bool(edge.any()):
+            keep = int((~edge).nonzero()[0, 0])
+            batch[:, edge] = batch[:, keep:keep + 1]
+            replaced += int(edge.sum())
+        st = stats[q:q + 1].contiguous()
+        kq = pu.ppo_update(batch, st, ident, net, state, beta, keep_grad0=True,
+                           compute_dtype=BF16, **one)
+        t_params, t_state, _, t_grad = pu.ppo_update_reference(batch, st, ident, net, state, beta,
+                                                               compute_dtype=BF16, **one)
+        for name, a, b, tol in (("grad", kq.grad0, t_grad, GRAD_TOL),
+                                ("params", kq.params, t_params, PARAM_TOL),
+                                ("mu", kq.opt_state.mu, t_state.mu, MOMENT_TOL),
+                                ("nu", kq.opt_state.nu, t_state.nu, MOMENT_TOL)):
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **tol,
+                                       err_msg=f"pass {q} {name}")
+        assert int(kq.opt_state.count) == int(t_state.count)
+        net, state, _, _ = pu.ppo_update_reference(data, st, perm, net, state, beta,
+                                                   compute_dtype=BF16, **one)
+    print(f"K4 bf16 {env_id} ({'kl' if kl_mode else 'clip'}): resynchronised over 16 passes, "
+          f"{replaced} edge samples replaced")
+
+
+@pytest.mark.parametrize("kl_mode", [False, True], ids=["clip", "kl"])
+@pytest.mark.parametrize("d,adim", DIMS)
+def test_k4_bf16_resynchronised_against_twin_and_repeats_bitwise(cuda, d, adim, kl_mode):
+    _check_k4_bf16(cuda, DIMS_ENV[(d, adim)], kl_mode)
+
+
+@pytest.mark.parametrize("d,adim", DIMS)
+def test_k4_bf16_sub_blocks_not_dividing_the_grid(cuda, d, adim):
+    """As test_k4_sub_blocks_not_dividing_the_grid, for the bf16 instance
+    (its sub-blocks are 64 samples: 402 a minibatch)."""
+    _check_k4_bf16(cuda, DIMS_ENV[(d, adim)], num_envs=6432)
 
 
 @pytest.mark.parametrize("mode", ["clip", "floor-entropy"])

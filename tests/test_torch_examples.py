@@ -33,6 +33,16 @@ EXAMPLES = ("control_quat", "control_rpy", "reinmav_sim", "train_quadrotor2d_ppo
             "train_vector_env")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread a test worker: the suite runs six workers on the
+    host's cores, and torch's intra-op threads oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _run(name, tmp_path):
     module = importlib.import_module(f"reinmav_tpu_torch.examples.{name}")
     return module.main(["--device=cpu", "--quick", f"--out_dir={tmp_path}"])

@@ -29,6 +29,16 @@ STATE_TOL = dict(rtol=2e-4, atol=2e-5)
 REWARD_TOL = dict(rtol=1e-4, atol=1e-2)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread a test worker: the suite runs six workers on the
+    host's cores, and torch's intra-op threads oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _states(seed=0):
     """tests/test_pallas_tpuquad.py's perturbed hover states, (B, 13) float32."""
     base = np.tile(np.asarray(pallas_tpuquad._INIT, np.float32), (B, 1))

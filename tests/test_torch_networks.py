@@ -26,6 +26,16 @@ F64 = torch.float64
 RTOL = 1e-12
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread a test worker: the suite runs six workers on the
+    host's cores, and torch's intra-op threads oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _jax_params(seed, d=10, a=4, hidden=(64, 64), dtype=jnp.float64):
     params = jnet.init_params(jax.random.PRNGKey(seed), jnet.MlpConfig(d, a, hidden), dtype)
     params["log_std"] = params["log_std"] + 0.3

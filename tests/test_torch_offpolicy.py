@@ -47,6 +47,16 @@ KINDS = ["quadrotor3d-v0", "MujocoQuadForce-v1"]
 ROW_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread a test worker: the suite runs six workers on the
+    host's cores, and torch's intra-op threads oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _setup(env_id, head_kind="sac", key=0, hidden=(H, H)):
     """The JAX env and a perturbed actor of widths ``hidden`` (2 x 64;
     float32 layer lists), and start states (B, D) float32 of which some

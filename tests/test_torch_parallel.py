@@ -63,6 +63,16 @@ _AXIS = "env_batch"
 CPU1 = Mesh(None, 1, 0, torch.device("cpu"))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread a test worker: the suite runs six workers on the
+    host's cores, and torch's intra-op threads oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))

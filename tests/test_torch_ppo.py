@@ -32,6 +32,16 @@ from reinmav_tpu_torch.rl import networks, ppo
 RTOL, ATOL = 1e-4, 1e-6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread a test worker: the suite runs six workers on the
+    host's cores, and torch's intra-op threads oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _f32(tree):
     return jax.tree.map(
         lambda x: x.astype(jnp.float32) if jnp.issubdtype(x.dtype, jnp.floating) else x, tree)
@@ -86,17 +96,35 @@ def _close(a, b, what):
                                rtol=RTOL, atol=ATOL, err_msg=what)
 
 
+@pytest.fixture(scope="module")
+def jax_update():
+    """The JAX side of test_update_phase_matches_jax_train_step for a
+    ``kl_target``, computed once and shared by the port's two paths:
+    ``(jcfg, jstate, (s_ref, m_ref), the rollout it runs)``."""
+    cache = {}
+
+    def get(kl_target):
+        if kl_target not in cache:
+            jcfg = jppo.PpoConfig(num_envs=64, rollout_len=8, num_epochs=2, num_minibatches=2,
+                                  kl_target=kl_target, entropy_coef=0.01)
+            env, jstate = _jax_state(jcfg)
+            ref = jax.jit(lambda s: jppo.train_step(env, jcfg, s, dense8=False,
+                                                    fused_rollout=False, fused_loss=False))(jstate)
+            rollout = jax.jit(
+                lambda s: jppo.collect_rollout(env, jcfg, s.params, s.obs_norm, s.ret_norm,
+                                               s.env_states, s.env_returns, s.key,
+                                               dense8=False))(jstate)
+            cache[kl_target] = jcfg, jstate, ref, rollout
+        return cache[kl_target]
+
+    return get
+
+
 @pytest.mark.parametrize("fused_loss", [True, False], ids=["k3-twin", "autograd"])
 @pytest.mark.parametrize("kl_target", [None, 0.01], ids=["clip", "kl"])
-def test_update_phase_matches_jax_train_step(fused_loss, kl_target):
-    jcfg = jppo.PpoConfig(num_envs=64, rollout_len=8, num_epochs=2, num_minibatches=2,
-                          kl_target=kl_target, entropy_coef=0.01)
-    env, jstate = _jax_state(jcfg)
-    s_ref, m_ref = jax.jit(lambda s: jppo.train_step(env, jcfg, s, dense8=False,
-                                                     fused_rollout=False, fused_loss=False))(jstate)
-    final, rets, key, traj, omom, rmom, raw_mean = jax.jit(
-        lambda s: jppo.collect_rollout(env, jcfg, s.params, s.obs_norm, s.ret_norm, s.env_states,
-                                       s.env_returns, s.key, dense8=False))(jstate)
+def test_update_phase_matches_jax_train_step(fused_loss, kl_target, jax_update):
+    jcfg, jstate, (s_ref, m_ref), rollout_ref = jax_update(kl_target)
+    final, rets, key, traj, omom, rmom, raw_mean = rollout_ref
 
     penv = reinmav_tpu_torch.make("quadrotor3d-v0")
     pcfg = ppo.PpoConfig(**jcfg._asdict())
@@ -129,17 +157,29 @@ def test_update_phase_matches_jax_train_step(fused_loss, kl_target):
         _close(float(summary[name]), float(m_ref[name]), name)
 
 
-@pytest.mark.parametrize("fused_rollout", [True, False], ids=["k2-twin", "eager"])
-def test_train_step_learns_like_jax(fused_rollout, caplog):
+@pytest.fixture(scope="module")
+def jax_learning():
+    """The JAX side of test_train_step_learns_like_jax, shared by its two
+    rollout paths: the config, the initial state and each of 2 updates'
+    metrics."""
     jcfg = jppo.PpoConfig(num_envs=64, rollout_len=16, num_epochs=2, num_minibatches=2)
     env, jstate = _jax_state(jcfg, seed=1)
+    step = jax.jit(lambda s: jppo.train_step(env, jcfg, s, dense8=False, fused_rollout=False,
+                                             fused_loss=False))
+    metrics, s = [], jstate
+    for _ in range(2):
+        s, m = step(s)
+        metrics.append(m)
+    return jcfg, jstate, metrics
+
+
+@pytest.mark.parametrize("fused_rollout", [True, False], ids=["k2-twin", "eager"])
+def test_train_step_learns_like_jax(fused_rollout, caplog, jax_learning):
+    jcfg, jstate, metrics = jax_learning
     penv = reinmav_tpu_torch.make("quadrotor3d-v0")
     pcfg = ppo.PpoConfig(**jcfg._asdict())
     pstate = _port_state(jstate, jcfg)
-    step = jax.jit(lambda s: jppo.train_step(env, jcfg, s, dense8=False, fused_rollout=False,
-                                             fused_loss=False))
-    for update in range(2):
-        jstate, m_ref = step(jstate)
+    for update, m_ref in enumerate(metrics):
         with caplog.at_level(logging.INFO, logger="reinmav_tpu_torch.rl.ppo"):
             pstate, m = ppo.train_step(penv, pcfg, pstate, fused_rollout=fused_rollout)
         for name, v in m.items():

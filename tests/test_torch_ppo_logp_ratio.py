@@ -21,6 +21,16 @@ F = np.float32
 CLIP_EPS = 0.2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread a test worker: the suite runs six workers on the
+    host's cores, and torch's intra-op threads oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _numpy_logp(diff, var, ls):
     """logp in float32, one rounded operation at a time, left to right."""
     a = diff.shape[0]

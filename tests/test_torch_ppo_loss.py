@@ -38,6 +38,16 @@ CASES = ([pytest.param(m, e, D, id=f"{m}-{e}") for m, e in MODES]
          + [pytest.param(m, e, 13, id=f"{m}-{e}-hover") for m, e in (("clip", 1e-2), ("kl", 0.0))])
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread a test worker: the suite runs six workers on the
+    host's cores, and torch's intra-op threads oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _np_tree(tree):
     return jax.tree.map(lambda x: np.asarray(x, np.float32), tree)
 

@@ -45,6 +45,16 @@ MODES = {"clip": (0, {}), "kl": (5, {"kl_target": 0.01}),
 ENV_OF = {"clip-hover": "MujocoQuadForce-v1"}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread a test worker: the suite runs six workers on the
+    host's cores, and torch's intra-op threads oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _cfg(**kw):
     """tests/test_pallas_ppo_update.py's config, at 2 epochs x 2 minibatches."""
     return jppo.PpoConfig(num_envs=512, rollout_len=64, num_epochs=2, num_minibatches=2,

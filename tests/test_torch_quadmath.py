@@ -16,6 +16,16 @@ from reinmav_tpu_torch.ops import quadmath as tqm
 RTOL, ATOL = 1e-12, 1e-14
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread a test worker: the suite runs six workers on the
+    host's cores, and torch's intra-op threads oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _quats(rng, n, unit=False):
     q = rng.uniform(-1.0, 1.0, size=(n, 4))
     return q / np.linalg.norm(q, axis=-1, keepdims=True) if unit else q

@@ -34,6 +34,16 @@ GRAD = dict(rtol=1e-10, atol=1e-12)
 STEP = dict(rtol=1e-8, atol=1e-12)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread a test worker: the suite runs six workers on the
+    host's cores, and torch's intra-op threads oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _cfg(**kw):
     base = dict(num_envs=16, rollout_len=8, hidden=8, embed=8, learning_rate=1e-3,
                 entropy_coef=0.01)

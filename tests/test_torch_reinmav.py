@@ -32,6 +32,16 @@ from reinmav_tpu_torch.envs import core, reinmav13
 from reinmav_tpu_torch.ops import reinmav_rollout as rr
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread a test worker: the suite runs six workers on the
+    host's cores, and torch's intra-op threads oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _perturbed(batch, seed, scale=0.05):
     """The init state plus U(-scale, scale) on the 13 states, t = 0, float64."""
     rng = np.random.default_rng(seed)

@@ -23,6 +23,16 @@ from reinmav_tpu_torch.render import LiveViewer, plot_trajectory, render_frame, 
 from reinmav_tpu_torch.utils import profiling
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread a test worker: the suite runs six workers on the
+    host's cores, and torch's intra-op threads oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _trajectory(env_id, steps=40):
     env = reinmav_tpu_torch.make(env_id)
     gen = torch.Generator().manual_seed(0)

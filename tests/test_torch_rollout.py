@@ -29,6 +29,16 @@ KAT = [
 RTOL, ATOL, RTOL_REWARD = 2e-4, 2e-5, 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread a test worker: the suite runs six workers on the
+    host's cores, and torch's intra-op threads oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _states_t(seed, batch, scale=1.0, device="cpu"):
     """(10, B) float32 U(-1,1)·scale states from a NumPy seed."""
     s = np.random.default_rng(seed).uniform(-1, 1, (batch, 10)) * scale

@@ -36,6 +36,16 @@ from reinmav_tpu_torch.rl import networks, sac
 SLUNG = list(cl.TAUT_KINDS)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread a test worker: the suite runs six workers on the
+    host's cores, and torch's intra-op threads oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _quad3d_states(batch=4096, seed=0):
     """(10, B) float32: positions and velocities from the reset box to ten
     times it (the desired acceleration points up and down), random

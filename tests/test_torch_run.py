@@ -29,6 +29,16 @@ from reinmav_tpu_torch.utils import checkpoint as ckpt
 SMALL = ["--device=cpu", "--num_env=64", "--rollout_len=16"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread a test worker: the suite runs six workers on the
+    host's cores, and torch's intra-op threads oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _lines(text):
     return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
 

@@ -32,6 +32,16 @@ RTOL, ATOL = 1e-10, 1e-12
 HIDDEN = (32, 32)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread a test worker: the suite runs six workers on the
+    host's cores, and torch's intra-op threads oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture
 def f64_dots(monkeypatch):
     """JAX matmuls of float64 inputs return float64 (the JAX package asks

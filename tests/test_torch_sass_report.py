@@ -382,3 +382,50 @@ def test_philox_clusters_split_on_a_gap():
     insns = [(16 * i, op, args) for i, (_, op, args) in enumerate(seq)]
     spans = sass_report.philox_clusters(insns)
     assert [(s["n"], s["multiplies"]) for s in spans] == [(3, 2), (1, 1)]
+
+
+K3K4 = """
+\t\tFunction : _ZN12_GLOBAL__N_115ppo_loss_kernelILi10ELi4ELb0ELb1EEEvPKfxPKixiS2_S2_N7reinmav8ppo_loss7LossCfgEPf
+        /*0000*/                   LDSM.16.M88.4 R4, [R2] ;
+        /*0010*/                   LDSM.16.MT88.4 R8, [R3] ;
+        /*0020*/                   HMMA.16816.F32.BF16 R12, R4, R8, R12 ;
+        /*0030*/                   HMMA.16816.F32.BF16 R16, R4, R10, R16 ;
+        /*0040*/                   MUFU.EX2 R20, R21 ;
+        /*0050*/                   FFMA R22, R23, R24, R25 ;
+        /*0060*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0070*/                   EXIT ;
+\t\tFunction : _ZN12_GLOBAL__N_115ppo_loss_kernelILi10ELi4ELb0ELb0EEEvPKfxPKixiS2_S2_N7reinmav8ppo_loss7LossCfgEPf
+        /*0000*/                   LDS.128 R4, [R2] ;
+        /*0010*/                   FFMA R6, R7, R8, R6 ;
+        /*0020*/                   FFMA R9, R7, R10, R9 ;
+        /*0030*/                   EXIT ;
+\t\tFunction : _ZN12_GLOBAL__N_117ppo_update_kernelILi10ELi4ELb0ELb0EEEvNS_10UpdateArgsE
+        /*0000*/                   FFMA R6, R7, R8, R6 ;
+        /*0010*/                   EXIT ;
+"""
+
+
+def test_k3k4_product_counts_and_the_float32_instances_against_a_parent(monkeypatch, tmp_path,
+                                                                         capsys):
+    """K3/K4's instances: HMMA (the bf16 ones apart), FFMA, LDSM, MUFU and
+    BAR counted by report(); with --against, the float32 instances that
+    are the other library's instruction for instruction, the ones that
+    differ, and the bf16 instances left out of that list."""
+    parent = K3K4.replace("HMMA.16816.F32.BF16 R16, R4, R10, R16", "FFMA R16, R4, R10, R16")
+    parent = parent.replace("FFMA R9, R7, R10, R9", "FFMA R9, R7, R11, R9")
+    texts = {tmp_path / "lib.so": K3K4, tmp_path / "parent.so": parent}
+    monkeypatch.setattr(sass_report, "_disassemble", lambda lib: texts[lib])
+    got = sass_report.report(tmp_path / "lib.so")
+    bf16 = got["ppo_loss_kernel<10, 4, false, true>"]["mma"]
+    assert bf16 == {"HMMA": 2, "HMMA_BF16": 2, "FFMA": 1, "LDSM": 2, "MUFU": 1, "BAR": 1}
+    assert got["ppo_loss_kernel<10, 4, false, false>"]["mma"] == {
+        "HMMA": 0, "HMMA_BF16": 0, "FFMA": 2, "LDSM": 0, "MUFU": 0, "BAR": 0}
+    assert "HMMA 2 (bf16 2), FFMA 1, LDSM 2, MUFU 1, BAR 1" in capsys.readouterr().out
+    groups = sass_report.compare(tmp_path / "lib.so", tmp_path / "parent.so")
+    assert sass_report.float32_k3k4(groups) == {
+        "same": ["ppo_update_kernel<10, 4, false, false>"],
+        "differ": ["ppo_loss_kernel<10, 4, false, false>"], "missing": []}
+    assert groups["differ"] == ["ppo_loss_kernel<10, 4, false, false>",
+                                "ppo_loss_kernel<10, 4, false, true>"]
+    assert sass_report.is_bf16_instance("ppo_update_kernel<13, 4, true, true>")
+    assert not sass_report.is_bf16_instance("ppo_update_kernel<13, 4, true, false>")

@@ -47,6 +47,16 @@ JAX_KERNEL = {"quadrotor2d-slungload-v0": pallas_slungload.slung2d_rollout_palla
               "quadrotor3d-slungload-v0": pallas_slungload.slung3d_rollout_pallas8}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread a test worker: the suite runs six workers on the
+    host's cores, and torch's intra-op threads oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _tether(env_id, s):
     """Tether norms of ``(B, D)`` states and the tether length."""
     k = 3 if env_id.startswith("quadrotor3d") else 2
