@@ -536,11 +536,11 @@ def horizon_sass(name: str) -> dict:
 
 def k1_kernel_name() -> str:
     """K1's main-path instance: the closed-loop template's Quad3dLoop with
-    auto-reset, without counts (or ``quad3d_rollout_kernel``, K1's own
-    kernel in a library built before K1 joined the template)."""
+    auto-reset, without counts."""
     found = [k for k in _sass_counts() if k.replace(" ", "") ==
              "closed_loop_kernel<Quad3dLoop<true>,false>"]
-    return found[0] if found else "quad3d_rollout_kernel"
+    require(len(found) == 1, f"K1's instance: {found} in the SASS")
+    return found[0]
 
 
 def loop_sass(short: str) -> dict:
@@ -566,12 +566,10 @@ PPO_STRUCT = {"quadrotor3d-v0": "Quad3dEnv", "MujocoQuadForce-v1": "HoverEnv",
 def ppo_instance(name: str, bf16: bool = False) -> str:
     """The demangled name of the K2/K6 instance env ``name``'s main path
     launches: both normalisers on, no counts, float32 (or with ``bf16`` its
-    bf16 instance)."""
-    struct = PPO_STRUCT[name]
-    head = f"ppo_rollout_kernel<reinmav::{struct},true,true"
-    names = ((f"{head},false,true>",) if bf16 else
-             (f"{head}>", f"{head},false>", f"{head},false,false>"))
-    found = [k for k in _sass_counts() if k.replace(" ", "") in names]
+    bf16 instance, ``ppo_rollout_bf16_kernel``)."""
+    family = "ppo_rollout_bf16_kernel" if bf16 else "ppo_rollout_kernel"
+    want = f"{family}<reinmav::{PPO_STRUCT[name]},true,true,false>"
+    found = [k for k in _sass_counts() if k.replace(" ", "") == want]
     require(len(found) == 1, f"{name}: K2/K6 instances {found} in the SASS")
     return found[0]
 
@@ -960,11 +958,12 @@ def ppo_state(env, cfg, dev, seed: int = 0):
 
 
 def training_phase(torch, dev, gpu: str, env, cfg, label: str, updates: int | None = None,
-                   **train_kw):
+                   with_state: bool = False, **train_kw):
     """Drive 2 warm-up and 5 timed updates of ``train_step`` from seed 0
     (``updates`` in all, the first 2 the warm-up, when given), with every
     kernel count set to 0 just before; returns the launch counts, the walls
-    and the summaries."""
+    and the summaries (and with ``with_state`` the train state after the
+    last update)."""
     state = ppo_state(env, cfg, dev)
     counters = kernel_counters()
     from reinmav_tpu_torch.rl.ppo import train_step
@@ -985,7 +984,8 @@ def training_phase(torch, dev, gpu: str, env, cfg, label: str, updates: int | No
         say(f"{label} update {i} ({'warm-up' if i < WARMUP_UPDATES else 'timed'}): wall "
             f"{walls[i]:.2f} ms, {B_PPO * T_PPO / walls[i] * 1e3:.4e} env-steps/s on {gpu}; " +
             ", ".join(f"{k} {v:.5g}" for k, v in s.items()))
-    return launches, walls, summaries
+    out = launches, walls, summaries
+    return (*out, state) if with_state else out
 
 
 def _leaves(tree):
@@ -1767,15 +1767,15 @@ def k7_timed(torch, args, reps: int = 20):
 def k7_instance(name: str, mode: str, count: bool = False, bf16: bool = False) -> str | None:
     """The demangled name of K7's instance for env ``name`` and ``mode``
     in the library this run built (the counting kernel's with ``count``,
-    the bf16 instance with ``bf16``)."""
+    the bf16 instance, ``offpolicy_collect_bf16_kernel``, with ``bf16``)."""
     from reinmav_tpu_torch.ops import offpolicy as op
 
-    head = "offpolicy_collect_count_kernel<" if count else "offpolicy_collect_kernel<"
-    tails = ((f",{op.MODES[mode]}>",) if count else
-             (f",{op.MODES[mode]},{'true' if bf16 else 'false'}>",) if bf16 else
-             (f",{op.MODES[mode]}>", f",{op.MODES[mode]},false>"))
-    found = [k for k in _sass_counts() if k.startswith(head) and PPO_STRUCT[name] in k
-             and k.replace(" ", "").endswith(tails)]
+    m = op.MODES[mode]
+    family, tail = (("offpolicy_collect_count_kernel", f"{m}>") if count else
+                    ("offpolicy_collect_bf16_kernel", f"{m},false>") if bf16 else
+                    ("offpolicy_collect_kernel", f"{m}>"))
+    want = f"{family}<reinmav::{PPO_STRUCT[name]},{tail}"
+    found = [k for k in _sass_counts() if k.replace(" ", "") == want]
     return found[0] if len(found) == 1 else None
 
 
@@ -2824,7 +2824,8 @@ def hash_phase(torch, dev, gpu: str) -> None:
     """``--only hashes``: K1 and every K2/K6 kind on the inputs of phases
     4, 6, 7, 13 and 21, each output's SHA-256 (the same digests the full
     run prints), each kernel timed as there, with its SASS and the SM
-    clock: a quick A/B of two trees, run in turns in one call."""
+    clock, and each kind's K2/K6 bf16 instance on the same inputs: a quick
+    A/B of two trees, run in turns in one call."""
     import reinmav_tpu_torch
     from reinmav_tpu_torch.ops import ppo_rollout as pr
     from reinmav_tpu_torch.ops import rollout as ro
@@ -2863,6 +2864,17 @@ def hash_phase(torch, dev, gpu: str) -> None:
         say(f"time {label} B={B_PPO} T={T_PPO}: {ms:.4f} ms (median of 20 launches, each "
             f"{min(kern):.4f} to {max(kern):.4f}) on {gpu}")
         k2_sass_line(label, name, ms, clock, gpu)
+        # The bf16 instance on the same inputs (phase 34's instance).
+        run16 = lambda: pr.ppo_rollout(*k2_args, **k2_kw, compute_dtype=BF16)  # noqa: E731
+        run16()
+        torch.cuda.synchronize()
+        kern16, out16 = cuda_ms(run16, 20)
+        inst16 = ppo_instance(name, True)
+        say(f"sha256 {label} bf16 B={B_PPO} T={T_PPO} (seed 21): {digest(*out16)}")
+        say(f"time {label} bf16 B={B_PPO} T={T_PPO}: {statistics.median(kern16):.4f} ms (median of "
+            f"20 launches, each {min(kern16):.4f} to {max(kern16):.4f}); {inst16}: ptxas "
+            f"{kernel_registers(inst16)}, SASS {mma_text(kernel_mma(inst16))}; on {gpu}")
+        del out16
         # K3 and K4 at the kind's dims on this trajectory, as phases 35-36
         # (phases 10 and 13 for quadrotor3d-v0 and hover).
         batch = k4_batch(torch, cfg, layout, obs_norm, params, out)
@@ -3026,10 +3038,11 @@ K7_TIMED_MODE = {"quadrotor3d-v0": "td3"}
 def k7_hash(torch, dev, gpu: str) -> None:
     """``--only hashes``: K7 on every kind, on phase 15's and 22's inputs
     drawn from a generator of their own (seed 15): each mode leg's SHA-256
-    of the new states and the block; the kind's training mode timed as
-    phase 15 times it, with the SM clock, the bound, registers and
-    occupancy; then the same launch at other widths and modes (a median of
-    20 each): H = 32, and sac, sac_det, td3, td3_det at H_SAC."""
+    of the new states and the block, float32 and bf16; the kind's training
+    mode timed as phase 15 times it, with the SM clock, the bound,
+    registers and occupancy, and its bf16 instance (a median of 20); then
+    the same launch at other widths and modes (a median of 20 each): H =
+    32, and sac, sac_det, td3, td3_det at H_SAC."""
     import reinmav_tpu_torch
     from reinmav_tpu_torch.ops import offpolicy as op
 
@@ -3040,6 +3053,8 @@ def k7_hash(torch, dev, gpu: str) -> None:
             args = k7_args(torch, env, states_t, mode, warm, noise)
             say(f"sha256 K7 {name} {mode} warm {warm:g} noise {noise:g} B={B_OFF} H={H_SAC}: "
                 f"{digest(*op.collect_step(*args))}")
+            say(f"sha256 K7 bf16 {name} {mode} warm {warm:g} noise {noise:g} B={B_OFF} H={H_SAC}: "
+                f"{digest(*op.collect_step(*args, compute_dtype=BF16))}")
         mode = K7_TIMED_MODE.get(name, "sac")
         noise = dict((m, n) for m, _, n in K7_MODES)[mode]
         args = k7_args(torch, env, states_t, mode, 0.0, noise)
@@ -3052,6 +3067,14 @@ def k7_hash(torch, dev, gpu: str) -> None:
             f"bound {bound_ms:.4f} ms by {bound_by} ({ops_per_env} operations per env); "
             f"{instance}: ptxas {kernel_registers(instance) if instance else 'not reported'}; "
             f"{k7_occupancy(env, mode)}; on {gpu}")
+        op.collect_step(*args, compute_dtype=BF16)
+        torch.cuda.synchronize()
+        ms16, _ = cuda_ms(lambda: op.collect_step(*args, compute_dtype=BF16), 20)
+        inst16 = k7_instance(name, mode, bf16=True)
+        say(f"time K7 bf16 {name} {mode} B={B_OFF} H={H_SAC}: {statistics.median(ms16):.4f} ms "
+            f"(median of 20 launches, each {min(ms16):.4f} to {max(ms16):.4f}); {inst16}: ptxas "
+            f"{kernel_registers(inst16) if inst16 else 'not reported'}, SASS "
+            f"{mma_text(kernel_mma(inst16)) if inst16 else 'not reported'}; on {gpu}")
         times = {}
         for what, m, n, hidden in (("H=32", mode, noise, (32, 32)), ("sac", "sac", 0.0, None),
                                    ("sac_det", "sac_det", 0.0, None), ("td3", "td3", 0.3, None),
@@ -3675,6 +3698,38 @@ def k3k4_mma(family: str, d: int, adim: int, bf16: bool, gate: bool = True) -> d
     return mma
 
 
+def kernel_mma(short: str, gate: bool = False) -> dict:
+    """The static HMMA (bf16 apart), FFMA, LDSM, MUFU and BAR counts of the
+    kernel ``short`` in the library this run built (sass_report.mma_counts
+    on its instructions); with ``gate``, it must issue bf16 HMMA."""
+    from reinmav_tpu_torch import sass_report
+
+    found = _sass_counts().get(short)
+    require(found is not None, f"{short}: not in the SASS")
+    mma = sass_report.mma_counts(found["insns"])
+    require(not gate or mma["HMMA_BF16"] > 0, f"{short}: no bf16 HMMA in its SASS: {mma}")
+    return mma
+
+
+#: The SFU's rate on the H100 SXM: 16 operations (MUFU) a clock an SM, at
+#: its boost clock of 1980 MHz.
+SFU_OPS_PER_SM_CLOCK, BOOST_HZ = 16, 1.98e9
+
+
+def sfu_ms(mufu_ops: float) -> float:
+    """The least milliseconds the card's SFUs take for ``mufu_ops``
+    operations at their rate and the boost clock, printed beside a
+    products-only bound (not a key of the ``kernels`` line, which has only
+    ``bound_ms``).  A tanhf is two as these kernels are built: libdevice's
+    MUFU.EX2 and MUFU.RCP, issued for every argument, its small-|x|
+    polynomial picked after them by a select, not a branch (the bf16
+    bodies' SASS); a logf, sqrtf, cosf, expf one each."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return mufu_ops / (SFU_OPS_PER_SM_CLOCK * sms * BOOST_HZ) * 1e3
+
+
 def mma_text(mma: dict) -> str:
     return (f"HMMA {mma['HMMA']} (bf16 {mma['HMMA_BF16']}), FFMA {mma['FFMA']}, LDSM "
             f"{mma['LDSM']}, MUFU {mma['MUFU']}, BAR {mma['BAR']}")
@@ -3815,9 +3870,24 @@ def bf16_kind_phase(torch, dev, gpu: str, env, ret_var: float) -> list[dict]:
         f"{ms32:.4f} ms ({lo32:.4f} to {hi32:.4f}) in turns, 20 launches each; bf16 twin "
         f"{statistics.median(plain):.2f} ms; bf16 bound {k2_bound:.4f} ms by {k2_by} (products "
         f"at 989 TFLOP/s); ptxas bf16 {regs}; float32 {regs32}; on {gpu}")
+    inst16 = ppo_instance(name, True)
+    mma16, mma32 = kernel_mma(inst16, gate=True), kernel_mma(ppo_instance(name))
+    probed, probe = pr.ppo_rollout_bf16_probe(*k2_args, k2_kw["params_vec"], name)
+    require(all(torch.equal(x, y) for x, y in zip(out, probed)),
+            f"{k2_name} bf16 probe: its outputs are not the bf16 instance's")
+    require(probe["h1_missed"] == probe["h2_missed"] == 0, f"{k2_name} bf16 probe misses {probe}")
+    del probed
+    k2_sfu = sfu_ms(B_PPO * T_PPO * (2 * 4 * 64 + 3 * a))  # 256 tanhf; log, sqrt, cos an action
+    say(f"{k2_name} bf16: {inst16}, SASS {mma_text(mma16)}; float32 {mma_text(mma32)}; the probe "
+        f"at B={B_PPO} T={T_PPO} (one launch, {2 * 64 * B_PPO * T_PPO} h1 and as many h2): h1 "
+        f"recomputed in the twin's order {probe['h1_recomputed']}, h2 {probe['h2_recomputed']}; "
+        f"misses {probe['h1_missed']}, {probe['h2_missed']}; largest |h - twin's h| / kTie "
+        f"{probe['h1_worst']:.4g}, {probe['h2_worst']:.4g}; the SFU floor of its tanhf and draws "
+        f"as built {k2_sfu:.4f} ms (2 MUFU a tanhf, 16 a clock an SM at 1980 MHz); on {gpu}")
     rollout = dict(max_abs_err=k2_err, mismatched=mismatched, ms=ms, f32_ms=ms32,
                    plain_ms=statistics.median(plain), bound_ms=k2_bound, bound_by=k2_by,
-                   registers=regs, f32_registers=regs32, bits_apart=apart)
+                   registers=regs, f32_registers=regs32, bits_apart=apart, sass=mma16,
+                   f32_sass=mma32, probe=probe)
 
     # 35. K3's bf16 instance on one full minibatch of that trajectory.
     data, adv, tile, n_tiles = k4_batch(torch, cfg, layout, obs_norm, params, out)
@@ -3859,10 +3929,12 @@ def bf16_kind_phase(torch, dev, gpu: str, env, ret_var: float) -> list[dict]:
         f"{fwd['clip_flips_tc']}, {fwd['value_clip_flips_tc']}; {fwd['recomputed']} samples near "
         f"a decision recomputed in the twin's order (bitwise the twin's), decisions flipped "
         f"{fwd['clip_flips']}, {fwd['value_clip_flips']}")
+    k3_sfu = sfu_ms(mb * (2 * 4 * 64 + 1))  # 256 tanhf and the ratio's expf a sample
     say(f"time K3 ({d}, {a}) minibatch {mb}: bf16 {ms3:.4f} ms ({lo3:.4f} to {hi3:.4f}), float32 "
         f"{ms32_3:.4f} ms in turns; bf16 twin {statistics.median(plain3):.2f} ms; bf16 bound "
-        f"{k3_bound:.4f} ms by {k3_by}; ptxas bf16 {regs3}; float32 {regs3_32}; SASS bf16 "
-        f"{mma_text(mma3)}; float32 {mma_text(mma3_32)}; on {gpu}")
+        f"{k3_bound:.4f} ms by {k3_by}, the SFU floor of its tanhf {k3_sfu:.4f} ms; ptxas bf16 "
+        f"{regs3}; float32 {regs3_32}; SASS bf16 {mma_text(mma3)}; float32 {mma_text(mma3_32)}; "
+        f"on {gpu}")
     loss = dict(max_abs_err=k3_err, ms=ms3, f32_ms=ms32_3, plain_ms=statistics.median(plain3),
                 bound_ms=k3_bound, bound_by=k3_by, registers=regs3, f32_registers=regs3_32,
                 sass=mma3, f32_sass=mma3_32, forward=fwd)
@@ -3902,10 +3974,12 @@ def bf16_kind_phase(torch, dev, gpu: str, env, ret_var: float) -> list[dict]:
         f"the bf16 twin (reported, not gated: a weight on a bf16 rounding edge can round the "
         f"other way once the params part in their last bit) params max |err| {k4_err:.3e}, "
         f"entries outside {free}; bitwise equal on a rerun: ok")
+    k4_sfu = sfu_ms(e_ * m_ * mb4 * (2 * 4 * 64 + 1))
     say(f"time K4 ({d}, {a}) {e_} x {m_} passes of {mb4}: bf16 {ms4:.4f} ms ({lo4:.4f} to "
         f"{hi4:.4f}), float32 {ms32_4:.4f} ms in turns, 10 launches each; bf16 twin {plain4:.1f} "
-        f"ms; bf16 bound {k4_bound:.4f} ms by {k4_by}; ptxas bf16 {regs4}; float32 {regs4_32}; "
-        f"SASS bf16 {mma_text(mma4)}; float32 {mma_text(mma4_32)}; on {gpu}")
+        f"ms; bf16 bound {k4_bound:.4f} ms by {k4_by}, the SFU floor of its tanhf {k4_sfu:.4f} "
+        f"ms; ptxas bf16 {regs4}; float32 {regs4_32}; SASS bf16 {mma_text(mma4)}; float32 "
+        f"{mma_text(mma4_32)}; on {gpu}")
     update = dict(max_abs_err=max(resync["max_abs_err"]["params"], 0.0), ms=ms4, f32_ms=ms32_4,
                   plain_ms=plain4, bound_ms=k4_bound, bound_by=k4_by, registers=regs4,
                   f32_registers=regs4_32, resync=resync, free_running_outside=free, sass=mma4,
@@ -3920,7 +3994,8 @@ def bf16_kind_phase(torch, dev, gpu: str, env, ret_var: float) -> list[dict]:
     for label, c in (("default", main_cfg), ("K3 loop", main_cfg._replace(fused_update="off")),
                      ("float32", main_cfg._replace(compute_dtype="float32"))):
         runs[label] = training_phase(torch, dev, gpu, env, c, f"{name} {label} ppo update "
-                                     f"({c.compute_dtype})", updates=updates)
+                                     f"({c.compute_dtype})", updates=updates,
+                                     with_state=label == "default")
     passes = main_cfg.num_epochs * main_cfg.num_minibatches
     quiet = {"K1": 0, "K5": 0, "K7": 0, "K8/K9": 0, "K10": 0, "K11": 0}
     require(runs["default"][0] == {**quiet, "K2": updates, "K3": 0, "K4": updates},
@@ -3939,6 +4014,22 @@ def bf16_kind_phase(torch, dev, gpu: str, env, ret_var: float) -> list[dict]:
         f"{[round(r, 4) for r in rewards['K3 loop']]}; bf16 update median "
         f"{statistics.median(timed):.2f} ms, float32 "
         f"{statistics.median(runs['float32'][1][WARMUP_UPDATES:]):.2f} ms; on {gpu}: ok")
+    # The probe on the trained parameters: the next rollout of the default
+    # path, from its train state after the last update.
+    st = runs["default"][3]
+    _, trained = pr.ppo_rollout_bf16_probe(
+        st.env_states.T.contiguous(), st.env_returns.contiguous(), 22, st.params,
+        ppo._rollout_consts(st.params, layout, st.obs_norm, st.ret_norm, main_cfg.gamma), T_PPO,
+        k2_kw["params_vec"], name)
+    require(trained["h1_missed"] == trained["h2_missed"] == 0,
+            f"{k2_name} bf16 probe on the trained parameters: misses {trained}")
+    rollout["trained_probe"] = trained
+    say(f"{k2_name} bf16 probe on the parameters after {updates} bf16 updates, B={B_PPO} "
+        f"T={T_PPO}: h1 recomputed in the twin's order {trained['h1_recomputed']}, h2 "
+        f"{trained['h2_recomputed']}; misses {trained['h1_missed']}, {trained['h2_missed']}; "
+        f"largest |h - twin's h| / kTie {trained['h1_worst']:.4g}, {trained['h2_worst']:.4g}; "
+        f"on {gpu}")
+    del st
 
     def entry(fn, source, replaces, numbers, launches, tolerance, at):
         return {"name": f"{fn} (bf16, {name})", "route": "cuda", "source": source,
@@ -3947,12 +4038,12 @@ def bf16_kind_phase(torch, dev, gpu: str, env, ret_var: float) -> list[dict]:
                 "bound_ms": numbers["bound_ms"], "bound_by": numbers["bound_by"],
                 "library_ms": None, "f32_ms": numbers["f32_ms"],
                 "registers": numbers["registers"], "f32_registers": numbers["f32_registers"],
-                "at": at, **{k: numbers[k] for k in ("sass", "f32_sass", "forward")
-                             if k in numbers}}
+                "at": at, **{k: numbers[k] for k in ("sass", "f32_sass", "forward", "probe",
+                                                     "trained_probe") if k in numbers}}
 
     path = f"the bf16 training path of {name}"
     return [
-        {**entry("ppo_rollout", "reinmav_tpu_torch/csrc/ppo_rollout.cu",
+        {**entry("ppo_rollout", "reinmav_tpu_torch/csrc/ppo_rollout_body_bf16.cuh",
                  "reinmav_tpu/ops/pallas_ppo_rollout.py:703", rollout, runs["default"][0]["K2"],
                  "one step at a time from the twin's state over 32 steps: rtol 2e-4 atol 2e-5, "
                  "<= 0.1% of envs outside (the slung-load kinds 0, the env-steps near the tether "
@@ -4022,12 +4113,26 @@ def bf16_offpolicy_phase(torch, dev, gpu: str, env, timed_mode: str) -> dict:
     k7_b, k7_by = bound_bf16(nbytes(states_t, new_k, blk_k, args[4], *args[6:]), prod,
                              OPS_ENV_STEP[d] * B_OFF)
     inst, inst32 = k7_instance(name, timed_mode, bf16=True), k7_instance(name, timed_mode)
-    regs = kernel_registers(inst) if inst else "not reported"
-    regs32 = kernel_registers(inst32) if inst32 else "not reported"
+    require(inst is not None and inst32 is not None,
+            f"K7 {name} {timed_mode}: instances in the SASS")
+    regs, regs32 = kernel_registers(inst), kernel_registers(inst32)
+    mma16, mma32 = kernel_mma(inst, gate=True), kernel_mma(inst32)
+    new_p, blk_p, probe = op.collect_step_bf16_probe(*args)
+    require(torch.equal(new_p, new_k) and torch.equal(blk_p, blk_k),
+            f"K7 bf16 {name} probe: its outputs are not the bf16 instance's")
+    require(probe["h1_missed"] == probe["h2_missed"] == 0, f"K7 bf16 {name} probe misses {probe}")
+    del new_p, blk_p
+    k7_sfu = sfu_ms(B_OFF * 6 * a)  # tanh (2), exp, log, sqrt, cos an action
     say(f"time K7 {name} {timed_mode}, B={B_OFF} H={H_SAC}: bf16 {ms:.4f} ms ({lo:.4f} to "
         f"{hi:.4f}), float32 {ms32:.4f} ms in turns, 20 launches each; bf16 twin "
-        f"{statistics.median(plain):.2f} ms; bf16 bound {k7_b:.4f} ms by {k7_by}; {inst}: ptxas "
-        f"{regs}; float32 {regs32}; on {gpu}")
+        f"{statistics.median(plain):.2f} ms; bf16 bound {k7_b:.4f} ms by {k7_by}, the SFU floor of "
+        f"its draws as built {k7_sfu:.4f} ms; {inst}: ptxas {regs}, SASS {mma_text(mma16)}; "
+        f"float32 "
+        f"{regs32}, SASS {mma_text(mma32)}; the probe ({B_OFF} envs, {B_OFF * w1.shape[1]} units "
+        f"of L1 and {B_OFF * w2.shape[1]} of L2): recomputed in the twin's order L1 "
+        f"{probe['h1_recomputed']}, L2 {probe['h2_recomputed']}; misses {probe['h1_missed']}, "
+        f"{probe['h2_missed']}; largest |sum - twin's| / tie {probe['h1_worst']:.4g}, "
+        f"{probe['h2_worst']:.4g}; on {gpu}")
 
     # The bf16 off-policy training path of the kind.
     if name == HOVER:
@@ -4044,6 +4149,18 @@ def bf16_offpolicy_phase(torch, dev, gpu: str, env, timed_mode: str) -> dict:
     state, met, wall, launches = offpolicy_iterations(torch, env, cfg, module, state, iters)
     require(launches["K7"] == iters and sum(launches.values()) == iters,
             f"{name} bf16 off-policy launches {launches}")
+    # The probe on the trained actor, from the env states it reached.
+    layout = sac.MlpLayout((d, H_SAC, H_SAC, w3.shape[1]))
+    *_, trained = op.collect_step_bf16_probe(
+        *args[:2], state.env_states.T.contiguous(), *args[3:6],
+        *op.actor_kernel_args(layout.layers(state.actor)))
+    require(trained["h1_missed"] == trained["h2_missed"] == 0,
+            f"K7 bf16 {name} probe on the trained actor: misses {trained}")
+    say(f"K7 bf16 {name} probe on the actor after {BF16_SAC_WARMUP + iters} bf16 iterations "
+        f"({timed_mode}): recomputed in the twin's order L1 {trained['h1_recomputed']}, L2 "
+        f"{trained['h2_recomputed']}; misses {trained['h1_missed']}, {trained['h2_missed']}; "
+        f"largest |sum - twin's| / tie {trained['h1_worst']:.4g}, {trained['h2_worst']:.4g}; "
+        f"on {gpu}")
     require(all(math.isfinite(v) for v in met.values()) and state.actor.dtype == torch.float32
             and bool(torch.isfinite(state.actor).all()), f"{name} bf16 off-policy metrics {met}")
     say(f"{name} bf16 {module.__name__.split('.')[-1]} training path, B={B_OFF} batch {BATCH_SAC} "
@@ -4053,7 +4170,7 @@ def bf16_offpolicy_phase(torch, dev, gpu: str, env, timed_mode: str) -> dict:
     del state
     torch.cuda.empty_cache()
     return {"name": f"offpolicy_collect (bf16, {name})", "route": "cuda",
-            "source": "reinmav_tpu_torch/csrc/offpolicy_collect.cu",
+            "source": "reinmav_tpu_torch/csrc/offpolicy_collect_bf16.cuh",
             "replaces": "reinmav_tpu/ops/pallas_offpolicy.py:155", "launches": launches["K7"],
             "max_abs_err": max(errs), "mismatched_envs": max(mismatches),
             "action_bits_apart": apart,
@@ -4061,6 +4178,7 @@ def bf16_offpolicy_phase(torch, dev, gpu: str, env, timed_mode: str) -> dict:
                          "envs may differ, in five mode legs; bitwise repeatable",
             "ms": ms, "plain_ms": statistics.median(plain), "bound_ms": k7_b, "bound_by": k7_by,
             "library_ms": None, "f32_ms": ms32, "registers": regs, "f32_registers": regs32,
+            "sass": mma16, "f32_sass": mma32, "probe": probe, "trained_probe": trained,
             "at": f"states ({d}, {B_OFF}), actor {d}-{H_SAC}-{H_SAC}-{w3.shape[1]}, mode "
                   f"{timed_mode}; launches on the bf16 {module.__name__.split('.')[-1]} path"}
 

@@ -73,6 +73,14 @@ _SIGNATURES = {
                            ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, _P,
                            ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # K2/K6's bf16 probe: (env kind, states_in, returns_in, net, consts,
+    #  batch, horizon, seed, env_base, host params, number of params, obs,
+    #  action, log_prob, value, reward, done, final_states, returns_out,
+    #  partials, stats, probe (6 u32), stream)
+    "ppo_rollout_bf16_probe_launch": (ctypes.c_int, _P, _P, _P, _P, ctypes.c_longlong,
+                                      ctypes.c_int, ctypes.c_uint, ctypes.c_uint, _P,
+                                      ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _P),
     # K3: (obs dim, action dim, data, n, perm, m, tile, adv_stats, net,
     #  clip_eps, value_clip_eps, value_coef, kl_mode, bf16, blocks, partials,
     #  out, stream)
@@ -107,6 +115,13 @@ _SIGNATURES = {
     "offpolicy_collect_launch": (ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P,
                                  ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
                                  _P, _P, _P, ctypes.c_uint, _P, _P, _P, _P),
+    # K7's bf16 probe: (env kind, mode, host params, number of params,
+    #  states_in, batch, hidden1, hidden2, w1, b1, w2, b2, w3, b3, consts,
+    #  seed, states_out, block, probe (6 u32), stream)
+    "offpolicy_collect_bf16_probe_launch": (ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P,
+                                            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P,
+                                            _P, _P, _P, _P, _P, _P, ctypes.c_uint, _P, _P, _P,
+                                            _P),
     # K7's main-path kernel: (env kind, mode, hidden1, hidden2, resident CTAs
     #  an SM out (int), dynamic shared memory out (long long))
     "offpolicy_collect_occupancy": (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,

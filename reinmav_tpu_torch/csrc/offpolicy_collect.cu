@@ -77,21 +77,18 @@
 // Widths: H1 and H2 each from 1 to 256 (runtime arguments).
 //
 // compute_dtype "bfloat16" (the TPU kernel's _mm with cd bf16,
-// pallas_offpolicy.py:97-101, :186) launches the kBf instance of the same
-// body: the operands of the three products rounded to bf16 (bf16_round.cuh)
-// and summed in float32 by the FMA chains above, which round as the twin's
-// float32 additions of the same exact products (ops/offpolicy.py::
-// _actor_bf16).  W1 and W3 are rounded once a CTA, when staged (the biases
-// are not); W2 arrives rounded (the wrapper rounds it, once a launch: the
-// ring copies it as it is); the states as phase 2 loads them (the env warps
-// read the same buffer in float32); h1 and h2 as they are stored (they
-// feed products only).  The counting kernel has no bf16 instance.
+// pallas_offpolicy.py:97-101, :186) launches offpolicy_collect_bf16_kernel,
+// a body of its own with the products on the tensor cores and W2 whole in
+// shared memory (offpolicy_collect_bf16.cuh, built in
+// offpolicy_collect_bf16.cu).  Its env warps keep a copy of phase 4
+// below (env_step): with phase 4 in a header both kernels include, nvcc
+// allocated and ordered every float32 instance otherwise (PERF.md §6).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bf16_round.cuh"
 #include "env_kinds.cuh"
+#include "offpolicy_collect_bf16.cuh"
 
 namespace {
 
@@ -272,8 +269,7 @@ __device__ __forceinline__ void env_step(const float* __restrict__ x,
 // Phases 1-3 of one tile for the MLP warps (tid < kMlp): its states into
 // `x` (zero past the batch), h1, h2 through the W2 ring and the fold into
 // the head outputs `outs`.  Local iteration n of the CTA, buffer `buf`.
-// kBf: the bf16 instance (W1, W3 staged rounded, W2 rounded by the caller).
-template <class Env, int kMode, bool kBf>
+template <class Env, int kMode>
 __device__ __forceinline__ void mlp_tile(const float* __restrict__ s_in, int64_t batch,
                                          int64_t e0, int n, int buf, const Widths& wd,
                                          const Actor& w, float* __restrict__ x,
@@ -284,7 +280,6 @@ __device__ __forceinline__ void mlp_tile(const float* __restrict__ s_in, int64_t
                                          const float* __restrict__ b2s,
                                          const float* __restrict__ b3s, float* __restrict__ sums,
                                          float* __restrict__ outs, int tid) {
-  using reinmav::bf16r;
   constexpr int kD = Env::kD, kA = Env::kA;
   constexpr bool kIsSac = kMode == kSac || kMode == kSacDet;
   constexpr int kOut = kIsSac ? 2 * kA : kA;
@@ -325,9 +320,8 @@ __device__ __forceinline__ void mlp_tile(const float* __restrict__ s_in, int64_t
       for (int d = 0; d < kD; ++d) {
         const float4 wa = *reinterpret_cast<const float4*>(&w1s[d * wd.h1p + u0]);
         const float4 wb = *reinterpret_cast<const float4*>(&w1s[d * wd.h1p + u0 + 4]);
-        const float4 xa = bf16r<kBf>(*reinterpret_cast<const float4*>(&x[d * kTile + 4 * eg]));
-        const float4 xb =
-            bf16r<kBf>(*reinterpret_cast<const float4*>(&x[d * kTile + 64 + 4 * eg]));
+        const float4 xa = *reinterpret_cast<const float4*>(&x[d * kTile + 4 * eg]);
+        const float4 xb = *reinterpret_cast<const float4*>(&x[d * kTile + 64 + 4 * eg]);
         const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
         const float xv[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
 #pragma unroll
@@ -339,14 +333,14 @@ __device__ __forceinline__ void mlp_tile(const float* __restrict__ s_in, int64_t
       for (int i = 0; i < 8; ++i) {
         const float b = b1s[u0 + i];
         float4 lo, hi;
-        lo.x = bf16r<kBf>(fmaxf(acc[i][0] + b, 0.0f));
-        lo.y = bf16r<kBf>(fmaxf(acc[i][1] + b, 0.0f));
-        lo.z = bf16r<kBf>(fmaxf(acc[i][2] + b, 0.0f));
-        lo.w = bf16r<kBf>(fmaxf(acc[i][3] + b, 0.0f));
-        hi.x = bf16r<kBf>(fmaxf(acc[i][4] + b, 0.0f));
-        hi.y = bf16r<kBf>(fmaxf(acc[i][5] + b, 0.0f));
-        hi.z = bf16r<kBf>(fmaxf(acc[i][6] + b, 0.0f));
-        hi.w = bf16r<kBf>(fmaxf(acc[i][7] + b, 0.0f));
+        lo.x = fmaxf(acc[i][0] + b, 0.0f);
+        lo.y = fmaxf(acc[i][1] + b, 0.0f);
+        lo.z = fmaxf(acc[i][2] + b, 0.0f);
+        lo.w = fmaxf(acc[i][3] + b, 0.0f);
+        hi.x = fmaxf(acc[i][4] + b, 0.0f);
+        hi.y = fmaxf(acc[i][5] + b, 0.0f);
+        hi.z = fmaxf(acc[i][6] + b, 0.0f);
+        hi.w = fmaxf(acc[i][7] + b, 0.0f);
         *reinterpret_cast<float4*>(&h1[(u0 + i) * kTile + 4 * eg]) = lo;
         *reinterpret_cast<float4*>(&h1[(u0 + i) * kTile + 64 + 4 * eg]) = hi;
       }
@@ -408,7 +402,7 @@ __device__ __forceinline__ void mlp_tile(const float* __restrict__ s_in, int64_t
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[i][e] = bf16r<kBf>(fmaxf(acc[i][e] + b[i], 0.0f));
+        for (int e = 0; e < 8; ++e) acc[i][e] = fmaxf(acc[i][e] + b[i], 0.0f);
     }
 #pragma unroll
     for (int o = 0; o < kOut; ++o) {
@@ -452,9 +446,8 @@ __device__ __forceinline__ void mlp_tile(const float* __restrict__ s_in, int64_t
 // counts[env] (the counting kernel, slung-load kinds only).  A persistent
 // CTA walks the tiles blockIdx.x, + gridDim.x, ...: its 8 MLP warps run
 // phases 1-3 of tile n while its 4 env warps run phase 4 of tile n - 1, the
-// states and head outputs double-buffered between them.  kBf: the bf16
-// instance (mlp_tile).
-template <class Env, int kMode, bool kCount, bool kBf>
+// states and head outputs double-buffered between them.
+template <class Env, int kMode, bool kCount>
 __device__ __forceinline__ void collect_body(const float* __restrict__ s_in, int64_t batch,
                                              const Widths wd, const Actor& w,
                                              const float* __restrict__ consts, uint32_t seed,
@@ -462,7 +455,6 @@ __device__ __forceinline__ void collect_body(const float* __restrict__ s_in, int
                                              float* __restrict__ s_out,
                                              float* __restrict__ block,
                                              int* __restrict__ counts) {
-  using reinmav::bf16r;
   constexpr int kD = Env::kD, kA = Env::kA;
   constexpr bool kIsSac = kMode == kSac || kMode == kSacDet;
   constexpr int kOut = kIsSac ? 2 * kA : kA;
@@ -487,12 +479,12 @@ __device__ __forceinline__ void collect_body(const float* __restrict__ s_in, int
   // The small weights, once a CTA, zero past the widths.
   for (int i = tid; i < kD * wd.h1p; i += kThreads) {
     const int d = i / wd.h1p, j = i % wd.h1p;
-    w1s[i] = j < wd.h1 ? bf16r<kBf>(w.w1[d * wd.h1 + j]) : 0.0f;
+    w1s[i] = j < wd.h1 ? w.w1[d * wd.h1 + j] : 0.0f;
   }
   // W3 as (OUT, h2p) and b2, each pass's units in pass_pos order.
   for (int i = tid; i < wd.h2p * kOut; i += kThreads) {
     const int u = i / kOut, o = i % kOut;
-    w3s[o * wd.h2p + u - u % kPass + pass_pos(u % kPass)] = u < wd.h2 ? bf16r<kBf>(w.w3[i]) : 0.0f;
+    w3s[o * wd.h2p + u - u % kPass + pass_pos(u % kPass)] = u < wd.h2 ? w.w3[i] : 0.0f;
   }
   for (int i = tid; i < wd.h1p; i += kThreads) b1s[i] = i < wd.h1 ? w.b1[i] : 0.0f;
   for (int i = tid; i < wd.h2p; i += kThreads) {
@@ -505,7 +497,7 @@ __device__ __forceinline__ void collect_body(const float* __restrict__ s_in, int
     for (int n = 0; n < count; ++n) {
       const int buf = n & 1;
       const int64_t e0 = (blockIdx.x + static_cast<int64_t>(n) * gridDim.x) * kTile;
-      mlp_tile<Env, kMode, kBf>(s_in, batch, e0, n, buf, wd, w, xs + buf * kD * kTile, h1, ring, w1s,
+      mlp_tile<Env, kMode>(s_in, batch, e0, n, buf, wd, w, xs + buf * kD * kTile, h1, ring, w1s,
                            w3s, b1s, b2s, b3s, sums, outs + buf * kOut * kTile, tid);
       bar_arrive(kBarReady + buf, kThreads);  // x and outs of tile n are ready
     }
@@ -524,14 +516,13 @@ __device__ __forceinline__ void collect_body(const float* __restrict__ s_in, int
   }
 }
 
-template <class Env, int kMode, bool kBf>
+template <class Env, int kMode>
 __global__ void __launch_bounds__(kThreads, 1)
 offpolicy_collect_kernel(const float* __restrict__ s_in, int64_t batch, Widths wd, Actor w,
                          const float* __restrict__ consts, uint32_t seed,
                          typename Env::Params p, float* __restrict__ s_out,
                          float* __restrict__ block) {
-  collect_body<Env, kMode, false, kBf>(s_in, batch, wd, w, consts, seed, p, s_out, block,
-                                       nullptr);
+  collect_body<Env, kMode, false>(s_in, batch, wd, w, consts, seed, p, s_out, block, nullptr);
 }
 
 // The counting kernel (not on any training path): K7 with counts[env] += the
@@ -542,16 +533,14 @@ offpolicy_collect_count_kernel(const float* __restrict__ s_in, int64_t batch, Wi
                                Actor w, const float* __restrict__ consts, uint32_t seed,
                                typename Env::Params p, float* __restrict__ s_out,
                                float* __restrict__ block, int* __restrict__ counts) {
-  collect_body<Env, kMode, true, false>(s_in, batch, wd, w, consts, seed, p, s_out, block,
-                                       counts);
+  collect_body<Env, kMode, true>(s_in, batch, wd, w, consts, seed, p, s_out, block, counts);
 }
 
-// What a launch of kind Env, mode kMode and widths wd does: allows its
-// shared memory and, with a stream, launches (counts: the counting kernel,
-// the slung-load kinds only, float32 only); else, with `ctas`, stores its
-// resident CTAs an SM and `smem` its dynamic shared memory.  kBf: the bf16
-// instance.
-template <class Env, int kMode, bool kBf>
+// What a float32 launch of kind Env, mode kMode and widths wd does: allows
+// its shared memory and, with a stream, launches (counts: the counting
+// kernel, the slung-load kinds only); else, with `ctas`, stores its
+// resident CTAs an SM and `smem` its dynamic shared memory.
+template <class Env, int kMode>
 cudaError_t launch_mode(const float* s_in, int64_t batch, const Widths& wd, const Actor& w,
                         const float* consts, uint32_t seed, const float* params_host,
                         float* s_out, float* block, int* counts, cudaStream_t st, int* ctas,
@@ -566,7 +555,7 @@ cudaError_t launch_mode(const float* s_in, int64_t batch, const Widths& wd, cons
   const int64_t tiles = (batch + kTile - 1) / kTile;
   const auto blocks = static_cast<unsigned int>(tiles < sms ? tiles : sms);
   if (counts != nullptr) {
-    if constexpr (Env::kTether && !kBf) {
+    if constexpr (Env::kTether) {
       auto kernel = offpolicy_collect_count_kernel<Env, kMode>;
       cudaError_t err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
@@ -578,7 +567,7 @@ cudaError_t launch_mode(const float* s_in, int64_t batch, const Widths& wd, cons
       return cudaErrorInvalidValue;
     }
   }
-  auto kernel = offpolicy_collect_kernel<Env, kMode, kBf>;
+  auto kernel = offpolicy_collect_kernel<Env, kMode>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
@@ -591,24 +580,24 @@ cudaError_t launch_mode(const float* s_in, int64_t batch, const Widths& wd, cons
   return cudaGetLastError();
 }
 
-template <class Env, bool kBf>
+template <class Env>
 cudaError_t launch_env(int mode, const float* s_in, int64_t batch, const Widths& wd,
                        const Actor& w, const float* consts, uint32_t seed,
                        const float* params_host, float* s_out, float* block, int* counts,
                        cudaStream_t st, int* ctas, long long* smem) {
   switch (mode) {
     case kSac:
-      return launch_mode<Env, kSac, kBf>(s_in, batch, wd, w, consts, seed, params_host, s_out,
-                                         block, counts, st, ctas, smem);
+      return launch_mode<Env, kSac>(s_in, batch, wd, w, consts, seed, params_host, s_out, block,
+                                    counts, st, ctas, smem);
     case kSacDet:
-      return launch_mode<Env, kSacDet, kBf>(s_in, batch, wd, w, consts, seed, params_host, s_out,
-                                            block, counts, st, ctas, smem);
+      return launch_mode<Env, kSacDet>(s_in, batch, wd, w, consts, seed, params_host, s_out,
+                                       block, counts, st, ctas, smem);
     case kTd3:
-      return launch_mode<Env, kTd3, kBf>(s_in, batch, wd, w, consts, seed, params_host, s_out,
-                                         block, counts, st, ctas, smem);
+      return launch_mode<Env, kTd3>(s_in, batch, wd, w, consts, seed, params_host, s_out, block,
+                                    counts, st, ctas, smem);
     case kTd3Det:
-      return launch_mode<Env, kTd3Det, kBf>(s_in, batch, wd, w, consts, seed, params_host, s_out,
-                                            block, counts, st, ctas, smem);
+      return launch_mode<Env, kTd3Det>(s_in, batch, wd, w, consts, seed, params_host, s_out,
+                                       block, counts, st, ctas, smem);
     default:
       return cudaErrorInvalidValue;
   }
@@ -616,6 +605,41 @@ cudaError_t launch_env(int mode, const float* s_in, int64_t batch, const Widths&
 
 bool widths_ok(int hidden1, int hidden2) {
   return hidden1 >= 1 && hidden1 <= kMaxHidden && hidden2 >= 1 && hidden2 <= kMaxHidden;
+}
+
+// Both launch entry points below.
+int launch(int env_kind, int mode, int bf16, const void* params_host, int n_params,
+           const void* states_in, long long batch, int hidden1, int hidden2, const void* w1,
+           const void* b1, const void* w2, const void* b2, const void* w3, const void* b3,
+           const void* consts, unsigned int seed, void* states_out, void* block, void* counts,
+           void* probe, void* stream) {
+  if (batch <= 0 || !widths_ok(hidden1, hidden2)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* s_in = static_cast<const float*>(states_in);
+  const auto* c = static_cast<const float*>(consts);
+  const auto* h = static_cast<const float*>(params_host);
+  auto* s_out = static_cast<float*>(states_out);
+  auto* blk = static_cast<float*>(block);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = reinmav::with_env_kind(env_kind, [&](auto env) {
+    using Env = decltype(env);
+    if (n_params != Env::kParams) return cudaErrorInvalidValue;
+    if (bf16) {
+      if (counts != nullptr) return cudaErrorInvalidValue;
+      const reinmav::offpolicy_bf16::Actor w{
+          static_cast<const float*>(w1), static_cast<const float*>(b1),
+          static_cast<const float*>(w2), static_cast<const float*>(b2),
+          static_cast<const float*>(w3), static_cast<const float*>(b3)};
+      return reinmav::offpolicy_bf16::launch(Env::kKind, mode, h, s_in, batch, hidden1, hidden2,
+                                             w, c, seed, s_out, blk,
+                                             static_cast<unsigned*>(probe), st);
+    }
+    const Actor w{static_cast<const float*>(w1), static_cast<const float*>(b1),
+                  static_cast<const float*>(w2), static_cast<const float*>(b2),
+                  static_cast<const float*>(w3), static_cast<const float*>(b3)};
+    return launch_env<Env>(mode, s_in, batch, widths(hidden1, hidden2), w, c, seed, h, s_out,
+                           blk, static_cast<int*>(counts), st, nullptr, nullptr);
+  });
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -633,8 +657,7 @@ bool widths_ok(int hidden1, int hidden2) {
 // block (2D + A + 2, B), float32.  counts: null (every training path), or B
 // int32 to which each env's taut tether at the start of the step (0 or 1)
 // is added (the slung-load kinds; refused for another kind).  bf16 nonzero:
-// the bf16 instance, with w2 already rounded to bf16 by the caller (no
-// counts).
+// the bf16 instance, which rounds the weights itself (no counts).
 extern "C" int offpolicy_collect_launch(int env_kind, int mode, int bf16, const void* params_host,
                                         int n_params, const void* states_in, long long batch,
                                         int hidden1, int hidden2, const void* w1,
@@ -642,27 +665,29 @@ extern "C" int offpolicy_collect_launch(int env_kind, int mode, int bf16, const 
                                         const void* w3, const void* b3, const void* consts,
                                         unsigned int seed, void* states_out, void* block,
                                         void* counts, void* stream) {
-  if (batch <= 0 || !widths_ok(hidden1, hidden2)) return static_cast<int>(cudaErrorInvalidValue);
-  const Actor w{static_cast<const float*>(w1), static_cast<const float*>(b1),
-                static_cast<const float*>(w2), static_cast<const float*>(b2),
-                static_cast<const float*>(w3), static_cast<const float*>(b3)};
-  const Widths wd = widths(hidden1, hidden2);
-  const auto* s_in = static_cast<const float*>(states_in);
-  const auto* c = static_cast<const float*>(consts);
-  const auto* h = static_cast<const float*>(params_host);
-  auto* s_out = static_cast<float*>(states_out);
-  auto* blk = static_cast<float*>(block);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = reinmav::with_env_kind(env_kind, [&](auto env) {
-    using Env = decltype(env);
-    if (n_params != Env::kParams) return cudaErrorInvalidValue;
-    auto* n = static_cast<int*>(counts);
-    return bf16 ? launch_env<Env, true>(mode, s_in, batch, wd, w, c, seed, h, s_out, blk, n, st,
-                                        nullptr, nullptr)
-                : launch_env<Env, false>(mode, s_in, batch, wd, w, c, seed, h, s_out, blk, n, st,
-                                         nullptr, nullptr);
-  });
-  return static_cast<int>(err);
+  return launch(env_kind, mode, bf16, params_host, n_params, states_in, batch, hidden1, hidden2,
+                w1, b1, w2, b2, w3, b3, consts, seed, states_out, block, counts, nullptr, stream);
+}
+
+// The bf16 instance's probe (offpolicy_collect_bf16.cuh; no training path
+// launches it): offpolicy_collect_launch's arguments in mode 0 (sac) or 2
+// (td3), bf16, no counts, and `probe`, 6 uint32 on the device, zeroed by
+// the caller, to which the launch adds the units of L1 and L2 recomputed
+// in the twin's order and their misses, and takes the largest |sum -
+// twin's| / tie(twin's) of each layer (float bits).  Its outputs are the
+// bf16 instance's.
+extern "C" int offpolicy_collect_bf16_probe_launch(int env_kind, int mode,
+                                                   const void* params_host, int n_params,
+                                                   const void* states_in, long long batch,
+                                                   int hidden1, int hidden2, const void* w1,
+                                                   const void* b1, const void* w2, const void* b2,
+                                                   const void* w3, const void* b3,
+                                                   const void* consts, unsigned int seed,
+                                                   void* states_out, void* block, void* probe,
+                                                   void* stream) {
+  if (probe == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(env_kind, mode, 1, params_host, n_params, states_in, batch, hidden1, hidden2, w1,
+                b1, w2, b2, w3, b3, consts, seed, states_out, block, nullptr, probe, stream);
 }
 
 // The main path's kernel for this kind, mode and widths: its resident CTAs
@@ -674,9 +699,8 @@ extern "C" int offpolicy_collect_occupancy(int env_kind, int mode, int hidden1, 
   if (!widths_ok(hidden1, hidden2)) return static_cast<int>(cudaErrorInvalidValue);
   const Widths wd = widths(hidden1, hidden2);
   const cudaError_t err = reinmav::with_env_kind(env_kind, [&](auto env) {
-    return launch_env<decltype(env), false>(mode, nullptr, 1, wd, Actor{}, nullptr, 0u, nullptr,
-                                            nullptr, nullptr, nullptr, nullptr, ctas,
-                                            smem_bytes);
+    return launch_env<decltype(env)>(mode, nullptr, 1, wd, Actor{}, nullptr, 0u, nullptr, nullptr,
+                                     nullptr, nullptr, nullptr, ctas, smem_bytes);
   });
   return static_cast<int>(err);
 }

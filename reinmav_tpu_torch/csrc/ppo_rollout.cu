@@ -59,27 +59,23 @@
 // training paths never launch, counts each slung-load env's taut env-steps
 // (the tether taut at the start of the step).
 //
-// A fifth, kBf, is compute_dtype "bfloat16" (the TPU kernel's _mm with cd
-// bf16, pallas_ppo_rollout.py:102-105, :622-624): the operands of every
-// product rounded to bf16 (bf16_round.cuh) and this float32 body run on
-// them, where a product of two bf16 values is exact, so that each sum
-// rounds as the twin's float32 additions in the same order (ops/
-// ppo_rollout.py::_towers_bf16).  The weights are rounded once, when
-// staged (the biases are not); the normalised obs after it is stored to
-// the trajectory (float32), and each hidden activation as it is computed
-// (it feeds products only).  The bf16 instances count nothing.
+// compute_dtype "bfloat16" launches ppo_rollout_bf16_kernel, a body of its
+// own with the products on the tensor cores (ppo_rollout_body_bf16.cuh,
+// built in ppo_rollout_bf16.cu).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "actor_critic.cuh"
-#include "bf16_round.cuh"
 #include "env_kinds.cuh"
+#include "ppo_rollout_body_bf16.cuh"
 
 namespace {
 
 namespace ac = reinmav::ac;
 constexpr int kThreads = 128;
+static_assert(reinmav::ppo_rollout_bf16::kCtaEnvs == kThreads,
+              "the bf16 CTA takes the float32 CTA's envs: one row of partials a CTA");
 constexpr int kH = ac::H;
 // Hidden units of the second layer computed a pass: 4 on every kind but
 // quadrotor2d-slungload-v0, whose main-path instance ran slower with 4 than
@@ -102,7 +98,7 @@ struct RolloutOut {
   int* counts;          // (B,) taut env-steps, the counting instances only
 };
 
-template <class Env, bool kNormObs, bool kNormRew, bool kCount, bool kBf>
+template <class Env, bool kNormObs, bool kNormRew, bool kCount>
 __global__ void __launch_bounds__(kThreads)
 ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret_in,
                    const float* __restrict__ net, const float* __restrict__ consts,
@@ -112,7 +108,6 @@ ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret
   constexpr int kStats = 2 * kD + 3;  // obs sum (D), obs sq (D), ret sum, ret sq, raw reward sum
   constexpr int kConsts = 2 * kD + kA + 3;
   using L = ac::Layout<kD, kA>;
-  using reinmav::bf16r;
   __shared__ __align__(16) float w1t[2][kH][kD];  // (tower, out, in)
   __shared__ __align__(16) float b1[2][kH];
   __shared__ __align__(16) float w2t[2][kH][kH];  // (tower, out, in)
@@ -126,13 +121,13 @@ ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret
   for (int idx = threadIdx.x; idx < kH * kD; idx += kThreads) {
     const int j = idx / kD, d = idx % kD;
     for (int tw = 0; tw < 2; ++tw) {
-      w1t[tw][j][d] = bf16r<kBf>(net[L::tower_base(tw) + L::kW1 + d * kH + j]);
+      w1t[tw][j][d] = net[L::tower_base(tw) + L::kW1 + d * kH + j];
     }
   }
   for (int idx = threadIdx.x; idx < kH * kH; idx += kThreads) {
     const int j = idx / kH, k = idx % kH;
     for (int tw = 0; tw < 2; ++tw) {
-      w2t[tw][j][k] = bf16r<kBf>(net[L::tower_base(tw) + L::kW2 + k * kH + j]);
+      w2t[tw][j][k] = net[L::tower_base(tw) + L::kW2 + k * kH + j];
     }
   }
   for (int j = threadIdx.x; j < kH; j += kThreads) {
@@ -140,8 +135,8 @@ ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret
       b1[tw][j] = net[L::tower_base(tw) + L::kB1 + j];
       b2[tw][j] = net[L::tower_base(tw) + L::kB2 + j];
     }
-    for (int a = 0; a < kA; ++a) wpi[j][a] = bf16r<kBf>(net[L::kPiOutW + j * kA + a]);
-    wvf[j] = bf16r<kBf>(net[L::kVfOutW + j]);
+    for (int a = 0; a < kA; ++a) wpi[j][a] = net[L::kPiOutW + j * kA + a];
+    wvf[j] = net[L::kVfOutW + j];
   }
   if (threadIdx.x < kA) bo[threadIdx.x] = net[L::kPiOutB + threadIdx.x];
   if (threadIdx.x == kA) bo[kA] = net[L::kVfOutB];
@@ -184,7 +179,6 @@ ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret
           x[d] = s[d];
         }
         o.obs[(row * kD) + d * batch + i] = x[d];
-        x[d] = bf16r<kBf>(x[d]);  // from here on an operand of the first layer only
       }
 
       // The actor-critic, one tower at a time (networks.apply_t).
@@ -200,7 +194,7 @@ ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret
           float z = b1[tw][k];
 #pragma unroll
           for (int d = 0; d < kD; ++d) z += w1t[tw][k][d] * x[d];
-          h1[k] = bf16r<kBf>(tanhf(z));
+          h1[k] = tanhf(z);
         }
         // kUnits hidden units a pass, each its own chain in its own order.
 #pragma unroll 1
@@ -219,7 +213,7 @@ ppo_rollout_kernel(const float* __restrict__ s_in, const float* __restrict__ ret
           }
 #pragma unroll
           for (int u = 0; u < kUnits; ++u) {
-            const float h2 = bf16r<kBf>(tanhf(z[u]));
+            const float h2 = tanhf(z[u]);
             if (tw == 0) {
 #pragma unroll
               for (int a = 0; a < kA; ++a) mean[a] += h2 * wpi[j0 + u][a];
@@ -303,23 +297,23 @@ __global__ void ppo_rollout_stats_kernel(const float* __restrict__ partials, int
   }
 }
 
-// The instances without counts, for both normalisers' switches.
-template <class Env, bool kBf>
+// The float32 instances without counts, for both normalisers' switches.
+template <class Env>
 void launch_norm(bool norm_obs, bool norm_rew, const float* s_in, const float* ret_in,
                  const float* net, const float* consts, int64_t batch, int horizon,
                  uint32_t seed, uint32_t env_base, const typename Env::Params& p,
                  const RolloutOut& o, unsigned int blocks, cudaStream_t st) {
   if (norm_obs && norm_rew) {
-    ppo_rollout_kernel<Env, true, true, false, kBf><<<blocks, kThreads, 0, st>>>(
+    ppo_rollout_kernel<Env, true, true, false><<<blocks, kThreads, 0, st>>>(
         s_in, ret_in, net, consts, batch, horizon, seed, env_base, p, o);
   } else if (norm_obs) {
-    ppo_rollout_kernel<Env, true, false, false, kBf><<<blocks, kThreads, 0, st>>>(
+    ppo_rollout_kernel<Env, true, false, false><<<blocks, kThreads, 0, st>>>(
         s_in, ret_in, net, consts, batch, horizon, seed, env_base, p, o);
   } else if (norm_rew) {
-    ppo_rollout_kernel<Env, false, true, false, kBf><<<blocks, kThreads, 0, st>>>(
+    ppo_rollout_kernel<Env, false, true, false><<<blocks, kThreads, 0, st>>>(
         s_in, ret_in, net, consts, batch, horizon, seed, env_base, p, o);
   } else {
-    ppo_rollout_kernel<Env, false, false, false, kBf><<<blocks, kThreads, 0, st>>>(
+    ppo_rollout_kernel<Env, false, false, false><<<blocks, kThreads, 0, st>>>(
         s_in, ret_in, net, consts, batch, horizon, seed, env_base, p, o);
   }
 }
@@ -329,24 +323,29 @@ cudaError_t launch_env(const float* s_in, const float* ret_in, const float* net,
                        const float* consts, int64_t batch, int horizon, uint32_t seed,
                        uint32_t env_base, bool norm_obs, bool norm_rew, bool bf16,
                        const float* params_host, int n_params, const RolloutOut& o,
-                       unsigned int blocks, cudaStream_t st) {
+                       unsigned* probe, unsigned int blocks, cudaStream_t st) {
   if (n_params != Env::kParams) return cudaErrorInvalidValue;
   const typename Env::Params p = Env::params(params_host);
   if (o.counts != nullptr) {
     // The counting instance: slung-load kinds, both normalisers on, float32.
     if constexpr (Env::kTether) {
       if (!(norm_obs && norm_rew) || bf16) return cudaErrorInvalidValue;
-      ppo_rollout_kernel<Env, true, true, true, false><<<blocks, kThreads, 0, st>>>(
+      ppo_rollout_kernel<Env, true, true, true><<<blocks, kThreads, 0, st>>>(
           s_in, ret_in, net, consts, batch, horizon, seed, env_base, p, o);
     } else {
       return cudaErrorInvalidValue;
     }
   } else if (bf16) {
-    launch_norm<Env, true>(norm_obs, norm_rew, s_in, ret_in, net, consts, batch, horizon, seed,
-                           env_base, p, o, blocks, st);
+    const reinmav::ppo_rollout_bf16::Out ob{o.obs,    o.action, o.log_prob,     o.value,
+                                            o.reward, o.done,   o.final_states, o.returns,
+                                            o.partials};
+    const cudaError_t err = reinmav::ppo_rollout_bf16::launch(
+        Env::kKind, norm_obs, norm_rew, s_in, ret_in, net, consts, batch, horizon, seed, env_base,
+        params_host, ob, probe, st);
+    if (err != cudaSuccess) return err;
   } else {
-    launch_norm<Env, false>(norm_obs, norm_rew, s_in, ret_in, net, consts, batch, horizon, seed,
-                            env_base, p, o, blocks, st);
+    launch_norm<Env>(norm_obs, norm_rew, s_in, ret_in, net, consts, batch, horizon, seed,
+                     env_base, p, o, blocks, st);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -354,6 +353,34 @@ cudaError_t launch_env(const float* s_in, const float* ret_in, const float* net,
   ppo_rollout_stats_kernel<<<1, 32, 0, st>>>(o.partials, static_cast<int>(blocks), kStats,
                                              o.stats_out);
   return cudaGetLastError();
+}
+
+// Both entry points below.
+int launch(int env_kind, const void* states_in, const void* returns_in, const void* net,
+           const void* consts, long long batch, int horizon, unsigned int seed,
+           unsigned int env_base, int normalize_obs, int normalize_rewards, int bf16,
+           const void* params_host, int n_params, void* obs, void* action, void* log_prob,
+           void* value, void* reward, void* done, void* final_states, void* returns_out,
+           void* partials, void* stats, void* counts, void* probe, void* stream) {
+  const RolloutOut o{static_cast<float*>(obs),          static_cast<float*>(action),
+                     static_cast<float*>(log_prob),     static_cast<float*>(value),
+                     static_cast<float*>(reward),       static_cast<bool*>(done),
+                     static_cast<float*>(final_states), static_cast<float*>(returns_out),
+                     static_cast<float*>(partials),     static_cast<float*>(stats),
+                     static_cast<int*>(counts)};
+  const auto blocks = static_cast<unsigned int>((batch + kThreads - 1) / kThreads);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* s_in = static_cast<const float*>(states_in);
+  const auto* r_in = static_cast<const float*>(returns_in);
+  const auto* w = static_cast<const float*>(net);
+  const auto* c = static_cast<const float*>(consts);
+  const auto* h = static_cast<const float*>(params_host);
+  const cudaError_t err = reinmav::with_env_kind(env_kind, [&](auto env) {
+    return launch_env<decltype(env)>(s_in, r_in, w, c, batch, horizon, seed, env_base,
+                                     normalize_obs, normalize_rewards, bf16 != 0, h, n_params, o,
+                                     static_cast<unsigned*>(probe), blocks, st);
+  });
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -380,23 +407,29 @@ extern "C" int ppo_rollout_launch(int env_kind, const void* states_in, const voi
                                   void* obs, void* action, void* log_prob, void* value,
                                   void* reward, void* done, void* final_states, void* returns_out,
                                   void* partials, void* stats, void* counts, void* stream) {
-  const RolloutOut o{static_cast<float*>(obs),          static_cast<float*>(action),
-                     static_cast<float*>(log_prob),     static_cast<float*>(value),
-                     static_cast<float*>(reward),       static_cast<bool*>(done),
-                     static_cast<float*>(final_states), static_cast<float*>(returns_out),
-                     static_cast<float*>(partials),     static_cast<float*>(stats),
-                     static_cast<int*>(counts)};
-  const auto blocks = static_cast<unsigned int>((batch + kThreads - 1) / kThreads);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto* s_in = static_cast<const float*>(states_in);
-  const auto* r_in = static_cast<const float*>(returns_in);
-  const auto* w = static_cast<const float*>(net);
-  const auto* c = static_cast<const float*>(consts);
-  const auto* h = static_cast<const float*>(params_host);
-  const cudaError_t err = reinmav::with_env_kind(env_kind, [&](auto env) {
-    return launch_env<decltype(env)>(s_in, r_in, w, c, batch, horizon, seed, env_base,
-                                     normalize_obs, normalize_rewards, bf16 != 0, h, n_params, o,
-                                     blocks, st);
-  });
-  return static_cast<int>(err);
+  return launch(env_kind, states_in, returns_in, net, consts, batch, horizon, seed, env_base,
+                normalize_obs, normalize_rewards, bf16, params_host, n_params, obs, action,
+                log_prob, value, reward, done, final_states, returns_out, partials, stats, counts,
+                nullptr, stream);
+}
+
+// The bf16 instance's probe (ppo_rollout_body_bf16.cuh; no training path
+// launches it): ppo_rollout_launch's arguments with both normalisers on,
+// bf16, no counts, and `probe`, 6 uint32 on the device, zeroed by the
+// caller, to which the launch adds the h1 and h2 recomputed in the twin's
+// order, the h1 and h2 misses, and takes the largest |h - twin's h| /
+// kTie of each layer (float bits).  Its outputs are the bf16 instance's.
+extern "C" int ppo_rollout_bf16_probe_launch(int env_kind, const void* states_in,
+                                             const void* returns_in, const void* net,
+                                             const void* consts, long long batch, int horizon,
+                                             unsigned int seed, unsigned int env_base,
+                                             const void* params_host, int n_params, void* obs,
+                                             void* action, void* log_prob, void* value,
+                                             void* reward, void* done, void* final_states,
+                                             void* returns_out, void* partials, void* stats,
+                                             void* probe, void* stream) {
+  if (probe == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(env_kind, states_in, returns_in, net, consts, batch, horizon, seed, env_base, 1,
+                1, 1, params_host, n_params, obs, action, log_prob, value, reward, done,
+                final_states, returns_out, partials, stats, nullptr, probe, stream);
 }

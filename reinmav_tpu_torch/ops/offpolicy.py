@@ -21,11 +21,16 @@ and 2), so the two agree on the card, and the CPU tests run the twin.
 
 ``compute_dtype="bfloat16"`` is the TPU kernel's bf16 mode: the operands
 of the actor's three products (the weights, the states, both ReLU
-layers) rounded to bf16 and the exact products summed in float32.  The
-twin then sums in the kernel's order (:func:`_actor_bf16`), so that the
-two agree bit for bit wherever their float32 operations do; the wrapper
-hands the kernel's bf16 instance W2 already rounded (it streams W2 from
-device memory), and the kernel rounds the rest.
+layers) rounded to bf16 and the exact products summed in float32.  On the
+card it runs a body of its own (``csrc/offpolicy_collect_bf16.cuh``): the
+hidden layers on the tensor cores, W2 whole in shared memory.  The twin
+sums each unit in a fixed order (:func:`_actor_bf16`), and the kernel
+recomputes in that order every unit near a bf16 rounding midpoint or
+near 0, so that the bf16 hidden layers, and the head summed in the
+twin's order, are the twin's wherever the tensor cores' sum lies within
+that margin of the twin's (a margin chosen by hand, not a bound: a sum
+whose products cancel can leave it).  :func:`collect_step_bf16_probe`
+counts the units recomputed and the misses.
 
 The wrapper takes the twin only for a tensor that lies on the CPU; on a
 CUDA tensor it launches the kernel of the dtype asked for or raises.
@@ -39,7 +44,7 @@ import torch
 
 from ..rl.networks import bf16_round, is_bf16
 from .closed_loop_rollout import TAUT_KINDS, check_counts, taut_twin
-from .ppo_rollout import ENVS, _env_twin, normal_draws
+from .ppo_rollout import ENVS, PROBE_KEYS, _env_twin, normal_draws, probe_counts
 from .rollout import mantissa_fill, philox_words
 
 #: Sampling modes, by their id in the C entry point.  The ``_det`` modes
@@ -136,15 +141,16 @@ _CHUNK = 32
 
 
 def _actor_bf16(x, w1, b1, w2, b2, w3, b3):
-    """The actor's head outputs ``(OUT, B)`` with bf16 products, summed in
-    the bf16 kernel's order: each first-layer unit from 0 over the state
-    dims in order, then its bias; each second-layer unit from 0 over the
-    first layer's units in order, then its bias; the head folded chunk by
-    chunk of 32 units (in a chunk, lane g of 4 sums its units 4 g + k and
-    16 + 4 g + k, k = 0..3, each run from 0; the lanes add as (0 + 2) + (1
-    + 3)), the chunks added in order from 0, then the head's bias.  Every
-    product of two bf16 values is exact in float32, so each sum rounds as
-    the kernel's FMA chain does."""
+    """The actor's head outputs ``(OUT, B)`` with bf16 products, each sum
+    in a fixed order: each first-layer unit from 0 over the state dims in
+    order, then its bias; each second-layer unit from 0 over the first
+    layer's units in order, then its bias; the head folded chunk by chunk
+    of 32 units (in a chunk, lane g of 4 sums its units 4 g + k and 16 + 4
+    g + k, k = 0..3, each run from 0; the lanes add as (0 + 2) + (1 + 3)),
+    the chunks added in order from 0, then the head's bias.  Every product
+    of two bf16 values is exact in float32, so each sum rounds as an FMA
+    chain in that order does: the kernel's head, and its hidden units near
+    a bf16 rounding midpoint or near 0."""
     r = bf16_round
     xr, w1r, w2r, w3r = r(x), r(w1), r(w2), r(w3)
     acc = torch.zeros((w1.shape[1], x.shape[1]), dtype=torch.float32, device=x.device)
@@ -260,24 +266,57 @@ def collect_step(env_kind: str, mode: str, states_t, seed: int, consts, params_v
     from .._build import check, load_library
 
     lib = load_library()
-    kind = ENVS[env_kind]
-    d, batch = kind.state_dim, states_t.shape[1]
-    new = torch.empty_like(states_t)
-    block = torch.empty((2 * d + kind.action_dim + 2, batch), dtype=torch.float32,
-                        device=states_t.device)
-    if bf16:  # the bf16 instance streams W2 as given: rounded here, once a launch
-        weights = (w1, b1, bf16_round(w2), b2, w3, b3)
-    host_params = (ctypes.c_float * params.shape[0])(*params.tolist())
+    new, block, host_params = _outputs(env_kind, states_t, params)
     with torch.cuda.device(states_t.device):
         rc = lib.offpolicy_collect_launch(
-            kind.kind_id, MODES[mode], int(bf16), ctypes.addressof(host_params), params.shape[0],
-            states_t.data_ptr(), batch, *hidden, *(t.data_ptr() for t in weights),
-            consts.data_ptr(),
-            int(seed), new.data_ptr(), block.data_ptr(),
-            None if counts is None else counts.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            ENVS[env_kind].kind_id, MODES[mode], int(bf16), ctypes.addressof(host_params),
+            params.shape[0], states_t.data_ptr(), states_t.shape[1], *hidden,
+            *(t.data_ptr() for t in weights), consts.data_ptr(), int(seed), new.data_ptr(),
+            block.data_ptr(), None if counts is None else counts.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     check(rc, "offpolicy_collect_launch")
     collect_step.launches += 1
     return new, block
+
+
+def _outputs(env_kind: str, states_t, params: torch.Tensor):
+    """A launch's new states and block, and its host params."""
+    kind = ENVS[env_kind]
+    block = torch.empty((2 * kind.state_dim + kind.action_dim + 2, states_t.shape[1]),
+                        dtype=torch.float32, device=states_t.device)
+    return (torch.empty_like(states_t), block,
+            (ctypes.c_float * params.shape[0])(*params.tolist()))
+
+
+def collect_step_bf16_probe(env_kind: str, mode: str, states_t, seed: int, consts, params_vec,
+                            w1, b1, w2, b2, w3, b3):
+    """K7's bf16 instance as its probe launches it (mode "sac" or "td3"; a
+    CUDA tensor only; no training path calls it): every hidden unit also
+    recomputed in the twin's order and compared.  Returns ``(new states,
+    block, counts)``: the bf16 instance's outputs and
+    ``ppo_rollout.probe_counts`` (``h1_worst``, ``h2_worst``: the largest
+    |pre-activation - the twin's| of each layer over the kernel's tie,
+    2^-19 + 2^-18 |v|)."""
+    weights = (w1, b1, w2, b2, w3, b3)
+    params = _check_args(env_kind, mode, states_t, seed, consts, params_vec, weights)
+    if states_t.device.type != "cuda" or mode not in ("sac", "td3"):
+        raise ValueError("the probe runs K7's bf16 kernel in mode sac or td3, on a CUDA tensor")
+    reason = width_refusal((w1.shape[1], w2.shape[1]))
+    if reason is not None:
+        raise ValueError(reason)
+    from .._build import check, load_library
+
+    lib = load_library()
+    new, block, host_params = _outputs(env_kind, states_t, params)
+    words = torch.zeros(len(PROBE_KEYS), dtype=torch.int32, device=states_t.device)
+    with torch.cuda.device(states_t.device):
+        rc = lib.offpolicy_collect_bf16_probe_launch(
+            ENVS[env_kind].kind_id, MODES[mode], ctypes.addressof(host_params), params.shape[0],
+            states_t.data_ptr(), states_t.shape[1], w1.shape[1], w2.shape[1],
+            *(t.data_ptr() for t in weights), consts.data_ptr(), int(seed), new.data_ptr(),
+            block.data_ptr(), words.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    check(rc, "offpolicy_collect_bf16_probe_launch")
+    return new, block, probe_counts(words)
 
 
 #: Kernel launches so far (a run can show that its path went through K7).

@@ -24,9 +24,16 @@ read, as the JAX package's ``_ENVS``.
 ``compute_dtype="bfloat16"`` is the TPU kernel's bf16 mode: the operands
 of every actor-critic product (the weights, the normalised obs, both
 hidden layers) rounded to bf16, the exact products summed in float32;
-the trajectory keeps the float32 normalised obs.  The twin then sums in
-the kernel's order (:func:`_towers_bf16`), so that the two agree bit for
-bit wherever their float32 operations do.
+the trajectory keeps the float32 normalised obs.  On the card it runs a
+body of its own (``csrc/ppo_rollout_body_bf16.cuh``) with the products on
+the tensor cores; the twin sums each hidden unit in a fixed order
+(:func:`_towers_bf16`), and the kernel recomputes in that order every
+unit that lies near a bf16 rounding midpoint, so that the bf16 hidden
+layers, and the heads summed in the twin's order, are the twin's
+wherever the tensor cores' sum lies within that margin of the twin's
+(a margin chosen by hand, not a bound: a sum whose products cancel can
+leave it).  :func:`ppo_rollout_bf16_probe` counts the units recomputed
+and the misses.
 
 The wrapper takes the twin only for a tensor that lies on the CPU; on a
 CUDA tensor it launches the kernel of the dtype asked for or raises.
@@ -175,12 +182,13 @@ def _towers(net: torch.Tensor, x: torch.Tensor, adim: int):
 
 
 def _towers_bf16(net: torch.Tensor, x: torch.Tensor, adim: int):
-    """:func:`_towers` with bf16 products, summed in the bf16 kernel's
-    order: each first-layer unit from its bias over the obs dims in order;
-    each second-layer unit from its bias, adding the partial sum of each
-    run of 4 inputs (``((p0 + p1) + p2) + p3``); each head from its bias
-    over the units in order.  Every product of two bf16 values is exact in
-    float32, so each sum rounds as the kernel's FMA chain does."""
+    """:func:`_towers` with bf16 products, each sum in a fixed order: each
+    first-layer unit from its bias over the obs dims in order; each
+    second-layer unit from its bias, adding the partial sum of each run of
+    4 inputs (``((p0 + p1) + p2) + p3``); each head from its bias over the
+    units in order.  Every product of two bf16 values is exact in float32,
+    so each sum rounds as an FMA chain in that order does: the kernel's
+    heads, and its hidden units near a bf16 rounding midpoint."""
     p = Layout(x.shape[0], adim, HIDDEN).unflatten(net)
     r = bf16_round
     xr = r(x)
@@ -380,6 +388,24 @@ def ppo_rollout(states_t, env_returns, seed: int, net, consts, horizon: int,
     from .._build import check, load_library
 
     lib = load_library()
+    out, partials, host_params = _outputs(states_t, env_returns, env_kind, horizon, params)
+    with torch.cuda.device(states_t.device):
+        rc = lib.ppo_rollout_launch(
+            ENVS[env_kind].kind_id, states_t.data_ptr(), env_returns.data_ptr(), net.data_ptr(),
+            consts.data_ptr(), states_t.shape[1], int(horizon), int(seed), int(env_base),
+            int(normalize_obs), int(normalize_rewards), int(bf16),
+            ctypes.addressof(host_params), params.shape[0], *(t.data_ptr() for t in out[:8]),
+            partials.data_ptr(), out.stats.data_ptr(),
+            None if counts is None else counts.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    check(rc, "ppo_rollout_launch")
+    ppo_rollout.launches += 1
+    return out
+
+
+def _outputs(states_t, env_returns, env_kind: str, horizon: int, params: torch.Tensor):
+    """A launch's outputs (:class:`RolloutOut`), its partials scratch and
+    its host params."""
     kind = ENVS[env_kind]
     D, A, batch, T = kind.state_dim, kind.action_dim, states_t.shape[1], int(horizon)
     f32 = dict(dtype=torch.float32, device=states_t.device)
@@ -391,20 +417,52 @@ def ppo_rollout(states_t, env_returns, seed: int, net, consts, horizon: int,
         torch.empty_like(states_t), torch.empty_like(env_returns),
         torch.empty(n_stats(env_kind), **f32))
     partials = torch.empty((-(-batch // _THREADS), n_stats(env_kind)), **f32)
-    host_params = (ctypes.c_float * params.shape[0])(*params.tolist())
+    return out, partials, (ctypes.c_float * params.shape[0])(*params.tolist())
+
+
+#: The counters of a bf16 probe launch (:func:`ppo_rollout_bf16_probe`,
+#: ``offpolicy.collect_step_bf16_probe``), in the kernels' order.
+PROBE_KEYS = ("h1_recomputed", "h2_recomputed", "h1_missed", "h2_missed", "h1_worst",
+              "h2_worst")
+
+
+def probe_counts(words: torch.Tensor) -> dict:
+    """A probe's 6 uint32 counters as a dict of :data:`PROBE_KEYS`: the
+    hidden units recomputed in the twin's order and the misses (ints), the
+    largest difference from the twin's sum over the kernel's tie (floats)."""
+    vals = words.cpu()
+    floats = vals.view(torch.float32)
+    return {k: (float(floats[i]) if k.endswith("worst") else int(vals[i]))
+            for i, k in enumerate(PROBE_KEYS)}
+
+
+def ppo_rollout_bf16_probe(states_t, env_returns, seed: int, net, consts, horizon: int,
+                           params_vec: torch.Tensor | None = None,
+                           env_kind: str = "quadrotor3d-v0", env_base: int = 0):
+    """K2/K6's bf16 instance as its probe launches it (both normalisers
+    on; a CUDA tensor only; no training path calls it): every hidden unit
+    also recomputed in the twin's order and compared.  Returns
+    ``(RolloutOut, counts)``: the bf16 instance's outputs and
+    :func:`probe_counts` (``h1_worst`` and ``h2_worst``: the largest
+    |h - the twin's h| of each layer over the kernel's tie, 2^-20)."""
+    params = _check_args(states_t, env_returns, seed, net, consts, horizon, params_vec, env_kind,
+                         env_base)
+    if states_t.device.type != "cuda":
+        raise ValueError("the probe runs K2/K6's bf16 kernel, on a CUDA tensor only")
+    from .._build import check, load_library
+
+    lib = load_library()
+    out, partials, host_params = _outputs(states_t, env_returns, env_kind, horizon, params)
+    words = torch.zeros(len(PROBE_KEYS), dtype=torch.int32, device=states_t.device)
     with torch.cuda.device(states_t.device):
-        rc = lib.ppo_rollout_launch(
-            kind.kind_id, states_t.data_ptr(), env_returns.data_ptr(), net.data_ptr(),
-            consts.data_ptr(), batch, T, int(seed), int(env_base), int(normalize_obs),
-            int(normalize_rewards),
-            int(bf16),
+        rc = lib.ppo_rollout_bf16_probe_launch(
+            ENVS[env_kind].kind_id, states_t.data_ptr(), env_returns.data_ptr(), net.data_ptr(),
+            consts.data_ptr(), states_t.shape[1], int(horizon), int(seed), int(env_base),
             ctypes.addressof(host_params), params.shape[0], *(t.data_ptr() for t in out[:8]),
-            partials.data_ptr(), out.stats.data_ptr(),
-            None if counts is None else counts.data_ptr(),
+            partials.data_ptr(), out.stats.data_ptr(), words.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
-    check(rc, "ppo_rollout_launch")
-    ppo_rollout.launches += 1
-    return out
+    check(rc, "ppo_rollout_bf16_probe_launch")
+    return out, probe_counts(words)
 
 
 #: Kernel launches so far (a run can show that its path went through K2 or

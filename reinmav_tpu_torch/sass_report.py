@@ -33,14 +33,15 @@ in flight before the first STS) and asynchronous copies (LDGSTS), its
 first layer's loop (LDS an FFMA) and phase 4 after the last barrier (the
 action, env step, block and reset, its Philox spans apart).
 K3's and K4's instances (``ppo_loss_kernel<D, A, kl, bf16>``,
-``ppo_update_kernel<...>``) get one line each: their tensor-core
-products (``HMMA``, the bf16 ones apart) beside their ``FFMA``, with the
-``ldmatrix`` loads (``LDSM``), ``MUFU`` and barriers (:func:`mma_counts`).
-``chip_smoke.py`` calls
+``ppo_update_kernel<...>``) and the bf16 bodies of K2/K6 and K7
+(``ppo_rollout_bf16_kernel<...>``, ``offpolicy_collect_bf16_kernel<...>``)
+get one line each: their tensor-core products (``HMMA``, the bf16 ones
+apart) beside their ``FFMA``, with the ``ldmatrix`` loads (``LDSM``),
+``MUFU`` and barriers (:func:`mma_counts`).  ``chip_smoke.py`` calls
 :func:`report` on the library it built.  With ``--against``, it also lists which kernels of
 the two libraries have the same SASS, instruction for instruction (such a
 kernel gives the same bits on every input), and which differ, and the
-float32 K3/K4 instances apart (:func:`float32_k3k4`).
+float32 instances of K3/K4, K2/K6 and K7 apart (:func:`float32_instances`).
 
 ``--blocks`` splits the horizon loop of K2/K6 (``ppo_rollout_kernel<...>``)
 into the blocks of its source: the MLP (the two towers' products),
@@ -73,14 +74,32 @@ OTHER = ("BRA", "BRX", "BSSY", "BSYNC", "CALL", "RET", "EXIT", "NOP", "BAR", "WA
          "BREAK", "KILL", "ELECT", "ERRBAR", "CCTL", "R2UR", "UMOV", "UIADD3", "ULOP3", "USHF",
          "UISETP", "USEL", "ULEA", "UIMAD", "UPRMT", "UFLO", "UPOPC", "USGXT", "UBMSK", "PLOP3U")
 KERNELS = ("hover_rollout_kernel", "reinmav_rollout_kernel", "reinmav_rollout_lanes_kernel",
-           "closed_loop_kernel", "quad3d_rollout_kernel", "ppo_rollout_kernel",
-           "offpolicy_collect_kernel", "offpolicy_collect_count_kernel")
+           "closed_loop_kernel", "ppo_rollout_kernel", "ppo_rollout_bf16_kernel",
+           "offpolicy_collect_kernel", "offpolicy_collect_count_kernel",
+           "offpolicy_collect_bf16_kernel")
 #: K3's and K4's kernel families (one instance per obs and action dim, mode
 #: and compute dtype).
 PPO_LOSS_KERNELS = ("ppo_loss_kernel", "ppo_update_kernel")
+#: The bf16 bodies of K2/K6 and K7 on the tensor cores (one instance per
+#: kind, normalisers or mode, and probe).
+BF16_KERNELS = ("ppo_rollout_bf16_kernel", "offpolicy_collect_bf16_kernel")
+#: The families whose report is their products' counts (:func:`mma_counts`).
+MMA_KERNELS = PPO_LOSS_KERNELS + BF16_KERNELS
+#: The float32 instances that ``--against`` lists apart, by kernel: K3/K4's
+#: (the bf16 ones left out by their last template argument), K2/K6's and
+#: K7's (whose bf16 instances are families of their own).
+FLOAT32_FAMILIES = {"K3/K4": PPO_LOSS_KERNELS, "K2/K6": ("ppo_rollout_kernel",),
+                    "K7": ("offpolicy_collect_kernel", "offpolicy_collect_count_kernel")}
+#: The float32 templates of K2/K6 and K7 that took a bf16 switch as their
+#: last template argument until their bf16 instances got bodies of their
+#: own, by their number of template arguments then
+#: (``ppo_rollout_kernel<Env, obs, rew, count, bf16>``,
+#: ``offpolicy_collect_kernel<Env, mode, bf16>``): ``--against`` a library
+#: built before that pairs its float32 instances with this tree's.
+OLD_BF16_SWITCH = {"ppo_rollout_kernel": 5, "offpolicy_collect_kernel": 3}
 #: Threads a CTA of each kernel family (for the occupancy query).
 CTA_THREADS = {"ppo_rollout_kernel": 128, "closed_loop_kernel": 256,
-               "quad3d_rollout_kernel": 256}
+               "ppo_rollout_bf16_kernel": 256, "offpolicy_collect_bf16_kernel": 320}
 #: Philox4x32's two multipliers as SASS prints an immediate: unsigned, or as
 #: the signed 32-bit value.
 PHILOX_IMMEDIATES = ("0xd2511f53", "-0x2daee0ad", "0xcd9e8d57", "-0x326172a9")
@@ -585,13 +604,12 @@ def occupancy(cubin: Path, kernels: dict[str, int]) -> dict[str, dict]:
 
 
 def blocks_report(src_dir: Path, lib: Path | None, out_dir: Path) -> dict[str, dict]:
-    """Print and return, for each K2/K6 instance of ``src_dir``'s
-    ``ppo_rollout.cu`` and each K1 instance of the source that holds it
-    (``quad3d_rollout_kernel`` or ``closed_loop_kernel<Quad3dLoop...>``),
-    the -lineinfo build's registers, resident CTAs an SM and warps a
-    scheduler; for K2/K6 the horizon loop by block and level
-    (:func:`block_counts`); and whether each kernel's instructions are the
-    library ``lib``'s (when given)."""
+    """Print and return, for each float32 K2/K6 instance of ``src_dir``'s
+    ``ppo_rollout.cu`` and each K1 instance of ``closed_loop_rollout.cu``
+    (``closed_loop_kernel<Quad3dLoop...>``), the -lineinfo build's
+    registers, resident CTAs an SM and warps a scheduler; for K2/K6 the
+    horizon loop by block and level (:func:`block_counts`); and whether
+    each kernel's instructions are the library ``lib``'s (when given)."""
     headers = {p.name: p.read_text() for p in sorted(src_dir.glob("*.cuh"))}
     ours = _disassemble(lib) if lib is not None else None
     lib_funcs = parse_functions(ours) if ours is not None else {}
@@ -599,7 +617,6 @@ def blocks_report(src_dir: Path, lib: Path | None, out_dir: Path) -> dict[str, d
                for m, p in zip(lib_funcs, demangle(list(lib_funcs)))}
     result = {}
     for src_name, family in (("ppo_rollout.cu", "ppo_rollout_kernel"),
-                             ("quad3d_rollout.cu", "quad3d_rollout_kernel"),
                              ("closed_loop_rollout.cu", "closed_loop_kernel")):
         src = src_dir / src_name
         if not src.exists():
@@ -667,20 +684,55 @@ def mma_counts(insns) -> dict:
     return out
 
 
+def template_args(short: str) -> tuple[str, list[str]]:
+    """A short name's family and its template arguments, outermost level:
+    ``("closed_loop_kernel", ["Quad3dLoop<true>", "false"])``."""
+    family, _, rest = short.partition("<")
+    args, depth, arg = [], 0, ""
+    for c in rest[:-1]:
+        depth += (c == "<") - (c == ">")
+        if c == "," and depth == 0:
+            args.append(arg.strip())
+            arg = ""
+        else:
+            arg += c
+    return family, args + [arg.strip()] if rest else []
+
+
+def today_name(short: str) -> str:
+    """A kernel's name as this tree's library gives it: a float32 instance
+    of a library built before the bf16 bodies of K2/K6 and K7
+    (``ppo_rollout_kernel<..., false>``, its last template argument the
+    bf16 switch of :data:`OLD_BF16_SWITCH`) without that switch; any other
+    name as it is."""
+    family, args = template_args(short)
+    if OLD_BF16_SWITCH.get(family) == len(args) and args[-1] == "false":
+        return f"{family}<{', '.join(args[:-1])}>"
+    return short
+
+
 def is_bf16_instance(short: str) -> bool:
     """Whether a K3/K4 instance's name (``ppo_loss_kernel<10, 4, false,
-    true>``) is its bf16 instance: the last template argument."""
-    return short.replace(" ", "").endswith(",true>")
+    true>``) is its bf16 instance: the last template argument (so too a
+    K2/K6 or K7 instance of a library built before their bf16 bodies,
+    ``ppo_rollout_kernel<..., true>``, by :data:`OLD_BF16_SWITCH`)."""
+    family, args = template_args(short)
+    switch = family in PPO_LOSS_KERNELS or OLD_BF16_SWITCH.get(family) == len(args)
+    return switch and args[-1] == "true"
 
 
-def float32_k3k4(groups: dict[str, list[str]]) -> dict[str, list[str]]:
-    """Of :func:`compare`'s groups, the float32 K3/K4 instances: ``same``,
-    ``differ`` and ``missing`` (in one library only)."""
+def float32_instances(groups: dict[str, list[str]],
+                      families: tuple[str, ...]) -> dict[str, list[str]]:
+    """Of :func:`compare`'s groups, the float32 instances of the kernel
+    ``families``: ``same``, ``differ`` and ``missing`` (in one library
+    only)."""
     def pick(names):
-        return [n for n in names if n.startswith(PPO_LOSS_KERNELS) and not is_bf16_instance(n)]
+        return [n for n in names if n.startswith(tuple(f + "<" for f in families))
+                and not is_bf16_instance(n)]
 
     return {"same": pick(groups["same"]), "differ": pick(groups["differ"]),
             "missing": pick(groups["only_lib"] + groups["only_other"])}
+
 
 
 def _disassemble(lib: Path) -> str:
@@ -696,11 +748,13 @@ def compare(lib: Path, other: Path) -> dict[str, list[str]]:
     instruction (``same``), the ones in both that differ (``differ``), and
     the ones in one library only (``only_lib``, ``only_other``), by their
     short demangled names (nvcc mangles a kernel of an anonymous namespace
-    with a prefix of its own build)."""
+    with a prefix of its own build), as this tree names them
+    (:func:`today_name`)."""
 
     def by_name(path: Path) -> dict:
         funcs = parse_functions(_disassemble(path))
-        return {short_name(pretty): funcs[m] for m, pretty in zip(funcs, demangle(list(funcs)))}
+        return {today_name(short_name(pretty)): funcs[m]
+                for m, pretty in zip(funcs, demangle(list(funcs)))}
 
     a, b = by_name(lib), by_name(other)
     group = {"same": [], "differ": [], "only_lib": [], "only_other": []}
@@ -716,7 +770,8 @@ def report(lib: Path, out_dir: Path | None = None) -> dict[str, dict]:
     return each K1/K5/K10/K8/K9/K2/K6/K7 kernel's loops, its substep loop's
     counts (K2/K6: its horizon loop's; K7: none, its phases under ``k7``,
     :func:`k7_counts`), that loop's reset block (:func:`reset_span`, None
-    where it has none) and its instructions, and each K3/K4 instance's
+    where it has none) and its instructions, and each instance of K3/K4
+    and of the bf16 bodies of K2/K6 and K7 (:data:`MMA_KERNELS`) with its
     :func:`mma_counts` (under ``mma``) and instructions, keyed by the
     demangled name.
     With ``out_dir``, each kernel's SASS is written there."""
@@ -728,7 +783,7 @@ def report(lib: Path, out_dir: Path | None = None) -> dict[str, dict]:
     for mangled, pretty in zip(names, demangle(names)):
         short = short_name(pretty)
         insns = funcs[mangled]
-        k3k4 = short.startswith(PPO_LOSS_KERNELS)
+        k3k4 = short.startswith(MMA_KERNELS)
         if not k3k4 and not any(k in short for k in KERNELS):
             continue
         where = ""
@@ -802,10 +857,11 @@ def main(argv=None) -> int:
         groups = compare(lib, Path(args.against))
         for key, kernels in groups.items():
             print(f"sass: against {args.against}: {key} ({len(kernels)}): {'; '.join(kernels)}")
-        f32 = float32_k3k4(groups)
-        print(f"sass: against {args.against}: float32 K3/K4 instances the same instruction for "
-              f"instruction {len(f32['same'])}, differ {len(f32['differ'])} "
-              f"({'; '.join(f32['differ'])}), in one library only {len(f32['missing'])}")
+        for label, families in FLOAT32_FAMILIES.items():
+            f32 = float32_instances(groups, families)
+            print(f"sass: against {args.against}: float32 {label} instances the same instruction "
+                  f"for instruction {len(f32['same'])}, differ {len(f32['differ'])} "
+                  f"({'; '.join(f32['differ'])}), in one library only {len(f32['missing'])}")
     return 0
 
 

@@ -13,7 +13,8 @@ states (the JAX kernel tests' float32 tolerances).  Kernel and twin draw
 the same Philox numbers; nvcc contracts products into FMAs and the twin's
 products are cuBLAS's, so an env on the hover task's done knife edge (z
 <= 0.3) may end in one and not the other: the comparison counts the envs
-that disagree and allows 0.1%.  A rerun is bitwise equal.
+that disagree and allows 0.1%.  A rerun is bitwise equal.  K7's bf16
+instance is held to the bf16 twin the same way, at every kind and mode.
 """
 
 import logging
@@ -29,6 +30,7 @@ from reinmav_tpu_torch.rl import sac, td3
 from reinmav_tpu_torch.utils import checkpoint as ckpt
 
 TOL = dict(rtol=2e-4, atol=2e-5)
+BF16 = "bfloat16"
 MODES = [("sac", 0.0, 0.0), ("td3", 0.0, 0.3), ("sac_det", 0.0, 0.0), ("td3_det", 0.0, 0.0),
          ("sac", 1.0, 0.0)]
 
@@ -45,11 +47,19 @@ def cuda():
 
 
 def _states(env, device, batch):
-    """Start states ``(D, B)`` of which some end in one step."""
+    """Start states ``(D, B)`` of which some end in one step (the
+    quadrotor2d and slung-load kinds: a reset's spread times 1.5, and on
+    the slung-load kinds one env in 50 with state 7 at 25, past the
+    vel_limit of 10: the load's x velocity in 2D, the quad's in 3D)."""
     gen = torch.Generator(device=device).manual_seed(3)
     s = env.vreset(gen, batch).T.contiguous()
     if env.name == "quadrotor3d-v0":
         return (s * 2.0).contiguous()
+    if env.name != "MujocoQuadForce-v1":
+        s = s * 1.5
+        if "slungload" in env.name:
+            s[7, :batch // 50] = 25.0
+        return s.contiguous()
     s[0:2] = (torch.rand((2, batch), generator=gen, device=device) * 2 - 1) * 0.3
     s[7:13] = (torch.rand((6, batch), generator=gen, device=device) * 2 - 1) * 0.5
     s[2, :batch // 50], s[9, :batch // 50] = 0.302, -1.0
@@ -88,6 +98,44 @@ def test_k7_matches_twin_in_every_mode(cuda, env_id, hidden):
         assert float(blk_k[d:d + a].abs().max()) <= 1.0
         again = op.collect_step(*args)
         assert torch.equal(new_k, again[0]) and torch.equal(blk_k, again[1])
+
+
+@pytest.mark.parametrize("hidden", [256, 32, 100])
+@pytest.mark.parametrize("env_id", list(pr.ENVS))
+def test_k7_bf16_matches_twin_in_every_mode(cuda, env_id, hidden):
+    """K7's bf16 instance (the hidden layers on the tensor cores) against
+    the bf16 twin in every mode leg, as phase 37 holds it: each env's block
+    and new state within rtol 2e-4 / atol 2e-5, at most 0.1% of envs
+    apart, some envs ended and every action within [-1, 1]; one launch
+    counted, bitwise on a rerun, the probe's outputs bitwise its own and
+    no bf16 h of the probe's apart from the twin's unless recomputed (no
+    miss); at 2 x 256, 2 x 32 and 2 x 100 (not a multiple of 16), on a
+    ragged last tile."""
+    env = reinmav_tpu_torch.make(env_id)
+    batch = 4096 + 37
+    states = _states(env, cuda, batch)
+    d, a = env.obs_dim, env.action_dim
+    for mode, warm, noise in MODES:
+        weights = _actor(env, cuda, hidden, 2 * a if mode.startswith("sac") else a)
+        consts = sac.collect_consts(env, torch.tensor(warm > 0.5, device=cuda), noise)
+        args = (env_id, mode, states, 11, consts, pr.env_params_vec(env), *weights)
+        before = op.collect_step.launches
+        new_k, blk_k = op.collect_step(*args, compute_dtype=BF16)
+        assert op.collect_step.launches == before + 1
+        new_p, blk_p = op.collect_step_reference(*args, compute_dtype=BF16)
+        torch.cuda.synchronize()
+        bad = ~(torch.isclose(new_k, new_p, **TOL).all(0) & torch.isclose(blk_k, blk_p, **TOL).all(0))
+        assert int(bad.sum()) <= 0.001 * batch, (mode, warm, int(bad.sum()))
+        assert int(blk_p[2 * d + a + 1].sum()) > 0, "no env ended"
+        assert float(blk_k[d:d + a].abs().max()) <= 1.0
+        again = op.collect_step(*args, compute_dtype=BF16)
+        assert torch.equal(new_k, again[0]) and torch.equal(blk_k, again[1])
+        if mode in ("sac", "td3") and warm == 0.0:
+            new_q, blk_q, counts = op.collect_step_bf16_probe(*args)
+            assert torch.equal(new_q, new_k) and torch.equal(blk_q, blk_k)
+            print(f"K7 bf16 {env_id} {hidden} {mode}: {int(bad.sum())} of {batch} envs apart; "
+                  f"probe {counts}")
+            assert counts["h1_missed"] == counts["h2_missed"] == 0, counts
 
 
 def test_k7_refuses_widths_and_kinds_it_is_not_built_for(cuda):

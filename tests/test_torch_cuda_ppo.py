@@ -1,4 +1,4 @@
-"""Kernels K2 (the fused PPO rollout), K3 (the fused PPO loss gradient)
+"""Kernels K2/K6 (the fused PPO rollout), K3 (the fused PPO loss gradient)
 and K4 (the one-launch PPO update) on the card, against their plain
 PyTorch twins, and the PPO learner launching them.  Every test needs a
 CUDA device and the ``nvcc`` that builds the kernels, and skips without a
@@ -32,6 +32,13 @@ Tolerances:
   clipping off match at the JAX tolerances.  Pass 0's gradient is bitwise
   equal to one K3 launch (the same per-CTA body and reduction order) and
   within K3's gradient tolerance of the twin's; a rerun is bitwise equal.
+- K2/K6's bf16 instance (compute_dtype "bfloat16", products on the tensor
+  cores) at every kind, against the bf16 twin one step at a time from the
+  twin's state (chip_smoke.py's phase 34): rtol 2e-4 / atol 2e-5, no env
+  outside on the slung-load kinds (the env-steps within 1e-4 of the tether
+  sphere skipped), at most 0.1% on the others; bitwise on a rerun.  Free-
+  running, a last-bit difference of the env step moves an obs or a hidden
+  unit across a bf16 rounding edge now and then: reported, not compared.
 - The bf16 instances of K3 and K4 (compute_dtype "bfloat16", products on
   the tensor cores) at every (obs, action) pair the kernels are built for,
   against the bf16 twin: K3 at K3's tolerances; K4 resynchronised, each
@@ -100,8 +107,8 @@ def _rollout_args(device, batch, seed=0, scale=1.0):
     return (st.env_states.T.contiguous() * scale, rets, 5, st.params, consts)
 
 
-def _mismatched_envs(a: pr.RolloutOut, b: pr.RolloutOut) -> int:
-    """Envs whose trajectory, final state or return differ anywhere."""
+def _mismatched(a: pr.RolloutOut, b: pr.RolloutOut) -> torch.Tensor:
+    """The envs whose trajectory, final state or return differ anywhere."""
     bad = torch.zeros(a.returns.shape[0], dtype=torch.bool, device=a.returns.device)
     for x, y in zip(a[:5], b[:5]):
         close = torch.isclose(x, y, **TOL)
@@ -109,7 +116,12 @@ def _mismatched_envs(a: pr.RolloutOut, b: pr.RolloutOut) -> int:
     bad |= (a.done != b.done).any(dim=0)
     bad |= ~torch.isclose(a.final_states, b.final_states, **TOL).all(dim=0)
     bad |= ~torch.isclose(a.returns, b.returns, **TOL)
-    return int(bad.sum())
+    return bad
+
+
+def _mismatched_envs(a: pr.RolloutOut, b: pr.RolloutOut) -> int:
+    """How many envs' trajectory, final state or return differ anywhere."""
+    return int(_mismatched(a, b).sum())
 
 
 def test_k2_matches_twin_with_noise_and_resets(cuda):
@@ -145,6 +157,103 @@ def test_k2_takes_live_params(cuda):
     assert _mismatched_envs(k, p) == 0
     default = pr.ppo_rollout(*args, 8)
     assert not torch.equal(k.reward, default.reward)
+
+
+#: The slung-load kinds, by their position dims: an env-step that starts
+#: within KNIFE of the tether sphere is a knife edge (chip_smoke.py's phase
+#: 34 skips it).
+TETHER = {"quadrotor2d-slungload-v0": 2, "quadrotor3d-slungload-v0": 3}
+KNIFE = 1e-4
+K2_KINDS = [pytest.param(name, id=name) for name in pr.ENVS]
+
+
+def _k2_bf16_inputs(device, env_id, batch):
+    """K2/K6's inputs for a kind, as chip_smoke.py's phase 34 makes them:
+    quadrotor3d states twice a reset's spread (the envs past |p| = 3 reset
+    at once), hover states between z = 0.35 and 1, the other kinds'
+    U(-1, 1) times 1.5 (the loads about 1.1 tether lengths from the quad);
+    warmed normalisers, log_std -0.5, a spread of running returns."""
+    env = reinmav_tpu_torch.make(env_id)
+    gen = torch.Generator(device=device).manual_seed(34)
+    d, a = env.obs_dim, env.action_dim
+    u = lambda *shape: torch.rand(shape, generator=gen, device=device)  # noqa: E731
+    if env_id == "quadrotor3d-v0":
+        s = env.vreset(gen, batch).T * 2.0
+    elif env_id == "MujocoQuadForce-v1":
+        s = torch.zeros((13, batch), device=device)
+        s[0:2] = (u(2, batch) * 2.0 - 1.0) * 0.3
+        s[2] = 0.35 + 0.65 * u(batch)
+        s[3] = 1.0
+        s[7:13] = (u(6, batch) * 2.0 - 1.0) * 0.5
+    else:
+        s = (u(d, batch) * 2.0 - 1.0) * 1.5
+        k = TETHER.get(env_id)
+        if k is not None:
+            s[d - 2 * k:d - k] = s[0:k] + torch.randn((k, batch), generator=gen, device=device) * (
+                1.1 * env.params.tether_length / k ** 0.5)
+    cfg = ppo.PpoConfig(num_envs=batch, rollout_len=16)
+    layout = networks.Layout(d, a, cfg.hidden)
+    params = ppo.init_train_state(env, cfg, 3, device=device).params.clone()
+    params[layout.slices[("log_std",)]] = -0.5
+    obs_norm = ppo.ObsNorm(torch.linspace(-0.1, 0.1, d, device=device),
+                           torch.linspace(0.5, 2.0, d, device=device),
+                           torch.tensor(100.0, device=device))
+    ret_var = 4.0 * (98.0 / 1.4) ** 2 if env_id == "MujocoQuadForce-v1" else 4.0
+    ret_norm = ppo.RetNorm(torch.tensor(ret_var, device=device), torch.tensor(100.0, device=device))
+    consts = ppo._rollout_consts(params, layout, obs_norm, ret_norm, cfg.gamma)
+    rets = torch.linspace(-1.0, 1.0, batch, device=device)
+    kw = dict(params_vec=pr.env_params_vec(env), env_kind=env_id, compute_dtype=BF16)
+    return env, (s.contiguous(), rets, 21, params, consts), kw
+
+
+def _off_sphere(env, s_t):
+    """The envs of ``(D, B)`` states farther than KNIFE from the tether
+    sphere (every env of a kind without a tether)."""
+    k = TETHER.get(env.name)
+    if k is None:
+        return torch.ones(s_t.shape[1], dtype=torch.bool, device=s_t.device)
+    d = s_t.shape[0]
+    return ((s_t[d - 2 * k:d - k] - s_t[0:k]).norm(dim=0) - env.params.tether_length).abs() > KNIFE
+
+
+@pytest.mark.parametrize("env_id", K2_KINDS)
+def test_k2_bf16_resynchronised_against_twin_and_repeats_bitwise(cuda, env_id):
+    """K2/K6's bf16 instance (products on the tensor cores) against its
+    bf16 twin, as phase 34 holds it: one step at a time from the twin's
+    state, each step within rtol 2e-4 / atol 2e-5 on every env (the
+    slung-load kinds, off the tether sphere) or on all but 0.1% of them
+    (the others, over the horizon), the moment sums within 1e-3; one launch
+    counted, bitwise on a rerun and the probe's outputs bitwise its own,
+    with no bf16 h apart from the twin's unless recomputed (no miss); a
+    batch that does not divide the 128-env CTA; the free-running horizon's
+    envs apart reported, not gated."""
+    batch, horizon = 4096 + 37, 16
+    env, args, kw = _k2_bf16_inputs(cuda, env_id, batch)
+    before = pr.ppo_rollout.launches
+    k = pr.ppo_rollout(*args, horizon, **kw)
+    torch.cuda.synchronize()
+    assert pr.ppo_rollout.launches == before + 1
+    again = pr.ppo_rollout(*args, horizon, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(k, again))
+    probed, counts = pr.ppo_rollout_bf16_probe(*args, horizon, kw["params_vec"], env_id)
+    assert all(torch.equal(x, y) for x, y in zip(k, probed))
+    x, r, outside, knife = args[0], args[1], 0, 0
+    for t in range(horizon):
+        ks = pr.ppo_rollout(x, r, 21 + t, args[3], args[4], 1, **kw)
+        ps = pr.ppo_rollout_reference(x, r, 21 + t, args[3], args[4], 1, **kw)
+        safe = _off_sphere(env, x)
+        outside += int((_mismatched(ks, ps) & safe).sum())
+        knife += int((~safe).sum())
+        rel = (ks.stats - ps.stats).abs() / ps.stats.abs().clamp_min(1.0)
+        assert float(rel.max()) <= 1e-3, (t, float(rel.max()))
+        x, r = ps.final_states, ps.returns
+    free = _mismatched_envs(k, pr.ppo_rollout_reference(*args, horizon, **kw))
+    limit = 0 if env_id in TETHER else int(0.001 * batch)
+    print(f"K2/K6 bf16 {env_id}: resynchronised over {horizon} steps, {outside} env-steps "
+          f"outside (limit {limit}), {knife} near the tether sphere skipped; free-running "
+          f"{free} of {batch} envs apart (reported); probe {counts}")
+    assert outside <= limit, outside
+    assert counts["h1_missed"] == counts["h2_missed"] == 0, counts
 
 
 def _loss_batch(device, n, seed, d=10, adim=4):

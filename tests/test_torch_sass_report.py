@@ -135,7 +135,7 @@ def test_compare_two_libraries(monkeypatch, tmp_path):
 
 
 K1_LOOP = """
-\t\tFunction : _ZN12_GLOBAL__N_121quad3d_rollout_kernelEPKfPfS2_xijiN7reinmav12Quad3dParamsE
+\t\tFunction : _ZN12_GLOBAL__N_118closed_loop_kernelINS_10Quad3dLoopILb1EEELb0EEEvPKfPfS5_PixjjiNT_6ParamsE
         /*0000*/                   LDC R1, c[0x0][0x28] ;
 .L_x_0:
         /*0010*/                   FFMA R2, R3, R4, R5 ;
@@ -152,11 +152,13 @@ K1_LOOP = """
 
 
 def test_k1_horizon_loop_and_reset_block():
-    """K1's kernel is one of the reported families; its horizon loop holds
-    the reset block inline (no nested loop), counted apart."""
+    """K1's kernel (the closed-loop template's Quad3dLoop instance) is one of
+    the reported families; its horizon loop holds the reset block inline
+    (no nested loop), counted apart."""
     (mangled, insns), = sass_report.parse_functions(K1_LOOP).items()
     short = sass_report.short_name(sass_report.demangle([mangled])[0])
-    assert short == "quad3d_rollout_kernel" and short in sass_report.KERNELS
+    assert short == "closed_loop_kernel<Quad3dLoop<true>, false>"
+    assert any(k in short for k in sass_report.KERNELS)
     horizon = sass_report.substep_loop(sass_report.loops(insns))
     assert (horizon["start"], horizon["end"], horizon["n"]) == (0x10, 0x80, 8)
     assert sass_report.horizon_loop(sass_report.loops(insns)) == horizon
@@ -422,10 +424,104 @@ def test_k3k4_product_counts_and_the_float32_instances_against_a_parent(monkeypa
         "HMMA": 0, "HMMA_BF16": 0, "FFMA": 2, "LDSM": 0, "MUFU": 0, "BAR": 0}
     assert "HMMA 2 (bf16 2), FFMA 1, LDSM 2, MUFU 1, BAR 1" in capsys.readouterr().out
     groups = sass_report.compare(tmp_path / "lib.so", tmp_path / "parent.so")
-    assert sass_report.float32_k3k4(groups) == {
+    assert sass_report.float32_instances(groups, sass_report.PPO_LOSS_KERNELS) == {
         "same": ["ppo_update_kernel<10, 4, false, false>"],
         "differ": ["ppo_loss_kernel<10, 4, false, false>"], "missing": []}
     assert groups["differ"] == ["ppo_loss_kernel<10, 4, false, false>",
                                 "ppo_loss_kernel<10, 4, false, true>"]
     assert sass_report.is_bf16_instance("ppo_update_kernel<13, 4, true, true>")
     assert not sass_report.is_bf16_instance("ppo_update_kernel<13, 4, true, false>")
+
+
+#: A library with K2/K6's and K7's bf16 bodies beside their float32
+#: instances, and its parent, whose float32 templates took a bf16 switch
+#: as their last template argument (true in its bf16 instances).
+BF16_BODIES = """
+\t\tFunction : _ZN12_GLOBAL__N_123ppo_rollout_bf16_kernelIN7reinmav9Quad3dEnvELb1ELb1ELb0EEEvPKfS4_S4_S4_xijjNT_6ParamsENS_10RolloutOutEPj
+        /*0000*/                   LDSM.16.M88.4 R4, [R2] ;
+        /*0010*/                   LDSM.16.MT88.4 R8, [R3] ;
+        /*0020*/                   HMMA.16816.F32.BF16 R12, R4, R8, R12 ;
+        /*0030*/                   HMMA.16816.F32.BF16 R16, R4, R10, R16 ;
+        /*0040*/                   MUFU.TANH R20, R21 ;
+        /*0050*/                   MUFU.EX2 R22, R23 ;
+        /*0060*/                   FFMA R24, R25, R26, R24 ;
+        /*0070*/                   EXIT ;
+\t\tFunction : _ZN12_GLOBAL__N_118ppo_rollout_kernelIN7reinmav9Quad3dEnvELb1ELb1ELb0EEEvPKfS4_S4_S4_xijjNT_6ParamsENS_10RolloutOutE
+        /*0000*/                   FFMA R6, R7, R8, R6 ;
+        /*0010*/                   EXIT ;
+\t\tFunction : _ZN12_GLOBAL__N_118ppo_rollout_kernelIN7reinmav9Quad3dEnvELb1ELb1ELb1EEEvPKfS4_S4_S4_xijjNT_6ParamsENS_10RolloutOutE
+        /*0000*/                   FFMA R6, R7, R10, R6 ;
+        /*0010*/                   EXIT ;
+\t\tFunction : _ZN12_GLOBAL__N_129offpolicy_collect_bf16_kernelIN7reinmav8HoverEnvELi0ELb0EEEvPKf
+        /*0000*/                   LDSM.16.M88.4 R4, [R2] ;
+        /*0010*/                   HMMA.16816.F32.BF16 R12, R4, R8, R12 ;
+        /*0020*/                   HMMA.16816.F32 R16, R4, R10, R16 ;
+        /*0030*/                   BAR.SYNC R0, R1 ;
+        /*0040*/                   BAR.ARV R2, R3 ;
+        /*0050*/                   FFMA R24, R25, R26, R24 ;
+        /*0060*/                   FFMA R27, R25, R26, R27 ;
+        /*0070*/                   EXIT ;
+\t\tFunction : _ZN12_GLOBAL__N_124offpolicy_collect_kernelIN7reinmav8HoverEnvELi0EEEvPKf
+        /*0000*/                   FFMA R6, R7, R8, R6 ;
+        /*0010*/                   EXIT ;
+\t\tFunction : _ZN12_GLOBAL__N_130offpolicy_collect_count_kernelIN7reinmav10Slung2dEnvELi0EEEvPKf
+        /*0000*/                   FFMA R9, R7, R8, R9 ;
+        /*0010*/                   EXIT ;
+"""
+
+
+BF16_PARENT = """
+\t\tFunction : _ZN12_GLOBAL__N_118ppo_rollout_kernelIN7reinmav9Quad3dEnvELb1ELb1ELb0ELb0EEEvPKfS4_S4_S4_xijjNT_6ParamsENS_10RolloutOutE
+        /*0000*/                   FFMA R6, R7, R8, R6 ;
+        /*0010*/                   EXIT ;
+\t\tFunction : _ZN12_GLOBAL__N_118ppo_rollout_kernelIN7reinmav9Quad3dEnvELb1ELb1ELb1ELb0EEEvPKfS4_S4_S4_xijjNT_6ParamsENS_10RolloutOutE
+        /*0000*/                   FFMA R6, R7, R10, R6 ;
+        /*0010*/                   EXIT ;
+\t\tFunction : _ZN12_GLOBAL__N_118ppo_rollout_kernelIN7reinmav9Quad3dEnvELb1ELb1ELb0ELb1EEEvPKfS4_S4_S4_xijjNT_6ParamsENS_10RolloutOutE
+        /*0000*/                   FFMA R6, R7, R9, R6 ;
+        /*0010*/                   EXIT ;
+\t\tFunction : _ZN12_GLOBAL__N_124offpolicy_collect_kernelIN7reinmav8HoverEnvELi0ELb0EEEvPKf
+        /*0000*/                   FFMA R6, R7, R8, R6 ;
+        /*0010*/                   EXIT ;
+\t\tFunction : _ZN12_GLOBAL__N_124offpolicy_collect_kernelIN7reinmav8HoverEnvELi0ELb1EEEvPKf
+        /*0000*/                   FFMA R6, R7, R9, R6 ;
+        /*0010*/                   EXIT ;
+\t\tFunction : _ZN12_GLOBAL__N_130offpolicy_collect_count_kernelIN7reinmav10Slung2dEnvELi0EEEvPKf
+        /*0000*/                   FFMA R9, R7, R10, R9 ;
+        /*0010*/                   EXIT ;
+"""
+
+
+def test_k2k6_k7_bf16_product_counts_and_the_float32_instances_against_a_parent(
+        monkeypatch, tmp_path, capsys):
+    """The bf16 bodies of K2/K6 and K7 are reported by their products'
+    counts (HMMA, the bf16 ones apart, FFMA, LDSM, MUFU, BAR), not by
+    their loops; with --against, the float32 K2/K6 and K7 instances that
+    are the parent's instruction for instruction (the parent's named with
+    their bf16 switch, false, which this tree's templates dropped; a K2/K6
+    counting instance, last argument true, is float32), the ones that
+    differ, and the parent's bf16 instances of the float32 template left
+    out."""
+    texts = {tmp_path / "lib.so": BF16_BODIES, tmp_path / "parent.so": BF16_PARENT}
+    monkeypatch.setattr(sass_report, "_disassemble", lambda lib: texts[lib])
+    got = sass_report.report(tmp_path / "lib.so")
+    k2 = got["ppo_rollout_bf16_kernel<reinmav::Quad3dEnv, true, true, false>"]
+    assert k2["mma"] == {"HMMA": 2, "HMMA_BF16": 2, "FFMA": 1, "LDSM": 2, "MUFU": 2, "BAR": 0}
+    assert k2["loops"] == [] and k2["substep"] is None
+    k7 = got["offpolicy_collect_bf16_kernel<reinmav::HoverEnv, 0, false>"]
+    assert k7["mma"] == {"HMMA": 2, "HMMA_BF16": 1, "FFMA": 2, "LDSM": 1, "MUFU": 0, "BAR": 2}
+    assert "k7" not in k7 and "k7" in got["offpolicy_collect_kernel<reinmav::HoverEnv, 0>"]
+    assert "HMMA 2 (bf16 2), FFMA 1, LDSM 2, MUFU 2, BAR 0" in capsys.readouterr().out
+    groups = sass_report.compare(tmp_path / "lib.so", tmp_path / "parent.so")
+    assert groups["only_lib"] == ["offpolicy_collect_bf16_kernel<reinmav::HoverEnv, 0, false>",
+                                  "ppo_rollout_bf16_kernel<reinmav::Quad3dEnv, true, true, false>"]
+    assert groups["only_other"] == [
+        "offpolicy_collect_kernel<reinmav::HoverEnv, 0, true>",
+        "ppo_rollout_kernel<reinmav::Quad3dEnv, true, true, false, true>"]
+    assert sass_report.float32_instances(groups, sass_report.FLOAT32_FAMILIES["K2/K6"]) == {
+        "same": ["ppo_rollout_kernel<reinmav::Quad3dEnv, true, true, false>",
+                 "ppo_rollout_kernel<reinmav::Quad3dEnv, true, true, true>"],
+        "differ": [], "missing": []}
+    assert sass_report.float32_instances(groups, sass_report.FLOAT32_FAMILIES["K7"]) == {
+        "same": ["offpolicy_collect_kernel<reinmav::HoverEnv, 0>"],
+        "differ": ["offpolicy_collect_count_kernel<reinmav::Slung2dEnv, 0>"], "missing": []}
