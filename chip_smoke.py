@@ -284,11 +284,34 @@ Phases, in order; any failure raises and exits non-zero:
    train_vector_env refuse by name where matplotlib or gymnasium is not
    installed.  The wall of phases 39-44 is printed; ``--only parallel``
    runs phases 1-3 and 39-44.
+45. K3 and K4 at two equal hidden widths other than the 64-wide
+   instances' (their wide instances, csrc/ppo_loss_wide.cu and
+   csrc/ppo_update_wide.cu), float32 and bf16: K3 wide on one 262,144-sample
+   minibatch at hidden 128 and 256 at each of the five (obs, action) pairs,
+   and at 16 and 100 on quadrotor3d-v0 (clip mode; KL mode too on
+   quadrotor3d-v0), against its twin with the samples within 16 ulps of
+   the ratio or value clip replaced (gated; as it stands reported), the
+   edge samples, the clipped ones and, in bf16, the hidden units within 16
+   ulps of a bf16 midpoint counted, bitwise on a rerun, timed at 128 and
+   256 in turns with the other dtype; K4 wide on quadrotor3d-v0 at 128 and
+   256: one 4 x 4 update of the eager rollout's trajectory at 32,768 x 32,
+   resynchronised on every pass (k4_resync), pass 0 bitwise one K3 wide
+   launch, a bitwise rerun, timed in turns; train_step at 32,768 x 32 and
+   hidden (128, 128) and (256, 256), float32 (3 updates) and bf16 (2): the
+   default path launches K4 wide once an update and no other kernel (the
+   rollout is eager at those widths, as the JAX package's), the K3 loop K3
+   wide 16 times, each update's mean_reward within 10% of the other
+   path's, the float32 default path at 256 bitwise on a rerun; the CLI at
+   --num_hidden=256 for 3 updates, its path log naming K4 wide.  The wall
+   is printed; ``--only wide`` runs phases 1-3 and 45 and prints their
+   kernels line.
 
 The second-to-last line is a JSON object describing each kernel of the
-paths (K1-K11, and the bf16 instances of K2/K6, K3, K4 and K7, whose
+paths (K1-K11, the bf16 instances of K2/K6, K3, K4 and K7, whose
 bound counts their products at the tensor cores' bf16 rate and whose
-``f32_ms`` is the float32 instance's time in the same turns): its
+``f32_ms`` is the float32 instance's time in the same turns, and the wide
+instances of K3 and K4 at hidden 128 and 256, float32 and bf16, with the
+SFU floor of their tanhf, registers, SASS and edge counts): its
 launches on its main path, its error against its twin,
 its time and its twin's (each measured; where the twin ran at a smaller
 shape than the kernel, ``plain_at`` names that shape and
@@ -666,17 +689,18 @@ def k4_setup(torch, dev, cfg, params, adv, tile: int, n_tiles: int, d: int, adim
     return perm_all, adv_stats, params, opt, kw
 
 
-def twin_ratio(torch, data, cols, net, d: int, adim: int, bf16: bool = False):
+def twin_ratio(torch, data, cols, net, d: int, adim: int, bf16: bool = False, hidden: int = 64):
     """The PPO ratio and value of the columns ``cols`` of ``data`` under
-    the flat params ``net``, in the twin's float32 operations (K3's twin,
-    ops/ppo_loss.py): each tower layer a matmul and tanh, the heads, then
-    logp and exp(logp - old logp); with ``bf16`` the products' operands
-    rounded to bf16, as the twin's bf16 mode rounds them."""
+    the flat params ``net`` (two hidden layers of width ``hidden``), in the
+    twin's float32 operations (K3's twin, ops/ppo_loss.py): each tower
+    layer a matmul and tanh, the heads, then logp and exp(logp - old
+    logp); with ``bf16`` the products' operands rounded to bf16, as the
+    twin's bf16 mode rounds them."""
     from reinmav_tpu_torch.ops import ppo_loss as pl
     from reinmav_tpu_torch.rl import networks
 
     r = networks.bf16_round if bf16 else (lambda t: t)  # noqa: E731
-    p = networks.Layout(d, adim, (64, 64)).unflatten(net)
+    p = networks.Layout(d, adim, (hidden, hidden)).unflatten(net)
     mb = data[:, cols]
     acts = {}
     for tower in ("pi", "vf"):
@@ -958,14 +982,15 @@ def ppo_state(env, cfg, dev, seed: int = 0):
 
 
 def training_phase(torch, dev, gpu: str, env, cfg, label: str, updates: int | None = None,
-                   with_state: bool = False, **train_kw):
+                   with_state: bool = False, counters: dict | None = None, **train_kw):
     """Drive 2 warm-up and 5 timed updates of ``train_step`` from seed 0
     (``updates`` in all, the first 2 the warm-up, when given), with every
-    kernel count set to 0 just before; returns the launch counts, the walls
-    and the summaries (and with ``with_state`` the train state after the
-    last update)."""
+    kernel count (of ``counters``, by default :func:`kernel_counters`) set
+    to 0 just before; returns the launch counts, the walls and the
+    summaries (and with ``with_state`` the train state after the last
+    update)."""
     state = ppo_state(env, cfg, dev)
-    counters = kernel_counters()
+    counters = kernel_counters() if counters is None else counters
     from reinmav_tpu_torch.rl.ppo import train_step
 
     for fn in counters.values():
@@ -3764,7 +3789,7 @@ def k4_resync(torch, data, adv_stats, perm_all, params, opt, kw, label: str,
         perm = perm_all[q * tpm:(q + 1) * tpm].contiguous()
         cols = pl._gather_columns(perm, tile)
         stats = adv_stats[q:q + 1].contiguous()
-        ratio, value = twin_ratio(torch, data, cols, net, d, adim, bf16)
+        ratio, value = twin_ratio(torch, data, cols, net, d, adim, bf16, kw.get("hidden", 64))
         adv_n = (data[d + adim + 2, cols] - stats[0, 0]) * stats[0, 1]
         near, _ = clip_edges(torch, ratio, adv_n, kw["clip_eps"])
         vclip, vtie = value_edges(torch, value, data[d + adim + 1, cols], data[d + adim + 3, cols],
@@ -4683,16 +4708,485 @@ def parallel_phases(torch, dev, gpu: str) -> dict:
     }
 
 
+# Phase 45: K3 and K4 at two equal hidden widths other than the 64-wide
+# instances' (their wide instances, csrc/ppo_loss_wide.cu and
+# csrc/ppo_update_wide.cu), float32 and bf16.
+#: K3 wide at every (obs, action) pair of the 64-wide instances, K4 wide
+#: and the training paths on quadrotor3d-v0, at these widths.
+WIDE_HIDDEN = (128, 256)
+#: K3 wide on quadrotor3d-v0 only: a width below 64, and one that is no
+#: multiple of 8 or 16 (its units padded, sub-blocks of 72 samples).
+WIDE_SMALL = (16, 100)
+#: The K3 minibatch (one of 4 at B_PPO x T_PPO) and the batch it is
+#: gathered from, in tiles of 128.
+MB_WIDE, TILE_WIDE = B_PPO * T_PPO // 4, 128
+#: train_step updates of each wide path (the first 2 the warm-up), the
+#: bf16 paths' updates, and K4 wide's launches a turn of its timing.
+WIDE_UPDATES, WIDE_BF16_UPDATES, WIDE_REPS = 3, 2, 3
+#: Ulps of float32 within which a hidden unit counts as within reach of a
+#: bf16 rounding midpoint.
+MIDPOINT_ULPS = 16
+
+
+def wide_ops(d: int, a: int, h: int) -> int:
+    """FP32 operations a sample of K3 at (d, a) and two hidden layers of
+    width h: forward 2 (h d + h^2) + h (a + 1) FMA, backward the heads 2 h
+    (a + 1), dW2 and dpre1 4 h^2, dW1 2 h d; 2 operations an FMA (56,192 at
+    (10, 4, 64), OPS_K3)."""
+    return 2 * (6 * h * h + 4 * h * d + 3 * h * (a + 1))
+
+
+def wide_forward(torch, x, net, d: int, a: int, h: int, bf16: bool):
+    """K3's twin's forward (ops/ppo_loss.py::ppo_loss_grads_reference) of
+    the obs columns ``x`` under ``net`` at width ``h``: the four hidden
+    activations (pi h1, h2, vf h1, h2), the mean and the value."""
+    from reinmav_tpu_torch.ops import ppo_loss as pl
+    from reinmav_tpu_torch.rl import networks
+
+    r = networks.bf16_round if bf16 else (lambda t: t)  # noqa: E731
+    p = networks.Layout(d, a, (h, h)).unflatten(net)
+    hs = {}
+    for tower in ("pi", "vf"):
+        y, hs[tower] = x, []
+        for layer in p[tower]:
+            y = torch.tanh(r(layer["w"].T) @ r(y) + layer["b"][:, None])
+            hs[tower].append(y)
+    mean = r(p["pi_out"]["w"].T) @ r(hs["pi"][-1]) + p["pi_out"]["b"][:, None]
+    value = pl.value_head(r(hs["vf"][-1]), r(p["vf_out"]["w"][:, 0]), p["vf_out"]["b"][0])
+    return [*hs["pi"], *hs["vf"]], mean, value
+
+
+def near_midpoint(torch, h) -> int:
+    """Entries of the float32 ``h`` within MIDPOINT_ULPS of a bf16 rounding
+    midpoint (low 16 bits 0x8000), where a last-bit difference of the sum
+    rounds its bf16 operand the other way."""
+    low = h.contiguous().view(torch.int32) & 0xFFFF
+    return int(((low - 0x8000).abs() <= MIDPOINT_ULPS).sum())
+
+
+def wide_k3_inputs(torch, dev, d: int, a: int, h: int, seed: int):
+    """K3 wide's inputs at (d, a, h): a batch of 2 MB_WIDE samples (obs N(0,
+    1), actions drawn from the policy of seeded params with log_std -0.5,
+    its log-prob as the old one, its value plus 0.1 N(0, 1) as the old
+    value, the return 0.5 N(0, 1) from it, the raw advantage N(0, 1)), the
+    tile indices of one minibatch of MB_WIDE, its advantage stats, and the
+    params perturbed by 0.02 N(0, 1), so that the ratios spread around 1
+    and some samples clip."""
+    from reinmav_tpu_torch.ops import ppo_loss as pl
+    from reinmav_tpu_torch.rl import networks
+
+    n = 2 * MB_WIDE
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    normal = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+    layout = networks.Layout(d, a, (h, h))
+    params = networks.init_params(layout, torch.Generator().manual_seed(seed)).to(dev)
+    params[layout.slices[("log_std",)]] = -0.5
+    x = normal(d, n)
+    _, mean, value = wide_forward(torch, x, params, d, a, h, False)
+    ls = params[layout.slices[("log_std",)]]
+    act = mean + torch.exp(ls)[:, None] * normal(a, n)
+    _, logp, _ = pl.logp_ratio(act - mean, torch.exp(2.0 * ls)[:, None], ls, torch.zeros(n, device=dev))
+    old_value = value + 0.1 * normal(n)
+    data = pl.stack_batch(x, act, logp, old_value, normal(n), old_value + 0.5 * normal(n))
+    tidx = torch.randperm(n // TILE_WIDE, generator=torch.Generator().manual_seed(seed))[
+        :MB_WIDE // TILE_WIDE].to(device=dev, dtype=torch.int32)
+    adv_mb = data[d + a + 2, pl._gather_columns(tidx, TILE_WIDE)]
+    zero = torch.zeros((), device=dev)
+    adv_stats = torch.stack([adv_mb.mean(), 1.0 / (adv_mb.std(unbiased=False) + 1e-8), zero,
+                             zero]).contiguous()
+    net = (params + 0.02 * normal(layout.size)).contiguous()
+    return data, tidx, adv_stats, net
+
+
+def wide_edges(torch, batch, stats, net, d: int, a: int, h: int, bf16: bool, clip_eps: float,
+               value_clip_eps: float):
+    """The samples of the gathered ``batch`` on a knife edge of the twin's
+    forward, by window of CLIP_EDGE_ULPS: within that many ulps of the ratio
+    clip, and of the value clip (or its squared-error tie); with the counts,
+    and the hidden units within MIDPOINT_ULPS of a bf16 midpoint."""
+    from reinmav_tpu_torch.ops import ppo_loss as pl
+    from reinmav_tpu_torch.rl import networks
+
+    hs, mean, value = wide_forward(torch, batch[:d], net, d, a, h, bf16)
+    ls = networks.Layout(d, a, (h, h)).unflatten(net)["log_std"]
+    ratio = pl.logp_ratio(batch[d:d + a] - mean, torch.exp(2.0 * ls)[:, None], ls,
+                          batch[d + a])[2]
+    adv_n = (batch[d + a + 2] - stats[0]) * stats[1]
+    near, _ = clip_edges(torch, ratio, adv_n, clip_eps)
+    vclip, vtie = value_edges(torch, value, batch[d + a + 1], batch[d + a + 3], value_clip_eps)
+    edge = {w: near[w] | vclip[w] | vtie[w] for w in CLIP_EDGE_ULPS}
+    counts = {f"ratio_clip_{w}_ulps": int(near[w].sum()) for w in CLIP_EDGE_ULPS}
+    counts.update({f"value_clip_{w}_ulps": int((vclip[w] | vtie[w]).sum())
+                   for w in CLIP_EDGE_ULPS})
+    counts["clipped"] = int(((ratio - 1.0).abs() > clip_eps).sum())
+    if bf16:
+        counts["h1_near_midpoint"] = near_midpoint(torch, hs[0]) + near_midpoint(torch, hs[2])
+        counts["h2_near_midpoint"] = near_midpoint(torch, hs[1]) + near_midpoint(torch, hs[3])
+        counts["hidden_units"] = 2 * hs[0].numel()
+    return edge, counts
+
+
+def wide_k3_check(torch, d: int, a: int, h: int, cd, kl: bool, data, tidx, adv_stats, net,
+                  label: str):
+    """K3 wide against its twin of dtype ``cd`` (``kl``: the adaptive-KL
+    surrogate, at ``adv_stats[2]``) on the minibatch ``tidx`` of ``data``:
+    as it stands (reported: a sample on a knife edge may fall on
+    either side in the kernel's order) and resynchronised (the samples
+    within RESYNC_ULPS of the ratio or value clip on the twin's forward
+    replaced by a copy of the first that is not; gated: grads GRAD_TOL,
+    metrics METRIC_TOL); bitwise on a rerun; one wide launch a call, none
+    of the 64-wide kernel.  Returns the numbers."""
+    from reinmav_tpu_torch.ops import ppo_loss as pl
+    from reinmav_tpu_torch.rl import networks
+
+    layout = networks.Layout(d, a, (h, h))
+    kcfg = dict(d=d, adim=a, clip_eps=0.2, value_clip_eps=0.2, value_coef=0.5, tile=TILE_WIDE,
+                kl_mode=kl, hidden=h, compute_dtype=cd)
+    n_mb = tidx.numel() * TILE_WIDE
+    narrow, wide = pl.ppo_loss_grads_gather.launches, pl._launch_wide.launches
+    g_k, _ = pl.ppo_loss_grads_gather(data, adv_stats, tidx, net, ent_coef=0.01, **kcfg)
+    g_p = pl._finish(pl.ppo_loss_grads_reference(data, adv_stats, tidx, net, **kcfg), n_mb, 0.01,
+                     layout)[0]
+    free = count_outside(g_k, g_p, GRAD_TOL)
+    batch = data[:, pl._gather_columns(tidx, TILE_WIDE)].contiguous()
+    edge, counts = wide_edges(torch, batch, adv_stats, net, d, a, h, cd == BF16, 0.2, 0.2)
+    replace = edge[RESYNC_ULPS]
+    if bool(replace.any()):
+        keep = int((~replace).nonzero()[0, 0])
+        batch[:, replace] = batch[:, keep:keep + 1]
+    ident = torch.arange(tidx.numel(), dtype=torch.int32, device=data.device)
+    g_k, m_k = pl.ppo_loss_grads_gather(batch, adv_stats, ident, net, ent_coef=0.01, **kcfg)
+    g_p, m_p = pl._finish(pl.ppo_loss_grads_reference(batch, adv_stats, ident, net, **kcfg), n_mb,
+                          0.01, layout)
+    g_again, _ = pl.ppo_loss_grads_gather(batch, adv_stats, ident, net, ent_coef=0.01, **kcfg)
+    torch.cuda.synchronize()
+    require(pl._launch_wide.launches == wide + 3 and
+            pl.ppo_loss_grads_gather.launches == narrow, f"{label}: launches")
+    err = float((g_k - g_p).abs().max())
+    require(torch.allclose(g_k, g_p, **GRAD_TOL),
+            f"{label} resynchronised: {count_outside(g_k, g_p, GRAD_TOL)} gradient entries "
+            f"outside, max |err| {err:.3e}")
+    for m in pl.METRICS:
+        require(torch.allclose(m_k[m], m_p[m], **METRIC_TOL), f"{label}: {m}")
+    require(torch.equal(g_k, g_again), f"{label}: determinism")
+    require(float(m_k["clip_frac"]) > 0.0, f"{label}: no sample clipped")
+    say(f"{label} vs twin, minibatch {n_mb}: {int(replace.sum())} samples within {RESYNC_ULPS} "
+        f"ulps of the ratio or value clip replaced, then grads max |err| {err:.3e} (rtol 2e-3 atol "
+        f"2e-6), metrics " + ", ".join(f"{m} {float(m_k[m]):.5g}" for m in pl.METRICS)
+        + f" (rtol 2e-4 atol 1e-6), bitwise equal on a rerun: ok; as it stands {free} of "
+        f"{g_k.numel()} gradient entries outside (reported); edges {counts}")
+    return dict(max_abs_err=err, free_outside=free, edges=counts)
+
+
+def wide_trajectory(torch, dev, env, h: int):
+    """A PPO trajectory at B_PPO x T_PPO from the eager rollout (K2/K6 are
+    2 x 64 only, as the JAX package's) of a train state at width ``h``
+    (seed 3), log_std -0.5, stacked as K4 takes it.  Returns ``(cfg,
+    params, data, adv, tile, n_tiles)``."""
+    from reinmav_tpu_torch.ops import ppo_loss as pl
+    from reinmav_tpu_torch.rl import networks, ppo
+
+    cfg = ppo.PpoConfig(num_envs=B_PPO, rollout_len=T_PPO, hidden=(h, h))
+    layout = networks.Layout(env.obs_dim, env.action_dim, cfg.hidden)
+    state = ppo.init_train_state(env, cfg, seed=3, device=dev)
+    params = state.params.clone()
+    params[layout.slices[("log_std",)]] = -0.5
+    ro_ = ppo.collect_rollout(env, cfg, params, state.obs_norm, state.ret_norm, state.env_states,
+                              state.env_returns, torch.Generator(device=dev).manual_seed(21))
+    n = B_PPO * T_PPO
+    with torch.no_grad():
+        last = ppo._normalize_t(ro_.final_states.T[:env.obs_dim], state.obs_norm)
+        _, _, last_value = networks.apply_t(layout.unflatten(params), last)
+        adv, ret = ppo.compute_gae(cfg, ro_.traj, last_value)
+    flat_d = lambda x: x.permute(1, 0, 2).reshape(x.shape[1], n)  # noqa: E731
+    data = pl.stack_batch(flat_d(ro_.traj.obs), flat_d(ro_.traj.action),
+                          ro_.traj.log_prob.reshape(n), ro_.traj.value.reshape(n), adv.reshape(n),
+                          ret.reshape(n))
+    tile, n_tiles = ppo._tiling(cfg, n)
+    return cfg, params, data, adv, tile, n_tiles
+
+
+def wide_k4_check(torch, dev, gpu: str, env, h: int) -> dict:
+    """K4 wide on quadrotor3d-v0 at width ``h``, float32 and bf16: one 4 x 4
+    update of the eager trajectory, resynchronised against the twin on
+    every pass (k4_resync, gated), free-running against it (reported),
+    pass 0 bitwise one K3 wide launch, bitwise on a rerun; both dtypes
+    timed in turns, the twin once.  Returns the numbers by dtype."""
+    from reinmav_tpu_torch.ops import ppo_loss as pl
+    from reinmav_tpu_torch.ops import ppo_update as pu
+
+    d, a = env.obs_dim, env.action_dim
+    cfg, params, data, adv, tile, n_tiles = wide_trajectory(torch, dev, env, h)
+    perm_all, stats, params, opt, kw = k4_setup(torch, dev, cfg, params, adv, tile, n_tiles, d, a)
+    kw["hidden"] = h
+    e_, m_ = cfg.num_epochs, cfg.num_minibatches
+    n_passes, mb = e_ * m_, perm_all.shape[0] // (e_ * m_) * tile
+    out = {}
+    for cd in (None, BF16):
+        name = cd or "float32"
+        label = f"K4 wide H={h} ({d}, {a}) {name}"
+        resync = k4_resync(torch, data, stats, perm_all, params, opt, kw, label, bf16=cd == BF16)
+        narrow, wide = pu.ppo_update.launches, pu._launch_wide.launches
+        k = pu.ppo_update(data, stats, perm_all, params, opt, None, keep_grad0=True,
+                          compute_dtype=cd, **kw)
+        again = pu.ppo_update(data, stats, perm_all, params, opt, None, keep_grad0=True,
+                              compute_dtype=cd, **kw)
+        tw_params, tw_opt, _, _ = pu.ppo_update_reference(data, stats, perm_all, params, opt, None,
+                                                          compute_dtype=cd, **kw)
+        zero = torch.zeros((), device=dev)
+        g3, _ = pl.ppo_loss_grads_gather(
+            data, torch.stack([stats[0, 0], stats[0, 1], zero, zero]).contiguous(),
+            perm_all[:perm_all.shape[0] // n_passes].contiguous(), params, d=d, adim=a,
+            clip_eps=cfg.clip_eps, value_clip_eps=cfg.value_clip_eps, value_coef=cfg.value_coef,
+            ent_coef=cfg.entropy_coef, tile=tile, hidden=h, compute_dtype=cd)
+        torch.cuda.synchronize()
+        require(pu._launch_wide.launches == wide + 2 and pu.ppo_update.launches == narrow,
+                f"{label}: launches")
+        require(torch.equal(k.params, again.params) and
+                all(torch.equal(x, y) for x, y in zip(k.opt_state, again.opt_state)),
+                f"{label}: determinism")
+        require(torch.equal(k.grad0, g3), f"{label}: pass 0 is not K3 wide's bitwise")
+        require(int(k.opt_state.count) == n_passes and bool(torch.isfinite(k.params).all()),
+                f"{label}: count or finite params")
+        free = {x: count_outside(p, q, tol) for x, p, q, tol in (
+            ("params", k.params, tw_params, UPDATE_TOL),
+            ("mu", k.opt_state.mu, tw_opt.mu, MOMENT_TOL),
+            ("nu", k.opt_state.nu, tw_opt.nu, MOMENT_TOL))}
+        say(f"{label}, one update of {e_} x {m_} passes of {mb}: resynchronised on every pass: ok; "
+            f"pass 0 bitwise one K3 wide launch; bitwise equal on a rerun; free-running against "
+            f"the twin (reported) params max |err| {float((k.params - tw_params).abs().max()):.3e},"
+            f" entries outside {free}")
+        (plain,), _ = cuda_ms(lambda: pu.ppo_update_reference(
+            data, stats, perm_all, params, opt, None, compute_dtype=cd, **kw), 1)
+        out[name] = dict(resync=resync, free_outside=free, plain_ms=plain,
+                         max_abs_err=resync["max_abs_err"]["params"])
+    k4 = lambda cd: pu.ppo_update(data, stats, perm_all, params, opt, None,  # noqa: E731
+                                  compute_dtype=cd, **kw)
+    (ms32, lo32, hi32), (ms16, lo16, hi16) = in_turns(torch, lambda: k4(None), lambda: k4(BF16),
+                                                      WIDE_REPS)
+    # Read: the batch, the tiles, the stats, params and moments; written:
+    # params and moments.
+    nb = nbytes(data, perm_all, stats, params, opt.mu, opt.nu) + nbytes(params, opt.mu, opt.nu)
+    prod = wide_ops(d, a, h) * mb * n_passes
+    sfu = sfu_ms(n_passes * mb * (2 * 4 * h + 1))
+    for name, ms, lo, hi, b in (("float32", ms32, lo32, hi32, bound(nb, prod)),
+                                (BF16, ms16, lo16, hi16, bound_bf16(nb, prod, 0.0))):
+        inst = f"ppo_update_wide_kernel<false, {'true' if name == BF16 else 'false'}>"
+        out[name].update(ms=ms, bound_ms=b[0], bound_by=b[1], sfu_ms=sfu,
+                         registers=kernel_registers(inst), sass=kernel_mma(inst))
+        say(f"time K4 wide H={h} ({d}, {a}) {name}, {e_} x {m_} passes of {mb}: {ms:.3f} ms ({lo:.3f}"
+            f" to {hi:.3f}, in turns with the other dtype, {WIDE_REPS} launches a turn); twin "
+            f"{out[name]['plain_ms']:.1f} ms; bound {b[0]:.4f} ms by {b[1]} ({prod:.4e} operations"
+            f"{', products at 989 TFLOP/s' if name == BF16 else ''}), the SFU floor of its tanhf "
+            f"{sfu:.4f} ms; ptxas {inst} {out[name]['registers']}; SASS "
+            f"{mma_text(out[name]['sass'])}; on {gpu}")
+    return out
+
+
+def wide_counters() -> dict:
+    """:func:`kernel_counters` with the wide K3 and K4 instances' own."""
+    from reinmav_tpu_torch.ops import ppo_loss as pl
+    from reinmav_tpu_torch.ops import ppo_update as pu
+
+    return {**kernel_counters(), "K3 wide": pl._launch_wide,
+            "K4 wide": pu._launch_wide}
+
+
+def wide_training(torch, dev, gpu: str, env, h: int, cd) -> dict:
+    """train_step at B_PPO x T_PPO and hidden (h, h) in dtype ``cd``: the
+    default path (the eager rollout, K4 wide once an update, K3 never) and
+    the K3 loop (K3 wide once a minibatch) from the same state, each update's
+    mean_reward within 10% of the other's; the float32 default path at 256
+    twice, bitwise.  Returns the launches of both paths."""
+    from reinmav_tpu_torch.rl import ppo
+
+    updates = WIDE_UPDATES if cd is None else WIDE_BF16_UPDATES
+    cfg = ppo.PpoConfig(num_envs=B_PPO, rollout_len=T_PPO, hidden=(h, h),
+                        compute_dtype=cd or "float32")
+    name = f"{env.name} hidden ({h}, {h}) {cfg.compute_dtype}"
+    passes = cfg.num_epochs * cfg.num_minibatches
+    quiet = {k: 0 for k in wide_counters()}
+    runs = {}
+    for label, c in (("default", cfg), ("K3 loop", cfg._replace(fused_update="off"))):
+        runs[label] = training_phase(torch, dev, gpu, env, c, f"{name} {label} ppo update",
+                                     updates=updates, with_state=True, counters=wide_counters())
+    require(runs["default"][0] == {**quiet, "K4 wide": updates},
+            f"{name} default path launches {runs['default'][0]}")
+    require(runs["K3 loop"][0] == {**quiet, "K3 wide": updates * passes},
+            f"{name} K3 loop launches {runs['K3 loop'][0]}")
+    rewards = {k: [s["mean_reward"] for s in v[2]] for k, v in runs.items()}
+    for r, e in zip(rewards["default"], rewards["K3 loop"]):
+        require(abs(r - e) <= 0.1 * abs(e), f"{name} mean_reward {rewards}")
+    rerun = ""
+    if cd is None and h == max(WIDE_HIDDEN):
+        again = training_phase(torch, dev, gpu, env, cfg, f"{name} default ppo update, again",
+                               updates=updates, with_state=True, counters=wide_counters())
+        a, b = runs["default"][3], again[3]
+        require(torch.equal(a.params, b.params) and
+                all(torch.equal(x, y) for x, y in zip(a.opt_state, b.opt_state)),
+                f"{name}: the default path's rerun is not bitwise equal")
+        rerun = "; a rerun of the default path from the same seed bitwise equal"
+    say(f"{name} training: default path K4 wide {runs['default'][0]['K4 wide']} launches in "
+        f"{updates} updates (K3 {runs['default'][0]['K3']}, K3 wide "
+        f"{runs['default'][0]['K3 wide']}, K4 {runs['default'][0]['K4']}), the K3 loop K3 wide "
+        f"{runs['K3 loop'][0]['K3 wide']}; mean_reward per update "
+        f"{[round(r, 4) for r in rewards['default']]}, the K3 loop's "
+        f"{[round(r, 4) for r in rewards['K3 loop']]} (rtol 0.1); the last update's wall "
+        f"{runs['default'][1][-1]:.1f} ms, the K3 loop's {runs['K3 loop'][1][-1]:.1f} ms{rerun}; "
+        f"on {gpu}: ok")
+    return {"K4 wide": runs["default"][0]["K4 wide"], "K3 wide": runs["K3 loop"][0]["K3 wide"],
+            "update_ms": runs["default"][1][-1]}
+
+
+def wide_cli_phase(gpu: str) -> None:
+    """The training CLI with --num_hidden 256 at B_PPO x T_PPO for 3
+    updates, in a subprocess with the learner's log on: exit 0, finite
+    metrics, its path log naming K4 wide."""
+    root = Path(__file__).resolve().parent
+    steps = 3 * B_PPO * T_PPO
+    args = ["--num_hidden=256", f"--num_env={B_PPO}", f"--rollout_len={T_PPO}",
+            f"--num_timesteps={steps}", "--log_interval=1"]
+    code = ("import logging, sys; logging.basicConfig(level=logging.INFO, stream=sys.stderr); "
+            "from reinmav_tpu_torch.rl import run; run.main(sys.argv[1:])")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, *args], capture_output=True, text=True,
+                          timeout=600, cwd=root)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the CLI at --num_hidden=256 exited {proc.returncode}:\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    train = [row for row in rows if "env_steps" in row]
+    require(bool(train) and train[-1]["env_steps"] == steps and
+            all(math.isfinite(v) for v in train[-1].values()), "the wide CLI's metrics")
+    path = [line for line in proc.stderr.splitlines() if "update: K4" in line]
+    require(bool(path) and "K4 CUDA kernel (wide, H=256), 1 launch" in path[-1],
+            f"the wide CLI's path log {path[-1:] or proc.stderr[-2000:]}")
+    say(f"cli --num_hidden=256: exit 0 in {time.perf_counter() - t0:.1f} s on {gpu}; path "
+        f"{path[-1].split('update: ')[-1]}; last line {json.dumps(train[-1])}")
+
+
+def wide_phases(torch, dev, gpu: str) -> list[dict]:
+    """Phase 45 and its wall: K3 wide at WIDE_HIDDEN on every (obs, action)
+    pair of the 64-wide instances and at WIDE_SMALL on quadrotor3d-v0
+    (float32 and bf16, clip and, on quadrotor3d-v0, KL mode), each against
+    its twin; K4 wide at WIDE_HIDDEN on quadrotor3d-v0; the training paths
+    at WIDE_HIDDEN; the CLI at --num_hidden 256.  Returns the entries of
+    the ``kernels`` line."""
+    import ctypes
+
+    import reinmav_tpu_torch
+    from reinmav_tpu_torch import _build
+    from reinmav_tpu_torch.ops import ppo_loss as pl
+
+    t0 = time.perf_counter()
+    lib = _build.load_library()
+    for line in _build.ptxas_report():
+        if "wide_kernel" in line:
+            say(line)
+    k3 = {}
+    for name, (d, a) in zip(PPO_STRUCT, pl.KERNEL_DIMS):
+        env = reinmav_tpu_torch.make(name)
+        require((env.obs_dim, env.action_dim) == (d, a), f"{name}: dims")
+        widths = WIDE_HIDDEN + (WIDE_SMALL if name == "quadrotor3d-v0" else ())
+        for h in widths:
+            data, tidx, stats, net = wide_k3_inputs(torch, dev, d, a, h, 45 + h)
+            samples = ctypes.c_int()
+            smem = lib.ppo_wide_smem(d, a, h, ctypes.byref(samples))
+            for cd in (None, BF16):
+                for kl in ((False, True) if name == "quadrotor3d-v0" else (False,)):
+                    kl_stats = stats.clone()
+                    kl_stats[2] = 0.7 if kl else 0.0
+                    label = (f"K3 wide H={h} ({d}, {a}) {cd or 'float32'} "
+                             f"{'kl' if kl else 'clip'}")
+                    k3[(name, h, cd or "float32", kl)] = wide_k3_check(
+                        torch, d, a, h, cd, kl, data, tidx, kl_stats, net, label)
+            if h not in WIDE_HIDDEN:
+                continue
+            kcfg = dict(d=d, adim=a, clip_eps=0.2, value_clip_eps=0.2, value_coef=0.5,
+                        tile=TILE_WIDE, hidden=h)
+            run = lambda cd: pl.ppo_loss_grads_gather(data, stats, tidx, net,  # noqa: E731
+                                                      ent_coef=0.01, compute_dtype=cd, **kcfg)
+            (ms32, _, _), (ms16, _, _) = in_turns(torch, lambda: run(None), lambda: run(BF16), 5)
+            for cd, ms in ((None, ms32), (BF16, ms16)):
+                plain = [cuda_ms(lambda: pl.ppo_loss_grads_reference(
+                    data, stats, tidx, net, compute_dtype=cd, **kcfg), 1)[0][0] for _ in range(2)]
+                # Read: the tiles, the stats, the params and the minibatch's
+                # columns; written: the gradient (the params' size).
+                nb = nbytes(tidx, stats, net) + nbytes(net) + MB_WIDE * data.shape[0] * 4
+                prod = wide_ops(d, a, h) * MB_WIDE
+                b = bound_bf16(nb, prod, 0.0) if cd else bound(nb, prod)
+                entry = k3[(name, h, cd or "float32", False)]
+                entry.update(ms=ms, plain_ms=statistics.median(plain), bound_ms=b[0],
+                             bound_by=b[1], sfu_ms=sfu_ms(MB_WIDE * (2 * 4 * h + 1)))
+                say(f"time K3 wide H={h} ({d}, {a}) {cd or 'float32'}, minibatch {MB_WIDE}: "
+                    f"{ms:.4f} ms (median of 10 launches, in turns with the other dtype); twin "
+                    f"{entry['plain_ms']:.2f} ms; bound {b[0]:.4f} ms by {b[1]}"
+                    f"{' (products at 989 TFLOP/s)' if cd else ''}, the SFU floor of its tanhf "
+                    f"{entry['sfu_ms']:.4f} ms; {samples.value} samples a sub-block, {smem} B of "
+                    f"shared memory; on {gpu}")
+            del data, tidx, stats, net
+            torch.cuda.empty_cache()
+    env = reinmav_tpu_torch.make("quadrotor3d-v0")
+    k4 = {h: wide_k4_check(torch, dev, gpu, env, h) for h in WIDE_HIDDEN}
+    torch.cuda.empty_cache()
+    train = {(h, cd): wide_training(torch, dev, gpu, env, h, cd)
+             for h in WIDE_HIDDEN for cd in (None, BF16)}
+    wide_cli_phase(gpu)
+    say(f"phase 45 (K3/K4 wide): {time.perf_counter() - t0:.1f} s on {gpu}")
+
+    entries = []
+    for h in WIDE_HIDDEN:
+        for cd in ("float32", BF16):
+            tag = "bf16" if cd == BF16 else cd
+            tr = train[(h, None if cd == "float32" else BF16)]
+            k3_inst = f"ppo_loss_wide_kernel<false, {'true' if cd == BF16 else 'false'}>"
+            at = [k3[(n, h, cd, False)] for n in PPO_STRUCT]
+            main = k3[("quadrotor3d-v0", h, cd, False)]
+            entries.append({
+                "name": f"ppo_loss_grads_gather (wide, {tag}, H={h})", "route": "cuda",
+                "source": "reinmav_tpu_torch/csrc/ppo_loss_wide.cu",
+                "replaces": "reinmav_tpu/ops/pallas_ppo.py:424", "launches": tr["K3 wide"],
+                "max_abs_err": max(e["max_abs_err"] for e in at),
+                "tolerance": "resynchronised (the samples within 16 ulps of the ratio or value "
+                             "clip replaced): grads rtol 2e-3 atol 2e-6, metrics rtol 2e-4 atol "
+                             "1e-6, bitwise repeatable; at the five (obs, action) pairs",
+                "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+                "bound_by": main["bound_by"], "library_ms": None,
+                "registers": kernel_registers(k3_inst), "sass": kernel_mma(k3_inst),
+                "edges": {n: e["edges"] for n, e in zip(PPO_STRUCT, at)},
+                "ms_by_env": {n: e["ms"] for n, e in zip(PPO_STRUCT, at)},
+                "at": f"minibatch of {MB_WIDE} samples, obs 10, action 4, hidden ({h}, {h}); "
+                      f"launches on the K3 loop of train_step at {B_PPO} x {T_PPO}"})
+            k = k4[h][cd]
+            entries.append({
+                "name": f"ppo_update (wide, {tag}, H={h})", "route": "cuda",
+                "source": "reinmav_tpu_torch/csrc/ppo_update_wide.cu",
+                "replaces": "reinmav_tpu/ops/pallas_ppo_update.py:304",
+                "launches": tr["K4 wide"], "max_abs_err": k["max_abs_err"],
+                "tolerance": "resynchronised: each pass from the twin's state, the samples within "
+                             "16 ulps of the ratio or value clip replaced; gradient rtol 2e-3 "
+                             "atol 2e-6, params rtol 2e-4 atol 1e-6, moments rtol 2e-4 atol "
+                             "5e-8; max_abs_err the params' there",
+                "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                "bound_by": k["bound_by"], "library_ms": None,
+                "registers": k["registers"], "sass": k["sass"], "resync": k["resync"],
+                "free_running_outside": k["free_outside"], "update_ms": tr["update_ms"],
+                "at": f"4 x 4 passes of {MB_WIDE} samples, obs 10, action 4, hidden ({h}, {h}); "
+                      f"launches on the default path of train_step at {B_PPO} x {T_PPO}"})
+    return entries
+
+
 def main(argv=None) -> int:
     import argparse
 
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=("hashes", "bf16", "parallel"),
+    parser.add_argument("--only", choices=("hashes", "bf16", "parallel", "wide"),
                         help="after phases 1-3, run only the digests and times of K1 and "
-                        "K2/K6 (hashes), phases 34-38 and their kernels line (bf16), or phases "
-                        "39-44 (parallel); print no result line")
+                        "K2/K6 (hashes), phases 34-38 and their kernels line (bf16), phases "
+                        "39-44 (parallel), or phase 45 and its kernels line (wide); print no "
+                        "result line")
     only = parser.parse_args(argv).only
 
     # 1. Device.
@@ -4749,6 +5243,11 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         say(json.dumps({"launches_sharded": parallel_phases(torch, dev, gpu)}))
+        return 0
+    if only == "wide":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        say(json.dumps({"kernels": wide_phases(torch, dev, gpu)}))
         return 0
 
     # 4. K1 against its plain twin.  The slice has no matmul; TF32 is set
@@ -4894,6 +5393,8 @@ def main(argv=None) -> int:
     for entry in kernels:
         if entry["name"] in sharded:
             entry["launches_sharded"] = sharded[entry["name"]]
+    # 45. K3 and K4 at hidden widths other than 64.
+    kernels += wide_phases(torch, dev, gpu)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

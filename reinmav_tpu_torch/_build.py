@@ -109,6 +109,34 @@ _SIGNATURES = {
                           ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                           ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P),
     "ppo_update_metrics_size": (),
+    # K3 wide: (obs dim, action dim, hidden width, data, n, perm, m, tile,
+    #  adv_stats, net, clip_eps, value_clip_eps, value_coef, kl_mode, bf16,
+    #  blocks, partials, out, stream)
+    "ppo_loss_wide_launch": (ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, ctypes.c_longlong, _P,
+                             ctypes.c_longlong, ctypes.c_int, _P, _P, ctypes.c_float,
+                             ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_int, _P, _P, _P),
+    # (minibatch samples, hidden width) -> CTAs of the K3/K4 wide grid, -1 on
+    #  a CUDA error
+    "ppo_loss_wide_blocks": (ctypes.c_longlong, ctypes.c_int),
+    # (obs dim, action dim, hidden width) -> sums K3 wide writes, -1 for
+    #  widths the wide body does not take
+    "ppo_loss_wide_out_size": (ctypes.c_int, ctypes.c_int, ctypes.c_int),
+    # (obs dim, action dim, hidden width, samples a sub-block out (int)) ->
+    #  the wide body's shared memory in bytes, -1 for widths it does not take
+    "ppo_wide_smem": (ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
+    # (obs dim, action dim, hidden width, offsets out (11 int)) -> 0, or -1
+    #  for widths the wide body does not take
+    "ppo_wide_layout": (ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
+    # K4 wide: ppo_update_launch's arguments with the hidden width after the
+    #  action dim
+    "ppo_update_wide_launch": (ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, ctypes.c_longlong,
+                               _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P,
+                               _P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_float,
+                               ctypes.c_float, ctypes.c_double, ctypes.c_float, ctypes.c_float,
+                               ctypes.c_float, ctypes.c_double, ctypes.c_double, ctypes.c_float,
+                               ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int, _P, _P, _P, _P, _P, _P),
     # K7: (env kind, mode, bf16, host params, number of params, states_in,
     #  batch, hidden1, hidden2, w1, b1, w2, b2, w3, b3, consts, seed,
     #  states_out, block, taut counts or null, stream)

@@ -47,6 +47,33 @@ struct Layout {
   __host__ __device__ static constexpr int tower_base(int tower) { return tower == 0 ? kPi : kVf; }
 };
 
+// The same layout for two equal hidden layers of any width h, its offsets
+// computed at run time from (D, A, h): the wide K3/K4 instances'
+// (ppo_loss_body_wide.cuh), which take the widths as arguments.  Its
+// offsets are ops/ppo_loss.py::wide_layout's, which a CPU test holds to
+// networks.Layout; the 64-wide instances and K2/K6 keep Layout<kD, kA>.
+struct RtLayout {
+  int D, A, H;
+  int w1, b2, w2, tower_hidden;  // inside a tower, from its base (b1 at 0)
+  int pi, pi_out_b, pi_out_w, vf, vf_out_b, vf_out_w, net_size;
+
+  __host__ __device__ RtLayout(int d, int a, int h) : D(d), A(a), H(h) {
+    w1 = h;
+    b2 = w1 + d * h;
+    w2 = b2 + h;
+    tower_hidden = w2 + h * h;
+    pi = a;  // log_std at 0
+    pi_out_b = pi + tower_hidden;
+    pi_out_w = pi_out_b + a;
+    vf = pi_out_w + h * a;
+    vf_out_b = vf + tower_hidden;
+    vf_out_w = vf_out_b + 1;
+    net_size = vf_out_w + h;
+  }
+
+  __host__ __device__ int tower_base(int tower) const { return tower == 0 ? pi : vf; }
+};
+
 constexpr float kLog2Pi = 1.8378770664093453f;
 
 }  // namespace ac

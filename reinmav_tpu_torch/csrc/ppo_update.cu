@@ -42,7 +42,10 @@
 // the adaptive-KL coefficient are read from device scalars, and CTA 0
 // writes count + E * M at the end, so the host reads neither.
 //
-// The optimiser is the port's ClipAdam (rl/ppo.py), optax's
+// The host side (the arguments, the cooperative launch) is
+// ppo_update_host.cuh's, shared with the wide instances (ppo_update_wide.cu);
+// phases 2 and 3 stay in each kernel (see there).  The optimiser is the
+// port's ClipAdam (rl/ppo.py), optax's
 // chain(clip_by_global_norm(c), adam(lr, eps)): g * (c / |g|) only when
 // |g| >= c, eps outside the square root, and the bias corrections
 // 1 - beta^t computed in double, then rounded to float.  Its products and
@@ -75,6 +78,7 @@
 
 #include "ppo_loss_body.cuh"
 #include "ppo_loss_body_bf16.cuh"
+#include "ppo_update_host.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -82,6 +86,7 @@ namespace {
 
 using namespace reinmav::ppo_loss;
 namespace tc = reinmav::ppo_loss_bf16;
+namespace pu = reinmav::ppo_update;
 
 // The shared memory of a pass's body: the float32 body's, or the bf16
 // body's (kBf).
@@ -241,26 +246,7 @@ template <int kD, int kA, bool kKl, bool kBf>
 cudaError_t launch(const UpdateArgs& args, int blocks, cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(PassSmem<kD, kA, kBf>));
   const void* kern = reinterpret_cast<const void*>(ppo_update_kernel<kD, kA, kKl, kBf>);
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
-    return err;
-  if (!coop) return cudaErrorNotSupported;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  // The grid must be co-resident, or grid.sync() would wait forever.
-  if (blocks < 1 || static_cast<long long>(per_sm) * sms < blocks)
-    return cudaErrorCooperativeLaunchTooLarge;
-  UpdateArgs a = args;
-  void* kernel_args[] = {&a};
-  err = cudaLaunchCooperativeKernel(kern, dim3(blocks), dim3(kThreads), kernel_args,
-                                    static_cast<size_t>(smem), stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return pu::launch_cooperative(kern, kThreads, smem, args, blocks, stream);
 }
 
 }  // namespace
@@ -286,43 +272,10 @@ extern "C" int ppo_update_launch(int d, int adim, const void* data, long long n,
                                  int bf16, int blocks, void* partials, void* gbuf, void* slots, void* metrics,
                                  void* grad0, void* stream) {
   UpdateArgs a{};
-  a.data = static_cast<const float*>(data);
-  a.n = n;
-  a.perm = static_cast<const int*>(perm);
-  a.adv_stats = static_cast<const float*>(adv_stats);
-  a.kl_beta = static_cast<const float*>(kl_beta);
-  a.count_in = static_cast<const int*>(count_in);
-  a.count_out = static_cast<int*>(count_out);
-  a.params = static_cast<float*>(params);
-  a.mu = static_cast<float*>(mu);
-  a.nu = static_cast<float*>(nu);
-  a.partials = static_cast<float*>(partials);
-  a.gbuf = static_cast<float*>(gbuf);
-  a.slots = static_cast<float*>(slots);
-  a.metrics = static_cast<float*>(metrics);
-  a.grad0 = static_cast<float*>(grad0);
-  a.tile = tile;
-  a.tpm = tpm;
-  a.n_passes = n_passes;
-  a.n_minibatches = n_minibatches;
+  pu::set_update_args(a, data, n, perm, tile, tpm, n_passes, n_minibatches, adv_stats, kl_beta,
+                      count_in, count_out, params, mu, nu, inv_n, ent_coef, lr, max_norm, b1, b2,
+                      eps, has_floor, log_std_floor, partials, gbuf, slots, metrics, grad0);
   a.loss = LossCfg{clip_eps, value_clip_eps, value_coef};
-  a.inv_n = static_cast<float>(inv_n);
-  a.ent_coef = ent_coef;
-  // networks.entropy: sum over the log-std of (log_std + 0.5 log(2 pi e)).
-  const double two_pi_e = 2.0 * 3.14159265358979323846 * 2.71828182845904523536;
-  a.ent_const = static_cast<float>(0.5 * std::log(two_pi_e));
-  a.neg_lr = -lr;
-  a.max_norm = max_norm;
-  // As PyTorch rounds the Python scalars of ClipAdam: 1 - b in double, then float.
-  a.b1 = static_cast<float>(b1);
-  a.one_m_b1 = static_cast<float>(1.0 - b1);
-  a.b2 = static_cast<float>(b2);
-  a.one_m_b2 = static_cast<float>(1.0 - b2);
-  a.eps = eps;
-  a.b1d = b1;
-  a.b2d = b2;
-  a.has_floor = has_floor;
-  a.log_std_floor = log_std_floor;
   const auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       with_kernel_dims(d, adim, cudaErrorInvalidValue, [&](auto dc, auto ac_) {

@@ -33,8 +33,17 @@ from this twin's sums; its bf16 activations and its loss's clip decisions
 are this twin's, each recomputed in this twin's order where the order of
 summation could change them (:func:`ppo_loss_bf16_probe` counts both).
 
+Two kernels take the widths: the 64-wide instances (``csrc/ppo_loss.cu``),
+built for hidden (64, 64) at the :data:`KERNEL_DIMS` pairs, and the wide
+instances (``csrc/ppo_loss_wide.cu``, launched by :func:`_launch_wide`), which
+take two equal hidden widths from 1 to 256, obs dims up to 32 and action
+dims up to 8 at run time (:func:`kernel_instance`); above that the kernels
+refuse by name (:func:`kernel_dims_refusal`).  The wide body's products run
+on the FP32 pipes, in float32 and, on bf16-rounded operands, in bf16.
+
 The wrapper takes the twin only for a tensor that lies on the CPU; on a
-CUDA tensor it launches the kernel of the dtype asked for or raises.
+CUDA tensor it launches the kernel of the dtype and widths asked for or
+raises.
 """
 
 from __future__ import annotations
@@ -45,34 +54,100 @@ import torch
 
 from ..rl.networks import Layout, bf16_mm, bf16_round, is_bf16
 
-#: The (obs, action) dims the K3 and K4 kernels are built for
+#: The (obs, action) dims the 64-wide K3 and K4 instances are built for
 #: (quadrotor3d-v0, the tpuquad family, quadrotor2d-v0, the 2D and 3D
 #: slung-load envs: ``csrc/ppo_loss_body.cuh::with_kernel_dims``), and their
 #: 2x64 actor-critic.
 KERNEL_DIMS = ((10, 4), (13, 4), (5, 2), (9, 2), (16, 4))
 HIDDEN = (64, 64)
+#: The wide instances' limits (``csrc/ppo_loss_body_wide.cuh``): two equal
+#: hidden widths up to this, obs and action dims up to these.
+WIDE_MAX_HIDDEN, WIDE_MAX_OBS, WIDE_MAX_ACTION = 256, 32, 8
 METRICS = ("pg_loss", "v_loss", "approx_kl", "clip_frac")
 _LOG_2PI = math.log(2.0 * math.pi)
+#: The offsets of ``csrc/actor_critic.cuh::RtLayout``, in its order.
+WIDE_LAYOUT_KEYS = ("w1", "b2", "w2", "tower_hidden", "pi", "pi_out_b", "pi_out_w", "vf",
+                    "vf_out_b", "vf_out_w", "net_size")
 
 
-def kernel_dims_refusal(d: int, adim: int, hidden) -> str | None:
-    """Why the K3/K4 kernels cannot take these widths (None = they can):
-    the library is built for the :data:`KERNEL_DIMS` (obs, action) pairs
-    and the 2x64 actor-critic."""
-    if (d, adim) not in KERNEL_DIMS:
-        return (f"obs/action dims ({d}, {adim}): the K3/K4 kernels are built for "
-                f"{', '.join(map(str, KERNEL_DIMS))}")
-    if tuple(hidden) != HIDDEN:
-        return f"hidden {tuple(hidden)}: the K3/K4 kernels are built for {HIDDEN}"
+def kernel_instance(d: int, adim: int, hidden) -> str | None:
+    """Which K3/K4 kernel takes these widths: ``"64"`` (the 64-wide
+    instances: a :data:`KERNEL_DIMS` pair and hidden (64, 64)), ``"wide"``
+    (any other two equal hidden widths from 1 to :data:`WIDE_MAX_HIDDEN`,
+    obs dims up to :data:`WIDE_MAX_OBS`, action dims up to
+    :data:`WIDE_MAX_ACTION`), or None (neither)."""
+    hidden = tuple(hidden)
+    if len(hidden) != 2 or hidden[0] != hidden[1]:
+        return None
+    if (d, adim) in KERNEL_DIMS and hidden == HIDDEN:
+        return "64"
+    if 1 <= hidden[0] <= WIDE_MAX_HIDDEN and 1 <= d <= WIDE_MAX_OBS and 1 <= adim <= WIDE_MAX_ACTION:
+        return "wide"
     return None
 
 
-def require_kernel_dims(name: str, d: int, adim: int, hidden: int) -> None:
-    """Raise ``ValueError`` unless the kernel ``name`` is built for these
-    widths (``hidden`` the width of both layers)."""
+def kernel_dims_refusal(d: int, adim: int, hidden) -> str | None:
+    """Why no K3/K4 kernel takes these widths (None = one does,
+    :func:`kernel_instance`); the reason names the width refused."""
+    if kernel_instance(d, adim, hidden) is not None:
+        return None
+    hidden = tuple(hidden)
+    if len(hidden) != 2 or hidden[0] != hidden[1]:
+        return f"hidden {hidden} is not two equal layers"
+    if not 1 <= hidden[0] <= WIDE_MAX_HIDDEN:
+        return (f"hidden {hidden}: the K3/K4 kernels take two equal widths from 1 to "
+                f"{WIDE_MAX_HIDDEN}")
+    return (f"obs/action dims ({d}, {adim}): the K3/K4 kernels take obs dims up to "
+            f"{WIDE_MAX_OBS} and action dims up to {WIDE_MAX_ACTION} (the 64-wide instances "
+            f"{', '.join(map(str, KERNEL_DIMS))})")
+
+
+def require_kernel_dims(name: str, d: int, adim: int, hidden: int, instance: str | None = None
+                        ) -> str:
+    """The instance that takes these widths (``hidden`` the width of both
+    layers); raise ``ValueError`` when none does, or when ``instance`` is
+    asked for and it is another."""
     reason = kernel_dims_refusal(d, adim, (hidden, hidden))
     if reason is not None:
         raise ValueError(f"the {name} kernel refuses {reason}")
+    got = kernel_instance(d, adim, (hidden, hidden))
+    if instance is not None and got != instance:
+        raise ValueError(f"the {name} kernel's {instance} instance refuses obs/action dims "
+                         f"({d}, {adim}) at hidden {hidden}: these take the {got} instance")
+    return got
+
+
+def wide_layout(d: int, adim: int, h: int) -> dict:
+    """The flat layout's offsets as the wide kernels compute them at run
+    time (``csrc/actor_critic.cuh::RtLayout``, keys
+    :data:`WIDE_LAYOUT_KEYS`): inside a tower from its base (``w1``,
+    ``b2``, ``w2``, ``tower_hidden``; ``b1`` at 0), and from the vector's
+    start (the log-std at 0)."""
+    out = {"w1": h}
+    out["b2"] = out["w1"] + d * h
+    out["w2"] = out["b2"] + h
+    out["tower_hidden"] = out["w2"] + h * h
+    out["pi"] = adim
+    out["pi_out_b"] = out["pi"] + out["tower_hidden"]
+    out["pi_out_w"] = out["pi_out_b"] + adim
+    out["vf"] = out["pi_out_w"] + h * adim
+    out["vf_out_b"] = out["vf"] + out["tower_hidden"]
+    out["vf_out_w"] = out["vf_out_b"] + 1
+    out["net_size"] = out["vf_out_w"] + h
+    return out
+
+
+def check_wide_layout(lib, d: int, adim: int, h: int) -> None:
+    """Raise unless the library's run-time layout at these widths is
+    :func:`wide_layout`'s."""
+    import ctypes
+
+    got = (ctypes.c_int * len(WIDE_LAYOUT_KEYS))()
+    if lib.ppo_wide_layout(d, adim, h, got) != 0:
+        raise ValueError(f"the wide K3/K4 kernels refuse widths ({d}, {adim}, {h})")
+    want = wide_layout(d, adim, h)
+    if dict(zip(WIDE_LAYOUT_KEYS, got)) != want:
+        raise RuntimeError(f"the wide kernels' layout {list(got)} is not the wrapper's {want}")
 
 
 def stack_batch(obs, act, old_logp, old_value, adv, ret) -> torch.Tensor:
@@ -231,8 +306,10 @@ def ppo_loss_grads_gather(data, adv_stats, perm, net, *, d: int, adim: int, clip
     ``compute_dtype`` None or "float32", or "bfloat16" (the kernel's bf16
     instance, the twin's bf16 products).
     Launches on the current stream and does not synchronise.  A CPU
-    tensor runs the plain twin; a CUDA tensor runs the kernel (the
-    :data:`KERNEL_DIMS` pairs, hidden 64) or raises.
+    tensor runs the plain twin; a CUDA tensor runs the 64-wide kernel (the
+    :data:`KERNEL_DIMS` pairs, hidden 64; counted here) or the wide one
+    (counted on :func:`_launch_wide`) as :func:`kernel_instance` picks, or
+    raises.
     """
     bf16 = is_bf16(compute_dtype)
     layout = Layout(d, adim, (hidden, hidden))
@@ -261,9 +338,12 @@ def ppo_loss_grads_gather(data, adv_stats, perm, net, *, d: int, adim: int, clip
         return _finish(sums, m * tile, ent_coef, layout)
     if data.device.type != "cuda":
         raise ValueError(f"unsupported device {data.device}")
-    require_kernel_dims("K3", d, adim, hidden)
+    instance = require_kernel_dims("K3", d, adim, hidden)
     if m == 0:
         raise ValueError("perm is empty")
+    if instance == "wide":
+        sums = _launch_wide(data, adv_stats, perm, net, layout, hidden=hidden, **cfg)
+        return _finish(sums, m * tile, ent_coef, layout)
     from .._build import check, load_library
 
     lib = load_library()
@@ -286,8 +366,46 @@ def ppo_loss_grads_gather(data, adv_stats, perm, net, *, d: int, adim: int, clip
     return _finish(sums, m * tile, ent_coef, layout)
 
 
-#: Kernel launches so far (a run can show that its path went through K3).
+#: Launches of the 64-wide kernel so far (a run can show that its path went
+#: through K3).
 ppo_loss_grads_gather.launches = 0
+
+
+def _launch_wide(data, adv_stats, perm, net, layout: Layout, *, d: int, adim: int,
+                 clip_eps: float, value_clip_eps: float, value_coef: float, tile: int,
+                 kl_mode: bool, hidden: int, compute_dtype=None) -> torch.Tensor:
+    """K3 wide (``csrc/ppo_loss_wide.cu``) on the CUDA inputs that
+    :func:`ppo_loss_grads_gather` checked and sends here: the raw sums, in
+    the flat layout then the metrics.  Launches on the current stream and
+    does not synchronise."""
+    from .._build import check, load_library
+
+    lib = load_library()
+    m = perm.shape[0]
+    with torch.cuda.device(data.device):
+        check_wide_layout(lib, d, adim, hidden)
+        blocks = lib.ppo_loss_wide_blocks(m * tile, hidden)
+        if blocks <= 0:
+            raise RuntimeError(f"ppo_loss_wide_blocks returned {blocks}")
+        out_size = lib.ppo_loss_wide_out_size(d, adim, hidden)
+        if out_size != layout.size + len(METRICS):
+            raise RuntimeError(f"the K3 wide library writes {out_size} sums, the flat layout has "
+                               f"{layout.size} + {len(METRICS)}")
+        partials = torch.empty((blocks, out_size), dtype=torch.float32, device=data.device)
+        sums = torch.empty(out_size, dtype=torch.float32, device=data.device)
+        rc = lib.ppo_loss_wide_launch(
+            d, adim, hidden, data.data_ptr(), data.shape[1], perm.data_ptr(), m, tile,
+            adv_stats.data_ptr(), net.data_ptr(), clip_eps, value_clip_eps, value_coef,
+            int(kl_mode), int(is_bf16(compute_dtype)), blocks, partials.data_ptr(),
+            sums.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    check(rc, "ppo_loss_wide_launch")
+    _launch_wide.launches += 1
+    return sums
+
+
+#: Launches of the wide kernel so far (a run can show that its path went
+#: through K3 wide).
+_launch_wide.launches = 0
 
 
 def ppo_loss_bf16_probe(data, adv_stats, perm, net, *, d: int, adim: int, clip_eps: float,
@@ -304,7 +422,7 @@ def ppo_loss_bf16_probe(data, adv_stats, perm, net, *, d: int, adim: int, clip_e
     that did.  The arguments are :func:`ppo_loss_grads_gather`'s."""
     if data.device.type != "cuda":
         raise ValueError("the probe runs K3's bf16 kernel, on a CUDA tensor only")
-    require_kernel_dims("K3", d, adim, HIDDEN[0])
+    require_kernel_dims("K3", d, adim, HIDDEN[0], instance="64")
     from .._build import check, load_library
 
     lib = load_library()

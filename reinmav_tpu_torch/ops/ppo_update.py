@@ -21,10 +21,16 @@ vector holds only the towers' real blocks.
 products (:mod:`reinmav_tpu_torch.ops.ppo_loss`); the params, the Adam
 moments and the optimiser's arithmetic stay float32.
 
+As K3, two kernels take the widths (:func:`reinmav_tpu_torch.ops.ppo_loss.
+kernel_instance`): the 64-wide instances (``csrc/ppo_update.cu``) at hidden
+(64, 64) and the ``ppo_loss.KERNEL_DIMS`` pairs, and the wide instances
+(``csrc/ppo_update_wide.cu``, launched by :func:`_launch_wide`) at any two equal
+hidden widths from 1 to 256; wider ones are refused by name.
+
 The wrapper takes the twin only for a tensor that lies on the CPU; on a
-CUDA tensor it launches the kernel of the dtype asked for or raises (a
-grid that cannot be co-resident raises too: there is no fallback to the
-per-minibatch loop).
+CUDA tensor it launches the kernel of the dtype and widths asked for or
+raises (a grid that cannot be co-resident raises too: there is no fallback
+to the per-minibatch loop).
 """
 
 from __future__ import annotations
@@ -158,8 +164,10 @@ def ppo_update(data, adv_stats, perm_all, params, opt_state, kl_beta, *, d: int,
     bf16 instance: K3's bf16 products in every pass).  Returns
     :class:`UpdateOut`; the inputs are not modified.
     Launches on the current stream and does not synchronise.  A CPU tensor
-    runs the plain twin; a CUDA tensor runs the kernel (the
-    ``ppo_loss.KERNEL_DIMS`` pairs, hidden 64) or raises.
+    runs the plain twin; a CUDA tensor runs the 64-wide kernel (the
+    ``ppo_loss.KERNEL_DIMS`` pairs, hidden 64; counted here) or the wide
+    one (counted on :func:`_launch_wide`) as ``ppo_loss.kernel_instance``
+    picks, or raises.
     """
     bf16 = is_bf16(compute_dtype)
     layout = Layout(d, adim, (hidden, hidden))
@@ -207,15 +215,19 @@ def ppo_update(data, adv_stats, perm_all, params, opt_state, kl_beta, *, d: int,
                                                             kl_mode), grad0 if keep_grad0 else None)
     if data.device.type != "cuda":
         raise ValueError(f"unsupported device {data.device}")
-    loss_ops.require_kernel_dims("K4", d, adim, hidden)
+    wide = loss_ops.require_kernel_dims("K4", d, adim, hidden) == "wide"
     from .._build import check, load_library
 
     lib = load_library()
     dev = data.device
     with torch.cuda.device(dev):
-        blocks = lib.ppo_loss_blocks(mb)  # K3's grid
+        if wide:
+            loss_ops.check_wide_layout(lib, d, adim, hidden)
+            blocks = lib.ppo_loss_wide_blocks(mb, hidden)  # K3 wide's grid
+        else:
+            blocks = lib.ppo_loss_blocks(mb)  # K3's grid
         if blocks <= 0:
-            raise RuntimeError(f"ppo_loss_blocks returned {blocks}")
+            raise RuntimeError(f"the K4 grid would be {blocks} CTAs")
         if lib.ppo_update_metrics_size() != N_METRIC_SUMS:
             raise RuntimeError("the K4 library writes another number of metric sums")
         new_params, new_mu, new_nu = params.clone(), mu.clone(), nu.clone()
@@ -225,8 +237,8 @@ def ppo_update(data, adv_stats, perm_all, params, opt_state, kl_beta, *, d: int,
         gbuf, slots = torch.empty(layout.size, **f32), torch.empty(blocks, **f32)
         sums = torch.empty(N_METRIC_SUMS, **f32)
         grad0 = torch.empty(layout.size, **f32) if keep_grad0 else None
-        rc = lib.ppo_update_launch(
-            d, adim, data.data_ptr(), n, perm_all.data_ptr(), tile, tpm, n_passes, n_minibatches,
+        args = (
+            data.data_ptr(), n, perm_all.data_ptr(), tile, tpm, n_passes, n_minibatches,
             adv_stats.data_ptr(), kl_beta.data_ptr() if kl_mode else None, count.data_ptr(),
             new_count.data_ptr(), new_params.data_ptr(), new_mu.data_ptr(), new_nu.data_ptr(),
             clip_eps, value_clip_eps, value_coef, 1.0 / mb, ent_coef, lr, max_grad_norm,
@@ -235,11 +247,30 @@ def ppo_update(data, adv_stats, perm_all, params, opt_state, kl_beta, *, d: int,
             partials.data_ptr(), gbuf.data_ptr(), slots.data_ptr(), sums.data_ptr(),
             None if grad0 is None else grad0.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
-    check(rc, "ppo_update_launch")
-    ppo_update.launches += 1
+        if wide:
+            _launch_wide(lib, d, adim, hidden, *args)
+        else:
+            check(lib.ppo_update_launch(d, adim, *args), "ppo_update_launch")
+            ppo_update.launches += 1
     return UpdateOut(new_params, type(opt_state)(new_count, new_mu, new_nu),
                      _metric_means(sums, n_passes, n_minibatches, mb, kl_mode), grad0)
 
 
-#: Kernel launches so far (a run can show that its path went through K4).
+#: Launches of the 64-wide kernel so far (a run can show that its path went
+#: through K4).
 ppo_update.launches = 0
+
+
+def _launch_wide(lib, d: int, adim: int, hidden: int, *args) -> None:
+    """K4 wide (``csrc/ppo_update_wide.cu``) on the CUDA inputs that
+    :func:`ppo_update` checked and sends here: ``ppo_update_launch``'s
+    arguments after the dims, the hidden width after them."""
+    from .._build import check
+
+    check(lib.ppo_update_wide_launch(d, adim, hidden, *args), "ppo_update_wide_launch")
+    _launch_wide.launches += 1
+
+
+#: Launches of the wide kernel so far (a run can show that its path went
+#: through K4 wide).
+_launch_wide.launches = 0

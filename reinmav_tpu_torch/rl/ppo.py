@@ -18,9 +18,11 @@ as the JAX package's ``fused_update`` does on its accelerator; with
 ``fused_update="off"`` it is a loop over the minibatches whose loss
 gradient runs in the K3 CUDA kernel (:mod:`reinmav_tpu_torch.ops.ppo_loss`)
 on the card, else through ``torch.autograd`` of :func:`ppo_loss`.  K3
-and K4 are built for the (obs, action) dims of the envs that K2/K6 take
-(``ops/ppo_loss.py::KERNEL_DIMS``); an env of other dims takes the loop
-through autograd on the card.  ``train_step`` logs which paths ran and why.
+and K4 run their 64-wide instances at hidden (64, 64) and the (obs,
+action) dims of the envs that K2/K6 take (``ops/ppo_loss.py::KERNEL_DIMS``),
+and their wide instances at any other two equal hidden widths from 1 to 256
+(``ops/ppo_loss.py::kernel_instance``); wider layers take the loop through
+autograd on the card.  ``train_step`` logs which paths ran and why.
 
 Across ranks (:mod:`reinmav_tpu_torch.parallel`), as the JAX package's two
 mesh paths: :func:`make_train_step` with a mesh runs the one-rank update
@@ -521,8 +523,10 @@ def _rollout_refusal(cfg: PpoConfig, env: EnvDef):
 def _loss_refusal(cfg: PpoConfig, env: EnvDef, device: torch.device):
     """Why K3 cannot run this config and env on ``device`` (None = it can):
     its plain twin takes any two equal hidden layers; the kernel, on a
-    CUDA device, only the (obs, action) dims and widths it is built for
-    (:data:`reinmav_tpu_torch.ops.ppo_loss.KERNEL_DIMS`)."""
+    CUDA device, two equal widths from 1 to 256 (the 64-wide instances at
+    (64, 64) and :data:`reinmav_tpu_torch.ops.ppo_loss.KERNEL_DIMS`, the
+    wide ones at the others: :func:`reinmav_tpu_torch.ops.ppo_loss.
+    kernel_instance`), and refuses wider layers by their width."""
     if len(cfg.hidden) != 2 or cfg.hidden[0] != cfg.hidden[1]:
         return f"hidden {tuple(cfg.hidden)} is not two equal layers"
     if device.type == "cuda":
@@ -540,11 +544,21 @@ def _update_refusal(cfg: PpoConfig, env: EnvDef, fused_loss, device: torch.devic
     return _loss_refusal(cfg, env, device)
 
 
-def _choose(name: str, forced, mode: str, refusal, device: torch.device):
+def _instance_note(cfg: PpoConfig, env: EnvDef) -> str:
+    """The K3/K4 instance that takes ``cfg.hidden`` at the env's dims, as
+    the path log names it: "" for the 64-wide instances, " (wide, H=h)"
+    for the wide ones."""
+    inst = loss_ops.kernel_instance(env.obs_dim, env.action_dim, cfg.hidden)
+    return f" (wide, H={cfg.hidden[0]})" if inst == "wide" else ""
+
+
+def _choose(name: str, forced, mode: str, refusal, device: torch.device, instance: str = ""):
     """(use the kernel path, how to log it) for one of K2/K3/K4.  ``forced``:
     the caller's True/False/None; ``mode``: the config's "auto"/"on"/"off".
     "on" or True takes the kernel's wrapper (the plain twin on the CPU) and
-    raises where it cannot; "auto" takes it on a CUDA device only."""
+    raises where it cannot; "auto" takes it on a CUDA device only.
+    ``instance``: the kernel's instance, named in the log (" (wide,
+    H=256)")."""
     if forced is None:
         if mode not in ("auto", "on", "off"):
             raise ValueError(f"{name}={mode!r}: expected 'auto', 'on' or 'off'")
@@ -556,7 +570,7 @@ def _choose(name: str, forced, mode: str, refusal, device: torch.device):
             raise ValueError(f"{name} refused: {refusal}")
         return False, f"off ({refusal})"
     if device.type == "cuda":
-        return True, "CUDA kernel"
+        return True, f"CUDA kernel{instance}"
     if forced:
         return True, f"plain twin (tensors on {device})"
     return False, f"off (tensors on {device}, the kernel needs a CUDA device)"
@@ -780,14 +794,16 @@ def _paths(env: EnvDef, cfg: PpoConfig, state: TrainState, fused_rollout, fused_
                                      "every pass inside one launch)")
     else:
         use_k4, update_how = _choose("fused_update", fused_update, cfg.fused_update,
-                                     _update_refusal(cfg, env, fused_loss, device), device)
+                                     _update_refusal(cfg, env, fused_loss, device), device,
+                                     _instance_note(cfg, env))
     passes = cfg.num_epochs * cfg.num_minibatches
     if use_k4:
         use_k3 = False
         update = f"K4 {update_how}, 1 launch for {passes} passes of loss gradient + clip + Adam"
     else:
         use_k3, loss_how = _choose("fused_loss", fused_loss, cfg.fused_loss,
-                                   _loss_refusal(cfg, env, device), device)
+                                   _loss_refusal(cfg, env, device), device,
+                                   _instance_note(cfg, env))
         update = (f"K4 {update_how}; {passes} minibatch steps of clip + Adam, loss gradient "
                   + (f"K3 {loss_how}, {passes} launches" if use_k3 else f"autograd, K3 {loss_how}"))
     if axis is not None:

@@ -16,6 +16,12 @@ Usage (the JAX package's flags; ``--device`` is the port's own)::
 launch of the fused rollout (K2 on quadrotor3d-v0, K6 on the hover task,
 quadrotor2d-v0 and the slung-load envs) and one K4 launch for the update
 (:func:`reinmav_tpu_torch.rl.ppo.train_step` logs which paths ran).
+``--num_hidden`` sets the width of both layers: at 64 the fused rollout
+and the 64-wide K4 run; at any other width up to 256 the rollout is the
+eager loop (the fused rollout is 2 x 64 only, as the JAX package's) and
+the update one launch of K4's wide instance (the log names it, "K4 CUDA
+kernel (wide, H=256)"); wider layers train through autograd, with a log
+line saying why.
 ``--alg`` ``sac``, ``td3`` and ``ddpg`` (TD3 with one critic, no target
 smoothing and no delay): every iteration is one batched env step, one K7
 launch on the card (:func:`reinmav_tpu_torch.rl.sac.train_iters` logs the
@@ -23,7 +29,8 @@ path), and ``--grad_steps`` updates from the replay ring;
 ``--updates_per_jit`` iterations make one call between metric reads.
 ``--network=gru`` (with ``--alg=ppo`` only) trains the GRU actor-critic
 of :mod:`reinmav_tpu_torch.rl.recurrent`, hidden and embedding widths
-``--num_hidden``: eager, no kernel, as the JAX package's.
+``--num_hidden``: eager, no kernel, as the JAX package's (it has no
+Pallas kernel for the GRU).
 ``--device=cpu`` runs the same loops on the CPU, through the kernels'
 plain twins.
 
@@ -112,7 +119,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lam", type=float, default=0.95)
     p.add_argument("--clip", type=float, default=0.2)
     p.add_argument("--num_layers", type=int, default=2)
-    p.add_argument("--num_hidden", type=int, default=64)
+    p.add_argument("--num_hidden", type=int, default=64,
+                   help="width of each hidden layer; PPO on the card runs K3/K4 up to 256 (the "
+                        "64-wide instances at 64, the wide ones otherwise), autograd above")
     p.add_argument("--compute_dtype", default="float32", choices=("float32", "bfloat16"),
                    help="bfloat16: the policy/value products take bf16 operands with float32 "
                         "sums; params and optimiser state stay float32")

@@ -33,7 +33,8 @@ in flight before the first STS) and asynchronous copies (LDGSTS), its
 first layer's loop (LDS an FFMA) and phase 4 after the last barrier (the
 action, env step, block and reset, its Philox spans apart).
 K3's and K4's instances (``ppo_loss_kernel<D, A, kl, bf16>``,
-``ppo_update_kernel<...>``) and the bf16 bodies of K2/K6 and K7
+``ppo_update_kernel<...>``, and the wide ones ``ppo_loss_wide_kernel<kl,
+bf16>``, ``ppo_update_wide_kernel<...>``) and the bf16 bodies of K2/K6 and K7
 (``ppo_rollout_bf16_kernel<...>``, ``offpolicy_collect_bf16_kernel<...>``)
 get one line each: their tensor-core products (``HMMA``, the bf16 ones
 apart) beside their ``FFMA``, with the ``ldmatrix`` loads (``LDSM``),
@@ -80,16 +81,22 @@ KERNELS = ("hover_rollout_kernel", "reinmav_rollout_kernel", "reinmav_rollout_la
 #: K3's and K4's kernel families (one instance per obs and action dim, mode
 #: and compute dtype).
 PPO_LOSS_KERNELS = ("ppo_loss_kernel", "ppo_update_kernel")
+#: K3's and K4's wide instances (two equal hidden widths taken at run time:
+#: one instance per mode and compute dtype, the dtype their last template
+#: argument).
+WIDE_KERNELS = ("ppo_loss_wide_kernel", "ppo_update_wide_kernel")
 #: The bf16 bodies of K2/K6 and K7 on the tensor cores (one instance per
 #: kind, normalisers or mode, and probe).
 BF16_KERNELS = ("ppo_rollout_bf16_kernel", "offpolicy_collect_bf16_kernel")
 #: The families whose report is their products' counts (:func:`mma_counts`).
-MMA_KERNELS = PPO_LOSS_KERNELS + BF16_KERNELS
+MMA_KERNELS = PPO_LOSS_KERNELS + WIDE_KERNELS + BF16_KERNELS
 #: The float32 instances that ``--against`` lists apart, by kernel: K3/K4's
-#: (the bf16 ones left out by their last template argument), K2/K6's and
-#: K7's (whose bf16 instances are families of their own).
+#: and their wide ones' (the bf16 ones left out by their last template
+#: argument), K2/K6's and K7's (whose bf16 instances are families of their
+#: own).
 FLOAT32_FAMILIES = {"K3/K4": PPO_LOSS_KERNELS, "K2/K6": ("ppo_rollout_kernel",),
-                    "K7": ("offpolicy_collect_kernel", "offpolicy_collect_count_kernel")}
+                    "K7": ("offpolicy_collect_kernel", "offpolicy_collect_count_kernel"),
+                    "K3/K4 wide": WIDE_KERNELS}
 #: The float32 templates of K2/K6 and K7 that took a bf16 switch as their
 #: last template argument until their bf16 instances got bodies of their
 #: own, by their number of template arguments then
@@ -713,11 +720,13 @@ def today_name(short: str) -> str:
 
 def is_bf16_instance(short: str) -> bool:
     """Whether a K3/K4 instance's name (``ppo_loss_kernel<10, 4, false,
-    true>``) is its bf16 instance: the last template argument (so too a
-    K2/K6 or K7 instance of a library built before their bf16 bodies,
-    ``ppo_rollout_kernel<..., true>``, by :data:`OLD_BF16_SWITCH`)."""
+    true>``, ``ppo_loss_wide_kernel<false, true>``) is its bf16 instance:
+    the last template argument (so too a K2/K6 or K7 instance of a library
+    built before their bf16 bodies, ``ppo_rollout_kernel<..., true>``, by
+    :data:`OLD_BF16_SWITCH`)."""
     family, args = template_args(short)
-    switch = family in PPO_LOSS_KERNELS or OLD_BF16_SWITCH.get(family) == len(args)
+    switch = (family in PPO_LOSS_KERNELS + WIDE_KERNELS
+              or OLD_BF16_SWITCH.get(family) == len(args))
     return switch and args[-1] == "true"
 
 
@@ -844,7 +853,7 @@ def main(argv=None) -> int:
     ptxas = lib.with_suffix(".ptxas.txt")
     if ptxas.exists():
         for line in _build.ptxas_report(ptxas):
-            if any(k in line for k in KERNELS + PPO_LOSS_KERNELS):
+            if any(k in line for k in KERNELS + PPO_LOSS_KERNELS + WIDE_KERNELS):
                 print(line)
     report(lib, Path(args.out) if args.out else None)
     if args.blocks:

@@ -49,6 +49,15 @@ Tolerances:
   bitwise one K3 launch.  The tensor cores sum in their own order, so the
   forward is not the twin's bit for bit, and a free-running update carries
   a weight across a bf16 rounding edge now and then: not compared.
+- The wide instances of K3 and K4 (two equal hidden widths other than the
+  64-wide instances', here 16, 100, 128 and 256), float32 and bf16, clip
+  and KL: K3 against its twin of the same dtype at K3's tolerances, with
+  the samples within 16 ulps of the ratio or value clip on the twin's
+  forward replaced (counted), on a grid that the sub-blocks do not divide
+  and on a ragged minibatch; K4 resynchronised as the bf16 instance above,
+  pass 0 bitwise one K3 wide launch; both bitwise on a rerun.  The PPO
+  learner at (128, 128) launches K4 wide once an update and K3 never, and
+  ``fused_update="on"`` at (512, 512) raises naming the width.
 """
 
 import numpy as np
@@ -256,9 +265,9 @@ def test_k2_bf16_resynchronised_against_twin_and_repeats_bitwise(cuda, env_id):
     assert counts["h1_missed"] == counts["h2_missed"] == 0, counts
 
 
-def _loss_batch(device, n, seed, d=10, adim=4):
+def _loss_batch(device, n, seed, d=10, adim=4, hidden=64):
     rng = np.random.default_rng(seed)
-    layout = networks.Layout(d, adim)
+    layout = networks.Layout(d, adim, (hidden, hidden))
     net = networks.init_params(layout, torch.Generator().manual_seed(seed))
     net[layout.slices[("log_std",)]] = torch.tensor([-0.5, 0.0, 0.3, -1.0])[:adim]
     data = np.concatenate([rng.normal(size=(d, n)), rng.normal(size=(adim, n)),
@@ -533,13 +542,14 @@ def _check_k4(cuda, mode, **extra):
     assert all(torch.equal(k.metrics[n], again.metrics[n]) for n in k.metrics)
 
 
-def _twin_edges(batch, net, d, adim, clip_eps, value_clip_eps):
+def _twin_edges(batch, net, d, adim, clip_eps, value_clip_eps, hidden=64, bf16=True):
     """The samples of ``batch`` within RESYNC_ULPS ulps of the ratio clip
     (1 +- clip_eps) or of the value clip (|value - old value| =
     value_clip_eps, or the two squared errors equal outside it), on the
-    bf16 twin's forward (ops/ppo_loss.py's rounding)."""
-    r = networks.bf16_round
-    p = networks.Layout(d, adim).unflatten(net)
+    twin's forward of the dtype (ops/ppo_loss.py's rounding), bf16 by
+    default."""
+    r = networks.bf16_round if bf16 else (lambda t: t)  # noqa: E731
+    p = networks.Layout(d, adim, (hidden, hidden)).unflatten(net)
     acts = {}
     for tower in ("pi", "vf"):
         h = batch[:d]
@@ -685,3 +695,207 @@ def test_update_phase_kernel_matches_twin(cuda):
     for name in ("pg_loss", "v_loss", "approx_kl"):
         np.testing.assert_allclose(float(s_k[name]), float(s_p[name]), rtol=1e-3, atol=1e-5,
                                    err_msg=name)
+
+
+# The wide instances of K3 and K4 (ppo_loss_wide.cu, ppo_update_wide.cu).
+WIDE = [pytest.param(h, id=f"h{h}") for h in (16, 100, 128, 256)]
+DTYPES = [pytest.param(None, id="f32"), pytest.param(BF16, id="bf16")]
+
+
+def _replace_edges(batch, net, d, adim, hidden, compute_dtype, value_clip_eps=0.2):
+    """``batch`` with its samples on a knife edge of the twin's forward
+    (:func:`_twin_edges`) replaced by a copy of its first sample that is
+    not; the count replaced."""
+    edge = _twin_edges(batch, net, d, adim, 0.2, value_clip_eps, hidden, compute_dtype == BF16)
+    n = int(edge.sum())
+    if n:
+        keep = int((~edge).nonzero()[0, 0])
+        batch[:, edge] = batch[:, keep:keep + 1]
+    return n
+
+
+def _check_k3_wide(cuda, hidden, compute_dtype, kl_mode, n=65536, n_tiles=128, tile=128, d=10,
+                   adim=4):
+    """K3 wide against its twin of the same dtype on the gathered minibatch
+    of ``n_tiles`` tiles, its knife-edge samples replaced; one launch
+    counted, the 64-wide kernel's count unchanged; bitwise on a rerun."""
+    data, net, _ = _loss_batch(cuda, n, 3, d, adim, hidden)
+    perm = torch.tensor(np.random.default_rng(7).permutation(n // tile)[:n_tiles],
+                        dtype=torch.int32, device=cuda)
+    batch = data[:, pl._gather_columns(perm, tile)].contiguous()
+    replaced = _replace_edges(batch, net, d, adim, hidden, compute_dtype)
+    ident = torch.arange(n_tiles, dtype=torch.int32, device=cuda)
+    adv_stats = torch.tensor([0.1, 0.9, 0.5, 0.0], device=cuda)
+    cfg = dict(d=d, adim=adim, clip_eps=0.2, value_clip_eps=0.2, value_coef=0.5, tile=tile,
+               kl_mode=kl_mode, hidden=hidden, compute_dtype=compute_dtype)
+    before, narrow = pl._launch_wide.launches, pl.ppo_loss_grads_gather.launches
+    g_k, m_k = pl.ppo_loss_grads_gather(batch, adv_stats, ident, net, ent_coef=0.01, **cfg)
+    torch.cuda.synchronize()
+    assert pl._launch_wide.launches == before + 1
+    assert pl.ppo_loss_grads_gather.launches == narrow
+    sums = pl.ppo_loss_grads_reference(batch, adv_stats, ident, net, **cfg)
+    g_p, m_p = pl._finish(sums, n_tiles * tile, 0.01, networks.Layout(d, adim, (hidden, hidden)))
+    print(f"K3 wide H={hidden} {compute_dtype or 'float32'} {'kl' if kl_mode else 'clip'}: "
+          f"{replaced} edge samples replaced, grads max |err| {float((g_k - g_p).abs().max()):.3e}")
+    np.testing.assert_allclose(g_k.cpu().numpy(), g_p.cpu().numpy(), **GRAD_TOL)
+    for name in pl.METRICS:
+        np.testing.assert_allclose(float(m_k[name]), float(m_p[name]), **METRIC_TOL,
+                                   err_msg=name)
+    g_k2, m_k2 = pl.ppo_loss_grads_gather(batch, adv_stats, ident, net, ent_coef=0.01, **cfg)
+    assert torch.equal(g_k, g_k2)
+    assert all(torch.equal(m_k[k], m_k2[k]) for k in pl.METRICS)
+
+
+@pytest.mark.parametrize("kl_mode", [False, True], ids=["clip", "kl"])
+@pytest.mark.parametrize("compute_dtype", DTYPES)
+@pytest.mark.parametrize("hidden", WIDE)
+def test_k3_wide_matches_twin_and_repeats_bitwise(cuda, hidden, compute_dtype, kl_mode):
+    _check_k3_wide(cuda, hidden, compute_dtype, kl_mode)
+
+
+@pytest.mark.parametrize("compute_dtype", DTYPES)
+@pytest.mark.parametrize("hidden", [pytest.param(100, id="h100"), pytest.param(256, id="h256")])
+def test_k3_wide_sub_blocks_not_dividing_the_grid(cuda, hidden, compute_dtype):
+    """A minibatch of 201 tiles of 128 (more sub-blocks than CTAs, not a
+    multiple of them: 357 of 72 samples at H = 100, 804 of 32 at 256) and a
+    ragged one (5 tiles of 32: 160 samples, the last sub-block partly
+    empty), at the obs dim of the slung 3D env and A = 4."""
+    _check_k3_wide(cuda, hidden, compute_dtype, False, n=128 * 300, n_tiles=201, d=16)
+    _check_k3_wide(cuda, hidden, compute_dtype, False, n=4096, n_tiles=5, tile=32, d=16)
+
+
+def _wide_update_inputs(device, hidden, kl_mode=False, num_envs=4096, compute_dtype=None):
+    """One eager rollout of ``num_envs`` quadrotor3d envs x 16 steps with
+    a net of two layers of width ``hidden``, stacked as K4 takes it, 4
+    epochs x 4 minibatches of tiles of 128, and the kernel's keywords."""
+    env = reinmav_tpu_torch.make("quadrotor3d-v0")
+    cfg = ppo.PpoConfig(num_envs=num_envs, rollout_len=16, hidden=(hidden, hidden),
+                        compute_dtype=compute_dtype or "float32")
+    state = ppo.init_train_state(env, cfg, 7, device=device)
+    ro_ = ppo.collect_rollout(env, cfg, state.params, state.obs_norm, state.ret_norm,
+                              state.env_states, state.env_returns,
+                              torch.Generator(device=device).manual_seed(13))
+    layout = networks.Layout(10, 4, (hidden, hidden))
+    n = num_envs * 16
+    with torch.no_grad():
+        _, _, last_value = networks.apply_t(layout.unflatten(state.params),
+                                            ppo._normalize_t(ro_.final_states.T, state.obs_norm))
+        adv, ret = ppo.compute_gae(cfg, ro_.traj, last_value)
+    flat = lambda x: x.permute(1, 0, 2).reshape(x.shape[1], n)  # noqa: E731
+    data = pl.stack_batch(flat(ro_.traj.obs), flat(ro_.traj.action), ro_.traj.log_prob.reshape(n),
+                          ro_.traj.value.reshape(n), adv.reshape(n), ret.reshape(n))
+    tile, n_tiles = ppo._tiling(cfg, n)
+    gen = torch.Generator().manual_seed(2)
+    perm_all = torch.cat([ppo._shuffle_indices(gen, n_tiles) for _ in range(4)]).to(
+        device=device, dtype=torch.int32)
+    adv_stats = ppo.pass_adv_stats(adv.reshape(n), perm_all, tile, 16, True)
+    # The params perturbed, so that the ratios leave 1 and some samples clip.
+    params = state.params + 0.02 * torch.randn(state.params.shape, device=device,
+                                               generator=torch.Generator(device=device).manual_seed(8))
+    kw = dict(d=10, adim=4, tile=tile, n_minibatches=4, n_epochs=4, clip_eps=0.2,
+              value_clip_eps=0.2, value_coef=0.5, ent_coef=0.01, lr=3e-4, max_grad_norm=0.5,
+              kl_mode=kl_mode, hidden=hidden)
+    beta = torch.tensor(0.7, device=device) if kl_mode else None
+    return data, adv_stats, perm_all, params.contiguous(), state.opt_state, beta, kw
+
+
+def _check_k4_wide(cuda, hidden, compute_dtype, kl_mode=False, num_envs=4096):
+    """K4 wide: one launch counted (the 64-wide kernel's count unchanged),
+    bitwise on a rerun, pass 0 bitwise one K3 wide launch, and every pass
+    resynchronised against the twin of the same dtype."""
+    data, stats, perm_all, params, opt, beta, kw = _wide_update_inputs(
+        cuda, hidden, kl_mode, num_envs, compute_dtype)
+    tile = kw["tile"]
+    before, narrow = pu._launch_wide.launches, pu.ppo_update.launches
+    k = pu.ppo_update(data, stats, perm_all, params, opt, beta, keep_grad0=True,
+                      compute_dtype=compute_dtype, **kw)
+    torch.cuda.synchronize()
+    assert pu._launch_wide.launches == before + 1 and pu.ppo_update.launches == narrow
+    assert int(k.opt_state.count) == int(opt.count) + 16 and bool(torch.isfinite(k.params).all())
+    again = pu.ppo_update(data, stats, perm_all, params, opt, beta, keep_grad0=True,
+                          compute_dtype=compute_dtype, **kw)
+    assert torch.equal(k.params, again.params) and torch.equal(k.grad0, again.grad0)
+    assert all(torch.equal(a, b) for a, b in zip(k.opt_state, again.opt_state))
+    assert all(torch.equal(k.metrics[n], again.metrics[n]) for n in k.metrics)
+    tpm = perm_all.numel() // 16
+    k3_stats = torch.stack([stats[0, 0], stats[0, 1], beta if beta is not None else stats[0, 0] * 0,
+                            stats[0, 0] * 0]).contiguous()
+    g3, _ = pl.ppo_loss_grads_gather(data, k3_stats, perm_all[:tpm].contiguous(), params, d=10,
+                                     adim=4, clip_eps=0.2, value_clip_eps=0.2, value_coef=0.5,
+                                     ent_coef=kw["ent_coef"], tile=tile, kl_mode=kl_mode,
+                                     hidden=hidden, compute_dtype=compute_dtype)
+    assert torch.equal(k.grad0, g3)
+    one = {**kw, "n_epochs": 1, "n_minibatches": 1}
+    ident = torch.arange(tpm, dtype=torch.int32, device=cuda)
+    net, state, replaced = params, opt, 0
+    for q in range(16):
+        perm = perm_all[q * tpm:(q + 1) * tpm].contiguous()
+        batch = data[:, pl._gather_columns(perm, tile)].contiguous()
+        replaced += _replace_edges(batch, net, 10, 4, hidden, compute_dtype)
+        st = stats[q:q + 1].contiguous()
+        kq = pu.ppo_update(batch, st, ident, net, state, beta, keep_grad0=True,
+                           compute_dtype=compute_dtype, **one)
+        t_params, t_state, _, t_grad = pu.ppo_update_reference(
+            batch, st, ident, net, state, beta, compute_dtype=compute_dtype, **one)
+        for name, a, b, tol in (("grad", kq.grad0, t_grad, GRAD_TOL),
+                                ("params", kq.params, t_params, PARAM_TOL),
+                                ("mu", kq.opt_state.mu, t_state.mu, MOMENT_TOL),
+                                ("nu", kq.opt_state.nu, t_state.nu, MOMENT_TOL)):
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **tol,
+                                       err_msg=f"pass {q} {name}")
+        assert int(kq.opt_state.count) == int(t_state.count)
+        net, state, _, _ = pu.ppo_update_reference(data, st, perm, net, state, beta,
+                                                   compute_dtype=compute_dtype, **one)
+    print(f"K4 wide H={hidden} {compute_dtype or 'float32'} {'kl' if kl_mode else 'clip'}: "
+          f"resynchronised over 16 passes, {replaced} edge samples replaced")
+
+
+@pytest.mark.parametrize("kl_mode", [False, True], ids=["clip", "kl"])
+@pytest.mark.parametrize("compute_dtype", DTYPES)
+@pytest.mark.parametrize("hidden", WIDE)
+def test_k4_wide_resynchronised_against_twin_and_repeats_bitwise(cuda, hidden, compute_dtype,
+                                                                 kl_mode):
+    _check_k4_wide(cuda, hidden, compute_dtype, kl_mode)
+
+
+@pytest.mark.parametrize("compute_dtype", DTYPES)
+def test_k4_wide_sub_blocks_not_dividing_the_grid(cuda, compute_dtype):
+    """6432 envs x 16 steps at H = 256: minibatches of 804 sub-blocks of 32
+    samples over the grid's CTAs (one an SM), not a multiple of them."""
+    _check_k4_wide(cuda, 256, compute_dtype, num_envs=6432)
+
+
+def test_train_step_wide_launches_k4_wide_once_and_k3_never(cuda, caplog):
+    """The default path at hidden (128, 128): the eager rollout (K2/K6 are
+    2 x 64 only, as the JAX package's), then one K4 wide launch an update;
+    neither K3 nor the 64-wide K4 launches; the K3 loop at that width
+    launches K3 wide once a minibatch; (512, 512) with fused_update="on"
+    raises naming the width, "auto" takes autograd."""
+    env = reinmav_tpu_torch.make("quadrotor3d-v0")
+    cfg = ppo.PpoConfig(num_envs=2048, rollout_len=16, hidden=(128, 128))
+    state = ppo.init_train_state(env, cfg, 0, device=cuda)
+    counts = lambda: (pr.ppo_rollout.launches, pl.ppo_loss_grads_gather.launches,  # noqa: E731
+                      pl._launch_wide.launches, pu.ppo_update.launches,
+                      pu._launch_wide.launches)
+    before = counts()
+    with caplog.at_level("INFO", logger="reinmav_tpu_torch.rl.ppo"):
+        for _ in range(2):
+            state, summary = ppo.train_step(env, cfg, state)
+    torch.cuda.synchronize()
+    assert counts() == (before[0], before[1], before[2], before[3], before[4] + 2)
+    assert "K4 CUDA kernel (wide, H=128), 1 launch" in caplog.text
+    assert int(state.opt_state.count) == 2 * cfg.num_epochs * cfg.num_minibatches
+    assert all(bool(torch.isfinite(v)) for v in summary.values()), summary
+    before = counts()
+    with caplog.at_level("INFO", logger="reinmav_tpu_torch.rl.ppo"):
+        state, summary = ppo.train_step(env, cfg._replace(fused_update="off"), state)
+    torch.cuda.synchronize()
+    assert counts() == (before[0], before[1], before[2] + 16, before[3], before[4])
+    assert "K3 CUDA kernel (wide, H=128), 16 launches" in caplog.text
+    wide = cfg._replace(hidden=(512, 512), fused_update="on")
+    big = ppo.init_train_state(env, wide, 0, device=cuda)
+    with pytest.raises(ValueError, match=r"hidden \(512, 512\)"):
+        ppo.train_step(env, wide, big)
+    before = counts()
+    big, summary = ppo.train_step(env, wide._replace(fused_update="auto"), big)
+    assert counts()[1:] == before[1:] and bool(torch.isfinite(summary["v_loss"]))

@@ -216,28 +216,53 @@ def test_train_many_and_the_paths_not_ported():
 
 
 def test_kernel_refusals_take_the_env_and_device():
-    """K3/K4 are built for obs dims 10 and 13: on the card an env of other
-    dims is refused with the pairs named, and "auto" then takes the loop
-    (it does not raise); the plain twins on the CPU take any widths."""
+    """K3/K4's 64-wide instances are built for obs dims 10 and 13 (and the
+    2D and slung dims), their wide instances take obs dims up to 32 and two
+    equal hidden widths up to 256: on the card an env of more obs dims, or
+    a wider net, is refused with the dims or the width named, and "auto"
+    then takes the loop (it does not raise), "on" raises; the plain twins on
+    the CPU take any widths."""
     hover = reinmav_tpu_torch.make("MujocoQuadForce-v1")
     odd = dataclasses.replace(hover, obs_dim=7)
+    wide_obs = dataclasses.replace(hover, obs_dim=40)
     cfg = ppo.PpoConfig()
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     for env in (hover, reinmav_tpu_torch.make("quadrotor3d-v0")):
         assert ppo._loss_refusal(cfg, env, cuda) is None
         assert ppo._update_refusal(cfg, env, None, cuda) is None
         assert ppo._rollout_refusal(cfg, env) is None
-    reason = ppo._update_refusal(cfg, odd, None, cuda)
-    assert "(7, 4)" in reason and "(10, 4), (13, 4)" in reason
-    assert ppo._loss_refusal(cfg, odd, cpu) is None
+        assert ppo._instance_note(cfg, env) == ""
+    # Obs dim 7 at (64, 64): no 64-wide instance, the wide one takes it.
+    assert ppo._update_refusal(cfg, odd, None, cuda) is None
+    assert ppo._instance_note(cfg, odd) == " (wide, H=64)"
+    reason = ppo._update_refusal(cfg, wide_obs, None, cuda)
+    assert "(40, 4)" in reason and "(10, 4), (13, 4)" in reason
+    assert ppo._loss_refusal(cfg, wide_obs, cpu) is None
     assert "(7, 4)" in ppo._rollout_refusal(cfg, odd)
     use, how = ppo._choose("fused_update", None, "auto", reason, cuda)
     assert not use and "(10, 4), (13, 4)" in how
-    use, how = ppo._choose("fused_loss", None, "auto", ppo._loss_refusal(cfg, odd, cuda), cuda)
+    use, how = ppo._choose("fused_loss", None, "auto", ppo._loss_refusal(cfg, wide_obs, cuda),
+                           cuda)
     assert not use
     with pytest.raises(ValueError, match="fused_update refused"):
         ppo._choose("fused_update", None, "on", reason, cuda)
-    assert "hidden" in ppo._loss_refusal(cfg._replace(hidden=(32, 32)), hover, cuda)
+    # Two equal widths up to 256 take the wide instances; 512 is refused by name.
+    for width in (32, 128, 256):
+        wide = cfg._replace(hidden=(width, width))
+        assert ppo._loss_refusal(wide, hover, cuda) is None
+        use, how = ppo._choose("fused_update", None, "auto",
+                               ppo._update_refusal(wide, hover, None, cuda), cuda,
+                               ppo._instance_note(wide, hover))
+        assert use and how == f"CUDA kernel (wide, H={width})"
+    too_wide = cfg._replace(hidden=(512, 512))
+    assert "hidden (512, 512)" in ppo._loss_refusal(too_wide, hover, cuda)
+    use, how = ppo._choose("fused_update", None, "auto",
+                           ppo._update_refusal(too_wide, hover, None, cuda), cuda)
+    assert not use and "hidden (512, 512)" in how
+    with pytest.raises(ValueError, match=r"fused_update refused: hidden \(512, 512\)"):
+        ppo._choose("fused_update", None, "on", ppo._update_refusal(too_wide, hover, None, cuda),
+                    cuda)
+    assert "not two equal layers" in ppo._loss_refusal(cfg._replace(hidden=(64, 32)), hover, cuda)
     assert "no fused PPO rollout kernel" in ppo._rollout_refusal(
         cfg, reinmav_tpu_torch.make("MujocoQuadForce-v0"))
     from reinmav_tpu_torch.envs import tpuquad

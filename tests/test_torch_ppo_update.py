@@ -8,9 +8,11 @@ fused_update=True)`` runs, on the JAX rollout's trajectory carried across,
 with the epoch permutations rebuilt from the same JAX key stream.  512
 envs x 64 steps, the 2x64 net, 2 epochs x 2 minibatches, in the three modes
 of tests/test_pallas_ppo_update.py: clip, adaptive KL, and the log-std
-floor with an entropy bonus; and clip on the hover task
+floor with an entropy bonus; clip on the hover task
 (MujocoQuadForce-v1, obs 13), the hover update phase against the JAX
-``train_step``.  Its tolerances: params rtol 2e-4 / atol 1e-6,
+``train_step``; and clip on two equal hidden layers of width 24, KL on
+two of width 128 (the wide kernel instances' widths; 128 envs there, each
+case a JAX program of its own to compile).  Its tolerances: params rtol 2e-4 / atol 1e-6,
 Adam moments rtol 2e-4 / atol 5e-8, metrics rtol 1e-4 / atol 1e-6, the
 count exactly E * M and ``kl_beta`` exactly.  Two epochs, because the floor
 clamp and Adam amplify 1e-7 gaps over more passes
@@ -40,7 +42,9 @@ METRIC_TOL = dict(rtol=1e-4, atol=1e-6)
 #: mode -> (seed, config): tests/test_pallas_ppo_update.py's seed for each.
 MODES = {"clip": (0, {}), "kl": (5, {"kl_target": 0.01}),
          "floor-entropy": (1, {"log_std_floor": -0.05, "entropy_coef": 0.01}),
-         "clip-hover": (0, {})}
+         "clip-hover": (0, {}),
+         "clip-h24": (0, {"hidden": (24, 24), "num_envs": 128}),
+         "kl-h128": (5, {"kl_target": 0.01, "hidden": (128, 128), "num_envs": 128})}
 #: mode -> env id (quadrotor3d-v0 where not named).
 ENV_OF = {"clip-hover": "MujocoQuadForce-v1"}
 
@@ -55,10 +59,10 @@ def _one_torch_thread():
     torch.set_num_threads(before)
 
 
-def _cfg(**kw):
+def _cfg(num_envs=512, hidden=(64, 64), **kw):
     """tests/test_pallas_ppo_update.py's config, at 2 epochs x 2 minibatches."""
-    return jppo.PpoConfig(num_envs=512, rollout_len=64, num_epochs=2, num_minibatches=2,
-                          hidden=(64, 64), fused_loss="on", fused_rollout="off", shuffle_tile=128,
+    return jppo.PpoConfig(num_envs=num_envs, rollout_len=64, num_epochs=2, num_minibatches=2,
+                          hidden=hidden, fused_loss="on", fused_rollout="off", shuffle_tile=128,
                           learning_rate=3e-3, max_grad_norm=0.5, **kw)
 
 
@@ -91,7 +95,7 @@ def test_k4_twin_matches_jax_k4(mode):
     rollout = ppo.Rollout(_t(final), _t(rets), ppo.Transition(*(
         _t(x) if x.dtype != np.bool_ else torch.from_numpy(np.array(x)) for x in traj)),
         ppo.RawObsMoments(*map(_t, omom)), ppo.RawObsMoments(*map(_t, rmom)), _t(raw_mean))
-    _, n_tiles = ppo._tiling(pcfg, 512 * 64)
+    _, n_tiles = ppo._tiling(pcfg, jcfg.num_envs * 64)
     perms = _perms_from_jax_keys(key, n_tiles, jcfg.num_epochs)
     launches = pu.ppo_update.launches
     state, summary = ppo.update_phase(penv, pcfg, _port_state(jstate, jcfg), rollout, perms,
@@ -106,7 +110,7 @@ def test_k4_twin_matches_jax_k4(mode):
     assert float(state.kl_beta) == float(s_ref.kl_beta)
     if "log_std_floor" in kw:
         assert float(state.params[:4].min()) >= -0.05
-    assert state.params.shape == (networks.Layout(penv.obs_dim, 4).size,)
+    assert state.params.shape == (networks.Layout(penv.obs_dim, 4, jcfg.hidden).size,)
     assert set(summary) == set(m_ref)
     for name in m_ref:
         _close(float(summary[name]), float(m_ref[name]), METRIC_TOL, name)
@@ -117,8 +121,9 @@ def test_k4_twin_matches_the_k3_loop(mode):
     """One update phase from one eager rollout: every pass in K4's twin,
     and the per-minibatch loop through K3's twin and ClipAdam."""
     env = reinmav_tpu_torch.make(ENV_OF.get(mode, "quadrotor3d-v0"))
+    kw = {k: v for k, v in MODES[mode][1].items() if k != "num_envs"}
     cfg = ppo.PpoConfig(num_envs=256, rollout_len=32, num_epochs=2, num_minibatches=2,
-                        learning_rate=3e-3, **MODES[mode][1])
+                        learning_rate=3e-3, **kw)
     state = ppo.init_train_state(env, cfg, seed=4, device="cpu")
     rollout = ppo.collect_rollout(env, cfg, state.params, state.obs_norm, state.ret_norm,
                                   state.env_states, state.env_returns,

@@ -525,3 +525,22 @@ def test_k2k6_k7_bf16_product_counts_and_the_float32_instances_against_a_parent(
     assert sass_report.float32_instances(groups, sass_report.FLOAT32_FAMILIES["K7"]) == {
         "same": ["offpolicy_collect_kernel<reinmav::HoverEnv, 0>"],
         "differ": ["offpolicy_collect_count_kernel<reinmav::Slung2dEnv, 0>"], "missing": []}
+
+
+def test_wide_k3k4_instances_are_a_family_of_their_own():
+    """K3's and K4's wide instances (``ppo_loss_wide_kernel<kl, bf16>``)
+    count as K3/K4 product kernels, their bf16 switch the last template
+    argument, and ``--against`` lists their float32 instances apart from
+    the 64-wide ones'."""
+    assert "ppo_update_wide_kernel<false, true>".startswith(sass_report.MMA_KERNELS)
+    assert sass_report.is_bf16_instance("ppo_loss_wide_kernel<true, true>")
+    assert not sass_report.is_bf16_instance("ppo_loss_wide_kernel<true, false>")
+    groups = {"same": ["ppo_loss_kernel<10, 4, false, false>"],
+              "differ": ["ppo_update_wide_kernel<false, false>",
+                         "ppo_update_wide_kernel<false, true>"],
+              "only_lib": ["ppo_loss_wide_kernel<true, false>"], "only_other": []}
+    assert sass_report.float32_instances(groups, sass_report.FLOAT32_FAMILIES["K3/K4 wide"]) == {
+        "same": [], "differ": ["ppo_update_wide_kernel<false, false>"],
+        "missing": ["ppo_loss_wide_kernel<true, false>"]}
+    assert sass_report.float32_instances(groups, sass_report.FLOAT32_FAMILIES["K3/K4"]) == {
+        "same": ["ppo_loss_kernel<10, 4, false, false>"], "differ": [], "missing": []}
