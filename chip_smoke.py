@@ -286,32 +286,43 @@ Phases, in order; any failure raises and exits non-zero:
    runs phases 1-3 and 39-44.
 45. K3 and K4 at two equal hidden widths other than the 64-wide
    instances' (their wide instances, csrc/ppo_loss_wide.cu and
-   csrc/ppo_update_wide.cu), float32 and bf16: K3 wide on one 262,144-sample
+   csrc/ppo_update_wide.cu, on the body of csrc/ppo_loss_body_wide.cuh:
+   one tower a CTA, products on the tensor cores, bf16 or 3xTF32),
+   float32 and bf16: K3 wide on one 262,144-sample
    minibatch at hidden 128 and 256 at each of the five (obs, action) pairs,
    and at 16 and 100 on quadrotor3d-v0 (clip mode; KL mode too on
    quadrotor3d-v0), against its twin with the samples within 16 ulps of
    the ratio or value clip replaced (gated; as it stands reported), the
    edge samples, the clipped ones and, in bf16, the hidden units within 16
-   ulps of a bf16 midpoint counted, bitwise on a rerun, timed at 128 and
-   256 in turns with the other dtype; K4 wide on quadrotor3d-v0 at 128 and
+   ulps of a bf16 midpoint and the h's the kernel recomputed in the twin's
+   order counted, bitwise on a rerun, timed at 128 and
+   256 in turns with the other dtype beside its bound (products at 495 / 3
+   TFLOP/s for 3xTF32, 989 for bf16; the FP32 rate's bound and the SFU
+   floor beside it); K4 wide on quadrotor3d-v0 at 128 and
    256: one 4 x 4 update of the eager rollout's trajectory at 32,768 x 32,
    resynchronised on every pass (k4_resync), pass 0 bitwise one K3 wide
-   launch, a bitwise rerun, timed in turns; train_step at 32,768 x 32 and
+   launch, a bitwise rerun, timed in turns, its grid printed (CTAs, CTAs a
+   tower, resident CTAs an SM, the plan); train_step at 32,768 x 32 and
    hidden (128, 128) and (256, 256), float32 (3 updates) and bf16 (2): the
    default path launches K4 wide once an update and no other kernel (the
    rollout is eager at those widths, as the JAX package's), the K3 loop K3
    wide 16 times, each update's mean_reward within 10% of the other
    path's, the float32 default path at 256 bitwise on a rerun; the CLI at
    --num_hidden=256 for 3 updates, its path log naming K4 wide.  The wall
-   is printed; ``--only wide`` runs phases 1-3 and 45 and prints their
-   kernels line.
+   is printed; ``--only wide`` runs phases 1-3, the wide body's phase
+   probe (a clock64 instance built apart from csrc_probe/: each phase's
+   cycles a sub-block, and in bf16 every h against the twin's chain, the
+   h's recomputed and those the window missed, gated at none), K3 wide
+   float32 at 256 and its 1xTF32 control (csrc_probe/) against the
+   float64 twin, and phase 45, and prints their kernels line.
 
 The second-to-last line is a JSON object describing each kernel of the
 paths (K1-K11, the bf16 instances of K2/K6, K3, K4 and K7, whose
 bound counts their products at the tensor cores' bf16 rate and whose
 ``f32_ms`` is the float32 instance's time in the same turns, and the wide
-instances of K3 and K4 at hidden 128 and 256, float32 and bf16, with the
-SFU floor of their tanhf, registers, SASS and edge counts): its
+instances of K3 and K4 at hidden 128 and 256, float32 and bf16, with
+their design, registers, SASS and edge counts; their FP32-rate bound
+and the SFU floor of their tanhf are printed in phase 45's text): its
 launches on its main path, its error against its twin,
 its time and its twin's (each measured; where the twin ran at a smaller
 shape than the kernel, ``plain_at`` names that shape and
@@ -3613,6 +3624,22 @@ BF16_UPDATES, BF16_SAC_WARMUP, BF16_SAC_ITERS, BF16_OFF_ITERS = 3, 3, 20, 3
 RESYNC_ULPS = 16
 
 
+#: The tensor cores' dense TF32 rate (H100 SXM data sheet, at 700 W): a
+#: float32 instance that runs its products as 3xTF32 (three tf32 products
+#: for each) counts them at a third of it.
+PEAK_TF32_FLOPS = 495e12
+
+
+def bound_tf32x3(nbytes: float, product_flops: float) -> tuple[float, str]:
+    """The least milliseconds the card could take for work that moves
+    ``nbytes`` and does ``product_flops`` operations of float32 products as
+    3xTF32 on the tensor cores (at a third of the TF32 rate), and which
+    bounds it."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = product_flops / (PEAK_TF32_FLOPS / 3) * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
 def bound_bf16(nbytes: float, product_flops: float, other_flops: float) -> tuple[float, str]:
     """The least milliseconds the card could take for work that moves
     ``nbytes``, does ``product_flops`` operations of bf16 products (at the
@@ -4728,6 +4755,19 @@ WIDE_UPDATES, WIDE_BF16_UPDATES, WIDE_REPS = 3, 2, 3
 MIDPOINT_ULPS = 16
 
 
+#: The wide body's route, by dtype, for the ``kernels`` line.
+WIDE_DESIGN = {
+    "float32": "one tower a CTA; products on the tensor cores as 3xTF32 (mma.sync m16n8k8 tf32, "
+               "hi = cvt.rna.tf32, lo = tf32(x - hi), lo hi + hi lo + hi hi); weights as packed "
+               "fragments from L2; the weight gradient in registers over the CTA's samples from "
+               "its panels; bound at 495 / 3 TFLOP/s",
+    BF16: "one tower a CTA; products on the tensor cores (mma.sync m16n8k16 bf16, float32 sums); "
+          "an h near a bf16 midpoint recomputed in the twin's order; weights as packed fragments "
+          "from L2; the weight gradient in registers over the CTA's samples from its panels; "
+          "bound at 989 TFLOP/s",
+}
+
+
 def wide_ops(d: int, a: int, h: int) -> int:
     """FP32 operations a sample of K3 at (d, a) and two hidden layers of
     width h: forward 2 (h d + h^2) + h (a + 1) FMA, backward the heads 2 h
@@ -4826,6 +4866,23 @@ def wide_edges(torch, batch, stats, net, d: int, a: int, h: int, bf16: bool, cli
     return edge, counts
 
 
+def wide_resync(torch, data, tidx, adv_stats, net, d: int, a: int, h: int, bf16: bool):
+    """The minibatch ``tidx`` of ``data`` gathered, its samples within
+    RESYNC_ULPS of the ratio or value clip on the twin's forward replaced
+    by a copy of the first that is not: ``(batch, identity tile indices,
+    samples replaced, edge counts)``."""
+    from reinmav_tpu_torch.ops import ppo_loss as pl
+
+    batch = data[:, pl._gather_columns(tidx, TILE_WIDE)].contiguous()
+    edge, counts = wide_edges(torch, batch, adv_stats, net, d, a, h, bf16, 0.2, 0.2)
+    replace = edge[RESYNC_ULPS]
+    if bool(replace.any()):
+        keep = int((~replace).nonzero()[0, 0])
+        batch[:, replace] = batch[:, keep:keep + 1]
+    ident = torch.arange(tidx.numel(), dtype=torch.int32, device=data.device)
+    return batch, ident, int(replace.sum()), counts
+
+
 def wide_k3_check(torch, d: int, a: int, h: int, cd, kl: bool, data, tidx, adv_stats, net,
                   label: str):
     """K3 wide against its twin of dtype ``cd`` (``kl``: the adaptive-KL
@@ -4848,13 +4905,8 @@ def wide_k3_check(torch, d: int, a: int, h: int, cd, kl: bool, data, tidx, adv_s
     g_p = pl._finish(pl.ppo_loss_grads_reference(data, adv_stats, tidx, net, **kcfg), n_mb, 0.01,
                      layout)[0]
     free = count_outside(g_k, g_p, GRAD_TOL)
-    batch = data[:, pl._gather_columns(tidx, TILE_WIDE)].contiguous()
-    edge, counts = wide_edges(torch, batch, adv_stats, net, d, a, h, cd == BF16, 0.2, 0.2)
-    replace = edge[RESYNC_ULPS]
-    if bool(replace.any()):
-        keep = int((~replace).nonzero()[0, 0])
-        batch[:, replace] = batch[:, keep:keep + 1]
-    ident = torch.arange(tidx.numel(), dtype=torch.int32, device=data.device)
+    batch, ident, replaced, counts = wide_resync(torch, data, tidx, adv_stats, net, d, a, h,
+                                                 cd == BF16)
     g_k, m_k = pl.ppo_loss_grads_gather(batch, adv_stats, ident, net, ent_coef=0.01, **kcfg)
     g_p, m_p = pl._finish(pl.ppo_loss_grads_reference(batch, adv_stats, ident, net, **kcfg), n_mb,
                           0.01, layout)
@@ -4870,7 +4922,14 @@ def wide_k3_check(torch, d: int, a: int, h: int, cd, kl: bool, data, tidx, adv_s
         require(torch.allclose(m_k[m], m_p[m], **METRIC_TOL), f"{label}: {m}")
     require(torch.equal(g_k, g_again), f"{label}: determinism")
     require(float(m_k["clip_frac"]) > 0.0, f"{label}: no sample clipped")
-    say(f"{label} vs twin, minibatch {n_mb}: {int(replace.sum())} samples within {RESYNC_ULPS} "
+    if cd == BF16:
+        rec = torch.zeros(2, dtype=torch.int64, device=data.device)
+        pl._launch_wide(batch, adv_stats, ident, net, layout, rec_counts=rec, **kcfg)
+        torch.cuda.synchronize()
+        units = n_mb * h * 2
+        counts["h1_recomputed"], counts["h2_recomputed"] = rec.tolist()
+        require(max(rec.tolist()) <= units // 10, f"{label}: recomputed {rec.tolist()} of {units}")
+    say(f"{label} vs twin, minibatch {n_mb}: {replaced} samples within {RESYNC_ULPS} "
         f"ulps of the ratio or value clip replaced, then grads max |err| {err:.3e} (rtol 2e-3 atol "
         f"2e-6), metrics " + ", ".join(f"{m} {float(m_k[m]):.5g}" for m in pl.METRICS)
         + f" (rtol 2e-4 atol 1e-6), bitwise equal on a rerun: ok; as it stands {free} of "
@@ -4969,17 +5028,192 @@ def wide_k4_check(torch, dev, gpu: str, env, h: int) -> dict:
     nb = nbytes(data, perm_all, stats, params, opt.mu, opt.nu) + nbytes(params, opt.mu, opt.nu)
     prod = wide_ops(d, a, h) * mb * n_passes
     sfu = sfu_ms(n_passes * mb * (2 * 4 * h + 1))
-    for name, ms, lo, hi, b in (("float32", ms32, lo32, hi32, bound(nb, prod)),
+    for name, ms, lo, hi, b in (("float32", ms32, lo32, hi32, bound_tf32x3(nb, prod)),
                                 (BF16, ms16, lo16, hi16, bound_bf16(nb, prod, 0.0))):
         inst = f"ppo_update_wide_kernel<false, {'true' if name == BF16 else 'false'}>"
+        mma = kernel_mma(inst, gate=name == BF16)
+        require(mma["HMMA"] > 0 and (name == BF16 or mma["HMMA_BF16"] == 0),
+                f"{inst}: its products are not on the tensor cores: {mma}")
         out[name].update(ms=ms, bound_ms=b[0], bound_by=b[1], sfu_ms=sfu,
-                         registers=kernel_registers(inst), sass=kernel_mma(inst))
+                         fp32_bound_ms=bound(nb, prod)[0], registers=kernel_registers(inst),
+                         sass=mma)
         say(f"time K4 wide H={h} ({d}, {a}) {name}, {e_} x {m_} passes of {mb}: {ms:.3f} ms ({lo:.3f}"
             f" to {hi:.3f}, in turns with the other dtype, {WIDE_REPS} launches a turn); twin "
-            f"{out[name]['plain_ms']:.1f} ms; bound {b[0]:.4f} ms by {b[1]} ({prod:.4e} operations"
-            f"{', products at 989 TFLOP/s' if name == BF16 else ''}), the SFU floor of its tanhf "
-            f"{sfu:.4f} ms; ptxas {inst} {out[name]['registers']}; SASS "
-            f"{mma_text(out[name]['sass'])}; on {gpu}")
+            f"{out[name]['plain_ms']:.1f} ms; bound {b[0]:.4f} ms by {b[1]} ({prod:.4e} operations, "
+            f"products at {'989 TFLOP/s, bf16' if name == BF16 else '495 / 3 TFLOP/s, 3xTF32'}; "
+            f"at the FP32 rate of 67 TFLOP/s {out[name]['fp32_bound_ms']:.4f} ms), the SFU floor "
+            f"of its tanhf {sfu:.4f} ms; ptxas {inst} {out[name]['registers']}; SASS "
+            f"{mma_text(mma)}; on {gpu}")
+    say(f"K4 wide H={h} ({d}, {a}): {wide_grid_text(torch, dev, d, a, h, mb)}")
+    return out
+
+
+def wide_grid_text(torch, dev, d: int, a: int, h: int, mb: int) -> str:
+    """The grid the wide K3/K4 launch for a minibatch of ``mb`` samples (one
+    tower a CTA, no clusters): CTAs, CTAs a tower, resident CTAs an SM of
+    each K4 wide instance (its cooperative grid needs 1), the plan."""
+    import ctypes
+
+    from reinmav_tpu_torch import _build
+    from reinmav_tpu_torch.ops import ppo_loss as pl
+
+    lib = _build.load_library()
+    blocks = lib.ppo_loss_wide_blocks(mb)
+    resident = {}
+    for kl in (False, True):
+        for bf in (False, True):
+            per_sm = ctypes.c_int()
+            require(lib.ppo_update_wide_occupancy(d, a, h, int(kl), int(bf),
+                                                  ctypes.byref(per_sm)) == 0 and per_sm.value >= 1,
+                    f"K4 wide occupancy at ({d}, {a}, {h})")
+            resident[f"{'kl' if kl else 'clip'} {'bf16' if bf else 'float32'}"] = per_sm.value
+    plans = {bf: pl.check_wide_plan(lib, d, a, h, bf, mb, blocks) for bf in (False, True)}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return (f"grid {blocks} CTAs on {sms} SMs ({blocks // 2} a tower, no clusters), resident CTAs "
+            f"an SM {resident}; {plans[False]['samples']} samples a sub-block, up to "
+            f"{plans[False]['groups']} a CTA; shared memory {plans[False]['smem_bytes']} B "
+            f"(float32), {plans[True]['smem_bytes']} B (bf16); panels "
+            f"{blocks * plans[False]['groups'] * plans[False]['group'] * 16 / 2**30:.2f} GiB "
+            f"(float32)")
+
+
+#: The wide body's probe phases, in the order of its ProbePhase enum
+#: (csrc/ppo_loss_body_wide.cuh).
+WIDE_PROBE_PHASES = ("gather", "forward products", "recompute", "heads and loss",
+                     "head gradients", "dpre2", "dpre products", "panels and bias sums",
+                     "weight-gradient products", "barrier waits")
+
+
+def wide_probe(torch, dev, gpu: str, widths=(256, 128)) -> dict:
+    """The wide K3 body's phase probe (its instance of csrc_probe/, a library
+    of its own): one K3 wide launch on phase 45's quadrotor3d-v0 minibatch
+    at each width and dtype, thread 0 of each CTA adding its clock64
+    cycles by phase; prints each phase's cycles a sub-block (the CTAs'
+    mean; phase B's once a CTA, spread over its sub-blocks) and its share,
+    with the SM clock sampled.  In bf16 a second launch runs the twin's
+    chain for every h and counts the h's recomputed and those whose bf16
+    rounding the window missed (gated: none).  Returns the split."""
+    from reinmav_tpu_torch import _build
+    from reinmav_tpu_torch.ops import ppo_loss as pl
+
+    t0 = time.perf_counter()
+    plib = _build.load_probe_library()
+    say(f"probe library built and loaded: {time.perf_counter() - t0:.1f} s")
+    phases = plib.ppo_wide_probe_phases()
+    require(phases == len(WIDE_PROBE_PHASES), f"the probe has {phases} phases")
+    out = {}
+    d, a = 10, 4
+    for h in widths:
+        data, tidx, stats, net = wide_k3_inputs(torch, dev, d, a, h, 45 + h)
+        for cd in (None, BF16):
+            kcfg = dict(d=d, adim=a, clip_eps=0.2, value_clip_eps=0.2, value_coef=0.5,
+                        tile=TILE_WIDE, hidden=h, compute_dtype=cd, kl_mode=False)
+            layout = pl.Layout(d, a, (h, h))
+            run = lambda: pl._launch_wide(data, stats, tidx, net, layout,  # noqa: E731
+                                          probe_lib=plib, **kcfg)
+            run()  # warm-up
+            blocks = plib.ppo_loss_wide_blocks(MB_WIDE)
+            buf = torch.zeros(blocks * phases, dtype=torch.int64, device=dev)
+            require(plib.ppo_wide_probe_set(buf.data_ptr()) == 0, "ppo_wide_probe_set")
+            with SmClock() as clock:
+                (ms,), _ = cuda_ms(run, 1)
+            require(plib.ppo_wide_probe_set(None) == 0, "ppo_wide_probe_set")
+            per = buf.view(blocks, phases).double()
+            sub = -(-MB_WIDE // pl.wide_plan(d, a, h, cd == BF16)["samples"]) / (blocks // 2)
+            cyc = (per.mean(dim=0) / sub).tolist()
+            total = sum(cyc)
+            mhz = clock.mhz
+            name = cd or "float32"
+            split = dict(zip(WIDE_PROBE_PHASES, cyc))
+            out[(h, name)] = dict(split=split, ms=ms, mhz=mhz, blocks=blocks)
+            misses = ""
+            if cd == BF16:
+                miss = torch.zeros(10, dtype=torch.int64, device=dev)
+                require(plib.ppo_wide_probe_miss(miss.data_ptr()) == 0, "ppo_wide_probe_miss")
+                run()
+                torch.cuda.synchronize()
+                require(plib.ppo_wide_probe_miss(None) == 0, "ppo_wide_probe_miss")
+                m = miss.tolist()
+                out[(h, name)]["midpoints"] = dict(
+                    h1_checked=m[0], h1_recomputed=m[1], h1_missed=m[2], h2_checked=m[3],
+                    h2_recomputed=m[4], h2_missed=m[5], h1_beyond_quarter_window=m[6],
+                    h1_beyond_half_window=m[7], h2_beyond_quarter_window=m[8],
+                    h2_beyond_half_window=m[9])
+                misses = (f"; every h against the twin's chain: h1 {m[1]} of {m[0]} recomputed, "
+                          f"{m[2]} missed by the window, h2 {m[4]} of {m[3]}, {m[5]} missed; "
+                          f"farther from the chain than a quarter / half of the window: h1 "
+                          f"{m[6]} / {m[7]}, h2 {m[8]} / {m[9]}")
+                require(m[2] == 0 and m[5] == 0, f"wide probe H={h}: the midpoint window "
+                        f"missed h's: {m}")
+            say(f"wide probe H={h} ({d}, {a}) {name}: {ms:.3f} ms a launch ({blocks} CTAs, "
+                f"{sub:.1f} sub-blocks a CTA), {total:.0f} cycles a sub-block "
+                f"({total / mhz:.1f} us at {mhz:.0f} MHz): " + ", ".join(
+                    f"{k} {v:.0f} ({v / total:.1%})" for k, v in split.items())
+                + f"{misses}; on {gpu}")
+        del data, tidx, stats, net
+    return out
+
+
+def wide_tf32_control(torch, dev, gpu: str, h: int = 256) -> dict:
+    """What the lo terms of 3xTF32 buy: K3 wide float32 (3xTF32, the kernel
+    library) and its 1xTF32 control (csrc_probe/ppo_loss_wide_1xtf32.cu,
+    hi hi alone) on phase 45's quadrotor3d-v0 minibatch at width ``h``,
+    clip mode, resynchronised as wide_k3_check resynchronises it, each
+    held with the float32 twin to the twin in float64: the largest
+    |gradient error| and that error over GRAD_TOL's atol + rtol |g64|, the
+    error's norm over the gradient's, and the entries outside GRAD_TOL and
+    the metrics outside METRIC_TOL of the float32 twin (the gate of phase
+    45).  Gated: 3xTF32 inside that gate and 1xTF32 outside it (the gate
+    tells the two apart).  Returns the numbers."""
+    from reinmav_tpu_torch import _build
+    from reinmav_tpu_torch.ops import ppo_loss as pl
+    from reinmav_tpu_torch.rl import networks
+
+    t0 = time.perf_counter()
+    ctrl = _build.load_probe_library("ppo_loss_wide_1xtf32")
+    say(f"1xTF32 control library built and loaded: {time.perf_counter() - t0:.1f} s")
+    d, a = 10, 4
+    layout = networks.Layout(d, a, (h, h))
+    data, tidx, stats, net = wide_k3_inputs(torch, dev, d, a, h, 45 + h)
+    batch, ident, replaced, _ = wide_resync(torch, data, tidx, stats, net, d, a, h, False)
+    kcfg = dict(d=d, adim=a, clip_eps=0.2, value_clip_eps=0.2, value_coef=0.5, tile=TILE_WIDE,
+                kl_mode=False, hidden=h)
+    n_mb = ident.numel() * TILE_WIDE
+    finish = lambda sums: pl._finish(sums, n_mb, 0.01, layout)  # noqa: E731
+    runs = {
+        "3xTF32": pl.ppo_loss_grads_gather(batch, stats, ident, net, ent_coef=0.01, **kcfg),
+        "1xTF32": finish(pl._launch_wide(batch, stats, ident, net, layout, probe_lib=ctrl,
+                                         **kcfg)),
+        "float32 twin": finish(pl.ppo_loss_grads_reference(batch, stats, ident, net, **kcfg)),
+    }
+    g64, m64 = finish(pl.ppo_loss_grads_reference(batch.double(), stats.double(), ident,
+                                                  net.double(), **kcfg))
+    torch.cuda.synchronize()
+    g32, m32 = runs["float32 twin"]
+    out = {}
+    for name, (g, m) in runs.items():
+        err = (g.double() - g64).abs()
+        out[name] = dict(
+            max_abs_err=float(err.max()),
+            max_err_over_tol=float((err / (GRAD_TOL["atol"] + GRAD_TOL["rtol"] * g64.abs())).max()),
+            err_norm_over_norm=float(err.norm() / g64.norm()),
+            outside_vs_float32_twin=count_outside(g, g32, GRAD_TOL),
+            metrics_outside_vs_float32_twin=sum(
+                not torch.allclose(m[k], m32[k], **METRIC_TOL) for k in pl.METRICS),
+            metrics_max_abs_err=max(abs(float(m[k]) - float(m64[k])) for k in pl.METRICS))
+    require(out["3xTF32"]["outside_vs_float32_twin"] == 0 and
+            out["3xTF32"]["metrics_outside_vs_float32_twin"] == 0,
+            f"K3 wide H={h} 3xTF32 outside the float32 gate: {out['3xTF32']}")
+    require(out["1xTF32"]["outside_vs_float32_twin"] > 0,
+            f"K3 wide H={h}: the float32 gate does not tell 1xTF32 from 3xTF32: {out['1xTF32']}")
+    say(f"K3 wide H={h} ({d}, {a}) float32 against the float64 twin, minibatch {n_mb} "
+        f"({replaced} samples on a clip edge replaced): " + "; ".join(
+            f"{name} max |err| {v['max_abs_err']:.3e}, max |err| / (2e-6 + 2e-3 |g64|) "
+            f"{v['max_err_over_tol']:.4g}, |err| / |g64| {v['err_norm_over_norm']:.3e}, "
+            f"{v['outside_vs_float32_twin']} of {g64.numel()} entries and "
+            f"{v['metrics_outside_vs_float32_twin']} metrics outside the float32 twin's gate, "
+            f"metrics max |err| {v['metrics_max_abs_err']:.3e}" for name, v in out.items())
+        + f"; on {gpu}")
     return out
 
 
@@ -5072,8 +5306,6 @@ def wide_phases(torch, dev, gpu: str) -> list[dict]:
     its twin; K4 wide at WIDE_HIDDEN on quadrotor3d-v0; the training paths
     at WIDE_HIDDEN; the CLI at --num_hidden 256.  Returns the entries of
     the ``kernels`` line."""
-    import ctypes
-
     import reinmav_tpu_torch
     from reinmav_tpu_torch import _build
     from reinmav_tpu_torch.ops import ppo_loss as pl
@@ -5090,8 +5322,6 @@ def wide_phases(torch, dev, gpu: str) -> list[dict]:
         widths = WIDE_HIDDEN + (WIDE_SMALL if name == "quadrotor3d-v0" else ())
         for h in widths:
             data, tidx, stats, net = wide_k3_inputs(torch, dev, d, a, h, 45 + h)
-            samples = ctypes.c_int()
-            smem = lib.ppo_wide_smem(d, a, h, ctypes.byref(samples))
             for cd in (None, BF16):
                 for kl in ((False, True) if name == "quadrotor3d-v0" else (False,)):
                     kl_stats = stats.clone()
@@ -5114,16 +5344,20 @@ def wide_phases(torch, dev, gpu: str) -> list[dict]:
                 # columns; written: the gradient (the params' size).
                 nb = nbytes(tidx, stats, net) + nbytes(net) + MB_WIDE * data.shape[0] * 4
                 prod = wide_ops(d, a, h) * MB_WIDE
-                b = bound_bf16(nb, prod, 0.0) if cd else bound(nb, prod)
+                b = bound_bf16(nb, prod, 0.0) if cd else bound_tf32x3(nb, prod)
+                plan = pl.check_wide_plan(lib, d, a, h, cd == BF16, MB_WIDE,
+                                          lib.ppo_loss_wide_blocks(MB_WIDE))
                 entry = k3[(name, h, cd or "float32", False)]
                 entry.update(ms=ms, plain_ms=statistics.median(plain), bound_ms=b[0],
-                             bound_by=b[1], sfu_ms=sfu_ms(MB_WIDE * (2 * 4 * h + 1)))
+                             bound_by=b[1], sfu_ms=sfu_ms(MB_WIDE * (2 * 4 * h + 1)),
+                             fp32_bound_ms=bound(nb, prod)[0])
                 say(f"time K3 wide H={h} ({d}, {a}) {cd or 'float32'}, minibatch {MB_WIDE}: "
                     f"{ms:.4f} ms (median of 10 launches, in turns with the other dtype); twin "
-                    f"{entry['plain_ms']:.2f} ms; bound {b[0]:.4f} ms by {b[1]}"
-                    f"{' (products at 989 TFLOP/s)' if cd else ''}, the SFU floor of its tanhf "
-                    f"{entry['sfu_ms']:.4f} ms; {samples.value} samples a sub-block, {smem} B of "
-                    f"shared memory; on {gpu}")
+                    f"{entry['plain_ms']:.2f} ms; bound {b[0]:.4f} ms by {b[1]} (products at "
+                    f"{'989 TFLOP/s, bf16' if cd else '495 / 3 TFLOP/s, 3xTF32'}; at the FP32 "
+                    f"rate of 67 TFLOP/s {entry['fp32_bound_ms']:.4f} ms), the SFU floor of its "
+                    f"tanhf {entry['sfu_ms']:.4f} ms; {plan['samples']} samples a sub-block, "
+                    f"{plan['smem_bytes']} B of shared memory; on {gpu}")
             del data, tidx, stats, net
             torch.cuda.empty_cache()
     env = reinmav_tpu_torch.make("quadrotor3d-v0")
@@ -5151,7 +5385,7 @@ def wide_phases(torch, dev, gpu: str) -> list[dict]:
                              "clip replaced): grads rtol 2e-3 atol 2e-6, metrics rtol 2e-4 atol "
                              "1e-6, bitwise repeatable; at the five (obs, action) pairs",
                 "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-                "bound_by": main["bound_by"], "library_ms": None,
+                "bound_by": main["bound_by"], "library_ms": None, "design": WIDE_DESIGN[cd],
                 "registers": kernel_registers(k3_inst), "sass": kernel_mma(k3_inst),
                 "edges": {n: e["edges"] for n, e in zip(PPO_STRUCT, at)},
                 "ms_by_env": {n: e["ms"] for n, e in zip(PPO_STRUCT, at)},
@@ -5168,7 +5402,7 @@ def wide_phases(torch, dev, gpu: str) -> list[dict]:
                              "atol 2e-6, params rtol 2e-4 atol 1e-6, moments rtol 2e-4 atol "
                              "5e-8; max_abs_err the params' there",
                 "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                "bound_by": k["bound_by"], "library_ms": None,
+                "bound_by": k["bound_by"], "library_ms": None, "design": WIDE_DESIGN[cd],
                 "registers": k["registers"], "sass": k["sass"], "resync": k["resync"],
                 "free_running_outside": k["free_outside"], "update_ms": tr["update_ms"],
                 "at": f"4 x 4 passes of {MB_WIDE} samples, obs 10, action 4, hidden ({h}, {h}); "
@@ -5247,6 +5481,8 @@ def main(argv=None) -> int:
     if only == "wide":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        wide_probe(torch, dev, gpu)
+        wide_tf32_control(torch, dev, gpu)
         say(json.dumps({"kernels": wide_phases(torch, dev, gpu)}))
         return 0
 

@@ -29,6 +29,10 @@ import tempfile
 from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
+#: Diagnostic instances of the wide K3 body (its phase probe, its 1xTF32
+#: control), each built into a library of its own by
+#: :func:`load_probe_library` and never into the kernel library.
+PROBE_DIR = SRC_DIR.parent / "csrc_probe"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -111,26 +115,33 @@ _SIGNATURES = {
     "ppo_update_metrics_size": (),
     # K3 wide: (obs dim, action dim, hidden width, data, n, perm, m, tile,
     #  adv_stats, net, clip_eps, value_clip_eps, value_coef, kl_mode, bf16,
-    #  blocks, partials, out, stream)
+    #  blocks, plan (5 int64, host), partials, packed, panels, recompute
+    #  counts or null, out, stream)
     "ppo_loss_wide_launch": (ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, ctypes.c_longlong, _P,
                              ctypes.c_longlong, ctypes.c_int, _P, _P, ctypes.c_float,
                              ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                             ctypes.c_int, _P, _P, _P),
-    # (minibatch samples, hidden width) -> CTAs of the K3/K4 wide grid, -1 on
-    #  a CUDA error
-    "ppo_loss_wide_blocks": (ctypes.c_longlong, ctypes.c_int),
+                             ctypes.c_int, _P, _P, _P, _P, _P, _P, _P),
+    # (obs dim, action dim, hidden width, bf16, minibatch samples, CTAs,
+    #  plan out (8 int64)) -> 0, or -1 for widths or a grid the wide body
+    #  does not take
+    "ppo_wide_plan": (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_int, _P),
+    # (obs dim, action dim, hidden width, kl_mode, bf16, resident CTAs an SM
+    #  out (int)) of K4 wide's instance
+    "ppo_update_wide_occupancy": (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_int, _P),
+    # (minibatch samples) -> CTAs of the K3/K4 wide grid, -1 on a CUDA error
+    "ppo_loss_wide_blocks": (ctypes.c_longlong,),
     # (obs dim, action dim, hidden width) -> sums K3 wide writes, -1 for
     #  widths the wide body does not take
     "ppo_loss_wide_out_size": (ctypes.c_int, ctypes.c_int, ctypes.c_int),
-    # (obs dim, action dim, hidden width, samples a sub-block out (int)) ->
-    #  the wide body's shared memory in bytes, -1 for widths it does not take
-    "ppo_wide_smem": (ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
     # (obs dim, action dim, hidden width, offsets out (11 int)) -> 0, or -1
     #  for widths the wide body does not take
     "ppo_wide_layout": (ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
-    # K4 wide: ppo_update_launch's arguments with the hidden width after the
-    #  action dim
-    "ppo_update_wide_launch": (ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, ctypes.c_longlong,
+    # K4 wide: ppo_update_launch's arguments with the hidden width, the plan
+    #  (5 int64, host), the packed weights and the panels after the action dim
+    "ppo_update_wide_launch": (ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
+                               ctypes.c_longlong,
                                _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P,
                                _P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_float,
                                ctypes.c_float, ctypes.c_double, ctypes.c_float, ctypes.c_float,
@@ -249,6 +260,51 @@ def build() -> Path:
         os.replace(Path(tmp, "ptxas.txt"), ptxas_log_path())
         os.replace(lib, out)
     return out
+
+
+def _probe_path(name: str) -> Path:
+    """Where the library of the probe source ``name`` for the current
+    sources lives (it includes the kernel sources, so all of them are
+    hashed)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in [PROBE_DIR / f"{name}.cu", *_sources(), *sorted(SRC_DIR.glob("*.cuh"))]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+@functools.cache
+def load_probe_library(name: str = "ppo_loss_wide_probe") -> ctypes.CDLL:
+    """Build (one ``nvcc``) and load the diagnostic library of
+    ``csrc_probe/<name>.cu``: the wide K3 kernel, with the same C interface
+    as the kernel library's ``ppo_loss_wide_launch``, with its phase probe
+    on (``ppo_loss_wide_probe``, which adds ``ppo_wide_probe_set(buffer)``,
+    ``ppo_wide_probe_miss(buffer)`` and ``ppo_wide_probe_phases()``) or
+    with its float32 products as 1xTF32 (``ppo_loss_wide_1xtf32``).  No
+    training path loads one."""
+    out = _probe_path(name)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            lib = os.path.join(tmp, out.name)
+            _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, str(PROBE_DIR / f"{name}.cu")]])
+            os.replace(lib, out)
+    lib = ctypes.CDLL(str(out))
+    for fn_name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, fn_name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    for fn_name in ("ppo_wide_probe_set", "ppo_wide_probe_miss"):
+        fn = getattr(lib, fn_name, None)
+        if fn is not None:
+            fn.argtypes = (_P,)
+            fn.restype = ctypes.c_int
+    if hasattr(lib, "ppo_wide_probe_phases"):
+        lib.ppo_wide_probe_phases.argtypes = ()
+        lib.ppo_wide_probe_phases.restype = ctypes.c_int
+    return lib
 
 
 @functools.cache

@@ -38,8 +38,9 @@ built for hidden (64, 64) at the :data:`KERNEL_DIMS` pairs, and the wide
 instances (``csrc/ppo_loss_wide.cu``, launched by :func:`_launch_wide`), which
 take two equal hidden widths from 1 to 256, obs dims up to 32 and action
 dims up to 8 at run time (:func:`kernel_instance`); above that the kernels
-refuse by name (:func:`kernel_dims_refusal`).  The wide body's products run
-on the FP32 pipes, in float32 and, on bf16-rounded operands, in bf16.
+refuse by name (:func:`kernel_dims_refusal`).  The wide body runs its
+products on the tensor cores, in float32 as 3xTF32 and in bf16 as the
+64-wide bf16 body does; its plan (:func:`wide_plan`) goes with each launch.
 
 The wrapper takes the twin only for a tensor that lies on the CPU; on a
 CUDA tensor it launches the kernel of the dtype and widths asked for or
@@ -148,6 +149,97 @@ def check_wide_layout(lib, d: int, adim: int, h: int) -> None:
     want = wide_layout(d, adim, h)
     if dict(zip(WIDE_LAYOUT_KEYS, got)) != want:
         raise RuntimeError(f"the wide kernels' layout {list(got)} is not the wrapper's {want}")
+
+
+#: The wide body's sub-block (samples), CTA (threads), recompute queue, the
+#: 16-byte words of a warp's ring of weight words in flight in phase A and
+#: of the CTA's stages of panel words in phase B
+#: (``csrc/ppo_loss_body_wide.cuh``: kS, kThreads, kRecCap, kRingA, kStages
+#: x kStageWords).
+WIDE_SAMPLES, WIDE_THREADS, WIDE_REC_CAP = 64, 512, 1024
+WIDE_RING_A, WIDE_STAGES_B = 2 * 2 * 32, 3 * 4 * 16 * 32
+#: A CTA's dynamic shared memory on sm_90 (bytes).
+WIDE_SMEM_LIMIT = 232448
+#: The keys of the plan that the wide launches take and check (in order).
+WIDE_PLAN_KEYS = ("samples", "smem_bytes", "groups", "group", "packed")
+
+
+def wide_grid(mb: int, sms: int) -> int:
+    """CTAs of the wide K3/K4 launch over ``mb`` samples on ``sms`` SMs: two
+    a sub-block of :data:`WIDE_SAMPLES` (one a tower), at most one an SM,
+    an even number (``grid_blocks``)."""
+    return 2 * min(-(-mb // WIDE_SAMPLES), sms // 2)
+
+
+def wide_plan(d: int, adim: int, h: int, bf16: bool, mb: int | None = None,
+              blocks: int | None = None) -> dict:
+    """The wide body's plan at obs dim ``d``, action dim ``adim``, hidden
+    width ``h`` and dtype (``csrc/ppo_loss_body_wide.cuh::make_shape``): its
+    sub-block (``samples``), its dynamic shared memory (``smem_bytes``), the
+    16-byte words of a sub-block's panels (``group``) and of both towers'
+    packed weights (``packed``), the row stride of its [unit][sample]
+    arrays (``sp``), the units and obs rows padded to 16 (``units``,
+    ``obs_rows``); and, given the minibatch ``mb`` and the grid ``blocks``,
+    the panels' groups a CTA (``groups``)."""
+    def r16(v):
+        return -(-v // 16) * 16
+
+    def r4(v):
+        return -(-v // 4) * 4
+
+    s = WIDE_SAMPLES
+    hp, dp = r16(h), r16(d)
+    nb, db = hp // 16, dp // 16
+    ks = 16 if bf16 else 8
+    kb = s // ks
+    sp = s + (4 if bf16 else 8)
+    floats = (2 * hp * sp + dp * sp + (adim + 4) * sp + (adim + 1) * sp + (adim + 4) * sp
+              + 2 * hp + hp * adim + r4(adim + 1) + r4(adim) + r4(2 + WIDE_REC_CAP)
+              + WIDE_THREADS // 32 * WIDE_RING_A * 4)
+    floats = max(floats, WIDE_STAGES_B * 4)  # phase B's stages take the whole area
+    planes = 1 if bf16 else 2  # the tf32 hi and lo of each weight in float32
+    # A tower's packed words: W1, W2 and W2^T as fragments, and in bf16 the
+    # twin-order chain's rows of W1 and W2 (bf16, 8 a word).
+    tower = (nb * (dp // ks) + 2 * nb * (hp // ks)) * 32 + ((hp * dp + hp * hp) // 8 if bf16 else 0)
+    plan = dict(samples=s, smem_bytes=4 * floats, group=(db + 3 * nb) * kb * 32,
+                packed=planes * 2 * tower, sp=sp, units=hp, obs_rows=dp)
+    if mb is not None and blocks is not None:
+        sub_blocks = -(-mb // s)
+        plan["groups"] = -(-sub_blocks // (blocks // 2))
+    return plan
+
+
+def check_wide_plan(lib, d: int, adim: int, h: int, bf16: bool, mb: int, blocks: int) -> dict:
+    """:func:`wide_plan` for this launch, raising unless the library's
+    (``ppo_wide_plan``) is the same."""
+    import ctypes
+
+    plan = wide_plan(d, adim, h, bf16, mb, blocks)
+    got = (ctypes.c_longlong * 8)()
+    if lib.ppo_wide_plan(d, adim, h, int(bf16), mb, blocks, got) != 0:
+        raise ValueError(f"the wide K3/K4 kernels refuse widths ({d}, {adim}, {h}) on {blocks} "
+                         f"CTAs")
+    want = [plan[k] for k in (*WIDE_PLAN_KEYS, "sp", "units", "obs_rows")]
+    if list(got) != want:
+        raise RuntimeError(f"the wide kernels' plan {list(got)} is not the wrapper's {want}")
+    return plan
+
+
+def wide_plan_args(plan: dict):
+    """The plan as the wide launches take it: :data:`WIDE_PLAN_KEYS`, int64
+    on the host."""
+    import ctypes
+
+    return (ctypes.c_longlong * len(WIDE_PLAN_KEYS))(*(plan[k] for k in WIDE_PLAN_KEYS))
+
+
+def wide_scratch(plan: dict, blocks: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The wide launches' scratch: the packed weights (zeroed: their padding
+    stays 0) and the CTAs' panels, as int32 tensors."""
+    packed = torch.zeros(plan["packed"] * 4, dtype=torch.int32, device=device)
+    panels = torch.empty(blocks * plan["groups"] * plan["group"] * 4, dtype=torch.int32,
+                         device=device)
+    return packed, panels
 
 
 def stack_batch(obs, act, old_logp, old_value, adv, ret) -> torch.Tensor:
@@ -373,33 +465,45 @@ ppo_loss_grads_gather.launches = 0
 
 def _launch_wide(data, adv_stats, perm, net, layout: Layout, *, d: int, adim: int,
                  clip_eps: float, value_clip_eps: float, value_coef: float, tile: int,
-                 kl_mode: bool, hidden: int, compute_dtype=None) -> torch.Tensor:
+                 kl_mode: bool, hidden: int, compute_dtype=None, probe_lib=None,
+                 rec_counts=None) -> torch.Tensor:
     """K3 wide (``csrc/ppo_loss_wide.cu``) on the CUDA inputs that
     :func:`ppo_loss_grads_gather` checked and sends here: the raw sums, in
     the flat layout then the metrics.  Launches on the current stream and
-    does not synchronise."""
+    does not synchronise.  The plan (:func:`wide_plan`) is checked against
+    the library's and passed with the launch, which refuses another.
+    ``probe_lib``: the same kernel with its phase probe on
+    (``_build.load_probe_library``), a diagnostic launch that is not
+    counted.  ``rec_counts``: an int64 CUDA tensor of 2 to which the bf16
+    instance adds the h1's and h2's it recomputed in the twin's order."""
     from .._build import check, load_library
 
-    lib = load_library()
+    lib = probe_lib or load_library()
+    bf16 = is_bf16(compute_dtype)
     m = perm.shape[0]
     with torch.cuda.device(data.device):
         check_wide_layout(lib, d, adim, hidden)
-        blocks = lib.ppo_loss_wide_blocks(m * tile, hidden)
+        blocks = lib.ppo_loss_wide_blocks(m * tile)
         if blocks <= 0:
             raise RuntimeError(f"ppo_loss_wide_blocks returned {blocks}")
+        plan = check_wide_plan(lib, d, adim, hidden, bf16, m * tile, blocks)
         out_size = lib.ppo_loss_wide_out_size(d, adim, hidden)
         if out_size != layout.size + len(METRICS):
             raise RuntimeError(f"the K3 wide library writes {out_size} sums, the flat layout has "
                                f"{layout.size} + {len(METRICS)}")
         partials = torch.empty((blocks, out_size), dtype=torch.float32, device=data.device)
+        packed, panels = wide_scratch(plan, blocks, data.device)
         sums = torch.empty(out_size, dtype=torch.float32, device=data.device)
         rc = lib.ppo_loss_wide_launch(
             d, adim, hidden, data.data_ptr(), data.shape[1], perm.data_ptr(), m, tile,
             adv_stats.data_ptr(), net.data_ptr(), clip_eps, value_clip_eps, value_coef,
-            int(kl_mode), int(is_bf16(compute_dtype)), blocks, partials.data_ptr(),
-            sums.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            int(kl_mode), int(bf16), blocks, wide_plan_args(plan), partials.data_ptr(),
+            packed.data_ptr(), panels.data_ptr(),
+            None if rec_counts is None else rec_counts.data_ptr(), sums.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     check(rc, "ppo_loss_wide_launch")
-    _launch_wide.launches += 1
+    if probe_lib is None:
+        _launch_wide.launches += 1
     return sums
 
 

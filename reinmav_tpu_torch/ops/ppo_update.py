@@ -223,7 +223,7 @@ def ppo_update(data, adv_stats, perm_all, params, opt_state, kl_beta, *, d: int,
     with torch.cuda.device(dev):
         if wide:
             loss_ops.check_wide_layout(lib, d, adim, hidden)
-            blocks = lib.ppo_loss_wide_blocks(mb, hidden)  # K3 wide's grid
+            blocks = lib.ppo_loss_wide_blocks(mb)  # K3 wide's grid
         else:
             blocks = lib.ppo_loss_blocks(mb)  # K3's grid
         if blocks <= 0:
@@ -248,7 +248,10 @@ def ppo_update(data, adv_stats, perm_all, params, opt_state, kl_beta, *, d: int,
             None if grad0 is None else grad0.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
         if wide:
-            _launch_wide(lib, d, adim, hidden, *args)
+            plan = loss_ops.check_wide_plan(lib, d, adim, hidden, bf16, mb, blocks)
+            packed, panels = loss_ops.wide_scratch(plan, blocks, dev)
+            _launch_wide(lib, d, adim, hidden, loss_ops.wide_plan_args(plan), packed.data_ptr(),
+                         panels.data_ptr(), *args)
         else:
             check(lib.ppo_update_launch(d, adim, *args), "ppo_update_launch")
             ppo_update.launches += 1
@@ -261,13 +264,16 @@ def ppo_update(data, adv_stats, perm_all, params, opt_state, kl_beta, *, d: int,
 ppo_update.launches = 0
 
 
-def _launch_wide(lib, d: int, adim: int, hidden: int, *args) -> None:
+def _launch_wide(lib, d: int, adim: int, hidden: int, plan, packed, panels, *args) -> None:
     """K4 wide (``csrc/ppo_update_wide.cu``) on the CUDA inputs that
-    :func:`ppo_update` checked and sends here: ``ppo_update_launch``'s
-    arguments after the dims, the hidden width after them."""
+    :func:`ppo_update` checked and sends here: the hidden width, the body's
+    plan (``ppo_loss.wide_plan_args``) and the pointers of its packed
+    weights and panels (``ppo_loss.wide_scratch``), then
+    ``ppo_update_launch``'s arguments after the dims."""
     from .._build import check
 
-    check(lib.ppo_update_wide_launch(d, adim, hidden, *args), "ppo_update_wide_launch")
+    check(lib.ppo_update_wide_launch(d, adim, hidden, plan, packed, panels, *args),
+          "ppo_update_wide_launch")
     _launch_wide.launches += 1
 
 

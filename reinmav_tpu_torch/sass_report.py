@@ -83,8 +83,9 @@ KERNELS = ("hover_rollout_kernel", "reinmav_rollout_kernel", "reinmav_rollout_la
 PPO_LOSS_KERNELS = ("ppo_loss_kernel", "ppo_update_kernel")
 #: K3's and K4's wide instances (two equal hidden widths taken at run time:
 #: one instance per mode and compute dtype, the dtype their last template
-#: argument).
-WIDE_KERNELS = ("ppo_loss_wide_kernel", "ppo_update_wide_kernel")
+#: argument), and K3 wide's packing of the weights into mma fragments (one
+#: instance per dtype).
+WIDE_KERNELS = ("ppo_loss_wide_kernel", "ppo_update_wide_kernel", "ppo_wide_pack_kernel")
 #: The bf16 bodies of K2/K6 and K7 on the tensor cores (one instance per
 #: kind, normalisers or mode, and probe).
 BF16_KERNELS = ("ppo_rollout_bf16_kernel", "offpolicy_collect_bf16_kernel")

@@ -50,8 +50,9 @@ Tolerances:
   forward is not the twin's bit for bit, and a free-running update carries
   a weight across a bf16 rounding edge now and then: not compared.
 - The wide instances of K3 and K4 (two equal hidden widths other than the
-  64-wide instances', here 16, 100, 128 and 256), float32 and bf16, clip
-  and KL: K3 against its twin of the same dtype at K3's tolerances, with
+  64-wide instances', here 16, 100, 128 and 256, at (10, 4) and at the
+  largest dims they take, (32, 8)), float32 and bf16, clip and KL: K3
+  against its twin of the same dtype at K3's tolerances, with
   the samples within 16 ulps of the ratio or value clip on the twin's
   forward replaced (counted), on a grid that the sub-blocks do not divide
   and on a ragged minibatch; K4 resynchronised as the bf16 instance above,
@@ -269,7 +270,8 @@ def _loss_batch(device, n, seed, d=10, adim=4, hidden=64):
     rng = np.random.default_rng(seed)
     layout = networks.Layout(d, adim, (hidden, hidden))
     net = networks.init_params(layout, torch.Generator().manual_seed(seed))
-    net[layout.slices[("log_std",)]] = torch.tensor([-0.5, 0.0, 0.3, -1.0])[:adim]
+    net[layout.slices[("log_std",)]] = torch.tensor([-0.5, 0.0, 0.3, -1.0, -0.2, 0.1, -0.7,
+                                                     0.2])[:adim]
     data = np.concatenate([rng.normal(size=(d, n)), rng.normal(size=(adim, n)),
                            rng.normal(-1.0 * adim, 1.0, size=(1, n)), rng.normal(size=(1, n)),
                            rng.normal(size=(1, n)), rng.normal(size=(1, n))]).astype(np.float32)
@@ -718,7 +720,9 @@ def _check_k3_wide(cuda, hidden, compute_dtype, kl_mode, n=65536, n_tiles=128, t
                    adim=4):
     """K3 wide against its twin of the same dtype on the gathered minibatch
     of ``n_tiles`` tiles, its knife-edge samples replaced; one launch
-    counted, the 64-wide kernel's count unchanged; bitwise on a rerun."""
+    counted, the 64-wide kernel's count unchanged; bitwise on a rerun.  In
+    bf16, the h's recomputed in the twin's order (near a bf16 midpoint)
+    are counted on a launch of their own and reported."""
     data, net, _ = _loss_batch(cuda, n, 3, d, adim, hidden)
     perm = torch.tensor(np.random.default_rng(7).permutation(n // tile)[:n_tiles],
                         dtype=torch.int32, device=cuda)
@@ -735,8 +739,23 @@ def _check_k3_wide(cuda, hidden, compute_dtype, kl_mode, n=65536, n_tiles=128, t
     assert pl.ppo_loss_grads_gather.launches == narrow
     sums = pl.ppo_loss_grads_reference(batch, adv_stats, ident, net, **cfg)
     g_p, m_p = pl._finish(sums, n_tiles * tile, 0.01, networks.Layout(d, adim, (hidden, hidden)))
-    print(f"K3 wide H={hidden} {compute_dtype or 'float32'} {'kl' if kl_mode else 'clip'}: "
-          f"{replaced} edge samples replaced, grads max |err| {float((g_k - g_p).abs().max()):.3e}")
+    recomputed = ""
+    if compute_dtype == BF16:
+        counts = torch.zeros(2, dtype=torch.int64, device=cuda)
+        sums_c = pl._launch_wide(batch, adv_stats, ident, net,
+                                 networks.Layout(d, adim, (hidden, hidden)), rec_counts=counts,
+                                 **cfg)  # counted apart from the launch above
+        torch.cuda.synchronize()
+        layout = networks.Layout(d, adim, (hidden, hidden))
+        assert torch.equal(pl._finish(sums_c, n_tiles * tile, 0.01, layout)[0], g_k)
+        h1, h2 = counts.tolist()
+        units = n_tiles * tile * hidden * 2  # a layer's h's, both towers
+        assert 0 <= h1 <= units // 10 and 0 <= h2 <= units // 10, (h1, h2, units)
+        recomputed = (f", h's recomputed in the twin's order: h1 {h1}, h2 {h2} of {units} a "
+                      f"layer")
+    print(f"K3 wide H={hidden} ({d}, {adim}) {compute_dtype or 'float32'} "
+          f"{'kl' if kl_mode else 'clip'}: {replaced} edge samples replaced, grads max |err| "
+          f"{float((g_k - g_p).abs().max()):.3e}{recomputed}")
     np.testing.assert_allclose(g_k.cpu().numpy(), g_p.cpu().numpy(), **GRAD_TOL)
     for name in pl.METRICS:
         np.testing.assert_allclose(float(m_k[name]), float(m_p[name]), **METRIC_TOL,
@@ -753,11 +772,20 @@ def test_k3_wide_matches_twin_and_repeats_bitwise(cuda, hidden, compute_dtype, k
     _check_k3_wide(cuda, hidden, compute_dtype, kl_mode)
 
 
+@pytest.mark.parametrize("kl_mode", [False, True], ids=["clip", "kl"])
+@pytest.mark.parametrize("compute_dtype", DTYPES)
+@pytest.mark.parametrize("hidden", WIDE)
+def test_k3_wide_at_the_largest_dims(cuda, hidden, compute_dtype, kl_mode):
+    """Obs dim 32 and action dim 8, the largest the wide instances take
+    (two obs row blocks of 16 in dW1, the widest heads)."""
+    _check_k3_wide(cuda, hidden, compute_dtype, kl_mode, d=32, adim=8)
+
+
 @pytest.mark.parametrize("compute_dtype", DTYPES)
 @pytest.mark.parametrize("hidden", [pytest.param(100, id="h100"), pytest.param(256, id="h256")])
 def test_k3_wide_sub_blocks_not_dividing_the_grid(cuda, hidden, compute_dtype):
-    """A minibatch of 201 tiles of 128 (more sub-blocks than CTAs, not a
-    multiple of them: 357 of 72 samples at H = 100, 804 of 32 at 256) and a
+    """A minibatch of 201 tiles of 128 (402 sub-blocks of 64 samples a
+    tower over 66 CTAs a tower on 132 SMs, not a multiple of them) and a
     ragged one (5 tiles of 32: 160 samples, the last sub-block partly
     empty), at the obs dim of the slung 3D env and A = 4."""
     _check_k3_wide(cuda, hidden, compute_dtype, False, n=128 * 300, n_tiles=201, d=16)
@@ -799,13 +827,58 @@ def _wide_update_inputs(device, hidden, kl_mode=False, num_envs=4096, compute_dt
     return data, adv_stats, perm_all, params.contiguous(), state.opt_state, beta, kw
 
 
-def _check_k4_wide(cuda, hidden, compute_dtype, kl_mode=False, num_envs=4096):
+def _synthetic_update_inputs(device, hidden, d, adim, n=65536, kl_mode=False):
+    """:func:`_loss_batch`'s batch at obs and action dims (d, adim) stacked as
+    K4 takes it, 4 epochs x 4 minibatches of tiles of 128 (seed 2), fresh
+    Adam moments and the kernel's keywords."""
+    data, net, _ = _loss_batch(device, n, 5, d, adim, hidden)
+    gen = torch.Generator().manual_seed(2)
+    perm_all = torch.cat([ppo._shuffle_indices(gen, n // 128) for _ in range(4)]).to(
+        device=device, dtype=torch.int32)
+    adv_stats = ppo.pass_adv_stats(data[d + adim + 2], perm_all, 128, 16, True)
+    opt = ppo.AdamState(torch.zeros((), dtype=torch.int32, device=device),
+                        torch.zeros_like(net), torch.zeros_like(net))
+    kw = dict(d=d, adim=adim, tile=128, n_minibatches=4, n_epochs=4, clip_eps=0.2,
+              value_clip_eps=0.2, value_coef=0.5, ent_coef=0.01, lr=3e-4, max_grad_norm=0.5,
+              kl_mode=kl_mode, hidden=hidden)
+    beta = torch.tensor(0.7, device=device) if kl_mode else None
+    return data, adv_stats, perm_all, net.contiguous(), opt, beta, kw
+
+
+def _wide_grid_text(cuda, d, adim, hidden, mb, compute_dtype, kl_mode):
+    """The grid K4 wide takes for a minibatch of mb samples: its CTAs, the
+    CTAs a tower, their resident CTAs an SM (the cooperative launch needs 1)
+    and the body's plan."""
+    import ctypes
+
+    from reinmav_tpu_torch import _build
+
+    lib = _build.load_library()
+    blocks = lib.ppo_loss_wide_blocks(mb)
+    per_sm = ctypes.c_int()
+    assert lib.ppo_update_wide_occupancy(d, adim, hidden, int(kl_mode),
+                                         int(compute_dtype == BF16), ctypes.byref(per_sm)) == 0
+    assert per_sm.value >= 1
+    plan = pl.check_wide_plan(lib, d, adim, hidden, compute_dtype == BF16, mb, blocks)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    return (f"grid {blocks} CTAs on {sms} SMs ({blocks // 2} a tower), {per_sm.value} resident "
+            f"an SM, {plan['samples']} samples a sub-block, up to {plan['groups']} a CTA, "
+            f"{plan['smem_bytes']} B of shared memory")
+
+
+def _check_k4_wide(cuda, hidden, compute_dtype, kl_mode=False, num_envs=4096, dims=None):
     """K4 wide: one launch counted (the 64-wide kernel's count unchanged),
     bitwise on a rerun, pass 0 bitwise one K3 wide launch, and every pass
-    resynchronised against the twin of the same dtype."""
-    data, stats, perm_all, params, opt, beta, kw = _wide_update_inputs(
-        cuda, hidden, kl_mode, num_envs, compute_dtype)
-    tile = kw["tile"]
+    resynchronised against the twin of the same dtype; the grid printed.
+    ``dims`` (d, adim): a synthetic batch at those dims, else the eager
+    rollout of quadrotor3d-v0."""
+    if dims is None:
+        data, stats, perm_all, params, opt, beta, kw = _wide_update_inputs(
+            cuda, hidden, kl_mode, num_envs, compute_dtype)
+    else:
+        data, stats, perm_all, params, opt, beta, kw = _synthetic_update_inputs(
+            cuda, hidden, *dims, kl_mode=kl_mode)
+    d, adim, tile = kw["d"], kw["adim"], kw["tile"]
     before, narrow = pu._launch_wide.launches, pu.ppo_update.launches
     k = pu.ppo_update(data, stats, perm_all, params, opt, beta, keep_grad0=True,
                       compute_dtype=compute_dtype, **kw)
@@ -820,8 +893,8 @@ def _check_k4_wide(cuda, hidden, compute_dtype, kl_mode=False, num_envs=4096):
     tpm = perm_all.numel() // 16
     k3_stats = torch.stack([stats[0, 0], stats[0, 1], beta if beta is not None else stats[0, 0] * 0,
                             stats[0, 0] * 0]).contiguous()
-    g3, _ = pl.ppo_loss_grads_gather(data, k3_stats, perm_all[:tpm].contiguous(), params, d=10,
-                                     adim=4, clip_eps=0.2, value_clip_eps=0.2, value_coef=0.5,
+    g3, _ = pl.ppo_loss_grads_gather(data, k3_stats, perm_all[:tpm].contiguous(), params, d=d,
+                                     adim=adim, clip_eps=0.2, value_clip_eps=0.2, value_coef=0.5,
                                      ent_coef=kw["ent_coef"], tile=tile, kl_mode=kl_mode,
                                      hidden=hidden, compute_dtype=compute_dtype)
     assert torch.equal(k.grad0, g3)
@@ -831,7 +904,7 @@ def _check_k4_wide(cuda, hidden, compute_dtype, kl_mode=False, num_envs=4096):
     for q in range(16):
         perm = perm_all[q * tpm:(q + 1) * tpm].contiguous()
         batch = data[:, pl._gather_columns(perm, tile)].contiguous()
-        replaced += _replace_edges(batch, net, 10, 4, hidden, compute_dtype)
+        replaced += _replace_edges(batch, net, d, adim, hidden, compute_dtype)
         st = stats[q:q + 1].contiguous()
         kq = pu.ppo_update(batch, st, ident, net, state, beta, keep_grad0=True,
                            compute_dtype=compute_dtype, **one)
@@ -846,8 +919,9 @@ def _check_k4_wide(cuda, hidden, compute_dtype, kl_mode=False, num_envs=4096):
         assert int(kq.opt_state.count) == int(t_state.count)
         net, state, _, _ = pu.ppo_update_reference(data, st, perm, net, state, beta,
                                                    compute_dtype=compute_dtype, **one)
-    print(f"K4 wide H={hidden} {compute_dtype or 'float32'} {'kl' if kl_mode else 'clip'}: "
-          f"resynchronised over 16 passes, {replaced} edge samples replaced")
+    print(f"K4 wide H={hidden} ({d}, {adim}) {compute_dtype or 'float32'} "
+          f"{'kl' if kl_mode else 'clip'}: resynchronised over 16 passes, {replaced} edge samples "
+          f"replaced; {_wide_grid_text(cuda, d, adim, hidden, tpm * tile, compute_dtype, kl_mode)}")
 
 
 @pytest.mark.parametrize("kl_mode", [False, True], ids=["clip", "kl"])
@@ -858,10 +932,20 @@ def test_k4_wide_resynchronised_against_twin_and_repeats_bitwise(cuda, hidden, c
     _check_k4_wide(cuda, hidden, compute_dtype, kl_mode)
 
 
+@pytest.mark.parametrize("kl_mode", [False, True], ids=["clip", "kl"])
+@pytest.mark.parametrize("compute_dtype", DTYPES)
+@pytest.mark.parametrize("hidden", [pytest.param(100, id="h100"), pytest.param(256, id="h256")])
+def test_k4_wide_at_the_largest_dims(cuda, hidden, compute_dtype, kl_mode):
+    """K4 wide at obs dim 32 and action dim 8 on a synthetic batch of
+    65,536 samples."""
+    _check_k4_wide(cuda, hidden, compute_dtype, kl_mode, dims=(32, 8))
+
+
 @pytest.mark.parametrize("compute_dtype", DTYPES)
 def test_k4_wide_sub_blocks_not_dividing_the_grid(cuda, compute_dtype):
-    """6432 envs x 16 steps at H = 256: minibatches of 804 sub-blocks of 32
-    samples over the grid's CTAs (one an SM), not a multiple of them."""
+    """6432 envs x 16 steps at H = 256: minibatches of 402 sub-blocks of 64
+    samples a tower over the grid's CTAs (66 a tower on 132 SMs), not a
+    multiple of them."""
     _check_k4_wide(cuda, 256, compute_dtype, num_envs=6432)
 
 
