@@ -315,13 +315,35 @@ Phases, in order; any failure raises and exits non-zero:
    h's recomputed and those the window missed, gated at none), K3 wide
    float32 at 256 and its 1xTF32 control (csrc_probe/) against the
    float64 twin, and phase 45, and prints their kernels line.
+46. K7 at hidden widths past 256 (its wide instances, csrc/
+   offpolicy_collect_wide.cu and csrc/offpolicy_collect_wide_bf16.cu),
+   float32 and bf16, at 65,536 envs: TD3 at (400, 300) on quadrotor3d-v0
+   and SAC at (512, 512) and (1024, 1024) on the hover task, against their
+   twins in the five mode legs (envs mismatched at most 0.1% under TOL,
+   bitwise on a rerun, the bf16 probe's misses 0 on 16,384 envs, the bf16
+   pack kernel bitwise its twin), timed in turns with the twin beside their
+   bounds (bf16: the pack and the body apart, and the two together); the
+   float32 instance launched at (48, 80) and (256, 256) bitwise the narrow
+   one; SAC at (512, 512) and (1024, 1024), float32 and bf16, and TD3 at
+   (400, 300) through train_iters, K7 wide once an iteration (bf16: and
+   its pack) and no other kernel, each mean_reward within 10% of the eager
+   collection's from the same state, the bf16 probe on every env with the
+   actor after 23 bf16 iterations (phase 22's count); the CLI's entry point
+   at --alg=td3 --num_hidden=512, its path log naming K7 wide.  The wall
+   is printed; ``--only collect`` runs phases 1-3, the sweep (every kind,
+   the four modes, hidden (257, 257), (400, 300), (64, 1024), (1024, 64),
+   (512, 512), (1024, 1024), both dtypes, the probe on every env;
+   registers, spills, CTAs an SM and the tile of each instance), the wide
+   float32 instance against the narrow one at 2 x 256 in turns, and phase
+   46, and prints their kernels line.
 
 The second-to-last line is a JSON object describing each kernel of the
 paths (K1-K11, the bf16 instances of K2/K6, K3, K4 and K7, whose
 bound counts their products at the tensor cores' bf16 rate and whose
 ``f32_ms`` is the float32 instance's time in the same turns, and the wide
 instances of K3 and K4 at hidden 128 and 256, float32 and bf16, with
-their design, registers, SASS and edge counts; their FP32-rate bound
+their design, registers, SASS and edge counts, and K7's wide instances
+with their tile and times at each configuration; their FP32-rate bound
 and the SFU floor of their tanhf are printed in phase 45's text): its
 launches on its main path, its error against its twin,
 its time and its twin's (each measured; where the twin ran at a smaller
@@ -5410,17 +5432,539 @@ def wide_phases(torch, dev, gpu: str) -> list[dict]:
     return entries
 
 
+# --- Phase 46: K7 at hidden widths past 256 (its wide instances) ------------------------
+
+#: ``--only collect``'s widths: past the narrow instances' 256 by one, TD3's
+#: and DDPG's 400-300 (Fujimoto et al. 2018, Section 6.1; Lillicrap et al.
+#: 2016, Section 7), the two sides of a 64 / 1024 actor, the CLI's
+#: --num_hidden 512 and the widest, 1024.
+K7_WIDE_SWEEP = ((257, 257), (400, 300), (64, 1024), (1024, 64), (512, 512), (1024, 1024))
+#: Phase 46's configurations at B_OFF envs: (env, hidden, the mode its
+#: learner collects in): TD3 at 400-300, SAC at the CLI's --num_hidden 512
+#: and at 1024.
+K7_WIDE_MAIN = (("quadrotor3d-v0", (400, 300), "td3"), (HOVER, (512, 512), "sac"),
+                (HOVER, (1024, 1024), "sac"))
+#: Widths at which the wide float32 instance, forced, must give the narrow
+#: instance's bits.
+K7_WIDE_FORCED = ((48, 80), (256, 256))
+#: Phase 46's training paths: (learner, env, hidden, compute dtype), each
+#: K7_WIDE_ITERS counted iterations after one warm-up (bf16: BF16_SAC_ITERS
+#: after BF16_SAC_WARMUP, phase 22's count, so that the probe reads a
+#: trained actor), then K7_WIDE_COMPARE from the same state through K7 and
+#: through the eager collection.
+K7_WIDE_TRAIN = (("sac", HOVER, (512, 512), None), ("sac", HOVER, (1024, 1024), None),
+                 ("td3", "quadrotor3d-v0", (400, 300), None), ("sac", HOVER, (512, 512), BF16),
+                 ("sac", HOVER, (1024, 1024), BF16))
+K7_WIDE_ITERS, K7_WIDE_COMPARE, K7_WIDE_RING = 3, 2, 1 << 19
+#: Envs of phase 46's bf16 probes (the probe recomputes every unit in the
+#: twin's order; ``--only collect`` probes all B_OFF).
+K7_WIDE_PROBE_ENVS = 16_384
+#: The CLI of phase 46: TD3 at --num_hidden 512, 2 calls of 2 iterations.
+K7_WIDE_CLI = ("--alg=td3", "--env=quadrotor3d-v0", "--num_hidden=512", "--num_env=8192",
+               "--batch_size=2048", f"--buffer_capacity={1 << 17}", "--warmup_steps=0",
+               "--updates_per_jit=2", f"--num_timesteps={2 * 2 * 8192}", "--log_interval=1")
+#: The wide instances' designs (the ``kernels`` line).
+K7_WIDE_DESIGN = {
+    "float32": "the narrow instance's persistent CTA (8 MLP warps, 4 env warps, 8 x 8 FFMA "
+               "register tiles, W2 through a 3-slot cp.async ring) with the env tile shrunk by "
+               "H1 (128 to 256, 64 to 512, 32 to 1024) so that h1 fits; W1, W3 and the biases "
+               "read from global memory; each sum in the narrow instance's order",
+    BF16: "tiles of 64 envs, h1 whole in shared memory as bf16, W2 streamed through a 4-slot "
+          "ring of 64 k-rows x 128 columns (cp.async, ldmatrix.trans), both layers on "
+          "mma.sync bf16 in 128-column passes, the head folded a pass at a time; a pack "
+          "kernel writes W2, its transpose (the twin-order recompute), W1^T, W3 and the "
+          "biases once a launch; layer 2's recompute window widened with H1"}
+
+
+def k7_wide_counts() -> tuple[int, int, int]:
+    """K7 wide's launches so far: float32, the bf16 body and its pack."""
+    from reinmav_tpu_torch.ops import offpolicy as op
+
+    return op._launch_wide.launches, op._launch_wide.launches_bf16, op._pack_wide.launches
+
+
+def k7_wide_occupancy(env, mode: str, hidden, bf16: bool) -> dict:
+    """The wide instance's resident CTAs an SM, dynamic shared memory and
+    env tile for a launch of env ``env``, ``mode`` and ``hidden``."""
+    import ctypes
+
+    from reinmav_tpu_torch import _build
+    from reinmav_tpu_torch.ops import offpolicy as op
+    from reinmav_tpu_torch.ops import ppo_rollout as pr
+
+    lib = _build.load_library()
+    ctas, smem, tile = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_int()
+    rc = lib.offpolicy_collect_wide_occupancy(pr.ENVS[env.name].kind_id, op.MODES[mode],
+                                              int(bf16), *hidden, ctypes.byref(ctas),
+                                              ctypes.byref(smem), ctypes.byref(tile))
+    _build.check(rc, "offpolicy_collect_wide_occupancy")
+    return {"ctas_an_sm": ctas.value, "smem_bytes": smem.value, "tile": tile.value}
+
+
+def k7_wide_instance(name: str, mode: str, bf16: bool) -> str | None:
+    """The demangled name of K7 wide's instance for env ``name`` and
+    ``mode`` in the library this run built (the main path's, not the
+    probe)."""
+    from reinmav_tpu_torch.ops import offpolicy as op
+
+    m = op.MODES[mode]
+    want = (f"offpolicy_collect_wide_bf16_kernel<reinmav::{PPO_STRUCT[name]},{m},false>" if bf16
+            else f"offpolicy_collect_wide_kernel<reinmav::{PPO_STRUCT[name]},{m}>")
+    found = [k for k in _sass_counts() if k.replace(" ", "") == want]
+    return found[0] if len(found) == 1 else None
+
+
+def k7_wide_legs(torch, env, states_t, hidden, cd, modes=K7_MODES, probe_modes=("sac", "td3"),
+                 probe_envs: int | None = None) -> dict:
+    """K7 wide at ``hidden`` against its twin in each mode leg of ``modes``
+    on ``states_t``: the envs whose block or new state leaves TOL (at most
+    0.1%), some envs ended, the actions in [-1, 1], one wide launch
+    counted a leg (bf16: and one of its pack), bitwise on a rerun; in bf16
+    the pack kernel bitwise its twin (the first leg) and the probe (in the
+    legs of ``probe_modes`` without warm-up, on the first ``probe_envs``
+    envs or all: its every unit a chain as long as the layer's input, 5 s
+    a launch at (1024, 1024) and 65,536 envs) with its outputs the
+    instance's and no miss; its layer-2 ratio is also given at the narrow
+    instance's window (times ``tie_scale``).  Returns the largest error
+    and mismatch, the probes and the timed leg's arguments (the first
+    leg)."""
+    from reinmav_tpu_torch.ops import offpolicy as op
+
+    d, a, name = env.obs_dim, env.action_dim, env.name
+    batch = states_t.shape[1]
+    tag = cd or "float32"
+    b = int(cd == BF16)
+    out = dict(max_abs_err=0.0, mismatched=0, probes=[], args=None)
+    for mode, warm, noise in modes:
+        args = k7_args(torch, env, states_t, mode, warm, noise, hidden=hidden)
+        before = k7_wide_counts()
+        new_k, blk_k = op.collect_step(*args, compute_dtype=cd)
+        after = k7_wide_counts()
+        require(after == (before[0] + 1 - b, before[1] + b, before[2] + b),
+                f"K7 wide {tag} {name} {hidden} {mode}: launches {before} -> {after}")
+        if b and out["args"] is None:
+            require(torch.equal(op._pack_wide(args[6:]), op.pack_reference(*args[6:11])),
+                    f"K7 wide bf16 {name} {hidden}: the pack kernel's bytes are not its twin's")
+        new_p, blk_p = op.collect_step_reference(*args, compute_dtype=cd)
+        torch.cuda.synchronize()
+        bad = ~(torch.isclose(new_k, new_p, **TOL).all(dim=0)
+                & torch.isclose(blk_k, blk_p, **TOL).all(dim=0))
+        mismatched, ok = int(bad.sum()), ~bad
+        err = max(float((new_k[:, ok] - new_p[:, ok]).abs().max()),
+                  float((blk_k[:, ok] - blk_p[:, ok]).abs().max()))
+        ended = int(blk_p[2 * d + a + 1].sum())
+        again = op.collect_step(*args, compute_dtype=cd)
+        require(torch.equal(new_k, again[0]) and torch.equal(blk_k, again[1]),
+                f"K7 wide {tag} {name} {hidden} {mode}: bitwise equal on a rerun")
+        require(mismatched <= 0.001 * batch, f"K7 wide {tag} {name} {hidden} {mode} warm "
+                                             f"{warm}: {mismatched} envs mismatched")
+        require(bool(torch.isfinite(blk_k).all()) and float(blk_k[d:d + a].abs().max()) <= 1.0,
+                f"K7 wide {tag} {name} {hidden} {mode}: a finite block, actions in [-1, 1]")
+        require(ended > 0, f"K7 wide {tag} {name} {hidden} {mode}: no env ended")
+        probe = ""
+        if cd == BF16 and mode in probe_modes and warm == 0.0:
+            n = probe_envs or batch
+            sub = (*args[:2], states_t[:, :n].contiguous(), *args[3:])
+            new_q, blk_q, counts = op.collect_step_bf16_probe(*sub)
+            require(torch.equal(new_q, new_k[:, :n]) and torch.equal(blk_q, blk_k[:, :n]),
+                    f"K7 wide bf16 {name} {hidden} probe: its outputs are not the instance's")
+            require(counts["h1_missed"] == counts["h2_missed"] == 0,
+                    f"K7 wide bf16 {name} {hidden} {mode} probe misses {counts}")
+            out["probes"].append(counts)
+            scale = op.tie_scale(hidden[0])
+            probe = (f"; probe ({n} envs, L2 window x {scale:g}): recomputed L1 "
+                     f"{counts['h1_recomputed']}, L2 {counts['h2_recomputed']}, misses 0, 0, "
+                     f"largest |sum - twin's| / tie {counts['h1_worst']:.4g}, "
+                     f"{counts['h2_worst']:.4g} (L2 at the narrow window "
+                     f"{counts['h2_worst'] * scale:.4g})")
+        say(f"K7 wide {tag} vs twin, {name}, H={hidden}, mode {mode}, warm {warm:g}, noise "
+            f"{noise:g}, B={batch}: {mismatched} of {batch} envs mismatched (limit 0.1%), on the "
+            f"others max |err| {err:.3e}; {ended} envs ended; bitwise equal on a rerun"
+            f"{'; the pack bitwise its twin' if b and out['args'] is None else ''}{probe}: ok")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["mismatched"] = max(out["mismatched"], mismatched)
+        if out["args"] is None:
+            out["args"] = args
+        del new_k, blk_k, new_p, blk_p, again
+    return out
+
+
+def k7_wide_timed(torch, env, args, cd, gpu: str) -> dict:
+    """K7 wide timed on ``args`` in turns with its twin (twin, kernel,
+    kernel, twin; 10 launches a turn of the kernel, one of the twin),
+    beside its bound: FP32 operations at the FP32 rate, or the bf16
+    products at the tensor cores' rate with the SFU floor of its draws
+    beside it (in the text).  In bf16 the body (on weights packed once)
+    and the pack are timed apart, each in turns with its twin, and
+    ``collect_step`` (the two launches) beside them; ``ms`` is the
+    body's, ``pack`` the pack's."""
+    from reinmav_tpu_torch.ops import offpolicy as op
+
+    d, a = env.obs_dim, env.action_dim
+    bf16 = cd == BF16
+    weights = args[6:]
+    whole = lambda: op.collect_step(*args, compute_dtype=cd)  # noqa: E731
+    plain = lambda: op.collect_step_reference(*args, compute_dtype=cd)  # noqa: E731
+    kernel = whole
+    if bf16:
+        params = op._check_args(*args[:6], weights)
+        packed = op._pack_wide(weights)
+        kernel = lambda: op._launch_wide(*args[:5], params, weights, True,  # noqa: E731
+                                         packed=packed)
+        pack = lambda: op._pack_wide(weights)  # noqa: E731
+        pack_plain = lambda: op.pack_reference(*weights[:5])  # noqa: E731
+        pack(), pack_plain()
+    new, block = kernel()
+    plain()
+    torch.cuda.synchronize()
+    p0, _ = cuda_ms(plain, 1)
+    with SmClock() as clock:
+        k0, _ = cuda_ms(kernel, 10)
+        k1, _ = cuda_ms(kernel, 10)
+    p1, _ = cuda_ms(plain, 1)
+    states_t = args[2]
+    batch = states_t.shape[1]
+    w1, _, w2, _, w3, _ = weights
+    h1, h2, out = w1.shape[1], w2.shape[1], w3.shape[1]
+    nb = nbytes(states_t, new, block, args[4], *weights)
+    fp32_b = k7_bound(states_t, args, new, block)[0]
+    if bf16:
+        prod = 2 * (d * h1 + h1 * h2 + h2 * out) * batch
+        b, by = bound_bf16(nb, prod, OPS_ENV_STEP[d] * batch)
+    else:
+        b, by, _ = k7_bound(states_t, args, new, block)
+    mode = args[1]
+    inst = k7_wide_instance(env.name, mode, bf16)
+    occ = k7_wide_occupancy(env, mode, (h1, h2), bf16)
+    regs = "not reported" if inst is None else kernel_registers(inst)
+    res = dict(ms=statistics.median(k0 + k1), lo=min(k0 + k1), hi=max(k0 + k1),
+               plain_ms=statistics.median(p0 + p1), bound_ms=b, bound_by=by,
+               sm_clock_mhz=clock.mhz, registers=regs, **occ)
+    extra = ""
+    if bf16:
+        q0, _ = cuda_ms(pack_plain, 1)
+        g0, _ = cuda_ms(pack, 10)
+        g1, _ = cuda_ms(pack, 10)
+        q1, _ = cuda_ms(pack_plain, 1)
+        w0, _ = cuda_ms(whole, 10)
+        moved = nbytes(*weights[:5]) + int(packed.numel())
+        pb, pby = bound(moved, 0)
+        res["pack"] = dict(ms=statistics.median(g0 + g1), plain_ms=statistics.median(q0 + q1),
+                           bound_ms=pb, bound_by=pby, bytes=moved)
+        res["whole_ms"] = statistics.median(w0)
+        extra = (f" (products at 989 TFLOP/s; the SFU floor of its draws "
+                 f"{sfu_ms(batch * 6 * a):.4f} ms; at the FP32 rate {fp32_b:.4f} ms); the pack "
+                 f"{res['pack']['ms']:.4f} ms (median of 20, {min(g0 + g1):.4f} to "
+                 f"{max(g0 + g1):.4f}), its twin {res['pack']['plain_ms']:.4f} ms, its bound "
+                 f"{pb:.4f} ms by bytes ({moved} B); collect_step (pack and body) "
+                 f"{res['whole_ms']:.4f} ms (median of 10)")
+    say(f"time K7 wide {cd or 'float32'} {env.name} {mode}, B={batch} H=({h1}, {h2}): "
+        f"{'the body ' if bf16 else ''}{res['ms']:.4f} ms (median of 20 launches, "
+        f"{res['lo']:.4f} to {res['hi']:.4f}, SM clock {clock.mhz:.0f} MHz), twin "
+        f"{res['plain_ms']:.3f} ms (2 runs, in turns); bound {b:.4f} ms by {by}{extra}; {inst}: "
+        f"ptxas {regs}; tile {occ['tile']} envs, {occ['ctas_an_sm']} CTAs an SM, "
+        f"{occ['smem_bytes']} B of dynamic shared memory; on {gpu}")
+    return res
+
+
+def k7_wide_forced(torch, env, states_t, hidden) -> None:
+    """The wide float32 instance, launched at widths the narrow one takes
+    (its private launch: ``collect_step`` takes the narrow one there),
+    gives the narrow instance's bits in every mode leg."""
+    from reinmav_tpu_torch.ops import offpolicy as op
+
+    for mode, warm, noise in K7_MODES:
+        args = k7_args(torch, env, states_t, mode, warm, noise, hidden=hidden)
+        params = op._check_args(*args[:6], args[6:])
+        narrow = op.collect_step(*args)
+        wide = op._launch_wide(*args[:5], params, args[6:], False)
+        torch.cuda.synchronize()
+        apart = [bits_apart(torch, x, y) for x, y in zip(narrow, wide)]
+        require(apart == [0, 0], f"K7 wide forced at {hidden}, {env.name} {mode} warm {warm}: "
+                                 f"entries apart from the narrow instance's (new states, block) "
+                                 f"{apart}")
+    say(f"K7 wide float32 at H={hidden} on {env.name}: bitwise the narrow instance in "
+        f"{len(K7_MODES)} mode legs (B={states_t.shape[1]}): ok")
+
+
+def k7_wide_training(torch, dev, gpu: str, alg: str, env_id: str, hidden, cd) -> dict:
+    """One wide training path: K7_WIDE_ITERS iterations of ``alg``'s
+    train_iters at B_OFF envs with fused_collect "auto" after one warm-up
+    (bf16: BF16_SAC_ITERS after BF16_SAC_WARMUP), every kernel count set to
+    0 just before: K7 wide once an iteration (bf16: and its pack) and no
+    other kernel; then K7_WIDE_COMPARE iterations from the same state
+    through K7 and through the eager collection, each mean_reward within
+    10% of the other's.  Returns the launches and the state."""
+    import reinmav_tpu_torch
+    from reinmav_tpu_torch.ops import offpolicy as op
+    from reinmav_tpu_torch.rl import sac, td3
+
+    env = reinmav_tpu_torch.make(env_id)
+    module = sac if alg == "sac" else td3
+    cls = sac.SacConfig if alg == "sac" else td3.Td3Config
+    cfg = cls(num_envs=B_OFF, batch_size=BATCH_SAC, buffer_capacity=K7_WIDE_RING, hidden=hidden,
+              warmup_steps=0, compute_dtype=cd or "float32")
+    warm, iters = (BF16_SAC_WARMUP, BF16_SAC_ITERS) if cd == BF16 else (1, K7_WIDE_ITERS)
+    state = module.init_state(env, cfg, seed=0, device=dev)
+    state, _, _, _ = offpolicy_iterations(torch, env, cfg, module, state, warm)
+    op._launch_wide.launches = op._launch_wide.launches_bf16 = op._pack_wide.launches = 0
+    state, met, wall, launches = offpolicy_iterations(torch, env, cfg, module, state, iters)
+    wide = k7_wide_counts()
+    want = (0, iters, iters) if cd == BF16 else (iters, 0, 0)
+    require(wide == want and sum(launches.values()) == 0,
+            f"{alg} {env_id} {hidden} {cd or 'float32'}: K7 wide launches (float32, bf16, pack) "
+            f"{wide} (expected {want}), other kernels {launches}")
+    require(all(math.isfinite(v) for v in met.values()), f"{alg} wide metrics {met}")
+    _, fused = module.train_iters(env, cfg, _fork(torch, state), K7_WIDE_COMPARE)
+    _, eager = module.train_iters(env, cfg._replace(fused_collect="off"), _fork(torch, state),
+                                  K7_WIDE_COMPARE)
+    rel = abs(fused["mean_reward"] - eager["mean_reward"]) / abs(eager["mean_reward"])
+    require(rel <= 0.1, f"{alg} {env_id} {hidden}: mean_reward through K7 "
+                        f"{fused['mean_reward']:.6g}, eager {eager['mean_reward']:.6g}")
+    say(f"{env_id} {alg} training path, B={B_OFF} batch {BATCH_SAC} H={hidden} "
+        f"{cd or 'float32'}: K7 wide launches {wide[cd == BF16]} in {iters} iterations"
+        f"{f' and its pack {wide[2]}' if cd == BF16 else ''} ({warm} before), "
+        f"{wall / iters:.2f} ms an iteration; {K7_WIDE_COMPARE} more from the same state: "
+        f"mean_reward {fused['mean_reward']:.6g} through K7, {eager['mean_reward']:.6g} eager "
+        f"(rel {rel:.2e}, limit 0.1); on {gpu}: ok")
+    return dict(launches=wide[cd == BF16], pack_launches=wide[2], state=state, env=env, cfg=cfg,
+                iter_ms=wall / iters, iters=warm + iters)
+
+
+def k7_wide_cli(gpu: str) -> None:
+    """The CLI at --num_hidden 512 --alg td3 (K7_WIDE_CLI), through its
+    entry point ``run.main(argv)`` in this process (a subprocess would add
+    its start and CUDA set-up to phase 46's 30 s): finite metrics, the
+    path log naming K7's wide instance."""
+    import contextlib
+    import io
+
+    from reinmav_tpu_torch.rl import run
+
+    class Lines(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.INFO)
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    lines, out = Lines(), io.StringIO()
+    logger = logging.getLogger("reinmav_tpu_torch.rl")
+    logger.addHandler(lines)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            run.main(list(K7_WIDE_CLI))
+    finally:
+        logger.removeHandler(lines)
+    rows = [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")]
+    train = [row for row in rows if "env_steps" in row]
+    require(bool(train) and all(math.isfinite(v) for v in train[-1].values()),
+            "the wide off-policy CLI's metrics")
+    path = [line for line in lines.lines if "collection:" in line]
+    require(bool(path) and "K7 CUDA kernel (wide, H=(512, 512)), 1 launch per iteration"
+            in path[-1], f"the wide off-policy CLI's path log {path[-1:] or lines.lines[-5:]}")
+    say(f"cli --alg=td3 --num_hidden=512 (run.main in this process): {len(train)} lines in "
+        f"{time.perf_counter() - t0:.1f} s on {gpu}; path {path[-1].split('collection: ')[-1]}; "
+        f"last line {json.dumps(train[-1])}")
+
+
+def k7_wide_phase(torch, dev, gpu: str) -> list[dict]:
+    """Phase 46 and its wall: K7 wide float32 and bf16 against their twins
+    at K7_WIDE_MAIN (five mode legs each, B_OFF envs), timed in turns with
+    the twin beside their bounds; the float32 instance forced at
+    K7_WIDE_FORCED bitwise the narrow one; the training paths of
+    K7_WIDE_TRAIN (the bf16 probe on the trained actor); the CLI.  Returns
+    the ``kernels`` line's entries."""
+    import reinmav_tpu_torch
+    from reinmav_tpu_torch.ops import offpolicy as op
+    from reinmav_tpu_torch.rl import sac
+
+    t0 = time.perf_counter()
+    checks, times = {}, {}
+    for name, hidden, mode in K7_WIDE_MAIN:
+        env = reinmav_tpu_torch.make(name)
+        states_t = k7_states(torch, env, torch.Generator(device=dev).manual_seed(46))
+        legs = [leg for leg in K7_MODES if leg[0] == mode] + \
+               [leg for leg in K7_MODES if leg[0] != mode]
+        for cd in (None, BF16):
+            key = (name, hidden, cd)
+            checks[key] = k7_wide_legs(torch, env, states_t, hidden, cd, legs, probe_modes=(mode,),
+                                       probe_envs=K7_WIDE_PROBE_ENVS)
+            times[key] = k7_wide_timed(torch, env, checks[key]["args"], cd, gpu)
+        del states_t
+        torch.cuda.empty_cache()
+    hover = reinmav_tpu_torch.make(HOVER)
+    small = k7_states(torch, hover, torch.Generator(device=dev).manual_seed(47), 8192)
+    for hidden in K7_WIDE_FORCED:
+        k7_wide_forced(torch, hover, small, hidden)
+    train = {}
+    for alg, name, hidden, cd in K7_WIDE_TRAIN:
+        run = k7_wide_training(torch, dev, gpu, alg, name, hidden, cd)
+        if cd == BF16:
+            env, cfg, state = run["env"], run["cfg"], run["state"]
+            layout = sac.MlpLayout((env.obs_dim, *hidden, 2 * env.action_dim))
+            args = k7_args(torch, env, state.env_states.T.contiguous(), alg, 0.0, 0.0,
+                           hidden=hidden)
+            *_, trained = op.collect_step_bf16_probe(
+                *args[:6], *op.actor_kernel_args(layout.layers(state.actor)))
+            require(trained["h1_missed"] == trained["h2_missed"] == 0,
+                    f"K7 wide bf16 probe on the trained actor: misses {trained}")
+            run["trained_probe"] = trained
+            scale = op.tie_scale(hidden[0])
+            say(f"K7 wide bf16 probe on the {alg} actor after {run['iters']} bf16 iterations, "
+                f"H={hidden}, {B_OFF} envs: recomputed L1 {trained['h1_recomputed']}, L2 "
+                f"{trained['h2_recomputed']}; misses 0, 0; largest |sum - twin's| / tie "
+                f"{trained['h1_worst']:.4g}, {trained['h2_worst']:.4g} (L2 window x {scale:g}; "
+                f"at the narrow window {trained['h2_worst'] * scale:.4g}); on {gpu}")
+        train[(alg, hidden, cd)] = {k: v for k, v in run.items()
+                                    if k in ("launches", "pack_launches", "iter_ms",
+                                             "trained_probe")}
+        del run
+        torch.cuda.empty_cache()
+    k7_wide_cli(gpu)
+    say(f"phase 46 (K7 wide): {time.perf_counter() - t0:.1f} s on {gpu}")
+
+    entries = []
+    bf16_legs = [h for (_, h, c) in train if c == BF16]
+    for cd in (None, BF16):
+        tag = "bf16" if cd == BF16 else "float32"
+        legs = [checks[(n, h, cd)] for n, h, _ in K7_WIDE_MAIN]
+        main = times[K7_WIDE_MAIN[0][:2] + (cd,)]
+        entries.append({
+            "name": f"offpolicy_collect (wide, {tag})", "route": "cuda",
+            "source": ("reinmav_tpu_torch/csrc/offpolicy_collect_wide_bf16.cu" if cd else
+                       "reinmav_tpu_torch/csrc/offpolicy_collect_wide.cu"),
+            "replaces": "reinmav_tpu/ops/pallas_offpolicy.py:155",
+            "launches": sum(t["launches"] for (_, _, c), t in train.items() if c == cd),
+            "max_abs_err": max(c["max_abs_err"] for c in legs),
+            "mismatched_envs": max(c["mismatched"] for c in legs),
+            "tolerance": "rtol 2e-4 atol 2e-5 per env over its block and new state, <= 0.1% of "
+                         "envs may differ, in five mode legs; bitwise repeatable" +
+                         ("; the probe's misses 0" if cd else
+                          "; at (48, 80) and (256, 256) bitwise the narrow instance"),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None, "design": K7_WIDE_DESIGN[cd or
+                                                                                    "float32"],
+            "registers": main["registers"], "tile": main["tile"],
+            "ctas_an_sm": main["ctas_an_sm"], "smem_bytes": main["smem_bytes"],
+            "by_config": {f"{n} {h}": {k: times[(n, h, cd)][k] for k in
+                                       ("ms", "plain_ms", "bound_ms", "bound_by", "tile")}
+                          for n, h, _ in K7_WIDE_MAIN},
+            **({"probes": [p for c in legs for p in c["probes"]],
+                "trained_probes": {str(h): train[("sac", h, cd)]["trained_probe"]
+                                   for h in bf16_legs}} if cd else {}),
+            "at": f"states (10, {B_OFF}), actor 10-400-300-4, mode td3" +
+                  (" (the body, on weights packed once)" if cd else "") + "; launches on " +
+                  (f"bf16 SAC at {' and '.join(map(str, bf16_legs))}, {BF16_SAC_ITERS} "
+                   f"iterations each" if cd else
+                   f"SAC at (512, 512) and (1024, 1024) and TD3 at (400, 300), {K7_WIDE_ITERS} "
+                   f"iterations each")})
+    pack = times[K7_WIDE_MAIN[0][:2] + (BF16,)]["pack"]
+    entries.append({
+        "name": "offpolicy_collect (wide, bf16): the weights' pack", "route": "cuda",
+        "source": "reinmav_tpu_torch/csrc/offpolicy_collect_wide_bf16.cu",
+        "replaces": "reinmav_tpu/ops/pallas_offpolicy.py:155",
+        "launches": sum(t["pack_launches"] for (_, _, c), t in train.items() if c == BF16),
+        "max_abs_err": 0.0, "tolerance": "bitwise its twin (ops/offpolicy.py::pack_reference)",
+        "ms": pack["ms"], "plain_ms": pack["plain_ms"], "bound_ms": pack["bound_ms"],
+        "bound_by": pack["bound_by"], "library_ms": None,
+        "by_config": {f"{n} {h}": {k: times[(n, h, BF16)]["pack"][k] for k in
+                                   ("ms", "plain_ms", "bound_ms", "bound_by")}
+                      for n, h, _ in K7_WIDE_MAIN},
+        "at": f"actor 10-400-300-4 ({pack['bytes']} B read and written); launches on bf16 SAC "
+              f"at {' and '.join(map(str, bf16_legs))}, one before each body"})
+    return entries
+
+
+def k7_wide_sweep(torch, dev, gpu: str) -> None:
+    """``--only collect``: K7 wide float32 and bf16 against their twins on
+    every kind, in the four modes, at every width of K7_WIDE_SWEEP, at B_OFF
+    envs (the bf16 probe on every env, its layer-2 ratio also at the narrow
+    instance's window); each instance's registers, spills, CTAs an SM and
+    tile; then the wide float32 instance against the narrow one at 2 x 256
+    (:func:`k7_wide_vs_narrow`)."""
+    import reinmav_tpu_torch
+    from reinmav_tpu_torch import _build
+    from reinmav_tpu_torch.ops import offpolicy as op
+    from reinmav_tpu_torch.ops import ppo_rollout as pr
+
+    t0 = time.perf_counter()
+    for line in _build.ptxas_report():
+        if "offpolicy_collect_wide" in line or "offpolicy_wide_pack" in line:
+            say(line)
+    modes = tuple(leg for leg in K7_MODES if leg[1] == 0.0)  # the four modes
+    worst = {}
+    for name in pr.ENVS:
+        env = reinmav_tpu_torch.make(name)
+        states_t = k7_states(torch, env, torch.Generator(device=dev).manual_seed(146))
+        for hidden in K7_WIDE_SWEEP:
+            for cd in (None, BF16):
+                res = k7_wide_legs(torch, env, states_t, hidden, cd, modes)
+                for mode, _, _ in modes:
+                    occ = k7_wide_occupancy(env, mode, hidden, cd == BF16)
+                    inst = k7_wide_instance(name, mode, cd == BF16)
+                    say(f"K7 wide {cd or 'float32'} {name} {mode} H={hidden}: {inst}: ptxas "
+                        f"{'not reported' if inst is None else kernel_registers(inst)}; tile "
+                        f"{occ['tile']} envs, {occ['ctas_an_sm']} CTAs an SM, "
+                        f"{occ['smem_bytes']} B of dynamic shared memory")
+                if cd == BF16:
+                    worst[(name, hidden)] = max(c["h2_worst"] for c in res["probes"])
+        del states_t
+        torch.cuda.empty_cache()
+    for (name, hidden), w in worst.items():
+        scale = op.tie_scale(hidden[0])
+        say(f"K7 wide bf16 L2 largest |sum - twin's| / tie, {name} H={hidden}: {w:.4g} at the "
+            f"window x {scale:g}, {w * scale:.4g} at the narrow instance's")
+    k7_wide_vs_narrow(torch, dev, gpu)
+    say(f"--only collect (the sweep): {time.perf_counter() - t0:.1f} s on {gpu}")
+
+
+def k7_wide_vs_narrow(torch, dev, gpu: str) -> None:
+    """The wide float32 instance (its private launch) against the narrow
+    one (``collect_step``) at 2 x 256 and B_OFF envs on the hover task and
+    quadrotor3d-v0, mode sac: bitwise equal, and timed in turns (narrow,
+    wide, wide, narrow; 10 launches a turn), so that one can tell whether
+    one float32 instance would do at every width."""
+    import reinmav_tpu_torch
+    from reinmav_tpu_torch.ops import offpolicy as op
+
+    for name in (HOVER, "quadrotor3d-v0"):
+        env = reinmav_tpu_torch.make(name)
+        states_t = k7_states(torch, env, torch.Generator(device=dev).manual_seed(246))
+        args = k7_args(torch, env, states_t, "sac", 0.0, 0.0, hidden=(256, 256))
+        params = op._check_args(*args[:6], args[6:])
+        narrow = lambda: op.collect_step(*args)  # noqa: E731
+        wide = lambda: op._launch_wide(*args[:5], params, args[6:], False)  # noqa: E731
+        a, b = narrow(), wide()
+        torch.cuda.synchronize()
+        require(all(torch.equal(x, y) for x, y in zip(a, b)),
+                f"K7 wide float32 at 2 x 256 on {name}: not the narrow instance's bits")
+        n0, _ = cuda_ms(narrow, 10)
+        w0, _ = cuda_ms(wide, 10)
+        w1, _ = cuda_ms(wide, 10)
+        n1, _ = cuda_ms(narrow, 10)
+        nm, wm = statistics.median(n0 + n1), statistics.median(w0 + w1)
+        say(f"K7 float32 at 2 x 256, {name} sac, B={B_OFF}: narrow {nm:.4f} ms ({min(n0 + n1):.4f} "
+            f"to {max(n0 + n1):.4f}), wide {wm:.4f} ms ({min(w0 + w1):.4f} to "
+            f"{max(w0 + w1):.4f}), wide / narrow {wm / nm:.3f}, 20 launches each in turns; "
+            f"bitwise equal; on {gpu}")
+        del states_t, a, b
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     import argparse
 
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=("hashes", "bf16", "parallel", "wide"),
+    parser.add_argument("--only", choices=("hashes", "bf16", "parallel", "wide", "collect"),
                         help="after phases 1-3, run only the digests and times of K1 and "
                         "K2/K6 (hashes), phases 34-38 and their kernels line (bf16), phases "
-                        "39-44 (parallel), or phase 45 and its kernels line (wide); print no "
-                        "result line")
+                        "39-44 (parallel), phase 45 and its kernels line (wide), or K7 wide's "
+                        "sweep, phase 46 and its kernels line (collect); print no result line")
     only = parser.parse_args(argv).only
 
     # 1. Device.
@@ -5484,6 +6028,12 @@ def main(argv=None) -> int:
         wide_probe(torch, dev, gpu)
         wide_tf32_control(torch, dev, gpu)
         say(json.dumps({"kernels": wide_phases(torch, dev, gpu)}))
+        return 0
+    if only == "collect":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        k7_wide_sweep(torch, dev, gpu)
+        say(json.dumps({"kernels": k7_wide_phase(torch, dev, gpu)}))
         return 0
 
     # 4. K1 against its plain twin.  The slice has no matmul; TF32 is set
@@ -5631,6 +6181,8 @@ def main(argv=None) -> int:
             entry["launches_sharded"] = sharded[entry["name"]]
     # 45. K3 and K4 at hidden widths other than 64.
     kernels += wide_phases(torch, dev, gpu)
+    # 46. K7 at hidden widths past 256.
+    kernels += k7_wide_phase(torch, dev, gpu)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -165,6 +165,27 @@ _SIGNATURES = {
     #  an SM out (int), dynamic shared memory out (long long))
     "offpolicy_collect_occupancy": (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
                                     _P),
+    # K7 wide: offpolicy_collect_launch's arguments without the counts, with
+    #  the bf16 instance's packed weights (scratch) after the block
+    "offpolicy_collect_wide_launch": (ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
+                                      _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P,
+                                      _P, _P, _P, _P, _P, ctypes.c_uint, _P, _P, _P, _P),
+    # K7 wide bf16's probe: the bf16 probe's arguments with the scratch
+    #  before the probe
+    "offpolicy_collect_wide_bf16_probe_launch": (ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P,
+                                                 ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                                 _P, _P, _P, _P, _P, _P, _P, ctypes.c_uint,
+                                                 _P, _P, _P, _P, _P),
+    # K7 wide bf16's pack: (obs dim, hidden1, hidden2, head columns, w1, b1,
+    #  w2, b2, w3, scratch, stream)
+    "offpolicy_collect_wide_bf16_pack_launch": (ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                                ctypes.c_int, _P, _P, _P, _P, _P, _P, _P),
+    # (hidden1, hidden2, head columns) -> bytes of K7 wide bf16's scratch
+    "offpolicy_collect_wide_scratch_bytes": (ctypes.c_int, ctypes.c_int, ctypes.c_int),
+    # K7 wide: (env kind, mode, bf16, hidden1, hidden2, resident CTAs an SM
+    #  out (int), dynamic shared memory out (long long), env tile out (int))
+    "offpolicy_collect_wide_occupancy": (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_int, _P, _P, _P),
 }
 
 

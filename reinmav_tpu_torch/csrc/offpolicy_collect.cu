@@ -74,7 +74,8 @@
 // earlier note here held that TMA would change the numerics: a copy
 // changes no value; cp.async serves here as the Tensor Memory Accelerator
 // would, 4 B a copy so that any width streams.
-// Widths: H1 and H2 each from 1 to 256 (runtime arguments).
+// Widths: H1 and H2 each from 1 to 256 (runtime arguments); an actor with a
+// layer past 256 (to 1024) runs K7's wide instances, offpolicy_collect_wide.cu.
 //
 // compute_dtype "bfloat16" (the TPU kernel's _mm with cd bf16,
 // pallas_offpolicy.py:97-101, :186) launches offpolicy_collect_bf16_kernel,

@@ -56,7 +56,7 @@
 // without being recomputed: 0 when tie(v) holds) and the largest |sum -
 // twin's| / tie(twin's) of each layer.  No atomics on the main path: a
 // rerun is bitwise equal.  Widths: H1 and H2 each from 1 to 256, as the
-// float32 kernel.
+// float32 kernel (past 256: offpolicy_collect_wide_bf16.cu).
 
 #pragma once
 

@@ -32,6 +32,19 @@ that margin of the twin's (a margin chosen by hand, not a bound: a sum
 whose products cancel can leave it).  :func:`collect_step_bf16_probe`
 counts the units recomputed and the misses.
 
+Widths: each hidden layer from 1 to 1024 units (the TPU kernel takes any
+two).  Two instances of each dtype run on the card, picked by
+:func:`kernel_instance`: the narrow ones while both layers are at most 256
+wide (``csrc/offpolicy_collect.cu``, ``csrc/offpolicy_collect_bf16.cuh``;
+counted on :func:`collect_step`), the wide ones past that
+(``csrc/offpolicy_collect_wide.cu``, the env tile shrinking with H1 so
+that h1 fits a CTA's shared memory; ``csrc/offpolicy_collect_wide_bf16.cu``,
+W2 streamed through a ring; counted on :func:`_launch_wide`).  The wide
+bf16 instance is two launches: a pack kernel (:func:`_pack_wide`, its twin
+:func:`pack_reference`) writes the weights into the layouts the body
+reads, then the body; it widens its layer-2 recompute window with H1
+(:func:`tie_scale`).
+
 The wrapper takes the twin only for a tensor that lies on the CPU; on a
 CUDA tensor it launches the kernel of the dtype asked for or raises.
 """
@@ -51,7 +64,9 @@ from .rollout import mantissa_fill, philox_words
 #: take eps = 0 (SAC) or noise = 0 (TD3).
 MODES = {"sac": 0, "sac_det": 1, "td3": 2, "td3_det": 3}
 #: The widest hidden layer the kernel takes (each of the two, from 1).
-MAX_HIDDEN = 256
+MAX_HIDDEN = 1024
+#: The widest layer of the narrow instances (both layers at most this wide).
+NARROW_HIDDEN = 256
 _EPS_STREAM, _WARM_STREAM, _RESET_STREAM = 3, 4, 5
 
 
@@ -63,13 +78,34 @@ def supported(env) -> bool:
 
 def width_refusal(hidden) -> str | None:
     """Why the kernel cannot take an actor of these hidden widths (None =
-    it can): two layers, each from 1 to 256 wide."""
+    it can): two layers, each from 1 to 1024 wide (the narrow instances
+    while both are at most 256, the wide ones past that:
+    :func:`kernel_instance`)."""
     hidden = tuple(hidden)
     if len(hidden) != 2:
         return f"hidden {hidden} is not two layers"
     if not all(1 <= h <= MAX_HIDDEN for h in hidden):
         return f"hidden widths {hidden}: K7 takes each layer from 1 to {MAX_HIDDEN} wide"
     return None
+
+
+def kernel_instance(hidden) -> str | None:
+    """The instance that runs an actor of these hidden widths on the card:
+    "narrow" while both layers are at most 256 wide, "wide" up to 1024,
+    None where :func:`width_refusal` refuses."""
+    if width_refusal(hidden) is not None:
+        return None
+    return "narrow" if max(hidden) <= NARROW_HIDDEN else "wide"
+
+
+def tie_scale(h1: int) -> float:
+    """The wide bf16 instance's layer-2 recompute window over the narrow
+    instance's (2^-19 + 2^-18 |v|), for a chain of ``h1`` products: 1 up
+    to 256, then h1 / 256 (the window grows with the chain's length), as
+    the kernel takes it (``csrc/offpolicy_collect_wide.cuh::l2_tie_scale``).
+    The probe's largest |sum - twin's| / tie of layer 2 times this is the
+    same ratio at the narrow instance's window."""
+    return max(1.0, h1 / NARROW_HIDDEN)
 
 
 def actor_kernel_args(layers):
@@ -248,8 +284,12 @@ def collect_step(env_kind: str, mode: str, states_t, seed: int, consts, params_v
     ``compute_dtype`` None or "float32", or "bfloat16" (the kernel's bf16
     instance, the twin's :func:`_actor_bf16`).
     Launches on the current stream and does not synchronise.  A CPU tensor
-    runs the plain twin; a CUDA tensor runs the kernel, which takes the
-    widths :func:`width_refusal` accepts, or raises."""
+    runs the plain twin; a CUDA tensor runs the instance
+    :func:`kernel_instance` names for the widths, or raises where
+    :func:`width_refusal` refuses them.  The narrow instance is counted
+    here, the wide one on :func:`_launch_wide` (bf16: after the pack,
+    counted on :func:`_pack_wide`); the taut counts are the narrow
+    instance's."""
     bf16 = is_bf16(compute_dtype)
     weights = (w1, b1, w2, b2, w3, b3)
     params = _check_args(env_kind, mode, states_t, seed, consts, params_vec, weights)
@@ -263,6 +303,11 @@ def collect_step(env_kind: str, mode: str, states_t, seed: int, consts, params_v
     reason = width_refusal(hidden)
     if reason is not None:
         raise ValueError(reason)
+    if kernel_instance(hidden) == "wide":
+        if counts is not None:
+            raise ValueError("the taut counts are kept by K7's narrow instance (each layer at "
+                             f"most {NARROW_HIDDEN} wide), not at hidden {hidden}")
+        return _launch_wide(env_kind, mode, states_t, seed, consts, params, weights, bf16)
     from .._build import check, load_library
 
     lib = load_library()
@@ -277,6 +322,107 @@ def collect_step(env_kind: str, mode: str, states_t, seed: int, consts, params_v
     check(rc, "offpolicy_collect_launch")
     collect_step.launches += 1
     return new, block
+
+
+def _launch_wide(env_kind: str, mode: str, states_t, seed: int, consts, params, weights,
+                 bf16: bool, probe: torch.Tensor | None = None,
+                 packed: torch.Tensor | None = None):
+    """K7's wide instance (``csrc/offpolicy_collect_wide.cu``, float32, or
+    ``csrc/offpolicy_collect_wide_bf16.cu``, bf16) on the CUDA inputs that
+    :func:`_check_args` took, at any widths :func:`width_refusal` accepts
+    (at most 256 a layer the float32 one gives the narrow instance's bits):
+    ``(new states, block)``.  The bf16 body reads ``packed``, the weights
+    as :func:`_pack_wide` leaves them (packed first when None); with
+    ``probe`` (6 int32 on the device, zeroed) it runs its probe, which is
+    not counted."""
+    from .._build import check, load_library
+
+    lib = load_library()
+    w1, _, w2, _, _, _ = weights
+    hidden = (w1.shape[1], w2.shape[1])
+    new, block, host_params = _outputs(env_kind, states_t, params)
+    if bf16 and packed is None:
+        packed = _pack_wide(weights)
+    common = (ENVS[env_kind].kind_id, MODES[mode])
+    tail = (ctypes.addressof(host_params), params.shape[0], states_t.data_ptr(),
+            states_t.shape[1], *hidden, *(t.data_ptr() for t in weights), consts.data_ptr(),
+            int(seed), new.data_ptr(), block.data_ptr(),
+            packed.data_ptr() if bf16 else None)
+    stream = torch.cuda.current_stream().cuda_stream
+    with torch.cuda.device(states_t.device):
+        if probe is None:
+            rc = lib.offpolicy_collect_wide_launch(*common, int(bf16), *tail, stream)
+        else:
+            rc = lib.offpolicy_collect_wide_bf16_probe_launch(*common, *tail, probe.data_ptr(),
+                                                              stream)
+    check(rc, "offpolicy_collect_wide_launch" if probe is None else
+          "offpolicy_collect_wide_bf16_probe_launch")
+    if probe is None:
+        if bf16:
+            _launch_wide.launches_bf16 += 1
+        else:
+            _launch_wide.launches += 1
+    return new, block
+
+
+#: Launches of the wide instances so far, float32 and bf16 (a run can show
+#: that its path went through K7 wide).
+_launch_wide.launches = 0
+_launch_wide.launches_bf16 = 0
+
+
+def _pack_wide(weights) -> torch.Tensor:
+    """K7 wide bf16's pack kernel (``offpolicy_wide_pack_kernel``) on the
+    actor's CUDA weights ``(w1, b1, w2, b2, w3, b3)``: a new scratch buffer
+    (uint8) holding W1ᵀ, W2 and W2ᵀ in bf16, W3 rounded to bf16 and the
+    biases, in the layouts the body reads (:func:`pack_reference` is its
+    twin).  Counted on its own."""
+    from .._build import check, load_library
+
+    lib = load_library()
+    w1, b1, w2, b2, w3, _ = weights
+    d, h1, h2, out = w1.shape[0], w1.shape[1], w2.shape[1], w3.shape[1]
+    size = lib.offpolicy_collect_wide_scratch_bytes(h1, h2, out)
+    if size <= 0:
+        raise RuntimeError(f"offpolicy_collect_wide_scratch_bytes returned {size}")
+    scratch = torch.empty(size, dtype=torch.uint8, device=w1.device)
+    with torch.cuda.device(w1.device):
+        rc = lib.offpolicy_collect_wide_bf16_pack_launch(
+            d, h1, h2, out, *(t.data_ptr() for t in (w1, b1, w2, b2, w3)), scratch.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    check(rc, "offpolicy_collect_wide_bf16_pack_launch")
+    _pack_wide.launches += 1
+    return scratch
+
+
+#: Launches of the wide bf16 instance's pack kernel so far (one before each
+#: launch of the wide bf16 body on the training paths).
+_pack_wide.launches = 0
+
+
+def pack_reference(w1, b1, w2, b2, w3) -> torch.Tensor:
+    """The plain twin of :func:`_pack_wide`: the bytes it writes, in
+    ``csrc/offpolicy_collect_wide.cuh``'s ``Bf16Pack`` order, each array
+    zero past the widths: W1ᵀ (H1 rounded up to 128, 16) bf16, W2 (H1
+    rounded up to 64, H2 rounded up to 128) bf16, W2ᵀ bf16, W3ᵀ (OUT, H2
+    rounded up to 128) float32 holding bf16 values, b1 and b2 float32 at
+    the padded widths (every array a multiple of 16 bytes, so nothing lies
+    between them)."""
+    d, h1 = w1.shape
+    h2, out = w3.shape
+    k1p, k2, n2p = (-(-n // m) * m for n, m in ((h1, 128), (h1, 64), (h2, 128)))
+
+    def padded(t, rows, cols=None):
+        z = t.new_zeros((rows,) if cols is None else (rows, cols))
+        z[tuple(slice(0, n) for n in t.shape)] = t
+        return z
+
+    w2p = padded(w2, k2, n2p)
+    arrays = (padded(w1.T, k1p, 16).to(torch.bfloat16), w2p.to(torch.bfloat16),
+              w2p.T.contiguous().to(torch.bfloat16),
+              padded(w3.T.to(torch.bfloat16).to(torch.float32), out, n2p), padded(b1, k1p),
+              padded(b2, n2p))
+    return torch.cat([a.contiguous().view(torch.uint8).reshape(-1) for a in arrays])
 
 
 def _outputs(env_kind: str, states_t, params: torch.Tensor):
@@ -296,19 +442,25 @@ def collect_step_bf16_probe(env_kind: str, mode: str, states_t, seed: int, const
     block, counts)``: the bf16 instance's outputs and
     ``ppo_rollout.probe_counts`` (``h1_worst``, ``h2_worst``: the largest
     |pre-activation - the twin's| of each layer over the kernel's tie,
-    2^-19 + 2^-18 |v|)."""
+    2^-19 + 2^-18 |v|, layer 2's times :func:`tie_scale` in the wide
+    instance).  The instance is :func:`kernel_instance`'s for the widths."""
     weights = (w1, b1, w2, b2, w3, b3)
     params = _check_args(env_kind, mode, states_t, seed, consts, params_vec, weights)
     if states_t.device.type != "cuda" or mode not in ("sac", "td3"):
         raise ValueError("the probe runs K7's bf16 kernel in mode sac or td3, on a CUDA tensor")
-    reason = width_refusal((w1.shape[1], w2.shape[1]))
+    hidden = (w1.shape[1], w2.shape[1])
+    reason = width_refusal(hidden)
     if reason is not None:
         raise ValueError(reason)
+    words = torch.zeros(len(PROBE_KEYS), dtype=torch.int32, device=states_t.device)
+    if kernel_instance(hidden) == "wide":
+        new, block = _launch_wide(env_kind, mode, states_t, seed, consts, params, weights, True,
+                                  probe=words)
+        return new, block, probe_counts(words)
     from .._build import check, load_library
 
     lib = load_library()
     new, block, host_params = _outputs(env_kind, states_t, params)
-    words = torch.zeros(len(PROBE_KEYS), dtype=torch.int32, device=states_t.device)
     with torch.cuda.device(states_t.device):
         rc = lib.offpolicy_collect_bf16_probe_launch(
             ENVS[env_kind].kind_id, MODES[mode], ctypes.addressof(host_params), params.shape[0],

@@ -58,6 +58,41 @@ def _choose_backend(device, local_rank: int, local_world: int):
             "all-reduces CUDA tensors through the host")
 
 
+def local_placement(num_processes: int, process_id: int, cards: int,
+                    local_rank: Optional[int] = None, local_world_size: Optional[int] = None,
+                    environ=os.environ) -> tuple[int, int]:
+    """``(local rank, ranks on this host)`` of an explicit-mode rank on a
+    host with ``cards`` cards: each from its argument, else from
+    ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE`` where set, else ``process_id`` and
+    ``num_processes`` when all the ranks fit this host's cards (ranks that
+    span hosts then still find a card each).  Raises ``ValueError``,
+    naming the missing value, where the local rank cannot be known: more
+    ranks than cards, so they span hosts or share a card."""
+    if local_rank is None and "LOCAL_RANK" in environ:
+        local_rank = int(environ["LOCAL_RANK"])
+    if local_world_size is None and "LOCAL_WORLD_SIZE" in environ:
+        local_world_size = int(environ["LOCAL_WORLD_SIZE"])
+    fits = num_processes <= cards
+    if local_rank is None or local_world_size is None:
+        if not fits:
+            missing = " and ".join(n for n, v in (("local_rank", local_rank),
+                                                 ("local_world_size", local_world_size))
+                                   if v is None)
+            raise ValueError(
+                f"distributed.init: the {missing} of process {process_id} of {num_processes} "
+                f"cannot be known: {num_processes} ranks exceed this host's {cards} card(s), so "
+                f"they span hosts or share a card; pass {missing} (or set LOCAL_RANK and "
+                "LOCAL_WORLD_SIZE)")
+        local_rank = process_id if local_rank is None else local_rank
+        local_world_size = num_processes if local_world_size is None else local_world_size
+    if not (isinstance(local_world_size, int) and local_world_size >= 1):
+        raise ValueError(f"local_world_size must be a positive int, got {local_world_size!r}")
+    if not (isinstance(local_rank, int) and 0 <= local_rank < local_world_size):
+        raise ValueError(f"local_rank {local_rank!r} is not a rank of the {local_world_size} on "
+                         "this host")
+    return local_rank, local_world_size
+
+
 def _start(init_method: str, world_size: int, rank: int, local_rank: int, local_world: int,
            device) -> None:
     global _device
@@ -69,14 +104,21 @@ def _start(init_method: str, world_size: int, rank: int, local_rank: int, local_
 
 
 def init(coordinator_address: Optional[str] = None, num_processes: Optional[int] = None,
-         process_id: Optional[int] = None, device="cuda") -> None:
+         process_id: Optional[int] = None, device="cuda", local_rank: Optional[int] = None,
+         local_world_size: Optional[int] = None) -> None:
     """Form the process group of a multi-rank run.
 
     * **Explicit** (any of the three arguments given): this process was
-      launched as one rank of ``num_processes`` on one host, the group
-      meeting at ``coordinator_address`` ("host:port").  A missing or
-      out-of-range argument and any initialisation failure RAISE: a rank
-      that trained alone would see 1/N of the data while looking healthy.
+      launched as rank ``process_id`` of ``num_processes``, on this host or
+      across hosts, the group meeting at ``coordinator_address``
+      ("host:port").  Its card is its rank on this host: ``local_rank``
+      (of ``local_world_size`` ranks here), else ``LOCAL_RANK`` (and
+      ``LOCAL_WORLD_SIZE``) where set, else ``process_id`` when all the
+      ranks fit this host's cards (:func:`local_placement`); with more
+      ranks than cards and neither given, the local rank cannot be known
+      and the run is refused by name.  A missing or out-of-range argument
+      and any initialisation failure RAISE: a rank that trained alone
+      would see 1/N of the data while looking healthy.
       ``num_processes=1`` is a deliberate one-process run: no group.
     * **Auto-detect** (no arguments): torchrun's environment (``RANK``,
       ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``; ``LOCAL_RANK`` and
@@ -109,8 +151,12 @@ def init(coordinator_address: Optional[str] = None, num_processes: Optional[int]
             raise ValueError(f"num_processes must be a positive int, got {num_processes!r}")
         if not (isinstance(process_id, int) and 0 <= process_id < num_processes):
             raise ValueError(f"process_id {process_id!r} is not a rank of {num_processes}")
-        _start(f"tcp://{coordinator_address}", num_processes, process_id, process_id,
-               num_processes, device)
+        if torch.device(device).type == "cuda" and torch.cuda.is_available():
+            here = local_placement(num_processes, process_id, torch.cuda.device_count(),
+                                   local_rank, local_world_size)
+        else:  # gloo ranks on the CPU take no card; _start refuses a missing card
+            here = (process_id, num_processes)
+        _start(f"tcp://{coordinator_address}", num_processes, process_id, *here, device)
         return
     present = [v for v in TORCHRUN_VARS if v in os.environ]
     if not present:

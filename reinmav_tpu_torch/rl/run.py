@@ -24,8 +24,10 @@ kernel (wide, H=256)"); wider layers train through autograd, with a log
 line saying why.
 ``--alg`` ``sac``, ``td3`` and ``ddpg`` (TD3 with one critic, no target
 smoothing and no delay): every iteration is one batched env step, one K7
-launch on the card (:func:`reinmav_tpu_torch.rl.sac.train_iters` logs the
-path), and ``--grad_steps`` updates from the replay ring;
+launch on the card at any ``--num_hidden`` up to 1024 (K7's wide instance
+past 256; :func:`reinmav_tpu_torch.rl.sac.train_iters` logs the path,
+"K7 CUDA kernel (wide, H=(512, 512))"), and ``--grad_steps`` updates from
+the replay ring;
 ``--updates_per_jit`` iterations make one call between metric reads.
 ``--network=gru`` (with ``--alg=ppo`` only) trains the GRU actor-critic
 of :mod:`reinmav_tpu_torch.rl.recurrent`, hidden and embedding widths
@@ -121,7 +123,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_layers", type=int, default=2)
     p.add_argument("--num_hidden", type=int, default=64,
                    help="width of each hidden layer; PPO on the card runs K3/K4 up to 256 (the "
-                        "64-wide instances at 64, the wide ones otherwise), autograd above")
+                        "64-wide instances at 64, the wide ones otherwise), autograd above; "
+                        "SAC/TD3/DDPG collect through K7 up to 1024 (its wide instance past "
+                        "256), eagerly above")
     p.add_argument("--compute_dtype", default="float32", choices=("float32", "bfloat16"),
                    help="bfloat16: the policy/value products take bf16 operands with float32 "
                         "sums; params and optimiser state stay float32")

@@ -658,8 +658,10 @@ def update_step(env: EnvDef, cfg: SacConfig, nets: Nets, buffer, filled, ready, 
 def collect_refusal(cfg, env: EnvDef, device: torch.device):
     """Why K7 cannot collect for this config and env on ``device`` (None =
     it can): its twin takes two hidden layers of any widths; the kernel,
-    on a CUDA device, each from 1 to 256 wide; and the env must be a kind
-    of the kernel's table with the registry's functions and Params type."""
+    on a CUDA device, each from 1 to 1024 wide (its narrow instance while
+    both are at most 256, its wide one past that:
+    ``ops/offpolicy.py::kernel_instance``); and the env must be a kind of
+    the kernel's table with the registry's functions and Params type."""
     hidden = tuple(cfg.hidden)
     if len(hidden) != 2:
         return f"hidden {hidden} is not two layers"
@@ -679,6 +681,21 @@ def choose_collect(cfg, env: EnvDef, device: torch.device, fused_collect=None):
     raises where it cannot; "off" collects eagerly."""
     return _choose("fused_collect", fused_collect, cfg.fused_collect,
                    collect_refusal(cfg, env, device), device)
+
+
+def collect_path(cfg, use_k7: bool, how: str, device: torch.device) -> str:
+    """How the learners' logs name the collection: K7 and, on the card, its
+    instance (wide past 256 units a layer; the wide bf16 instance packs
+    the weights in a launch of its own first), or eager and why."""
+    if not use_k7:
+        return f"eager, K7 {how}"
+    hidden = tuple(cfg.hidden)
+    if device.type != "cuda" or collect_ops.kernel_instance(hidden) != "wide":
+        return f"K7 {how}, 1 launch per iteration"
+    if is_bf16(cfg.compute_dtype):
+        return (f"K7 {how} (wide, H={hidden}), 2 launches per iteration (the weights' pack, "
+                "the body)")
+    return f"K7 {how} (wide, H={hidden}), 1 launch per iteration"
 
 
 def collect(env: EnvDef, cfg, actor_layers, env_states, warm, use_k7: bool, mode: str,
@@ -778,9 +795,8 @@ def train_iters(env: EnvDef, cfg: SacConfig, state: SacState, num_iters: int,
     la, _ = _sac_layouts(env, cfg)
     log.info("sac.train_iters(%s, B=%d, %d iterations, %s): collection: %s; %d updates per "
              "iteration through autograd%s", env.name, state.env_states.shape[0], num_iters,
-             cfg.compute_dtype,
-             f"K7 {how}, 1 launch per iteration" if use_k7 else f"eager, K7 {how}",
-             cfg.grad_steps, sharding(axis))
+             cfg.compute_dtype, collect_path(cfg, use_k7, how, device), cfg.grad_steps,
+             sharding(axis))
     tail = consts_tail(env, 0.0, device) if use_k7 else None
     per_iter = []
     for _ in range(num_iters):

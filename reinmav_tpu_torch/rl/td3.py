@@ -280,9 +280,8 @@ def train_iters(env: EnvDef, cfg: Td3Config, state: Td3State, num_iters: int,
     alg = "ddpg" if cfg.single_critic else "td3"
     log.info("%s.train_iters(%s, B=%d, %d iterations, %s): collection: %s; %d updates per "
              "iteration through autograd%s", alg, env.name, state.env_states.shape[0], num_iters,
-             cfg.compute_dtype,
-             f"K7 {how}, 1 launch per iteration" if use_k7 else f"eager, K7 {how}",
-             cfg.grad_steps, sharding(axis))
+             cfg.compute_dtype, sac.collect_path(cfg, use_k7, how, device), cfg.grad_steps,
+             sharding(axis))
     tail = sac.consts_tail(env, cfg.explore_noise, device) if use_k7 else None
     per_iter = []
     for _ in range(num_iters):

@@ -77,7 +77,7 @@ OTHER = ("BRA", "BRX", "BSSY", "BSYNC", "CALL", "RET", "EXIT", "NOP", "BAR", "WA
 KERNELS = ("hover_rollout_kernel", "reinmav_rollout_kernel", "reinmav_rollout_lanes_kernel",
            "closed_loop_kernel", "ppo_rollout_kernel", "ppo_rollout_bf16_kernel",
            "offpolicy_collect_kernel", "offpolicy_collect_count_kernel",
-           "offpolicy_collect_bf16_kernel")
+           "offpolicy_collect_bf16_kernel", "offpolicy_collect_wide_kernel")
 #: K3's and K4's kernel families (one instance per obs and action dim, mode
 #: and compute dtype).
 PPO_LOSS_KERNELS = ("ppo_loss_kernel", "ppo_update_kernel")
@@ -86,9 +86,10 @@ PPO_LOSS_KERNELS = ("ppo_loss_kernel", "ppo_update_kernel")
 #: argument), and K3 wide's packing of the weights into mma fragments (one
 #: instance per dtype).
 WIDE_KERNELS = ("ppo_loss_wide_kernel", "ppo_update_wide_kernel", "ppo_wide_pack_kernel")
-#: The bf16 bodies of K2/K6 and K7 on the tensor cores (one instance per
-#: kind, normalisers or mode, and probe).
-BF16_KERNELS = ("ppo_rollout_bf16_kernel", "offpolicy_collect_bf16_kernel")
+#: The bf16 bodies of K2/K6 and K7 (and K7 wide) on the tensor cores (one
+#: instance per kind, normalisers or mode, and probe).
+BF16_KERNELS = ("ppo_rollout_bf16_kernel", "offpolicy_collect_bf16_kernel",
+                "offpolicy_collect_wide_bf16_kernel")
 #: The families whose report is their products' counts (:func:`mma_counts`).
 MMA_KERNELS = PPO_LOSS_KERNELS + WIDE_KERNELS + BF16_KERNELS
 #: The float32 instances that ``--against`` lists apart, by kernel: K3/K4's
@@ -97,7 +98,7 @@ MMA_KERNELS = PPO_LOSS_KERNELS + WIDE_KERNELS + BF16_KERNELS
 #: own).
 FLOAT32_FAMILIES = {"K3/K4": PPO_LOSS_KERNELS, "K2/K6": ("ppo_rollout_kernel",),
                     "K7": ("offpolicy_collect_kernel", "offpolicy_collect_count_kernel"),
-                    "K3/K4 wide": WIDE_KERNELS}
+                    "K3/K4 wide": WIDE_KERNELS, "K7 wide": ("offpolicy_collect_wide_kernel",)}
 #: The float32 templates of K2/K6 and K7 that took a bf16 switch as their
 #: last template argument until their bf16 instances got bodies of their
 #: own, by their number of template arguments then

@@ -21,10 +21,10 @@ scale):
   of a row within rtol 2e-2 / atol 2e-2 only (a bf16 flip upstream); and
   a stochastic leg on lanes that never reset, the stored logp and value
   those of the JAX bf16 policy on the stored obs and action;
-- K7 at 128 envs in its deterministic modes: the action rows within rtol
-  2e-3 / atol 2e-3, at most 1% within rtol 2e-2 / atol 2e-2 only, and the
-  env's response to the stored action (the rows after it) at the f32
-  tests' rtol 1e-5 / atol 1e-5.
+- K7 at 128 envs in its deterministic modes, at 2 x 64 and at 400-300:
+  the action rows within rtol 2e-3 / atol 2e-3, at most 1% within rtol
+  2e-2 / atol 2e-2 only, and the env's response to the stored action (the
+  rows after it) at the f32 tests' rtol 1e-5 / atol 1e-5.
 """
 
 import jax
@@ -250,16 +250,21 @@ def test_k2_bf16_twin_stochastic_policy_is_the_jax_bf16_policy():
     assert float(port.traj.action.std()) > 0.5  # the noise reached the actions
 
 
-@pytest.mark.parametrize("env_id,mode", [("quadrotor3d-v0", "sac_det"),
-                                         ("MujocoQuadForce-v1", "td3_det")])
-def test_k7_bf16_twin_matches_the_jax_kernel(env_id, mode):
+@pytest.mark.parametrize("env_id,mode,hidden", [
+    pytest.param("quadrotor3d-v0", "sac_det", (64, 64), id="quadrotor3d-v0-sac_det"),
+    pytest.param("MujocoQuadForce-v1", "td3_det", (64, 64), id="MujocoQuadForce-v1-td3_det"),
+    pytest.param("quadrotor3d-v0", "td3_det", (400, 300), id="quadrotor3d-v0-td3_det-400-300"),
+])
+def test_k7_bf16_twin_matches_the_jax_kernel(env_id, mode, hidden):
+    """At 2 x 64, and at TD3's 400-300 actor, which K7's wide bf16 instance
+    runs on the card."""
     env, b = reinmav_tpu.make(env_id), 128
     d, a = env.obs_dim, env.action_dim
     rng = np.random.default_rng(40)
     head = 2 * a if mode.startswith("sac") else a
     actor = [{k: _f32(v) + np.float32(0.3) * rng.standard_normal(v.shape).astype(np.float32)
               for k, v in layer.items()}
-             for layer in jsac._mlp_init(jax.random.PRNGKey(41), (d, 64, 64, head))]
+             for layer in jsac._mlp_init(jax.random.PRNGKey(41), (d, *hidden, head))]
     states = _f32(env.vreset(jax.random.split(jax.random.PRNGKey(42), b)))
     if env_id == "MujocoQuadForce-v1":
         states[:, 2] = rng.uniform(0.35, 1.0, b)
@@ -284,8 +289,10 @@ def test_k7_bf16_twin_matches_the_jax_kernel(env_id, mode):
     _rows_close(block[d:d + a], blk[d:d + a], "action rows")
     # The env's response to each side's own action: the twin's rows after
     # the action are the JAX env step of the twin's action.
-    out = jsac._autoreset_dense8(env, jnp.asarray(states.T), jsac._scale_action_t(
-        env, jnp.asarray(block[d:d + a])), jax.random.PRNGKey(5))
+    # One jitted program (eagerly, JAX compiles each primitive apart).
+    out = jax.jit(lambda s_t, a_t: jsac._autoreset_dense8(
+        env, s_t, jsac._scale_action_t(env, a_t), jax.random.PRNGKey(5)))(
+        jnp.asarray(states.T), jnp.asarray(block[d:d + a]))
     np.testing.assert_allclose(block[d + a], np.asarray(out.reward), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(block[d + a + 1:2 * d + a + 1], np.asarray(out.obs), rtol=1e-5,
                                atol=1e-5)

@@ -21,6 +21,7 @@ checkpoint, a bitwise resume, then ``--play``.
 """
 
 import dataclasses
+import functools
 import json
 import math
 
@@ -45,6 +46,23 @@ from jax.experimental.pallas import tpu as pltpu
 BATCH, H = 256, 64
 KINDS = ["quadrotor3d-v0", "MujocoQuadForce-v1"]
 ROW_TOL = dict(rtol=1e-5, atol=1e-5)
+#: The JAX actor init as one jitted program (eagerly, JAX compiles each
+#: primitive apart: most of these tests' wall).
+_MLP_INIT = jax.jit(jsac._mlp_init, static_argnums=1)
+
+
+@functools.cache
+def _jax_env_fns(env_id):
+    """The JAX env's vreset and the re-step of :func:`_jax_restep`, each
+    one jitted program, shared by the tests of a worker."""
+    env = reinmav_tpu.make(env_id)
+
+    def restep(states_t, a_t):
+        out = jsac._autoreset_dense8(env, states_t, jsac._scale_action_t(env, a_t),
+                                     jax.random.PRNGKey(5))
+        return out.reward, out.obs, out.done
+
+    return jax.jit(env.vreset), jax.jit(restep)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -65,13 +83,14 @@ def _setup(env_id, head_kind="sac", key=0, hidden=(H, H)):
     d, a = env.obs_dim, env.action_dim
     head = 2 * a if head_kind == "sac" else a
     rng = np.random.default_rng(key)
-    actor = jsac._mlp_init(jax.random.PRNGKey(key), (d, *hidden, head))
+    actor = _MLP_INIT(jax.random.PRNGKey(key), (d, *hidden, head))
     actor = [{k: np.asarray(v, np.float32) + np.float32(0.3) * rng.standard_normal(v.shape)
               .astype(np.float32) for k, v in layer.items()} for layer in actor]
     if env_id == "quadrotor3d-v0":
         # Twice a reset's spread, and the first 32 envs' positions twice
         # again: the envs past |p| = 3 end at once.
-        states = np.asarray(env.vreset(jax.random.split(jax.random.PRNGKey(key + 1), BATCH))) * 2.0
+        vreset = _jax_env_fns(env_id)[0]
+        states = np.asarray(vreset(jax.random.split(jax.random.PRNGKey(key + 1), BATCH))) * 2.0
         states[:32, :3] *= 2.0
     else:
         # Perturbed hover states; the first 32 just above the z = 0.3
@@ -110,9 +129,8 @@ def _twin(env_id, actor, states, mode, warm=0.0, noise=0.0, seed=7):
 def _jax_restep(env, states, a_t):
     """The JAX env step of ``states`` (B, D) under the policy-space actions
     ``a_t`` (A, B): the block's reward, next_obs and done rows."""
-    out = jsac._autoreset_dense8(env, jnp.asarray(states.T), jsac._scale_action_t(env, a_t),
-                                 jax.random.PRNGKey(5))
-    return np.asarray(out.reward), np.asarray(out.obs), np.asarray(out.done)
+    reward, obs, done = _jax_env_fns(env.name)[1](jnp.asarray(states.T), jnp.asarray(a_t))
+    return np.asarray(reward), np.asarray(obs), np.asarray(done)
 
 
 def _assert_step_rows(block, ref, d, a, what):
@@ -130,13 +148,21 @@ def test_det_modes_match_the_jax_kernel(env_id, mode):
     _assert_det_leg(env_id, mode, *_setup(env_id, mode[:3]))
 
 
-def test_unequal_widths_match_the_jax_kernel():
-    """Hidden (48, 80), widths the kernel takes since it takes each layer
-    from 1 to 256, in the sac_det leg."""
-    env_id = "MujocoQuadForce-v1"
-    env, actor, states = _setup(env_id, "sac", key=5, hidden=(48, 80))
-    assert [layer["w"].shape for layer in actor] == [(13, 48), (48, 80), (80, 8)]
-    _assert_det_leg(env_id, "sac_det", env, actor, states)
+@pytest.mark.parametrize("env_id,mode,hidden", [
+    ("MujocoQuadForce-v1", "sac_det", (48, 80)),
+    ("quadrotor3d-v0", "td3_det", (400, 300)),
+    ("MujocoQuadForce-v1", "sac_det", (300, 520)),
+])
+def test_unequal_widths_match_the_jax_kernel(env_id, mode, hidden):
+    """Two unequal widths in a deterministic leg: (48, 80), which the
+    narrow instance takes; TD3's and DDPG's 400-300 actor and (300, 520),
+    which only the wide instance takes on the card (each layer from 1 to
+    1024)."""
+    env, actor, states = _setup(env_id, mode[:3], key=5, hidden=hidden)
+    head = 2 * env.action_dim if mode.startswith("sac") else env.action_dim
+    assert [layer["w"].shape for layer in actor] == [(env.obs_dim, hidden[0]), hidden,
+                                                     (hidden[1], head)]
+    _assert_det_leg(env_id, mode, env, actor, states)
 
 
 def _assert_det_leg(env_id, mode, env, actor, states):
@@ -214,11 +240,31 @@ def test_dispatch_and_refusals():
         assert sac.collect_refusal(cfg._replace(hidden=(64, 64)), env, cuda) is None
     assert sac.collect_refusal(cfg._replace(hidden=(48, 48)), hover, cuda) is None
     assert sac.collect_refusal(cfg._replace(hidden=(48, 80)), hover, cuda) is None
-    assert "from 1 to 256" in sac.collect_refusal(cfg._replace(hidden=(512, 512)), hover, cuda)
-    assert "from 1 to 256" in sac.collect_refusal(cfg._replace(hidden=(256, 257)), hover, cuda)
+    assert sac.collect_refusal(cfg._replace(hidden=(512, 512)), hover, cuda) is None
+    assert sac.collect_refusal(cfg._replace(hidden=(256, 257)), hover, cuda) is None
+    assert sac.collect_refusal(cfg._replace(hidden=(1024, 1024)), hover, cuda) is None
+    assert "from 1 to 1024" in sac.collect_refusal(cfg._replace(hidden=(1025, 64)), hover, cuda)
+    assert "from 1 to 1024" in sac.collect_refusal(cfg._replace(hidden=(64, 1025)), hover, cuda)
     assert sac.collect_refusal(cfg._replace(hidden=(48, 48)), hover, cpu) is None
     assert sac.collect_refusal(cfg._replace(hidden=(64, 32)), hover, cpu) is None
     assert sac.collect_refusal(cfg._replace(hidden=(512, 512)), hover, cpu) is None
+    assert sac.collect_refusal(cfg._replace(hidden=(1025, 64)), hover, cpu) is None
+    # The instance by width: narrow while both layers are at most 256.
+    assert [offpolicy.kernel_instance(h) for h in ((256, 256), (1, 256), (256, 257), (257, 1),
+                                                   (400, 300), (1024, 1024), (1025, 8))] == [
+        "narrow", "narrow", "wide", "wide", "wide", "wide", None]
+    assert [offpolicy.tie_scale(h) for h in (64, 256, 512, 1024)] == [1.0, 1.0, 2.0, 4.0]
+    for hidden, named in (((256, 256), ""), ((512, 512), " (wide, H=(512, 512))"),
+                          ((400, 300), " (wide, H=(400, 300))")):
+        assert sac.collect_path(cfg._replace(hidden=hidden), True, "CUDA kernel", cuda) == (
+            f"K7 CUDA kernel{named}, 1 launch per iteration")
+    assert sac.collect_path(cfg._replace(hidden=(512, 512)), True, "plain twin", cpu) == (
+        "K7 plain twin, 1 launch per iteration")
+    # The wide bf16 instance packs the weights in a launch of its own first.
+    for hidden, launches in (((256, 256), "1 launch"), ((512, 512), "2 launches")):
+        path = sac.collect_path(cfg._replace(hidden=hidden, compute_dtype="bfloat16"), True,
+                                "CUDA kernel", cuda)
+        assert path.startswith("K7 CUDA kernel") and f", {launches} per iteration" in path
     assert "is not two layers" in sac.collect_refusal(cfg._replace(hidden=(64,) * 3), hover, cuda)
     assert "no K7" in sac.collect_refusal(cfg, reinmav_tpu_torch.make("MujocoQuadForce-v0"), cuda)
     wrapped = dataclasses.replace(hover, step_fn=lambda s, a, p: hover.step_fn(s, a, p))
@@ -263,6 +309,32 @@ def test_collect_step_checks_its_arguments():
         offpolicy.actor_kernel_args([{"w": weights[0], "b": weights[1]}])
     new, block = call("quadrotor3d-v0", "td3", st, 1, consts, None, *weights)
     assert new.shape == (10, BATCH) and block.shape == (2 * 10 + 4 + 2, BATCH)
+
+
+def test_wide_pack_twin_lays_out_what_the_body_reads():
+    """pack_reference, the twin of K7 wide bf16's pack kernel: W1ᵀ, W2,
+    W2ᵀ in bf16, W3ᵀ rounded to bf16 and the biases, at the padded widths
+    (128 / 64 / 128), zero past the widths, back to back."""
+    g = torch.Generator().manual_seed(20)
+    d, h1, h2, out = 13, 300, 520, 8
+    w1, b1, w2, b2, w3 = (torch.randn(shape, generator=g) for shape in
+                          ((d, h1), (h1,), (h1, h2), (h2,), (h2, out)))
+    got = offpolicy.pack_reference(w1, b1, w2, b2, w3)
+    k1p, k2, n2p = 384, 320, 640
+    sizes = (2 * k1p * 16, 2 * k2 * n2p, 2 * n2p * k2, 4 * out * n2p, 4 * k1p, 4 * n2p)
+    assert got.dtype == torch.uint8 and got.shape == (sum(sizes),)
+    parts = torch.split(got, sizes)
+    w1t = parts[0].view(torch.bfloat16).reshape(k1p, 16)
+    w2p = parts[1].view(torch.bfloat16).reshape(k2, n2p)
+    w2t = parts[2].view(torch.bfloat16).reshape(n2p, k2)
+    w3t, b1p, b2p = (p.view(torch.float32) for p in parts[3:])
+    assert torch.equal(w1t[:h1, :d], w1.T.to(torch.bfloat16))
+    assert torch.equal(w2p[:h1, :h2], w2.to(torch.bfloat16)) and torch.equal(w2t, w2p.T)
+    assert torch.equal(w3t.reshape(out, n2p)[:, :h2], w3.T.to(torch.bfloat16).float())
+    assert torch.equal(b1p[:h1], b1) and torch.equal(b2p[:h2], b2)
+    for pad in (w1t[h1:], w1t[:, d:], w2p[h1:], w2p[:, h2:], w3t.reshape(out, n2p)[:, h2:],
+                b1p[h1:], b2p[h2:]):
+        assert not pad.float().any()
 
 
 def _lines(text):

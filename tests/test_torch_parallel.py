@@ -250,6 +250,41 @@ def test_init_explicit_misconfiguration_raises(init_probe):
     assert "EXPLICIT RAISED ValueError" in init_probe, init_probe
 
 
+def test_init_explicit_local_rank_from_arguments_environment_or_process_id():
+    """Explicit mode's card: its local rank and the ranks on its host from
+    the arguments, else LOCAL_RANK / LOCAL_WORLD_SIZE, else the process id
+    and count when every rank fits this host's cards (multi-host ranks
+    then still name a card that exists)."""
+    from reinmav_tpu_torch.parallel import distributed
+
+    place = distributed.local_placement
+    assert place(2, 1, 4, environ={}) == (1, 2)
+    assert place(4, 3, 4, environ={}) == (3, 4)
+    env = {"LOCAL_RANK": "1", "LOCAL_WORLD_SIZE": "4"}
+    assert place(8, 5, 4, environ=env) == (1, 4)  # rank 5 of 8 on two hosts of 4 cards
+    assert place(8, 5, 4, local_rank=1, local_world_size=4, environ={}) == (1, 4)
+    assert place(8, 5, 4, local_rank=3, environ={"LOCAL_WORLD_SIZE": "4"}) == (3, 4)
+    assert place(2, 1, 4, local_rank=0, environ=env) == (0, 4)  # the argument first
+    assert place(2, 1, 1, local_rank=1, local_world_size=2, environ={}) == (1, 2)  # share a card
+
+
+def test_init_explicit_unknown_local_rank_is_refused_by_name():
+    """More ranks than this host's cards and no local rank given: the run
+    is refused by name, not put on a card that does not exist."""
+    from reinmav_tpu_torch.parallel import distributed
+
+    place = distributed.local_placement
+    with pytest.raises(ValueError, match="local_rank and local_world_size of process 5 of 8 "
+                                         "cannot be known: 8 ranks exceed this host's 4"):
+        place(8, 5, 4, environ={})
+    with pytest.raises(ValueError, match="the local_world_size of process 1 of 2 cannot be known"):
+        place(2, 1, 1, local_rank=1, environ={})
+    with pytest.raises(ValueError, match="local_rank 4 is not a rank of the 4 on this host"):
+        place(8, 5, 4, local_rank=4, local_world_size=4, environ={})
+    with pytest.raises(ValueError, match="local_world_size must be a positive int"):
+        place(8, 5, 4, local_rank=0, local_world_size=0, environ={})
+
+
 def test_init_autodetect_is_noop_off_cluster(init_probe):
     assert "AUTODETECT 1 None" in init_probe, init_probe
 
